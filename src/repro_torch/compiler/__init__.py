@@ -1,0 +1,31 @@
+"""The H2PIPE compiler on PyTorch.
+
+  * :func:`compile` — ``compile(cfg, target) -> CompiledPipeline``: the
+    staged flow (parallelism -> Alg. 1 placement -> FIFO sizing -> engine
+    binding -> working-set validation);
+  * :class:`Target` + presets :data:`NX2100` / :data:`MINI`;
+  * :func:`register_engine` / :class:`LayerEngine` — the pluggable
+    per-layer kernel registry;
+  * :class:`CompiledPipeline` — ``engine_table()``, ``block_table()``,
+    ``scan_table()``, ``vmem_report()``, ``run()`` (on the card unless
+    ``device="cpu"``), ``stats_template()`` / ``eq2_report().verify()``.
+"""
+from repro_torch.compiler.engines import (EngineContext,  # noqa: F401
+                                          LayerEngine, LayerExecStats,
+                                          get_engine, register_engine,
+                                          registered_engines,
+                                          select_block_engine,
+                                          select_engine, select_scan_engine,
+                                          select_stem_engine,
+                                          unregister_engine)
+from repro_torch.compiler.pipeline import (BlockAssignment,  # noqa: F401
+                                           CompileError, CompiledPipeline,
+                                           EngineAssignment,
+                                           Eq2MismatchError, ExecutionReport,
+                                           ScanGroupAssignment,
+                                           TargetBudgetError, compile,
+                                           finalize, make_dispatchers,
+                                           plan_pipeline)
+from repro_torch.compiler.target import (DEFAULT_VMEM_BYTES,  # noqa: F401
+                                         MINI, NX2100, PRESETS, Target,
+                                         get_target)

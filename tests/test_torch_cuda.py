@@ -1,0 +1,123 @@
+"""The CUDA kernels against their plain versions, on the card.
+
+Marked ``cuda``: they skip where there is no CUDA device (the CPU test
+run).  On a machine with an H100 and nvcc:
+
+    PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
+"""
+import pytest
+import torch
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _i8(g, dev, *shape):
+    return torch.randint(-127, 128, shape, generator=g, dtype=torch.int8,
+                         device=dev)
+
+
+@pytest.mark.parametrize("k,stride,c_in,c_out,hw", [
+    (1, 1, 16, 32, (9, 11)), (1, 2, 64, 36, (8, 8)), (3, 1, 8, 64, (9, 11)),
+    (3, 2, 32, 40, (7, 9)), (7, 2, 3, 64, (20, 18)), (3, 1, 3, 4, (5, 5)),
+])
+def test_conv_kernel_matches_plain(dev, k, stride, c_in, c_out, hw):
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.conv2d_int8.ops import (conv2d_int8,
+                                                     conv2d_int8_requant)
+    from repro_torch.kernels.conv2d_int8.ref import conv2d_int8_ref
+    from repro_torch.kernels.quant import requant_epilogue
+    g = torch.Generator(device=dev).manual_seed(k * 100 + c_in)
+    x, w = _i8(g, dev, 3, *hw, c_in), _i8(g, dev, k, k, c_in, c_out)
+    ws = torch.rand(c_out, generator=g, device=dev) * 0.1 + 0.01
+    bias = torch.zeros(c_out, device=dev)
+    want = conv2d_int8_ref(x, w, stride=stride)
+    want_q, want_f = requant_epilogue(want, ws, bias, 0.05, True)
+    reset_launches()
+    assert torch.equal(conv2d_int8(x, w, stride=stride), want)
+    for nb in sorted({1, 2, 3, k * k}):
+        got = conv2d_int8(x, w, stride=stride, stream=True, n_buffers=nb)
+        assert torch.equal(got, want), nb
+    q, f = conv2d_int8_requant(x, w, ws, bias, 0.05, stride=stride,
+                               want_float=True)
+    assert torch.equal(q, want_q) and torch.equal(f, want_f)
+    torch.cuda.synchronize()
+    assert LAUNCHES["conv2d_int8_pinned"] == 2
+    assert LAUNCHES["conv2d_int8_stream"] == len({1, 2, 3, k * k})
+
+
+@pytest.mark.parametrize("k,stride,hw", [(3, 2, (112, 112)), (3, 2, (9, 8)),
+                                         (2, 2, (7, 7))])
+def test_maxpool_kernel_matches_plain(dev, k, stride, hw):
+    from repro_torch.kernels.pool_int8.ops import maxpool_int8
+    from repro_torch.kernels.pool_int8.ref import maxpool_int8_ref
+    g = torch.Generator(device=dev).manual_seed(hw[0])
+    x = _i8(g, dev, 2, *hw, 64)
+    assert torch.equal(maxpool_int8(x, k=k, stride=stride),
+                       maxpool_int8_ref(x, k=k, stride=stride))
+
+
+@pytest.mark.parametrize("shape", [(8, 7, 7, 2048), (2, 3, 5, 20)])
+def test_gap_kernel_matches_plain(dev, shape):
+    from repro_torch.kernels.pool_int8.ops import global_avgpool_int8
+    from repro_torch.kernels.pool_int8.ref import global_avgpool_int8_ref
+    g = torch.Generator(device=dev).manual_seed(shape[-1])
+    x = _i8(g, dev, *shape)
+    for act in (0.05, 0.1):
+        assert torch.equal(global_avgpool_int8(x, act_scale=act),
+                           global_avgpool_int8_ref(x, act_scale=act))
+
+
+@pytest.mark.parametrize("m,k,n", [(8, 2048, 1000), (3, 100, 10),
+                                   (17, 512, 36)])
+@pytest.mark.parametrize("mode,nb", [("pinned", 2), ("stream", 2),
+                                     ("fifo", 1), ("fifo", 3)])
+def test_matmul_kernel_matches_plain(dev, m, k, n, mode, nb):
+    from repro_torch.kernels.quant import requant_epilogue
+    from repro_torch.kernels.stream_matmul.ops import (stream_matmul,
+                                                       stream_matmul_requant)
+    from repro_torch.kernels.stream_matmul.ref import stream_matmul_ref
+    g = torch.Generator(device=dev).manual_seed(m + k + n)
+    x, w = _i8(g, dev, m, k), _i8(g, dev, k, n)
+    ws = torch.full((n,), 0.05, device=dev)
+    bias = torch.zeros(n, device=dev)
+    want = stream_matmul_ref(x, w)
+    assert torch.equal(stream_matmul(x, w, mode=mode, bk=64, n_buffers=nb),
+                       want)
+    q, f = stream_matmul_requant(x, w, ws, bias, 0.05, relu=False, mode=mode,
+                                 bk=64, n_buffers=nb)
+    want_q, want_f = requant_epilogue(want, ws, bias, 0.05, False)
+    assert torch.equal(q, want_q) and torch.equal(f, want_f)
+
+
+@pytest.mark.parametrize("name", ["mini_resnet18", "mini_resnet50"])
+def test_mini_net_on_card_matches_cpu(dev, name):
+    from repro_torch.compiler import MINI, compile
+    from repro_torch.configs import cnn
+    from repro_torch.models.cnn import cnn_input_shape, init_cnn_params
+    cfg = getattr(cnn, name)()
+    gen = torch.Generator().manual_seed(0)
+    params = init_cnn_params(cfg, gen, "cpu")
+    x = torch.randint(-127, 128, cnn_input_shape(cfg, 2), generator=gen,
+                      dtype=torch.int8)
+    comp = compile(cfg, MINI)
+    want, _ = comp.run(params, x, device="cpu")
+    on_card = {n: {k: v.to(dev) for k, v in p.items()}
+               for n, p in params.items()}
+    got, rep = comp.run(on_card, x.to(dev))
+    assert torch.equal(got.cpu(), want)
+    rep.verify()
+
+
+def test_depthwise_raises_on_card(dev):
+    from repro_torch.kernels.conv2d_int8.ops import conv2d_int8
+    x = torch.zeros((1, 4, 4, 8), dtype=torch.int8, device=dev)
+    w = torch.zeros((3, 3, 1, 8), dtype=torch.int8, device=dev)
+    with pytest.raises(NotImplementedError):
+        conv2d_int8(x, w, depthwise=True)

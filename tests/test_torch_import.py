@@ -1,0 +1,98 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, and
+its entry points run on the card unless the caller asks for the CPU."""
+import pathlib
+import re
+import subprocess
+import sys
+import textwrap
+
+import pytest
+import torch
+
+SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
+PORT = SRC / "repro_torch"
+
+
+def test_import_with_jax_blocked():
+    code = textwrap.dedent("""
+        import sys
+
+        class Block:
+            def find_spec(self, name, path=None, target=None):
+                if name == "jax" or name.startswith("jax."):
+                    raise ImportError("jax is blocked")
+                return None
+
+        sys.meta_path.insert(0, Block())
+        import repro_torch
+        import repro_torch.compiler, repro_torch.runtime.pipeline
+        import repro_torch.kernels, repro_torch.convert
+        import repro_torch.models.cnn
+        bad = sorted(m for m in sys.modules
+                     if m in ("jax", "repro") or m.startswith(("jax.",
+                                                               "repro.")))
+        assert not bad, bad
+        print("ok")
+    """)
+    out = subprocess.run([sys.executable, "-c", code], cwd=SRC,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+IMPORT_RE = re.compile(
+    r"^\s*(import\s+(jax|repro)\b(?!_)|from\s+(jax|repro)(\.|\s))", re.M)
+
+
+def test_no_jax_or_repro_import_in_sources():
+    files = sorted(PORT.rglob("*.py"))
+    assert len(files) > 10
+    offenders = [f"{p.relative_to(SRC)}: {m.group(0).strip()}"
+                 for p in files for m in IMPORT_RE.finditer(p.read_text())]
+    assert not offenders, offenders
+
+
+def test_chip_smoke_imports_no_jax():
+    text = (SRC.parent / "chip_smoke.py").read_text()
+    assert not IMPORT_RE.search(text)
+
+
+@pytest.fixture
+def no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+
+
+def test_default_device_entry_points_raise_without_cuda(no_cuda):
+    from repro_torch.compiler import MINI, compile
+    from repro_torch.configs.cnn import mini_resnet18
+    from repro_torch.runtime.pipeline import PipelineExecutor, execute_cnn
+    comp = compile(mini_resnet18(), MINI)
+    x = torch.zeros((1, 32, 32, 3), dtype=torch.int8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        comp.run({}, x)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PipelineExecutor(comp)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        execute_cnn(comp, {}, x)
+
+
+def test_fused_backend_raises():
+    from repro_torch.compiler import MINI, compile
+    from repro_torch.configs.cnn import mini_resnet18
+    from repro_torch.runtime.pipeline import PipelineExecutor
+    with pytest.raises(NotImplementedError):
+        PipelineExecutor(compile(mini_resnet18(), MINI), device="cpu",
+                         backend="fused")
+
+
+def test_cpu_tensors_take_the_plain_version_only():
+    """No launch is counted for CPU tensors, and CPU runs never touch the
+    kernel build."""
+    from repro_torch.kernels import LAUNCHES, conv2d_int8, reset_launches
+    reset_launches()
+    x = torch.zeros((1, 4, 4, 8), dtype=torch.int8)
+    w = torch.ones((3, 3, 8, 4), dtype=torch.int8)
+    y = conv2d_int8(x, w, stream=True)
+    assert y.dtype == torch.int32 and y.shape == (1, 4, 4, 4)
+    assert LAUNCHES == {}
