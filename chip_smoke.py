@@ -8,24 +8,33 @@ it is run outside a checkout of the repository.  Phases, one line each:
 
   1. build the CUDA kernels from ``src/repro_torch/kernels/csrc``;
   2. hold every kernel against its plain PyTorch version on the card at
-     every distinct main-path shape of ResNet-50 and ResNet-18 compiled
-     for ``NX2100`` at batch 8 (int8 and int32 outputs bit-identical);
+     every distinct main-path shape of the nets below compiled for
+     ``NX2100`` at batch 8 (int8, f32 and int32 outputs bit-identical),
+     and the depthwise kernels at every dw shape of MobileNetV1, V2 and
+     V3, in both tiers (streamed with ``n_buffers`` in {1, 2, k*k});
   3. the slice: ``compile(cfg, NX2100)`` -> ``PipelineExecutor`` on the
-     card for both nets at batch 8 on 224x224 inputs, with seeded random
-     weights.  Launch counters are zeroed just before and read just after
-     the two forwards; logits must equal the plain path's bit for bit and
-     the Eq. 2 report must verify;
+     card at batch 8 on 224x224 inputs, with seeded random weights, for
+     ResNet-50, ResNet-18, MobileNetV2 as compiled (every dw layer
+     pinned) and MobileNetV2 with every dw layer forced onto the HBM tier
+     (``with_offload``).  Launch counters are zeroed just before and read
+     just after each forward; logits must equal the plain path's bit for
+     bit and the Eq. 2 report must verify;
   4. time each kernel at the slice's shapes (CUDA events), its plain
-     version, and each net end to end;
+     version, one PyTorch call computing the same function where there
+     is one, and each net end to end;
   5. print the ``kernels`` JSON line, the card's name and power limit,
      and last ``{"ok": true, "device": ...}``.
 
-Times are per slice run (one ResNet-50 plus one ResNet-18 forward): a
-kernel's ``ms`` sums its launches on that path.  ``bound_ms`` is the
-larger of the bytes it must move (inputs read once, outputs written
-once) over 3.35 TB/s and its int8 operations over 1,979 TOP/s (H100 SXM
-data sheet).  A JSON record of the run goes to
-``chiprun_out/chip_smoke.json``.
+Times are per slice run (one forward of each of the four nets above): a
+kernel's ``ms`` sums its launches on that path (the record also splits
+it per net).  Kernel, plain-version and library times are device times:
+back-to-back calls captured into a CUDA graph and replayed.  The record
+keeps beside them each kernel's time per call from Python, host
+included, and each forward's eager time beside its device time (the
+same forward replayed as a CUDA graph).  ``bound_ms`` is the larger of
+the bytes it must move (inputs read once, outputs written once) over
+3.35 TB/s and its int8 operations over 1,979 TOP/s (H100 SXM data
+sheet).  A JSON record of the run goes to ``chiprun_out/chip_smoke.json``.
 """
 import json
 import statistics
@@ -54,7 +63,18 @@ KERNELS = {
                              "src/repro/kernels/stream_matmul/kernel.py:59"),
     "stream_matmul_fifo": ("src/repro_torch/kernels/csrc/stream_matmul.cu",
                            "src/repro/kernels/stream_matmul/kernel.py:109"),
+    "dwconv_int8_pinned": ("src/repro_torch/kernels/csrc/dwconv_int8.cu",
+                           "src/repro/kernels/conv2d_int8/kernel.py:108"),
+    "dwconv_int8_stream": ("src/repro_torch/kernels/csrc/dwconv_int8.cu",
+                           "src/repro/kernels/conv2d_int8/kernel.py:124"),
 }
+# MobileNetV2 with every dw layer forced onto the HBM tier
+MV2_DW_HBM = "mobilenetv2_dw_hbm"
+# launches per MobileNetV2 forward, as compiled and with the dw layers on HBM
+MV2_LAUNCHES = {"conv2d_int8_pinned": 35, "global_avgpool_int8": 1,
+                "stream_matmul_pinned": 1}
+EXPECTED = {"mobilenetv2": {**MV2_LAUNCHES, "dwconv_int8_pinned": 17},
+            MV2_DW_HBM: {**MV2_LAUNCHES, "dwconv_int8_stream": 17}}
 
 
 def log(phase, msg):
@@ -68,19 +88,41 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_time_ms(torch, fn, reps, warm=2):
-    """Mean ms per call over ``reps`` back-to-back calls (L2 warm)."""
-    for _ in range(warm):
-        fn()
+def event_ms(torch, fn, n):
+    """ms on the card's clock from before the first to after the last of
+    ``n`` calls of ``fn``."""
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(reps):
+    for _ in range(n):
         fn()
     end.record()
     end.synchronize()
-    return start.elapsed_time(end) / reps
+    return start.elapsed_time(end)
+
+
+def call_ms(torch, fn, reps, warm=2):
+    """Mean ms per call over ``reps`` back-to-back calls from Python (L2
+    warm): the host's dispatch included wherever it outlasts the work."""
+    for _ in range(warm):
+        fn()
+    return event_ms(torch, fn, reps) / reps
+
+
+def device_ms(torch, fn, reps, replays=5):
+    """Mean device ms per call: ``reps`` calls captured into one CUDA
+    graph, replayed ``replays`` times, so the host adds nothing between
+    launches (L2 warm).  Relaxed capture, since the kernels' launchers
+    query the device and set their shared-memory size as they launch."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    return event_ms(torch, graph.replay, replays) / (reps * replays)
 
 
 def bound_ms(nbytes, ops):
@@ -130,6 +172,9 @@ def main_path_shapes(comp, select_engine):
                 "conv2d_int8_pinned",
                 (sp.in_h, sp.in_w, sp.c_in, sp.c_out, sp.k_h, sp.stride,
                  s.n_buffers, sp.kind == "fc"))
+        elif eng == "dwconv_int8":
+            add("dwconv_int8_stream" if s.streamed else "dwconv_int8_pinned",
+                (sp.in_h, sp.in_w, sp.c_in, sp.k_h, sp.stride, s.n_buffers))
         elif eng == "maxpool_int8":
             add("maxpool_int8", (sp.in_h, sp.in_w, sp.c_in, sp.k_h,
                                  sp.stride))
@@ -145,8 +190,13 @@ def main_path_shapes(comp, select_engine):
     return shapes
 
 
+def dw_names(cfg):
+    return {layer.name for layer in cfg.layers if layer.kind == "dwconv"}
+
+
 def main():
     import torch
+    import torch.nn.functional as F
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
@@ -157,7 +207,7 @@ def main():
     from repro_torch.compiler.engines import _block as block_for
     from repro_torch.kernels.conv2d_int8.ops import (conv2d_int8,
                                                      conv2d_int8_requant)
-    from repro_torch.kernels.conv2d_int8.ref import conv2d_int8_ref
+    from repro_torch.kernels.conv2d_int8.ref import conv2d_int8_ref, same_pad
     from repro_torch.kernels.pool_int8.ops import (global_avgpool_int8,
                                                    maxpool_int8)
     from repro_torch.kernels.pool_int8.ref import (global_avgpool_int8_ref,
@@ -182,7 +232,11 @@ def main():
     log("build", f"{len(_build.SOURCES)} sources built with nvcc in "
         f"{record['build_s']:.1f} s")
 
-    nets = {n: compile(get_cnn(n), NX2100) for n in ("resnet50", "resnet18")}
+    nets = {n: compile(get_cnn(n), NX2100)
+            for n in ("resnet50", "resnet18", "mobilenetv2")}
+    mv2 = nets["mobilenetv2"]
+    nets[MV2_DW_HBM] = mv2.with_offload(set(mv2.streamed_names)
+                                        | dw_names(mv2.cfg))
     per_net = {n: main_path_shapes(c, select_engine)
                for n, c in nets.items()}
     shapes = {k: {} for k in KERNELS}           # per slice run (both nets)
@@ -262,12 +316,40 @@ def main():
                 ks[kname].err(torch, gq, want_q)
                 ks[kname].err(torch, gf, want_f)
                 n_checks += 3
+    dw_shapes = set()                 # every dw shape of MobileNetV1-V3
+    for n in ("mobilenetv1", "mobilenetv2", "mobilenetv3"):
+        comp = nets[n] if n in nets else compile(get_cnn(n), NX2100)
+        dw_shapes |= {(s.spec.in_h, s.spec.in_w, s.spec.c_in, s.spec.k_h,
+                       s.spec.stride) for s in comp.plan.schedules
+                      if select_engine(s.spec).name == "dwconv_int8"}
+    dw_inputs = {}
+    for key5 in sorted(dw_shapes):
+        h, w_, c, k, s = key5
+        x, w = i8(BATCH, h, w_, c), i8(k, k, 1, c)
+        ws = torch.rand(c, generator=g, device=dev) * 0.09 + 0.01
+        b = torch.randn(c, generator=g, device=dev)
+        dw_inputs[key5] = (x, w, ws, b)
+        want = conv2d_int8_ref(x, w, stride=s, depthwise=True)
+        want_q, want_f = requant_epilogue(want, ws, b, 0.05, True)
+        for kname, stream, nbs in (("dwconv_int8_pinned", False, (2,)),
+                                   ("dwconv_int8_stream", True,
+                                    sorted({1, 2, k * k}))):
+            for nb in nbs:
+                ks[kname].err(torch, conv2d_int8(
+                    x, w, stride=s, stream=stream, n_buffers=nb,
+                    depthwise=True), want)
+                gq, gf = conv2d_int8_requant(
+                    x, w, ws, b, 0.05, stride=s, stream=stream, n_buffers=nb,
+                    depthwise=True, want_float=True)
+                ks[kname].err(torch, gq, want_q)
+                ks[kname].err(torch, gf, want_f)
+                n_checks += 3
     torch.cuda.synchronize()
     record["check_s"] = time.perf_counter() - t0
     log("check", f"{n_checks} kernel-vs-plain comparisons bit-identical "
-        f"({len(conv_inputs)} conv shapes; stream n_buffers in "
-        f"{{1, 2, k*k}}; matmul pinned/stream/fifo) in "
-        f"{record['check_s']:.1f} s")
+        f"({len(conv_inputs)} conv shapes; {len(dw_inputs)} dw shapes of "
+        f"MobileNetV1-V3; stream n_buffers in {{1, 2, k*k}}; matmul "
+        f"pinned/stream/fifo) in {record['check_s']:.1f} s")
 
     # -- 3. the slice through the kernels ------------------------------------
     params, images, logits = {}, {}, {}
@@ -290,9 +372,11 @@ def main():
             f"{json.dumps(launches[name], sort_keys=True)}")
     for name, comp in nets.items():
         want = {k: sum(d.values()) for k, d in per_net[name].items() if d}
-        if launches[name] != want:
+        if launches[name] != want or launches[name] != EXPECTED.get(
+                name, want):
             raise AssertionError(f"{name}: launches {launches[name]} != "
-                                 f"plan {want}")
+                                 f"plan {want} / expected "
+                                 f"{EXPECTED.get(name)}")
         lg, rep = logits[name], reports[name]
         classes = comp.cfg.num_classes
         if lg.shape != (BATCH, classes) or not torch.isfinite(lg).all():
@@ -323,34 +407,76 @@ def main():
 
     # -- 4. timing ------------------------------------------------------------
     t0 = time.perf_counter()
+    per_launch = {k: {} for k in KERNELS}  # kernel -> shape key -> device ms
+    per_call = {k: {} for k in KERNELS}    # ... -> ms per call from Python
+
+    def time_kernel(kname, keys, fn):
+        t, tc = device_ms(torch, fn, reps=20), call_ms(torch, fn, reps=20)
+        for key in keys:
+            per_launch[kname][key], per_call[kname][key] = t, tc
+
+    def plain_ms(fn):
+        return device_ms(torch, fn, reps=3, replays=2)
+
     for key6, (x, w, ws, b) in conv_inputs.items():
         h, w_, c, co, k, s = key6
         for kname, stream in (("conv2d_int8_pinned", False),
                               ("conv2d_int8_stream", True)):
-            n = sum(v for kk, v in shapes[kname].items() if kk[:6] == key6)
-            if not n:
+            keys = [kk for kk in shapes[kname] if kk[:6] == key6]
+            if not keys:
                 continue
+            n = sum(shapes[kname][kk] for kk in keys)
             ho, wo = -(-h // s), -(-w_ // s)
-            fc = any(kk[7] for kk in shapes[kname] if kk[:6] == key6)
+            fc = any(kk[7] for kk in keys)
             kern = ks[kname]
-            kern.ms += n * cuda_time_ms(torch, lambda: conv2d_int8_requant(
+            time_kernel(kname, keys, lambda: conv2d_int8_requant(
                 x, w, ws, b, 0.05, stride=s, stream=stream, n_buffers=2,
-                want_float=fc), reps=20)
-            kern.plain_ms += n * cuda_time_ms(torch, lambda: requant_epilogue(
-                conv2d_int8_ref(x, w, stride=s), ws, b, 0.05, True),
-                reps=3, warm=1)
+                want_float=fc))
+            kern.plain_ms += n * plain_ms(lambda: requant_epilogue(
+                conv2d_int8_ref(x, w, stride=s), ws, b, 0.05, True))
             nbytes = x.numel() + w.numel() + 8 * co + BATCH * ho * wo * co \
                 * (5 if fc else 1)
             kern.bytes += n * nbytes
             kern.ops += n * 2 * BATCH * ho * wo * co * k * k * c
+    torch.backends.cudnn.allow_tf32 = False    # exact fp32 library conv
+    for kname, stream in (("dwconv_int8_pinned", False),
+                          ("dwconv_int8_stream", True)):
+        kern = ks[kname]
+        kern.library_ms = 0.0
+        for key, n in shapes[kname].items():
+            h, w_, c, k, s, nb = key
+            x, w, ws, b = dw_inputs[key[:5]]
+            time_kernel(kname, [key], lambda: conv2d_int8_requant(
+                x, w, ws, b, 0.05, stride=s, stream=stream, n_buffers=nb,
+                depthwise=True))
+            kern.plain_ms += n * plain_ms(lambda: requant_epilogue(
+                conv2d_int8_ref(x, w, stride=s, depthwise=True), ws, b,
+                0.05, True))
+            # the library: cuDNN's grouped conv on a float32 channels-last
+            # copy of the pre-padded input; every sum is below 2^24, so it
+            # is exact.  Timed without the pad and without the requant.
+            xp = same_pad(x, k, k, s).to(torch.float32).permute(0, 3, 1, 2)
+            wf = w.to(torch.float32).permute(3, 2, 0, 1).contiguous()
+            lib_out = F.conv2d(xp, wf, stride=s, groups=c)
+            want = conv2d_int8_ref(x, w, stride=s, depthwise=True)
+            if not torch.equal(lib_out.permute(0, 2, 3, 1).to(torch.int32),
+                               want):
+                raise AssertionError(f"{kname} {key}: the library's fp32 "
+                                     f"depthwise conv is not exact")
+            kern.library_ms += n * device_ms(
+                torch, lambda: F.conv2d(xp, wf, stride=s, groups=c), reps=20)
+            ho, wo = -(-h // s), -(-w_ // s)
+            kern.bytes += n * (x.numel() + w.numel() + 8 * c
+                               + BATCH * ho * wo * c)
+            kern.ops += n * 2 * BATCH * ho * wo * c * k * k
     for key, n in shapes["maxpool_int8"].items():
         h, w_, c, k, s = key
         x = i8(BATCH, h, w_, c)
         kern = ks["maxpool_int8"]
-        kern.ms += n * cuda_time_ms(
-            torch, lambda: maxpool_int8(x, k=k, stride=s), reps=50)
-        kern.plain_ms += n * cuda_time_ms(
-            torch, lambda: maxpool_int8_ref(x, k=k, stride=s), reps=5)
+        time_kernel("maxpool_int8", [key],
+                    lambda: maxpool_int8(x, k=k, stride=s))
+        kern.plain_ms += n * plain_ms(lambda: maxpool_int8_ref(x, k=k,
+                                                               stride=s))
         ho, wo = -(-h // s), -(-w_ // s)
         kern.bytes += n * (x.numel() + BATCH * ho * wo * c)
         kern.ops += n * BATCH * ho * wo * c * k * k
@@ -358,48 +484,59 @@ def main():
         h, w_, c = key
         x = i8(BATCH, h, w_, c)
         kern = ks["global_avgpool_int8"]
-        kern.ms += n * cuda_time_ms(
-            torch, lambda: global_avgpool_int8(x, act_scale=0.05), reps=50)
-        kern.plain_ms += n * cuda_time_ms(
-            torch, lambda: global_avgpool_int8_ref(x, act_scale=0.05),
-            reps=5)
+        time_kernel("global_avgpool_int8", [key],
+                    lambda: global_avgpool_int8(x, act_scale=0.05))
+        kern.plain_ms += n * plain_ms(
+            lambda: global_avgpool_int8_ref(x, act_scale=0.05))
         kern.bytes += n * (x.numel() + BATCH * c)
         kern.ops += n * BATCH * h * w_ * c
     for mode in ("pinned", "fifo"):
-        kern = ks[f"stream_matmul_{mode}"]
+        kname = f"stream_matmul_{mode}"
+        kern = ks[kname]
         lib = 0.0
-        for (c_in, c_out, nb, last), n in shapes[f"stream_matmul_{mode}"]\
-                .items():
+        for key, n in shapes[kname].items():
+            c_in, c_out, nb, last = key
             x, w = i8(BATCH, c_in), i8(c_in, c_out)
             ws, b = scales(c_out)
             bk = block_for(c_in, 512)
-            kern.ms += n * cuda_time_ms(torch, lambda: stream_matmul_requant(
+            time_kernel(kname, [key], lambda: stream_matmul_requant(
                 x, w, ws, b, 0.05, relu=not last, mode=mode, bk=bk,
-                n_buffers=nb, want_float=last), reps=50)
-            kern.plain_ms += n * cuda_time_ms(torch, lambda: requant_epilogue(
-                stream_matmul_ref(x, w), ws, b, 0.05, not last), reps=5)
+                n_buffers=nb, want_float=last))
+            kern.plain_ms += n * plain_ms(lambda: requant_epilogue(
+                stream_matmul_ref(x, w), ws, b, 0.05, not last))
             kern.bytes += n * (x.numel() + w.numel() + 8 * c_out
                                + BATCH * c_out * (5 if last else 1))
             kern.ops += n * 2 * BATCH * c_in * c_out
+            if lib is None:
+                continue
             try:                       # the library's int8 GEMM, if it
-                lib += n * cuda_time_ms(  # takes this shape (M=8 may not)
-                    torch, lambda: torch._int_mm(x, w), reps=50)
+                lib += n * device_ms(  # takes this shape (M=8 may not)
+                    torch, lambda: torch._int_mm(x, w), reps=20)
             except RuntimeError as e:
                 lib = None
                 log("time", f"torch._int_mm refuses [{BATCH},{c_in}]x"
                     f"[{c_in},{c_out}]: {str(e).splitlines()[0][:120]}")
-                break
         kern.library_ms = lib
-    for kern in ks.values():
+    for name, kern in ks.items():
+        kern.ms = sum(n * per_launch[name][key]
+                      for key, n in shapes[name].items())
         kern.bound_ms, kern.bound_by = bound_ms(kern.bytes, kern.ops)
+    record["ms_per_launch"], record["call_ms_per_launch"] = (
+        {k: {",".join(map(str, key)): t for key, t in d.items()}
+         for k, d in times.items()} for times in (per_launch, per_call))
+    record["kernel_ms_by_net"], record["kernel_call_ms_by_net"] = (
+        {net: {k: sum(n * times[k][key] for key, n in d.items())
+               for k, d in per.items() if d}
+         for net, per in per_net.items()} for times in (per_launch, per_call))
 
     e2e = {}
     for name, comp in nets.items():
+        run = lambda: ex[name].run(params[name], images[name])  # noqa: E731
         times = []
         for _ in range(7):
             torch.cuda.synchronize()
             t = time.perf_counter()
-            ex[name].run(params[name], images[name])
+            run()
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t) * 1e3)
         plain_t = []
@@ -409,14 +546,28 @@ def main():
             cnn_forward(params[name], comp.cfg, images[name])
             torch.cuda.synchronize()
             plain_t.append((time.perf_counter() - t) * 1e3)
+        # the same forward as one CUDA graph: its device time, and the
+        # share of the eager forward the card sits idle
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+            graph_logits, _ = run()
+        graph.replay()
+        if not torch.equal(graph_logits, logits[name]):
+            raise AssertionError(f"{name}: the replayed forward's logits "
+                                 f"differ from the eager run's")
+        dev_ms = event_ms(torch, graph.replay, 10) / 10
         ms = statistics.median(times[1:])
         e2e[name] = {"ms_per_forward": ms, "images_per_s": BATCH / ms * 1e3,
+                     "device_ms_per_forward": dev_ms,
+                     "idle_share": 1 - dev_ms / ms,
                      "plain_ms_per_forward": statistics.median(plain_t),
                      "runs_ms": times}
         log("time", f"{name} batch {BATCH}: {ms:.3f} ms per forward "
             f"(warm median of {len(times) - 1}), "
-            f"{BATCH / ms * 1e3:.1f} images/s; plain path "
-            f"{e2e[name]['plain_ms_per_forward']:.3f} ms  [{card}]")
+            f"{BATCH / ms * 1e3:.1f} images/s; device {dev_ms:.3f} ms "
+            f"(card idle {100 * (1 - dev_ms / ms):.0f}% of the forward); "
+            f"plain path {e2e[name]['plain_ms_per_forward']:.3f} ms  "
+            f"[{card}]")
     record["end_to_end"] = e2e
     record["time_s"] = time.perf_counter() - t0
 
@@ -431,8 +582,8 @@ def main():
                      "plain_ms": kern.plain_ms, "bound_ms": kern.bound_ms,
                      "bound_by": kern.bound_by,
                      "library_ms": kern.library_ms})
-        log("time", f"{name}: {kern.ms:.4f} ms per slice run, plain "
-            f"{kern.plain_ms:.4f} ms, bound {kern.bound_ms:.4f} ms "
+        log("time", f"{name}: {kern.ms:.4f} ms per slice run (device), "
+            f"plain {kern.plain_ms:.4f} ms, bound {kern.bound_ms:.4f} ms "
             f"({kern.bound_by}), library {kern.library_ms}  [{card}]")
     record["kernels"] = rows
     out_dir = ROOT / "chiprun_out"

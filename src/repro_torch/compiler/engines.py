@@ -30,8 +30,8 @@ and relu.  ``scanned_res_block_int8`` binds a homogeneous run of blocks
 and per-iteration Eq. 2 rows stay those of the JAX package).
 
 Built-in engines: ``conv2d_int8`` (dense/pointwise conv + big fc-as-conv
-heads), ``dwconv_int8`` (grouped depthwise — plain version only: no CUDA
-kernel yet), ``stream_matmul`` (1x1 fc heads), ``maxpool_int8`` /
+heads), ``dwconv_int8`` (grouped depthwise, ``csrc/dwconv_int8.cu``),
+``stream_matmul`` (1x1 fc heads), ``maxpool_int8`` /
 ``global_avgpool_int8`` (weightless pooling nodes), ``res_block_int8``,
 ``scanned_res_block_int8``, ``stem_pool_int8`` and ``jnp_ref`` (the plain
 reference, priority 0; the name is the JAX package's so engine tables
@@ -302,9 +302,8 @@ class Conv2DInt8Engine:
     memory or streamed through the n_buffers-deep ring per the schedule.
     ``depthwise=False`` covers dense/pointwise convs (and fc-as-conv
     heads); the ``depthwise=True`` instance (registered as
-    ``dwconv_int8``) is the grouped MobileNet path, which has no CUDA
-    kernel yet: it runs its plain version on CPU tensors and raises
-    ``NotImplementedError`` on CUDA ones.
+    ``dwconv_int8``) is the grouped MobileNet path, which launches the
+    depthwise kernel (``csrc/dwconv_int8.cu``) on CUDA tensors.
 
     The pre-quant f32 values are produced only for fc heads, the one
     place ``cnn_forward`` reads them (as logits)."""

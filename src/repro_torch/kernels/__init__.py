@@ -2,7 +2,9 @@
 and plain PyTorch versions.
 
 conv2d_int8    HPIPE layer engine: line-buffer row conv, pinned or
-               streamed weight taps, dp4a int8 MACs, fused requant
+               streamed weight taps, dp4a int8 MACs, fused requant;
+               with ``depthwise=True`` the grouped MobileNet engine
+               (``csrc/dwconv_int8.cu``: per-channel int32 MACs)
 pool_int8      the pooling topology engines: SAME maxpool and global
                average pool (+ activation requantizer)
 stream_matmul  the fc heads: W's K-blocks through an n_buffers ring

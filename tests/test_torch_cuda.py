@@ -96,7 +96,8 @@ def test_matmul_kernel_matches_plain(dev, m, k, n, mode, nb):
     assert torch.equal(q, want_q) and torch.equal(f, want_f)
 
 
-@pytest.mark.parametrize("name", ["mini_resnet18", "mini_resnet50"])
+@pytest.mark.parametrize("name", ["mini_resnet18", "mini_resnet50",
+                                  "mini_mobilenet"])
 def test_mini_net_on_card_matches_cpu(dev, name):
     from repro_torch.compiler import MINI, compile
     from repro_torch.configs import cnn
@@ -113,11 +114,55 @@ def test_mini_net_on_card_matches_cpu(dev, name):
     got, rep = comp.run(on_card, x.to(dev))
     assert torch.equal(got.cpu(), want)
     rep.verify()
+    if name == "mini_mobilenet":          # every dw layer on the HBM tier
+        dw = {s.spec.name for s in comp.schedules if s.spec.kind == "dwconv"}
+        forced = comp.with_offload(set(comp.streamed_names) | dw)
+        got, rep = forced.run(on_card, x.to(dev))
+        assert torch.equal(got.cpu(), want)
+        assert set(rep.hbm_weight_words) >= dw
+        rep.verify()
 
 
-def test_depthwise_raises_on_card(dev):
-    from repro_torch.kernels.conv2d_int8.ops import conv2d_int8
-    x = torch.zeros((1, 4, 4, 8), dtype=torch.int8, device=dev)
-    w = torch.zeros((3, 3, 1, 8), dtype=torch.int8, device=dev)
-    with pytest.raises(NotImplementedError):
+@pytest.mark.parametrize("c,hw", [(32, (9, 11)), (960, (7, 7)),
+                                  (144, (56, 56)), (8, (8, 6))])
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("k", [3, 5])
+def test_dwconv_kernel_matches_plain(dev, k, stride, c, hw):
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.conv2d_int8.ops import (conv2d_int8,
+                                                     conv2d_int8_requant)
+    from repro_torch.kernels.conv2d_int8.ref import conv2d_int8_ref
+    from repro_torch.kernels.quant import requant_epilogue
+    g = torch.Generator(device=dev).manual_seed(k * 1000 + c + stride)
+    x, w = _i8(g, dev, 3, *hw, c), _i8(g, dev, k, k, 1, c)
+    ws = torch.rand(c, generator=g, device=dev) * 0.1 + 0.01
+    bias = torch.randn(c, generator=g, device=dev)
+    want = conv2d_int8_ref(x, w, stride=stride, depthwise=True)
+    reset_launches()
+    for relu in (True, False):
+        want_q, want_f = requant_epilogue(want, ws, bias, 0.05, relu)
+        for stream, nbs in ((False, (2,)), (True, sorted({1, 2, k * k}))):
+            for nb in nbs:
+                got = conv2d_int8(x, w, stride=stride, stream=stream,
+                                  n_buffers=nb, depthwise=True)
+                assert torch.equal(got, want), (stream, nb)
+                q, f = conv2d_int8_requant(
+                    x, w, ws, bias, 0.05, stride=stride, relu=relu,
+                    stream=stream, n_buffers=nb, depthwise=True,
+                    want_float=True)
+                assert torch.equal(q, want_q) and torch.equal(f, want_f)
+    torch.cuda.synchronize()
+    assert LAUNCHES["dwconv_int8_pinned"] == 4
+    assert LAUNCHES["dwconv_int8_stream"] == 4 * len({1, 2, k * k})
+
+
+def test_dwconv_rejects_channels_not_multiple_of_4(dev):
+    from repro_torch.kernels.conv2d_int8.ops import (conv2d_int8,
+                                                     conv2d_int8_requant)
+    x = torch.zeros((1, 4, 4, 6), dtype=torch.int8, device=dev)
+    w = torch.zeros((3, 3, 1, 6), dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="multiple of 4"):
         conv2d_int8(x, w, depthwise=True)
+    ones = torch.ones(6, device=dev)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        conv2d_int8_requant(x, w, ones, ones, depthwise=True, stream=True)

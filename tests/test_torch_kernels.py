@@ -83,16 +83,43 @@ def test_conv_requant_matches_pallas(relu):
     _same(got, want)
 
 
-@pytest.mark.parametrize("stride", [1, 2])
-def test_depthwise_matches_pallas(stride):
-    rng = np.random.default_rng(stride)
-    x = _int8(rng, (2, 7, 9, 8))
-    w = _int8(rng, (3, 3, 1, 8))
-    want = jax_conv(jnp.asarray(x), jnp.asarray(w), stride=stride,
-                    depthwise=True, interpret=True)
-    got = conv2d_int8(torch.from_numpy(x), torch.from_numpy(w),
-                      stride=stride, depthwise=True)
-    _same(got, want)
+# (x shape, k, stride, tier): k in {3, 5} x stride in {1, 2} x (pinned,
+# streamed with n_buffers in {1, 2, k*k}), on an odd map with C=8 (the
+# original pinned case) and an even map with C=16.
+DW_CASES = [(shape, k, stride, nb)
+            for shape in ((2, 7, 9, 8), (2, 8, 6, 16))
+            for k in (3, 5) for stride in (1, 2)
+            for nb in (None, 1, 2, k * k)]
+
+
+@pytest.mark.parametrize(
+    "shape,k,stride,nb", DW_CASES,
+    ids=lambda v: ("x".join(map(str, v)) if isinstance(v, tuple)
+                   else "pinned" if v is None else str(v)))
+def test_depthwise_matches_pallas(shape, k, stride, nb):
+    rng = np.random.default_rng(1000 * k + 100 * stride + shape[-1])
+    x = _int8(rng, shape)
+    w = _int8(rng, (k, k, 1, shape[-1]))
+    w_scale = rng.uniform(0.01, 0.1, shape[-1]).astype(np.float32)
+    bias = rng.normal(0, 5, shape[-1]).astype(np.float32)
+    stream = nb is not None
+    n_buffers = nb or 2
+    y = jax_conv(jnp.asarray(x), jnp.asarray(w), stride=stride,
+                 stream=stream, n_buffers=n_buffers, depthwise=True,
+                 interpret=True)
+    want_q, want_f = jax.jit(jax_requant, static_argnames=(
+        "act_scale", "relu"))(y, jnp.asarray(w_scale), jnp.asarray(bias),
+                              act_scale=0.05, relu=True)
+    xt, wt = torch.from_numpy(x), torch.from_numpy(w)
+    got = conv2d_int8(xt, wt, stride=stride, stream=stream,
+                      n_buffers=n_buffers, depthwise=True)
+    _same(got, y)
+    got_q, got_f = conv2d_int8_requant(
+        xt, wt, torch.from_numpy(w_scale), torch.from_numpy(bias), 0.05,
+        stride=stride, relu=True, stream=stream, n_buffers=n_buffers,
+        depthwise=True, want_float=True)
+    _same(got_q, want_q)
+    _same(got_f, want_f)
 
 
 @pytest.mark.parametrize("k,stride,hw", [(3, 2, (9, 8)), (3, 2, (8, 8)),

@@ -77,3 +77,51 @@ def test_offloaded_stem_and_fc_run_streamed_tiers():
     assert torch.equal(got, base)
     assert rep.hbm_weight_words["stem"] > 0 and rep.hbm_weight_words["fc"] > 0
     rep.verify()
+
+
+def _dw_names(cfg):
+    return {layer.name for layer in cfg.layers if layer.kind == "dwconv"}
+
+
+@pytest.mark.parametrize("forced", [False, True],
+                         ids=["compiled", "dw_on_hbm"])
+def test_mini_mobilenet_bit_identical_to_jax(forced):
+    """``mini_mobilenet`` through ``dwconv_int8``: as compiled (every dw
+    layer pinned) and with every dw layer forced onto the HBM tier, which
+    puts the JAX package's streamed depthwise Pallas kernel on its
+    path."""
+    jcfg_ = jcfg.mini_mobilenet(hw=8, width=16, blocks=4)
+    tcfg_ = tcfg.mini_mobilenet(hw=8, width=16, blocks=4)
+    params, x = _inputs(jcfg_, 2, seed=3)
+    jcomp = jc.compile(jcfg_, jc.TPU_INTERPRET)
+    tcomp = tc.compile(tcfg_, tc.MINI)
+    if forced:
+        dw = _dw_names(tcfg_)
+        jcomp = jcomp.with_offload(set(jcomp.streamed_names) | dw)
+        tcomp = tcomp.with_offload(set(tcomp.streamed_names) | dw)
+    want, jrep = jcomp.run(params, jnp.asarray(x))
+    got, rep = tcomp.run(params_from_numpy(params, "cpu"),
+                         torch.from_numpy(x), device="cpu")
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    engines = rep.engines_used()
+    assert {engines[n] for n in _dw_names(tcfg_)} == {"dwconv_int8"}
+    assert engines == jrep.engines_used()
+    assert rep.hbm_weight_words == jrep.hbm_weight_words
+    if forced:
+        assert set(rep.hbm_weight_words) >= _dw_names(tcfg_)
+    rep.verify()
+    tcomp.eq2_report(batch=2).verify()
+
+
+def test_full_width_mobilenetv2_bit_identical_to_jax():
+    jcfg_, tcfg_ = jcfg.get_cnn("mobilenetv2"), tcfg.get_cnn("mobilenetv2")
+    params, x = _inputs(jcfg_, 1, seed=4)
+    want = jax_cnn_forward(params, jcfg_, jnp.asarray(x))
+    got, rep = tc.compile(tcfg_, tc.NX2100).run(
+        params_from_numpy(params, "cpu"), torch.from_numpy(x), device="cpu")
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert got.shape == (1, 1000)
+    engines = rep.engines_used()
+    assert {engines[n] for n in _dw_names(tcfg_)} == {"dwconv_int8"}
+    assert len(_dw_names(tcfg_)) == 17
+    rep.verify()
