@@ -7,34 +7,51 @@ Needs one CUDA card and ``nvcc``; exits non-zero without them, and when
 it is run outside a checkout of the repository.  Phases, one line each:
 
   1. build the CUDA kernels from ``src/repro_torch/kernels/csrc``;
-  2. hold every kernel against its plain PyTorch version on the card at
-     every distinct main-path shape of the nets below compiled for
-     ``NX2100`` at batch 8 (int8, f32 and int32 outputs bit-identical),
-     and the depthwise kernels at every dw shape of MobileNetV1, V2 and
-     V3, in both tiers (streamed with ``n_buffers`` in {1, 2, k*k});
-  3. the slice: ``compile(cfg, NX2100)`` -> ``PipelineExecutor`` on the
+  2. hold every kernel against its plain PyTorch version on the card: the
+     int8 kernels at every distinct main-path shape of the nets below
+     compiled for ``NX2100`` at batch 8 (int8, f32 and int32 outputs
+     bit-identical), the depthwise kernels at every dw shape of
+     MobileNetV1, V2 and V3 in both tiers (streamed with ``n_buffers`` in
+     {1, 2, k*k}); the flash-attention forward (o and lse) at the LM
+     slice's prefill shape, at S = 2048, at the five ``ATTN_CASES`` of
+     ``tests/test_kernels.py`` and at hd=192/hd_v=128, in bf16 and f32,
+     within ``FLASH_TOL`` (per dtype and output; lse to 1e-4);
+  3. the slices: ``compile(cfg, NX2100)`` -> ``PipelineExecutor`` on the
      card at batch 8 on 224x224 inputs, with seeded random weights, for
      ResNet-50, ResNet-18, MobileNetV2 as compiled (every dw layer
      pinned) and MobileNetV2 with every dw layer forced onto the HBM tier
-     (``with_offload``).  Launch counters are zeroed just before and read
-     just after each forward; logits must equal the plain path's bit for
-     bit and the Eq. 2 report must verify;
-  4. time each kernel at the slice's shapes (CUDA events), its plain
-     version, one PyTorch call computing the same function where there
-     is one, and each net end to end;
+     (``with_offload``): logits equal to the plain path's bit for bit, the
+     Eq. 2 report verified.  Then Phi-4-mini (3.8B, full width and depth,
+     bf16, random weights from seed 0) through ``ServingEngine(
+     batch_slots=4, max_seq=1024)``: 8 requests of 512 tokens, 16 new
+     tokens each; exactly 64 flash-attention launches (2 prefills x 32
+     layers); prefill logits within 2e-2 x max|logit| of the plain path
+     (kernel mode off); the first token equal to the plain path's wherever
+     its top-2 margin exceeds that bound.  Launch counters are zeroed just
+     before and read just after each run;
+  4. time each kernel at the slice's shapes, its plain version, one
+     PyTorch call computing the same function where there is one
+     (``torch._int_mm`` for the 1x1 convs, cuDNN for the depthwise conv,
+     ``scaled_dot_product_attention`` for attention), each net end to end,
+     and the LM's prefill, decode step and engine run;
   5. print the ``kernels`` JSON line, the card's name and power limit,
      and last ``{"ok": true, "device": ...}``.
 
-Times are per slice run (one forward of each of the four nets above): a
-kernel's ``ms`` sums its launches on that path (the record also splits
-it per net).  Kernel, plain-version and library times are device times:
-back-to-back calls captured into a CUDA graph and replayed.  The record
-keeps beside them each kernel's time per call from Python, host
-included, and each forward's eager time beside its device time (the
-same forward replayed as a CUDA graph).  ``bound_ms`` is the larger of
-the bytes it must move (inputs read once, outputs written once) over
-3.35 TB/s and its int8 operations over 1,979 TOP/s (H100 SXM data
-sheet).  A JSON record of the run goes to ``chiprun_out/chip_smoke.json``.
+Times are per slice run (one forward of each of the four nets, and the
+LM's engine run): a kernel's ``ms`` sums its launches on that path (the
+record also splits it per net and per launch).  Kernel, plain-version
+and library times are device times: back-to-back calls captured into a
+CUDA graph and replayed.  The record keeps beside them each kernel's time
+per call from Python, host included, and each forward's eager time
+beside its device time (the same forward replayed as a CUDA graph).
+``bound_ms`` is the larger of the bytes it must move (inputs read once,
+outputs written once) over 3.35 TB/s and its operations over 1,979 TOP/s
+int8 or 989 TFLOP/s bf16 (H100 SXM data sheet; causal attention counts
+half of 4·B·H·S²·hd).  ``library_ms`` covers ``library_launches`` of
+the kernel's launches, on which the kernel takes
+``ms_on_library_launches`` (K1: its 1x1 shapes only).  A JSON record of
+the run goes to ``chip_smoke.json`` in the output directory beside this
+script.
 """
 import json
 import statistics
@@ -48,6 +65,35 @@ BATCH = 8
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
+BF16_FLOPS_PER_S = 9.89e14
+
+# the LM slice: Phi-4-mini at full width and depth, bf16, served with
+# ServingEngine(batch_slots=4, max_seq=1024): 8 prompts of 512 tokens
+LM_ARCH = "phi4-mini-3.8b"
+LM_SLOTS, LM_MAX_SEQ, LM_REQUESTS, LM_PROMPT, LM_NEW = 4, 1024, 8, 512, 16
+LM_REL_TOL = 2e-2        # prefill logits: kernel path vs plain path
+# K9 against its plain version: (B, H, KV, S, hd, hd_v, causal, window,
+# softcap).  The slice's prefill shape, S = 2048, the five ATTN_CASES of
+# tests/test_kernels.py, and one hd != hd_v case.
+FLASH_SLICE = (LM_SLOTS, 24, 8, LM_PROMPT, 128, 128, True, 0, 0.0)
+FLASH_LONG = (LM_SLOTS, 24, 8, 2048, 128, 128, True, 0, 0.0)
+FLASH_CASES = [FLASH_SLICE, FLASH_LONG,
+               (2, 4, 4, 256, 64, 64, True, 0, 0.0),
+               (2, 4, 2, 256, 64, 64, True, 64, 0.0),
+               (1, 8, 2, 128, 32, 32, True, 0, 50.0),
+               (1, 2, 2, 128, 64, 64, False, 0, 0.0),
+               (1, 4, 1, 128, 128, 128, True, 32, 30.0),
+               (1, 4, 2, 256, 192, 128, True, 0, 0.0)]
+# (rtol, atol) per operand dtype and output, set from the readings of
+# earlier runs (PERF.md): bf16 o differs from the plain version by at most
+# one bf16 ulp where the two orders of summation round apart (3.9e-3 at
+# |o| in [0.5, 1)), and rtol 1e-2 covers one ulp at any magnitude; f32 o
+# keeps tests/test_kernels.py's limits; lse is f32 in both dtypes and
+# differs by about one f32 ulp (1e-6 at lse ~ 8).
+FLASH_TOL = {("bfloat16", "o"): (1e-2, 1e-2), ("float32", "o"): (2e-5, 6e-5),
+             ("bfloat16", "lse"): (1e-5, 1e-4),
+             ("float32", "lse"): (1e-5, 1e-4)}
+FLASH_DTYPES = ("bfloat16", "float32")
 
 # kernel name -> (source, the Pallas kernel body it replaces)
 KERNELS = {
@@ -67,7 +113,11 @@ KERNELS = {
                            "src/repro/kernels/conv2d_int8/kernel.py:108"),
     "dwconv_int8_stream": ("src/repro_torch/kernels/csrc/dwconv_int8.cu",
                            "src/repro/kernels/conv2d_int8/kernel.py:124"),
+    "flash_attention_fwd": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention/kernel.py:32"),
 }
+LM_KERNEL = "flash_attention_fwd"
+CNN_KERNELS = [k for k in KERNELS if k != LM_KERNEL]
 # MobileNetV2 with every dw layer forced onto the HBM tier
 MV2_DW_HBM = "mobilenetv2_dw_hbm"
 # launches per MobileNetV2 forward, as compiled and with the dw layers on HBM
@@ -125,9 +175,9 @@ def device_ms(torch, fn, reps, replays=5):
     return event_ms(torch, graph.replay, replays) / (reps * replays)
 
 
-def bound_ms(nbytes, ops):
+def bound_ms(nbytes, ops, ops_per_s=INT8_OPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = ops / INT8_OPS_PER_S
+    t_ops = ops / ops_per_s
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -137,22 +187,46 @@ class Kernel:
     the plain version, and per main-path shape its launch count, time,
     plain time, library time and bound."""
 
-    def __init__(self, name):
+    def __init__(self, name, ops_per_s=INT8_OPS_PER_S):
         self.name = name
         self.max_abs_err = 0.0
+        self.readings = {}
         self.ms = self.plain_ms = self.bound_ms = 0.0
         self.library_ms = None
+        # (launches, kernel ms over them) where library_ms covers only
+        # some of the kernel's launches
+        self.library_covers = None
         self.bytes = self.ops = 0
+        self.ops_per_s = ops_per_s
 
-    def err(self, torch, got, want):
+    def err(self, torch, got, want, tol=None, key=None):
+        """Bit identity (the int8 kernels), or with ``tol = (rtol, atol)``
+        |got - want| <= atol + rtol |want| everywhere (the float kernel).
+        The worst error is kept, and under ``key`` (operand dtype and
+        output) also the worst error and the largest share of the limit
+        it used."""
         if got.dtype != want.dtype or got.shape != want.shape:
             raise AssertionError(f"{self.name}: {got.dtype}{tuple(got.shape)}"
                                  f" vs plain {want.dtype}{tuple(want.shape)}")
-        e = (got.to(torch.float64) - want.to(torch.float64)).abs().max()
-        self.max_abs_err = max(self.max_abs_err, float(e))
-        if not torch.equal(got, want):
+        diff = (got.to(torch.float64) - want.to(torch.float64)).abs()
+        e = float(diff.max()) if diff.numel() else 0.0
+        self.max_abs_err = max(self.max_abs_err, e)
+        if tol is None:
+            ok = torch.equal(got, want)
+        else:
+            rtol, atol = tol
+            share = float((diff / (atol + rtol * want.to(torch.float64).abs()))
+                          .max()) if diff.numel() else 0.0
+            ok = share <= 1.0 and bool(torch.isfinite(got).all())
+            if key is not None:
+                r = self.readings.setdefault(key, {"max_abs_err": 0.0,
+                                                   "max_share_of_limit": 0.0,
+                                                   "rtol": rtol, "atol": atol})
+                r["max_abs_err"] = max(r["max_abs_err"], e)
+                r["max_share_of_limit"] = max(r["max_share_of_limit"], share)
+        if not ok:
             raise AssertionError(f"{self.name}: differs from its plain "
-                                 f"version by up to {float(e)}")
+                                 f"version by up to {e}")
 
 
 def main_path_shapes(comp, select_engine):
@@ -194,7 +268,246 @@ def dw_names(cfg):
     return {layer.name for layer in cfg.layers if layer.kind == "dwconv"}
 
 
+def flash_inputs(torch, g, dev, case, dtype):
+    """q [B,H,S,hd], k [B,KV,S,hd], v [B,KV,S,hd_v] (kernel layout)."""
+    B, H, KV, S, hd, hd_v = case[:6]
+    return (torch.randn(B, H, S, hd, generator=g, device=dev).to(dtype),
+            torch.randn(B, KV, S, hd, generator=g, device=dev).to(dtype),
+            torch.randn(B, KV, S, hd_v, generator=g, device=dev).to(dtype))
+
+
+def flash_kw(case):
+    return dict(causal=case[6], window=case[7], softcap=case[8])
+
+
+def check_flash(torch, g, dev, kern):
+    """Phase 2 for K9: the kernel against its plain version (at the JAX
+    call's blocks, min(128, S)) at every case of FLASH_CASES in bf16 and
+    f32, o and lse; and the model-layout entry the main path calls, which
+    reads q/k/v and writes o through their strides."""
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, flash_attention_kernel)
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+    n = 0
+    for case in FLASH_CASES:
+        for dname in FLASH_DTYPES:
+            q, k, v = flash_inputs(torch, g, dev, case, getattr(torch, dname))
+            want_o, want_lse = flash_attention_plain(q, k, v,
+                                                     **flash_kw(case))
+            o, lse = flash_attention_kernel(q, k, v, return_lse=True,
+                                            **flash_kw(case))
+            for what, got, want in (("o", o, want_o), ("lse", lse, want_lse)):
+                kern.err(torch, got, want, FLASH_TOL[dname, what],
+                         f"{dname} {what}")
+            n += 2
+    q, k, v = (t.transpose(1, 2).contiguous() for t in flash_inputs(
+        torch, g, dev, FLASH_SLICE, torch.bfloat16))
+    want_o, _ = flash_attention_plain(*(t.transpose(1, 2) for t in (q, k, v)))
+    kern.err(torch, flash_attention(q, k, v).transpose(1, 2), want_o,
+             FLASH_TOL["bfloat16", "o"], "bfloat16 o")
+    return n + 1
+
+
+def serve_lm(torch, np, dev, record):
+    """Phase 3 for the LM: Phi-4-mini at full width and depth through
+    ServingEngine on the card; launches counted over engine.run; prefill
+    logits of the kernel path against the plain path (kernel mode off:
+    the blockwise route) on the same weights and tokens."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import _build
+    from repro_torch.models import layers as lm_layers
+    from repro_torch.models import transformer as tmod
+    from repro_torch.models.accounting import weight_bytes
+    from repro_torch.runtime.serving import Request, ServingEngine
+    arch = get_arch(LM_ARCH)
+    t0 = time.perf_counter()
+    params = tmod.init_params(torch.Generator(device=dev).manual_seed(SEED),
+                              arch, dev)
+    torch.cuda.synchronize()
+    rec = {"arch": LM_ARCH, "params": arch.param_count(),
+           "weight_bytes": weight_bytes(arch),
+           "init_s": time.perf_counter() - t0}
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, arch.vocab_size, LM_PROMPT).astype(np.int32)
+               for _ in range(LM_REQUESTS)]
+    engine = ServingEngine(params, arch, batch_slots=LM_SLOTS,
+                           max_seq=LM_MAX_SEQ)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    done = engine.run([Request(i, p, max_new=LM_NEW)
+                       for i, p in enumerate(prompts)])
+    torch.cuda.synchronize()
+    rec["first_run_s"] = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    n_prefill = -(-LM_REQUESTS // LM_SLOTS)
+    if launches != {LM_KERNEL: n_prefill * arch.n_layers}:
+        raise AssertionError(f"{LM_ARCH}: launches {launches} != "
+                             f"{n_prefill} prefills x {arch.n_layers} layers")
+    vp = params["embed"]["table"].shape[0]
+    outs = {r.rid: r.out for r in done}
+    if sorted(outs) != list(range(LM_REQUESTS)) or any(
+            not r.done or len(r.out) != LM_NEW
+            or not all(0 <= t < vp for t in r.out) for r in done):
+        raise AssertionError(f"{LM_ARCH}: requests incomplete: {outs}")
+    engine.admission.assert_quiescent()
+    batches = [torch.from_numpy(np.stack(prompts[i:i + LM_SLOTS])).to(dev)
+               for i in range(0, LM_REQUESTS, LM_SLOTS)]
+    rec["prefill_logit_diff"], rec["prefill_logit_bound"] = [], []
+    sure = 0
+    with torch.no_grad():
+        for bi, toks in enumerate(batches):
+            lk, _ = tmod.prefill(params, arch, {"tokens": toks}, LM_MAX_SEQ)
+            lm_layers.set_kernel_mode(False)
+            try:
+                lp, _ = tmod.prefill(params, arch, {"tokens": toks},
+                                     LM_MAX_SEQ)
+            finally:
+                lm_layers.set_kernel_mode(True)
+            bound = LM_REL_TOL * float(lp.abs().max())
+            diff = float((lk - lp).abs().max())
+            rec["prefill_logit_diff"].append(diff)
+            rec["prefill_logit_bound"].append(bound)
+            if not diff <= bound or not bool(torch.isfinite(lk).all()):
+                raise AssertionError(f"{LM_ARCH}: prefill logits of the "
+                                     f"kernel path differ from the plain "
+                                     f"path by {diff} > {bound}")
+            top2 = lp.topk(2, dim=-1).values
+            margin_ok = ((top2[:, 0] - top2[:, 1]) > bound).tolist()
+            plain_first = lp.argmax(-1).tolist()
+            for i, ok in enumerate(margin_ok):
+                rid = bi * LM_SLOTS + i
+                if ok and outs[rid][0] != plain_first[i]:
+                    raise AssertionError(
+                        f"{LM_ARCH}: request {rid} first token "
+                        f"{outs[rid][0]} != plain path's {plain_first[i]}")
+                sure += ok
+    rec["first_token_checked"] = sure
+    rec["launches"] = launches
+    record["lm"] = rec
+    log("slice", f"{LM_ARCH} (full width and depth, {rec['params']:,} "
+        f"params, bf16): {LM_REQUESTS} requests x {LM_NEW} tokens served "
+        f"with {LM_SLOTS} slots, launches {json.dumps(launches)}; prefill "
+        f"logits within {max(rec['prefill_logit_diff']):.4g} of the plain "
+        f"path (bound {min(rec['prefill_logit_bound']):.4g}); first token "
+        f"equal on the {sure} rows whose top-2 margin exceeds the bound")
+    return {"params": params, "arch": arch, "engine": engine,
+            "prompts": prompts, "batches": batches, "launches": launches}
+
+
+def time_flash(torch, F, g, dev, kern, n_launches, card, record):
+    """Phase 4 for K9: device ms per launch at the slice shape and at S =
+    2048 (model layout, as the main path calls it), its plain version,
+    and F.scaled_dot_product_attention on the same tensors."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+    per = {}
+    for case in (FLASH_SLICE, FLASH_LONG):
+        B, H, KV, S, hd, hd_v = case[:6]
+        q, k, v = (t.transpose(1, 2).contiguous() for t in flash_inputs(
+            torch, g, dev, case, torch.bfloat16))
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+        def lib():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  enable_gqa=True)
+        lib_diff = float((lib().transpose(1, 2).float()
+                          - flash_attention(q, k, v).float()).abs().max())
+        nbytes = 2 * (q.numel() + k.numel() + v.numel() + B * S * H * hd_v) \
+            + 4 * B * H * S
+        flops = 4 * B * H * S * S * hd // 2
+        b, by = bound_ms(nbytes, flops, BF16_FLOPS_PER_S)
+        per[S] = {"ms": device_ms(torch, lambda: flash_attention(q, k, v),
+                                  reps=20),
+                  "call_ms": call_ms(torch, lambda: flash_attention(q, k, v),
+                                     reps=20),
+                  "plain_ms": device_ms(torch, lambda: flash_attention_plain(
+                      qt, kt, vt), reps=3, replays=2),
+                  "library_ms": device_ms(torch, lib, reps=20),
+                  "bound_ms": b, "bound_by": by, "bytes": nbytes,
+                  "flops": flops, "library_max_abs_diff": lib_diff}
+        log("time", f"{LM_KERNEL} B={B} H={H} KV={KV} S={S} hd={hd} bf16 "
+            f"causal: {per[S]['ms']:.4f} ms per launch (device), plain "
+            f"{per[S]['plain_ms']:.4f} ms, SDPA {per[S]['library_ms']:.4f} "
+            f"ms, bound {b:.4f} ms ({by})  [{card}]")
+    t = per[LM_PROMPT]
+    kern.ms, kern.plain_ms = n_launches * t["ms"], n_launches * t["plain_ms"]
+    kern.library_ms = n_launches * t["library_ms"]
+    kern.bound_ms, kern.bound_by = n_launches * t["bound_ms"], t["bound_by"]
+    record["flash_per_launch"] = {str(S): d for S, d in per.items()}
+
+
+def time_lm(torch, st, card, record):
+    """Phase 4 for the LM: eager prefill ms per batch, decode ms per step
+    and tokens/s of whole engine runs; one prefill and one decode step
+    replayed as CUDA graphs for device time and the card's idle share."""
+    from repro_torch.models import transformer as tmod
+    from repro_torch.runtime.serving import Request
+    params, arch, engine = st["params"], st["arch"], st["engine"]
+    toks = st["batches"][0]
+    B = toks.shape[0]
+
+    def host_ms(fn, n):
+        times = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        return times
+
+    run_ms = host_ms(lambda: engine.run(
+        [Request(i, p, max_new=LM_NEW) for i, p in enumerate(st["prompts"])]),
+        2)
+    with torch.no_grad():
+        def prefill():
+            return tmod.prefill(params, arch, {"tokens": toks}, LM_MAX_SEQ)
+        pre_ms = host_ms(prefill, 4)[1:]
+        logits, cache = prefill()
+        cur = logits.argmax(-1)[:, None]
+        pos = iter(range(LM_PROMPT, LM_MAX_SEQ))
+        dec_ms = host_ms(lambda: tmod.decode_step(params, arch, cache, cur,
+                                                  next(pos)), 9)[1:]
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+            g_logits, _ = prefill()
+        graph.replay()
+        torch.cuda.synchronize()
+        gdiff = float((g_logits - logits).abs().max())
+        if not gdiff <= LM_REL_TOL * float(logits.abs().max()):
+            raise AssertionError(f"{LM_ARCH}: the replayed prefill's logits "
+                                 f"differ from the eager one's by {gdiff}")
+        pre_dev = event_ms(torch, graph.replay, 5) / 5
+        del graph
+        dgraph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(dgraph, capture_error_mode="relaxed"):
+            tmod.decode_step(params, arch, cache, cur, LM_PROMPT)
+        dgraph.replay()
+        dec_dev = event_ms(torch, dgraph.replay, 10) / 10
+        del dgraph
+    pre, dec = statistics.median(pre_ms), statistics.median(dec_ms)
+    run = statistics.median(run_ms)
+    n_tok = LM_REQUESTS * LM_NEW
+    rec = {"prefill_ms_per_batch": pre, "prefill_runs_ms": pre_ms,
+           "prefill_device_ms": pre_dev, "prefill_idle_share": 1 - pre_dev / pre,
+           "decode_ms_per_step": dec, "decode_runs_ms": dec_ms,
+           "decode_device_ms": dec_dev, "decode_idle_share": 1 - dec_dev / dec,
+           "decode_tokens_per_s": B / dec * 1e3,
+           "run_ms": run, "runs_ms": run_ms,
+           "tokens_per_s": n_tok / run * 1e3,
+           "prefill_tokens_per_s": B * LM_PROMPT / pre * 1e3,
+           "graph_prefill_max_abs_diff": gdiff}
+    record["lm"].update(rec)
+    log("time", f"{LM_ARCH} batch {B}x{LM_PROMPT}: prefill {pre:.3f} ms "
+        f"eager, {pre_dev:.3f} ms device (idle {100 * rec['prefill_idle_share']:.0f}%); "
+        f"decode step {dec:.3f} ms eager, {dec_dev:.3f} ms device (idle "
+        f"{100 * rec['decode_idle_share']:.0f}%); engine.run of "
+        f"{LM_REQUESTS} requests {run:.1f} ms, {rec['tokens_per_s']:.1f} "
+        f"generated tokens/s  [{card}]")
+
+
 def main():
+    import numpy as np
     import torch
     import torch.nn.functional as F
     if not torch.cuda.is_available():
@@ -244,7 +557,11 @@ def main():
         for k, d in per.items():
             for key, v in d.items():
                 shapes[k][key] = shapes[k].get(key, 0) + v
-    ks = {k: Kernel(k) for k in KERNELS}
+    ks = {k: Kernel(k) for k in CNN_KERNELS}
+    ks[LM_KERNEL] = Kernel(LM_KERNEL, BF16_FLOPS_PER_S)
+    # every plain version and product in f32 (no TF32): the references
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     g = torch.Generator(device=dev).manual_seed(SEED)
 
     def i8(*shape):
@@ -344,12 +661,18 @@ def main():
                 ks[kname].err(torch, gq, want_q)
                 ks[kname].err(torch, gf, want_f)
                 n_checks += 3
+    n_flash = check_flash(torch, g, dev, ks[LM_KERNEL])
     torch.cuda.synchronize()
     record["check_s"] = time.perf_counter() - t0
+    record["flash_readings"] = ks[LM_KERNEL].readings
     log("check", f"{n_checks} kernel-vs-plain comparisons bit-identical "
         f"({len(conv_inputs)} conv shapes; {len(dw_inputs)} dw shapes of "
         f"MobileNetV1-V3; stream n_buffers in {{1, 2, k*k}}; matmul "
-        f"pinned/stream/fifo) in {record['check_s']:.1f} s")
+        f"pinned/stream/fifo); {n_flash} flash-attention comparisons (o and "
+        f"lse at {len(FLASH_CASES)} shapes in bf16 and f32, and the model "
+        f"layout) within tolerance, readings "
+        f"{json.dumps(ks[LM_KERNEL].readings)}; in "
+        f"{record['check_s']:.1f} s")
 
     # -- 3. the slice through the kernels ------------------------------------
     params, images, logits = {}, {}, {}
@@ -399,6 +722,9 @@ def main():
     for per in launches.values():
         for k, v in per.items():
             total_launches[k] = total_launches.get(k, 0) + v
+    lm = serve_lm(torch, np, dev, record)
+    launches[LM_ARCH] = lm["launches"]
+    total_launches[LM_KERNEL] = lm["launches"][LM_KERNEL]
     missing = [k for k in KERNELS if not total_launches.get(k)]
     if missing:
         raise AssertionError(f"kernels never launched on the path: "
@@ -517,10 +843,47 @@ def main():
                 log("time", f"torch._int_mm refuses [{BATCH},{c_in}]x"
                     f"[{c_in},{c_out}]: {str(e).splitlines()[0][:120]}")
         kern.library_ms = lib
-    for name, kern in ks.items():
+    for name in CNN_KERNELS:
+        kern = ks[name]
         kern.ms = sum(n * per_launch[name][key]
                       for key, n in shapes[name].items())
         kern.bound_ms, kern.bound_by = bound_ms(kern.bytes, kern.ops)
+    # K1's library: torch._int_mm over its 1x1 shapes (a stride-s 1x1 conv
+    # is a matmul over the input's every s-th row and column; exact int32
+    # sums).  The k > 1 shapes have no library call.
+    k1, one = ks["conv2d_int8_pinned"], {"ms": 0.0, "library_ms": 0.0,
+                                         "launches": 0, "refused": []}
+    for key6, (x, w, _, _) in conv_inputs.items():
+        h, w_, c, co, k, s = key6
+        keys = [kk for kk in shapes["conv2d_int8_pinned"] if kk[:6] == key6]
+        if k != 1 or not keys:
+            continue
+        xs = x[:, ::s, ::s, :].contiguous().reshape(-1, c)
+        w2 = w.reshape(c, co)
+        try:
+            lib_out = torch._int_mm(xs, w2)
+        except RuntimeError as e:
+            one["refused"].append([list(key6), str(e).splitlines()[0][:120]])
+            continue
+        if not torch.equal(lib_out.reshape(BATCH, -(-h // s), -(-w_ // s),
+                                           co),
+                           conv2d_int8_ref(x, w, stride=s)):
+            raise AssertionError(f"torch._int_mm is not exact at {key6}")
+        n = sum(shapes["conv2d_int8_pinned"][kk] for kk in keys)
+        one["launches"] += n
+        one["ms"] += sum(shapes["conv2d_int8_pinned"][kk]
+                         * per_launch["conv2d_int8_pinned"][kk] for kk in keys)
+        one["library_ms"] += n * device_ms(
+            torch, lambda: torch._int_mm(xs, w2), reps=20)
+    k1.library_ms = one["library_ms"]
+    k1.library_covers = (one["launches"], one["ms"])
+    record["conv2d_int8_pinned_1x1"] = one
+    log("time", f"conv2d_int8_pinned over its {one['launches']} 1x1 "
+        f"launches: {one['ms']:.4f} ms (device), torch._int_mm "
+        f"{one['library_ms']:.4f} ms; refused {len(one['refused'])} "
+        f"shapes  [{card}]")
+    time_flash(torch, F, g, dev, ks[LM_KERNEL], total_launches[LM_KERNEL],
+               card, record)
     record["ms_per_launch"], record["call_ms_per_launch"] = (
         {k: {",".join(map(str, key)): t for key, t in d.items()}
          for k, d in times.items()} for times in (per_launch, per_call))
@@ -569,19 +932,26 @@ def main():
             f"plain path {e2e[name]['plain_ms_per_forward']:.3f} ms  "
             f"[{card}]")
     record["end_to_end"] = e2e
+    time_lm(torch, lm, card, record)
     record["time_s"] = time.perf_counter() - t0
 
     # -- 5. report ------------------------------------------------------------
     rows = []
     for name, kern in ks.items():
         src, replaces = KERNELS[name]
+        # the launches library_ms covers, and this kernel's ms over them
+        lib_n, lib_k_ms = kern.library_covers or (
+            (total_launches[name], kern.ms) if kern.library_ms is not None
+            else (0, 0.0))
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces,
                      "launches": total_launches[name],
                      "max_abs_err": kern.max_abs_err, "ms": kern.ms,
                      "plain_ms": kern.plain_ms, "bound_ms": kern.bound_ms,
                      "bound_by": kern.bound_by,
-                     "library_ms": kern.library_ms})
+                     "library_ms": kern.library_ms,
+                     "library_launches": lib_n,
+                     "ms_on_library_launches": lib_k_ms})
         log("time", f"{name}: {kern.ms:.4f} ms per slice run (device), "
             f"plain {kern.plain_ms:.4f} ms, bound {kern.bound_ms:.4f} ms "
             f"({kern.bound_by}), library {kern.library_ms}  [{card}]")

@@ -1,6 +1,7 @@
 """Carry parameters across from the JAX package.
 
-``repro.models.cnn.init_cnn_params`` draws from ``jax.random``, which no
+``repro.models.cnn.init_cnn_params`` and ``repro.models.transformer.
+init_params`` draw from ``jax.random``, which no
 PyTorch generator reproduces; tests and comparisons therefore make the
 parameters once, convert them to numpy, and hand them to the port.
 """
@@ -20,3 +21,24 @@ def params_from_numpy(tree: Dict[str, Dict[str, Any]],
     return {layer: {k: torch.from_numpy(np.array(v, copy=True)).to(device)
                     for k, v in leaves.items()}
             for layer, leaves in tree.items()}
+
+
+def _leaf(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":        # ml_dtypes: carried bit for bit
+        t = torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a, copy=True))
+    return t.to(device)
+
+
+def lm_params_from_numpy(tree: Dict[str, Any],
+                         device="cuda") -> Dict[str, Any]:
+    """The JAX package's LM params (``repro.models.transformer.
+    init_params``), as a nested dict of array-likes with the ``[L]``-stacked
+    ``layers`` subtree, -> the same tree of tensors on ``device``, leaf for
+    leaf.  Dtypes are kept: bf16 leaves bit for bit, RMSNorm scales f32
+    (the JAX side's ``arch.dtype`` picks the weights' dtype)."""
+    return {k: (lm_params_from_numpy(v, device) if isinstance(v, dict)
+                else _leaf(v, device))
+            for k, v in tree.items()}

@@ -9,7 +9,8 @@ with a plain C interface:
 ``<sha>`` is the hash of the source, so an edited source rebuilds and a
 stale library is never loaded.  Only the sources in this package are
 built.  ``--use_fast_math`` is deliberately absent: the fused requant
-epilogues rely on IEEE division and round-half-even.  :func:`build_all`
+epilogues rely on IEEE division and round-half-even, and the attention
+kernel on accurate ``expf``/``logf``/``tanhf`` and IEEE division.  :func:`build_all`
 starts one ``nvcc`` per source at once and waits for all of them.
 """
 from __future__ import annotations
@@ -26,7 +27,8 @@ from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("conv2d_int8", "dwconv_int8", "pool_int8", "stream_matmul")
+SOURCES = ("conv2d_int8", "dwconv_int8", "flash_attention", "pool_int8",
+           "stream_matmul")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

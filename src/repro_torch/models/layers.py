@@ -1,0 +1,307 @@
+"""Core LM building blocks: RMSNorm, RoPE, embeddings and attention (GQA,
+sliding window, logit softcap; blockwise or through the flash kernel) —
+the port of ``repro.models.layers``.
+
+Conventions, as in the JAX package:
+
+* params are nested dicts of tensors;
+* activations are ``[B, S, d]``; q/k/v ``[B, S, heads, hd]``;
+* KV caches are stacked over layers: ``[L, B, S, n_kv, head_dim]``.
+
+Rounding follows the JAX package where it matters: the score einsums of
+the blockwise and decode routes produce the model dtype and are then cast
+to f32; RoPE and RMSNorm compute in f32; the unembed multiplies f32 casts
+(TF32 kept off).  The sharding helpers wait for the sharded slice, and
+cross-attention for the encoder-decoder family.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+Params = Dict[str, Any]
+
+# ---------------------------------------------------------------------------
+# kernel mode: route prefill attention through the flash kernel.  The JAX
+# package defaults to off and turns it on per run (``--kernels on``); the
+# port defaults to on, since running the kernel is what the port is for.
+# Where the routing rule does not hold, ``blockwise_attention`` runs, as
+# in the JAX package.
+# ---------------------------------------------------------------------------
+
+_KERNEL_MODE = {"enabled": True}
+
+
+def set_kernel_mode(enabled: bool) -> None:
+    _KERNEL_MODE["enabled"] = enabled
+
+
+def kernel_mode_enabled() -> bool:
+    return _KERNEL_MODE["enabled"]
+
+
+# ---------------------------------------------------------------------------
+# initializers
+# ---------------------------------------------------------------------------
+
+
+def _dense_init(gen: torch.Generator, shape, dtype, device,
+                scale: Optional[float] = None) -> torch.Tensor:
+    """A normal times ``1/sqrt(fan_in)`` (or ``scale``), drawn in f32 and
+    cast, as the JAX package draws it (other numbers: a torch.Generator)."""
+    fan_in = shape[0] if len(shape) <= 2 else math.prod(shape[:-1])
+    if len(shape) >= 3:                    # [d, H, hd] style
+        fan_in = shape[0]
+    std = scale if scale is not None else 1.0 / math.sqrt(max(fan_in, 1))
+    x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+    return (x * std).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# RMSNorm
+# ---------------------------------------------------------------------------
+
+
+def init_rmsnorm(d: int, device) -> Params:
+    return {"scale": torch.zeros((d,), dtype=torch.float32, device=device)}
+
+
+def rmsnorm(params: Params, x: torch.Tensor, eps: float = 1e-6):
+    dtype = x.dtype
+    x = x.float()
+    var = x.square().mean(-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return (x * (1.0 + params["scale"].float())).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE (rotate halves, not interleaved pairs; angles in f32)
+# ---------------------------------------------------------------------------
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    return theta ** (-torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                   device=device) / head_dim)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
+    """x: [..., S, H, hd]; positions: [..., S]."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)                  # [hd/2]
+    angles = positions[..., :, None].float() * freqs          # [..., S, hd/2]
+    angles = angles[..., None, :]                            # [..., S, 1, hd/2]
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Embedding
+# ---------------------------------------------------------------------------
+
+
+def pad_vocab(v: int, multiple: int = 128) -> int:
+    return ((v + multiple - 1) // multiple) * multiple
+
+
+def init_embedding(gen, vocab: int, d: int, dtype, device) -> Params:
+    vp = pad_vocab(vocab)
+    return {"table": _dense_init(gen, (vp, d), dtype, device,
+                                 scale=d ** -0.5)}
+
+
+def embed(params: Params, tokens: torch.Tensor) -> torch.Tensor:
+    return params["table"][tokens]
+
+
+def unembed(params: Params, x: torch.Tensor, softcap: float = 0.0):
+    """f32 logits over the padded vocab, from f32 casts of both operands.
+    The reference multiplies in full f32: on the card that needs TF32 off
+    (PyTorch's default; ``ServingEngine`` sets it when it starts)."""
+    logits = torch.matmul(x.float(), params["table"].float().t())
+    if softcap:
+        logits = torch.tanh(logits / softcap) * softcap
+    return logits
+
+
+# ---------------------------------------------------------------------------
+# Attention (GQA, sliding window, logit softcap)
+# ---------------------------------------------------------------------------
+
+
+def init_attention(gen, cfg, device) -> Params:
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    dtype = getattr(torch, cfg.dtype)
+    p = {
+        "wq": _dense_init(gen, (d, cfg.n_heads, hd), dtype, device),
+        "wk": _dense_init(gen, (d, cfg.n_kv_heads, hd), dtype, device),
+        "wv": _dense_init(gen, (d, cfg.n_kv_heads, hd), dtype, device),
+        "wo": _dense_init(gen, (cfg.n_heads, hd, d), dtype, device),
+    }
+    if cfg.qkv_bias:
+        for name, heads in (("bq", cfg.n_heads), ("bk", cfg.n_kv_heads),
+                            ("bv", cfg.n_kv_heads)):
+            p[name] = torch.zeros((heads, hd), dtype=dtype, device=device)
+    return p
+
+
+def _qkv(params, cfg, x, positions):
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
+    k = torch.einsum("bsd,dhk->bshk", x, params["wk"])
+    v = torch.einsum("bsd,dhk->bshk", x, params["wv"])
+    if cfg.qkv_bias:
+        q = q + params["bq"]
+        k = k + params["bk"]
+        v = v + params["bv"]
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _sdpa_block(q, k, v, mask, scale, softcap):
+    """One (q-block, kv-block) tile with running softmax stats.
+
+    q: [B,Sq,H,hd]  k/v: [B,Sk,H,hd] (kv already repeated to H)
+    Returns (unnormalized out f32, rowmax, rowsum)."""
+    scores = torch.einsum("bqhk,bshk->bhqs", q, k).float() * scale
+    if softcap:
+        scores = torch.tanh(scores / softcap) * softcap
+    scores = torch.where(mask, scores, -1e30)
+    m = scores.amax(-1)                                        # [B,H,Sq]
+    e = torch.exp(scores - m[..., None])
+    e = torch.where(mask, e, 0.0)
+    s = e.sum(-1)
+    out = torch.einsum("bhqs,bshk->bqhk", e.to(v.dtype), v)
+    return out.float(), m, s
+
+
+def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
+    if n_rep == 1:
+        return k
+    return k.repeat_interleave(n_rep, dim=2)
+
+
+def blockwise_attention(q, k, v, *, causal: bool, window=None,
+                        softcap: float = 0.0, q_block: int = 1024,
+                        kv_block: int = 1024) -> torch.Tensor:
+    """Memory-efficient attention: double loop over (q-block, kv-block)
+    with online softmax — the JAX package's route where the flash kernel
+    does not run.
+
+    q: [B,Sq,H,hd], k/v: [B,Sk,KV,hd].  ``window``: None = full causal;
+    otherwise a sliding-window size (an int or a 0-d tensor)."""
+    B, Sq, H, hd = q.shape
+    hd_v = v.shape[-1]
+    Sk = k.shape[1]
+    n_rep = H // k.shape[2]
+    k = _repeat_kv(k, n_rep)
+    v = _repeat_kv(v, n_rep)
+    scale = 1.0 / math.sqrt(hd)
+    q_block = min(q_block, Sq)
+    kv_block = min(kv_block, Sk)
+    if Sq % q_block or Sk % kv_block:
+        raise ValueError(f"S ({Sq}, {Sk}) not a multiple of the blocks "
+                         f"({q_block}, {kv_block})")
+    dev = q.device
+    outs = []
+    for q0 in range(0, Sq, q_block):
+        qs = q[:, q0:q0 + q_block]
+        q_pos = q0 + torch.arange(q_block, device=dev)
+        acc = torch.zeros((B, q_block, H, hd_v), dtype=torch.float32,
+                          device=dev)
+        m_run = torch.full((B, H, q_block), -math.inf, device=dev)
+        s_run = torch.zeros((B, H, q_block), device=dev)
+        for k0 in range(0, Sk, kv_block):
+            k_pos = k0 + torch.arange(kv_block, device=dev)
+            mask = torch.ones((q_block, kv_block), dtype=torch.bool,
+                              device=dev)
+            if causal:
+                mask &= q_pos[:, None] >= k_pos[None, :]
+            if window is not None:
+                mask &= (q_pos[:, None] - k_pos[None, :]) < window
+            out, m, s = _sdpa_block(qs, k[:, k0:k0 + kv_block],
+                                    v[:, k0:k0 + kv_block], mask[None, None],
+                                    scale, softcap)
+            m_new = torch.maximum(m_run, m)
+            alpha = torch.exp(m_run - m_new)
+            beta = torch.exp(m - m_new)
+            acc = acc * alpha.transpose(1, 2)[..., None] + \
+                out * beta.transpose(1, 2)[..., None]
+            s_run = s_run * alpha + s * beta
+            m_run = m_new
+        denom = s_run.clamp_min(1e-30).transpose(1, 2)[..., None]
+        outs.append((acc / denom).to(q.dtype))
+    return torch.cat(outs, dim=1)
+
+
+def attention_forward(params: Params, cfg, x, positions, *, window=None,
+                      kv_cache: Optional[Tuple] = None,
+                      cache_index: Optional[int] = None,
+                      ring: bool = False, causal: bool = True):
+    """Full attention sublayer.  Returns (out, new_kv).
+
+    prefill: kv_cache None -> self-attend over x; new_kv = (k, v).
+    decode: kv_cache = (k_cache, v_cache) [B,S_c,kv,hd]; x is [B,1,d];
+    the new token's K/V are written into the caches IN PLACE at
+    ``cache_index`` (mod S_c when ``ring``), where the JAX package
+    returns updated copies; new_kv is the same two tensors.
+    ``window``: None = full causal, else sliding-window size."""
+    q, k, v = _qkv(params, cfg, x, positions)
+    if kv_cache is None:
+        S = q.shape[1]
+        use_kernel = (_KERNEL_MODE["enabled"]
+                      and (window is None or isinstance(window, int))
+                      and q.shape[-1] == v.shape[-1]
+                      and S % min(128, S) == 0)
+        if use_kernel:
+            out = _flash_call(q, k, v, causal=causal,
+                              window=int(window or 0),
+                              softcap=cfg.attn_logit_softcap)
+        else:
+            out = blockwise_attention(q, k, v, causal=causal, window=window,
+                                      softcap=cfg.attn_logit_softcap)
+        new_kv = (k, v)
+    else:
+        kc, vc = kv_cache
+        S = kc.shape[1]
+        slot = cache_index % S if ring else cache_index
+        kc[:, slot] = k[:, 0].to(kc.dtype)
+        vc[:, slot] = v[:, 0].to(vc.dtype)
+        n_rep = cfg.n_heads // cfg.n_kv_heads
+        KV = cfg.n_kv_heads
+        B, hd = q.shape[0], q.shape[-1]
+        scale = 1.0 / math.sqrt(cfg.resolved_head_dim)
+        # grouped-query form: q's head groups against the unrepeated cache
+        qg = q.reshape(B, 1, KV, n_rep, hd)
+        scores = torch.einsum("bqgrd,bsgd->bgrqs", qg, kc).float() * scale
+        if cfg.attn_logit_softcap:
+            scores = torch.tanh(scores / cfg.attn_logit_softcap) * \
+                cfg.attn_logit_softcap
+        kpos = torch.arange(S, device=q.device)
+        if ring:
+            # entry j holds absolute position pos - ((slot - j) mod S)
+            age = (slot - kpos) % S
+            valid = (cache_index - age) >= 0
+        else:
+            valid = kpos <= cache_index
+            if window is not None:
+                valid &= kpos > cache_index - window
+        scores = torch.where(valid, scores, -1e30)
+        w = torch.softmax(scores, dim=-1)
+        out = torch.einsum("bgrqs,bsgd->bqgrd", w.to(vc.dtype), vc)
+        out = out.reshape(B, 1, cfg.n_heads, hd)
+        new_kv = (kc, vc)
+    y = torch.einsum("bshk,hkd->bsd", out.to(x.dtype), params["wo"])
+    return y, new_kv
+
+
+def _flash_call(q, k, v, *, causal: bool, window: int, softcap: float):
+    """Route through the flash kernel (the forward only: the differentiable
+    wrapper comes with the trainer).  On CPU tensors the plain version
+    runs at the JAX call's blocks, ``min(128, S)``."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    return flash_attention(q, k, v, causal=causal, window=window,
+                           softcap=softcap)

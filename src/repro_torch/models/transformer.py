@@ -1,0 +1,259 @@
+"""The dense decoder-only LM — the port of ``repro.models.transformer``.
+
+Layer params are stacked on a leading ``[L]`` axis as in the JAX package,
+so carrying its params across is leaf for leaf; the layer scan is a
+Python loop over the stack.  Per-layer attention windows are an ``[L]``
+tensor (0-d entries), which routes windowed layers to the blockwise
+attention as the JAX package's traced windows do.
+
+Public API
+----------
+init_params(gen, cfg, device)            seeded random weights
+forward(params, cfg, batch)              -> (hidden [B,S,d], aux dict)
+logits_from_hidden                       last-token f32 logits
+init_cache / prefill / decode_step       the serving path
+
+Families ``moe``, ``hybrid``, ``ssm``, ``vlm`` and the encoder-decoder,
+and ``attn_kind="mla"``, raise ``NotImplementedError``: they wait for the
+remaining-LM-families item of ROADMAP Queue 1.  ``lm_loss`` and
+``loss_fn`` come with the trainer.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models.ffn import ffn, init_ffn
+from repro_torch.models.layers import (Params, attention_forward, embed,
+                                       init_attention, init_embedding,
+                                       init_rmsnorm, rmsnorm, unembed)
+
+
+def _check_supported(cfg: ArchConfig) -> None:
+    what = None
+    if cfg.enc_dec:
+        what = "the encoder-decoder family"
+    elif cfg.family != "dense":
+        what = f"family {cfg.family!r}"
+    elif cfg.moe is not None:
+        what = "the MoE FFN"
+    elif cfg.attn_kind in ("mla", "none"):
+        what = f"attn_kind {cfg.attn_kind!r}"
+    if what is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: {what} is not ported yet (ROADMAP Queue 1, the "
+            f"remaining LM families)")
+
+
+def _dtype(cfg: ArchConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+
+def _init_layer(gen, cfg: ArchConfig, device) -> Params:
+    p: Params = {"ln1": init_rmsnorm(cfg.d_model, device),
+                 "ln2": init_rmsnorm(cfg.d_model, device),
+                 "attn": init_attention(gen, cfg, device)}
+    if cfg.d_ff:
+        p["ffn"] = init_ffn(gen, cfg.d_model, cfg.d_ff, _dtype(cfg), device)
+    return p
+
+
+def _stack(trees: List[Params]) -> Params:
+    """A list of identically structured trees -> one tree of [L, ...]."""
+    return {k: (_stack([t[k] for t in trees]) if isinstance(v, dict)
+                else torch.stack([t[k] for t in trees]))
+            for k, v in trees[0].items()}
+
+
+def _layer(stack: Params, i: int) -> Params:
+    return {k: (_layer(v, i) if isinstance(v, dict) else v[i])
+            for k, v in stack.items()}
+
+
+def init_params(gen: torch.Generator, cfg: ArchConfig,
+                device="cuda") -> Params:
+    """Seeded random weights drawn on ``device`` (``gen`` must live there
+    too): normals times 1/sqrt(fan_in) in the model dtype, RMSNorm scales
+    zero in f32, as the JAX package initialises (other numbers)."""
+    _check_supported(cfg)
+    dtype = _dtype(cfg)
+    params: Params = {
+        "embed": init_embedding(gen, cfg.vocab_size, cfg.d_model, dtype,
+                                device),
+        "ln_f": init_rmsnorm(cfg.d_model, device),
+    }
+    if not cfg.tie_embeddings:
+        params["unembed"] = init_embedding(gen, cfg.vocab_size, cfg.d_model,
+                                           dtype, device)
+    params["layers"] = _stack([_init_layer(gen, cfg, device)
+                               for _ in range(cfg.n_layers)])
+    return params
+
+
+# ---------------------------------------------------------------------------
+# windows
+# ---------------------------------------------------------------------------
+
+
+def layer_windows(cfg: ArchConfig, full: int,
+                  device=None) -> Optional[torch.Tensor]:
+    """Per-layer sliding-window sizes as an [L] tensor, or None.  ``full``
+    stands in for 'no window' on global layers."""
+    if cfg.attn_kind not in ("local_global", "sliding"):
+        return None
+    if cfg.attn_kind == "sliding":
+        return torch.full((cfg.n_layers,), cfg.window, dtype=torch.int32,
+                          device=device)
+    idx = torch.arange(cfg.n_layers, device=device)
+    return torch.where(idx % 2 == 0, cfg.window, full).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# forward (prefill)
+# ---------------------------------------------------------------------------
+
+
+def _scale_embedding(cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    """x * sqrt(d_model), the factor rounded to the model dtype first (in
+    bf16, sqrt(3072) = 55.43 becomes 55.5), as the JAX package does."""
+    f = torch.full((), float(cfg.d_model), dtype=torch.float32,
+                   device=x.device).sqrt()   # no host copy: graph-safe
+    return x * f.to(x.dtype)
+
+
+def _embed_inputs(params, cfg: ArchConfig, batch: Dict[str, Any]):
+    x = embed(params["embed"], batch["tokens"]).to(_dtype(cfg))
+    return _scale_embedding(cfg, x)
+
+
+def _dense_layer_body(cfg: ArchConfig, x, layer_params, window, positions,
+                      *, causal=True):
+    """One transformer layer (attention + FFN).  Returns (x, kv)."""
+    h = rmsnorm(layer_params["ln1"], x, cfg.norm_eps)
+    a, kv = attention_forward(layer_params["attn"], cfg, h, positions,
+                              window=window, causal=causal)
+    x = x + a
+    if "ffn" in layer_params:
+        h2 = rmsnorm(layer_params["ln2"], x, cfg.norm_eps)
+        x = x + ffn(layer_params["ffn"], h2, cfg.act)
+    return x, kv
+
+
+def _scan_layers(params_stack, cfg: ArchConfig, x, positions, windows, *,
+                 causal=True, collect_kv=False):
+    """The layer loop over the stacked params.  Returns (x, kvs): kvs the
+    per-layer (k, v) stacked to [L,B,S,kv,hd] when ``collect_kv``."""
+    n = next(iter(params_stack["ln1"].values())).shape[0]
+    ks, vs = [], []
+    for i in range(n):
+        w = None if windows is None else windows[i]
+        x, (k, v) = _dense_layer_body(cfg, x, _layer(params_stack, i), w,
+                                      positions, causal=causal)
+        if collect_kv:
+            ks.append(k)
+            vs.append(v)
+    kvs = (torch.stack(ks), torch.stack(vs)) if collect_kv else None
+    return x, kvs
+
+
+def forward(params: Params, cfg: ArchConfig, batch: Dict[str, Any], *,
+            collect_kv: bool = False):
+    """Returns (hidden [B,S,d], aux); aux["kv"] holds the stacked per-layer
+    K/V when ``collect_kv``."""
+    _check_supported(cfg)
+    x = _embed_inputs(params, cfg, batch)
+    B, S = batch["tokens"].shape
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    windows = layer_windows(cfg, S, x.device)
+    x, kvs = _scan_layers(params["layers"], cfg, x, positions, windows,
+                          collect_kv=collect_kv)
+    aux: Dict[str, Any] = {"kv": kvs} if collect_kv else {}
+    return rmsnorm(params["ln_f"], x, cfg.norm_eps), aux
+
+
+def logits_from_hidden(params, cfg: ArchConfig, hidden):
+    """Logits for a few positions (decode / last token), f32, padded
+    vocab."""
+    table = params["embed" if cfg.tie_embeddings else "unembed"]
+    return unembed(table, hidden, cfg.final_logit_softcap)
+
+
+# ---------------------------------------------------------------------------
+# serving: cache init / prefill / decode_step
+# ---------------------------------------------------------------------------
+
+
+def kv_cache_len(cfg: ArchConfig, max_seq: int) -> int:
+    """Ring buffer of size window for pure sliding-window archs."""
+    if cfg.attn_kind == "sliding":
+        return min(max_seq, cfg.window)
+    return max_seq
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
+               device="cuda") -> Params:
+    """Zeroed K/V caches [L, B, S_c, n_kv, hd] in the model dtype."""
+    _check_supported(cfg)
+    shape = (cfg.n_layers, batch, kv_cache_len(cfg, max_seq),
+             cfg.n_kv_heads, cfg.resolved_head_dim)
+    return {name: torch.zeros(shape, dtype=_dtype(cfg), device=device)
+            for name in ("k", "v")}
+
+
+def decode_step(params: Params, cfg: ArchConfig, cache: Params,
+                tokens: torch.Tensor, pos: int):
+    """One decode step.  tokens: [B,1]; pos: absolute position of the new
+    token (every sequence of the batch is at the same position).  Writes
+    the new K/V into ``cache`` in place.  Returns (logits [B,vocab_pad],
+    cache)."""
+    _check_supported(cfg)
+    B = tokens.shape[0]
+    x = _scale_embedding(cfg, embed(params["embed"], tokens).to(_dtype(cfg)))
+    positions = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)
+    ring = cfg.attn_kind == "sliding"
+    windows = layer_windows(cfg, cache["k"].shape[2], x.device)
+    stack = params["layers"]
+    for i in range(cfg.n_layers):
+        lp = _layer(stack, i)
+        h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
+        a, _ = attention_forward(
+            lp["attn"], cfg, h, positions,
+            window=None if windows is None else windows[i],
+            kv_cache=(cache["k"][i], cache["v"][i]), cache_index=pos,
+            ring=ring)
+        x = x + a
+        if "ffn" in lp:
+            x = x + ffn(lp["ffn"], rmsnorm(lp["ln2"], x, cfg.norm_eps),
+                        cfg.act)
+    x = rmsnorm(params["ln_f"], x, cfg.norm_eps)
+    return logits_from_hidden(params, cfg, x[:, 0]), cache
+
+
+def prefill(params: Params, cfg: ArchConfig, batch: Dict[str, Any],
+            max_seq: int):
+    """Run the full prompt, build the decode cache, return last-token
+    logits.  For ring-buffer (sliding) archs only the last ``window``
+    positions go into the cache."""
+    hidden, aux = forward(params, cfg, batch, collect_kv=True)
+    B, S = batch["tokens"].shape
+    cache = init_cache(cfg, B, max_seq, hidden.device)
+    k, v = aux["kv"]                                  # [L,B,S,kv,hd] each
+    S_c = cache["k"].shape[2]
+    if S_c < S:
+        if cfg.attn_kind != "sliding":
+            raise ValueError(f"prompt of {S} tokens exceeds max_seq "
+                             f"{max_seq}")
+        # ring: keep the tail, rolled so that slot = pos % S_c
+        shift = (S - S_c) % S_c
+        k = torch.roll(k[:, :, S - S_c:], shift, dims=2)
+        v = torch.roll(v[:, :, S - S_c:], shift, dims=2)
+    cache["k"][:, :, :k.shape[2]] = k
+    cache["v"][:, :, :v.shape[2]] = v
+    return logits_from_hidden(params, cfg, hidden[:, -1]), cache

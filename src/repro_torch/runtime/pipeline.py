@@ -46,7 +46,7 @@ def resolve_device(device) -> torch.device:
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(
-                "CUDA is not available: the pipeline runs on the card by "
+                "CUDA is not available: the port runs on the card by "
                 "default; pass device='cpu' to run the plain versions")
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")

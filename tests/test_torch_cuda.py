@@ -166,3 +166,96 @@ def test_dwconv_rejects_channels_not_multiple_of_4(dev):
     ones = torch.ones(6, device=dev)
     with pytest.raises(ValueError, match="multiple of 4"):
         conv2d_int8_requant(x, w, ones, ones, depthwise=True, stream=True)
+
+
+# the five ATTN_CASES of tests/test_kernels.py, one hd != hd_v case, a
+# ragged length, and the Phi-4-mini prefill shape
+FLASH_CASES = [
+    dict(B=2, H=4, KV=4, S=256, hd=64, causal=True, window=0, softcap=0.0),
+    dict(B=2, H=4, KV=2, S=256, hd=64, causal=True, window=64, softcap=0.0),
+    dict(B=1, H=8, KV=2, S=128, hd=32, causal=True, window=0, softcap=50.0),
+    dict(B=1, H=2, KV=2, S=128, hd=64, causal=False, window=0, softcap=0.0),
+    dict(B=1, H=4, KV=1, S=128, hd=128, causal=True, window=32,
+         softcap=30.0),
+    dict(B=1, H=4, KV=2, S=256, hd=192, hd_v=128, causal=True, window=0,
+         softcap=0.0),
+    dict(B=1, H=2, KV=1, S=100, hd=256, causal=True, window=0, softcap=0.0),
+    dict(B=4, H=24, KV=8, S=512, hd=128, causal=True, window=0, softcap=0.0),
+]
+
+
+# (rtol, atol) per operand dtype and output, as chip_smoke.FLASH_TOL: bf16
+# o within one bf16 ulp, lse (f32 in both dtypes) within 1e-4
+FLASH_TOL = {(torch.bfloat16, "o"): (1e-2, 1e-2),
+             (torch.float32, "o"): (2e-5, 6e-5),
+             (torch.bfloat16, "lse"): (1e-5, 1e-4),
+             (torch.float32, "lse"): (1e-5, 1e-4)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ci", range(len(FLASH_CASES)))
+def test_flash_kernel_matches_plain(dev, ci, dtype):
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, flash_attention_kernel)
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+    c = FLASH_CASES[ci]
+    g = torch.Generator(device=dev).manual_seed(ci)
+    B, S, hd = c["B"], c["S"], c["hd"]
+    hd_v = c.get("hd_v", hd)
+    q = torch.randn(B, c["H"], S, hd, generator=g, device=dev).to(dtype)
+    k = torch.randn(B, c["KV"], S, hd, generator=g, device=dev).to(dtype)
+    v = torch.randn(B, c["KV"], S, hd_v, generator=g, device=dev).to(dtype)
+    kw = dict(causal=c["causal"], window=c["window"], softcap=c["softcap"])
+    blk = S if S % min(128, S) else min(128, S)
+    want_o, want_lse = flash_attention_plain(q, k, v, bq=blk, bk=blk, **kw)
+    reset_launches()
+    o, lse = flash_attention_kernel(q, k, v, return_lse=True, **kw)
+    om = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                         v.transpose(1, 2), **kw)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention_fwd"] == 2
+    assert o.dtype == dtype and lse.dtype == torch.float32
+    rtol, atol = FLASH_TOL[dtype, "o"]
+    torch.testing.assert_close(o.float(), want_o.float(), rtol=rtol,
+                               atol=atol)
+    rtol, atol = FLASH_TOL[dtype, "lse"]
+    torch.testing.assert_close(lse, want_lse, rtol=rtol, atol=atol)
+    assert torch.equal(om.transpose(1, 2), o)
+
+
+def test_flash_kernel_refuses_what_it_cannot_take(dev):
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    reset_launches()
+    x = torch.zeros((1, 128, 2, 96), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="hd=96"):
+        flash_attention(x, x, x)
+    h = torch.zeros((1, 128, 2, 64), dtype=torch.float16, device=dev)
+    with pytest.raises(TypeError):
+        flash_attention(h, h, h)
+    assert LAUNCHES == {}
+
+
+def test_reduced_lm_on_card_matches_cpu(dev):
+    """Reduced Phi-4-mini in f32: prefill logits through the kernel on the
+    card against the plain version on the CPU, same weights."""
+    import dataclasses
+
+    import torch.utils._pytree as pytree
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import transformer as tmod
+    arch = dataclasses.replace(get_arch("phi4-mini-3.8b").reduced(),
+                               dtype="float32", head_dim=32)
+    params = tmod.init_params(torch.Generator().manual_seed(0), arch, "cpu")
+    toks = torch.randint(0, 128, (2, 128),
+                         generator=torch.Generator().manual_seed(1))
+    want, _ = tmod.prefill(params, arch, {"tokens": toks}, 256)
+    on_card = pytree.tree_map(lambda t: t.to(dev), params)
+    reset_launches()
+    got, cache = tmod.prefill(on_card, arch, {"tokens": toks.to(dev)}, 256)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention_fwd"] == arch.n_layers
+    scale = want.abs().max()
+    assert (got.cpu() - want).abs().max() <= 1e-4 * scale

@@ -27,7 +27,9 @@ def test_import_with_jax_blocked():
         import repro_torch
         import repro_torch.compiler, repro_torch.runtime.pipeline
         import repro_torch.kernels, repro_torch.convert
-        import repro_torch.models.cnn
+        import repro_torch.models.cnn, repro_torch.models.transformer
+        import repro_torch.runtime.serving, repro_torch.launch.serve
+        import repro_torch.kernels.flash_attention, repro_torch.configs
         bad = sorted(m for m in sys.modules
                      if m in ("jax", "repro") or m.startswith(("jax.",
                                                                "repro.")))
@@ -75,6 +77,41 @@ def test_default_device_entry_points_raise_without_cuda(no_cuda):
         PipelineExecutor(comp)
     with pytest.raises(RuntimeError, match="CUDA"):
         execute_cnn(comp, {}, x)
+
+
+def test_lm_entry_points_raise_without_cuda(no_cuda):
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tmod
+    from repro_torch.runtime.serving import ServingEngine
+    arch = get_arch("phi4-mini-3.8b").reduced()
+    params = tmod.init_params(torch.Generator().manual_seed(0), arch, "cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServingEngine(params, arch)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--arch", "phi4-mini-3.8b", "--reduced"])
+
+
+def test_serve_launcher_runs_on_cpu_when_asked(capsys):
+    from repro_torch.launch import serve
+    assert serve.main(["--arch", "phi4-mini-3.8b", "--reduced", "--device",
+                       "cpu", "--requests", "3", "--max-new", "3"]) == 0
+    out = capsys.readouterr().out
+    assert out.count("req ") == 3 and "9 tokens" in out
+
+
+def test_unported_archs_raise():
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tmod
+    with pytest.raises(KeyError, match="available"):
+        get_arch("gemma2-9b")
+    arch = get_arch("phi4-mini-3.8b").reduced()
+    gen = torch.Generator().manual_seed(0)
+    for change in (dict(family="moe"), dict(family="ssm"),
+                   dict(enc_dec=True), dict(attn_kind="mla")):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tmod.init_params(gen, dataclasses.replace(arch, **change), "cpu")
 
 
 def test_fused_backend_raises():
