@@ -15,7 +15,11 @@ it is run outside a checkout of the repository.  Phases, one line each:
      {1, 2, k*k}); the flash-attention forward (o and lse) at the LM
      slice's prefill shape, at S = 2048, at the five ``ATTN_CASES`` of
      ``tests/test_kernels.py`` and at hd=192/hd_v=128, in bf16 and f32,
-     within ``FLASH_TOL`` (per dtype and output; lse to 1e-4);
+     within ``FLASH_TOL`` (per dtype and output; lse to 1e-4); the
+     flash-attention backward (K10: dq; K11: dk, dv) at the same shapes
+     and dtypes on K9's o and lse, within ``BWD_TOL``, and the
+     differentiable ``flash_attention_vjp`` against autograd through the
+     plain forward at ``VJP_CASES``;
   3. the slices: ``compile(cfg, NX2100)`` -> ``PipelineExecutor`` on the
      card at batch 8 on 224x224 inputs, with seeded random weights, for
      ResNet-50, ResNet-18, MobileNetV2 as compiled (every dw layer
@@ -27,27 +31,38 @@ it is run outside a checkout of the repository.  Phases, one line each:
      tokens each; exactly 64 flash-attention launches (2 prefills x 32
      layers); prefill logits within 2e-2 x max|logit| of the plain path
      (kernel mode off); the first token equal to the plain path's wherever
-     its top-2 margin exceeds that bound.  Launch counters are zeroed just
-     before and read just after each run;
+     its top-2 margin exceeds that bound.  Then Phi-4-mini training, with
+     the serving phase's weights freed: one ``loss_fn`` gradient on the
+     first batch with kernel mode on and off (loss within
+     ``LOSS_REL_TOL``, every leaf within ``GRAD_REL_TOL``, L2), then
+     ``Trainer.run`` for 3 steps of 4x512 tokens (AdamW, remat, no
+     checkpoint): exactly 64 K9, 32 K10 and 32 K11 launches a step and a
+     finite loss and grad norm at every step.  Launch counters are zeroed
+     just before and read just after each run;
   4. time each kernel at the slice's shapes, its plain version, one
      PyTorch call computing the same function where there is one
      (``torch._int_mm`` for the 1x1 convs, cuDNN for the depthwise conv,
-     ``scaled_dot_product_attention`` for attention), each net end to end,
-     and the LM's prefill, decode step and engine run;
+     ``scaled_dot_product_attention`` for attention, its backward for the
+     K10/K11 pair), each net end to end, the LM's prefill, decode step and
+     engine run, and the training step (eager ms of steps 2-3, and one
+     more step traced by ``torch.profiler`` for its device ms);
   5. print the ``kernels`` JSON line, the card's name and power limit,
      and last ``{"ok": true, "device": ...}``.
 
 Times are per slice run (one forward of each of the four nets, and the
-LM's engine run): a kernel's ``ms`` sums its launches on that path (the
-record also splits it per net and per launch).  Kernel, plain-version
-and library times are device times: back-to-back calls captured into a
-CUDA graph and replayed.  The record keeps beside them each kernel's time
+LM's engine run and 3 training steps): a kernel's ``ms`` sums its
+launches on that path (the record also splits it per net and per
+launch).  K10 and K11 share one plain version and one library call,
+which compute dq, dk and dv together: each row carries the pair's time.
+Kernel, plain-version and library times are device times: back-to-back
+calls captured into a CUDA graph and replayed.  The record keeps beside them each kernel's time
 per call from Python, host included, and each forward's eager time
 beside its device time (the same forward replayed as a CUDA graph).
 ``bound_ms`` is the larger of the bytes it must move (inputs read once,
 outputs written once) over 3.35 TB/s and its operations over 1,979 TOP/s
 int8 or 989 TFLOP/s bf16 (H100 SXM data sheet; causal attention counts
-half of 4·B·H·S²·hd).  ``library_ms`` covers ``library_launches`` of
+half of 4·B·H·S²·hd, K10 3 and K11 4 products of 2·B·H·S²·hd, halved
+when causal).  ``library_ms`` covers ``library_launches`` of
 the kernel's launches, on which the kernel takes
 ``ms_on_library_launches`` (K1: its 1x1 shapes only).  A JSON record of
 the run goes to ``chip_smoke.json`` in the output directory beside this
@@ -94,6 +109,38 @@ FLASH_TOL = {("bfloat16", "o"): (1e-2, 1e-2), ("float32", "o"): (2e-5, 6e-5),
              ("bfloat16", "lse"): (1e-5, 1e-4),
              ("float32", "lse"): (1e-5, 1e-4)}
 FLASH_DTYPES = ("bfloat16", "float32")
+# K10/K11 against flash_attention_bwd_plain, at FLASH_CASES (the training
+# shape is FLASH_SLICE) in both dtypes: (rtol, atol as a share of the
+# output's max |value|) per operand dtype and output.  Both sides sum in
+# f32 (in other orders) and round once to the operand dtype.  Set from
+# the readings of the first runs (PERF.md): bf16 within one bf16 ulp
+# (worst 0.58 of this limit), f32 within a few f32 ulps of the max (worst
+# 0.044 of a limit five times this one)
+BWD_TOL = {(d, out): tol for out in ("dq", "dk", "dv")
+           for d, tol in (("bfloat16", (1e-2, 1e-3)),
+                          ("float32", (2e-5, 2e-6)))}
+# flash_attention_vjp (K9 + K10/K11 + the GQA fold) against autograd
+# through flash_attention_plain, share of max |grad|: the plain forward
+# rounds p to bf16 before PV and autograd differentiates that rounding
+# (worst 0.35 of the bf16 limit; f32 0.012 of a limit five times this one)
+VJP_REL_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
+VJP_CASES = (FLASH_SLICE, (1, 8, 2, 128, 32, 32, True, 0, 50.0))
+
+# the LM training slice: Phi-4-mini at full width and depth, bf16, random
+# weights from SEED, TokenDataset(seq_len=512, global_batch=4), 3 steps of
+# TrainConfig(microbatches=1, remat=True), no checkpoint written
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 512, 4, 3
+# launches per training step: K9 twice a layer (forward, then the remat
+# recompute), K10 and K11 once a layer
+TRAIN_LAUNCHES = {"flash_attention_fwd": 64, "flash_attention_bwd_dq": 32,
+                  "flash_attention_bwd_dkv": 32}
+# kernel-on against kernel-off (blockwise attention) loss_fn on the same
+# params and batch: the loss within LOSS_REL_TOL relative, each leaf's
+# |g_on - g_off| / |g_off| (L2) within GRAD_REL_TOL.  Five times the JAX
+# package's own gaps between its two routes on reduced Phi-4-mini in bf16
+# (loss 1.4e-4 relative, worst leaf 1.42e-2), for 32 layers instead of 2,
+# as LM_REL_TOL was derived
+LOSS_REL_TOL, GRAD_REL_TOL = 1e-3, 0.07
 
 # kernel name -> (source, the Pallas kernel body it replaces)
 KERNELS = {
@@ -115,9 +162,16 @@ KERNELS = {
                            "src/repro/kernels/conv2d_int8/kernel.py:124"),
     "flash_attention_fwd": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention/kernel.py:32"),
+    "flash_attention_bwd_dq": (
+        "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "src/repro/kernels/flash_attention/kernel.py:147"),
+    "flash_attention_bwd_dkv": (
+        "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "src/repro/kernels/flash_attention/kernel.py:179"),
 }
 LM_KERNEL = "flash_attention_fwd"
-CNN_KERNELS = [k for k in KERNELS if k != LM_KERNEL]
+BWD_KERNELS = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+CNN_KERNELS = [k for k in KERNELS if k != LM_KERNEL and k not in BWD_KERNELS]
 # MobileNetV2 with every dw layer forced onto the HBM tier
 MV2_DW_HBM = "mobilenetv2_dw_hbm"
 # launches per MobileNetV2 forward, as compiled and with the dw layers on HBM
@@ -308,6 +362,68 @@ def check_flash(torch, g, dev, kern):
     return n + 1
 
 
+def check_flash_bwd(torch, g, dev, ks, record):
+    """Phase 2 for K10/K11: the pair against flash_attention_bwd_plain (at
+    the JAX call's blocks) at every case of FLASH_CASES in bf16 and f32,
+    on the forward o and lse of K9 (its f32 variant for f32): dq, dk and
+    dv within BWD_TOL.  Then flash_attention_vjp in model layout against
+    autograd through flash_attention_plain at VJP_CASES."""
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention_bwd, flash_attention_kernel, flash_attention_vjp)
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_plain, flash_attention_plain)
+    n = 0
+    for case in FLASH_CASES:
+        H, hd_v = case[1], case[5]
+        for dname in FLASH_DTYPES:
+            dt = getattr(torch, dname)
+            q, k, v = flash_inputs(torch, g, dev, case, dt)
+            do = torch.randn(q.shape[:3] + (hd_v,), generator=g,
+                             device=dev).to(dt)
+            o, lse = flash_attention_kernel(q, k, v, return_lse=True,
+                                            **flash_kw(case))
+            want = flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                             **flash_kw(case))
+            got = flash_attention_bwd(q, k, v, o, lse, do, **flash_kw(case))
+            for out, kname, gt, wt in zip(
+                    ("dq", "dk", "dv"),
+                    (BWD_KERNELS[0], BWD_KERNELS[1], BWD_KERNELS[1]),
+                    got, want):
+                rtol, share = BWD_TOL[dname, out]
+                ks[kname].err(torch, gt, wt,
+                              (rtol, share * float(wt.abs().max())),
+                              f"{dname} {out}")
+                n += 1
+    worst = {}
+    for case in VJP_CASES:
+        for dname in FLASH_DTYPES:
+            dt = getattr(torch, dname)
+            q, k, v = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                       for t in flash_inputs(torch, g, dev, case, dt))
+            w = torch.randn(q.shape[:3] + (case[5],), generator=g,
+                            device=dev)
+            o, _ = flash_attention_plain(*(t.transpose(1, 2)
+                                           for t in (q, k, v)),
+                                         **flash_kw(case))
+            want = torch.autograd.grad(
+                (o.transpose(1, 2).float() * w).sum(), (q, k, v))
+            o = flash_attention_vjp.apply(q, k, v, *case[6:9])
+            got = torch.autograd.grad((o.float() * w).sum(), (q, k, v))
+            for name, gt, wt in zip(("dq", "dk", "dv"), got, want):
+                bound = VJP_REL_TOL[dname] * float(wt.float().abs().max())
+                diff = float((gt.float() - wt.float()).abs().max())
+                key = f"{dname} {name}"
+                worst[key] = max(worst.get(key, 0.0), diff / bound)
+                if not diff <= bound or gt.dtype != dt:
+                    raise AssertionError(
+                        f"flash_attention_vjp {case} {dname}: {name} differs "
+                        f"from autograd through the plain forward by {diff} "
+                        f"> {bound}")
+                n += 1
+    record["vjp_share_of_limit"] = worst
+    return n
+
+
 def serve_lm(torch, np, dev, record):
     """Phase 3 for the LM: Phi-4-mini at full width and depth through
     ServingEngine on the card; launches counted over engine.run; prefill
@@ -392,6 +508,250 @@ def serve_lm(torch, np, dev, record):
         f"equal on the {sure} rows whose top-2 margin exceeds the bound")
     return {"params": params, "arch": arch, "engine": engine,
             "prompts": prompts, "batches": batches, "launches": launches}
+
+
+def named_leaves(tree, prefix=""):
+    """(dotted name, tensor) of a nested dict of tensors."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from named_leaves(v, f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def rel_l2(torch, a, b):
+    """|a - b| / |b| (L2) in f32, one layer of a stacked leaf at a time."""
+    num = den = 0.0
+    for sa, sb in zip(a.unbind(0) if a.dim() >= 3 else [a],
+                      b.unbind(0) if b.dim() >= 3 else [b]):
+        num += float((sa.float() - sb.float()).square().sum())
+        den += float(sb.float().square().sum())
+    return (num / den) ** 0.5
+
+
+def profile_device_ms(torch, fn):
+    """Device ms of the CUDA kernels in one torch.profiler trace of fn()
+    (the sum of their durations and the length of their union), and the
+    ten kernels with the most device time; None where the trace shows no
+    device activity."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans, by_name = [], {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        t0, t1 = e.time_range.start, e.time_range.end
+        spans.append((t0, t1))
+        by_name[e.name] = by_name.get(e.name, 0.0) + (t1 - t0) / 1e3
+    if not spans:
+        return None
+    busy, end = 0.0, None
+    for t0, t1 in sorted(spans):
+        if end is None or t0 >= end:
+            busy += t1 - t0
+            end = t1
+        elif t1 > end:
+            busy += t1 - end
+            end = t1
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    return {"sum_ms": sum(t1 - t0 for t0, t1 in spans) / 1e3,
+            "busy_ms": busy / 1e3, "kernels": len(spans),
+            "top_ms": [[n[:120], t] for n, t in top]}
+
+
+def train_lm(torch, np, dev, record, card):
+    """Phase 3 for LM training: Phi-4-mini at full width and depth, bf16,
+    random weights from SEED.  First one loss_fn gradient on the first
+    batch, kernel mode on and then off (blockwise attention): the losses
+    within LOSS_REL_TOL and each leaf's grads within GRAD_REL_TOL (L2).
+    Then Trainer.run for TRAIN_STEPS steps with the kernels: exactly
+    TRAIN_LAUNCHES a step, a finite loss and grad_norm at every step; the
+    eager ms of each step; one more step traced by torch.profiler for the
+    step's device ms."""
+    import gc
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import DataConfig, TokenDataset
+    from repro_torch.kernels import _build
+    from repro_torch.models import layers as lm_layers
+    from repro_torch.models import transformer as tmod
+    from repro_torch.runtime.trainer import (TrainConfig, Trainer,
+                                             value_and_grad)
+    gc.collect()                  # the serving phase's weights go first
+    torch.cuda.empty_cache()
+    arch = get_arch(LM_ARCH)
+    data = TokenDataset(DataConfig(arch.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
+                                   seed=SEED))
+    rec = {"seq_len": TRAIN_SEQ, "batch": TRAIN_BATCH, "steps": TRAIN_STEPS}
+    params = tmod.init_params(torch.Generator(device=dev).manual_seed(SEED),
+                              arch, dev)
+    batch = {k: torch.from_numpy(v).to(dev, torch.int64)
+             for k, v in data.global_batch(0).items()}
+    loss_on, g_on = value_and_grad(params, arch, batch)
+    lm_layers.set_kernel_mode(False)
+    try:
+        loss_off, g_off = value_and_grad(params, arch, batch)
+    finally:
+        lm_layers.set_kernel_mode(True)
+    loss_on, loss_off = float(loss_on), float(loss_off)
+    rel = {name: rel_l2(torch, a, b) for (name, a), (_, b) in
+           zip(named_leaves(g_on), named_leaves(g_off))}
+    worst = max(rel, key=rel.get)
+    rec.update(loss_kernel_on=loss_on, loss_kernel_off=loss_off,
+               grad_rel_l2=rel)
+    if not (np.isfinite(loss_on) and all(np.isfinite(list(rel.values())))):
+        raise AssertionError(f"{LM_ARCH}: loss {loss_on} or grads not "
+                             f"finite: {rel}")
+    if not abs(loss_on - loss_off) <= LOSS_REL_TOL * abs(loss_off):
+        raise AssertionError(f"{LM_ARCH}: loss with the kernels {loss_on} "
+                             f"!= without {loss_off}")
+    if not rel[worst] <= GRAD_REL_TOL:
+        raise AssertionError(f"{LM_ARCH}: grads of {worst} differ by "
+                             f"{rel[worst]} > {GRAD_REL_TOL} (L2) between "
+                             f"kernel mode on and off")
+    log("slice", f"{LM_ARCH} loss_fn grad, kernels on vs off: loss "
+        f"{loss_on:.6f} vs {loss_off:.6f}; worst leaf {worst} "
+        f"{rel[worst]:.4g} (bound {GRAD_REL_TOL})")
+    del params, g_on, g_off, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # no checkpoint (46 GB at full width): ckpt_every past the TRAIN_STEPS
+    # counted steps and the one profiled after them
+    tcfg = TrainConfig(steps=TRAIN_STEPS, microbatches=1, remat=True,
+                       ckpt_every=TRAIN_STEPS + 2, log_every=1,
+                       ckpt_path=str(ROOT / "build" / "train_ckpt"))
+    t0 = time.perf_counter()
+    tr = Trainer(arch, tcfg, data, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    rec["init_s"] = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = []
+    _build.reset_launches()
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        tr.run(n_steps=1)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    launches = dict(_build.LAUNCHES)
+    want = {k: TRAIN_STEPS * n for k, n in TRAIN_LAUNCHES.items()}
+    if launches != want:
+        raise AssertionError(f"{LM_ARCH} training: launches {launches} != "
+                             f"{want}")
+    hist = list(tr.history)
+    if [h["step"] for h in hist] != list(range(1, TRAIN_STEPS + 1)) or \
+            not all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
+                    for h in hist):
+        raise AssertionError(f"{LM_ARCH} training: history {hist}")
+    rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+    prof = profile_device_ms(torch, lambda: tr.run(n_steps=1))
+    if list(Path(tcfg.ckpt_path).glob("step_*")):
+        raise AssertionError(f"a checkpoint was written to {tcfg.ckpt_path}")
+    ms = statistics.median(step_ms[1:])
+    rec.update(history=hist, step_ms=step_ms, ms_per_step=ms,
+               tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / ms * 1e3,
+               profiled_step=prof, launches=launches,
+               device_ms_per_step=prof and prof["busy_ms"],
+               idle_share=prof and 1 - prof["busy_ms"] / ms)
+    record["train"] = rec
+    idle = ("not measured (no device activity in the trace)" if prof is None
+            else f"{prof['busy_ms']:.3f} ms device, idle "
+                 f"{100 * rec['idle_share']:.0f}%")
+    log("slice", f"{LM_ARCH} (full width and depth, bf16) trained "
+        f"{TRAIN_STEPS} steps of {TRAIN_BATCH}x{TRAIN_SEQ} tokens: losses "
+        f"{[round(h['loss'], 4) for h in hist]}, grad norms "
+        f"{[round(h['grad_norm'], 4) for h in hist]}; launches "
+        f"{json.dumps(launches)}; peak device memory "
+        f"{rec['peak_bytes'] / 1e9:.2f} GB")
+    log("time", f"{LM_ARCH} train step {TRAIN_BATCH}x{TRAIN_SEQ}: {ms:.3f} "
+        f"ms eager (median of steps 2-{TRAIN_STEPS}), "
+        f"{rec['tokens_per_s']:.1f} tokens/s; {idle}  [{card}]")
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def time_flash_bwd(torch, F, g, dev, ks, n_launches, card, record):
+    """Phase 4 for K10/K11: device ms per launch of each at the training
+    shape and at S = 2048 (model layout, as the training path calls
+    them), the plain version's ms for the pair, and the backward of
+    F.scaled_dot_product_attention (causal, GQA) for the pair."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import \
+        flash_attention_bwd_plain
+    per = {}
+    for case in (FLASH_SLICE, FLASH_LONG):
+        B, H, KV, S, hd, hd_v = case[:6]
+        q, k, v = (t.transpose(1, 2).contiguous() for t in flash_inputs(
+            torch, g, dev, case, torch.bfloat16))
+        do = torch.randn((B, S, H, hd_v), generator=g,
+                         device=dev).to(torch.bfloat16)
+        qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))
+        o, lse = ops.flash_attention_kernel(qt, kt, vt, return_lse=True)
+        delta = ops._delta(o, dot)
+        dq = torch.empty_like(q)
+        dk = torch.empty((B, S, H, hd), dtype=q.dtype, device=dev)
+        dv = torch.empty((B, S, H, hd_v), dtype=q.dtype, device=dev)
+
+        def launch(which):
+            return lambda: ops._launch_bwd(
+                qt, kt, vt, dot, lse, delta, dq.transpose(1, 2),
+                dk.transpose(1, 2), dv.transpose(1, 2), causal=True,
+                window=0, softcap=0.0, which=which)
+        reps = 20 if S <= 512 else 5
+        lq, lk, lv = (t.detach().requires_grad_(True) for t in (qt, kt, vt))
+        out = F.scaled_dot_product_attention(lq, lk, lv, is_causal=True,
+                                             enable_gqa=True)
+
+        def lib():
+            return torch.autograd.grad(out, (lq, lk, lv), dot,
+                                       retain_graph=True)
+        got = ops.flash_attention_bwd(qt, kt, vt, o, lse, dot)
+        lib_diff = float((lib()[0].float() - got[0].float()).abs().max())
+        elems_q, elems_kv = B * H * S * hd, B * KV * S * (hd + hd_v)
+        flop = 2 * B * H * S * S * hd // 2
+        n_dq = 2 * (2 * elems_q + elems_kv + B * H * S * hd_v) + 8 * B * H * S
+        n_dkv = 2 * (elems_q + elems_kv + B * H * S * hd_v
+                     + B * H * S * (hd + hd_v)) + 8 * B * H * S
+        # autograd runs the backward on the forward's stream, which a CUDA
+        # graph cannot capture: its device time comes from the profiler
+        prof = profile_device_ms(torch, lambda: [lib() for _ in range(reps)])
+        per[S] = {"library_ms": prof["busy_ms"] / reps,
+                  "plain_ms": device_ms(torch, lambda: flash_attention_bwd_plain(
+                      qt, kt, vt, o, lse, dot), reps=2, replays=2),
+                  "library_max_abs_diff_dq": lib_diff}
+        for kname, which, nbytes, ops_ in (
+                (BWD_KERNELS[0], (0,), n_dq, 3 * flop),
+                (BWD_KERNELS[1], (1,), n_dkv, 4 * flop)):
+            b, by = bound_ms(nbytes, ops_, BF16_FLOPS_PER_S)
+            per[S][kname] = {
+                "ms": device_ms(torch, launch(which), reps=reps),
+                "call_ms": call_ms(torch, launch(which), reps=reps),
+                "bound_ms": b, "bound_by": by, "bytes": nbytes,
+                "flops": ops_}
+        log("time", f"flash backward B={B} H={H} KV={KV} S={S} hd={hd} bf16 "
+            f"causal: dq {per[S][BWD_KERNELS[0]]['ms']:.4f} ms, dk/dv "
+            f"{per[S][BWD_KERNELS[1]]['ms']:.4f} ms per launch (device); "
+            f"bounds {per[S][BWD_KERNELS[0]]['bound_ms']:.4f} / "
+            f"{per[S][BWD_KERNELS[1]]['bound_ms']:.4f} ms; the pair: plain "
+            f"{per[S]['plain_ms']:.4f} ms, SDPA backward "
+            f"{per[S]['library_ms']:.4f} ms  [{card}]")
+    t = per[TRAIN_SEQ]
+    for kname in BWD_KERNELS:
+        kern, n = ks[kname], n_launches[kname]
+        kern.ms = n * t[kname]["ms"]
+        kern.bound_ms, kern.bound_by = n * t[kname]["bound_ms"], \
+            t[kname]["bound_by"]
+        # the plain version and the library compute dq, dk and dv in one
+        # call: each row carries the pair's time
+        kern.plain_ms, kern.library_ms = n * t["plain_ms"], \
+            n * t["library_ms"]
+    record["flash_bwd_per_launch"] = {str(S): d for S, d in per.items()}
 
 
 def time_flash(torch, F, g, dev, kern, n_launches, card, record):
@@ -558,7 +918,8 @@ def main():
             for key, v in d.items():
                 shapes[k][key] = shapes[k].get(key, 0) + v
     ks = {k: Kernel(k) for k in CNN_KERNELS}
-    ks[LM_KERNEL] = Kernel(LM_KERNEL, BF16_FLOPS_PER_S)
+    for k in (LM_KERNEL,) + BWD_KERNELS:
+        ks[k] = Kernel(k, BF16_FLOPS_PER_S)
     # every plain version and product in f32 (no TF32): the references
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -662,16 +1023,22 @@ def main():
                 ks[kname].err(torch, gf, want_f)
                 n_checks += 3
     n_flash = check_flash(torch, g, dev, ks[LM_KERNEL])
+    n_bwd = check_flash_bwd(torch, g, dev, ks, record)
     torch.cuda.synchronize()
     record["check_s"] = time.perf_counter() - t0
     record["flash_readings"] = ks[LM_KERNEL].readings
+    record["flash_bwd_readings"] = {k: ks[k].readings for k in BWD_KERNELS}
     log("check", f"{n_checks} kernel-vs-plain comparisons bit-identical "
         f"({len(conv_inputs)} conv shapes; {len(dw_inputs)} dw shapes of "
         f"MobileNetV1-V3; stream n_buffers in {{1, 2, k*k}}; matmul "
         f"pinned/stream/fifo); {n_flash} flash-attention comparisons (o and "
         f"lse at {len(FLASH_CASES)} shapes in bf16 and f32, and the model "
         f"layout) within tolerance, readings "
-        f"{json.dumps(ks[LM_KERNEL].readings)}; in "
+        f"{json.dumps(ks[LM_KERNEL].readings)}; {n_bwd} flash-backward "
+        f"comparisons (dq, dk, dv at {len(FLASH_CASES)} shapes in bf16 and "
+        f"f32, and flash_attention_vjp against autograd) within tolerance, "
+        f"readings {json.dumps(record['flash_bwd_readings'])}, vjp share of "
+        f"limit {json.dumps(record['vjp_share_of_limit'])}; in "
         f"{record['check_s']:.1f} s")
 
     # -- 3. the slice through the kernels ------------------------------------
@@ -725,11 +1092,6 @@ def main():
     lm = serve_lm(torch, np, dev, record)
     launches[LM_ARCH] = lm["launches"]
     total_launches[LM_KERNEL] = lm["launches"][LM_KERNEL]
-    missing = [k for k in KERNELS if not total_launches.get(k)]
-    if missing:
-        raise AssertionError(f"kernels never launched on the path: "
-                             f"{missing}")
-    record["launches"] = launches
 
     # -- 4. timing ------------------------------------------------------------
     t0 = time.perf_counter()
@@ -882,8 +1244,6 @@ def main():
         f"launches: {one['ms']:.4f} ms (device), torch._int_mm "
         f"{one['library_ms']:.4f} ms; refused {len(one['refused'])} "
         f"shapes  [{card}]")
-    time_flash(torch, F, g, dev, ks[LM_KERNEL], total_launches[LM_KERNEL],
-               card, record)
     record["ms_per_launch"], record["call_ms_per_launch"] = (
         {k: {",".join(map(str, key)): t for key, t in d.items()}
          for k, d in times.items()} for times in (per_launch, per_call))
@@ -933,7 +1293,24 @@ def main():
             f"[{card}]")
     record["end_to_end"] = e2e
     time_lm(torch, lm, card, record)
+    del lm
     record["time_s"] = time.perf_counter() - t0
+
+    # -- 3 and 4 for LM training, with the serving phase's weights freed ----
+    train = train_lm(torch, np, dev, record, card)
+    launches[LM_ARCH + " training"] = train
+    for k in (LM_KERNEL,) + BWD_KERNELS:
+        total_launches[k] = total_launches.get(k, 0) + train[k]
+    missing = [k for k in KERNELS if not total_launches.get(k)]
+    if missing:
+        raise AssertionError(f"kernels never launched on the path: "
+                             f"{missing}")
+    record["launches"] = launches
+    t0 = time.perf_counter()
+    time_flash(torch, F, g, dev, ks[LM_KERNEL], total_launches[LM_KERNEL],
+               card, record)
+    time_flash_bwd(torch, F, g, dev, ks, total_launches, card, record)
+    record["time_s"] += time.perf_counter() - t0
 
     # -- 5. report ------------------------------------------------------------
     rows = []

@@ -42,3 +42,17 @@ def lm_params_from_numpy(tree: Dict[str, Any],
     return {k: (lm_params_from_numpy(v, device) if isinstance(v, dict)
                 else _leaf(v, device))
             for k, v in tree.items()}
+
+
+def adamw_state_from_numpy(state: Dict[str, Any],
+                           device="cuda") -> Dict[str, Any]:
+    """The JAX package's AdamW state (``repro.optim.adamw.init`` /
+    ``apply``: ``step``, the f32 moments ``mu`` and ``nu``, and
+    ``residual`` when int8 compression is on), as array-likes -> the
+    port's state on ``device``, leaf for leaf (``step`` a 0-d int32
+    tensor)."""
+    out = {"step": _leaf(state["step"], device).reshape(())}
+    for k in ("mu", "nu", "residual"):
+        if k in state:
+            out[k] = lm_params_from_numpy(state[k], device)
+    return out

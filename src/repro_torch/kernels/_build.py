@@ -27,8 +27,8 @@ from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("conv2d_int8", "dwconv_int8", "flash_attention", "pool_int8",
-           "stream_matmul")
+SOURCES = ("conv2d_int8", "dwconv_int8", "flash_attention",
+           "flash_attention_bwd", "pool_int8", "stream_matmul")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

@@ -1,2 +1,3 @@
 from repro_torch.kernels.flash_attention.ops import (  # noqa: F401
-    flash_attention, flash_attention_kernel)
+    flash_attention, flash_attention_bwd, flash_attention_kernel,
+    flash_attention_vjp)

@@ -1,4 +1,4 @@
-"""Wrappers for the flash-attention forward (K9).
+"""Wrappers for the flash-attention forward (K9) and backward (K10, K11).
 
 ``flash_attention``         model layout: q ``[B,S,H,hd]``, k/v
                             ``[B,S,KV,hd]`` -> ``[B,S,H,hd_v]``
@@ -6,6 +6,10 @@
                             ``[B,KV,S,hd]`` -> o (and ``lse [B,H,S]`` f32
                             with ``return_lse=True``, which the backward
                             needs)
+``flash_attention_bwd``     kernel layout: dq, and dk/dv per query head
+                            (K10 and K11, ``csrc/flash_attention_bwd.cu``)
+``flash_attention_vjp``     model layout, differentiable: K9 forward,
+                            K10/K11 backward and the GQA fold
 
 A CPU tensor runs the plain version in ``ref.py`` at the JAX call's
 blocks, ``min(128, S)`` (``flash_attention_plain`` takes other blocks
@@ -24,18 +28,24 @@ import math
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+from repro_torch.kernels.flash_attention.ref import (
+    flash_attention_bwd_plain, flash_attention_plain)
 
-__all__ = ["flash_attention", "flash_attention_kernel", "KERNEL",
-           "HEAD_DIMS", "HEAD_DIMS_V"]
+__all__ = ["flash_attention", "flash_attention_kernel",
+           "flash_attention_bwd", "flash_attention_vjp", "KERNEL",
+           "KERNEL_DQ", "KERNEL_DKV", "HEAD_DIMS", "HEAD_DIMS_V"]
 
-#: launch-counter name (replaces ``_flash_kernel``)
+#: launch-counter names (replace ``_flash_kernel``, ``_flash_bwd_dq_kernel``
+#: and ``_flash_bwd_dkv_kernel``)
 KERNEL = "flash_attention_fwd"
+KERNEL_DQ = "flash_attention_bwd_dq"
+KERNEL_DKV = "flash_attention_bwd_dkv"
 HEAD_DIMS = (32, 64, 128, 192, 256)
 HEAD_DIMS_V = (32, 64, 128, 256)
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _Strides = ctypes.c_longlong * 12
+_BwdStrides = ctypes.c_longlong * 21
 
 
 def _lib() -> ctypes.CDLL:
@@ -44,6 +54,16 @@ def _lib() -> ctypes.CDLL:
         lib.flash_attention_fwd_launch.argtypes = \
             [_P] * 5 + [_I] * 8 + [_Strides, _I, _I, _F, _F, _P]
         lib.flash_attention_fwd_launch.restype = _I
+        lib._typed = True
+    return lib
+
+
+def _bwd_lib() -> ctypes.CDLL:
+    lib = _build.load("flash_attention_bwd")
+    if not getattr(lib, "_typed", False):
+        lib.flash_attention_bwd_launch.argtypes = \
+            [_P] * 9 + [_I] * 9 + [_BwdStrides, _I, _I, _F, _F, _P]
+        lib.flash_attention_bwd_launch.restype = _I
         lib._typed = True
     return lib
 
@@ -60,11 +80,8 @@ def _check(t: torch.Tensor, name: str, dtype, device) -> None:
                          f"16-byte aligned (strides {t.stride()})")
 
 
-def _launch(q, k, v, o, lse, *, causal: bool, window: int,
-            softcap: float) -> None:
-    """q/k/v/o as ``[B, heads, S, dim]`` views (any strides the checks
-    accept); lse contiguous ``[B,H,Sq]``."""
-    B, H, Sq, hd = q.shape
+def _check_shapes(q, k, v) -> None:
+    B, H, _, hd = q.shape
     KV, Sk, hd_v = k.shape[1], k.shape[2], v.shape[3]
     if q.dtype not in _DTYPES:
         raise TypeError(f"flash attention takes bf16 or f32, not {q.dtype}")
@@ -76,6 +93,15 @@ def _launch(q, k, v, o, lse, *, causal: bool, window: int,
             or k.shape[3] != hd:
         raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)}")
+
+
+def _launch(q, k, v, o, lse, *, causal: bool, window: int,
+            softcap: float) -> None:
+    """q/k/v/o as ``[B, heads, S, dim]`` views (any strides the checks
+    accept); lse contiguous ``[B,H,Sq]``."""
+    B, H, Sq, hd = q.shape
+    KV, Sk, hd_v = k.shape[1], k.shape[2], v.shape[3]
+    _check_shapes(q, k, v)
     dev = q.device
     for t, name in ((q, "q"), (k, "k"), (v, "v"), (o, "o")):
         _check(t, name, q.dtype, dev)
@@ -110,18 +136,133 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
-                    softcap: float = 0.0) -> torch.Tensor:
+                    softcap: float = 0.0, return_lse: bool = False):
     """q: [B,Sq,H,hd]; k/v: [B,Sk,KV,hd] -> [B,Sq,H,hd_v] (model
-    layout)."""
+    layout), and lse [B,H,Sq] f32 if requested."""
     if _build.runs_plain(q):
-        o = flash_attention_kernel(
+        o, lse = flash_attention_kernel(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            causal=causal, window=window, softcap=softcap)
-        return o.transpose(1, 2)
-    B, Sq, H, _ = q.shape
-    o = torch.empty((B, Sq, H, v.shape[3]), dtype=q.dtype, device=q.device)
-    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-    _launch(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            o.transpose(1, 2), lse, causal=causal, window=window,
-            softcap=softcap)
-    return o
+            causal=causal, window=window, softcap=softcap, return_lse=True)
+        o = o.transpose(1, 2)
+    else:
+        B, Sq, H, _ = q.shape
+        o = torch.empty((B, Sq, H, v.shape[3]), dtype=q.dtype,
+                        device=q.device)
+        lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+        _launch(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                o.transpose(1, 2), lse, causal=causal, window=window,
+                softcap=softcap)
+    return (o, lse) if return_lse else o
+
+
+def _launch_bwd(q, k, v, do, lse, delta, dq, dk, dv, *, causal: bool,
+                window: int, softcap: float, which=(0, 1)) -> None:
+    """K10 (``which`` 0) then K11 (1).  q/k/v/do/dq/dk/dv as ``[B, heads,
+    S, dim]`` views (any strides the checks accept; dk/dv per query head);
+    lse and delta contiguous ``[B,H,Sq]`` f32.  ``which`` picks one of the
+    two for timing each alone."""
+    B, H, Sq, hd = q.shape
+    KV, Sk, hd_v = k.shape[1], k.shape[2], v.shape[3]
+    _check_shapes(q, k, v)
+    if tuple(do.shape) != (B, H, Sq, hd_v):
+        raise ValueError(f"do {tuple(do.shape)} != {(B, H, Sq, hd_v)}")
+    dev = q.device
+    for t, name in ((q, "q"), (k, "k"), (v, "v"), (do, "do"), (dq, "dq"),
+                    (dk, "dk"), (dv, "dv")):
+        _check(t, name, q.dtype, dev)
+    for t, name in ((lse, "lse"), (delta, "delta")):
+        _build.check_cuda_tensor(t, name, torch.float32, dev)
+    strides = _BwdStrides(*(s for t in (q, k, v, do, dq, dk, dv)
+                            for s in t.stride()[:3]))
+    lib = _bwd_lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for kernel in which:
+        name = (KERNEL_DQ, KERNEL_DKV)[kernel]
+        err = lib.flash_attention_bwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), kernel, _DTYPES[q.dtype], B, H, KV, Sq, Sk, hd,
+            hd_v, strides, int(causal), int(window), float(softcap),
+            1.0 / math.sqrt(hd), stream)
+        _build.check(err, name)
+        _build.count_launch(name)
+
+
+def _delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """rowsum(do * o) in f32, ``[B,H,Sq]`` contiguous, from kernel-layout
+    views: what the JAX wrapper computes outside its kernels."""
+    return (do.float() * o.float()).sum(-1).contiguous()
+
+
+def _empty_in_layout_of(ref: torch.Tensor, shape, dtype) -> torch.Tensor:
+    """An empty ``[B, heads, S, d]`` tensor whose heads and seq axes lie in
+    memory in ``ref``'s order: a transposed view of ``[B, S, heads, d]``
+    when ``ref`` is such a view (the model layout)."""
+    B, heads, S, d = shape
+    if ref.stride(1) < ref.stride(2):
+        return torch.empty((B, S, heads, d), dtype=dtype,
+                           device=ref.device).transpose(1, 2)
+    return torch.empty(shape, dtype=dtype, device=ref.device)
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
+                        window: int = 0, softcap: float = 0.0):
+    """Kernel layout: q ``[B,H,Sq,hd]``, k ``[B,KV,Sk,hd]``, v
+    ``[B,KV,Sk,hd_v]``, o and do ``[B,H,Sq,hd_v]``, lse ``[B,H,Sq]`` f32
+    -> ``(dq [B,H,Sq,hd], dk [B,H,Sk,hd], dv [B,H,Sk,hd_v])``, dk and dv
+    per query head (the GQA fold is the caller's), each in its operand's
+    dtype.  CPU tensors run ``flash_attention_bwd_plain`` at the JAX
+    call's blocks; CUDA tensors launch K10 and K11 or raise, writing the
+    grads in q's layout (views of the model layout for model-layout q)."""
+    if _build.runs_plain(q):
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                         window=window, softcap=softcap)
+    B, H, Sq, hd = q.shape
+    Sk, hd_v = k.shape[2], v.shape[3]
+    dq = _empty_in_layout_of(q, (B, H, Sq, hd), q.dtype)
+    dk = _empty_in_layout_of(q, (B, H, Sk, hd), k.dtype)
+    dv = _empty_in_layout_of(q, (B, H, Sk, hd_v), v.dtype)
+    _launch_bwd(q, k, v, do, lse.contiguous(), _delta(o, do), dq, dk, dv,
+                causal=causal, window=window, softcap=softcap)
+    return dq, dk, dv
+
+
+def _fold(g: torch.Tensor, KV: int, dtype) -> torch.Tensor:
+    """Per-query-head grads ``[B,S,H,d]`` -> ``[B,S,KV,d]``: each group's
+    heads summed in f32 and rounded once, as the JAX package's bf16 sum
+    on the CPU does."""
+    B, S, H, d = g.shape
+    if H == KV:
+        return g.to(dtype)
+    return g.reshape(B, S, KV, H // KV, d).float().sum(3).to(dtype)
+
+
+class flash_attention_vjp(torch.autograd.Function):
+    """Differentiable flash attention in model layout: q ``[B,S,H,hd]``,
+    k ``[B,S,KV,hd]``, v ``[B,S,KV,hd_v]`` -> ``[B,S,H,hd_v]``.  The
+    forward is K9 with the lse kept for the backward; the backward is K10
+    and K11 (dk and dv per query head), then the GQA fold of the JAX
+    wrapper's ``_bwd_rule``.  CPU tensors run the plain versions.
+
+    ``flash_attention_vjp.apply(q, k, v, causal, window, softcap)``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int, softcap: float):
+        o, lse = flash_attention(q, k, v, causal=causal, window=window,
+                                 softcap=softcap, return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.mask = (causal, window, softcap)
+        return o
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, o, lse = ctx.saved_tensors
+        causal, window, softcap = ctx.mask
+        qt, kt, vt, ot, gt = (t.transpose(1, 2)
+                              for t in (q, k, v, o, g.contiguous()))
+        grads = flash_attention_bwd(qt, kt, vt, ot, lse, gt, causal=causal,
+                                    window=window, softcap=softcap)
+        dq, dk, dv = (t.transpose(1, 2) for t in grads)
+        KV = k.shape[2]
+        return (dq, _fold(dk, KV, k.dtype), _fold(dv, KV, v.dtype), None,
+                None, None)

@@ -1,9 +1,12 @@
-"""Plain PyTorch versions of the flash-attention forward (K9).
+"""Plain PyTorch versions of the flash-attention kernels (K9, K10, K11).
 
 ``flash_attention_ref``    the O(S^2) oracle: one materialised softmax
-``flash_attention_plain``  the plain version of the kernel: a loop over
+``flash_attention_plain``  the plain version of the forward: a loop over
                            (q-block, k-block) that follows the JAX kernel
                            ``_flash_kernel`` step by step
+``flash_attention_bwd_plain``  the plain version of the backward pair:
+                           the JAX kernels ``_flash_bwd_dq_kernel`` and
+                           ``_flash_bwd_dkv_kernel`` step by step
 
 Layout: q ``[B,H,Sq,hd]``; k ``[B,KV,Sk,hd]``; v ``[B,KV,Sk,hd_v]``.
 Query head ``h`` reads KV head ``h // (H // KV)``.
@@ -26,6 +29,20 @@ def _mask(q_pos, k_pos, causal: bool, window: int):
     if window:
         mask &= (q_pos[:, None] - k_pos[None, :]) < window
     return mask
+
+
+def _tile_visible(q0: int, bq: int, k0: int, bk: int, causal: bool,
+                  window: int) -> bool:
+    """Whether the mask lets any (q, k) of the tile through, decided on
+    the host: q - k takes every value in [q0 - k0 - bk + 1, q0 + bq - 1 -
+    k0], and a visible pair needs it in [0 if causal, window - 1 if
+    window]."""
+    lo, hi = q0 - k0 - bk + 1, q0 + bq - 1 - k0
+    if causal:
+        lo = max(lo, 0)
+    if window:
+        hi = min(hi, window - 1)
+    return lo <= hi
 
 
 def _repeat_heads(k: torch.Tensor, H: int) -> torch.Tensor:
@@ -104,3 +121,68 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
         o[:, :, q0:q0 + bq] = (acc / denom).to(q.dtype)
         lse[:, :, q0:q0 + bq] = (m + torch.log(denom))[..., 0]
     return o, lse
+
+
+def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
+                              window: int = 0, softcap: float = 0.0,
+                              bq: int = 128, bk: int = 128):
+    """dq, dk, dv of the flash forward, block by block as the JAX backward
+    kernels compute them: operands cast to f32; scores recomputed with the
+    softcap derivative ``dcap = 1 - (s/softcap)^2`` taken before masking;
+    ``p = exp(s - lse)`` zeroed where masked; ``ds = p (dp - delta) dcap``
+    with ``delta = sum(do * o)`` in f32; per tile ``dq += (ds k) scale``,
+    ``dk += (ds^T q) scale`` and ``dv += p^T do``, with p and ds kept in
+    f32.  Tiles the mask hides entirely are skipped (exact: there p and ds
+    are zero).
+
+    q ``[B,H,Sq,hd]``, o and do ``[B,H,Sq,hd_v]``, lse ``[B,H,Sq]`` f32;
+    k ``[B,KV,Sk,hd]`` and v ``[B,KV,Sk,hd_v]``, repeated to H heads
+    here when KV < H (the JAX kernel takes them repeated).  Returns
+    ``(dq [B,H,Sq,hd] in q's dtype, dk [B,H,Sk,hd] and dv [B,H,Sk,hd_v]
+    per query head in k's and v's dtype)``: the GQA fold is the
+    caller's."""
+    B, H, Sq, hd = q.shape
+    Sk, hd_v = k.shape[2], v.shape[3]
+    if H % k.shape[1]:
+        raise ValueError(f"{H} query heads do not share {k.shape[1]} KV "
+                         f"heads evenly")
+    bq, bk = min(bq, Sq), min(bk, Sk)
+    if Sq % bq or Sk % bk:
+        raise ValueError(f"S ({Sq}, {Sk}) not a multiple of the blocks "
+                         f"({bq}, {bk})")
+    scale = 1.0 / math.sqrt(hd)
+    dev = q.device
+    qf, dof = q.float(), do.float()
+    kf = _repeat_heads(k, H).float()
+    vf = _repeat_heads(v, H).float()
+    delta = (dof * o.float()).sum(-1)
+    dq = torch.zeros((B, H, Sq, hd), dtype=torch.float32, device=dev)
+    dk = torch.zeros((B, H, Sk, hd), dtype=torch.float32, device=dev)
+    dv = torch.zeros((B, H, Sk, hd_v), dtype=torch.float32, device=dev)
+    for q0 in range(0, Sq, bq):
+        qb, dob = qf[:, :, q0:q0 + bq], dof[:, :, q0:q0 + bq]
+        lse_b = lse[:, :, q0:q0 + bq, None]
+        delta_b = delta[:, :, q0:q0 + bq, None]
+        q_pos = torch.arange(q0, q0 + bq, device=dev)
+        for k0 in range(0, Sk, bk):
+            if not _tile_visible(q0, bq, k0, bk, causal, window):
+                continue
+            mask = _mask(q_pos, torch.arange(k0, k0 + bk, device=dev),
+                         causal, window)
+            kb, vb = kf[:, :, k0:k0 + bk], vf[:, :, k0:k0 + bk]
+            s = torch.matmul(qb, kb.transpose(-1, -2)) * scale
+            dcap = None
+            if softcap:
+                s = torch.tanh(s / softcap) * softcap
+                dcap = 1.0 - (s / softcap) ** 2
+            s = torch.where(mask, s, NEG_INF)
+            p = torch.where(mask, torch.exp(s - lse_b), 0.0)
+            dp = torch.matmul(dob, vb.transpose(-1, -2))
+            ds = p * (dp - delta_b)
+            if softcap:
+                ds = ds * dcap
+            dq[:, :, q0:q0 + bq] += torch.matmul(ds, kb) * scale
+            dk[:, :, k0:k0 + bk] += torch.matmul(ds.transpose(-1, -2),
+                                                 qb) * scale
+            dv[:, :, k0:k0 + bk] += torch.matmul(p.transpose(-1, -2), dob)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

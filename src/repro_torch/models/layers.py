@@ -299,9 +299,15 @@ def attention_forward(params: Params, cfg, x, positions, *, window=None,
 
 
 def _flash_call(q, k, v, *, causal: bool, window: int, softcap: float):
-    """Route through the flash kernel (the forward only: the differentiable
-    wrapper comes with the trainer).  On CPU tensors the plain version
-    runs at the JAX call's blocks, ``min(128, S)``."""
-    from repro_torch.kernels.flash_attention.ops import flash_attention
+    """Route through the flash kernel.  Where autograd records (grad
+    enabled and an input requires it) the differentiable wrapper runs:
+    K9 forward, K10/K11 backward, as the JAX package's
+    ``flash_attention_vjp``; otherwise the forward alone.  On CPU tensors
+    the plain versions run at the JAX call's blocks, ``min(128, S)``."""
+    from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                         flash_attention_vjp)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return flash_attention_vjp.apply(q, k, v, causal, window, softcap)
     return flash_attention(q, k, v, causal=causal, window=window,
                            softcap=softcap)

@@ -9,20 +9,22 @@ attention as the JAX package's traced windows do.
 Public API
 ----------
 init_params(gen, cfg, device)            seeded random weights
-forward(params, cfg, batch)              -> (hidden [B,S,d], aux dict)
+forward(params, cfg, batch, remat=)      -> (hidden [B,S,d], aux dict)
+lm_loss / loss_fn                        chunked causal-LM cross-entropy
 logits_from_hidden                       last-token f32 logits
 init_cache / prefill / decode_step       the serving path
 
 Families ``moe``, ``hybrid``, ``ssm``, ``vlm`` and the encoder-decoder,
 and ``attn_kind="mla"``, raise ``NotImplementedError``: they wait for the
-remaining-LM-families item of ROADMAP Queue 1.  ``lm_loss`` and
-``loss_fn`` come with the trainer.
+remaining-LM-families item of ROADMAP Queue 1 (and with the MoE family,
+``loss_fn``'s load-balance term).
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List, Optional
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.ffn import ffn, init_ffn
@@ -72,9 +74,18 @@ def _stack(trees: List[Params]) -> Params:
             for k, v in trees[0].items()}
 
 
-def _layer(stack: Params, i: int) -> Params:
-    return {k: (_layer(v, i) if isinstance(v, dict) else v[i])
-            for k, v in stack.items()}
+def _unstack(stack: Params, n: int) -> List[Params]:
+    """The [L]-stacked tree as n per-layer trees, through one ``unbind``
+    per leaf: under autograd each stacked leaf then gets its gradient
+    stacked once, where indexing layer by layer would write a zeroed
+    full-size gradient per layer."""
+    layers: List[Params] = [{} for _ in range(n)]
+    for k, v in stack.items():
+        parts = (_unstack(v, n) if isinstance(v, dict)
+                 else torch.unbind(v, 0))
+        for layer, part in zip(layers, parts):
+            layer[k] = part
+    return layers
 
 
 def init_params(gen: torch.Generator, cfg: ArchConfig,
@@ -147,15 +158,26 @@ def _dense_layer_body(cfg: ArchConfig, x, layer_params, window, positions,
 
 
 def _scan_layers(params_stack, cfg: ArchConfig, x, positions, windows, *,
-                 causal=True, collect_kv=False):
+                 causal=True, remat=False, collect_kv=False):
     """The layer loop over the stacked params.  Returns (x, kvs): kvs the
-    per-layer (k, v) stacked to [L,B,S,kv,hd] when ``collect_kv``."""
+    per-layer (k, v) stacked to [L,B,S,kv,hd] when ``collect_kv``.
+
+    ``remat``: each layer saves only its input for the backward and runs
+    again during it, as ``jax.checkpoint(policy=nothing_saveable)`` on the
+    JAX package's scan body (with the flash kernels: K9 twice per layer
+    and step, K10 and K11 once)."""
     n = next(iter(params_stack["ln1"].values())).shape[0]
     ks, vs = [], []
-    for i in range(n):
+    for i, lp in enumerate(_unstack(params_stack, n)):
         w = None if windows is None else windows[i]
-        x, (k, v) = _dense_layer_body(cfg, x, _layer(params_stack, i), w,
-                                      positions, causal=causal)
+        if remat:
+            # no random numbers in a layer: nothing to replay
+            x, (k, v) = torch.utils.checkpoint.checkpoint(
+                _dense_layer_body, cfg, x, lp, w, positions, causal=causal,
+                use_reentrant=False, preserve_rng_state=False)
+        else:
+            x, (k, v) = _dense_layer_body(cfg, x, lp, w, positions,
+                                          causal=causal)
         if collect_kv:
             ks.append(k)
             vs.append(v)
@@ -164,25 +186,81 @@ def _scan_layers(params_stack, cfg: ArchConfig, x, positions, windows, *,
 
 
 def forward(params: Params, cfg: ArchConfig, batch: Dict[str, Any], *,
-            collect_kv: bool = False):
+            remat: bool = False, collect_kv: bool = False):
     """Returns (hidden [B,S,d], aux); aux["kv"] holds the stacked per-layer
-    K/V when ``collect_kv``."""
+    K/V when ``collect_kv``.  ``remat``: see ``_scan_layers``."""
     _check_supported(cfg)
     x = _embed_inputs(params, cfg, batch)
     B, S = batch["tokens"].shape
     positions = torch.arange(S, device=x.device).expand(B, S)
     windows = layer_windows(cfg, S, x.device)
     x, kvs = _scan_layers(params["layers"], cfg, x, positions, windows,
-                          collect_kv=collect_kv)
+                          remat=remat, collect_kv=collect_kv)
     aux: Dict[str, Any] = {"kv": kvs} if collect_kv else {}
     return rmsnorm(params["ln_f"], x, cfg.norm_eps), aux
+
+
+def _unembed_table(params, cfg: ArchConfig):
+    return params["embed" if cfg.tie_embeddings else "unembed"]
 
 
 def logits_from_hidden(params, cfg: ArchConfig, hidden):
     """Logits for a few positions (decode / last token), f32, padded
     vocab."""
-    table = params["embed" if cfg.tie_embeddings else "unembed"]
-    return unembed(table, hidden, cfg.final_logit_softcap)
+    return unembed(_unembed_table(params, cfg), hidden,
+                   cfg.final_logit_softcap)
+
+
+# ---------------------------------------------------------------------------
+# loss (sequence-chunked: at most LOSS_CHUNK positions of [B, chunk, V]
+# logits at a time)
+# ---------------------------------------------------------------------------
+
+LOSS_CHUNK = 1024
+
+
+def lm_loss(params, cfg: ArchConfig, hidden, labels, mask):
+    """Causal-LM cross-entropy over chunks of the sequence, in f32 (an f32
+    copy of the table; full-f32 products need TF32 off on the card, which
+    the trainer sets).  hidden: [B,S,d]; labels/mask: [B,S].  Padded vocab
+    columns are excluded from the logsumexp.  Returns (mean_loss, denom)."""
+    S = hidden.shape[1]
+    table = _unembed_table(params, cfg)["table"].float()
+    vp = table.shape[0]
+    col_ok = torch.arange(vp, device=hidden.device) < cfg.vocab_size
+    chunk = min(LOSS_CHUNK, S)
+    if S % chunk:
+        raise ValueError(f"S = {S} is not a multiple of the loss chunk "
+                         f"{chunk}")
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    den = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c0 in range(0, S, chunk):
+        h = hidden[:, c0:c0 + chunk]
+        y = labels[:, c0:c0 + chunk]
+        m = mask[:, c0:c0 + chunk]
+        logits = torch.matmul(h.float(), table.t())
+        if cfg.final_logit_softcap:
+            logits = torch.tanh(logits / cfg.final_logit_softcap) * \
+                cfg.final_logit_softcap
+        logits = torch.where(col_ok, logits, -1e30)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, y[..., None].long())[..., 0]
+        tot = tot + ((lse - gold) * m).sum()
+        den = den + m.sum()
+    return tot / den.clamp_min(1.0), den
+
+
+def loss_fn(params, cfg: ArchConfig, batch: Dict[str, Any], *,
+            remat: bool = True):
+    """Mean next-token loss of ``batch`` (``tokens``, ``labels`` and an
+    optional f32 ``mask``), dense families only."""
+    hidden, _ = forward(params, cfg, batch, remat=remat)
+    mask = batch.get("mask")
+    if mask is None:
+        mask = torch.ones(batch["labels"].shape, dtype=torch.float32,
+                          device=hidden.device)
+    loss, _ = lm_loss(params, cfg, hidden, batch["labels"], mask)
+    return loss
 
 
 # ---------------------------------------------------------------------------
@@ -219,9 +297,7 @@ def decode_step(params: Params, cfg: ArchConfig, cache: Params,
     positions = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)
     ring = cfg.attn_kind == "sliding"
     windows = layer_windows(cfg, cache["k"].shape[2], x.device)
-    stack = params["layers"]
-    for i in range(cfg.n_layers):
-        lp = _layer(stack, i)
+    for i, lp in enumerate(_unstack(params["layers"], cfg.n_layers)):
         h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
         a, _ = attention_forward(
             lp["attn"], cfg, h, positions,

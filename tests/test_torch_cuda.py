@@ -259,3 +259,115 @@ def test_reduced_lm_on_card_matches_cpu(dev):
     assert LAUNCHES["flash_attention_fwd"] == arch.n_layers
     scale = want.abs().max()
     assert (got.cpu() - want).abs().max() <= 1e-4 * scale
+
+
+# (rtol, share of max|want| as atol) per operand dtype, for dq, dk and dv
+# of K10/K11 against their plain version, as chip_smoke.BWD_TOL
+BWD_TOL = {torch.bfloat16: (1e-2, 1e-3), torch.float32: (2e-5, 2e-6)}
+
+
+def _bwd_inputs(c, dtype, dev, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    B, S, hd = c["B"], c["S"], c["hd"]
+    hd_v = c.get("hd_v", hd)
+    return (torch.randn(B, c["H"], S, hd, generator=g, device=dev).to(dtype),
+            torch.randn(B, c["KV"], S, hd, generator=g, device=dev).to(dtype),
+            torch.randn(B, c["KV"], S, hd_v, generator=g, device=dev).to(dtype),
+            torch.randn(B, c["H"], S, hd_v, generator=g, device=dev).to(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ci", range(len(FLASH_CASES)))
+def test_flash_bwd_kernels_match_plain(dev, ci, dtype):
+    """K10 (dq) and K11 (dk, dv per query head) against
+    flash_attention_bwd_plain on the same forward o and lse (K9's)."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention_bwd, flash_attention_kernel)
+    from repro_torch.kernels.flash_attention.ref import \
+        flash_attention_bwd_plain
+    c = FLASH_CASES[ci]
+    q, k, v, do = _bwd_inputs(c, dtype, dev, ci)
+    kw = dict(causal=c["causal"], window=c["window"], softcap=c["softcap"])
+    o, lse = flash_attention_kernel(q, k, v, return_lse=True, **kw)
+    blk = c["S"] if c["S"] % min(128, c["S"]) else min(128, c["S"])
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, bq=blk, bk=blk,
+                                     **kw)
+    reset_launches()
+    got = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert LAUNCHES == {"flash_attention_bwd_dq": 1,
+                        "flash_attention_bwd_dkv": 1}
+    rtol, share = BWD_TOL[dtype]
+    for gt, wt in zip(got, want):
+        assert gt.dtype == dtype and gt.shape == wt.shape
+        torch.testing.assert_close(gt.float(), wt.float(), rtol=rtol,
+                                   atol=share * float(wt.abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ci", [1, 4, 7])
+def test_flash_vjp_matches_autograd_through_plain(dev, ci, dtype):
+    """flash_attention_vjp (K9 forward, K10/K11 backward, GQA fold) in
+    model layout against autograd through the plain forward.  bf16: the
+    plain forward rounds p to bf16 before PV, and autograd differentiates
+    through that rounding, so 2e-2 of the max; f32 2e-5 of the max, as
+    chip_smoke.VJP_REL_TOL."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.flash_attention.ops import flash_attention_vjp
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+    c = FLASH_CASES[ci]
+    q, k, v, w = (t.transpose(1, 2).contiguous()
+                  for t in _bwd_inputs(c, dtype, dev, 100 + ci))
+    kw = dict(causal=c["causal"], window=c["window"], softcap=c["softcap"])
+    leaves = [t.requires_grad_(True) for t in (q, k, v)]
+    o, _ = flash_attention_plain(*(t.transpose(1, 2) for t in leaves), **kw)
+    want = torch.autograd.grad((o.transpose(1, 2).float() * w.float()).sum(),
+                               leaves)
+    reset_launches()
+    o = flash_attention_vjp.apply(*leaves, c["causal"], c["window"],
+                                  c["softcap"])
+    got = torch.autograd.grad((o.float() * w.float()).sum(), leaves)
+    torch.cuda.synchronize()
+    assert LAUNCHES == {"flash_attention_fwd": 1,
+                        "flash_attention_bwd_dq": 1,
+                        "flash_attention_bwd_dkv": 1}
+    rel = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    for gt, wt in zip(got, want):
+        assert gt.dtype == dtype and gt.shape == wt.shape
+        assert (gt.float() - wt.float()).abs().max() <= \
+            rel * wt.float().abs().max()
+
+
+def test_reduced_lm_train_step_on_card_matches_cpu(dev, tmp_path):
+    """Reduced Phi-4-mini in f32 (head_dim 32, so the kernels run): two
+    Trainer steps on the card against the plain versions on the CPU, from
+    the same weights."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import DataConfig, TokenDataset
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.runtime.trainer import TrainConfig, Trainer
+    arch = dataclasses.replace(get_arch("phi4-mini-3.8b").reduced(),
+                               dtype="float32", head_dim=32)
+    import torch.utils._pytree as pytree
+    from repro_torch.models import transformer as tmod
+    data = TokenDataset(DataConfig(arch.vocab_size, 128, 2))
+    params = tmod.init_params(torch.Generator().manual_seed(0), arch, "cpu")
+    hist = {}
+    for where in ("cpu", "cuda"):
+        tr = Trainer(arch, TrainConfig(steps=2, log_every=1, ckpt_every=10,
+                                       ckpt_path=str(tmp_path / where)),
+                     data, device=where,
+                     params=pytree.tree_map(lambda t: t.to(where), params))
+        reset_launches()
+        hist[where] = tr.run()
+    torch.cuda.synchronize()
+    n = arch.n_layers
+    assert LAUNCHES == {"flash_attention_fwd": 2 * 2 * n,
+                        "flash_attention_bwd_dq": 2 * n,
+                        "flash_attention_bwd_dkv": 2 * n}
+    for a, b in zip(hist["cuda"], hist["cpu"]):
+        for key in ("loss", "grad_norm"):
+            assert abs(a[key] - b[key]) <= 1e-4 * abs(b[key]), (key, a, b)

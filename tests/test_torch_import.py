@@ -30,6 +30,9 @@ def test_import_with_jax_blocked():
         import repro_torch.models.cnn, repro_torch.models.transformer
         import repro_torch.runtime.serving, repro_torch.launch.serve
         import repro_torch.kernels.flash_attention, repro_torch.configs
+        import repro_torch.optim.adamw, repro_torch.runtime.trainer
+        import repro_torch.ckpt.checkpoint, repro_torch.data.pipeline
+        import repro_torch.launch.train
         bad = sorted(m for m in sys.modules
                      if m in ("jax", "repro") or m.startswith(("jax.",
                                                                "repro.")))
@@ -90,6 +93,31 @@ def test_lm_entry_points_raise_without_cuda(no_cuda):
         ServingEngine(params, arch)
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["--arch", "phi4-mini-3.8b", "--reduced"])
+
+
+def test_train_entry_points_raise_without_cuda(no_cuda, tmp_path):
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import DataConfig, TokenDataset
+    from repro_torch.launch import train
+    from repro_torch.runtime.trainer import TrainConfig, Trainer
+    arch = get_arch("phi4-mini-3.8b").reduced()
+    data = TokenDataset(DataConfig(arch.vocab_size, 32, 2))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(arch, TrainConfig(ckpt_path=str(tmp_path)), data)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--arch", "phi4-mini-3.8b", "--reduced", "--ckpt",
+                    str(tmp_path)])
+
+
+def test_train_launcher_runs_on_cpu_when_asked(capsys, tmp_path):
+    from repro_torch.launch import train
+    assert train.main(["--arch", "phi4-mini-3.8b", "--reduced", "--device",
+                       "cpu", "--steps", "4", "--seq-len", "32", "--batch",
+                       "4", "--ckpt-every", "2", "--fail-at", "3",
+                       "--ckpt", str(tmp_path)]) == 0
+    out = capsys.readouterr().out
+    assert '"step": 4' in out and "done at step 4 on cpu" in out
+    assert (tmp_path / "step_00000004" / "COMMITTED").exists()
 
 
 def test_serve_launcher_runs_on_cpu_when_asked(capsys):
