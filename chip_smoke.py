@@ -17,7 +17,10 @@ it is run outside a checkout of the repository.  Phases, one line each:
      ``tests/test_kernels.py`` and at hd=192/hd_v=128, in bf16 and f32,
      within ``FLASH_TOL`` (per dtype and output; lse to 1e-4); the
      flash-attention backward (K10: dq; K11: dk, dv) at the same shapes
-     and dtypes on K9's o and lse, within ``BWD_TOL``, and the
+     and dtypes on K9's o and lse, within ``BWD_TOL``; their f32 sums
+     (bf16 operands, f32 outputs) against the plain backward on the f32
+     casts of the same operands at ``BWD_SUM_CASES``, within
+     ``BWD_SUM_TOL``, which sees below bf16's precision; and the
      differentiable ``flash_attention_vjp`` against autograd through the
      plain forward at ``VJP_CASES``;
   3. the slices: ``compile(cfg, NX2100)`` -> ``PipelineExecutor`` on the
@@ -119,6 +122,17 @@ FLASH_DTYPES = ("bfloat16", "float32")
 BWD_TOL = {(d, out): tol for out in ("dq", "dk", "dv")
            for d, tol in (("bfloat16", (1e-2, 1e-3)),
                           ("float32", (2e-5, 2e-6)))}
+# K10/K11's f32 sums (bf16 operands, f32 outputs: the accumulators before
+# their rounding) against flash_attention_bwd_plain on the f32 casts of the
+# same operands, at the training shape and a softcap + GQA case: (rtol,
+# atol as a share of the output's max |value|).  Both sides take every
+# product exactly in f32 and differ by the order of the f32 additions and
+# the scale taken per element.  bf16 outputs hide any error under 2^-9,
+# so a split of p and ds that drops its lo part passes BWD_TOL.  Set from
+# the card's readings (PERF.md): the kernels read at most 0.49 of this
+# limit, a copy of them that drops the lo part 1.37 of it
+BWD_SUM_CASES = (FLASH_SLICE, (1, 4, 1, 128, 128, 128, True, 32, 30.0))
+BWD_SUM_TOL = (1e-5, 1e-6)
 # flash_attention_vjp (K9 + K10/K11 + the GQA fold) against autograd
 # through flash_attention_plain, share of max |grad|: the plain forward
 # rounds p to bf16 before PV and autograd differentiates that rounding
@@ -279,8 +293,10 @@ class Kernel:
                 r["max_abs_err"] = max(r["max_abs_err"], e)
                 r["max_share_of_limit"] = max(r["max_share_of_limit"], share)
         if not ok:
+            what = "" if tol is None else \
+                f" ({key or ''} {share:.4g} of the limit)"
             raise AssertionError(f"{self.name}: differs from its plain "
-                                 f"version by up to {e}")
+                                 f"version by up to {e}{what}")
 
 
 def main_path_shapes(comp, select_engine):
@@ -366,8 +382,10 @@ def check_flash_bwd(torch, g, dev, ks, record):
     """Phase 2 for K10/K11: the pair against flash_attention_bwd_plain (at
     the JAX call's blocks) at every case of FLASH_CASES in bf16 and f32,
     on the forward o and lse of K9 (its f32 variant for f32): dq, dk and
-    dv within BWD_TOL.  Then flash_attention_vjp in model layout against
-    autograd through flash_attention_plain at VJP_CASES."""
+    dv within BWD_TOL.  Then the pair's f32 sums against the plain
+    backward on f32 casts at BWD_SUM_CASES, within BWD_SUM_TOL, and
+    flash_attention_vjp in model layout against autograd through
+    flash_attention_plain at VJP_CASES."""
     from repro_torch.kernels.flash_attention.ops import (
         flash_attention_bwd, flash_attention_kernel, flash_attention_vjp)
     from repro_torch.kernels.flash_attention.ref import (
@@ -394,6 +412,23 @@ def check_flash_bwd(torch, g, dev, ks, record):
                               (rtol, share * float(wt.abs().max())),
                               f"{dname} {out}")
                 n += 1
+    for case in BWD_SUM_CASES:
+        q, k, v = flash_inputs(torch, g, dev, case, torch.bfloat16)
+        do = torch.randn(q.shape[:3] + (case[5],), generator=g,
+                         device=dev).to(torch.bfloat16)
+        o, lse = flash_attention_kernel(q, k, v, return_lse=True,
+                                        **flash_kw(case))
+        want = flash_attention_bwd_plain(*(t.float() for t in (q, k, v, o)),
+                                         lse, do.float(), **flash_kw(case))
+        got = flash_attention_bwd(q, k, v, o, lse, do, **flash_kw(case),
+                                  out_dtype=torch.float32)
+        rtol, share = BWD_SUM_TOL
+        for out, kname, gt, wt in zip(
+                ("dq", "dk", "dv"),
+                (BWD_KERNELS[0], BWD_KERNELS[1], BWD_KERNELS[1]), got, want):
+            ks[kname].err(torch, gt, wt, (rtol, share * float(wt.abs().max())),
+                          f"bfloat16 {out} f32 sums")
+            n += 1
     worst = {}
     for case in VJP_CASES:
         for dname in FLASH_DTYPES:
@@ -1036,7 +1071,8 @@ def main():
         f"layout) within tolerance, readings "
         f"{json.dumps(ks[LM_KERNEL].readings)}; {n_bwd} flash-backward "
         f"comparisons (dq, dk, dv at {len(FLASH_CASES)} shapes in bf16 and "
-        f"f32, and flash_attention_vjp against autograd) within tolerance, "
+        f"f32, their f32 sums at {len(BWD_SUM_CASES)} shapes, and "
+        f"flash_attention_vjp against autograd) within tolerance, "
         f"readings {json.dumps(record['flash_bwd_readings'])}, vjp share of "
         f"limit {json.dumps(record['vjp_share_of_limit'])}; in "
         f"{record['check_s']:.1f} s")

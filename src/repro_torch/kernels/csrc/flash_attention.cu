@@ -52,9 +52,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_bf16.cuh"
+
 namespace {
 
-using bf16 = __nv_bfloat16;
+using namespace h2pipe_mma;
 
 constexpr float NEG_INF = -1e30f;
 constexpr int BQ = 64;     // query rows per CTA
@@ -102,76 +104,7 @@ __device__ __forceinline__ void k_tiles(const FlashArgs& a, int q0, int bk,
 // bf16: tensor cores through mma.sync
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo: low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte global -> shared copy; when !valid nothing is read and the
-// destination is zero-filled (src-size 0).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// wait until at most one committed group is still in flight
-__device__ __forceinline__ void cp_async_wait1() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-// Four 8x8 b16 matrices from shared memory; lanes 8i..8i+7 give the row
-// addresses of matrix i.  Register i holds, in each lane, row lane/4 and
-// columns 2(lane%4), +1 of matrix i (with .trans: rows 2(lane%4), +1 of
-// column lane/4) — the mma.sync fragment layouts.
-__device__ __forceinline__ void ldsm_x4(uint32_t* r, const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// c[16x8] += a[16x16] (row-major) . b[16x8] (column-major), f32 sums.
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Start copying rows [row0, row0 + rows) of a [S, D] operand (row stride
-// `stride`) into shared memory with row stride `ld`; rows at or past S
-// arrive as zeros.
-template <int D>
-__device__ __forceinline__ void load_tile(bf16* dst, int ld, const bf16* src,
-                                          long long stride, int row0, int S,
-                                          int rows) {
-  constexpr int CH = D / 8;  // 16-byte chunks per row
-  for (int idx = threadIdx.x; idx < rows * CH; idx += NT) {
-    const int r = idx / CH, c = idx % CH;
-    const bool valid = row0 + r < S;
-    cp_async16(dst + r * ld + c * 8,
-               valid ? src + (row0 + r) * stride + c * 8 : src, valid);
-  }
-}
+// pack_bf16, cp.async, ldmatrix, mma_bf16 and load_tile: mma_bf16.cuh
 
 template <int HD, int HDV>
 size_t smem_bf16() {
@@ -215,19 +148,19 @@ __global__ void __launch_bounds__(NT) flash_fwd_bf16(FlashArgs a) {
   k_tiles(a, q0, BK, &lo, &hi);
   // the K/V tiles go through a ring of two buffers: tile kt+1 is copied
   // (cp.async) while tile kt is consumed
-  load_tile<HD>(Qs, LQ, q, a.qs_s, q0, a.Sq, BQ);
+  load_tile<HD, NT>(Qs, LQ, q, a.qs_s, q0, a.Sq, BQ);
   if (lo <= hi) {
-    load_tile<HD>(Ks, LQ, k, a.ks_s, lo * BK, a.Sk, BK);
-    load_tile<HDV>(Vs, LV, v, a.vs_s, lo * BK, a.Sk, BK);
+    load_tile<HD, NT>(Ks, LQ, k, a.ks_s, lo * BK, a.Sk, BK);
+    load_tile<HDV, NT>(Vs, LV, v, a.vs_s, lo * BK, a.Sk, BK);
   }
   cp_async_commit();
   for (int kt = lo; kt <= hi; ++kt) {
     const int k0 = kt * BK, buf = (kt - lo) & 1;
     if (kt < hi) {
-      load_tile<HD>(Ks + (buf ^ 1) * BK * LQ, LQ, k, a.ks_s, k0 + BK, a.Sk,
-                    BK);
-      load_tile<HDV>(Vs + (buf ^ 1) * BK * LV, LV, v, a.vs_s, k0 + BK,
-                     a.Sk, BK);
+      load_tile<HD, NT>(Ks + (buf ^ 1) * BK * LQ, LQ, k, a.ks_s, k0 + BK,
+                        a.Sk, BK);
+      load_tile<HDV, NT>(Vs + (buf ^ 1) * BK * LV, LV, v, a.vs_s, k0 + BK,
+                         a.Sk, BK);
     }
     cp_async_commit();
     cp_async_wait1();  // Q and tile kt have landed

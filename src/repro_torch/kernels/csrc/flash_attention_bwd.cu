@@ -11,49 +11,77 @@
 //   delta = rowsum(do * o) computed by the wrapper, as the JAX wrapper
 //   does outside its kernels; dq = sum_k ds . k * scale, dk = sum_q ds^T .
 //   q * scale, dv = sum_q p^T . do.  GQA: query head h reads KV head
-//   h / (H / KV); dk and dv are written per query head, rounded to k's
-//   and v's dtype, and the wrapper sums the H / KV heads of each group.
+//   h / (H / KV); dk and dv are written per query head, and the wrapper
+//   sums the H / KV heads of each group.
 //
-// Rounding.  Every operand is converted to f32 and every product is an f32
-// FMA on the CUDA cores: p and ds are never rounded to bf16, as the
-// reference keeps them f32 in all five products.  The reference multiplies
-// each tile's ds . k (and ds^T . q) by scale before adding it to the
-// accumulator; here ds is multiplied by scale once per element and the
-// products go straight into the accumulator.  The two differ by f32
-// roundings only (a relative 2^-24 per term and the order of summation),
-// far inside the tests' tolerances.
+// Rounding.  The reference keeps p and ds in f32 in the three accumulating
+// products (ds . k, ds^T . q, p^T . do).  ds takes the scale once per
+// element here, not once per tile product as in the reference: an f32
+// rounding (a relative 2^-24 per term), far inside the tests' tolerances.
 //
-// On the TPU the grid walks the k blocks of a q block (dq) or the q blocks
-// of a k block (dk, dv) in order, carrying the sums in VMEM scratch.  Here
-// one CTA owns one (batch, head, block of rows) and loops over the other
-// axis, with the sums in registers:
-//   flash_bwd_dq<T>   one CTA per 64 query rows; K/V tiles of 32 keys.
-//   flash_bwd_dkv<T>  one CTA per 64 keys; Q/dO tiles of 32 query rows.
-// Eight warps of 8 rows each.  In the score products each lane takes one
-// column (a key for dq, a query row for dk/dv) and reads its operand row
-// as float4 while the warp's 8 rows are broadcast; in the accumulating
-// products each lane takes the columns lane, lane + 32, ... of the head
-// dim.  Tiles the mask hides entirely are skipped, which is exact (p and
-// ds are zero there).
+// Two routes, picked by the operands' dtype:
+//
+//   bf16 (the training path): flash_bwd_dq_tc<HD, HDV> and
+//   flash_bwd_dkv_tc<HD, HDV>, every product on the tensor cores as
+//   mma.sync m16n8k16 (bf16 in, f32 sums).  One CTA owns 64 rows (query
+//   rows for dq, keys for dk/dv), four warps of 16, and walks the other
+//   axis in tiles of 64.  The owned tile (Q and dO, or K and V) is loaded
+//   once; the streamed tile (K and V, or Q, dO, lse and delta) passes
+//   through a ring of two shared-memory buffers filled with cp.async, so
+//   tile t+1 is in flight while tile t is consumed.  Rows are padded by 8
+//   elements for ldmatrix.  The two score products (dq: S = Q K^T and
+//   dP = dO V^T; dk/dv: S^T = K Q^T and dP^T = V dO^T, so that keys are
+//   the M dimension) take bf16 operands as they are: each product is exact
+//   in f32.  p and ds come out of the accumulator fragments in registers,
+//   by grad_score's f32 steps.  For the accumulating products each f32 p
+//   or ds is split exactly into three bf16 values (split3: hi = bf16(x),
+//   mid = bf16(x - hi), lo = x - hi - mid; f32 has 24 significant bits,
+//   the residuals at most 16 and 8), and each product runs as three
+//   mma.sync on the parts, the smallest first.  Each bf16 x bf16 product is
+//   exact in f32, so the three give p . do (or ds . k) exactly, and the
+//   only difference from f32 FMAs is the order of the f32 additions.  The
+//   m16n8 accumulator layout is the A-operand layout of the next
+//   m16n8k16, as K9 uses it for PV, so p and ds never go through shared
+//   memory; K, Q and dO reach the B operand through ldmatrix.trans.  dk/dv
+//   handles its query tile in halves of 32 rows, which keeps the dk and dv
+//   accumulators (16 x 128 f32 each a warp at hd = 128), the score
+//   fragments and the split parts inside 255 registers.  Wide heads (hd or
+//   hd_v > 128) give every 16 owned rows two warps, each accumulating half
+//   of the head-dim columns (both compute the same scores).  The sums are
+//   written once, rounded to bf16 (dtype 0) or as the f32 sums themselves
+//   (dtype 2, the check that can see below bf16's precision); no atomics,
+//   so both kernels are deterministic.
+//
+//   f32 (dtype 1, the check path of the f32 card tests, as flash_fwd_f32
+//   is for K9): flash_bwd_dq_f32 and flash_bwd_dkv_f32, every
+//   operand in f32 in shared memory and every product an f32 FMA on the
+//   CUDA cores; eight warps of 8 rows, K/V (or Q/dO) tiles of 32.
+//
+// Tiles the mask hides entirely are skipped on both routes, which is exact
+// (p and ds are zero there); tiles every element of which is visible skip
+// the mask.
 //
 // What bounds it on an H100: at the Phi-4-mini training shape (B=4, H=24,
-// KV=8, S=512, hd=128, causal) dq does 3 and dk/dv 4 products of
-// B*H*S^2*hd FMAs, halved by the causal mask: 4.8 and 6.4 GFLOP against
-// about 40 MB moved, so operations bound both (4.9 and 6.5 us at the
-// tensor cores' 989 TFLOP/s).  This first version runs them on the CUDA
-// cores (67 TFLOP/s f32 at most) for the f32 products the reference
-// demands, so it sits far above that bound; mma.sync or wgmma for the two
-// score products (bf16 in, f32 out, exact) and an exact three-way bf16
-// split of p and ds for the other three are the way down.  PERF.md has its
-// times against the bound and against the library's attention backward.
+// KV=8, S=512, hd=128, causal) dq needs 3 and dk/dv 4 products of
+// B*H*S^2*hd FMAs, halved by the causal mask (9.7 and 12.9 GFLOP), against
+// 46.5 and 59.1 MB moved, so bytes bound both (14 and 18 us at 3.35 TB/s);
+// at S = 2048 operations do.  The split makes the tensor cores do 5 (dq)
+// and 8 (dk/dv) products' work, which mma.sync (not wgmma) issues at well
+// under the 989 TFLOP/s peak; between the products each element takes
+// expf, the mask, the softcap and two three-way splits on the same warps.
+// PERF.md has the times against the bound and the library's attention
+// backward.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_bf16.cuh"
+
 namespace {
 
-using bf16 = __nv_bfloat16;
+using namespace h2pipe_mma;
 
+// f32 route (SIMT)
 constexpr int NT = 256;     // threads: 8 warps
 constexpr int ROWS = 8;     // rows (dq: query rows; dk/dv: keys) per warp
 constexpr int BQ10 = 64;    // query rows per CTA, dq kernel
@@ -77,20 +105,11 @@ struct BwdArgs {
   long long s[21];
   int B, H, KV, Sq, Sk, hd, hdv, causal, window;
   float softcap, scale;
+  int f32_out;         // bf16 route: write the f32 sums, not bf16
 };
 
 enum { Q_ = 0, K_ = 3, V_ = 6, DO_ = 9, DQ_ = 12, DK_ = 15, DV_ = 18 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ bf16 from_f32<bf16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 __device__ __forceinline__ bool visible(const BwdArgs& a, int row, int col) {
   return row < a.Sq && col < a.Sk && (!a.causal || row >= col) &&
@@ -117,14 +136,13 @@ __device__ __forceinline__ float grad_score(const BwdArgs& a, float dot,
 
 // rows [row0, row0 + rows) of a [S, D] operand (row stride `stride`) into
 // shared memory as f32 with row stride `ld`; rows at or past S are zeros.
-template <typename T>
-__device__ __forceinline__ void load_rows(float* dst, int ld, const T* src,
+__device__ __forceinline__ void load_rows(float* dst, int ld, const float* src,
                                           long long stride, int row0, int S,
                                           int rows, int D) {
   for (int idx = threadIdx.x; idx < rows * D; idx += NT) {
     const int r = idx / D, c = idx % D;
     dst[r * ld + c] =
-        row0 + r < S ? to_f32(src[(long long)(row0 + r) * stride + c]) : 0.0f;
+        row0 + r < S ? src[(long long)(row0 + r) * stride + c] : 0.0f;
   }
 }
 
@@ -191,8 +209,8 @@ size_t smem_dq(int hd, int hdv) {
          sizeof(float);
 }
 
-template <typename T, int MAXC>
-__global__ void __launch_bounds__(NT) flash_bwd_dq(BwdArgs a) {
+template <int MAXC>
+__global__ void __launch_bounds__(NT) flash_bwd_dq_f32(BwdArgs a) {
   extern __shared__ __align__(16) float smem_dq_raw[];
   const int LQ = a.hd + PAD, LV = a.hdv + PAD, LD = BK10 + PAD;
   float* Qs = smem_dq_raw;     // [BQ10][LQ]
@@ -205,10 +223,10 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq(BwdArgs a) {
   const int q0 = (nqb - 1 - (int)blockIdx.x) * BQ10;  // heaviest first
   const int h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (a.H / a.KV);
-  const T* q = head_ptr<T>(a.q, a.s + Q_, b, h);
-  const T* k = head_ptr<T>(a.k, a.s + K_, b, kvh);
-  const T* v = head_ptr<T>(a.v, a.s + V_, b, kvh);
-  const T* dout = head_ptr<T>(a.dout, a.s + DO_, b, h);
+  const float* q = head_ptr<float>(a.q, a.s + Q_, b, h);
+  const float* k = head_ptr<float>(a.k, a.s + K_, b, kvh);
+  const float* v = head_ptr<float>(a.v, a.s + V_, b, kvh);
+  const float* dout = head_ptr<float>(a.dout, a.s + DO_, b, h);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int r0 = warp * ROWS;  // the warp's first row in the block
 
@@ -256,7 +274,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq(BwdArgs a) {
     __syncwarp();
   }
 
-  T* dq = static_cast<T*>(a.dq) + b * a.s[DQ_] + h * a.s[DQ_ + 1];
+  float* dq = static_cast<float*>(a.dq) + b * a.s[DQ_] + h * a.s[DQ_ + 1];
 #pragma unroll
   for (int i = 0; i < ROWS; ++i) {
     const int row = q0 + r0 + i;
@@ -264,7 +282,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq(BwdArgs a) {
 #pragma unroll
     for (int c = 0; c < MAXC; ++c)
       if (c < a.hd / 32)
-        dq[row * a.s[DQ_ + 2] + lane + 32 * c] = from_f32<T>(acc[i][c]);
+        dq[row * a.s[DQ_ + 2] + lane + 32 * c] = acc[i][c];
   }
 }
 
@@ -278,8 +296,8 @@ size_t smem_dkv(int hd, int hdv) {
          sizeof(float);
 }
 
-template <typename T, int MAXC>
-__global__ void __launch_bounds__(NT) flash_bwd_dkv(BwdArgs a) {
+template <int MAXC>
+__global__ void __launch_bounds__(NT) flash_bwd_dkv_f32(BwdArgs a) {
   extern __shared__ __align__(16) float smem_dkv_raw[];
   const int LQ = a.hd + PAD, LV = a.hdv + PAD, LP = BQ11 + PAD;
   float* Ks = smem_dkv_raw;    // [BK11][LQ]
@@ -294,10 +312,10 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv(BwdArgs a) {
   const int k0 = blockIdx.x * BK11;  // causal: the first keys see most rows
   const int h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (a.H / a.KV);
-  const T* q = head_ptr<T>(a.q, a.s + Q_, b, h);
-  const T* k = head_ptr<T>(a.k, a.s + K_, b, kvh);
-  const T* v = head_ptr<T>(a.v, a.s + V_, b, kvh);
-  const T* dout = head_ptr<T>(a.dout, a.s + DO_, b, h);
+  const float* q = head_ptr<float>(a.q, a.s + Q_, b, h);
+  const float* k = head_ptr<float>(a.k, a.s + K_, b, kvh);
+  const float* v = head_ptr<float>(a.v, a.s + V_, b, kvh);
+  const float* dout = head_ptr<float>(a.dout, a.s + DO_, b, h);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int r0 = warp * ROWS;  // the warp's first key in the block
   const long long bh = ((long long)b * a.H + h) * a.Sq;
@@ -348,8 +366,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv(BwdArgs a) {
     __syncwarp();
   }
 
-  T* gk = static_cast<T*>(a.dk) + b * a.s[DK_] + h * a.s[DK_ + 1];
-  T* gv = static_cast<T*>(a.dv) + b * a.s[DV_] + h * a.s[DV_ + 1];
+  float* gk = static_cast<float*>(a.dk) + b * a.s[DK_] + h * a.s[DK_ + 1];
+  float* gv = static_cast<float*>(a.dv) + b * a.s[DV_] + h * a.s[DV_ + 1];
 #pragma unroll
   for (int i = 0; i < ROWS; ++i) {
     const int key = k0 + r0 + i;
@@ -357,10 +375,383 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv(BwdArgs a) {
 #pragma unroll
     for (int c = 0; c < MAXC; ++c) {
       if (c < a.hd / 32)
-        gk[key * a.s[DK_ + 2] + lane + 32 * c] = from_f32<T>(dk[i][c]);
+        gk[key * a.s[DK_ + 2] + lane + 32 * c] = dk[i][c];
       if (c < a.hdv / 32)
-        gv[key * a.s[DV_ + 2] + lane + 32 * c] = from_f32<T>(dv[i][c]);
+        gv[key * a.s[DV_ + 2] + lane + 32 * c] = dv[i][c];
     }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 route: tensor cores through mma.sync
+// ---------------------------------------------------------------------------
+
+constexpr int TC_BM = 64;   // owned rows per CTA: 4 row groups of 16
+constexpr int TC_BN = 64;   // rows of a streamed tile
+constexpr int TC_SUB = 32;  // dk/dv: query rows handled at once
+
+// Warps per 16 owned rows: wide heads split the accumulators' head-dim
+// columns between two warps.
+template <int HD, int HDV>
+__host__ __device__ constexpr int col_split() {
+  return HD > 128 || HDV > 128 ? 2 : 1;
+}
+
+// 4-byte global -> shared copy, zero-filled when !valid
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+
+// x == hi + mid + lo exactly, each part a bf16 value: f32 has 24
+// significant bits, x - hi at most 16 and x - hi - mid at most 8.
+__device__ __forceinline__ void split3(float x, float& hi, float& mid,
+                                       float& lo) {
+  hi = __bfloat162float(__float2bfloat16_rn(x));
+  const float r = x - hi;
+  mid = __bfloat162float(__float2bfloat16_rn(r));
+  lo = r - mid;
+}
+
+// The A fragments lo (f[0]), mid (f[1]) and hi (f[2]) of one k-slice of
+// 16 from the two m16n8 accumulator fragments c[0], c[1] that cover it:
+// the accumulator layout is the A layout, so a0..a3 are (c[0][0], c[0][1]),
+// (c[0][2], c[0][3]), (c[1][0], c[1][1]), (c[1][2], c[1][3]).
+__device__ __forceinline__ void split_frag(const float (*c)[4],
+                                           uint32_t (*f)[4]) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    float h0, m0, l0, h1, m1, l1;
+    split3(c[r >> 1][2 * (r & 1)], h0, m0, l0);
+    split3(c[r >> 1][2 * (r & 1) + 1], h1, m1, l1);
+    f[0][r] = pack_bf16(l0, l1);
+    f[1][r] = pack_bf16(m0, m1);
+    f[2][r] = pack_bf16(h0, h1);
+  }
+}
+
+// acc[n], acc[n + 1] += the three parts f, smallest first, times the B
+// fragments of n-tiles n (b[0], b[1]) and n + 1 (b[2], b[3]).
+__device__ __forceinline__ void mma_split(float (*acc)[4], uint32_t (*f)[4],
+                                          const uint32_t* b) {
+#pragma unroll
+  for (int part = 0; part < 3; ++part) {
+    mma_bf16(acc[0], f[part], b[0], b[1]);
+    mma_bf16(acc[1], f[part], b[2], b[3]);
+  }
+}
+
+// Outputs (row, col) and (row, col + 1) of a gradient given by its base
+// and strides s (batch, head, seq): bf16 rounded, or the f32 sums.
+__device__ __forceinline__ void store_pair(void* base, const long long* s,
+                                           int b, int h, int row, int col,
+                                           float x0, float x1, bool f32) {
+  const long long off = b * s[0] + h * s[1] + row * s[2] + col;
+  if (f32)
+    *reinterpret_cast<float2*>(static_cast<float*>(base) + off) =
+        make_float2(x0, x1);
+  else
+    *reinterpret_cast<uint32_t*>(static_cast<bf16*>(base) + off) =
+        pack_bf16(x0, x1);
+}
+
+// acc[j] += A . B^T for one warp: A is the warp's 16 rows of an [., D]
+// tile (row stride la), B the first 8 NJ rows of another (row stride lb);
+// both bf16 in shared memory, sums in f32.
+template <int D, int NJ>
+__device__ __forceinline__ void score_product(float (*acc)[4], const bf16* A,
+                                              int la, const bf16* B, int lb,
+                                              int lane) {
+  const int lr = (lane & 7) + ((lane >> 3) & 1) * 8, lc = (lane >> 4) * 8;
+  const int kr = (lane & 7) + (lane >> 4) * 8, kc = ((lane >> 3) & 1) * 8;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t af[4];
+    ldsm_x4(af, A + lr * la + kk * 16 + lc);
+#pragma unroll
+    for (int j = 0; j < NJ; j += 2) {
+      uint32_t bf[4];
+      ldsm_x4(bf, B + (j * 8 + kr) * lb + kk * 16 + kc);
+      mma_bf16(acc[j], af, bf[0], bf[1]);
+      mma_bf16(acc[j + 1], af, bf[2], bf[3]);
+    }
+  }
+}
+
+// acc[n] += split(c) . X for the NC / 8 n-tiles of columns [c0, c0 + NC)
+// of the rows [0, 16 NK) of X (bf16, row stride lx), where c holds 2 NK
+// m16n8 accumulator fragments: the three-part product of one warp.
+template <int NK, int NC>
+__device__ __forceinline__ void split_product(float (*acc)[4],
+                                              const float (*c)[4],
+                                              const bf16* X, int lx, int c0,
+                                              int lane) {
+  const int lr = (lane & 7) + ((lane >> 3) & 1) * 8, lc = (lane >> 4) * 8;
+#pragma unroll
+  for (int kk = 0; kk < NK; ++kk) {
+    uint32_t f[3][4];
+    split_frag(c + 2 * kk, f);
+#pragma unroll
+    for (int n = 0; n < NC / 8; n += 2) {
+      uint32_t xf[4];
+      ldsm_x4_trans(xf, X + (kk * 16 + lr) * lx + c0 + n * 8 + lc);
+      mma_split(acc + n, f, xf);
+    }
+  }
+}
+
+template <int HD, int HDV>
+size_t smem_tc(bool stats) {
+  return (size_t)(TC_BM + 2 * TC_BN) * (HD + 8 + HDV + 8) * sizeof(bf16) +
+         (stats ? 2 * 2 * TC_BN * sizeof(float) : 0);
+}
+
+// K10: dq for 64 query rows of one (batch, head).
+template <int HD, int HDV, int NTC = 128 * col_split<HD, HDV>()>
+__global__ void __launch_bounds__(NTC) flash_bwd_dq_tc(BwdArgs a) {
+  constexpr int CS = NTC / 128;
+  constexpr int LQ = HD + 8, LV = HDV + 8, DC = HD / CS;
+  extern __shared__ __align__(16) unsigned char smem_dq_tc_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_dq_tc_raw);  // [BM][LQ]
+  bf16* Os = Qs + TC_BM * LQ;                          // dO, [BM][LV]
+  bf16* Ks = Os + TC_BM * LV;                          // 2 x [BN][LQ]
+  bf16* Vs = Ks + 2 * TC_BN * LQ;                      // 2 x [BN][LV]
+
+  const int nqb = (a.Sq + TC_BM - 1) / TC_BM;
+  const int q0 = (nqb - 1 - (int)blockIdx.x) * TC_BM;  // heaviest first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (a.H / a.KV);
+  const bf16* q = head_ptr<bf16>(a.q, a.s + Q_, b, h);
+  const bf16* k = head_ptr<bf16>(a.k, a.s + K_, b, kvh);
+  const bf16* v = head_ptr<bf16>(a.v, a.s + V_, b, kvh);
+  const bf16* dout = head_ptr<bf16>(a.dout, a.s + DO_, b, h);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wr = warp % 4, wc = warp / 4;  // row group, column half
+  const int g = lane >> 2, t = lane & 3;   // fragment row / column pair
+  const int row0 = q0 + wr * 16 + g, row1 = row0 + 8;
+  const long long bh = ((long long)b * a.H + h) * a.Sq;
+  const float lse0 = row0 < a.Sq ? a.lse[bh + row0] : 0.0f;
+  const float lse1 = row1 < a.Sq ? a.lse[bh + row1] : 0.0f;
+  const float dl0 = row0 < a.Sq ? a.delta[bh + row0] : 0.0f;
+  const float dl1 = row1 < a.Sq ? a.delta[bh + row1] : 0.0f;
+
+  float acc[DC / 8][4];
+#pragma unroll
+  for (int n = 0; n < DC / 8; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
+
+  // the key tiles some row of the block can see
+  const int nkt = (a.Sk + TC_BN - 1) / TC_BN;
+  const int q_last = min(q0 + TC_BM, a.Sq) - 1;
+  const int hi = a.causal ? min(nkt - 1, q_last / TC_BN) : nkt - 1;
+  const int lo = a.window > 0 ? max(0, q0 - a.window + 1) / TC_BN : 0;
+  if (lo <= hi) {
+    load_tile<HD, NTC>(Qs, LQ, q, a.s[Q_ + 2], q0, a.Sq, TC_BM);
+    load_tile<HDV, NTC>(Os, LV, dout, a.s[DO_ + 2], q0, a.Sq, TC_BM);
+    load_tile<HD, NTC>(Ks, LQ, k, a.s[K_ + 2], lo * TC_BN, a.Sk, TC_BN);
+    load_tile<HDV, NTC>(Vs, LV, v, a.s[V_ + 2], lo * TC_BN, a.Sk, TC_BN);
+  }
+  cp_async_commit();
+  for (int kt = lo; kt <= hi; ++kt) {
+    const int k0 = kt * TC_BN, buf = (kt - lo) & 1;
+    if (kt < hi) {
+      load_tile<HD, NTC>(Ks + (buf ^ 1) * TC_BN * LQ, LQ, k, a.s[K_ + 2],
+                         k0 + TC_BN, a.Sk, TC_BN);
+      load_tile<HDV, NTC>(Vs + (buf ^ 1) * TC_BN * LV, LV, v, a.s[V_ + 2],
+                          k0 + TC_BN, a.Sk, TC_BN);
+    }
+    cp_async_commit();
+    cp_async_wait1();  // Q, dO and tile kt have landed
+    __syncthreads();
+    const bf16* Kb = Ks + buf * TC_BN * LQ;
+    const bf16* Vb = Vs + buf * TC_BN * LV;
+
+    // s = q . k^T and dp = do . v^T: the warp's 16 rows x 64 keys
+    float s[TC_BN / 8][4], dp[TC_BN / 8][4];
+#pragma unroll
+    for (int j = 0; j < TC_BN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.0f;
+    score_product<HD, TC_BN / 8>(s, Qs + wr * 16 * LQ, LQ, Kb, LQ, lane);
+    score_product<HDV, TC_BN / 8>(dp, Os + wr * 16 * LV, LV, Vb, LV, lane);
+
+    // ds * scale in place of s; zero where masked
+#pragma unroll
+    for (int j = 0; j < TC_BN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p;
+        s[j][e] = grad_score(a, s[j][e], dp[j][e], e < 2 ? lse0 : lse1,
+                             e < 2 ? dl0 : dl1, &p);
+      }
+    const bool whole = q0 + TC_BM <= a.Sq && k0 + TC_BN <= a.Sk &&
+                       (!a.causal || k0 + TC_BN - 1 <= q0) &&
+                       (a.window == 0 || q0 + TC_BM - 1 - k0 < a.window);
+    if (!whole) {
+#pragma unroll
+      for (int j = 0; j < TC_BN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (!visible(a, e < 2 ? row0 : row1, k0 + j * 8 + 2 * t + (e & 1)))
+            s[j][e] = 0.0f;
+    }
+
+    // dq += ds . k, ds in three bf16 parts
+    split_product<TC_BN / 16, DC>(acc, s, Kb, LQ, wc * DC, lane);
+    __syncthreads();  // every warp is done with buffer `buf`
+  }
+
+#pragma unroll
+  for (int n = 0; n < DC / 8; ++n) {
+    const int col = wc * DC + n * 8 + 2 * t;
+    if (row0 < a.Sq)
+      store_pair(a.dq, a.s + DQ_, b, h, row0, col, acc[n][0], acc[n][1],
+                 a.f32_out);
+    if (row1 < a.Sq)
+      store_pair(a.dq, a.s + DQ_, b, h, row1, col, acc[n][2], acc[n][3],
+                 a.f32_out);
+  }
+}
+
+// K11: dk and dv for 64 keys of one (batch, query head).
+template <int HD, int HDV, int NTC = 128 * col_split<HD, HDV>()>
+__global__ void __launch_bounds__(NTC) flash_bwd_dkv_tc(BwdArgs a) {
+  constexpr int CS = NTC / 128;
+  constexpr int LQ = HD + 8, LV = HDV + 8, DKC = HD / CS, DVC = HDV / CS;
+  extern __shared__ __align__(16) unsigned char smem_dkv_tc_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_dkv_tc_raw);  // [BM][LQ]
+  bf16* Vs = Ks + TC_BM * LQ;                           // [BM][LV]
+  bf16* Qs = Vs + TC_BM * LV;                           // 2 x [BN][LQ]
+  bf16* Os = Qs + 2 * TC_BN * LQ;                       // dO, 2 x [BN][LV]
+  float* Ls = reinterpret_cast<float*>(Os + 2 * TC_BN * LV);  // 2 x [BN]
+  float* Dl = Ls + 2 * TC_BN;                                 // 2 x [BN]
+
+  const int k0 = blockIdx.x * TC_BM;  // causal: the first keys see most rows
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (a.H / a.KV);
+  const bf16* q = head_ptr<bf16>(a.q, a.s + Q_, b, h);
+  const bf16* k = head_ptr<bf16>(a.k, a.s + K_, b, kvh);
+  const bf16* v = head_ptr<bf16>(a.v, a.s + V_, b, kvh);
+  const bf16* dout = head_ptr<bf16>(a.dout, a.s + DO_, b, h);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wr = warp % 4, wc = warp / 4;  // row group, column half
+  const int g = lane >> 2, t = lane & 3;
+  const int key0 = k0 + wr * 16 + g, key1 = key0 + 8;
+  const long long bh = ((long long)b * a.H + h) * a.Sq;
+
+  float dk[DKC / 8][4], dv[DVC / 8][4];
+#pragma unroll
+  for (int n = 0; n < DKC / 8; ++n)
+    dk[n][0] = dk[n][1] = dk[n][2] = dk[n][3] = 0.0f;
+#pragma unroll
+  for (int n = 0; n < DVC / 8; ++n)
+    dv[n][0] = dv[n][1] = dv[n][2] = dv[n][3] = 0.0f;
+
+  // Q, dO, lse and delta of query rows [q0, q0 + BN) into buffer `buf`
+  auto load_q = [&](int buf, int q0) {
+    load_tile<HD, NTC>(Qs + buf * TC_BN * LQ, LQ, q, a.s[Q_ + 2], q0, a.Sq,
+                       TC_BN);
+    load_tile<HDV, NTC>(Os + buf * TC_BN * LV, LV, dout, a.s[DO_ + 2], q0,
+                        a.Sq, TC_BN);
+    if (threadIdx.x < 2 * TC_BN) {
+      const int i = threadIdx.x % TC_BN, row = q0 + i;
+      const bool d = threadIdx.x >= TC_BN, valid = row < a.Sq;
+      cp_async4((d ? Dl : Ls) + buf * TC_BN + i,
+                (d ? a.delta : a.lse) + bh + (valid ? row : 0), valid);
+    }
+  };
+
+  // the query tiles some key of the block is visible to
+  const int nqt = (a.Sq + TC_BN - 1) / TC_BN;
+  const int k_last = min(k0 + TC_BM, a.Sk) - 1;
+  const int lo = a.causal ? min(nqt, k0 / TC_BN) : 0;
+  const int hi = a.window > 0
+                     ? min(nqt - 1, (k_last + a.window - 1) / TC_BN)
+                     : nqt - 1;
+  if (lo <= hi) {
+    load_tile<HD, NTC>(Ks, LQ, k, a.s[K_ + 2], k0, a.Sk, TC_BM);
+    load_tile<HDV, NTC>(Vs, LV, v, a.s[V_ + 2], k0, a.Sk, TC_BM);
+    load_q(0, lo * TC_BN);
+  }
+  cp_async_commit();
+  for (int qt = lo; qt <= hi; ++qt) {
+    const int q0 = qt * TC_BN, buf = (qt - lo) & 1;
+    if (qt < hi) load_q(buf ^ 1, q0 + TC_BN);
+    cp_async_commit();
+    cp_async_wait1();  // K, V and tile qt have landed
+    __syncthreads();
+    const bf16* Qb = Qs + buf * TC_BN * LQ;
+    const bf16* Ob = Os + buf * TC_BN * LV;
+    const float* Lb = Ls + buf * TC_BN;
+    const float* Db = Dl + buf * TC_BN;
+    const bool whole = q0 + TC_BN <= a.Sq && k0 + TC_BM <= a.Sk &&
+                       (!a.causal || k0 + TC_BM - 1 <= q0) &&
+                       (a.window == 0 || q0 + TC_BN - 1 - k0 < a.window);
+
+    // the tile in halves of TC_SUB query rows
+#pragma unroll 1
+    for (int r0 = 0; r0 < TC_BN; r0 += TC_SUB) {
+      // s^T = k . q^T and dp^T = v . do^T: the warp's 16 keys x TC_SUB rows
+      float st[TC_SUB / 8][4], dpt[TC_SUB / 8][4];
+#pragma unroll
+      for (int j = 0; j < TC_SUB / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.0f;
+      score_product<HD, TC_SUB / 8>(st, Ks + wr * 16 * LQ, LQ,
+                                    Qb + r0 * LQ, LQ, lane);
+      score_product<HDV, TC_SUB / 8>(dpt, Vs + wr * 16 * LV, LV,
+                                     Ob + r0 * LV, LV, lane);
+
+      // p^T in place of s^T and ds^T * scale in place of dp^T
+#pragma unroll
+      for (int j = 0; j < TC_SUB / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = r0 + j * 8 + 2 * t + (e & 1);
+          float p;
+          dpt[j][e] = grad_score(a, st[j][e], dpt[j][e], Lb[c], Db[c], &p);
+          st[j][e] = p;
+        }
+      if (!whole) {
+#pragma unroll
+        for (int j = 0; j < TC_SUB / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (!visible(a, q0 + r0 + j * 8 + 2 * t + (e & 1),
+                         e < 2 ? key0 : key1))
+              st[j][e] = dpt[j][e] = 0.0f;
+      }
+
+      // dv += p^T . do and dk += ds^T . q, p and ds in three bf16 parts
+      split_product<TC_SUB / 16, DVC>(dv, st, Ob + r0 * LV, LV, wc * DVC,
+                                      lane);
+      split_product<TC_SUB / 16, DKC>(dk, dpt, Qb + r0 * LQ, LQ, wc * DKC,
+                                      lane);
+    }
+    __syncthreads();  // every warp is done with buffer `buf`
+  }
+
+#pragma unroll
+  for (int n = 0; n < DKC / 8; ++n) {
+    const int col = wc * DKC + n * 8 + 2 * t;
+    if (key0 < a.Sk)
+      store_pair(a.dk, a.s + DK_, b, h, key0, col, dk[n][0], dk[n][1],
+                 a.f32_out);
+    if (key1 < a.Sk)
+      store_pair(a.dk, a.s + DK_, b, h, key1, col, dk[n][2], dk[n][3],
+                 a.f32_out);
+  }
+#pragma unroll
+  for (int n = 0; n < DVC / 8; ++n) {
+    const int col = wc * DVC + n * 8 + 2 * t;
+    if (key0 < a.Sk)
+      store_pair(a.dv, a.s + DV_, b, h, key0, col, dv[n][0], dv[n][1],
+                 a.f32_out);
+    if (key1 < a.Sk)
+      store_pair(a.dv, a.s + DV_, b, h, key1, col, dv[n][2], dv[n][3],
+                 a.f32_out);
   }
 }
 
@@ -369,29 +760,64 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv(BwdArgs a) {
 // ---------------------------------------------------------------------------
 
 template <typename Kern>
-cudaError_t launch(Kern kern, size_t smem, dim3 grid, const BwdArgs& a,
-                   cudaStream_t stream) {
+cudaError_t launch(Kern kern, size_t smem, dim3 grid, int threads,
+                   const BwdArgs& a, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  kern<<<grid, NT, smem, stream>>>(a);
+  kern<<<grid, threads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-// which 0: dq; 1: dk and dv
-template <typename T>
-cudaError_t launch_typed(const BwdArgs& a, int which, cudaStream_t stream) {
+// f32 route; which 0: dq; 1: dk and dv
+cudaError_t launch_f32(const BwdArgs& a, int which, cudaStream_t stream) {
   const bool wide = a.hd > 128 || a.hdv > 128;
   if (which == 0) {
     dim3 grid((a.Sq + BQ10 - 1) / BQ10, a.H, a.B);
     const size_t smem = smem_dq(a.hd, a.hdv);
-    return wide ? launch(flash_bwd_dq<T, 8>, smem, grid, a, stream)
-                : launch(flash_bwd_dq<T, 4>, smem, grid, a, stream);
+    return wide ? launch(flash_bwd_dq_f32<8>, smem, grid, NT, a, stream)
+                : launch(flash_bwd_dq_f32<4>, smem, grid, NT, a, stream);
   }
   dim3 grid((a.Sk + BK11 - 1) / BK11, a.H, a.B);
   const size_t smem = smem_dkv(a.hd, a.hdv);
-  return wide ? launch(flash_bwd_dkv<T, 8>, smem, grid, a, stream)
-              : launch(flash_bwd_dkv<T, 4>, smem, grid, a, stream);
+  return wide ? launch(flash_bwd_dkv_f32<8>, smem, grid, NT, a, stream)
+              : launch(flash_bwd_dkv_f32<4>, smem, grid, NT, a, stream);
+}
+
+// bf16 route
+template <int HD, int HDV>
+cudaError_t launch_tc(const BwdArgs& a, int which, cudaStream_t stream) {
+  constexpr int threads = 128 * col_split<HD, HDV>();
+  if (which == 0) {
+    dim3 grid((a.Sq + TC_BM - 1) / TC_BM, a.H, a.B);
+    return launch(flash_bwd_dq_tc<HD, HDV>, smem_tc<HD, HDV>(false), grid,
+                  threads, a, stream);
+  }
+  dim3 grid((a.Sk + TC_BM - 1) / TC_BM, a.H, a.B);
+  return launch(flash_bwd_dkv_tc<HD, HDV>, smem_tc<HD, HDV>(true), grid,
+                threads, a, stream);
+}
+
+template <int HD>
+cudaError_t launch_tc_hdv(const BwdArgs& a, int which, cudaStream_t stream) {
+  switch (a.hdv) {
+    case 32: return launch_tc<HD, 32>(a, which, stream);
+    case 64: return launch_tc<HD, 64>(a, which, stream);
+    case 128: return launch_tc<HD, 128>(a, which, stream);
+    case 256: return launch_tc<HD, 256>(a, which, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+cudaError_t launch_bf16(const BwdArgs& a, int which, cudaStream_t stream) {
+  switch (a.hd) {
+    case 32: return launch_tc_hdv<32>(a, which, stream);
+    case 64: return launch_tc_hdv<64>(a, which, stream);
+    case 128: return launch_tc_hdv<128>(a, which, stream);
+    case 192: return launch_tc_hdv<192>(a, which, stream);
+    case 256: return launch_tc_hdv<256>(a, which, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 bool head_dim_ok(int d) { return d % 32 == 0 && d >= 32 && d <= 256; }
@@ -405,8 +831,11 @@ extern "C" {
 // given by their element strides over (batch, head, seq) in `strides` (q,
 // k, v, do, dq, dk, dv in turn; the last dim contiguous); lse and delta
 // [B,H,Sq] f32, contiguous.  which 0 launches K10 (writes dq), 1 launches
-// K11 (writes dk and dv).  dtype 0: bf16 operands and outputs; 1: f32.
-// Returns a cudaError_t.
+// K11 (writes dk and dv).  dtype 0: bf16 operands and outputs (tensor
+// cores); 1: f32 operands and outputs (CUDA cores); 2: bf16 operands, f32
+// outputs (the tensor-core kernels' sums before their rounding).  The
+// bf16 route takes hd in {32, 64, 128, 192, 256} and hd_v in {32, 64,
+// 128, 256}.  Returns a cudaError_t.
 int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
                                const void* dout, const float* lse,
                                const float* delta, void* dq, void* dk,
@@ -426,8 +855,9 @@ int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
   a.B = B; a.H = H; a.KV = KV; a.Sq = Sq; a.Sk = Sk; a.hd = hd;
   a.hdv = hd_v; a.causal = causal; a.window = window;
   a.softcap = softcap; a.scale = scale;
-  if (dtype == 0) return (int)launch_typed<bf16>(a, which, stream);
-  if (dtype == 1) return (int)launch_typed<float>(a, which, stream);
+  a.f32_out = dtype == 2;
+  if (dtype == 0 || dtype == 2) return (int)launch_bf16(a, which, stream);
+  if (dtype == 1) return (int)launch_f32(a, which, stream);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -159,17 +159,22 @@ def _launch_bwd(q, k, v, do, lse, delta, dq, dk, dv, *, causal: bool,
                 window: int, softcap: float, which=(0, 1)) -> None:
     """K10 (``which`` 0) then K11 (1).  q/k/v/do/dq/dk/dv as ``[B, heads,
     S, dim]`` views (any strides the checks accept; dk/dv per query head);
-    lse and delta contiguous ``[B,H,Sq]`` f32.  ``which`` picks one of the
-    two for timing each alone."""
+    lse and delta contiguous ``[B,H,Sq]`` f32.  The grads take q's dtype,
+    or f32 beside bf16 operands (the f32 sums).  ``which`` picks one of
+    the two for timing each alone."""
     B, H, Sq, hd = q.shape
     KV, Sk, hd_v = k.shape[1], k.shape[2], v.shape[3]
     _check_shapes(q, k, v)
     if tuple(do.shape) != (B, H, Sq, hd_v):
         raise ValueError(f"do {tuple(do.shape)} != {(B, H, Sq, hd_v)}")
     dev = q.device
-    for t, name in ((q, "q"), (k, "k"), (v, "v"), (do, "do"), (dq, "dq"),
-                    (dk, "dk"), (dv, "dv")):
+    for t, name in ((q, "q"), (k, "k"), (v, "v"), (do, "do")):
         _check(t, name, q.dtype, dev)
+    # bf16 operands with f32 grads: code 2, the sums before their rounding
+    f32_sums = (q.dtype, dq.dtype) == (torch.bfloat16, torch.float32)
+    dtype = 2 if f32_sums else _DTYPES[q.dtype]
+    for t, name in ((dq, "dq"), (dk, "dk"), (dv, "dv")):
+        _check(t, name, torch.float32 if f32_sums else q.dtype, dev)
     for t, name in ((lse, "lse"), (delta, "delta")):
         _build.check_cuda_tensor(t, name, torch.float32, dev)
     strides = _BwdStrides(*(s for t in (q, k, v, do, dq, dk, dv)
@@ -181,7 +186,7 @@ def _launch_bwd(q, k, v, do, lse, delta, dq, dk, dv, *, causal: bool,
         err = lib.flash_attention_bwd_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), kernel, _DTYPES[q.dtype], B, H, KV, Sq, Sk, hd,
+            dv.data_ptr(), kernel, dtype, B, H, KV, Sq, Sk, hd,
             hd_v, strides, int(causal), int(window), float(softcap),
             1.0 / math.sqrt(hd), stream)
         _build.check(err, name)
@@ -206,22 +211,30 @@ def _empty_in_layout_of(ref: torch.Tensor, shape, dtype) -> torch.Tensor:
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
-                        window: int = 0, softcap: float = 0.0):
+                        window: int = 0, softcap: float = 0.0,
+                        out_dtype=None):
     """Kernel layout: q ``[B,H,Sq,hd]``, k ``[B,KV,Sk,hd]``, v
     ``[B,KV,Sk,hd_v]``, o and do ``[B,H,Sq,hd_v]``, lse ``[B,H,Sq]`` f32
     -> ``(dq [B,H,Sq,hd], dk [B,H,Sk,hd], dv [B,H,Sk,hd_v])``, dk and dv
     per query head (the GQA fold is the caller's), each in its operand's
-    dtype.  CPU tensors run ``flash_attention_bwd_plain`` at the JAX
-    call's blocks; CUDA tensors launch K10 and K11 or raise, writing the
-    grads in q's layout (views of the model layout for model-layout q)."""
+    dtype.  ``out_dtype=torch.float32`` with bf16 operands gives the f32
+    sums before their rounding: a check that sees below bf16's precision.
+    CPU tensors run ``flash_attention_bwd_plain`` at the JAX call's
+    blocks; CUDA tensors launch K10 and K11 or raise, writing the grads in
+    q's layout (views of the model layout for model-layout q)."""
+    if out_dtype not in (None, q.dtype) and \
+            (q.dtype, out_dtype) != (torch.bfloat16, torch.float32):
+        raise TypeError(f"grads in {out_dtype} from {q.dtype} operands: "
+                        f"only bf16 operands give f32 grads")
     if _build.runs_plain(q):
         return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
-                                         window=window, softcap=softcap)
+                                         window=window, softcap=softcap,
+                                         out_dtype=out_dtype)
     B, H, Sq, hd = q.shape
     Sk, hd_v = k.shape[2], v.shape[3]
-    dq = _empty_in_layout_of(q, (B, H, Sq, hd), q.dtype)
-    dk = _empty_in_layout_of(q, (B, H, Sk, hd), k.dtype)
-    dv = _empty_in_layout_of(q, (B, H, Sk, hd_v), v.dtype)
+    dq = _empty_in_layout_of(q, (B, H, Sq, hd), out_dtype or q.dtype)
+    dk = _empty_in_layout_of(q, (B, H, Sk, hd), out_dtype or k.dtype)
+    dv = _empty_in_layout_of(q, (B, H, Sk, hd_v), out_dtype or v.dtype)
     _launch_bwd(q, k, v, do, lse.contiguous(), _delta(o, do), dq, dk, dv,
                 causal=causal, window=window, softcap=softcap)
     return dq, dk, dv

@@ -7,6 +7,8 @@
 ``flash_attention_bwd_plain``  the plain version of the backward pair:
                            the JAX kernels ``_flash_bwd_dq_kernel`` and
                            ``_flash_bwd_dkv_kernel`` step by step
+``split3_bf16``            the exact three-way bf16 split of f32 p and ds
+                           that the tensor-core backward kernels multiply
 
 Layout: q ``[B,H,Sq,hd]``; k ``[B,KV,Sk,hd]``; v ``[B,KV,Sk,hd_v]``.
 Query head ``h`` reads KV head ``h // (H // KV)``.
@@ -123,9 +125,32 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
     return o, lse
 
 
+def split3_bf16(x: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """f32 ``x`` as three bf16 tensors ``(hi, mid, lo)`` whose f32 sum is
+    ``x`` bit for bit, as ``csrc/flash_attention_bwd.cu::split3`` computes
+    them: ``hi = bf16(x)``, ``mid = bf16(x - hi)``, ``lo = x - hi - mid``
+    (f32 has 24 significant bits, the two residuals at most 16 and 8)."""
+    hi = x.to(torch.bfloat16)
+    r = x - hi.float()
+    mid = r.to(torch.bfloat16)
+    lo = (r - mid.float()).to(torch.bfloat16)
+    return hi, mid, lo
+
+
+def _split_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` with f32 ``a`` taken as its three bf16 parts, each part's
+    product added smallest first, as the tensor-core kernels add them."""
+    hi, mid, lo = split3_bf16(a)
+    out = torch.matmul(lo.float(), b)
+    out = out + torch.matmul(mid.float(), b)
+    return out + torch.matmul(hi.float(), b)
+
+
 def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
                               window: int = 0, softcap: float = 0.0,
-                              bq: int = 128, bk: int = 128):
+                              bq: int = 128, bk: int = 128, out_dtype=None,
+                              split3: bool = False):
     """dq, dk, dv of the flash forward, block by block as the JAX backward
     kernels compute them: operands cast to f32; scores recomputed with the
     softcap derivative ``dcap = 1 - (s/softcap)^2`` taken before masking;
@@ -135,12 +160,16 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
     f32.  Tiles the mask hides entirely are skipped (exact: there p and ds
     are zero).
 
+    ``split3=True`` runs the three accumulating products as the
+    tensor-core kernels do: p and ``ds * scale`` split by ``split3_bf16``,
+    one product per part, smallest first.
+
     q ``[B,H,Sq,hd]``, o and do ``[B,H,Sq,hd_v]``, lse ``[B,H,Sq]`` f32;
     k ``[B,KV,Sk,hd]`` and v ``[B,KV,Sk,hd_v]``, repeated to H heads
     here when KV < H (the JAX kernel takes them repeated).  Returns
     ``(dq [B,H,Sq,hd] in q's dtype, dk [B,H,Sk,hd] and dv [B,H,Sk,hd_v]
-    per query head in k's and v's dtype)``: the GQA fold is the
-    caller's."""
+    per query head in k's and v's dtype)``, or all three in ``out_dtype``
+    where one is given; the GQA fold is the caller's."""
     B, H, Sq, hd = q.shape
     Sk, hd_v = k.shape[2], v.shape[3]
     if H % k.shape[1]:
@@ -181,8 +210,17 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
             ds = p * (dp - delta_b)
             if softcap:
                 ds = ds * dcap
+            if split3:
+                dss = ds * scale
+                dq[:, :, q0:q0 + bq] += _split_matmul(dss, kb)
+                dk[:, :, k0:k0 + bk] += _split_matmul(
+                    dss.transpose(-1, -2), qb)
+                dv[:, :, k0:k0 + bk] += _split_matmul(p.transpose(-1, -2),
+                                                      dob)
+                continue
             dq[:, :, q0:q0 + bq] += torch.matmul(ds, kb) * scale
             dk[:, :, k0:k0 + bk] += torch.matmul(ds.transpose(-1, -2),
                                                  qb) * scale
             dv[:, :, k0:k0 + bk] += torch.matmul(p.transpose(-1, -2), dob)
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    return (dq.to(out_dtype or q.dtype), dk.to(out_dtype or k.dtype),
+            dv.to(out_dtype or v.dtype))

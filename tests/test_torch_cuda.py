@@ -169,7 +169,8 @@ def test_dwconv_rejects_channels_not_multiple_of_4(dev):
 
 
 # the five ATTN_CASES of tests/test_kernels.py, one hd != hd_v case, a
-# ragged length, and the Phi-4-mini prefill shape
+# ragged length, the Phi-4-mini prefill shape, and a length that is not a
+# multiple of the backward's 64-row tiles at hd=128 with GQA
 FLASH_CASES = [
     dict(B=2, H=4, KV=4, S=256, hd=64, causal=True, window=0, softcap=0.0),
     dict(B=2, H=4, KV=2, S=256, hd=64, causal=True, window=64, softcap=0.0),
@@ -181,6 +182,7 @@ FLASH_CASES = [
          softcap=0.0),
     dict(B=1, H=2, KV=1, S=100, hd=256, causal=True, window=0, softcap=0.0),
     dict(B=4, H=24, KV=8, S=512, hd=128, causal=True, window=0, softcap=0.0),
+    dict(B=2, H=4, KV=2, S=200, hd=128, causal=True, window=0, softcap=0.0),
 ]
 
 
@@ -302,6 +304,42 @@ def test_flash_bwd_kernels_match_plain(dev, ci, dtype):
     for gt, wt in zip(got, want):
         assert gt.dtype == dtype and gt.shape == wt.shape
         torch.testing.assert_close(gt.float(), wt.float(), rtol=rtol,
+                                   atol=share * float(wt.abs().max()))
+
+
+# (rtol, share of max|want| as atol) for K10/K11's f32 sums against the
+# plain backward on f32 casts, as chip_smoke.BWD_SUM_TOL
+BWD_SUM_TOL = (1e-5, 1e-6)
+
+
+@pytest.mark.parametrize("ci", [7, 4])
+def test_flash_bwd_f32_sums_match_plain(dev, ci):
+    """The pair on bf16 operands with f32 outputs (the sums before their
+    rounding) against flash_attention_bwd_plain on the f32 casts of the
+    same operands: a limit that sees a dropped part of the bf16 split of
+    p and ds, which bf16 outputs hide (the training shape; softcap, GQA
+    and a window)."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention_bwd, flash_attention_kernel)
+    from repro_torch.kernels.flash_attention.ref import \
+        flash_attention_bwd_plain
+    c = FLASH_CASES[ci]
+    q, k, v, do = _bwd_inputs(c, torch.bfloat16, dev, 200 + ci)
+    kw = dict(causal=c["causal"], window=c["window"], softcap=c["softcap"])
+    o, lse = flash_attention_kernel(q, k, v, return_lse=True, **kw)
+    want = flash_attention_bwd_plain(*(t.float() for t in (q, k, v, o)),
+                                     lse, do.float(), **kw)
+    reset_launches()
+    got = flash_attention_bwd(q, k, v, o, lse, do, out_dtype=torch.float32,
+                              **kw)
+    torch.cuda.synchronize()
+    assert LAUNCHES == {"flash_attention_bwd_dq": 1,
+                        "flash_attention_bwd_dkv": 1}
+    rtol, share = BWD_SUM_TOL
+    for gt, wt in zip(got, want):
+        assert gt.dtype == torch.float32 and gt.shape == wt.shape
+        torch.testing.assert_close(gt, wt, rtol=rtol,
                                    atol=share * float(wt.abs().max()))
 
 

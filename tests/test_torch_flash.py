@@ -1,5 +1,8 @@
 """The port's plain flash-attention forward (K9) against the JAX package's
-Pallas kernel in interpret mode, and against the port's own oracle.
+Pallas kernel in interpret mode, and against the port's own oracle; the
+exact three-way bf16 split that the tensor-core backward (K10, K11)
+multiplies, and the plain backward computed through it against the JAX
+backward kernels.
 
 Inputs are made with numpy from a seed and handed to both frameworks.
 Tolerances are those of ``tests/test_kernels.py::test_flash_attention``:
@@ -13,14 +16,18 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels.flash_attention.kernel import flash_attention_bwd \
+    as jax_flash_bwd
 from repro.kernels.flash_attention.kernel import flash_attention_kernel \
     as jax_flash_kernel
 from repro.kernels.flash_attention.ops import flash_attention as jax_flash
 from repro_torch.kernels import LAUNCHES, reset_launches
 from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                     flash_attention_bwd,
                                                      flash_attention_kernel)
-from repro_torch.kernels.flash_attention.ref import (flash_attention_plain,
-                                                     flash_attention_ref)
+from repro_torch.kernels.flash_attention.ref import (
+    flash_attention_bwd_plain, flash_attention_plain, flash_attention_ref,
+    split3_bf16)
 
 # the five ATTN_CASES of tests/test_kernels.py, then one hd != hd_v case
 CASES = [
@@ -126,3 +133,91 @@ def test_plain_rejects_ragged_blocks():
     q = torch.zeros((1, 2, 100, 32))
     with pytest.raises(ValueError, match="multiple"):
         flash_attention_plain(q, q, q, bq=64, bk=64)
+
+
+# ---------------------------------------------------------------------------
+# the exact three-way bf16 split of the backward's p and ds
+# ---------------------------------------------------------------------------
+
+
+def _split_inputs(kind: str, n: int = 1 << 16) -> torch.Tensor:
+    rng = np.random.default_rng(len(kind))
+    if kind == "p":             # softmax probabilities
+        x = rng.uniform(0.0, 1.0, n)
+    elif kind == "ds":          # both signs, magnitudes e^-24 .. e^24
+        x = rng.choice([-1.0, 1.0], n) * np.exp(rng.uniform(-24, 24, n))
+    elif kind == "zeros":
+        x = np.zeros(n)
+    else:                       # near 2^-100, both signs
+        x = rng.choice([-1.0, 1.0], n) * np.ldexp(rng.uniform(1, 2, n), -100)
+    return torch.from_numpy(x.astype(np.float32))
+
+
+@pytest.mark.parametrize("kind", ["p", "ds", "zeros", "tiny"])
+def test_split3_reconstructs_bit_for_bit(kind):
+    x = _split_inputs(kind)
+    parts = split3_bf16(x)
+    assert all(t.dtype == torch.bfloat16 for t in parts)
+    hi, mid, lo = (t.float() for t in parts)
+    assert torch.equal((lo + mid) + hi, x)
+    assert torch.equal(hi, x.to(torch.bfloat16).float())
+    # each part holds what the one above could not: a two-way split is
+    # not exact on these inputs (except zeros)
+    assert (lo.abs() <= mid.abs() * 2 ** -8).all()
+    assert (mid.abs() <= hi.abs() * 2 ** -8).all()
+    if kind != "zeros":
+        assert not torch.equal(mid + hi, x)
+
+
+# (max |diff| as a share of max |want|) per dtype, as test_torch_train.py's
+# KERNEL_REL for the plain backward against the JAX backward kernels
+BWD_REL = {"f32": 1e-5, "bf16": 1e-2}
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("ci", range(len(CASES)))
+def test_bwd_plain_through_split_matches_pallas(ci, dtype):
+    """The plain backward with its three accumulating products taken
+    through split3_bf16 (bf16 parts cast to f32, one product each, as the
+    tensor-core kernels run them) against the JAX backward kernels on the
+    same q, k, v, do and forward o, lse."""
+    case = CASES[ci]
+    tdt, jdt, _ = DTYPES[dtype]
+    rng = np.random.default_rng(400 + ci)
+    B, H, KV, S, hd = (case[x] for x in ("B", "H", "KV", "S", "hd"))
+    hd_v = case.get("hd_v", hd)
+    q, k, v, do = (rng.standard_normal(shape, np.float32) for shape in (
+        (B, H, S, hd), (B, KV, S, hd), (B, KV, S, hd_v), (B, H, S, hd_v)))
+    jq, jk, jv, jdo = (jnp.asarray(a, jdt) for a in (q, k, v, do))
+    o, lse = jax_flash_kernel(jq, jk, jv, return_lse=True, interpret=True,
+                              **_kw(case))
+    rep = H // KV
+    want = jax_flash_bwd(jq, jnp.repeat(jk, rep, 1), jnp.repeat(jv, rep, 1),
+                         o, lse, jdo, interpret=True, **_kw(case))
+    args = [torch.from_numpy(np.array(a, np.float32)).to(tdt)
+            for a in (jq, jk, jv, o)]
+    lse_t = torch.from_numpy(np.array(lse))
+    do_t = torch.from_numpy(np.array(jdo, np.float32)).to(tdt)
+    got = flash_attention_bwd_plain(*args, lse_t, do_t, split3=True,
+                                    **_kw(case))
+    for g, w in zip(got, want):
+        w = np.asarray(w, np.float32)
+        assert g.dtype == tdt and tuple(g.shape) == w.shape
+        err = np.abs(g.float().numpy() - w).max()
+        assert err <= BWD_REL[dtype] * np.abs(w).max(), (err, np.abs(w).max())
+    # the f32 sums through the split equal those of f32 products but for
+    # the order of f32 additions and the scale taken per element
+    unsplit = flash_attention_bwd(*args, lse_t, do_t,
+                                  out_dtype=torch.float32, **_kw(case))
+    split = flash_attention_bwd_plain(*args, lse_t, do_t, split3=True,
+                                      out_dtype=torch.float32, **_kw(case))
+    for g, w in zip(split, unsplit):
+        assert g.dtype == torch.float32
+        assert (g - w).abs().max() <= 1e-6 * w.abs().max()
+
+
+def test_bwd_f32_grads_only_from_bf16():
+    q = torch.zeros((1, 2, 64, 32))
+    lse = torch.zeros((1, 2, 64))
+    with pytest.raises(TypeError, match="bf16 operands"):
+        flash_attention_bwd(q, q, q, q, lse, q, out_dtype=torch.bfloat16)
