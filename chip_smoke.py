@@ -6,7 +6,11 @@
 Needs one CUDA card and ``nvcc``; exits non-zero without them, and when
 it is run outside a checkout of the repository.  Phases, one line each:
 
-  1. build the CUDA kernels from ``src/repro_torch/kernels/csrc``;
+  1. build the CUDA kernels from ``src/repro_torch/kernels/csrc``, and
+     beside them ``nvcc -Xptxas -v`` on ``dwconv_int8.cu``: registers,
+     stack and spills of every ``dw_kernel`` instance (full log in
+     ``ptxas_dwconv.log`` in the output directory), and from its SASS the
+     instructions a MAC of each 3x3 instance's MAC block;
   2. hold every kernel against its plain PyTorch version on the card: the
      int8 kernels at every distinct main-path shape of the nets below
      compiled for ``NX2100`` at batch 8 (int8, f32 and int32 outputs
@@ -55,8 +59,10 @@ it is run outside a checkout of the repository.  Phases, one line each:
 Times are per slice run (one forward of each of the four nets, and the
 LM's engine run and 3 training steps): a kernel's ``ms`` sums its
 launches on that path (the record also splits it per net and per
-launch).  K10 and K11 share one plain version and one library call,
-which compute dq, dk and dv together: each row carries the pair's time.
+launch; for the depthwise kernels, per shape, the bytes, bound and cuDNN
+time beside the time a launch, ``dw_per_shape``).  K10 and K11 share
+one plain version and one library call, which compute dq, dk and dv
+together: each row carries the pair's time.
 Kernel, plain-version and library times are device times: back-to-back
 calls captured into a CUDA graph and replayed.  The record keeps beside them each kernel's time
 per call from Python, host included, and each forward's eager time
@@ -297,6 +303,90 @@ class Kernel:
                 f" ({key or ''} {share:.4g} of the limit)"
             raise AssertionError(f"{self.name}: differs from its plain "
                                  f"version by up to {e}{what}")
+
+
+DW_INSTANCE = r"dw_kernelILb(\d)ELi(\d)ELi(\d)ELi(\d)E"
+
+
+def dw_instance(m):
+    return "dw_kernel<{},{},{},{}>".format(
+        "true" if m.group(1) == "1" else "false", *m.group(2, 3, 4))
+
+
+def sass_per_mac(sass):
+    """Per dw_kernel instance: instructions a MAC in the SASS block that
+    holds its dp4a (IDP) instructions, from the branch or barrier before
+    the first to the store, branch or conversion after the last; each IDP
+    does 3 MACs of a 3-tap kernel row (reported for k = 3 only)."""
+    import re
+    found = {}
+    for body in re.split(r"\n\s+Function : ", sass)[1:]:
+        m = re.search(DW_INSTANCE, body.split("\n")[0])
+        if not m or m.group(2) != "3":
+            continue
+        ops = [x.group(1) for x in re.finditer(
+            r"/\*[0-9a-f]{4,5}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)", body)]
+        idp = [i for i, op in enumerate(ops) if op.startswith("IDP")]
+        if not idp:
+            continue
+        lo, hi = idp[0], idp[-1]
+        while lo > 0 and not ops[lo - 1].startswith(
+                ("BRA", "BAR", "EXIT", "BSYNC", "WARPSYNC")):
+            lo -= 1
+        while hi < len(ops) - 1 and not ops[hi + 1].startswith(
+                ("BRA", "STG", "BAR", "I2F", "EXIT")):
+            hi += 1
+        found[dw_instance(m)] = (hi - lo + 1) / (3 * len(idp))
+    return found
+
+
+def start_ptxas_report(_build):
+    """Start ``nvcc -Xptxas -v`` on ``csrc/dwconv_int8.cu`` (beside the
+    build); the returned function waits for it, writes its log to
+    ``chiprun_out/ptxas_dwconv.log`` and returns {instance: registers,
+    stack and spill bytes, and for k = 3 the SASS instructions a MAC of
+    the MAC block} of each dw_kernel<STREAM, K, S, NC>."""
+    import re
+    import tempfile
+    out = tempfile.NamedTemporaryFile(suffix=".so", delete=False).name
+    proc = subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o", out,
+         str(_build.CSRC / "dwconv_int8.cu")], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+
+    def finish():
+        log_text, _ = proc.communicate()
+        out_dir = ROOT / "chiprun_out"
+        out_dir.mkdir(exist_ok=True)
+        (out_dir / "ptxas_dwconv.log").write_text(log_text)
+        if proc.returncode != 0:
+            Path(out).unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc -Xptxas -v failed:\n{log_text}")
+        sass = subprocess.run(
+            [str(Path(_build._nvcc()).parent / "cuobjdump"), "-sass", out],
+            capture_output=True, text=True, timeout=300, check=True).stdout
+        Path(out).unlink(missing_ok=True)
+        found, cur = {}, None
+        for line in log_text.splitlines():
+            m = re.search(r"(?:entry function|Function properties for) "
+                          r"'?\S*" + DW_INSTANCE, line)
+            if m:
+                cur = dw_instance(m)
+                found.setdefault(cur, {})
+                continue
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", line)
+            if m and cur:
+                found[cur].update(stack=int(m.group(1)),
+                                  spill_stores=int(m.group(2)),
+                                  spill_loads=int(m.group(3)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and cur:
+                found[cur]["registers"] = int(m.group(1))
+        for inst, per_mac in sass_per_mac(sass).items():
+            found.setdefault(inst, {})["sass_instr_per_mac"] = per_mac
+        return found
+    return finish
 
 
 def main_path_shapes(comp, select_engine):
@@ -935,10 +1025,20 @@ def main():
 
     # -- 1. build -----------------------------------------------------------
     t0 = time.perf_counter()
+    ptxas = start_ptxas_report(_build)
     _build.build_all()
     record["build_s"] = time.perf_counter() - t0
     log("build", f"{len(_build.SOURCES)} sources built with nvcc in "
         f"{record['build_s']:.1f} s")
+    record["ptxas_dwconv"] = ptxas()
+    log("build", "dwconv_int8.cu under -Xptxas -v (registers, stack, spill "
+        "stores/loads bytes; SASS instructions a MAC of the 3x3 MAC "
+        "block): " + "; ".join(
+            f"{k}: {v.get('registers')}, {v.get('stack')}, "
+            f"{v.get('spill_stores')}/{v.get('spill_loads')}"
+            + (f", {v['sass_instr_per_mac']:.2f}"
+               if "sass_instr_per_mac" in v else "")
+            for k, v in sorted(record["ptxas_dwconv"].items())))
 
     nets = {n: compile(get_cnn(n), NX2100)
             for n in ("resnet50", "resnet18", "mobilenetv2")}
@@ -1056,7 +1156,13 @@ def main():
                     depthwise=True, want_float=True)
                 ks[kname].err(torch, gq, want_q)
                 ks[kname].err(torch, gf, want_f)
-                n_checks += 3
+                gq, gf = conv2d_int8_requant(
+                    x, w, ws, b, 0.05, stride=s, stream=stream, n_buffers=nb,
+                    depthwise=True)
+                if gf is not None:
+                    raise AssertionError(f"{kname}: f32 values not asked for")
+                ks[kname].err(torch, gq, want_q)
+                n_checks += 4
     n_flash = check_flash(torch, g, dev, ks[LM_KERNEL])
     n_bwd = check_flash_bwd(torch, g, dev, ks, record)
     torch.cuda.synchronize()
@@ -1163,6 +1269,8 @@ def main():
             kern.bytes += n * nbytes
             kern.ops += n * 2 * BATCH * ho * wo * co * k * k * c
     torch.backends.cudnn.allow_tf32 = False    # exact fp32 library conv
+    # per dw shape: launches, device ms a launch, bytes, bound, cuDNN ms
+    dw_shape_rows = {"dwconv_int8_pinned": {}, "dwconv_int8_stream": {}}
     for kname, stream in (("dwconv_int8_pinned", False),
                           ("dwconv_int8_stream", True)):
         kern = ks[kname]
@@ -1187,12 +1295,18 @@ def main():
                                want):
                 raise AssertionError(f"{kname} {key}: the library's fp32 "
                                      f"depthwise conv is not exact")
-            kern.library_ms += n * device_ms(
+            lib_ms = device_ms(
                 torch, lambda: F.conv2d(xp, wf, stride=s, groups=c), reps=20)
+            kern.library_ms += n * lib_ms
             ho, wo = -(-h // s), -(-w_ // s)
-            kern.bytes += n * (x.numel() + w.numel() + 8 * c
-                               + BATCH * ho * wo * c)
-            kern.ops += n * 2 * BATCH * ho * wo * c * k * k
+            nbytes = x.numel() + w.numel() + 8 * c + BATCH * ho * wo * c
+            ops = 2 * BATCH * ho * wo * c * k * k
+            kern.bytes += n * nbytes
+            kern.ops += n * ops
+            dw_shape_rows[kname][",".join(map(str, key))] = {
+                "launches": n, "ms": per_launch[kname][key],
+                "bytes": nbytes, "bound_ms": bound_ms(nbytes, ops)[0],
+                "library_ms": lib_ms}
     for key, n in shapes["maxpool_int8"].items():
         h, w_, c, k, s = key
         x = i8(BATCH, h, w_, c)
@@ -1273,6 +1387,13 @@ def main():
                          * per_launch["conv2d_int8_pinned"][kk] for kk in keys)
         one["library_ms"] += n * device_ms(
             torch, lambda: torch._int_mm(xs, w2), reps=20)
+    record["dw_per_shape"] = dw_shape_rows
+    for kname, rows in dw_shape_rows.items():
+        log("time", f"{kname} per shape (h,w,c,k,s,nb: launches x us, "
+            f"bound us, cuDNN us): " + "; ".join(
+                f"{key}: {r['launches']} x {r['ms'] * 1e3:.2f}, "
+                f"{r['bound_ms'] * 1e3:.2f}, {r['library_ms'] * 1e3:.2f}"
+                for key, r in rows.items()) + f"  [{card}]")
     k1.library_ms = one["library_ms"]
     k1.library_covers = (one["launches"], one["ms"])
     record["conv2d_int8_pinned_1x1"] = one

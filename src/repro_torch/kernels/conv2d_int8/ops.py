@@ -11,6 +11,8 @@ tensor runs the plain version in ``ref.py``; a CUDA tensor launches
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
@@ -22,26 +24,26 @@ from repro_torch.kernels.conv2d_int8.ref import (conv2d_int8_ref,
 from repro_torch.kernels.quant import reciprocal, requant_epilogue
 
 __all__ = ["conv2d_int8", "conv2d_int8_requant", "same_padded_width",
-           "smem_bytes", "dw_quads", "dw_smem_bytes", "KERNEL_PINNED",
+           "smem_bytes", "dw_plan", "dw_layout", "DwPlan", "KERNEL_PINNED",
            "KERNEL_STREAM", "KERNEL_DW_PINNED", "KERNEL_DW_STREAM"]
 
 KERNEL_PINNED = "conv2d_int8_pinned"     # replaces _conv_kernel
 KERNEL_STREAM = "conv2d_int8_stream"     # replaces _conv_stream_kernel
 KERNEL_DW_PINNED = "dwconv_int8_pinned"  # replaces _dwconv_kernel
 KERNEL_DW_STREAM = "dwconv_int8_stream"  # replaces _dwconv_stream_kernel
-DW_THREADS = 128                         # threads per CTA of dw_kernel
 MAX_SMEM_BYTES = 232448                  # what one H100 block may claim
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
-def _lib(name: str) -> ctypes.CDLL:
-    """The library of ``csrc/<name>.cu``; both launch functions take the
-    same argument list: 4 pointers, 2 floats, 3 output pointers, 15 ints
-    and the stream."""
+def _lib(name: str, n_ints: int) -> ctypes.CDLL:
+    """The library of ``csrc/<name>.cu``; both launch functions take 4
+    pointers, 2 floats, 3 output pointers, ``n_ints`` ints and the
+    stream."""
     lib = _build.load(name)
     if not getattr(lib, "_typed", False):
         fn = getattr(lib, f"{name}_launch")
-        fn.argtypes = [_P, _P, _P, _P, _F, _F, _P, _P, _P] + [_I] * 15 + [_P]
+        fn.argtypes = [_P, _P, _P, _P, _F, _F, _P, _P, _P] + [_I] * n_ints \
+            + [_P]
         fn.restype = _I
         lib._typed = True
     return lib
@@ -58,37 +60,161 @@ def smem_bytes(c_in: int, w_out: int, k_h: int, k_w: int, stride: int,
     return nb * cp * 32 + k_h * wp * (cp // 4 + 1) * 4
 
 
-def dw_quads(c: int, w_out: int) -> int:
-    """Channel tile of the depthwise kernel, in quads of channels (8, 16
-    or 32): the one that leaves the fewest of a CTA's thread slots idle
-    over (channel tiles x lanes x columns per lane), the smaller on a tie
-    (more CTAs).  Narrow maps (7x7) take wider tiles so that the lanes of
-    a CTA still find columns."""
+# The depthwise kernel's launch plan; ``csrc/dwconv_int8.cu`` mirrors
+# the layout (``layout`` there) and takes quads, groups and rows_per_band
+# from it.
+DW_MAX_THREADS = 256      # compute threads of a CTA, at most
+DW_PRODUCER = 32          # the streamed tier's tap-fetching warp
+DW_COLS = (8, 4)          # consecutive output columns a thread may own
+DW_WARPS_PER_SM = 12      # below this with 8 columns a thread, take 4
+                          # (stride 2 only)
+DW_PREFETCH = 2           # output rows whose input rows are in flight ahead
+DW_KERNEL_SIZES = (1, 3, 5, 7)
+# compute threads per SM the bands aim for: more for the streamed tier,
+# whose per-row tap chain needs more rings in flight
+DW_THREADS_PER_SM = {False: 512, True: 1024}
+
+
+@dataclass(frozen=True)
+class DwPlan:
+    """One launch of the depthwise kernel: a CTA per (channel tile of
+    ``4 * quads`` channels, band of ``rows_per_band`` output rows, image),
+    whose compute threads are ``quads`` x ``groups`` column groups of
+    ``cols`` output columns each."""
+    quads: int
+    cols: int
+    groups: int
+    c_tiles: int
+    rows_per_band: int
+    bands: int
+    batch: int
+    ring_rows: int        # input-row slots of the ring
+    tap_slots: int        # streamed tier: min(n_buffers, k*k); pinned: 0
+    row_words: int        # 32-bit words of one ring row (bank gaps in)
+    smem_bytes: int
+    threads: int          # compute threads (a whole number of warps) and,
+                          # in the streamed tier, the producer warp
+
+    @property
+    def grid(self) -> Tuple[int, int, int]:
+        return self.c_tiles, self.bands, self.batch
+
+
+def dw_bank_gap(quads: int, stride: int, nc: int) -> int:
+    """Words of gap after every ``nc * stride`` columns of a ring row (one
+    column group's span): the next group's first word lands on the bank
+    after this group's last, so a warp's lanes read 32 consecutive
+    banks."""
+    return quads * (1 - nc * stride) % 32
+
+
+def dw_layout(w_out: int, k: int, stride: int, nc: int, quads: int,
+              stream: bool, n_buffers: int) -> Tuple[int, int, int, int]:
+    """(ring rows, tap slots, words of a ring row, shared-memory bytes) of
+    one CTA whose threads own ``nc`` output columns each: 2 mbarriers and
+    a slot of ``quads`` words per streamed tap, then ``k + DW_PREFETCH *
+    stride`` input rows of ``quads`` words a column for the columns a
+    thread's windows read, with a bank gap (``dw_bank_gap``) after every
+    ``nc * stride`` columns."""
+    period = nc * stride
+    chunks = -(-w_out // nc)
+    ndp = -(-k // 4)                         # dp4a words per kernel row
+    nt4 = -(-((nc - 1) * stride + 4 * ndp) // 4)
+    cols = max((chunks - 1) * period + 4 * nt4, (w_out - 1) * stride + k)
+    row_words = cols * quads + dw_bank_gap(quads, stride, nc) * \
+        ((cols - 1) // period)
+    ring = k + DW_PREFETCH * stride
+    slots = min(n_buffers, k * k) if stream else 0
+    return ring, slots, row_words, slots * (quads * 4 + 16) \
+        + ring * row_words * 4
+
+
+def _dw_tile(batch: int, h_out: int, w_out: int, c: int, k: int,
+             stride: int, nc: int, stream: bool, n_buffers: int,
+             sm_count: int):
+    """The tile and column groups with the fewest idle thread slots for
+    threads of ``nc`` columns: (quads, groups, tiles, threads, layout) or
+    None where no tile fits in shared memory."""
+    vec = 4 if c % 16 == 0 else 2 if c % 8 == 0 else 1
     cq = c // 4
-    best, best_busy = None, 0.0
-    for quads in (8, 16, 32):
-        lanes = DW_THREADS // quads
-        cols = -(-w_out // lanes)
-        if cols > 16:                        # the kernel's MAXC limit
+    chunks = -(-w_out // nc)
+    best, seen = None, set()
+    for n in range(1, cq + 1):
+        quads = -(-(-(-cq // n)) // vec) * vec
+        if quads in seen or quads > DW_MAX_THREADS:
             continue
-        busy = cq * w_out / (-(-cq // quads) * quads * lanes * cols)
-        if busy > best_busy:
-            best, best_busy = quads, busy
-    if best is None:
-        raise ValueError(f"output width {w_out} > 256 is not supported")
-    return best
+        seen.add(quads)
+        tiles = -(-cq // quads)
+        layout = dw_layout(w_out, k, stride, nc, quads, stream, n_buffers)
+        if layout[3] > MAX_SMEM_BYTES:
+            continue
+        for groups in range(1, chunks + 1):
+            threads = -(-quads * groups // 32) * 32
+            if threads > DW_MAX_THREADS:
+                break
+            rounds = -(-chunks // groups)
+            key = (tiles * threads * rounds, rounds,
+                   -min(tiles * batch * h_out, 4 * sm_count), -quads)
+            if best is None or key < best[0]:
+                best = (key, (quads, groups, tiles, threads, layout))
+    return None if best is None else best[1]
 
 
-def dw_smem_bytes(c: int, w_out: int, k_h: int, k_w: int, stride: int,
-                  stream: bool, n_buffers: int) -> int:
-    """Shared memory one CTA of the depthwise kernel claims (mirrors
-    ``smem_bytes`` in ``csrc/dwconv_int8.cu``): the pinned taps or the
-    ring, plus the k_h-row line buffer, of one channel tile."""
-    quads = dw_quads(c, w_out)
-    wp = (w_out - 1) * stride + k_w
-    taps = k_h * k_w
-    nb = min(n_buffers, taps) if stream else taps
-    return (nb + k_h * wp) * quads * 4
+@functools.lru_cache(maxsize=None)
+def dw_plan(batch: int, h: int, w: int, c: int, k: int, stride: int,
+            stream: bool, n_buffers: int, sm_count: int = 132) -> DwPlan:
+    """The channel tile, columns a thread, column groups, bands and shared
+    memory of one depthwise launch.
+
+    A thread owns one quad of channels and 8 consecutive output columns,
+    or 4 at stride 2 where 8 would leave fewer than ``DW_WARPS_PER_SM``
+    warps a SM with one-row bands (4 columns halve each thread's serial
+    work and double the warps; at stride 1 the extra halo words of a
+    4-column window cost more than that gains on the H100).  The tile (``quads``, a
+    multiple of the copy width) and the column groups leave the fewest
+    idle thread slots: channel tiles x threads (whole warps) x rounds of
+    column chunks; then the fewest rounds, enough CTAs for 4 per SM, and
+    the widest tile.  The bands aim at ``DW_THREADS_PER_SM`` compute
+    threads per SM.  Cached: the search runs in Python and would
+    otherwise add to the host time of every launch."""
+    if k not in DW_KERNEL_SIZES:
+        raise ValueError(f"depthwise kernel size {k} not in "
+                         f"{DW_KERNEL_SIZES}")
+    if stride not in (1, 2):
+        raise ValueError(f"depthwise stride {stride} not in (1, 2)")
+    if c % 4:
+        raise ValueError(f"C={c} must be a multiple of 4")
+    if n_buffers < 1:
+        raise ValueError("n_buffers must be >= 1")
+    h_out, _ = same_out_and_pad(h, k, stride)
+    w_out, _ = same_out_and_pad(w, k, stride)
+    pick = None
+    for nc in DW_COLS if stride == 2 else DW_COLS[:1]:
+        tile = _dw_tile(batch, h_out, w_out, c, k, stride, nc, stream,
+                        n_buffers, sm_count)
+        if tile is None:
+            continue
+        pick = (nc, tile)
+        _, _, tiles, threads, _ = tile
+        if tiles * batch * h_out * threads // 32 >= \
+                DW_WARPS_PER_SM * sm_count:
+            break
+    if pick is None:
+        raise ValueError(f"dwconv of width {w_out} needs more than "
+                         f"{MAX_SMEM_BYTES} B of shared memory per block")
+    nc, (quads, groups, tiles, threads, layout) = pick
+    ring, slots, row_words, smem = layout
+    want = -(-sm_count * DW_THREADS_PER_SM[bool(stream)] // threads)
+    bands = min(max(-(-want // (tiles * batch)), 1), h_out)
+    rows = -(-h_out // bands)
+    return DwPlan(quads, nc, groups, tiles, rows, -(-h_out // rows), batch,
+                  ring, slots, row_words, smem,
+                  threads + (DW_PRODUCER if stream else 0))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _outputs(x, w, w_scale, bias, shape, raw: bool, want_float: bool):
@@ -136,7 +262,7 @@ def _launch(x, w, w_scale, bias, act_scale: float, *, stride: int,
     shape = (B, h_out, w_out, c_out)
     out_q, out_f, out_i = _outputs(x, w, w_scale, bias, shape, raw,
                                    want_float)
-    err = _lib("conv2d_int8").conv2d_int8_launch(
+    err = _lib("conv2d_int8", 15).conv2d_int8_launch(
         _ptr(x), _ptr(w), _ptr(w_scale), _ptr(bias), act_scale,
         0.0 if raw else reciprocal(act_scale), _ptr(out_q),
         _ptr(out_f), _ptr(out_i), B, H, W, C, h_out, w_out, c_out, k_h, k_w,
@@ -155,25 +281,22 @@ def _launch_dw(x, w, w_scale, bias, act_scale: float, *, stride: int,
     if w_one != 1 or w_c != C:
         raise ValueError(f"depthwise weights {tuple(w.shape)} do not take "
                          f"C={C}")
-    if C % 4:
-        raise ValueError(f"C={C} must be a multiple of 4")
-    if n_buffers < 1:
-        raise ValueError("n_buffers must be >= 1")
+    if k_h != k_w:
+        raise ValueError(f"depthwise kernel {k_h}x{k_w} is not square")
+    dev = x.device
+    plan = dw_plan(B, H, W, C, k_h, stride, stream, n_buffers,
+                   _sm_count(dev.index if dev.index is not None
+                             else torch.cuda.current_device()))
     h_out, pad_t = same_out_and_pad(H, k_h, stride)
     w_out, pad_l = same_out_and_pad(W, k_w, stride)
-    quads = dw_quads(C, w_out)
-    smem = dw_smem_bytes(C, w_out, k_h, k_w, stride, stream, n_buffers)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"dwconv needs {smem} B of shared memory per "
-                         f"block, more than {MAX_SMEM_BYTES}")
-    dev = x.device
     out_q, out_f, out_i = _outputs(x, w, w_scale, bias, (B, h_out, w_out, C),
                                    raw, want_float)
-    err = _lib("dwconv_int8").dwconv_int8_launch(
+    err = _lib("dwconv_int8", 18).dwconv_int8_launch(
         _ptr(x), _ptr(w), _ptr(w_scale), _ptr(bias), act_scale,
         0.0 if raw else reciprocal(act_scale), _ptr(out_q), _ptr(out_f),
         _ptr(out_i), B, H, W, C, h_out, w_out, k_h, k_w, stride, pad_t,
-        pad_l, quads, int(stream), n_buffers, int(relu),
+        pad_l, plan.quads, plan.cols, plan.groups, plan.rows_per_band,
+        int(stream), n_buffers, int(relu),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "dwconv_int8")
     _build.count_launch(KERNEL_DW_STREAM if stream else KERNEL_DW_PINNED)

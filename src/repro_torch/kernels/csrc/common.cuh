@@ -17,6 +17,24 @@ __device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
                "l"(gmem), "r"(src_bytes));
 }
 
+// 8- and 16-byte copies, zero-filled in the same way when !valid.  Both
+// addresses must be aligned to the copy's size.
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem,
+                                          bool valid) {
+  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  int src_bytes = valid ? 8 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool valid) {
+  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  int src_bytes = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(src_bytes));
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }

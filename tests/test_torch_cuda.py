@@ -123,18 +123,40 @@ def test_mini_net_on_card_matches_cpu(dev, name):
         rep.verify()
 
 
+# (C, (H, W)): the original cases; C = 72 and 200 (C % 16 = 8), 12
+# (C % 8 = 4) and 184; odd maps, where 5x5 at stride 2 pads only one side
+# of each pair
 @pytest.mark.parametrize("c,hw", [(32, (9, 11)), (960, (7, 7)),
-                                  (144, (56, 56)), (8, (8, 6))])
+                                  (144, (56, 56)), (8, (8, 6)),
+                                  (72, (29, 31)), (200, (14, 14)),
+                                  (12, (13, 10)), (184, (15, 13))])
 @pytest.mark.parametrize("stride", [1, 2])
 @pytest.mark.parametrize("k", [3, 5])
 def test_dwconv_kernel_matches_plain(dev, k, stride, c, hw):
+    _check_dwconv(dev, 3, k, stride, c, hw)
+
+
+# MobileNetV2's first dw layer at batch 8, and a map whose output height
+# is not a multiple of the pinned tier's band
+@pytest.mark.parametrize("hw", [(112, 112), (113, 112)])
+def test_dwconv_kernel_full_width_batch8(dev, hw):
+    from repro_torch.kernels.conv2d_int8.ops import _sm_count, dw_plan
+    from repro_torch.kernels.conv2d_int8.ref import same_out_and_pad
+    if hw[0] == 113:
+        h_out, _ = same_out_and_pad(hw[0], 3, 1)
+        plan = dw_plan(8, *hw, 32, 3, 1, False, 2, _sm_count(dev.index or 0))
+        assert h_out % plan.rows_per_band, plan
+    _check_dwconv(dev, 8, 3, 1, 32, hw)
+
+
+def _check_dwconv(dev, batch, k, stride, c, hw):
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.kernels.conv2d_int8.ops import (conv2d_int8,
                                                      conv2d_int8_requant)
     from repro_torch.kernels.conv2d_int8.ref import conv2d_int8_ref
     from repro_torch.kernels.quant import requant_epilogue
     g = torch.Generator(device=dev).manual_seed(k * 1000 + c + stride)
-    x, w = _i8(g, dev, 3, *hw, c), _i8(g, dev, k, k, 1, c)
+    x, w = _i8(g, dev, batch, *hw, c), _i8(g, dev, k, k, 1, c)
     ws = torch.rand(c, generator=g, device=dev) * 0.1 + 0.01
     bias = torch.randn(c, generator=g, device=dev)
     want = conv2d_int8_ref(x, w, stride=stride, depthwise=True)
@@ -151,9 +173,13 @@ def test_dwconv_kernel_matches_plain(dev, k, stride, c, hw):
                     stream=stream, n_buffers=nb, depthwise=True,
                     want_float=True)
                 assert torch.equal(q, want_q) and torch.equal(f, want_f)
+                q, f = conv2d_int8_requant(
+                    x, w, ws, bias, 0.05, stride=stride, relu=relu,
+                    stream=stream, n_buffers=nb, depthwise=True)
+                assert f is None and torch.equal(q, want_q)
     torch.cuda.synchronize()
-    assert LAUNCHES["dwconv_int8_pinned"] == 4
-    assert LAUNCHES["dwconv_int8_stream"] == 4 * len({1, 2, k * k})
+    assert LAUNCHES["dwconv_int8_pinned"] == 6
+    assert LAUNCHES["dwconv_int8_stream"] == 6 * len({1, 2, k * k})
 
 
 def test_dwconv_rejects_channels_not_multiple_of_4(dev):
