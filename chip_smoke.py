@@ -7,10 +7,16 @@ Needs one CUDA card and ``nvcc``; exits non-zero without them, and when
 it is run outside a checkout of the repository.  Phases, one line each:
 
   1. build the CUDA kernels from ``src/repro_torch/kernels/csrc``, and
-     beside them ``nvcc -Xptxas -v`` on ``dwconv_int8.cu``: registers,
-     stack and spills of every ``dw_kernel`` instance (full log in
-     ``ptxas_dwconv.log`` in the output directory), and from its SASS the
-     instructions a MAC of each 3x3 instance's MAC block;
+     beside them ``nvcc -Xptxas -v`` on ``dwconv_int8.cu``,
+     ``conv2d_int8.cu`` and ``flash_attention.cu``: registers, stack and
+     spills of every kernel instance (full logs ``ptxas_dwconv.log``,
+     ``ptxas_conv.log`` and ``ptxas_flash.log`` in the output directory),
+     and from the SASS the count of HGMMA, HMMA, IMMA and IDP
+     instructions of each instance and the instructions a MAC of each 3x3
+     ``dw_kernel``'s MAC block; it fails unless the instance each
+     main-path launch of K1 (``conv_mma``, from the conv plan of its shape)
+     and of K9 (``flash_fwd_wgmma<128>``, from the flash route of
+     Phi-4-mini's head dims) takes issues IMMA or HGMMA;
   2. hold every kernel against its plain PyTorch version on the card: the
      int8 kernels at every distinct main-path shape of the nets below
      compiled for ``NX2100`` at batch 8 (int8, f32 and int32 outputs
@@ -48,7 +54,8 @@ it is run outside a checkout of the repository.  Phases, one line each:
      just before and read just after each run;
   4. time each kernel at the slice's shapes, its plain version, one
      PyTorch call computing the same function where there is one
-     (``torch._int_mm`` for the 1x1 convs, cuDNN for the depthwise conv,
+     (``torch._int_mm`` for the 1x1 convs, cuDNN's fp32 conv for the
+     dense k > 1 convs and the depthwise conv,
      ``scaled_dot_product_attention`` for attention, its backward for the
      K10/K11 pair), each net end to end, the LM's prefill, decode step and
      engine run, and the training step (eager ms of steps 2-3, and one
@@ -59,8 +66,12 @@ it is run outside a checkout of the repository.  Phases, one line each:
 Times are per slice run (one forward of each of the four nets, and the
 LM's engine run and 3 training steps): a kernel's ``ms`` sums its
 launches on that path (the record also splits it per net and per
-launch; for the depthwise kernels, per shape, the bytes, bound and cuDNN
-time beside the time a launch, ``dw_per_shape``).  K10 and K11 share
+launch; for the dense and the depthwise kernels, per shape, the bytes,
+bound and library time beside the time a launch, ``conv_per_shape`` with
+the plan and each library call's time and whether its output equals the
+int32 sums, and ``dw_per_shape``; a dense conv's library time is its
+fastest exact call: ``torch._int_mm`` at 1x1, cuDNN's fp32 or TF32 conv
+at k > 1).  K10 and K11 share
 one plain version and one library call, which compute dq, dk and dv
 together: each row carries the pair's time.
 Kernel, plain-version and library times are device times: back-to-back
@@ -68,12 +79,14 @@ calls captured into a CUDA graph and replayed.  The record keeps beside them eac
 per call from Python, host included, and each forward's eager time
 beside its device time (the same forward replayed as a CUDA graph).
 ``bound_ms`` is the larger of the bytes it must move (inputs read once,
-outputs written once) over 3.35 TB/s and its operations over 1,979 TOP/s
+of a windowed map only the rows and columns some window covers; outputs
+written once) over 3.35 TB/s and its operations over 1,979 TOP/s
 int8 or 989 TFLOP/s bf16 (H100 SXM data sheet; causal attention counts
 half of 4·B·H·S²·hd, K10 3 and K11 4 products of 2·B·H·S²·hd, halved
 when causal).  ``library_ms`` covers ``library_launches`` of
 the kernel's launches, on which the kernel takes
-``ms_on_library_launches`` (K1: its 1x1 shapes only).  A JSON record of
+``ms_on_library_launches`` (all of them but the fc heads' matmuls, which
+``torch._int_mm`` refuses at M = 8).  A JSON record of
 the run goes to ``chip_smoke.json`` in the output directory beside this
 script.
 """
@@ -305,88 +318,254 @@ class Kernel:
                                  f"version by up to {e}{what}")
 
 
-DW_INSTANCE = r"dw_kernelILb(\d)ELi(\d)ELi(\d)ELi(\d)E"
+# (source, log name, {template: (mangled-name pattern, display format)}):
+# the sources whose kernels the build report lists, and the instances the
+# report names (the pattern's groups are the template arguments)
+PTXAS_SOURCES = (
+    ("dwconv_int8", "ptxas_dwconv.log", {
+        "dw_kernel": (r"dw_kernelILb(\d)ELi(\d)ELi(\d)ELi(\d)E",
+                      "dw_kernel<{},{},{},{}>")}),
+    ("conv2d_int8", "ptxas_conv.log", {
+        "conv_mma": (r"conv_mmaILb(\d)ELi(\d)ELi(\d)E",
+                     "conv_mma<{},{},{}>"),
+        "conv_stream_kernel": (r"conv_stream_kernelILi(\d)E",
+                               "conv_stream_kernel<{}>")}),
+    ("flash_attention", "ptxas_flash.log", {
+        "flash_fwd_wgmma": (r"flash_fwd_wgmmaILi(\d+)E",
+                            "flash_fwd_wgmma<{}>"),
+        "flash_fwd_bf16": (r"flash_fwd_bf16ILi(\d+)ELi(\d+)E",
+                           "flash_fwd_bf16<{},{}>"),
+        "flash_fwd_f32": (r"flash_fwd_f32()", "flash_fwd_f32{}")}),
+)
+# the tensor-core instruction each redesigned kernel must issue (SASS)
+SASS_REQUIRED = {"conv_mma": "IMMA", "flash_fwd_wgmma": "HGMMA"}
 
 
-def dw_instance(m):
-    return "dw_kernel<{},{},{},{}>".format(
-        "true" if m.group(1) == "1" else "false", *m.group(2, 3, 4))
-
-
-def sass_per_mac(sass):
-    """Per dw_kernel instance: instructions a MAC in the SASS block that
-    holds its dp4a (IDP) instructions, from the branch or barrier before
-    the first to the store, branch or conversion after the last; each IDP
-    does 3 MACs of a 3-tap kernel row (reported for k = 3 only)."""
+def instance_name(text, templates):
+    """(template, display name) of the kernel instance a ptxas or SASS line
+    names, or None."""
     import re
-    found = {}
-    for body in re.split(r"\n\s+Function : ", sass)[1:]:
-        m = re.search(DW_INSTANCE, body.split("\n")[0])
-        if not m or m.group(2) != "3":
-            continue
-        ops = [x.group(1) for x in re.finditer(
-            r"/\*[0-9a-f]{4,5}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)", body)]
-        idp = [i for i, op in enumerate(ops) if op.startswith("IDP")]
-        if not idp:
-            continue
-        lo, hi = idp[0], idp[-1]
-        while lo > 0 and not ops[lo - 1].startswith(
-                ("BRA", "BAR", "EXIT", "BSYNC", "WARPSYNC")):
-            lo -= 1
-        while hi < len(ops) - 1 and not ops[hi + 1].startswith(
-                ("BRA", "STG", "BAR", "I2F", "EXIT")):
-            hi += 1
-        found[dw_instance(m)] = (hi - lo + 1) / (3 * len(idp))
-    return found
+    for tmpl, (pattern, fmt) in templates.items():
+        m = re.search(pattern, text)
+        if m:
+            args = list(m.groups())
+            if pattern.startswith(tmpl + "ILb"):     # a bool first argument
+                args[0] = "true" if args[0] == "1" else "false"
+            return tmpl, fmt.format(*args)
+    return None
+
+
+def sass_per_mac(body):
+    """Instructions a MAC in the SASS block of a 3x3 dw_kernel instance
+    that holds its dp4a (IDP) instructions, from the branch or barrier
+    before the first to the store, branch or conversion after the last;
+    each IDP does 3 MACs of a 3-tap kernel row."""
+    import re
+    ops = [x.group(1) for x in re.finditer(
+        r"/\*[0-9a-f]{4,5}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)", body)]
+    idp = [i for i, op in enumerate(ops) if op.startswith("IDP")]
+    if not idp:
+        return None
+    lo, hi = idp[0], idp[-1]
+    while lo > 0 and not ops[lo - 1].startswith(
+            ("BRA", "BAR", "EXIT", "BSYNC", "WARPSYNC")):
+        lo -= 1
+    while hi < len(ops) - 1 and not ops[hi + 1].startswith(
+            ("BRA", "STG", "BAR", "I2F", "EXIT")):
+        hi += 1
+    return (hi - lo + 1) / (3 * len(idp))
 
 
 def start_ptxas_report(_build):
-    """Start ``nvcc -Xptxas -v`` on ``csrc/dwconv_int8.cu`` (beside the
-    build); the returned function waits for it, writes its log to
-    ``chiprun_out/ptxas_dwconv.log`` and returns {instance: registers,
-    stack and spill bytes, and for k = 3 the SASS instructions a MAC of
-    the MAC block} of each dw_kernel<STREAM, K, S, NC>."""
+    """Start ``nvcc -Xptxas -v`` on each source of ``PTXAS_SOURCES`` (beside
+    the build, all at once); the returned function waits for them, writes
+    each log to the output directory and returns {source: {instance:
+    registers, stack and spill bytes, the count of each tensor-core or
+    dp4a SASS instruction (HGMMA, HMMA, IMMA, IDP), and for a 3x3
+    dw_kernel the SASS instructions a MAC of its MAC block}}."""
     import re
     import tempfile
-    out = tempfile.NamedTemporaryFile(suffix=".so", delete=False).name
-    proc = subprocess.Popen(
-        [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o", out,
-         str(_build.CSRC / "dwconv_int8.cu")], stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True)
+    started = []
+    for src, log_name, templates in PTXAS_SOURCES:
+        out = tempfile.NamedTemporaryFile(suffix=".so", delete=False).name
+        proc = subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o", out,
+             str(_build.CSRC / f"{src}.cu")], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+        started.append((src, log_name, templates, out, proc))
 
     def finish():
-        log_text, _ = proc.communicate()
         out_dir = ROOT / "chiprun_out"
         out_dir.mkdir(exist_ok=True)
-        (out_dir / "ptxas_dwconv.log").write_text(log_text)
-        if proc.returncode != 0:
+        report = {}
+        for src, log_name, templates, out, proc in started:
+            log_text, _ = proc.communicate()
+            (out_dir / log_name).write_text(log_text)
+            if proc.returncode != 0:
+                Path(out).unlink(missing_ok=True)
+                raise RuntimeError(f"nvcc -Xptxas -v failed on {src}.cu:\n"
+                                   f"{log_text}")
+            sass = subprocess.run(
+                [str(Path(_build._nvcc()).parent / "cuobjdump"), "-sass",
+                 out], capture_output=True, text=True, timeout=300,
+                check=True).stdout
             Path(out).unlink(missing_ok=True)
-            raise RuntimeError(f"nvcc -Xptxas -v failed:\n{log_text}")
-        sass = subprocess.run(
-            [str(Path(_build._nvcc()).parent / "cuobjdump"), "-sass", out],
-            capture_output=True, text=True, timeout=300, check=True).stdout
-        Path(out).unlink(missing_ok=True)
-        found, cur = {}, None
-        for line in log_text.splitlines():
-            m = re.search(r"(?:entry function|Function properties for) "
-                          r"'?\S*" + DW_INSTANCE, line)
-            if m:
-                cur = dw_instance(m)
-                found.setdefault(cur, {})
-                continue
-            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
-                          r"stores, (\d+) bytes spill loads", line)
-            if m and cur:
-                found[cur].update(stack=int(m.group(1)),
-                                  spill_stores=int(m.group(2)),
-                                  spill_loads=int(m.group(3)))
-            m = re.search(r"Used (\d+) registers", line)
-            if m and cur:
-                found[cur]["registers"] = int(m.group(1))
-        for inst, per_mac in sass_per_mac(sass).items():
-            found.setdefault(inst, {})["sass_instr_per_mac"] = per_mac
-        return found
+            found, cur = {}, None
+            for line in log_text.splitlines():
+                if re.search(r"entry function|Function properties for",
+                             line):
+                    named = instance_name(line, templates)
+                    cur = named and named[1]
+                    if cur:
+                        found.setdefault(cur, {"template": named[0]})
+                    continue
+                m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                              r"stores, (\d+) bytes spill loads", line)
+                if m and cur:
+                    found[cur].update(stack=int(m.group(1)),
+                                      spill_stores=int(m.group(2)),
+                                      spill_loads=int(m.group(3)))
+                m = re.search(r"Used (\d+) registers", line)
+                if m and cur:
+                    found[cur]["registers"] = int(m.group(1))
+            for body in re.split(r"\n\s+Function : ", sass)[1:]:
+                named = instance_name(body.split("\n")[0], templates)
+                if not named:
+                    continue
+                rec = found.setdefault(named[1], {"template": named[0]})
+                for op in ("HGMMA", "HMMA", "IMMA", "IDP"):
+                    rec[op] = len(re.findall(rf"\b{op}\.", body))
+                if named[0] == "dw_kernel" and named[1].split(",")[1] == "3":
+                    rec["sass_instr_per_mac"] = sass_per_mac(body)
+            report[src] = found
+        return report
     return finish
+
+
+def check_main_path_instances(record, shapes, conv_plan, sm_count,
+                              flash_route, torch):
+    """The kernel instance each main-path launch of K1 and K9 takes (from
+    the conv plan of its shape and the flash route of Phi-4-mini's head
+    dims), and that each issues its tensor-core instruction in the SASS of
+    the build report; fails where one does not."""
+    used = {}
+    for key in shapes["conv2d_int8_pinned"]:
+        h, w, c, co, k, s = key[:6]
+        plan = conv_plan(BATCH, h, w, c, co, k, k, s, sm_count)
+        inst = (f"conv_mma<{'true' if plan.packed else 'false'},{plan.wn},"
+                f"{plan.nf}>")
+        used.setdefault(("conv2d_int8", inst), []).append(list(key[:6]))
+    hd = FLASH_SLICE[4]
+    route = flash_route(torch.bfloat16, hd, FLASH_SLICE[5])
+    used[("flash_attention",
+          f"flash_fwd_wgmma<{hd}>" if route == "wgmma"
+          else f"flash_fwd_bf16<{hd},{FLASH_SLICE[5]}>")] = [
+              list(FLASH_SLICE[:6])]
+    rows = {}
+    for (src, inst), keys in used.items():
+        rep = record["ptxas"][src].get(inst, {})
+        op = SASS_REQUIRED[rep.get("template", inst.split("<")[0])]
+        if not rep.get(op):
+            raise AssertionError(f"{inst} ({src}.cu), launched at {keys}, "
+                                 f"issues no {op} in its SASS: {rep}")
+        rows[inst] = {"shapes": keys, op: rep[op],
+                      "registers": rep.get("registers"),
+                      "spill_bytes": rep.get("spill_stores", 0)
+                      + rep.get("spill_loads", 0)}
+    record["main_path_instances"] = rows
+    log("build", "main-path instances (launch shapes; tensor-core SASS "
+        "instructions, registers, spill bytes): " + "; ".join(
+            f"{inst}: {len(r['shapes'])} shapes, "
+            f"{r.get('IMMA', r.get('HGMMA'))} "
+            f"{'IMMA' if 'IMMA' in r else 'HGMMA'}, {r['registers']}, "
+            f"{r['spill_bytes']}" for inst, r in rows.items()))
+
+
+def library_conv(torch, F, x, w, s, same_pad):
+    """The PyTorch calls that compute a dense int8 conv's sums, as
+    yardsticks of time the port never calls: ``torch._int_mm`` for a 1x1
+    (a stride-s 1x1 conv is a matmul over every s-th row and column), else
+    cuDNN's conv on a channels-last float copy of the pre-padded input,
+    once in fp32 (TF32 off) and once with TF32 on (int8 values and their
+    products are exact in TF32, and it sums in fp32).  fp32 sums past
+    2^24, or a Winograd route, may round: the caller records whether each
+    output equals the int32 sums.  The copies are made here, outside the
+    timed call.  [{"name", "fn": the timed call or None where the library
+    refuses the shape, "out": its output as [B, H', W', C_out],
+    "refused"}]."""
+    B, H, W, C = x.shape
+    k, co = w.shape[0], w.shape[3]
+    if k == 1:
+        xs = x[:, ::s, ::s, :].contiguous()
+        ho, wo = xs.shape[1:3]
+        xs, w2 = xs.reshape(-1, C), w.reshape(C, co)
+        try:
+            torch._int_mm(xs, w2)
+        except RuntimeError as e:
+            return [{"name": "torch._int_mm", "fn": None, "out": None,
+                     "refused": str(e).splitlines()[0][:120]}]
+        return [{"name": "torch._int_mm",
+                 "fn": lambda: torch._int_mm(xs, w2),
+                 "out": lambda: torch._int_mm(xs, w2).reshape(B, ho, wo,
+                                                              co),
+                 "refused": None}]
+    xp = same_pad(x, k, k, s).to(torch.float32).permute(0, 3, 1, 2)
+    wf = w.to(torch.float32).permute(3, 2, 0, 1).contiguous(
+        memory_format=torch.channels_last)
+
+    def conv(tf32):
+        def call():
+            torch.backends.cudnn.allow_tf32 = tf32
+            try:
+                return F.conv2d(xp, wf, stride=s)
+            finally:
+                torch.backends.cudnn.allow_tf32 = False
+        return call
+    return [{"name": f"cuDNN {'TF32' if tf32 else 'fp32'} conv",
+             "fn": conv(tf32),
+             "out": (lambda f=conv(tf32): f().permute(0, 2, 3, 1)),
+             "refused": None} for tf32 in (False, True)]
+
+
+def library_readings(torch, calls, want):
+    """Each library call's device ms and whether its output equals the
+    int32 sums ``want`` (else its largest difference), and the one that
+    stands as the library time: the fastest exact call, or the fastest
+    where none is exact."""
+    got = {}
+    for lib in calls:
+        if lib["fn"] is None:
+            got[lib["name"]] = {"refused": lib["refused"]}
+            continue
+        diff = float((lib["out"]().to(torch.float64)
+                      - want.to(torch.float64)).abs().max())
+        got[lib["name"]] = {"ms": device_ms(torch, lib["fn"], reps=20),
+                            "exact": diff == 0.0, "max_abs_diff": diff}
+    timed = [(r["ms"], not r["exact"], n) for n, r in got.items()
+             if "ms" in r]
+    if not timed:
+        return {"library": calls[0]["name"], "library_ms": None,
+                "library_refused": calls[0]["refused"],
+                "library_calls": got}
+    name = min(timed, key=lambda t: (t[1], t[0]))[2]
+    return {"library": name, "library_ms": got[name]["ms"],
+            "library_exact": got[name]["exact"],
+            "library_max_abs_diff": got[name]["max_abs_diff"],
+            "library_calls": got}
+
+
+def input_bytes_read(x, k, s):
+    """Bytes of an NHWC int8 map that a SAME k x k window at stride s
+    reads: only the rows and columns some output's window covers (a 1x1
+    at stride 2 reads one pixel in four)."""
+    from repro_torch.kernels.conv2d_int8.ref import same_out_and_pad
+    B, H, W, C = x.shape
+
+    def read(n):
+        out, pad = same_out_and_pad(n, k, s)
+        return len({o * s - pad + i for o in range(out) for i in range(k)}
+                   & set(range(n)))
+    return B * read(H) * read(W) * C
 
 
 def main_path_shapes(comp, select_engine):
@@ -883,7 +1062,8 @@ def time_flash(torch, F, g, dev, kern, n_launches, card, record):
     """Phase 4 for K9: device ms per launch at the slice shape and at S =
     2048 (model layout, as the main path calls it), its plain version,
     and F.scaled_dot_product_attention on the same tensors."""
-    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                         flash_route)
     from repro_torch.kernels.flash_attention.ref import flash_attention_plain
     per = {}
     for case in (FLASH_SLICE, FLASH_LONG):
@@ -910,10 +1090,14 @@ def time_flash(torch, F, g, dev, kern, n_launches, card, record):
                   "library_ms": device_ms(torch, lib, reps=20),
                   "bound_ms": b, "bound_by": by, "bytes": nbytes,
                   "flops": flops, "library_max_abs_diff": lib_diff}
+        per[S]["route"] = flash_route(torch.bfloat16, hd, hd_v)
+        per[S]["factor"] = per[S]["ms"] / per[S]["library_ms"]
         log("time", f"{LM_KERNEL} B={B} H={H} KV={KV} S={S} hd={hd} bf16 "
-            f"causal: {per[S]['ms']:.4f} ms per launch (device), plain "
-            f"{per[S]['plain_ms']:.4f} ms, SDPA {per[S]['library_ms']:.4f} "
-            f"ms, bound {b:.4f} ms ({by})  [{card}]")
+            f"causal ({per[S]['route']} route): {per[S]['ms']:.4f} ms per "
+            f"launch (device), plain {per[S]['plain_ms']:.4f} ms, SDPA "
+            f"{per[S]['library_ms']:.4f} ms ({per[S]['factor']:.3f}x), "
+            f"bound {b:.4f} ms ({by}), {flops / per[S]['ms'] / 1e9:.1f} "
+            f"TFLOP/s  [{card}]")
     t = per[LM_PROMPT]
     kern.ms, kern.plain_ms = n_launches * t["ms"], n_launches * t["plain_ms"]
     kern.library_ms = n_launches * t["library_ms"]
@@ -1003,8 +1187,10 @@ def main():
     from repro_torch.configs.cnn import get_cnn
     from repro_torch.kernels import _build
     from repro_torch.compiler.engines import _block as block_for
-    from repro_torch.kernels.conv2d_int8.ops import (conv2d_int8,
-                                                     conv2d_int8_requant)
+    from repro_torch.kernels.conv2d_int8.ops import (_sm_count, conv2d_int8,
+                                                     conv2d_int8_requant,
+                                                     conv_plan)
+    from repro_torch.kernels.flash_attention.ops import flash_route
     from repro_torch.kernels.conv2d_int8.ref import conv2d_int8_ref, same_pad
     from repro_torch.kernels.pool_int8.ops import (global_avgpool_int8,
                                                    maxpool_int8)
@@ -1030,15 +1216,18 @@ def main():
     record["build_s"] = time.perf_counter() - t0
     log("build", f"{len(_build.SOURCES)} sources built with nvcc in "
         f"{record['build_s']:.1f} s")
-    record["ptxas_dwconv"] = ptxas()
-    log("build", "dwconv_int8.cu under -Xptxas -v (registers, stack, spill "
-        "stores/loads bytes; SASS instructions a MAC of the 3x3 MAC "
-        "block): " + "; ".join(
-            f"{k}: {v.get('registers')}, {v.get('stack')}, "
-            f"{v.get('spill_stores')}/{v.get('spill_loads')}"
-            + (f", {v['sass_instr_per_mac']:.2f}"
-               if "sass_instr_per_mac" in v else "")
-            for k, v in sorted(record["ptxas_dwconv"].items())))
+    record["ptxas"] = ptxas()
+    for src, found in record["ptxas"].items():
+        log("build", f"{src}.cu under -Xptxas -v (registers, stack, spill "
+            f"stores/loads bytes; tensor-core and dp4a SASS instructions; "
+            f"for 3x3 dw_kernel the SASS instructions a MAC): " + "; ".join(
+                f"{k}: {v.get('registers')}, {v.get('stack')}, "
+                f"{v.get('spill_stores')}/{v.get('spill_loads')}, "
+                + " ".join(f"{op} {v[op]}" for op in
+                           ("HGMMA", "HMMA", "IMMA", "IDP") if v.get(op))
+                + (f", {v['sass_instr_per_mac']:.2f}"
+                   if v.get("sass_instr_per_mac") else "")
+                for k, v in sorted(found.items())))
 
     nets = {n: compile(get_cnn(n), NX2100)
             for n in ("resnet50", "resnet18", "mobilenetv2")}
@@ -1052,6 +1241,9 @@ def main():
         for k, d in per.items():
             for key, v in d.items():
                 shapes[k][key] = shapes[k].get(key, 0) + v
+    sm_count = _sm_count(0)
+    check_main_path_instances(record, shapes, conv_plan, sm_count,
+                              flash_route, torch)
     ks = {k: Kernel(k) for k in CNN_KERNELS}
     for k in (LM_KERNEL,) + BWD_KERNELS:
         ks[k] = Kernel(k, BF16_FLOPS_PER_S)
@@ -1248,15 +1440,21 @@ def main():
     def plain_ms(fn):
         return device_ms(torch, fn, reps=3, replays=2)
 
+    torch.backends.cudnn.allow_tf32 = False    # library_conv's TF32 call
+    # turns it on for itself only
+    # per dense conv shape: launches, device ms a launch, bytes, bound, the
+    # library calls, their ms and exactness, the plan (conv_per_shape)
+    conv_shape_rows = {"conv2d_int8_pinned": {}, "conv2d_int8_stream": {}}
     for key6, (x, w, ws, b) in conv_inputs.items():
         h, w_, c, co, k, s = key6
+        ho, wo = -(-h // s), -(-w_ // s)
+        lib = None
         for kname, stream in (("conv2d_int8_pinned", False),
                               ("conv2d_int8_stream", True)):
             keys = [kk for kk in shapes[kname] if kk[:6] == key6]
             if not keys:
                 continue
             n = sum(shapes[kname][kk] for kk in keys)
-            ho, wo = -(-h // s), -(-w_ // s)
             fc = any(kk[7] for kk in keys)
             kern = ks[kname]
             time_kernel(kname, keys, lambda: conv2d_int8_requant(
@@ -1264,11 +1462,24 @@ def main():
                 want_float=fc))
             kern.plain_ms += n * plain_ms(lambda: requant_epilogue(
                 conv2d_int8_ref(x, w, stride=s), ws, b, 0.05, True))
-            nbytes = x.numel() + w.numel() + 8 * co + BATCH * ho * wo * co \
-                * (5 if fc else 1)
+            nbytes = input_bytes_read(x, k, s) + w.numel() + 8 * co \
+                + BATCH * ho * wo * co * (5 if fc else 1)
+            ops = 2 * BATCH * ho * wo * co * k * k * c
             kern.bytes += n * nbytes
-            kern.ops += n * 2 * BATCH * ho * wo * co * k * k * c
-    torch.backends.cudnn.allow_tf32 = False    # exact fp32 library conv
+            kern.ops += n * ops
+            if lib is None:
+                lib = library_readings(
+                    torch, library_conv(torch, F, x, w, s, same_pad),
+                    conv2d_int8_ref(x, w, stride=s))
+            row = {"launches": n, "ms": per_launch[kname][keys[0]],
+                   "bytes": nbytes, "bound_ms": bound_ms(nbytes, ops)[0],
+                   **lib}
+            if not stream:
+                plan = conv_plan(BATCH, h, w_, c, co, k, k, s, sm_count)
+                row["plan"] = {f: getattr(plan, f) for f in (
+                    "n_tile", "rows_per_band", "bands", "packed",
+                    "ring_rows", "smem_bytes")}
+            conv_shape_rows[kname][",".join(map(str, key6))] = row
     # per dw shape: launches, device ms a launch, bytes, bound, cuDNN ms
     dw_shape_rows = {"dwconv_int8_pinned": {}, "dwconv_int8_stream": {}}
     for kname, stream in (("dwconv_int8_pinned", False),
@@ -1299,7 +1510,8 @@ def main():
                 torch, lambda: F.conv2d(xp, wf, stride=s, groups=c), reps=20)
             kern.library_ms += n * lib_ms
             ho, wo = -(-h // s), -(-w_ // s)
-            nbytes = x.numel() + w.numel() + 8 * c + BATCH * ho * wo * c
+            nbytes = input_bytes_read(x, k, s) + w.numel() + 8 * c \
+                + BATCH * ho * wo * c
             ops = 2 * BATCH * ho * wo * c * k * k
             kern.bytes += n * nbytes
             kern.ops += n * ops
@@ -1316,7 +1528,7 @@ def main():
         kern.plain_ms += n * plain_ms(lambda: maxpool_int8_ref(x, k=k,
                                                                stride=s))
         ho, wo = -(-h // s), -(-w_ // s)
-        kern.bytes += n * (x.numel() + BATCH * ho * wo * c)
+        kern.bytes += n * (input_bytes_read(x, k, s) + BATCH * ho * wo * c)
         kern.ops += n * BATCH * ho * wo * c * k * k
     for key, n in shapes["global_avgpool_int8"].items():
         h, w_, c = key
@@ -1360,33 +1572,52 @@ def main():
         kern.ms = sum(n * per_launch[name][key]
                       for key, n in shapes[name].items())
         kern.bound_ms, kern.bound_by = bound_ms(kern.bytes, kern.ops)
-    # K1's library: torch._int_mm over its 1x1 shapes (a stride-s 1x1 conv
-    # is a matmul over the input's every s-th row and column; exact int32
-    # sums).  The k > 1 shapes have no library call.
-    k1, one = ks["conv2d_int8_pinned"], {"ms": 0.0, "library_ms": 0.0,
-                                         "launches": 0, "refused": []}
-    for key6, (x, w, _, _) in conv_inputs.items():
-        h, w_, c, co, k, s = key6
-        keys = [kk for kk in shapes["conv2d_int8_pinned"] if kk[:6] == key6]
-        if k != 1 or not keys:
-            continue
-        xs = x[:, ::s, ::s, :].contiguous().reshape(-1, c)
-        w2 = w.reshape(c, co)
-        try:
-            lib_out = torch._int_mm(xs, w2)
-        except RuntimeError as e:
-            one["refused"].append([list(key6), str(e).splitlines()[0][:120]])
-            continue
-        if not torch.equal(lib_out.reshape(BATCH, -(-h // s), -(-w_ // s),
-                                           co),
-                           conv2d_int8_ref(x, w, stride=s)):
-            raise AssertionError(f"torch._int_mm is not exact at {key6}")
-        n = sum(shapes["conv2d_int8_pinned"][kk] for kk in keys)
-        one["launches"] += n
-        one["ms"] += sum(shapes["conv2d_int8_pinned"][kk]
-                         * per_launch["conv2d_int8_pinned"][kk] for kk in keys)
-        one["library_ms"] += n * device_ms(
-            torch, lambda: torch._int_mm(xs, w2), reps=20)
+    # K1 and K2 against the library: torch._int_mm for the 1x1 shapes,
+    # the faster exact of cuDNN's fp32 and TF32 convs for the k > 1 shapes
+    # (library_readings); the split by kernel size, for the factor on
+    # each, with each library call's sum beside it
+    record["conv_per_shape"] = conv_shape_rows
+    for kname, rows in conv_shape_rows.items():
+        kern = ks[kname]
+        have = [r for r in rows.values() if r["library_ms"] is not None]
+        kern.library_ms = sum(r["launches"] * r["library_ms"] for r in have)
+        kern.library_covers = (sum(r["launches"] for r in have),
+                               sum(r["launches"] * r["ms"] for r in have))
+        by_k = {}
+        for key, r in rows.items():
+            part = by_k.setdefault("1x1" if key.split(",")[4] == "1"
+                                   else "k>1", {"launches": 0, "ms": 0.0,
+                                                "library_ms": 0.0,
+                                                "by_call": {}})
+            part["launches"] += r["launches"]
+            part["ms"] += r["launches"] * r["ms"]
+            part["library_ms"] += r["launches"] * (r["library_ms"] or 0.0)
+            for name, d in r["library_calls"].items():
+                if "ms" in d:
+                    part["by_call"][name] = part["by_call"].get(name, 0.0) \
+                        + r["launches"] * d["ms"]
+        record[f"{kname}_by_kernel_size"] = by_k
+        log("time", f"{kname} per shape (h,w,c,co,k,s: launches x us, "
+            f"bound us, library us, exact; plan n_tile/rows/bands): "
+            + "; ".join(
+                f"{key}: {r['launches']} x {r['ms'] * 1e3:.2f}, "
+                f"{r['bound_ms'] * 1e3:.2f}, "
+                + (" / ".join(
+                    f"{name} {d['ms'] * 1e3:.2f}, "
+                    + ("exact" if d["exact"] else
+                       f"max diff {d['max_abs_diff']:g}")
+                    for name, d in r["library_calls"].items() if "ms" in d)
+                   if r["library_ms"] is not None else "no library")
+                + (f"; {r['plan']['n_tile']}/{r['plan']['rows_per_band']}/"
+                   f"{r['plan']['bands']}" if "plan" in r else "")
+                for key, r in rows.items()) + f"  [{card}]")
+        log("time", f"{kname} by kernel size: " + "; ".join(
+            f"{part} over {d['launches']} launches {d['ms']:.4f} ms "
+            f"(device), library {d['library_ms']:.4f} ms, factor "
+            f"{d['ms'] / d['library_ms'] if d['library_ms'] else 0:.3f} ("
+            + ", ".join(f"{name} {t:.4f} ms" for name, t in
+                        d["by_call"].items()) + ")"
+            for part, d in by_k.items()) + f"  [{card}]")
     record["dw_per_shape"] = dw_shape_rows
     for kname, rows in dw_shape_rows.items():
         log("time", f"{kname} per shape (h,w,c,k,s,nb: launches x us, "
@@ -1394,13 +1625,6 @@ def main():
                 f"{key}: {r['launches']} x {r['ms'] * 1e3:.2f}, "
                 f"{r['bound_ms'] * 1e3:.2f}, {r['library_ms'] * 1e3:.2f}"
                 for key, r in rows.items()) + f"  [{card}]")
-    k1.library_ms = one["library_ms"]
-    k1.library_covers = (one["launches"], one["ms"])
-    record["conv2d_int8_pinned_1x1"] = one
-    log("time", f"conv2d_int8_pinned over its {one['launches']} 1x1 "
-        f"launches: {one['ms']:.4f} ms (device), torch._int_mm "
-        f"{one['library_ms']:.4f} ms; refused {len(one['refused'])} "
-        f"shapes  [{card}]")
     record["ms_per_launch"], record["call_ms_per_launch"] = (
         {k: {",".join(map(str, key)): t for key, t in d.items()}
          for k, d in times.items()} for times in (per_launch, per_call))

@@ -10,7 +10,9 @@ with a plain C interface:
 stale library is never loaded.  Only the sources in this package are
 built.  ``--use_fast_math`` is deliberately absent: the fused requant
 epilogues rely on IEEE division and round-half-even, and the attention
-kernel on accurate ``expf``/``logf``/``tanhf`` and IEEE division.  :func:`build_all`
+kernels on accurate ``logf``/``tanhf``, IEEE division and, but for the
+forward's ``wgmma`` route (``exp2f`` with the scale folded in, held to
+the same limits), accurate ``expf``.  :func:`build_all`
 starts one ``nvcc`` per source at once and waits for all of them.
 """
 from __future__ import annotations

@@ -5,8 +5,9 @@ plain version.
 per output row through an ``n_buffers``-deep shared-memory ring); the
 placement plan (core/schedule.py) flips that switch per layer.  A CPU
 tensor runs the plain version in ``ref.py``; a CUDA tensor launches
-``csrc/conv2d_int8.cu`` (dense) or ``csrc/dwconv_int8.cu``
-(``depthwise=True``) or raises.
+``csrc/conv2d_int8.cu`` (dense: the pinned tier on the int8 tensor cores
+with the launch plan of :func:`conv_plan`, the streamed tier on dp4a) or
+``csrc/dwconv_int8.cu`` (``depthwise=True``) or raises.
 """
 from __future__ import annotations
 
@@ -24,7 +25,8 @@ from repro_torch.kernels.conv2d_int8.ref import (conv2d_int8_ref,
 from repro_torch.kernels.quant import reciprocal, requant_epilogue
 
 __all__ = ["conv2d_int8", "conv2d_int8_requant", "same_padded_width",
-           "smem_bytes", "dw_plan", "dw_layout", "DwPlan", "KERNEL_PINNED",
+           "stream_smem_bytes", "conv_plan", "conv_layout", "ConvPlan",
+           "stem_k_index", "dw_plan", "dw_layout", "DwPlan", "KERNEL_PINNED",
            "KERNEL_STREAM", "KERNEL_DW_PINNED", "KERNEL_DW_STREAM"]
 
 KERNEL_PINNED = "conv2d_int8_pinned"     # replaces _conv_kernel
@@ -49,15 +51,148 @@ def _lib(name: str, n_ints: int) -> ctypes.CDLL:
     return lib
 
 
-def smem_bytes(c_in: int, w_out: int, k_h: int, k_w: int, stride: int,
-               stream: bool, n_buffers: int) -> int:
-    """Shared memory one CTA of the CUDA kernel claims (mirrors
-    ``smem_bytes`` in ``csrc/conv2d_int8.cu``)."""
+def stream_smem_bytes(w: int, c_in: int, k_h: int, k_w: int, stride: int,
+                      n_buffers: int) -> int:
+    """Shared memory one CTA of the streamed tier claims: its tap ring and
+    line buffer (mirrors ``stream_smem_bytes`` in
+    ``csrc/conv2d_int8.cu``).  The pinned tier's is its ``ConvPlan``'s."""
+    w_out, _ = same_out_and_pad(w, k_w, stride)
     cp = (c_in + 3) // 4 * 4
     wp = (w_out - 1) * stride + k_w
-    taps = k_h * k_w
-    nb = min(n_buffers, taps) if stream else taps
+    nb = min(n_buffers, k_h * k_w)
     return nb * cp * 32 + k_h * wp * (cp // 4 + 1) * 4
+
+
+# The pinned dense conv's launch plan; ``csrc/conv2d_int8.cu`` mirrors the
+# layout (``layout`` there) and takes the instance, rows a band and the
+# stem packing from it.
+CONV_MT = 64                  # output pixels a chunk (the CTA's M step)
+# output channels a CTA, widest first -> the conv_mma<PACKED, WN, NF>
+# instance that computes it: WN warps along N, NF 8-channel MMA columns a
+# warp (n_tile = 8 * WN * NF)
+CONV_INSTANCES = {64: (2, 4), 32: (1, 4), 16: (1, 2)}
+CONV_NTILES = tuple(CONV_INSTANCES)
+CONV_SM_SMEM = 233472         # shared memory of one SM (228 KB)
+CONV_CTAS_PER_SM = 4          # at most: CTAS_PER_SM of the launch bounds
+CONV_WAVE = 0.9               # the share of a wave the bands reach at least
+
+
+@dataclass(frozen=True)
+class ConvPlan:
+    """One launch of the pinned dense conv: a CTA per (C_out tile of
+    ``n_tile`` channels, band of ``rows_per_band`` output rows, image)
+    walks the band's output pixels in chunks of ``CONV_MT``.  ``packed``:
+    the stem's body, whose K is the whole (k_h, k_w, C) patch.  ``wn``
+    and ``nf`` name the ``conv_mma`` instance (``CONV_INSTANCES``)."""
+    packed: bool
+    n_tile: int
+    wn: int
+    nf: int
+    co_tiles: int
+    rows_per_band: int
+    bands: int
+    batch: int
+    taps: int             # K groups: k_h * k_w, or 1 when packed
+    kp: int               # K bytes a tap, a multiple of 32
+    ring_rows: int        # input rows of the line-buffer ring
+    row_bytes: int        # bytes of one ring row
+    smem_bytes: int
+
+    @property
+    def grid(self) -> Tuple[int, int, int]:
+        return self.co_tiles, self.bands, self.batch
+
+
+def conv_packed(c_in: int) -> bool:
+    """Whether the pinned kernel packs the whole (k_h, k_w, C) patch into
+    K (the stems' C = 3: a k32 step per tap would be 90% padding)."""
+    return c_in < 16 or c_in % 4 != 0
+
+
+def stem_k_index(k_h: int, k_w: int, c_in: int):
+    """The packed stem's K order: k = (i * k_w + j) * C + c for tap (i, j)
+    and input channel c, the HWIO order of the weights, so the weights of
+    K row k are ``w.reshape(-1, C_out)[k]``; returns [(i, j, c)] by k."""
+    return [(i, j, c) for i in range(k_h) for j in range(k_w)
+            for c in range(c_in)]
+
+
+def conv_layout(c_in: int, w_out: int, k_h: int, k_w: int, stride: int,
+                rows_per_band: int, packed: bool,
+                n_tile: int) -> Tuple[int, int, int, int, int]:
+    """(taps, kp, ring rows, bytes of a ring row, shared-memory bytes) of
+    one CTA: the weights ``[taps][n_tile][kp + 16]``, the ring, and when
+    packed a ``[CONV_MT][kp + 16]`` patch tile.  A ring row holds the
+    padded row's pixels at ``kp + 16`` bytes each (the gap puts an
+    ldmatrix's 8 rows in distinct banks), by stride phase, keeping the
+    ``min(stride, k_w)`` phases an output reads; a packed ring row holds
+    its raw ``C``-byte pixels.  The ring keeps the ``min(stride, k_h)``
+    rows of each stride step an output reads (input row ``u`` of the band
+    in ring row ``u // stride * rs + u % stride``), the rows two
+    consecutive chunks read, and no more than the band reads."""
+    taps = 1 if packed else k_h * k_w
+    kp = -(-(k_h * k_w * c_in if packed else c_in) // 32) * 32
+    wpad = (w_out - 1) * stride + k_w
+    rs = min(stride, k_h)
+    if packed:
+        row_bytes = -(-wpad * c_in // 16) * 16
+    else:
+        row_bytes = min(stride, k_w) * -(-wpad // stride) * (kp + 16)
+    ring = min(((2 * CONV_MT - 1) // w_out + 1) * rs + k_h,
+               (rows_per_band - 1) * rs + k_h)
+    smem = taps * n_tile * (kp + 16) + ring * row_bytes \
+        + (CONV_MT * (kp + 16) if packed else 0)
+    return taps, kp, ring, row_bytes, smem
+
+
+@functools.lru_cache(maxsize=None)
+def conv_plan(batch: int, h: int, w: int, c_in: int, c_out: int, k_h: int,
+              k_w: int, stride: int, sm_count: int = 132) -> ConvPlan:
+    """The C_out tile, bands and layout of one pinned dense conv launch.
+
+    Per tile of ``CONV_NTILES`` (none wider than C_out but the narrowest)
+    and per count of resident CTAs a SM (``CONV_CTAS_PER_SM`` down to 1),
+    the bands aim at one CTA per resident slot of the card, and at least
+    ``CONV_WAVE`` of a wave of ``sm_count`` CTAs where the rows allow,
+    with more where the ring of taller bands would not fit a block; the
+    layout must fit a block and that many CTAs a SM.  The plan takes
+    the widest tile that keeps two CTAs (8 warps) a SM, else the widest
+    that fits at all.  Fewer, taller bands reload the pinned weights less
+    often.  Cached: it runs in Python on every launch."""
+    if c_out % 4:
+        raise ValueError(f"C_out={c_out} must be a multiple of 4")
+    h_out, _ = same_out_and_pad(h, k_h, stride)
+    w_out, _ = same_out_and_pad(w, k_w, stride)
+    packed = conv_packed(c_in)
+    fits = []
+    for n_tile in CONV_NTILES:
+        if n_tile > c_out and n_tile != CONV_NTILES[-1]:
+            continue
+        cells = -(-c_out // n_tile) * batch
+        for resident in range(CONV_CTAS_PER_SM, 0, -1):
+            bands = min(h_out, max(-(-int(CONV_WAVE * sm_count) // cells),
+                                   round(sm_count * resident / cells), 1))
+            while True:       # taller rings than a block holds: more bands
+                rows = -(-h_out // bands)
+                layout = conv_layout(c_in, w_out, k_h, k_w, stride, rows,
+                                     packed, n_tile)
+                smem = layout[4]
+                if smem <= MAX_SMEM_BYTES or rows == 1:
+                    break
+                bands = min(h_out, 2 * bands)
+            if smem <= MAX_SMEM_BYTES and \
+                    CONV_SM_SMEM // (smem + 1024) >= resident:
+                taps, kp, ring, row_bytes, _ = layout
+                fits.append((resident, ConvPlan(
+                    packed, n_tile, *CONV_INSTANCES[n_tile], cells // batch,
+                    rows, -(-h_out // rows),
+                    batch, taps, kp, ring, row_bytes, smem)))
+                break
+    if not fits:
+        raise ValueError(f"conv {k_h}x{k_w} C={c_in} -> {c_out} at width "
+                         f"{w_out} needs more than {MAX_SMEM_BYTES} B of "
+                         f"shared memory per block")
+    return next((p for r, p in fits if r >= 2), fits[0][1])
 
 
 # The depthwise kernel's launch plan; ``csrc/dwconv_int8.cu`` mirrors
@@ -252,21 +387,30 @@ def _launch(x, w, w_scale, bias, act_scale: float, *, stride: int,
         raise ValueError("n_buffers must be >= 1")
     h_out, pad_t = same_out_and_pad(H, k_h, stride)
     w_out, pad_l = same_out_and_pad(W, k_w, stride)
-    if w_out > 256:
-        raise ValueError(f"output width {w_out} > 256 is not supported")
-    smem = smem_bytes(C, w_out, k_h, k_w, stride, stream, n_buffers)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"conv needs {smem} B of shared memory per block, "
-                         f"more than {MAX_SMEM_BYTES}")
     dev = x.device
+    if stream:
+        if w_out > 256:
+            raise ValueError(f"output width {w_out} > 256 is not supported "
+                             f"by the streamed tier")
+        plan = None
+        smem = stream_smem_bytes(W, C, k_h, k_w, stride, n_buffers)
+        if smem > MAX_SMEM_BYTES:
+            raise ValueError(f"conv needs {smem} B of shared memory per "
+                             f"block, more than {MAX_SMEM_BYTES}")
+    else:
+        plan = conv_plan(B, H, W, C, c_out, k_h, k_w, stride,
+                         _sm_count(dev.index if dev.index is not None
+                                   else torch.cuda.current_device()))
     shape = (B, h_out, w_out, c_out)
     out_q, out_f, out_i = _outputs(x, w, w_scale, bias, shape, raw,
                                    want_float)
-    err = _lib("conv2d_int8", 15).conv2d_int8_launch(
+    err = _lib("conv2d_int8", 20).conv2d_int8_launch(
         _ptr(x), _ptr(w), _ptr(w_scale), _ptr(bias), act_scale,
         0.0 if raw else reciprocal(act_scale), _ptr(out_q),
         _ptr(out_f), _ptr(out_i), B, H, W, C, h_out, w_out, c_out, k_h, k_w,
         stride, pad_t, pad_l, int(stream), n_buffers, int(relu),
+        *((plan.wn, plan.nf, plan.rows_per_band, int(plan.packed),
+           plan.smem_bytes) if plan else (0, 0, 0, 0, 0)),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "conv2d_int8")
     _build.count_launch(KERNEL_STREAM if stream else KERNEL_PINNED)

@@ -15,39 +15,62 @@
 //
 // On the TPU the grid walks the K blocks of one q block in order and
 // carries (acc, m, l) in VMEM scratch.  Here one CTA owns one (batch, head,
-// 64-row q block) and walks its K/V tiles in a loop, with (acc, m, l) in
-// registers.  Causal q blocks are issued heaviest first.
+// q block of 64 or 128 rows) and walks its K/V tiles in a loop, with (acc,
+// m, l) in registers.  Causal q blocks are issued heaviest first.
 //
 // A K tile that the causal or window mask hides entirely from every row
 // of the block is skipped.  That is exact: in such a tile every score is
 // -1e30, so m_new = m, alpha = exp(0) = 1 and every p is zeroed, which
 // leaves m, l and acc bit for bit as they were.
 //
-// Two kernels:
-//   flash_fwd_bf16<HD, HDV>  the main path.  Four warps, 16 query rows
-//     each.  The Q tile (64 rows) stays in shared memory; K/V tiles of 64
-//     keys pass through a ring of two shared-memory buffers filled with
-//     cp.async, so tile kt+1 is in flight while tile kt is consumed.  Rows
-//     are padded by 8 elements so that ldmatrix hits distinct banks.  QK^T
-//     and PV run on the tensor cores as mma.sync m16n8k16 (bf16 in, f32
-//     accumulate), their operands loaded with ldmatrix (.trans for V).
-//     The score accumulator of QK^T is laid out as the A operand of PV, so
-//     p goes from registers to the tensor cores rounded to bf16, without
-//     shared memory.  Tiles that every row sees whole skip the mask.
+// Three kernels, one route each, picked from (dtype, hd, hd_v) alone
+// (ops.flash_route; flash_attention_fwd_launch takes the route and checks
+// it):
+//   flash_fwd_wgmma<HD>  bf16 with hd = hd_v in {64, 128} (Phi-4-mini's
+//     128; 64 in the ATTN_CASES).  One CTA owns a 128-row q block: a
+//     producer warp loads Q once and the K/V tiles of 64 keys through a
+//     ring of two stages by TMA (cp.async.bulk.tensor, 128-byte swizzle,
+//     rows past S zero-filled), each stage with a full mbarrier counting
+//     the transaction bytes and an empty one that both consumer
+//     warpgroups release; each of the two warpgroups owns 64 rows and
+//     runs S = QK^T as wgmma m64n64k16 with Q and K from shared memory
+//     (K-major), the softmax steps above in registers, and O += bf16(P) V
+//     as wgmma with P from registers (the S accumulator is laid out as the
+//     A fragment) and V read MN-major through the transpose bit.  Its
+//     exponentials are exp2f with the scores' factor (scale * log2(e), or
+//     log2(e) after the softcap) folded into one FFMA a score, m kept in
+//     base-2 units and turned back for the lse: the same steps as above
+//     up to f32 rounding, within every limit the checks hold it to
+//     (PERF.md).  The tensor maps carry the operands' strides, so the
+//     model layout goes in without a copy; the wrapper refuses a base or
+//     stride TMA cannot take (not 16-byte aligned).
+//   flash_fwd_bf16<HD, HDV>  the other bf16 pairs (the first port's).  Four
+//     warps, 16 query rows each.  The Q tile (64 rows) stays in shared
+//     memory; K/V tiles of 64 keys pass through a ring of two shared-memory
+//     buffers filled with cp.async, so tile kt+1 is in flight while tile
+//     kt is consumed.  Rows are padded by 8 elements so that ldmatrix hits
+//     distinct banks.  QK^T and PV run on the tensor cores as mma.sync
+//     m16n8k16 (bf16 in, f32 accumulate), their operands loaded with
+//     ldmatrix (.trans for V).  p goes from registers to the tensor cores
+//     rounded to bf16, without shared memory.
 //   flash_fwd_f32  f32 operands, for tight tests: the same tiles and
 //     steps on the CUDA cores with fmaf, scores and acc in shared memory.
+// In both bf16 kernels the softcap and the mask run as separate loops
+// behind branches that are uniform over the warpgroup or CTA, and only
+// the tiles on the causal diagonal or the window's edge evaluate the mask.
 //
 // What bounds it on an H100: at the Phi-4-mini prefill shape (B=4, H=24,
 // KV=8, S=512, hd=128, causal) the call moves 33.7 MB (q, k, v, o, lse
 // once) against 6.4 GFLOP, so bytes bound it (about 10 us at 3.35 TB/s;
 // the FLOPs alone take 6.5 us at 989 TFLOP/s).  At S = 2048 the FLOPs
-// bound it (103 GFLOP, 104 us).  Neither the tensor cores nor the loads
-// hold this kernel back: the per-element work between the two products
-// (scale, softcap, mask, expf, row sums) on the same warps does.  So the
-// softcap and the mask run as separate loops behind branches that are
-// uniform over the CTA, and only the tiles on the causal diagonal or the
-// window's edge evaluate the mask.  It issues mma.sync, not wgmma; PERF.md
-// has its times against the bound and against the library's attention.
+// bound it (103 GFLOP, 104 us).  The mma.sync kernel was held back by
+// the per-element work between the two products on the same warps; the
+// wgmma route issues each product as a few asynchronous warpgroup
+// instructions and keeps two warpgroups per SM at work on 128 rows of one
+// K/V tile.  PERF.md has its times against the bound and the library's
+// attention.
+#include <cuda.h>  // CUtensorMap and its enums; the driver call goes
+                   // through cudaGetDriverEntryPoint, so no -lcuda
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -59,6 +82,8 @@ namespace {
 using namespace h2pipe_mma;
 
 constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 constexpr int BQ = 64;     // query rows per CTA
 constexpr int BK = 64;     // keys per K/V tile, bf16 kernel
 constexpr int NT = 128;    // threads, bf16 kernel: 4 warps x 16 rows
@@ -90,12 +115,12 @@ __device__ __forceinline__ float score(const FlashArgs& a, float dot) {
   return s;
 }
 
-// The K tiles of `bk` keys that some row of the q block [q0, q0 + BQ)
+// The K tiles of `bk` keys that some row of the q block [q0, q0 + bq)
 // can see; the others are skipped (exact, see the header).
-__device__ __forceinline__ void k_tiles(const FlashArgs& a, int q0, int bk,
-                                        int* lo, int* hi) {
+__device__ __forceinline__ void k_tiles(const FlashArgs& a, int q0, int bq,
+                                        int bk, int* lo, int* hi) {
   int nkb = (a.Sk + bk - 1) / bk;
-  int q_last = min(q0 + BQ, a.Sq) - 1;
+  int q_last = min(q0 + bq, a.Sq) - 1;
   *hi = a.causal ? min(nkb - 1, q_last / bk) : nkb - 1;
   *lo = a.window > 0 ? max(0, q0 - a.window + 1) / bk : 0;
 }
@@ -145,7 +170,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_bf16(FlashArgs a) {
   float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.0f, l1 = 0.0f;
 
   int lo, hi;
-  k_tiles(a, q0, BK, &lo, &hi);
+  k_tiles(a, q0, BQ, BK, &lo, &hi);
   // the K/V tiles go through a ring of two buffers: tile kt+1 is copied
   // (cp.async) while tile kt is consumed
   load_tile<HD, NT>(Qs, LQ, q, a.qs_s, q0, a.Sq, BQ);
@@ -300,6 +325,419 @@ __global__ void __launch_bounds__(NT) flash_fwd_bf16(FlashArgs a) {
 }
 
 // ---------------------------------------------------------------------------
+// bf16, hd = hd_v in {64, 128}: wgmma fed by TMA
+// ---------------------------------------------------------------------------
+
+constexpr int WQ = 128;         // query rows per CTA: two warpgroups of 64
+constexpr int WK = 64;          // keys per K/V tile
+constexpr int WSTAGES = 2;      // K/V tiles in flight
+constexpr int WCONSUMERS = 256; // the two consumer warpgroups
+constexpr int WTHREADS = WCONSUMERS + 32;  // and one producer warp
+constexpr int SWZ_ROW = 128;    // bytes of one swizzled row: 64 bf16
+
+// Shared memory of one CTA: Q as HD/64 panels of [WQ rows][128 B], then
+// WSTAGES stages of K and V, each HD/64 panels of [WK rows][128 B].  Every
+// panel starts on a 1024-byte boundary, where the 128-byte swizzle repeats.
+template <int HD>
+struct WgLayout {
+  static constexpr int PANELS = HD / 64;
+  static constexpr int Q_PANEL = WQ * SWZ_ROW;
+  static constexpr int KV_PANEL = WK * SWZ_ROW;
+  static constexpr int Q_BYTES = PANELS * Q_PANEL;
+  static constexpr int K_BYTES = PANELS * KV_PANEL;
+  static constexpr int STAGE = 2 * K_BYTES;  // K, then V (hd_v = hd)
+  static constexpr int SMEM = Q_BYTES + WSTAGES * STAGE + 1024;  // + align
+};
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count));
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile(
+      "{\n .reg .b64 st;\n mbarrier.arrive.shared::cta.b64 st, [%0];\n}\n" ::
+          "r"(bar)
+      : "memory");
+}
+
+// Arrive and add `bytes` to the transaction count the phase waits for.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile(
+      "{\n .reg .b64 st;\n"
+      " mbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n}\n" ::"r"(
+          bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One box of a 4-d tensor map (coordinates innermost first) into shared
+// memory at `dst`, completing `bytes` on the mbarrier `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(bar)
+      : "memory");
+}
+
+// A wgmma shared-memory descriptor with the 128-byte swizzle: start
+// address, leading and stride byte offsets, each in 16-byte units.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
+         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit_wait() {
+  asm volatile(
+      "wgmma.commit_group.sync.aligned;\n"
+      "wgmma.wait_group.sync.aligned 0;\n" ::
+          : "memory");
+}
+
+// Keep the compiler from moving reads of an accumulator above the wait
+// that makes it valid (the wgmma asm statements "wrote" it at issue).
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N][4]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[n][e])::"memory");
+}
+
+// d[64 x 64] += a[64 x 16] . b[16 x 64]^T: a and b in shared memory,
+// K-major, 128-byte swizzle (descriptors da, db).
+__device__ __forceinline__ void wgmma_ss(float (&d)[8][4], uint64_t da,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "l"(da), "l"(db), "r"(1)
+      : "memory");
+}
+
+// d[64 x 64] += a[64 x 16] . b[16 x 64]: a in registers (the mma.sync
+// A-fragment layout per warp), b in shared memory, MN-major (transposed),
+// 128-byte swizzle.
+__device__ __forceinline__ void wgmma_rs(float (&d)[8][4],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(1)
+      : "memory");
+}
+
+// d[64 x 128] += a[64 x 16] . b[16 x 128]: a in registers (the mma.sync
+// A-fragment layout per warp), b in shared memory, MN-major (transposed),
+// 128-byte swizzle.
+__device__ __forceinline__ void wgmma_rs(float (&d)[16][4],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(1)
+      : "memory");
+}
+
+// One CTA owns one (batch, head, 128-row q block).  Warp 8's lane 0 is
+// the producer: it loads the Q block once and keeps the K/V tiles of the
+// block's visible range in flight through a WSTAGES-deep ring, each stage
+// with a full mbarrier (the TMA's transaction bytes) and an empty one (an
+// arrive from each of the 256 consumer threads): a stage is refilled only
+// after both warpgroups have released it.  Warpgroup w (warps 4w..4w+3)
+// owns rows q0 + 64w .. +63 and computes, per tile, S = Q K^T with wgmma
+// from shared memory (both K-major), the softmax steps of the header in
+// registers (the S accumulator's layout is the mma.sync layout per warp,
+// so the row maxima and sums are quad shuffles as in flash_fwd_bf16), and
+// O += bf16(P) V with P from registers and V read MN-major through the
+// transpose bit.  A tile no row of the warpgroup sees is released
+// unread (exact, see the header).
+template <int HD>
+__global__ void __launch_bounds__(WTHREADS, 1)
+    flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
+                    const __grid_constant__ CUtensorMap kmap,
+                    const __grid_constant__ CUtensorMap vmap, FlashArgs a) {
+  using L = WgLayout<HD>;
+  extern __shared__ unsigned char wg_smem[];
+  __shared__ __align__(8) uint64_t bars[1 + 2 * WSTAGES];
+  const uint32_t qs = (smem_addr(wg_smem) + 1023u) & ~1023u;
+  const uint32_t kvs = qs + L::Q_BYTES;
+  const uint32_t qbar = smem_addr(bars);
+  const uint32_t full = qbar + 8, empty = qbar + 8 * (1 + WSTAGES);
+
+  const int nqb = (a.Sq + WQ - 1) / WQ;
+  const int q0 = (nqb - 1 - (int)blockIdx.x) * WQ;  // heaviest first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (a.H / a.KV);
+  int lo, hi;
+  k_tiles(a, q0, WQ, WK, &lo, &hi);
+
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    for (int s = 0; s < WSTAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, WCONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp == WCONSUMERS / 32) {  // the producer
+    if (lane == 0) {
+      mbar_expect_tx(qbar, L::Q_BYTES);
+      for (int p = 0; p < L::PANELS; ++p)
+        tma_load(qs + p * L::Q_PANEL, &qmap, qbar, 64 * p, q0, h, b);
+      for (int kt = lo, i = 0; kt <= hi; ++kt, ++i) {
+        const int s = i % WSTAGES;
+        mbar_wait(empty + 8 * s, ((i / WSTAGES) & 1) ^ 1);
+        mbar_expect_tx(full + 8 * s, L::STAGE);
+        const uint32_t st = kvs + s * L::STAGE;
+        for (int p = 0; p < L::PANELS; ++p) {
+          tma_load(st + p * L::KV_PANEL, &kmap, full + 8 * s, 64 * p,
+                   kt * WK, kvh, b);
+          tma_load(st + L::K_BYTES + p * L::KV_PANEL, &vmap, full + 8 * s,
+                   64 * p, kt * WK, kvh, b);
+        }
+      }
+    }
+    return;
+  }
+
+  const int wg = warp / 4, g = lane >> 2, t = lane & 3;
+  const int qw = q0 + 64 * wg;  // this warpgroup's first row
+  const int row0 = qw + (warp % 4) * 16 + g, row1 = row0 + 8;
+  int lo_w, hi_w;
+  k_tiles(a, qw, 64, WK, &lo_w, &hi_w);
+
+  float o[HD / 8][4];
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n)
+    o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
+  float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.0f, l1 = 0.0f;
+
+  mbar_wait(qbar, 0);
+  for (int kt = lo, i = 0; kt <= hi; ++kt, ++i) {
+    const int s = i % WSTAGES;
+    mbar_wait(full + 8 * s, (i / WSTAGES) & 1);
+    if (kt < lo_w || kt > hi_w) {  // hidden from every row of this group
+      mbar_arrive(empty + 8 * s);
+      continue;
+    }
+    const int k0 = kt * WK;
+    const uint32_t st = kvs + s * L::STAGE;
+
+    // s = q . k^T: this warpgroup's 64 rows x WK keys
+    float sc[WK / 8][4];
+#pragma unroll
+    for (int j = 0; j < WK / 8; ++j)
+      sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.0f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const uint32_t off = (kk % 4) * 32;  // 16 columns within the row
+      wgmma_ss(sc,
+               sw128_desc(qs + (kk / 4) * L::Q_PANEL + wg * 64 * SWZ_ROW + off,
+                          16, 1024),
+               sw128_desc(st + (kk / 4) * L::KV_PANEL + off, 16, 1024));
+    }
+    wgmma_commit_wait();
+    fence_acc(sc);
+
+    // softcap and mask as flash_fwd_bf16 does; the exponentials in base 2,
+    // with the scores' factor (scale * log2(e), or log2(e) after the
+    // softcap) folded into one FFMA a score: p = 2^(t * c2 - m), m in
+    // base-2 units
+    const bool whole = k0 + WK <= a.Sk &&
+                       (!a.causal || k0 + WK - 1 <= qw) &&
+                       (a.window == 0 || qw + 63 - k0 < a.window);
+    float c2 = a.scale * LOG2E;
+    if (a.softcap != 0.0f) {
+#pragma unroll
+      for (int j = 0; j < WK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          sc[j][e] = tanhf(sc[j][e] * a.scale / a.softcap) * a.softcap;
+      c2 = LOG2E;
+    }
+    if (!whole) {
+#pragma unroll
+      for (int j = 0; j < WK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (!visible(a, e < 2 ? row0 : row1, k0 + j * 8 + 2 * t + (e & 1)))
+            sc[j][e] = NEG_INF;
+    }
+    float mx0 = NEG_INF, mx1 = NEG_INF;
+#pragma unroll
+    for (int j = 0; j < WK / 8; ++j) {
+      mx0 = fmaxf(mx0, fmaxf(sc[j][0], sc[j][1]));
+      mx1 = fmaxf(mx1, fmaxf(sc[j][2], sc[j][3]));
+    }
+#pragma unroll
+    for (int w = 1; w <= 2; w <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, w));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, w));
+    }
+    // a row the whole tile hides keeps the -1e30 of the reference
+    const float mn0 = fmaxf(m0, mx0 == NEG_INF ? NEG_INF : mx0 * c2);
+    const float mn1 = fmaxf(m1, mx1 == NEG_INF ? NEG_INF : mx1 * c2);
+    const float al0 = exp2f(m0 - mn0), al1 = exp2f(m1 - mn1);
+#pragma unroll
+    for (int j = 0; j < WK / 8; ++j) {
+      sc[j][0] = exp2f(fmaf(sc[j][0], c2, -mn0));
+      sc[j][1] = exp2f(fmaf(sc[j][1], c2, -mn0));
+      sc[j][2] = exp2f(fmaf(sc[j][2], c2, -mn1));
+      sc[j][3] = exp2f(fmaf(sc[j][3], c2, -mn1));
+    }
+    if (!whole) {  // masked p is zero, also where the whole row is masked
+#pragma unroll
+      for (int j = 0; j < WK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (!visible(a, e < 2 ? row0 : row1, k0 + j * 8 + 2 * t + (e & 1)))
+            sc[j][e] = 0.0f;
+    }
+    float sum0 = 0.0f, sum1 = 0.0f;
+#pragma unroll
+    for (int j = 0; j < WK / 8; ++j) {
+      sum0 += sc[j][0] + sc[j][1];
+      sum1 += sc[j][2] + sc[j][3];
+    }
+#pragma unroll
+    for (int w = 1; w <= 2; w <<= 1) {
+      sum0 += __shfl_xor_sync(0xffffffffu, sum0, w);
+      sum1 += __shfl_xor_sync(0xffffffffu, sum1, w);
+    }
+    l0 = l0 * al0 + sum0;
+    l1 = l1 * al1 + sum1;
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n) {
+      o[n][0] *= al0; o[n][1] *= al0;
+      o[n][2] *= al1; o[n][3] *= al1;
+    }
+
+    // acc += bf16(p) . v: n-tiles 2kk and 2kk+1 of s are the A fragment of
+    // keys 16kk .. 16kk+15; V's rows 16kk.. start 16 * 128 B apart, its
+    // 64-column panels L::KV_PANEL apart
+    fence_acc(o);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < WK / 16; ++kk) {
+      const uint32_t pf[4] = {pack_bf16(sc[2 * kk][0], sc[2 * kk][1]),
+                              pack_bf16(sc[2 * kk][2], sc[2 * kk][3]),
+                              pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]),
+                              pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3])};
+      wgmma_rs(o, pf,
+               sw128_desc(st + L::K_BYTES + kk * 16 * SWZ_ROW, L::KV_PANEL,
+                          1024));
+    }
+    wgmma_commit_wait();
+    fence_acc(o);
+    mbar_arrive(empty + 8 * s);  // this thread is done with stage s
+    m0 = mn0;
+    m1 = mn1;
+  }
+
+  const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+  bf16* out = static_cast<bf16*>(a.o) + b * a.os_b + h * a.os_h;
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n) {
+    const int col = n * 8 + 2 * t;
+    if (row0 < a.Sq)
+      *reinterpret_cast<uint32_t*>(out + row0 * a.os_s + col) =
+          pack_bf16(o[n][0] / d0, o[n][1] / d0);
+    if (row1 < a.Sq)
+      *reinterpret_cast<uint32_t*>(out + row1 * a.os_s + col) =
+          pack_bf16(o[n][2] / d1, o[n][3] / d1);
+  }
+  if (t == 0) {  // lse = m + log(l), m back in natural units
+    float* L_ = a.lse + ((long long)b * a.H + h) * a.Sq;
+    if (row0 < a.Sq) L_[row0] = (m0 == NEG_INF ? NEG_INF : m0 * LN2) +
+                                logf(d0);
+    if (row1 < a.Sq) L_[row1] = (m1 == NEG_INF ? NEG_INF : m1 * LN2) +
+                                logf(d1);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // f32: the same steps on the CUDA cores
 // ---------------------------------------------------------------------------
 
@@ -341,7 +779,7 @@ __global__ void __launch_bounds__(NT32) flash_fwd_f32(FlashArgs a) {
   }
 
   int lo, hi;
-  k_tiles(a, q0, BK32, &lo, &hi);
+  k_tiles(a, q0, BQ, BK32, &lo, &hi);
   for (int kt = lo; kt <= hi; ++kt) {
     const int k0 = kt * BK32;
     __syncthreads();
@@ -410,12 +848,90 @@ __global__ void __launch_bounds__(NT32) flash_fwd_f32(FlashArgs a) {
 
 template <int HD, int HDV>
 cudaError_t launch_bf16(const FlashArgs& a, dim3 grid, cudaStream_t stream) {
-  const size_t smem = smem_bf16<HD, HDV>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_bf16<HD, HDV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  if constexpr (HD == HDV && (HD == 64 || HD == 128)) {
+    return cudaErrorInvalidValue;  // the wgmma route's pairs
+  } else {
+    const size_t smem = smem_bf16<HD, HDV>();
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_fwd_bf16<HD, HDV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return err;
+    flash_fwd_bf16<HD, HDV><<<grid, NT, smem, stream>>>(a);
+    return cudaGetLastError();
+  }
+}
+
+// cuTensorMapEncodeTiled from the driver through the runtime, so that the
+// library needs no -lcuda.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The tensor map of a [B, heads, S, d] bf16 operand given by its element
+// strides over (batch, head, seq), d contiguous: boxes of 64 columns x
+// `rows` rows of one head, 128-byte swizzle, rows past S read as zeros.
+// The strides of a size-1 dim are not read; TMA still wants them aligned.
+cudaError_t tensor_map(CUtensorMap* map, const void* base, int B, int heads,
+                       int S, int d, long long sb, long long sh, long long ss,
+                       int rows) {
+  EncodeTiled fn = encode_tiled();
+  if (!fn) return cudaErrorNotSupported;
+  if (heads == 1) sh = ss * S;
+  if (B == 1) sb = sh * heads;
+  cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)S, (cuuint64_t)heads,
+                        (cuuint64_t)B};
+  cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2,
+                           (cuuint64_t)sb * 2};
+  cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
+  cuuint32_t unit[4] = {1, 1, 1, 1};
+  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                  const_cast<void*>(base), dims, strides, box, unit,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int HD>
+cudaError_t launch_wgmma(const FlashArgs& a, cudaStream_t stream) {
+  CUtensorMap qm, km, vm;
+  cudaError_t err =
+      tensor_map(&qm, a.q, a.B, a.H, a.Sq, HD, a.qs_b, a.qs_h, a.qs_s, WQ);
+  if (err == cudaSuccess)
+    err = tensor_map(&km, a.k, a.B, a.KV, a.Sk, HD, a.ks_b, a.ks_h, a.ks_s,
+                     WK);
+  if (err == cudaSuccess)
+    err = tensor_map(&vm, a.v, a.B, a.KV, a.Sk, HD, a.vs_b, a.vs_h, a.vs_s,
+                     WK);
   if (err != cudaSuccess) return err;
-  flash_fwd_bf16<HD, HDV><<<grid, NT, smem, stream>>>(a);
+  const int smem = WgLayout<HD>::SMEM;
+  err = cudaFuncSetAttribute(flash_fwd_wgmma<HD>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((a.Sq + WQ - 1) / WQ, a.H, a.B);
+  flash_fwd_wgmma<HD><<<grid, WTHREADS, smem, stream>>>(qm, km, vm, a);
   return cudaGetLastError();
 }
 
@@ -438,9 +954,11 @@ extern "C" {
 // q [B,H,Sq,hd], k [B,KV,Sk,hd], v [B,KV,Sk,hd_v], o [B,H,Sq,hd_v] given
 // by their element strides over (batch, head, seq) in `strides` (q, k, v,
 // o in turn; the last dim contiguous); lse [B,H,Sq] f32, contiguous.
-// dtype 0: bf16 operands and o; 1: f32.  Returns a cudaError_t.
+// route 0: bf16 on mma.sync; 1: f32; 2: bf16 on wgmma and TMA, for hd =
+// hd_v in {64, 128} only, which route 0 refuses (ops.flash_route picks it
+// from (dtype, hd, hd_v)).  Returns a cudaError_t.
 int flash_attention_fwd_launch(const void* q, const void* k, const void* v,
-                               void* o, float* lse, int dtype, int B, int H,
+                               void* o, float* lse, int route, int B, int H,
                                int KV, int Sq, int Sk, int hd, int hd_v,
                                const long long* strides, int causal,
                                int window, float softcap, float scale,
@@ -452,8 +970,14 @@ int flash_attention_fwd_launch(const void* q, const void* k, const void* v,
               strides[5], strides[6], strides[7], strides[8], strides[9],
               strides[10], strides[11],
               B, H, KV, Sq, Sk, hd, hd_v, causal, window, softcap, scale};
+  if (route == 2) {
+    if (hd != hd_v) return (int)cudaErrorInvalidValue;
+    if (hd == 64) return (int)launch_wgmma<64>(a, stream);
+    if (hd == 128) return (int)launch_wgmma<128>(a, stream);
+    return (int)cudaErrorInvalidValue;
+  }
   dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  if (dtype == 1) {
+  if (route == 1) {
     const size_t smem = smem_f32(hd, hd_v);
     cudaError_t err = cudaFuncSetAttribute(
         flash_fwd_f32, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -462,7 +986,7 @@ int flash_attention_fwd_launch(const void* q, const void* k, const void* v,
     flash_fwd_f32<<<grid, NT32, smem, stream>>>(a);
     return (int)cudaGetLastError();
   }
-  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  if (route != 0) return (int)cudaErrorInvalidValue;
   switch (hd) {
     case 32: return (int)launch_bf16_hdv<32>(a, grid, stream);
     case 64: return (int)launch_bf16_hdv<64>(a, grid, stream);

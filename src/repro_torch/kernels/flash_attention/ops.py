@@ -15,10 +15,13 @@ A CPU tensor runs the plain version in ``ref.py`` at the JAX call's
 blocks, ``min(128, S)`` (``flash_attention_plain`` takes other blocks
 itself).  A CUDA tensor launches ``csrc/flash_attention.cu``
 or raises: bf16 or f32 operands, ``hd`` in {32, 64, 128, 192, 256} and
-``hd_v`` in {32, 64, 128, 256}.  The CUDA kernel picks its own blocks
-(bf16: 64 query rows by 64 keys; f32: 64 by 32) and reads the operands
-through their strides, so the model layout goes in and out without a
-transposed copy.
+``hd_v`` in {32, 64, 128, 256}.  :func:`flash_route` picks the forward
+kernel from (dtype, hd, hd_v) alone: bf16 with ``hd == hd_v`` in
+``WGMMA_HEAD_DIMS`` runs on ``wgmma`` fed by TMA (128 query rows by 64
+keys), the other bf16 pairs on ``mma.sync`` (64 by 64), f32 on the CUDA
+cores (64 by 32).  Each reads the operands through their strides, so the
+model layout goes in and out without a transposed copy; the bases and
+strides must be 16-byte aligned (TMA and ``cp.async`` need it).
 """
 from __future__ import annotations
 
@@ -33,7 +36,8 @@ from repro_torch.kernels.flash_attention.ref import (
 
 __all__ = ["flash_attention", "flash_attention_kernel",
            "flash_attention_bwd", "flash_attention_vjp", "KERNEL",
-           "KERNEL_DQ", "KERNEL_DKV", "HEAD_DIMS", "HEAD_DIMS_V"]
+           "KERNEL_DQ", "KERNEL_DKV", "HEAD_DIMS", "HEAD_DIMS_V",
+           "WGMMA_HEAD_DIMS", "flash_route"]
 
 #: launch-counter names (replace ``_flash_kernel``, ``_flash_bwd_dq_kernel``
 #: and ``_flash_bwd_dkv_kernel``)
@@ -42,7 +46,11 @@ KERNEL_DQ = "flash_attention_bwd_dq"
 KERNEL_DKV = "flash_attention_bwd_dkv"
 HEAD_DIMS = (32, 64, 128, 192, 256)
 HEAD_DIMS_V = (32, 64, 128, 256)
+#: head dims (hd = hd_v) of the bf16 forward on wgmma and TMA
+WGMMA_HEAD_DIMS = (64, 128)
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
+#: route codes of ``flash_attention_fwd_launch``
+_ROUTES = {"mma_sync": 0, "f32": 1, "wgmma": 2}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _Strides = ctypes.c_longlong * 12
 _BwdStrides = ctypes.c_longlong * 21
@@ -68,6 +76,23 @@ def _bwd_lib() -> ctypes.CDLL:
     return lib
 
 
+def flash_route(dtype, hd: int, hd_v: int) -> str:
+    """The forward kernel a launch with operands of ``dtype`` and head dims
+    ``(hd, hd_v)`` takes, from those alone (``flash_attention_fwd_launch``
+    in ``csrc/flash_attention.cu`` refuses any other): ``"wgmma"`` for bf16
+    with ``hd == hd_v`` in ``WGMMA_HEAD_DIMS``, ``"mma_sync"`` for the
+    other bf16 pairs, ``"f32"`` for f32.  Raises on what no kernel takes."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"flash attention takes bf16 or f32, not {dtype}")
+    if hd not in HEAD_DIMS or hd_v not in HEAD_DIMS_V:
+        raise ValueError(f"head dims (hd={hd}, hd_v={hd_v}) not supported "
+                         f"by the CUDA kernel: hd in {HEAD_DIMS}, hd_v in "
+                         f"{HEAD_DIMS_V}")
+    if dtype == torch.float32:
+        return "f32"
+    return "wgmma" if hd == hd_v and hd in WGMMA_HEAD_DIMS else "mma_sync"
+
+
 def _check(t: torch.Tensor, name: str, dtype, device) -> None:
     if t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
@@ -76,23 +101,22 @@ def _check(t: torch.Tensor, name: str, dtype, device) -> None:
     align = 16 // t.element_size()
     if t.stride(3) != 1 or any(s % align for s in t.stride()[:3]) \
             or t.data_ptr() % 16:
-        raise ValueError(f"{name}: the head dim must be contiguous and rows "
-                         f"16-byte aligned (strides {t.stride()})")
+        raise ValueError(f"{name}: the head dim must be contiguous, and the "
+                         f"base and strides 16-byte aligned for the TMA and "
+                         f"cp.async copies (strides {t.stride()}, base "
+                         f"{t.data_ptr() % 16} bytes past 16)")
 
 
-def _check_shapes(q, k, v) -> None:
+def _check_shapes(q, k, v) -> str:
+    """Check the shapes and return the forward's route."""
     B, H, _, hd = q.shape
     KV, Sk, hd_v = k.shape[1], k.shape[2], v.shape[3]
-    if q.dtype not in _DTYPES:
-        raise TypeError(f"flash attention takes bf16 or f32, not {q.dtype}")
-    if hd not in HEAD_DIMS or hd_v not in HEAD_DIMS_V:
-        raise ValueError(f"head dims (hd={hd}, hd_v={hd_v}) not supported "
-                         f"by the CUDA kernel: hd in {HEAD_DIMS}, hd_v in "
-                         f"{HEAD_DIMS_V}")
+    route = flash_route(q.dtype, hd, hd_v)
     if H % KV or tuple(v.shape[:3]) != (B, KV, Sk) or k.shape[0] != B \
             or k.shape[3] != hd:
         raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)}")
+    return route
 
 
 def _launch(q, k, v, o, lse, *, causal: bool, window: int,
@@ -101,14 +125,14 @@ def _launch(q, k, v, o, lse, *, causal: bool, window: int,
     accept); lse contiguous ``[B,H,Sq]``."""
     B, H, Sq, hd = q.shape
     KV, Sk, hd_v = k.shape[1], k.shape[2], v.shape[3]
-    _check_shapes(q, k, v)
+    route = _check_shapes(q, k, v)
     dev = q.device
     for t, name in ((q, "q"), (k, "k"), (v, "v"), (o, "o")):
         _check(t, name, q.dtype, dev)
     strides = _Strides(*(s for t in (q, k, v, o) for s in t.stride()[:3]))
     err = _lib().flash_attention_fwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), _DTYPES[q.dtype], B, H, KV, Sq, Sk, hd, hd_v,
+        lse.data_ptr(), _ROUTES[route], B, H, KV, Sq, Sk, hd, hd_v,
         strides, int(causal), int(window), float(softcap),
         1.0 / math.sqrt(hd), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "flash_attention")

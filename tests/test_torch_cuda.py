@@ -52,6 +52,55 @@ def test_conv_kernel_matches_plain(dev, k, stride, c_in, c_out, hw):
     assert LAUNCHES["conv2d_int8_stream"] == len({1, 2, 3, k * k})
 
 
+# The pinned tier's tensor-core kernel at the shapes its plan treats
+# apart (batch, h, w, C, C_out, k, stride): the 7x7 stem (packed K), the
+# 3x3 at 7x7x512 (a 32-channel tile: 147 KB of weights), a stride-2 3x3
+# on an odd map, C not a multiple of 32 (16- and 8-byte row copies), C_out
+# not a multiple of 32 (a ragged last tile), a 1x1 at stride 2, the 3x3
+# stem, and a 1x1, a 3x3 and a stride-2 3x3 whose ring wraps within a band
+WRAPS = {(8, 112, 112, 16, 96, 1, 1), (8, 56, 56, 64, 512, 3, 1),
+         (8, 56, 56, 128, 256, 3, 2)}
+
+
+@pytest.mark.parametrize("shape", [
+    (8, 224, 224, 3, 64, 7, 2), (8, 7, 7, 512, 512, 3, 1),
+    (2, 29, 31, 64, 128, 3, 2), (2, 14, 14, 48, 64, 3, 1),
+    (2, 14, 14, 24, 40, 1, 1), (2, 28, 28, 144, 36, 1, 2),
+    (8, 56, 56, 256, 512, 1, 2), (2, 224, 224, 3, 32, 3, 2),
+    *sorted(WRAPS)])
+def test_conv_mma_matches_plain(dev, shape):
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.conv2d_int8.ops import (_sm_count, conv2d_int8,
+                                                     conv2d_int8_requant,
+                                                     conv_plan)
+    from repro_torch.kernels.conv2d_int8.ref import conv2d_int8_ref
+    from repro_torch.kernels.quant import requant_epilogue
+    batch, h, w, c, co, k, stride = shape
+    plan = conv_plan(batch, h, w, c, co, k, k, stride,
+                     _sm_count(dev.index or 0))
+    if (c, k) == (512, 3):
+        assert plan.n_tile == 32
+    assert (plan.ring_rows < (plan.rows_per_band - 1) * min(stride, k)
+            + k) is (shape in WRAPS)
+    g = torch.Generator(device=dev).manual_seed(h * 1000 + c)
+    x, wt = _i8(g, dev, batch, h, w, c), _i8(g, dev, k, k, c, co)
+    ws = torch.rand(co, generator=g, device=dev) * 0.1 + 0.01
+    bias = torch.randn(co, generator=g, device=dev)
+    want = conv2d_int8_ref(x, wt, stride=stride)
+    reset_launches()
+    assert torch.equal(conv2d_int8(x, wt, stride=stride), want)
+    for relu in (True, False):
+        want_q, want_f = requant_epilogue(want, ws, bias, 0.05, relu)
+        q, f = conv2d_int8_requant(x, wt, ws, bias, 0.05, stride=stride,
+                                   relu=relu, want_float=True)
+        assert torch.equal(q, want_q) and torch.equal(f, want_f)
+        q, f = conv2d_int8_requant(x, wt, ws, bias, 0.05, stride=stride,
+                                   relu=relu)
+        assert f is None and torch.equal(q, want_q)
+    torch.cuda.synchronize()
+    assert LAUNCHES == {"conv2d_int8_pinned": 5}
+
+
 @pytest.mark.parametrize("k,stride,hw", [(3, 2, (112, 112)), (3, 2, (9, 8)),
                                          (2, 2, (7, 7))])
 def test_maxpool_kernel_matches_plain(dev, k, stride, hw):
@@ -250,6 +299,56 @@ def test_flash_kernel_matches_plain(dev, ci, dtype):
     rtol, atol = FLASH_TOL[dtype, "lse"]
     torch.testing.assert_close(lse, want_lse, rtol=rtol, atol=atol)
     assert torch.equal(om.transpose(1, 2), o)
+
+
+# K9's wgmma route (bf16, hd = hd_v in {64, 128}) at ragged lengths, with
+# causal, window, softcap and GQA, in model layout, within FLASH_TOL
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("S,causal,window,softcap,H,KV", [
+    (200, True, 0, 0.0, 8, 2), (1000, True, 0, 0.0, 6, 2),
+    (1000, True, 96, 0.0, 4, 4), (200, False, 0, 0.0, 4, 1),
+    (1000, True, 0, 30.0, 4, 2), (333, True, 64, 50.0, 8, 1)])
+def test_flash_wgmma_route_matches_plain(dev, hd, S, causal, window,
+                                         softcap, H, KV):
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                         flash_route)
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+    assert flash_route(torch.bfloat16, hd, hd) == "wgmma"
+    g = torch.Generator(device=dev).manual_seed(S + hd)
+    q = torch.randn(2, S, H, hd, generator=g, device=dev).bfloat16()
+    k = torch.randn(2, S, KV, hd, generator=g, device=dev).bfloat16()
+    v = torch.randn(2, S, KV, hd, generator=g, device=dev).bfloat16()
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    blk = S if S % min(128, S) else min(128, S)
+    want_o, want_lse = flash_attention_plain(
+        *(t.transpose(1, 2) for t in (q, k, v)), bq=blk, bk=blk, **kw)
+    reset_launches()
+    o, lse = flash_attention(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert LAUNCHES == {"flash_attention_fwd": 1}
+    rtol, atol = FLASH_TOL[torch.bfloat16, "o"]
+    torch.testing.assert_close(o.transpose(1, 2).float(), want_o.float(),
+                               rtol=rtol, atol=atol)
+    rtol, atol = FLASH_TOL[torch.bfloat16, "lse"]
+    torch.testing.assert_close(lse, want_lse, rtol=rtol, atol=atol)
+
+
+def test_flash_wgmma_route_refuses_unaligned_strides(dev):
+    """TMA takes 16-byte aligned bases and strides only: an operand off
+    that is refused with ValueError, never sent to another kernel."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    reset_launches()
+    x = torch.zeros((1, 64, 2, 64 + 4), dtype=torch.bfloat16,
+                    device=dev)[..., :64]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention(x, x, x)
+    base = torch.zeros(1 * 64 * 2 * 64 + 4, dtype=torch.bfloat16,
+                       device=dev)[4:].view(1, 64, 2, 64)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention(base, base, base)
+    assert LAUNCHES == {}
 
 
 def test_flash_kernel_refuses_what_it_cannot_take(dev):

@@ -2,7 +2,8 @@
 Pallas kernel in interpret mode, and against the port's own oracle; the
 exact three-way bf16 split that the tensor-core backward (K10, K11)
 multiplies, and the plain backward computed through it against the JAX
-backward kernels.
+backward kernels; and the forward's route (``flash_route``) for each
+(dtype, hd, hd_v).
 
 Inputs are made with numpy from a seed and handed to both frameworks.
 Tolerances are those of ``tests/test_kernels.py::test_flash_attention``:
@@ -22,9 +23,11 @@ from repro.kernels.flash_attention.kernel import flash_attention_kernel \
     as jax_flash_kernel
 from repro.kernels.flash_attention.ops import flash_attention as jax_flash
 from repro_torch.kernels import LAUNCHES, reset_launches
-from repro_torch.kernels.flash_attention.ops import (flash_attention,
+from repro_torch.kernels.flash_attention.ops import (HEAD_DIMS, HEAD_DIMS_V,
+                                                     flash_attention,
                                                      flash_attention_bwd,
-                                                     flash_attention_kernel)
+                                                     flash_attention_kernel,
+                                                     flash_route)
 from repro_torch.kernels.flash_attention.ref import (
     flash_attention_bwd_plain, flash_attention_plain, flash_attention_ref,
     split3_bf16)
@@ -221,3 +224,34 @@ def test_bwd_f32_grads_only_from_bf16():
     lse = torch.zeros((1, 2, 64))
     with pytest.raises(TypeError, match="bf16 operands"):
         flash_attention_bwd(q, q, q, q, lse, q, out_dtype=torch.bfloat16)
+
+
+# the forward's route from (dtype, hd, hd_v) alone: every pair the CUDA
+# kernel takes, in both dtypes
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hd", HEAD_DIMS)
+@pytest.mark.parametrize("hd_v", HEAD_DIMS_V)
+def test_flash_route_of_each_head_dim_pair(dtype, hd, hd_v):
+    route = flash_route(dtype, hd, hd_v)
+    if dtype == torch.float32:
+        assert route == "f32"
+    elif hd == hd_v and hd in (64, 128):
+        assert route == "wgmma"
+    else:
+        assert route == "mma_sync"
+
+
+@pytest.mark.parametrize("dtype,hd,hd_v,err", [
+    (torch.float16, 128, 128, TypeError), (torch.bfloat16, 96, 96, ValueError),
+    (torch.bfloat16, 128, 192, ValueError), (torch.float32, 48, 64,
+                                             ValueError)])
+def test_flash_route_refuses_what_no_kernel_takes(dtype, hd, hd_v, err):
+    with pytest.raises(err):
+        flash_route(dtype, hd, hd_v)
+
+
+def test_phi4_mini_takes_the_wgmma_route():
+    from repro_torch.configs import get_arch
+    arch = get_arch("phi4-mini-3.8b")
+    assert flash_route(torch.bfloat16, arch.head_dim, arch.head_dim) == \
+        "wgmma"
