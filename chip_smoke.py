@@ -8,54 +8,62 @@ it is run outside a checkout of the repository.  Phases, one line each:
 
   1. build the CUDA kernels from ``src/repro_torch/kernels/csrc``, and
      beside them ``nvcc -Xptxas -v`` on ``dwconv_int8.cu``,
-     ``conv2d_int8.cu`` and ``flash_attention.cu``: registers, stack and
-     spills of every kernel instance (full logs ``ptxas_dwconv.log``,
-     ``ptxas_conv.log`` and ``ptxas_flash.log`` in the output directory),
-     and from the SASS the count of HGMMA, HMMA, IMMA and IDP
-     instructions of each instance and the instructions a MAC of each 3x3
-     ``dw_kernel``'s MAC block; it fails unless the instance each
-     main-path launch of K1 (``conv_mma``, from the conv plan of its shape)
-     and of K9 (``flash_fwd_wgmma<128>``, from the flash route of
-     Phi-4-mini's head dims) takes issues IMMA or HGMMA;
+     ``conv2d_int8.cu``, ``flash_attention.cu`` and ``stream_matmul.cu``:
+     registers, stack and spills of every kernel instance (full logs
+     ``ptxas_dwconv.log``, ``ptxas_conv.log``, ``ptxas_flash.log`` and
+     ``ptxas_matmul.log`` in the output directory), and from the SASS the
+     count of HGMMA, HMMA, IMMA and IDP instructions of each instance and
+     the instructions a MAC of each 3x3 ``dw_kernel``'s MAC block; it
+     fails unless the instance each main-path launch of K1 (``conv_mma``),
+     K2 (``conv_stream``, from the conv plans of its shape) and K9
+     (``flash_fwd_wgmma<128>``, from the flash route of Phi-4-mini's head
+     dims) takes issues IMMA or HGMMA, and where a K2 instance spills;
   2. hold every kernel against its plain PyTorch version on the card: the
-     int8 kernels at every distinct main-path shape of the nets below
-     compiled for ``NX2100`` at batch 8 (int8, f32 and int32 outputs
-     bit-identical), the depthwise kernels at every dw shape of
-     MobileNetV1, V2 and V3 in both tiers (streamed with ``n_buffers`` in
-     {1, 2, k*k}); the flash-attention forward (o and lse) at the LM
-     slice's prefill shape, at S = 2048, at the five ``ATTN_CASES`` of
-     ``tests/test_kernels.py`` and at hd=192/hd_v=128, in bf16 and f32,
-     within ``FLASH_TOL`` (per dtype and output; lse to 1e-4); the
-     flash-attention backward (K10: dq; K11: dk, dv) at the same shapes
-     and dtypes on K9's o and lse, within ``BWD_TOL``; their f32 sums
-     (bf16 operands, f32 outputs) against the plain backward on the f32
-     casts of the same operands at ``BWD_SUM_CASES``, within
-     ``BWD_SUM_TOL``, which sees below bf16's precision; and the
-     differentiable ``flash_attention_vjp`` against autograd through the
-     plain forward at ``VJP_CASES``;
+     streamed dense conv (K2) at every dense conv shape of the six CNN
+     configs compiled for ``NX2100`` at batch 8, forced onto the streamed
+     tier with ``n_buffers`` in {1, 2, k*k}, the pinned one (K1) at every
+     shape a config pins, the fc-head matmul (K7/K8) at every fc shape of
+     the six configs in its pinned, stream and fifo modes, the pools at
+     the main path's shapes (int8, f32 and int32 outputs bit-identical),
+     the depthwise kernels at every dw shape of MobileNetV1, V2 and V3 in
+     both tiers (streamed with ``n_buffers`` in {1, 2, k*k}); the
+     flash-attention forward (o and lse) at the LM slice's prefill shape,
+     at S = 2048, at the five ``ATTN_CASES`` of ``tests/test_kernels.py``
+     and at hd=192/hd_v=128, in bf16 and f32, within ``FLASH_TOL`` (per
+     dtype and output; lse to 1e-4); the flash-attention backward (K10:
+     dq; K11: dk, dv) at the same shapes and dtypes on K9's o and lse,
+     within ``BWD_TOL``; their f32 sums (bf16 operands, f32 outputs)
+     against the plain backward on the f32 casts of the same operands at
+     ``BWD_SUM_CASES``, within ``BWD_SUM_TOL``, which sees below bf16's
+     precision; and the differentiable ``flash_attention_vjp`` against
+     autograd through the plain forward at ``VJP_CASES``;
   3. the slices: ``compile(cfg, NX2100)`` -> ``PipelineExecutor`` on the
      card at batch 8 on 224x224 inputs, with seeded random weights, for
      ResNet-50, ResNet-18, MobileNetV2 as compiled (every dw layer
-     pinned) and MobileNetV2 with every dw layer forced onto the HBM tier
-     (``with_offload``): logits equal to the plain path's bit for bit, the
-     Eq. 2 report verified.  Then Phi-4-mini (3.8B, full width and depth,
-     bf16, random weights from seed 0) through ``ServingEngine(
-     batch_slots=4, max_seq=1024)``: 8 requests of 512 tokens, 16 new
-     tokens each; exactly 64 flash-attention launches (2 prefills x 32
-     layers); prefill logits within 2e-2 x max|logit| of the plain path
-     (kernel mode off); the first token equal to the plain path's wherever
-     its top-2 margin exceeds that bound.  Then Phi-4-mini training, with
-     the serving phase's weights freed: one ``loss_fn`` gradient on the
-     first batch with kernel mode on and off (loss within
-     ``LOSS_REL_TOL``, every leaf within ``GRAD_REL_TOL``, L2), then
-     ``Trainer.run`` for 3 steps of 4x512 tokens (AdamW, remat, no
-     checkpoint): exactly 64 K9, 32 K10 and 32 K11 launches a step and a
-     finite loss and grad norm at every step.  Launch counters are zeroed
-     just before and read just after each run;
+     pinned), VGG-16 (conv8-10 and fc0 on the streamed conv, fc1 and fc2
+     on the fifo matmul) and MobileNetV2 with every dw layer forced onto
+     the HBM tier (``with_offload``): logits equal to the plain path's bit
+     for bit (the plain path's time logged), the Eq. 2 report verified.
+     Then Phi-4-mini (3.8B, full width and depth, bf16, random weights
+     from seed 0) through ``ServingEngine(batch_slots=4, max_seq=1024)``:
+     8 requests of 512 tokens, 16 new tokens each; exactly 64
+     flash-attention launches (2 prefills x 32 layers); prefill logits
+     within 2e-2 x max|logit| of the plain path (kernel mode off); the
+     first token equal to the plain path's wherever its top-2 margin
+     exceeds that bound.  Then Phi-4-mini training, with the serving
+     phase's weights freed: one ``loss_fn`` gradient on the first batch
+     with kernel mode on and off (loss within ``LOSS_REL_TOL``, every leaf
+     within ``GRAD_REL_TOL``, L2), then ``Trainer.run`` for 3 steps of
+     4x512 tokens (AdamW, remat, no checkpoint): exactly 64 K9, 32 K10 and
+     32 K11 launches a step and a finite loss and grad norm at every step.
+     Launch counters are zeroed just before and read just after each run;
   4. time each kernel at the slice's shapes, its plain version, one
      PyTorch call computing the same function where there is one
-     (``torch._int_mm`` for the 1x1 convs, cuDNN's fp32 conv for the
-     dense k > 1 convs and the depthwise conv,
+     (``torch._int_mm`` for the 1x1 convs; for the fc heads and VGG-16's
+     fc0, a [B, K] x [K, N] product, on x padded with zero rows to M = 32,
+     since it refuses M <= 16 and no float conv is exact past 2^24; the
+     faster exact of cuDNN's fp32 and TF32 conv for the other dense
+     convs; cuDNN's fp32 conv for the depthwise conv;
      ``scaled_dot_product_attention`` for attention, its backward for the
      K10/K11 pair), each net end to end, the LM's prefill, decode step and
      engine run, and the training step (eager ms of steps 2-3, and one
@@ -63,17 +71,16 @@ it is run outside a checkout of the repository.  Phases, one line each:
   5. print the ``kernels`` JSON line, the card's name and power limit,
      and last ``{"ok": true, "device": ...}``.
 
-Times are per slice run (one forward of each of the four nets, and the
+Times are per slice run (one forward of each of the five nets, and the
 LM's engine run and 3 training steps): a kernel's ``ms`` sums its
 launches on that path (the record also splits it per net and per
 launch; for the dense and the depthwise kernels, per shape, the bytes,
 bound and library time beside the time a launch, ``conv_per_shape`` with
 the plan and each library call's time and whether its output equals the
-int32 sums, and ``dw_per_shape``; a dense conv's library time is its
-fastest exact call: ``torch._int_mm`` at 1x1, cuDNN's fp32 or TF32 conv
-at k > 1).  K10 and K11 share
-one plain version and one library call, which compute dq, dk and dv
-together: each row carries the pair's time.
+int32 sums, the streamed conv's bytes read from device memory beside the
+Eq. 2 words, ``matmul_per_shape`` likewise, and ``dw_per_shape``).  K10
+and K11 share one plain version and one library call, which compute dq,
+dk and dv together: each row carries the pair's time.
 Kernel, plain-version and library times are device times: back-to-back
 calls captured into a CUDA graph and replayed.  The record keeps beside them each kernel's time
 per call from Python, host included, and each forward's eager time
@@ -85,20 +92,24 @@ int8 or 989 TFLOP/s bf16 (H100 SXM data sheet; causal attention counts
 half of 4·B·H·S²·hd, K10 3 and K11 4 products of 2·B·H·S²·hd, halved
 when causal).  ``library_ms`` covers ``library_launches`` of
 the kernel's launches, on which the kernel takes
-``ms_on_library_launches`` (all of them but the fc heads' matmuls, which
-``torch._int_mm`` refuses at M = 8).  A JSON record of
+``ms_on_library_launches``.  A JSON record of
 the run goes to ``chip_smoke.json`` in the output directory beside this
 script.
 """
 import json
+import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 BATCH = 8
+# phase 2 takes seconds; a kernel that never finishes (a ring whose
+# barriers lost step) fails it after this long instead of hanging the run
+CHECK_LIMIT_S = 120
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
@@ -328,17 +339,20 @@ PTXAS_SOURCES = (
     ("conv2d_int8", "ptxas_conv.log", {
         "conv_mma": (r"conv_mmaILb(\d)ELi(\d)ELi(\d)E",
                      "conv_mma<{},{},{}>"),
-        "conv_stream_kernel": (r"conv_stream_kernelILi(\d)E",
-                               "conv_stream_kernel<{}>")}),
+        "conv_stream": (r"conv_streamILi(\d)ELi(\d)ELi(\d+)E",
+                        "conv_stream<{},{},{}>")}),
     ("flash_attention", "ptxas_flash.log", {
         "flash_fwd_wgmma": (r"flash_fwd_wgmmaILi(\d+)E",
                             "flash_fwd_wgmma<{}>"),
         "flash_fwd_bf16": (r"flash_fwd_bf16ILi(\d+)ELi(\d+)E",
                            "flash_fwd_bf16<{},{}>"),
         "flash_fwd_f32": (r"flash_fwd_f32()", "flash_fwd_f32{}")}),
+    ("stream_matmul", "ptxas_matmul.log", {
+        "mm_kernel": (r"mm_kernelILi(\d+)ELi(\d+)E", "mm_kernel<{},{}>")}),
 )
 # the tensor-core instruction each redesigned kernel must issue (SASS)
-SASS_REQUIRED = {"conv_mma": "IMMA", "flash_fwd_wgmma": "HGMMA"}
+SASS_REQUIRED = {"conv_mma": "IMMA", "conv_stream": "IMMA",
+                 "flash_fwd_wgmma": "HGMMA"}
 
 
 def instance_name(text, templates):
@@ -442,18 +456,24 @@ def start_ptxas_report(_build):
     return finish
 
 
-def check_main_path_instances(record, shapes, conv_plan, sm_count,
-                              flash_route, torch):
-    """The kernel instance each main-path launch of K1 and K9 takes (from
-    the conv plan of its shape and the flash route of Phi-4-mini's head
-    dims), and that each issues its tensor-core instruction in the SASS of
-    the build report; fails where one does not."""
+def check_main_path_instances(record, shapes, conv_plan, stream_plan,
+                              sm_count, flash_route, torch):
+    """The kernel instance each main-path launch of K1, K2 and K9 takes
+    (from the conv plans of its shape and the flash route of Phi-4-mini's
+    head dims), and that each issues its tensor-core instruction in the
+    SASS of the build report, and a K2 instance spills nothing; fails
+    where one does not."""
     used = {}
     for key in shapes["conv2d_int8_pinned"]:
         h, w, c, co, k, s = key[:6]
         plan = conv_plan(BATCH, h, w, c, co, k, k, s, sm_count)
         inst = (f"conv_mma<{'true' if plan.packed else 'false'},{plan.wn},"
                 f"{plan.nf}>")
+        used.setdefault(("conv2d_int8", inst), []).append(list(key[:6]))
+    for key in shapes["conv2d_int8_stream"]:
+        h, w, c, co, k, s, nb = key[:7]
+        plan = stream_plan(BATCH, h, w, c, co, k, k, s, nb, sm_count)
+        inst = f"conv_stream<{plan.wn},{plan.nf},{plan.vec}>"
         used.setdefault(("conv2d_int8", inst), []).append(list(key[:6]))
     hd = FLASH_SLICE[4]
     route = flash_route(torch.bfloat16, hd, FLASH_SLICE[5])
@@ -468,6 +488,10 @@ def check_main_path_instances(record, shapes, conv_plan, sm_count,
         if not rep.get(op):
             raise AssertionError(f"{inst} ({src}.cu), launched at {keys}, "
                                  f"issues no {op} in its SASS: {rep}")
+        if inst.startswith("conv_stream") and (
+                rep.get("spill_stores", 0) or rep.get("spill_loads", 0)):
+            raise AssertionError(f"{inst}, launched at {keys}, spills: "
+                                 f"{rep}")
         rows[inst] = {"shapes": keys, op: rep[op],
                       "registers": rep.get("registers"),
                       "spill_bytes": rep.get("spill_stores", 0)
@@ -484,7 +508,9 @@ def check_main_path_instances(record, shapes, conv_plan, sm_count,
 def library_conv(torch, F, x, w, s, same_pad):
     """The PyTorch calls that compute a dense int8 conv's sums, as
     yardsticks of time the port never calls: ``torch._int_mm`` for a 1x1
-    (a stride-s 1x1 conv is a matmul over every s-th row and column), else
+    (a stride-s 1x1 conv is a matmul over every s-th row and column) and
+    for an fc head whose one window covers the map (on x padded to 32
+    rows), else
     cuDNN's conv on a channels-last float copy of the pre-padded input,
     once in fp32 (TF32 off) and once with TF32 on (int8 values and their
     products are exact in TF32, and it sums in fp32).  fp32 sums past
@@ -495,6 +521,19 @@ def library_conv(torch, F, x, w, s, same_pad):
     "refused"}]."""
     B, H, W, C = x.shape
     k, co = w.shape[0], w.shape[3]
+    if k > 1 and H == W == k == s:
+        # an fc head as a conv, one window over the whole map (VGG-16's
+        # fc0): a [B, k*k*C] x [k*k*C, C_out] product, its sums past 2^24,
+        # so no float conv is exact; torch._int_mm refuses M <= 16, so x
+        # is padded with zero rows to M = 32 (outside the timed call)
+        xs = torch.zeros((32, k * k * C), dtype=torch.int8, device=x.device)
+        xs[:B] = x.reshape(B, -1)
+        w2 = w.reshape(-1, co)
+        return [{"name": "torch._int_mm (M padded to 32)",
+                 "fn": lambda: torch._int_mm(xs, w2),
+                 "out": lambda: torch._int_mm(xs, w2)[:B].reshape(B, 1, 1,
+                                                                   co),
+                 "refused": None}]
     if k == 1:
         xs = x[:, ::s, ::s, :].contiguous()
         ho, wo = xs.shape[1:3]
@@ -1184,12 +1223,14 @@ def main():
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.compiler import NX2100, compile, select_engine
-    from repro_torch.configs.cnn import get_cnn
+    from repro_torch.configs.cnn import CNN_CONFIGS, get_cnn
     from repro_torch.kernels import _build
     from repro_torch.compiler.engines import _block as block_for
     from repro_torch.kernels.conv2d_int8.ops import (_sm_count, conv2d_int8,
                                                      conv2d_int8_requant,
-                                                     conv_plan)
+                                                     conv_plan,
+                                                     stream_bytes_read,
+                                                     stream_plan)
     from repro_torch.kernels.flash_attention.ops import flash_route
     from repro_torch.kernels.conv2d_int8.ref import conv2d_int8_ref, same_pad
     from repro_torch.kernels.pool_int8.ops import (global_avgpool_int8,
@@ -1197,7 +1238,9 @@ def main():
     from repro_torch.kernels.pool_int8.ref import (global_avgpool_int8_ref,
                                                    maxpool_int8_ref)
     from repro_torch.kernels.quant import requant_epilogue
-    from repro_torch.kernels.stream_matmul.ops import (stream_matmul,
+    from repro_torch.kernels.stream_matmul.ops import (mm_bytes_read,
+                                                       mm_plan,
+                                                       stream_matmul,
                                                        stream_matmul_requant)
     from repro_torch.kernels.stream_matmul.ref import stream_matmul_ref
     from repro_torch.models.cnn import (cnn_forward, cnn_input_shape,
@@ -1230,7 +1273,7 @@ def main():
                 for k, v in sorted(found.items())))
 
     nets = {n: compile(get_cnn(n), NX2100)
-            for n in ("resnet50", "resnet18", "mobilenetv2")}
+            for n in ("resnet50", "resnet18", "mobilenetv2", "vgg16")}
     mv2 = nets["mobilenetv2"]
     nets[MV2_DW_HBM] = mv2.with_offload(set(mv2.streamed_names)
                                         | dw_names(mv2.cfg))
@@ -1242,8 +1285,8 @@ def main():
             for key, v in d.items():
                 shapes[k][key] = shapes[k].get(key, 0) + v
     sm_count = _sm_count(0)
-    check_main_path_instances(record, shapes, conv_plan, sm_count,
-                              flash_route, torch)
+    check_main_path_instances(record, shapes, conv_plan, stream_plan,
+                              sm_count, flash_route, torch)
     ks = {k: Kernel(k) for k in CNN_KERNELS}
     for k in (LM_KERNEL,) + BWD_KERNELS:
         ks[k] = Kernel(k, BF16_FLOPS_PER_S)
@@ -1262,32 +1305,54 @@ def main():
 
     # -- 2. every kernel against its plain version ---------------------------
     t0 = time.perf_counter()
-    conv_inputs = {}
+
+    def hung():
+        print(f"[check] FAILED: the kernel-vs-plain checks did not finish in "
+              f"{CHECK_LIMIT_S} s (a kernel hangs)", file=sys.stderr,
+              flush=True)
+        os._exit(3)
+    watchdog = threading.Timer(CHECK_LIMIT_S, hung)
+    watchdog.daemon = True
+    watchdog.start()
+    conv_inputs = {}      # the main path's dense conv shapes, for phase 4
     n_checks = 0
-    for kname in ("conv2d_int8_pinned", "conv2d_int8_stream"):
-        for key in shapes[kname]:
-            h, w_, c, co, k, s, _, _ = key
-            if key[:6] not in conv_inputs:
-                conv_inputs[key[:6]] = (i8(BATCH, h, w_, c), i8(k, k, c, co),
-                                        *scales(co))
-    for key6, (x, w, ws, b) in conv_inputs.items():
-        k = key6[4]
-        s = key6[5]
+    main_conv = {key[:6] for kname in ("conv2d_int8_pinned",
+                                       "conv2d_int8_stream")
+                 for key in shapes[kname]}
+    # every dense conv shape of the six configs: K2 at each (forced onto
+    # the streamed tier), K1 at each the configs pin
+    comps = {n: nets[n] if n in nets else compile(get_cnn(n), NX2100)
+             for n in CNN_CONFIGS}
+    dense = [((sc.spec.in_h, sc.spec.in_w, sc.spec.c_in, sc.spec.c_out,
+               sc.spec.k_h, sc.spec.stride), sc.streamed)
+             for comp in comps.values() for sc in comp.plan.schedules
+             if select_engine(sc.spec).name == "conv2d_int8"]
+    conv_shapes = main_conv | {key6 for key6, _ in dense}
+    pinned_shapes = {key6 for key6, streamed in dense if not streamed}
+    for key6 in sorted(conv_shapes):
+        h, w_, c, co, k, s = key6
+        x, w, ws, b = (i8(BATCH, h, w_, c), i8(k, k, c, co), *scales(co))
+        if key6 in main_conv:
+            conv_inputs[key6] = (x, w, ws, b)
         want = conv2d_int8_ref(x, w, stride=s)
         want_q, want_f = requant_epilogue(want, ws, b, 0.05, True)
-        got = conv2d_int8(x, w, stride=s)
-        ks["conv2d_int8_pinned"].err(torch, got, want)
-        gq, gf = conv2d_int8_requant(x, w, ws, b, 0.05, stride=s,
-                                     want_float=True)
-        ks["conv2d_int8_pinned"].err(torch, gq, want_q)
-        ks["conv2d_int8_pinned"].err(torch, gf, want_f)
+        if key6 in pinned_shapes:
+            got = conv2d_int8(x, w, stride=s)
+            ks["conv2d_int8_pinned"].err(torch, got, want)
+            gq, gf = conv2d_int8_requant(x, w, ws, b, 0.05, stride=s,
+                                         want_float=True)
+            ks["conv2d_int8_pinned"].err(torch, gq, want_q)
+            ks["conv2d_int8_pinned"].err(torch, gf, want_f)
+            n_checks += 3
         for nb in sorted({1, 2, k * k}):
             got = conv2d_int8(x, w, stride=s, stream=True, n_buffers=nb)
             ks["conv2d_int8_stream"].err(torch, got, want)
             n_checks += 1
-        gq, _ = conv2d_int8_requant(x, w, ws, b, 0.05, stride=s, stream=True)
+        gq, gf = conv2d_int8_requant(x, w, ws, b, 0.05, stride=s,
+                                     stream=True, want_float=True)
         ks["conv2d_int8_stream"].err(torch, gq, want_q)
-        n_checks += 3
+        ks["conv2d_int8_stream"].err(torch, gf, want_f)
+        n_checks += 2
     for key in shapes["maxpool_int8"]:
         h, w_, c, k, s = key
         x = i8(BATCH, h, w_, c)
@@ -1302,8 +1367,9 @@ def main():
                 torch, global_avgpool_int8(x, act_scale=act),
                 global_avgpool_int8_ref(x, act_scale=act))
             n_checks += 1
-    fc_shapes = {key[:2] for m in ("pinned", "fifo")
-                 for key in shapes[f"stream_matmul_{m}"]}
+    fc_shapes = {(sp.c_in, sp.c_out) for comp in comps.values()
+                 for sp in (sc.spec for sc in comp.plan.schedules)
+                 if select_engine(sp).name == "stream_matmul"}
     for c_in, c_out in sorted(fc_shapes):
         x, w = i8(BATCH, c_in), i8(c_in, c_out)
         ws, b = scales(c_out)
@@ -1323,7 +1389,7 @@ def main():
                 n_checks += 3
     dw_shapes = set()                 # every dw shape of MobileNetV1-V3
     for n in ("mobilenetv1", "mobilenetv2", "mobilenetv3"):
-        comp = nets[n] if n in nets else compile(get_cnn(n), NX2100)
+        comp = comps[n]
         dw_shapes |= {(s.spec.in_h, s.spec.in_w, s.spec.c_in, s.spec.k_h,
                        s.spec.stride) for s in comp.plan.schedules
                       if select_engine(s.spec).name == "dwconv_int8"}
@@ -1358,11 +1424,15 @@ def main():
     n_flash = check_flash(torch, g, dev, ks[LM_KERNEL])
     n_bwd = check_flash_bwd(torch, g, dev, ks, record)
     torch.cuda.synchronize()
+    watchdog.cancel()
     record["check_s"] = time.perf_counter() - t0
     record["flash_readings"] = ks[LM_KERNEL].readings
     record["flash_bwd_readings"] = {k: ks[k].readings for k in BWD_KERNELS}
     log("check", f"{n_checks} kernel-vs-plain comparisons bit-identical "
-        f"({len(conv_inputs)} conv shapes; {len(dw_inputs)} dw shapes of "
+        f"({len(conv_shapes)} dense conv shapes of the six CNN configs "
+        f"streamed, {len(pinned_shapes)} of them pinned; {len(fc_shapes)} "
+        f"fc shapes; "
+        f"{len(dw_inputs)} dw shapes of "
         f"MobileNetV1-V3; stream n_buffers in {{1, 2, k*k}}; matmul "
         f"pinned/stream/fifo); {n_flash} flash-attention comparisons (o and "
         f"lse at {len(FLASH_CASES)} shapes in bf16 and f32, and the model "
@@ -1405,7 +1475,10 @@ def main():
         classes = comp.cfg.num_classes
         if lg.shape != (BATCH, classes) or not torch.isfinite(lg).all():
             raise AssertionError(f"{name}: logits {tuple(lg.shape)}")
+        t_plain = time.perf_counter()
         plain = cnn_forward(params[name], comp.cfg, images[name])
+        torch.cuda.synchronize()
+        t_plain = time.perf_counter() - t_plain
         if not torch.equal(lg, plain):
             diff = (lg - plain).abs().max().item()
             raise AssertionError(f"{name}: logits differ from the plain "
@@ -1417,8 +1490,9 @@ def main():
             raise AssertionError(f"{name}: {rep.total_hbm_words} streamed "
                                  f"words != plan {plan_words}")
         log("slice", f"{name}: logits {tuple(lg.shape)} bit-identical to "
-            f"the plain path on the card; Eq. 2 verified; streamed words "
-            f"{rep.total_hbm_words} = {plan_words // BATCH} x {BATCH}")
+            f"the plain path on the card (which took {t_plain * 1e3:.1f} ms); "
+            f"Eq. 2 verified; streamed words {rep.total_hbm_words} = "
+            f"{plan_words // BATCH} x {BATCH}")
     total_launches = {}
     for per in launches.values():
         for k, v in per.items():
@@ -1442,6 +1516,12 @@ def main():
 
     torch.backends.cudnn.allow_tf32 = False    # library_conv's TF32 call
     # turns it on for itself only
+    # Eq. 2 words of one streamed dense conv layer, by shape
+    eq2_words = {(sc.spec.in_h, sc.spec.in_w, sc.spec.c_in, sc.spec.c_out,
+                  sc.spec.k_h, sc.spec.stride):
+                 sc.weight_words_per_row * sc.spec.out_h * BATCH
+                 for comp in nets.values() for sc in comp.plan.schedules
+                 if sc.streamed}
     # per dense conv shape: launches, device ms a launch, bytes, bound, the
     # library calls, their ms and exactness, the plan (conv_per_shape)
     conv_shape_rows = {"conv2d_int8_pinned": {}, "conv2d_int8_stream": {}}
@@ -1479,6 +1559,17 @@ def main():
                 row["plan"] = {f: getattr(plan, f) for f in (
                     "n_tile", "rows_per_band", "bands", "packed",
                     "ring_rows", "smem_bytes")}
+            else:
+                # what a launch reads from device memory, beside the Eq. 2
+                # words the executor counts for a layer of this shape
+                plan = stream_plan(BATCH, h, w_, c, co, k, k, s, 2, sm_count)
+                row["plan"] = {f: getattr(plan, f) for f in (
+                    "n_tile", "g", "groups", "nseg", "kb", "nkb", "nb",
+                    "rows_per_band", "bands", "smem_bytes")}
+                wb, ib = stream_bytes_read(plan, h, w_, c, co, k, k, s)
+                row.update(weight_bytes_read=wb, input_bytes_read=ib,
+                           eq2_words=eq2_words[key6],
+                           weight_gb_per_s=wb / (row["ms"] * 1e6))
             conv_shape_rows[kname][",".join(map(str, key6))] = row
     # per dw shape: launches, device ms a launch, bytes, bound, cuDNN ms
     dw_shape_rows = {"dwconv_int8_pinned": {}, "dwconv_int8_stream": {}}
@@ -1540,10 +1631,15 @@ def main():
             lambda: global_avgpool_int8_ref(x, act_scale=0.05))
         kern.bytes += n * (x.numel() + BATCH * c)
         kern.ops += n * BATCH * h * w_ * c
+    # per fc head: launches, device ms a launch, bytes, bound, the plan,
+    # the bytes a launch reads and the weights' GB/s, and the library:
+    # torch._int_mm, which refuses M <= 16, on x padded with zero rows to
+    # M = 32 (the padding outside the timed call)
+    mm_shape_rows = {}
     for mode in ("pinned", "fifo"):
         kname = f"stream_matmul_{mode}"
         kern = ks[kname]
-        lib = 0.0
+        kern.library_ms = 0.0
         for key, n in shapes[kname].items():
             c_in, c_out, nb, last = key
             x, w = i8(BATCH, c_in), i8(c_in, c_out)
@@ -1554,19 +1650,37 @@ def main():
                 n_buffers=nb, want_float=last))
             kern.plain_ms += n * plain_ms(lambda: requant_epilogue(
                 stream_matmul_ref(x, w), ws, b, 0.05, not last))
-            kern.bytes += n * (x.numel() + w.numel() + 8 * c_out
-                               + BATCH * c_out * (5 if last else 1))
-            kern.ops += n * 2 * BATCH * c_in * c_out
-            if lib is None:
-                continue
-            try:                       # the library's int8 GEMM, if it
-                lib += n * device_ms(  # takes this shape (M=8 may not)
-                    torch, lambda: torch._int_mm(x, w), reps=20)
-            except RuntimeError as e:
-                lib = None
-                log("time", f"torch._int_mm refuses [{BATCH},{c_in}]x"
-                    f"[{c_in},{c_out}]: {str(e).splitlines()[0][:120]}")
-        kern.library_ms = lib
+            nbytes = x.numel() + w.numel() + 8 * c_out \
+                + BATCH * c_out * (5 if last else 1)
+            ops = 2 * BATCH * c_in * c_out
+            kern.bytes += n * nbytes
+            kern.ops += n * ops
+            xp = torch.zeros((32, c_in), dtype=torch.int8, device=dev)
+            xp[:BATCH] = x
+            lib = library_readings(torch, [{
+                "name": "torch._int_mm (M padded to 32)",
+                "fn": lambda: torch._int_mm(xp, w),
+                "out": lambda: torch._int_mm(xp, w)[:BATCH],
+                "refused": None}], stream_matmul_ref(x, w))
+            kern.library_ms += n * lib["library_ms"]
+            plan = mm_plan(BATCH, c_in, c_out, mode, bk, nb, sm_count)
+            wb, xb = mm_bytes_read(plan, BATCH, c_in, c_out)
+            ms = per_launch[kname][key]
+            mm_shape_rows[f"{mode}:{c_in},{c_out}"] = {
+                "launches": n, "ms": ms, "bytes": nbytes,
+                "bound_ms": bound_ms(nbytes, ops)[0], **lib,
+                "plan": {f: getattr(plan, f) for f in (
+                    "tn", "split", "kr", "kblk", "nb", "vec")},
+                "ctas": plan.n_tiles * plan.split * plan.m_tiles,
+                "weight_bytes_read": wb, "x_bytes_read": xb,
+                "weight_gb_per_s": wb / (ms * 1e6)}
+    record["matmul_per_shape"] = mm_shape_rows
+    log("time", "matmul per fc head (mode:K,N: launches x us, bound us, "
+        "padded torch._int_mm us; CTAs, weight GB/s): " + "; ".join(
+            f"{key}: {r['launches']} x {r['ms'] * 1e3:.2f}, "
+            f"{r['bound_ms'] * 1e3:.2f}, {r['library_ms'] * 1e3:.2f}; "
+            f"{r['ctas']}, {r['weight_gb_per_s']:.0f}"
+            for key, r in mm_shape_rows.items()) + f"  [{card}]")
     for name in CNN_KERNELS:
         kern = ks[name]
         kern.ms = sum(n * per_launch[name][key]
@@ -1618,6 +1732,39 @@ def main():
             + ", ".join(f"{name} {t:.4f} ms" for name, t in
                         d["by_call"].items()) + ")"
             for part, d in by_k.items()) + f"  [{card}]")
+    rows = conv_shape_rows["conv2d_int8_stream"]
+    log("time", "conv2d_int8_stream reads per launch (h,w,c,co,k,s: weight "
+        "MB read, Eq. 2 words of a layer in M (80-bit), input MB read, "
+        "weight GB/s; plan n_tile/g/kb/nb/rows): " + "; ".join(
+            f"{key}: {r['weight_bytes_read'] / 1e6:.1f}, "
+            f"{r['eq2_words'] / 1e6:.1f}, {r['input_bytes_read'] / 1e6:.1f}, "
+            f"{r['weight_gb_per_s']:.0f}; {r['plan']['n_tile']}/"
+            f"{r['plan']['g']}/{r['plan']['kb']}/{r['plan']['nb']}/"
+            f"{r['plan']['rows_per_band']}" for key, r in rows.items())
+        + f"  [{card}]")
+    # K2 and the matmul against the library, per net
+    by_net = {}
+    for net, per in per_net.items():
+        for kname, prefix in (("conv2d_int8_stream", ""),
+                              ("stream_matmul_pinned", "pinned:"),
+                              ("stream_matmul_fifo", "fifo:")):
+            for key, n in per[kname].items():
+                r = (conv_shape_rows[kname][",".join(map(str, key[:6]))]
+                     if not prefix else
+                     mm_shape_rows[f"{prefix}{key[0]},{key[1]}"])
+                d = by_net.setdefault(net, {}).setdefault(
+                    kname, {"launches": 0, "ms": 0.0, "library_ms": 0.0})
+                d["launches"] += n
+                d["ms"] += n * r["ms"]
+                d["library_ms"] += n * (r["library_ms"] or 0.0)
+    record["streamed_by_net"] = by_net
+    log("time", "K2 and the matmul by net (launches, device ms, library "
+        "ms, factor): " + "; ".join(
+            f"{net} {k}: {d['launches']}, {d['ms']:.4f}, "
+            f"{d['library_ms']:.4f}, "
+            f"{d['ms'] / d['library_ms'] if d['library_ms'] else 0:.2f}"
+            for net, per in by_net.items() for k, d in per.items())
+        + f"  [{card}]")
     record["dw_per_shape"] = dw_shape_rows
     for kname, rows in dw_shape_rows.items():
         log("time", f"{kname} per shape (h,w,c,k,s,nb: launches x us, "

@@ -5,9 +5,10 @@ plain version.
 per output row through an ``n_buffers``-deep shared-memory ring); the
 placement plan (core/schedule.py) flips that switch per layer.  A CPU
 tensor runs the plain version in ``ref.py``; a CUDA tensor launches
-``csrc/conv2d_int8.cu`` (dense: the pinned tier on the int8 tensor cores
-with the launch plan of :func:`conv_plan`, the streamed tier on dp4a) or
-``csrc/dwconv_int8.cu`` (``depthwise=True``) or raises.
+``csrc/conv2d_int8.cu`` (dense, on the int8 tensor cores: the pinned
+tier with the launch plan of :func:`conv_plan`, the streamed tier with
+that of :func:`stream_plan`) or ``csrc/dwconv_int8.cu``
+(``depthwise=True``) or raises.
 """
 from __future__ import annotations
 
@@ -25,7 +26,9 @@ from repro_torch.kernels.conv2d_int8.ref import (conv2d_int8_ref,
 from repro_torch.kernels.quant import reciprocal, requant_epilogue
 
 __all__ = ["conv2d_int8", "conv2d_int8_requant", "same_padded_width",
-           "stream_smem_bytes", "conv_plan", "conv_layout", "ConvPlan",
+           "stream_plan", "stream_layout", "stream_bytes_read", "StreamPlan",
+           "conv_plan",
+           "conv_layout", "ConvPlan",
            "stem_k_index", "dw_plan", "dw_layout", "DwPlan", "KERNEL_PINNED",
            "KERNEL_STREAM", "KERNEL_DW_PINNED", "KERNEL_DW_STREAM"]
 
@@ -37,30 +40,19 @@ MAX_SMEM_BYTES = 232448                  # what one H100 block may claim
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
-def _lib(name: str, n_ints: int) -> ctypes.CDLL:
-    """The library of ``csrc/<name>.cu``; both launch functions take 4
-    pointers, 2 floats, 3 output pointers, ``n_ints`` ints and the
-    stream."""
+def _lib(name: str, launchers) -> ctypes.CDLL:
+    """The library of ``csrc/<name>.cu``, its launch functions typed:
+    ``launchers`` maps each name to its count of ints.  Each takes 4
+    pointers, 2 floats, 3 output pointers, the ints and the stream."""
     lib = _build.load(name)
     if not getattr(lib, "_typed", False):
-        fn = getattr(lib, f"{name}_launch")
-        fn.argtypes = [_P, _P, _P, _P, _F, _F, _P, _P, _P] + [_I] * n_ints \
-            + [_P]
-        fn.restype = _I
+        for fname, n_ints in launchers.items():
+            fn = getattr(lib, fname)
+            fn.argtypes = [_P, _P, _P, _P, _F, _F, _P, _P, _P] \
+                + [_I] * n_ints + [_P]
+            fn.restype = _I
         lib._typed = True
     return lib
-
-
-def stream_smem_bytes(w: int, c_in: int, k_h: int, k_w: int, stride: int,
-                      n_buffers: int) -> int:
-    """Shared memory one CTA of the streamed tier claims: its tap ring and
-    line buffer (mirrors ``stream_smem_bytes`` in
-    ``csrc/conv2d_int8.cu``).  The pinned tier's is its ``ConvPlan``'s."""
-    w_out, _ = same_out_and_pad(w, k_w, stride)
-    cp = (c_in + 3) // 4 * 4
-    wp = (w_out - 1) * stride + k_w
-    nb = min(n_buffers, k_h * k_w)
-    return nb * cp * 32 + k_h * wp * (cp // 4 + 1) * 4
 
 
 # The pinned dense conv's launch plan; ``csrc/conv2d_int8.cu`` mirrors the
@@ -193,6 +185,195 @@ def conv_plan(batch: int, h: int, w: int, c_in: int, c_out: int, k_h: int,
                          f"{w_out} needs more than {MAX_SMEM_BYTES} B of "
                          f"shared memory per block")
     return next((p for r, p in fits if r >= 2), fits[0][1])
+
+
+# The streamed dense conv's launch plan; ``csrc/conv2d_int8.cu`` mirrors
+# the layout (``stream_layout`` there) and takes the instance, the image
+# group, the column segment, the band and the K block from it.
+STREAM_SLICE_MAX = 16384      # kb * n_tile, at most
+STREAM_CTAS_PER_SM = 2        # the launch bounds' minimum blocks a SM
+STREAM_A_STAGES = 2           # input-row stages in flight
+STREAM_STAGING = 4            # raw weight slices staged (3 in flight)
+STREAM_SMALL_M = 16           # pixels a CTA up to which warps split N only
+
+
+@dataclass(frozen=True)
+class StreamPlan:
+    """One launch of the streamed dense conv.  A CTA covers a C_out tile
+    of ``n_tile`` channels, ``g`` images and ``seg`` output columns of a
+    band of ``rows_per_band`` output rows: its M is the ``g * seg <=
+    CONV_MT`` pixels of a row.  For each output row every (tap, K block)
+    weight slice of ``kb`` input channels x ``n_tile`` passes once through
+    a ring of ``nb`` shared-memory slots; the input rows come in stages of
+    one (kernel row, K block), ``STREAM_A_STAGES`` deep.  ``vec`` and
+    ``veca``: bytes a load of the weight rows and a copy of the input
+    (1: plain byte loads)."""
+    n_tile: int
+    wn: int
+    nf: int
+    vec: int
+    veca: int
+    taps: int             # k_h * k_w
+    kb: int               # K bytes a slice, a multiple of 32
+    nkb: int              # K blocks: ceil(C / kb)
+    nb: int               # ring slots: min(n_buffers, slices a row)
+    g: int
+    groups: int
+    seg: int
+    nseg: int
+    co_tiles: int
+    rows_per_band: int
+    bands: int
+    batch: int
+    row_bytes: int        # bytes of one image's input row in a stage
+    smem_bytes: int
+
+    @property
+    def grid(self) -> Tuple[int, int, int]:
+        return self.groups * self.nseg, self.co_tiles, self.bands
+
+    @property
+    def slices_per_row(self) -> int:
+        return self.taps * self.nkb
+
+
+def stream_layout(kb: int, g: int, seg: int, k_h: int, k_w: int,
+                  stride: int, nb: int, n_tile: int) -> Tuple[int, int]:
+    """(bytes of one image's input row in a stage, shared-memory bytes) of
+    one CTA: the full and empty mbarriers of the ``nb`` weight slots and
+    of the ``STREAM_A_STAGES`` input stages (8 bytes each), the weight
+    slots ``[nb][n_tile][kb + 16]`` (K-contiguous rows, a 16-byte gap so
+    ldmatrix's 8 rows fall in distinct banks), and the stages ``[2][g]
+    [row]``.  A stage row holds the ``(seg - 1) * stride + k_w`` padded
+    input columns the segment reads, at ``kb + 16`` bytes a pixel, by
+    stride phase (pixel p at ``(p % stride) * q + p // stride``, q =
+    ceil(columns / stride)), keeping the ``min(stride, k_w)`` phases an
+    output reads; then ``STREAM_STAGING`` slots of raw HWIO slices
+    ``[kb][n_tile]`` the weights arrive in before their transpose."""
+    wpad = (seg - 1) * stride + k_w
+    q = -(-wpad // stride)
+    row = min(stride, k_w) * q * (kb + 16)
+    smem = 16 * (nb + STREAM_A_STAGES) + nb * n_tile * (kb + 16) \
+        + STREAM_A_STAGES * g * row + STREAM_STAGING * kb * n_tile
+    return row, smem
+
+
+def stream_instance(n_tile: int, vec: int, m: int) -> Tuple[int, int]:
+    """(warps along N, 8-channel MMA columns a warp) of the ``conv_stream``
+    instance for a C_out tile, a weight-load width and the CTA's pixels
+    ``m``: ``CONV_INSTANCES``, but a 32-channel tile of at most
+    ``STREAM_SMALL_M`` pixels (VGG-16's fc0: 8) puts all four warps along
+    N (16-byte loads only)."""
+    if m <= STREAM_SMALL_M and n_tile == 32 and vec == 16:
+        return 4, 1
+    return CONV_INSTANCES[n_tile]
+
+
+def _copy_width(n: int) -> int:
+    return 16 if n % 16 == 0 else 8 if n % 8 == 0 else 4 if n % 4 == 0 \
+        else 1
+
+
+@functools.lru_cache(maxsize=None)
+def stream_plan(batch: int, h: int, w: int, c_in: int, c_out: int,
+                k_h: int, k_w: int, stride: int, n_buffers: int,
+                sm_count: int = 132) -> StreamPlan:
+    """The work split, K block and layout of one streamed dense conv
+    launch.
+
+    The columns of a row split into ``nseg`` segments of at most
+    ``CONV_MT``; the images into groups of ``g``, as many as fill M
+    (the batch rides M: batch 8 at 7x7 gives 56 pixels, at VGG-16's fc0
+    8).  Per C_out tile (``CONV_NTILES``, none wider than C_out but the
+    narrowest) and image group size (largest first), the K block is the
+    largest multiple of 32 that splits C evenly with a slice of at most
+    ``STREAM_SLICE_MAX`` bytes and keeps as many blocks a SM as one-row
+    bands would fill (at most ``STREAM_CTAS_PER_SM``), else the largest
+    that fits a block.  The plan takes the widest
+    tile whose CTAs with one-row bands fill ``CONV_WAVE`` of a wave, else
+    the narrowest; the bands then aim at one CTA per resident slot.
+    Cached: it runs in Python on every launch."""
+    if c_out % 4:
+        raise ValueError(f"C_out={c_out} must be a multiple of 4")
+    if n_buffers < 1:
+        raise ValueError("n_buffers must be >= 1")
+    h_out, _ = same_out_and_pad(h, k_h, stride)
+    w_out, _ = same_out_and_pad(w, k_w, stride)
+    nseg = -(-w_out // CONV_MT)
+    seg = -(-w_out // nseg)
+    k_pad = -(-c_in // 32) * 32
+    picks = []
+    for n_tile in CONV_NTILES:
+        if n_tile > c_out and n_tile != CONV_NTILES[-1]:
+            continue
+        found = None
+        for g in range(min(batch, CONV_MT // seg), 0, -1):
+            groups = -(-batch // g)
+            g = -(-batch // groups)
+            # CTAs a SM worth keeping room for: no more than one-row bands
+            # would bring
+            want = min(STREAM_CTAS_PER_SM, -(-(-(-c_out // n_tile)) * groups
+                                             * nseg * h_out // sm_count))
+            fits = []
+            for nkb in range(-(-k_pad // (STREAM_SLICE_MAX // n_tile)),
+                             k_pad // 32 + 1):
+                kb = -(-k_pad // nkb // 32) * 32
+                if -(-c_in // kb) != nkb:
+                    continue
+                nb = min(n_buffers, k_h * k_w * nkb)
+                row, smem = stream_layout(kb, g, seg, k_h, k_w, stride, nb,
+                                          n_tile)
+                if smem > MAX_SMEM_BYTES:
+                    continue
+                fits.append((CONV_SM_SMEM // (smem + 1024), kb, nkb, nb, row,
+                             smem))
+                if fits[-1][0] >= want:
+                    break
+            if fits:
+                found = (g, groups, next((f for f in fits if f[0] >= want),
+                                         fits[0]))
+                break
+        if found is not None:
+            picks.append((n_tile, found))
+    if not picks:
+        raise ValueError(f"streamed conv {k_h}x{k_w} C={c_in} -> {c_out} at "
+                         f"width {w_out} needs more than {MAX_SMEM_BYTES} B "
+                         f"of shared memory per block")
+    n_tile, (g, groups, (resident, kb, nkb, nb, row, smem)) = next(
+        (p for p in picks if -(-c_out // p[0]) * -(-batch // p[1][0]) * nseg
+         * h_out >= CONV_WAVE * sm_count), picks[-1])
+    co_tiles = -(-c_out // n_tile)
+    cells = co_tiles * groups * nseg
+    slots = min(resident, STREAM_CTAS_PER_SM) * sm_count
+    bands = min(h_out, max(1, -(-slots // cells)))
+    rows = -(-h_out // bands)
+    return StreamPlan(n_tile, *stream_instance(n_tile, _copy_width(c_out),
+                                               g * seg), _copy_width(c_out),
+                      _copy_width(c_in), k_h * k_w, kb, nkb, nb, g, groups,
+                      seg, nseg, co_tiles, rows, -(-h_out // rows), batch,
+                      row, smem)
+
+
+def stream_bytes_read(plan: StreamPlan, h: int, w: int, c_in: int,
+                      c_out: int, k_h: int, k_w: int,
+                      stride: int) -> Tuple[int, int]:
+    """(weight bytes, input bytes) one launch with ``plan`` reads from
+    device memory.  Every (image group, column segment) reads the whole
+    weight tensor once per output row, since each output row fetches its
+    taps again (Eq. 2 counts them once per row per image: this is
+    ``groups * nseg / batch`` of it).  Every C_out tile reads, per output
+    row and kernel row, the input row's columns its segment covers in a
+    kept stride phase, for each image; SAME padding is zero-filled, not
+    read."""
+    h_out, pad_t = same_out_and_pad(h, k_h, stride)
+    w_out, pad_l = same_out_and_pad(w, k_w, stride)
+    weights = plan.groups * plan.nseg * h_out * k_h * k_w * c_in * c_out
+    rows = sum(0 <= r * stride - pad_t + i < h
+               for r in range(h_out) for i in range(k_h))
+    wpad = (plan.seg - 1) * stride + k_w
+    cols = sum(px % stride < k_w and 0 <= sg * plan.seg * stride - pad_l
+               + px < w for sg in range(plan.nseg) for px in range(wpad))
+    return weights, plan.co_tiles * rows * plan.batch * cols * c_in
 
 
 # The depthwise kernel's launch plan; ``csrc/dwconv_int8.cu`` mirrors
@@ -388,30 +569,31 @@ def _launch(x, w, w_scale, bias, act_scale: float, *, stride: int,
     h_out, pad_t = same_out_and_pad(H, k_h, stride)
     w_out, pad_l = same_out_and_pad(W, k_w, stride)
     dev = x.device
-    if stream:
-        if w_out > 256:
-            raise ValueError(f"output width {w_out} > 256 is not supported "
-                             f"by the streamed tier")
-        plan = None
-        smem = stream_smem_bytes(W, C, k_h, k_w, stride, n_buffers)
-        if smem > MAX_SMEM_BYTES:
-            raise ValueError(f"conv needs {smem} B of shared memory per "
-                             f"block, more than {MAX_SMEM_BYTES}")
-    else:
-        plan = conv_plan(B, H, W, C, c_out, k_h, k_w, stride,
-                         _sm_count(dev.index if dev.index is not None
-                                   else torch.cuda.current_device()))
+    sms = _sm_count(dev.index if dev.index is not None
+                    else torch.cuda.current_device())
+    if stream and w_out > 256:
+        raise ValueError(f"output width {w_out} > 256 is not supported by "
+                         f"the streamed tier")
+    p = (stream_plan(B, H, W, C, c_out, k_h, k_w, stride, n_buffers, sms)
+         if stream else conv_plan(B, H, W, C, c_out, k_h, k_w, stride, sms))
     shape = (B, h_out, w_out, c_out)
     out_q, out_f, out_i = _outputs(x, w, w_scale, bias, shape, raw,
                                    want_float)
-    err = _lib("conv2d_int8", 20).conv2d_int8_launch(
-        _ptr(x), _ptr(w), _ptr(w_scale), _ptr(bias), act_scale,
-        0.0 if raw else reciprocal(act_scale), _ptr(out_q),
-        _ptr(out_f), _ptr(out_i), B, H, W, C, h_out, w_out, c_out, k_h, k_w,
-        stride, pad_t, pad_l, int(stream), n_buffers, int(relu),
-        *((plan.wn, plan.nf, plan.rows_per_band, int(plan.packed),
-           plan.smem_bytes) if plan else (0, 0, 0, 0, 0)),
-        torch.cuda.current_stream(dev).cuda_stream)
+    lib = _lib("conv2d_int8", {"conv2d_int8_launch": 18,
+                               "conv2d_int8_stream_launch": 25})
+    args = (_ptr(x), _ptr(w), _ptr(w_scale), _ptr(bias), act_scale,
+            0.0 if raw else reciprocal(act_scale), _ptr(out_q), _ptr(out_f),
+            _ptr(out_i), B, H, W, C, h_out, w_out, c_out, k_h, k_w, stride,
+            pad_t, pad_l, int(relu))
+    cuda_stream = torch.cuda.current_stream(dev).cuda_stream
+    if stream:
+        err = lib.conv2d_int8_stream_launch(
+            *args, p.n_tile, p.vec, p.veca, p.kb, p.nkb, p.nb, p.g, p.groups,
+            p.seg, p.nseg, p.rows_per_band, p.smem_bytes, cuda_stream)
+    else:
+        err = lib.conv2d_int8_launch(
+            *args, p.wn, p.nf, p.rows_per_band, int(p.packed), p.smem_bytes,
+            cuda_stream)
     _build.check(err, "conv2d_int8")
     _build.count_launch(KERNEL_STREAM if stream else KERNEL_PINNED)
     return out_i if raw else (out_q, out_f)
@@ -435,7 +617,8 @@ def _launch_dw(x, w, w_scale, bias, act_scale: float, *, stride: int,
     w_out, pad_l = same_out_and_pad(W, k_w, stride)
     out_q, out_f, out_i = _outputs(x, w, w_scale, bias, (B, h_out, w_out, C),
                                    raw, want_float)
-    err = _lib("dwconv_int8", 18).dwconv_int8_launch(
+    lib = _lib("dwconv_int8", {"dwconv_int8_launch": 18})
+    err = lib.dwconv_int8_launch(
         _ptr(x), _ptr(w), _ptr(w_scale), _ptr(bias), act_scale,
         0.0 if raw else reciprocal(act_scale), _ptr(out_q), _ptr(out_f),
         _ptr(out_i), B, H, W, C, h_out, w_out, k_h, k_w, stride, pad_t,

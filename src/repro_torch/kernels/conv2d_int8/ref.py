@@ -3,7 +3,9 @@
 PyTorch has no integer convolution on CUDA, so the dense conv is a loop
 over the k_h*k_w taps of float64 ``[.., C] @ [C, C_out]`` products: every
 product and partial sum is an integer below 2^53 (the largest sum on the
-main path is 127*127*4608 ~ 7.4e7), so float64 is exact in any order.
+main path, VGG-16's fc0 over 7*7*512 = 25088 inputs, is at most
+127*127*25088 ~ 4.05e8, past float32's 2^24 but far below 2^53), so
+float64 is exact in any order.
 The depthwise conv is an elementwise int32 multiply-add per tap.
 """
 from __future__ import annotations

@@ -54,6 +54,87 @@ __device__ __forceinline__ void cp_async_wait(int n) {
   }
 }
 
+// mbarriers in shared memory: init with an arrival count, arrive (release),
+// wait for a phase by parity (acquire), and an arrival that fires when
+// this thread's earlier cp.asyncs have landed (counted in the init count:
+// .noinc).  A ring's producer waits on a slot's empty barrier with parity
+// phase ^ 1, so that the first pass over a fresh barrier does not block.
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count));
+}
+
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile(
+      "{\n .reg .b64 st;\n mbarrier.arrive.shared::cta.b64 st, [%0];\n}\n" ::
+          "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::
+                   "r"(smem_addr(bar))
+               : "memory");
+}
+
+// Arrive on `bar` and add `bytes` to the transaction count its phase
+// waits for (the bulk copies below complete it).
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
+                                                      unsigned bytes) {
+  asm volatile(
+      "{\n .reg .b64 st;\n"
+      " mbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n}\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// A bulk copy of `bytes` (a multiple of 16; both addresses 16-byte
+// aligned) from global to this CTA's shared memory by the copy engine,
+// completing `bytes` of the transaction count of `bar`.
+__device__ __forceinline__ void bulk_copy_g2s(void* dst, const void* src,
+                                              unsigned bytes,
+                                              uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// A ring position: slot and the parity of its current phase.
+struct RingPos {
+  int slot = 0, phase = 0;
+  __device__ __forceinline__ void next(int slots) {
+    if (++slot == slots) {
+      slot = 0;
+      phase ^= 1;
+    }
+  }
+};
+
 // The requant epilogue of kernels/quant.py, rounded as the JAX reference
 // rounds it: f32 scale product, one fused multiply-add, relu, a multiply by
 // inv_act = f32(1)/f32(act_scale) (XLA's rewrite of the divide by a

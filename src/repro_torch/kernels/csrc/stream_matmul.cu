@@ -6,34 +6,58 @@
 //   _mm_manual_kernel  ("fifo": an explicit n_buffers-deep ring)
 // as ONE kernel whose ring depth and K-block size are parameters.
 //
-// One CTA covers an 8-row x 32-column output tile.  Its 8 rows of x stay in
-// shared memory for the whole K loop (as the TPU kernel keeps the (bm, K)
-// x block resident).  W's [bk, 32] K-blocks arrive through a ring of
-// n_buffers shared-memory slots filled with cp.async; a slot is refilled
-// with block k + n_buffers only after every thread has consumed block k
-// (the credit rule of section V-A).  "pinned" is a single block holding
-// all of K, so the whole W slice is resident.  The TPU block sizes of the
-// engine table are accounting only; this kernel masks the ragged N and K
-// edges itself.
-//
-// What bounds it on an H100: at the fc heads (batch 8, K <= 2048,
-// N = 1000) it reads 2 MB of weights for 16 M multiply-adds, so the bytes
-// bound it (about 0.6 us at 3.35 TB/s); with only ceil(N/32) = 32 CTAs and
-// 4-byte copies it is further limited by the copy rate of those SMs and
-// by launch latency.  Each thread does one output with scalar int32
-// multiply-adds: the arithmetic is negligible at this size.
+// What bounds it on an H100.  At the fc heads (batch 8, K in 512..4096,
+// N in 1000..4096) the weights are the work: 0.5 to 16.8 MB for 4 to 134 M
+// multiply-adds, 0.15 to 5 us at 3.35 TB/s.  So the design spreads the
+// weight stream over the whole card and keeps it in flight:
+//  * Work split.  A CTA covers a tile of tn in {32, 64} output columns, a
+//    range of K and a tile of 8 rows of x; ops.mm_plan picks tn and the K
+//    split (1..8) so that every fc head of the six CNN configs launches a
+//    wave of 132 SMs or more (N = 1000: 32 x 8 CTAs).  The K split runs
+//    over a thread-block cluster (cudaLaunchKernelEx with a cluster
+//    dimension): each CTA sums its K range into int32, then adds its sums
+//    into the leader's (rank 0) shared memory through distributed shared
+//    memory (atomics on cluster.map_shared_rank), and the leader runs the
+//    requant epilogue.  Integer sums are exact in any order; no workspace,
+//    one launch.  The cluster barrier that makes the leader's zeroed sums
+//    visible is split: arrive at the start, wait just before the adds.
+//  * The ring.  Four producer warps stream the CTA's K range in K-blocks of
+//    kblk rows x tn columns through nb slots with cp.async (16 bytes where
+//    N % 16 == 0, 8 where N % 8 == 0 as at N = 1000, 4, or byte loads where
+//    N % 4 != 0, as for a 10-class head): "pinned" is one block, so the
+//    CTA's whole slice is resident; "stream" depth 2; "fifo" n_buffers.  A
+//    slot has a full mbarrier (the producer's copies landed) and an empty
+//    one (every consumer warp has read it); a slot is refilled only after
+//    its empty barrier completes: the credit rule of section V-A.  The x
+//    rows of the CTA's K range come with the first block (16-byte copies
+//    where K % 16 == 0).
+//  * The MACs.  128 consumer threads (64 for a short K range) each own 4
+//    columns and a share of the
+//    block's K words: per 4 K rows they transpose the 4x4 weight bytes with
+//    byte permutes and take one dp4a per row of x and column; the shares
+//    are summed by warp shuffles, then across warps in shared memory.
+//    About 2.5 MACs an instruction: at 134 M MACs (VGG-16's fc1) about
+//    2 us on 132 SMs, below the bytes.
+// The TPU block sizes of the engine table are accounting only; the kernel
+// masks the ragged M, N and K edges itself.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
 
 namespace {
 
-using h2pipe::cp_async4;
-using h2pipe::cp_async_commit;
-using h2pipe::cp_async_wait;
+namespace cg = cooperative_groups;
 
-constexpr int TN = 32;   // output columns per CTA
-constexpr int TM = 8;    // output rows per CTA
-constexpr int NT = TM * TN;
-constexpr int QUADS = TN / 4;
+constexpr int TM = 8;            // rows of x a CTA
+constexpr int NPROD = 128;       // producer threads, after the consumers'
+// consumer threads: 128 (warps 0..3), or 64 where a CTA's K range is at
+// most SHORT_RANGE rows (ops.mm_consumers): the sum of the shares, not
+// the MACs, takes the time there
+constexpr int SHORT_RANGE = 256;
+__host__ __device__ constexpr int consumers(int kr) {
+  return kr <= SHORT_RANGE ? 64 : 128;
+}
+constexpr int MAX_SPLIT = 8;     // CTAs a cluster, at most (portable)
 
 struct MmArgs {
   const int8_t* x;
@@ -44,111 +68,271 @@ struct MmArgs {
   int8_t* out_q;
   float* out_f;
   int32_t* out_i32;
-  int M, K, N, bk, n_buffers, relu;
+  int M, K, N, relu;
+  int tn, kr, kblk, nb, vec, xvec;   // the plan (ops.mm_plan)
+  int xr, srow;                      // the layout (mm_layout() below)
 };
 
-// Copy W's K-block kb, columns n0..n0+31, into a [bk][32] slot: 4-byte
-// cp.async copies when the rows are word-aligned (N % 4 == 0), plain byte
-// copies otherwise (e.g. a 10-class head).  Either way the slot is read
-// only after the next wait + barrier.
-__device__ __forceinline__ void fill_block(const MmArgs& a, int kb, int n0,
-                                           int* slot) {
-  if (a.N & 3) {
-    int8_t* sb = reinterpret_cast<int8_t*>(slot);
-    for (int idx = threadIdx.x; idx < a.bk * TN; idx += NT) {
-      int k = kb * a.bk + idx / TN, n = n0 + idx % TN;
-      sb[idx] = (k < a.K && n < a.N) ? a.w[(size_t)k * a.N + n] : (int8_t)0;
+struct MmLayout {
+  int xr;     // bytes of one row of the x tile: kr rounded up to 16
+  int srow;   // bytes of one slot row: tn + 16 (a gap for the banks)
+  long smem;
+};
+
+// ops.mm_layout mirrors this.  Shared memory of one CTA: the full and empty
+// mbarriers of the nb slots, the x tile [TM][xr], the slots [nb][kblk]
+// [srow], the consumer warps' sums [warps][TM][tn] int32 and the
+// cluster's sums [TM][tn] int32 (the leader's are the result).
+MmLayout mm_layout(int tn, int kr, int kblk, int nb) {
+  MmLayout L;
+  L.xr = (kr + 15) / 16 * 16;
+  L.srow = tn + 16;
+  L.smem = 16L * nb + (long)TM * L.xr + (long)nb * kblk * L.srow +
+           (long)(consumers(kr) / 32 + 1) * TM * tn * 4;
+  return L;
+}
+
+// The cluster barrier in its two halves: arrive (release) early, wait
+// (acquire) where the other CTAs' shared memory is next touched.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The producer warps: the x rows of the K range [k0, k1), then block by
+// block the weight rows of the range, columns n0 .. n0 + tn, into the
+// ring; zeros past M, past N and outside the range.
+template <int NCONS>
+__device__ __forceinline__ void mm_produce(const MmArgs& a, int m0, int n0,
+                                           int k0, int k1, int nkb,
+                                           uint64_t* full, uint64_t* empty,
+                                           int8_t* xs, unsigned char* ring) {
+  const int pt = threadIdx.x - NCONS;
+  // x's rows, then the blocks; byte loads (N or K not a multiple of 4)
+  // are plain stores, released by a plain arrive once this thread's
+  // copies have landed
+  const bool plain = a.vec == 1 || a.xvec == 1;
+  {
+    const int per_row = a.xr / a.xvec;
+    for (int idx = pt; idx < TM * per_row; idx += NPROD) {
+      const int m = idx / per_row, k = k0 + (idx - m * per_row) * a.xvec;
+      const bool ok = m0 + m < a.M && k < k1;
+      int8_t* dst = xs + m * a.xr + (k - k0);
+      const int8_t* src = ok ? a.x + (size_t)(m0 + m) * a.K + k : a.x;
+      if (a.xvec == 16)
+        h2pipe::cp_async16(dst, src, ok);
+      else if (a.xvec == 4)
+        h2pipe::cp_async4(dst, src, ok);
+      else
+        *dst = ok ? *src : (int8_t)0;
     }
-    return;
   }
-  const int words = a.bk * QUADS;
-  for (int idx = threadIdx.x; idx < words; idx += NT) {
-    int kk = idx / QUADS, q = idx % QUADS;
-    int k = kb * a.bk + kk, n = n0 + 4 * q;
-    bool valid = k < a.K && n < a.N;
-    const int8_t* src = valid ? a.w + (size_t)k * a.N + n : a.w;
-    cp_async4(slot + idx, src, valid);
+  h2pipe::RingPos pos;
+  // copies a row: tn / vec, a power of two
+  const int row_shift = __ffs(a.tn / a.vec) - 1;
+  const int row_mask = a.tn / a.vec - 1;
+  for (int kb = 0; kb < nkb; ++kb) {
+    h2pipe::mbar_wait(empty + pos.slot, pos.phase ^ 1);
+    unsigned char* slot = ring + (size_t)pos.slot * a.kblk * a.srow;
+    const int kbase = k0 + kb * a.kblk;
+    for (int idx = pt; idx < a.kblk << row_shift; idx += NPROD) {
+      const int r = idx >> row_shift, c = (idx & row_mask) * a.vec;
+      const int k = kbase + r, n = n0 + c;
+      const bool ok = k < k1 && n < a.N;
+      unsigned char* dst = slot + r * a.srow + c;
+      const int8_t* src = ok ? a.w + (size_t)k * a.N + n : a.w;
+      if (a.vec == 16)
+        h2pipe::cp_async16(dst, src, ok);
+      else if (a.vec == 8)
+        h2pipe::cp_async8(dst, src, ok);
+      else if (a.vec == 4)
+        h2pipe::cp_async4(dst, src, ok);
+      else
+        *dst = ok ? (unsigned char)*src : 0;
+    }
+    if (plain) {
+      asm volatile("cp.async.wait_all;\n" ::: "memory");
+      h2pipe::mbar_arrive(full + pos.slot);
+    } else {
+      h2pipe::cp_async_mbar_arrive(full + pos.slot);
+    }
+    pos.next(a.nb);
   }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-__global__ void __launch_bounds__(NT) mm_kernel(MmArgs a) {
-  extern __shared__ int smem[];
-  const int n0 = blockIdx.x * TN, m0 = blockIdx.y * TM;
-  const int mi = threadIdx.x / TN, ni = threadIdx.x % TN;
-  const int nk = (a.K + a.bk - 1) / a.bk;
-  const int nb = min(a.n_buffers, nk);
-  const int slot_bytes = a.bk * TN;
-  int8_t* xs = reinterpret_cast<int8_t*>(smem);          // [TM][K]
-  int* ring = smem + (TM * a.K + 3) / 4;                  // [nb][bk][TN]
+// A CTA: (tile of TN columns, rank in the K split, tile of TM rows).
+template <int TN, int NCONS>
+__global__ void __launch_bounds__(NCONS + NPROD) mm_kernel(MmArgs a) {
+  constexpr int NT = NCONS + NPROD, NWARPS = NCONS / 32;
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + a.nb;
+  int8_t* xs = reinterpret_cast<int8_t*>(smem + 16 * a.nb);
+  unsigned char* ring = smem + 16 * a.nb + TM * a.xr;
+  int* red = reinterpret_cast<int*>(ring + (size_t)a.nb * a.kblk * a.srow);
+  int* part = red + NWARPS * TM * TN;                // [TM][TN]
 
-  for (int idx = threadIdx.x; idx < TM * a.K; idx += NT) {
-    int m = idx / a.K, k = idx % a.K;
-    xs[idx] = m0 + m < a.M ? a.x[(size_t)(m0 + m) * a.K + k] : (int8_t)0;
+  const int n0 = blockIdx.x * TN, m0 = blockIdx.z * TM;
+  const int k0 = min(a.K, rank * a.kr), k1 = min(a.K, k0 + a.kr);
+  const int nkb = (k1 - k0 + a.kblk - 1) / a.kblk;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < a.nb; ++s) {
+      h2pipe::mbar_init(full + s, NPROD);            // every producer thread
+      h2pipe::mbar_init(empty + s, NCONS / 32);      // every consumer warp
+    }
+    h2pipe::mbar_init_fence();
   }
-  // warm-up: fill the prefetch window (one commit group per slot)
-  for (int s = 0; s < nb; ++s) {
-    fill_block(a, s, n0, ring + s * (slot_bytes / 4));
-    cp_async_commit();
-  }
-  int acc = 0;
-  const int8_t* xrow = xs + mi * a.K;
-  for (int kb = 0; kb < nk; ++kb) {
-    cp_async_wait(nb - 1);              // block kb has landed
-    __syncthreads();
-    int* slot = ring + (kb % nb) * (slot_bytes / 4);
-    const int8_t* wb = reinterpret_cast<const int8_t*>(slot);
-    int kend = min(a.bk, a.K - kb * a.bk);
-    const int8_t* xk = xrow + kb * a.bk;
-    for (int kk = 0; kk < kend; ++kk)
-      acc += (int)xk[kk] * (int)wb[kk * TN + ni];
-    __syncthreads();                    // slot consumed: its credit returns
-    if (kb + nb < nk) fill_block(a, kb + nb, n0, slot);
-    cp_async_commit();
-  }
-  int m = m0 + mi, n = n0 + ni;
-  if (m >= a.M || n >= a.N) return;
-  size_t off = (size_t)m * a.N + n;
-  if (a.out_i32) {
-    a.out_i32[off] = acc;
-    return;
-  }
-  int8_t q;
-  float y = h2pipe::requant(acc, a.w_scale[n], a.bias[n], a.act_scale,
-                            a.inv_act, a.relu != 0, &q);
-  a.out_q[off] = q;
-  if (a.out_f) a.out_f[off] = y;
-}
+  for (int o = tid; o < TM * TN; o += NT) part[o] = 0;
+  __syncthreads();
+  // the leader's sums are zero before any rank adds into them; the wait
+  // comes just before the adds
+  cluster_arrive();
 
-// Shared-memory bytes one CTA claims (ops.smem_bytes mirrors this).
-long smem_bytes(int K, int bk, int n_buffers) {
-  int nk = (K + bk - 1) / bk;
-  int nb = n_buffers < nk ? n_buffers : nk;
-  return (long)((TM * K + 3) / 4) * 4 + (long)nb * bk * TN;
+  constexpr int quads = TN / 4, ways = NCONS / quads;
+  const int quad = tid % quads, way = tid / quads;
+  if (tid >= NCONS) {
+    mm_produce<NCONS>(a, m0, n0, k0, k1, nkb, full, empty, xs, ring);
+  } else {
+    int acc[TM][4];
+#pragma unroll
+    for (int m = 0; m < TM; ++m)
+#pragma unroll
+      for (int n = 0; n < 4; ++n) acc[m][n] = 0;
+    h2pipe::RingPos pos;
+    for (int kb = 0; kb < nkb; ++kb) {
+      h2pipe::mbar_wait(full + pos.slot, pos.phase);
+      const unsigned char* slot = ring + (size_t)pos.slot * a.kblk * a.srow;
+      const int rows = min(a.kblk, k1 - k0 - kb * a.kblk);
+      const int8_t* xk = xs + kb * a.kblk;
+      for (int k4 = way; 4 * k4 < rows; k4 += ways) {
+        const unsigned char* wp = slot + 4 * k4 * a.srow + 4 * quad;
+        uint32_t in[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          in[e] = *reinterpret_cast<const uint32_t*>(wp + e * a.srow);
+        // rows are K, bytes columns: word n of the transpose holds the 4 K
+        // bytes of column 4 * quad + n
+        const uint32_t t0 = __byte_perm(in[0], in[1], 0x5140);
+        const uint32_t t1 = __byte_perm(in[2], in[3], 0x5140);
+        const uint32_t t2 = __byte_perm(in[0], in[1], 0x7362);
+        const uint32_t t3 = __byte_perm(in[2], in[3], 0x7362);
+        const int bw[4] = {(int)__byte_perm(t0, t1, 0x5410),
+                           (int)__byte_perm(t0, t1, 0x7632),
+                           (int)__byte_perm(t2, t3, 0x5410),
+                           (int)__byte_perm(t2, t3, 0x7632)};
+#pragma unroll
+        for (int m = 0; m < TM; ++m) {
+          const int xv = *reinterpret_cast<const int*>(xk + m * a.xr + 4 * k4);
+#pragma unroll
+          for (int n = 0; n < 4; ++n) acc[m][n] = __dp4a(xv, bw[n], acc[m][n]);
+        }
+      }
+      __syncwarp();
+      if ((tid & 31) == 0) h2pipe::mbar_arrive(empty + pos.slot);
+      pos.next(a.nb);
+    }
+    // the shares of K words: over the ways of a warp by shuffles, then
+    // over the warps in shared memory, then into the leader's sums
+#pragma unroll
+    for (int m = 0; m < TM; ++m)
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int off = quads; off < 32; off <<= 1)
+          acc[m][n] += __shfl_xor_sync(0xffffffffu, acc[m][n], off);
+    const int lane = tid & 31, warp = tid >> 5;
+    if (lane < quads)
+#pragma unroll
+      for (int m = 0; m < TM; ++m)
+        *reinterpret_cast<int4*>(red + (warp * TM + m) * TN + 4 * lane) =
+            make_int4(acc[m][0], acc[m][1], acc[m][2], acc[m][3]);
+    asm volatile("bar.sync 1, %0;\n" ::"r"(NCONS) : "memory");
+    cluster_wait();
+    int* lead = cluster.map_shared_rank(part, 0);
+    for (int o = tid; o < TM * TN; o += NCONS) {
+      int s = 0;
+#pragma unroll
+      for (int wp = 0; wp < NWARPS; ++wp) s += red[wp * TM * TN + o];
+      atomicAdd(lead + o, s);
+    }
+  }
+  if (tid >= NCONS) cluster_wait();
+  cluster.sync();  // every rank's sums are in the leader's
+  if (rank != 0 || tid >= NCONS) return;
+  for (int o = tid; o < TM * TN; o += NCONS) {
+    const int m = o / TN, c = o - m * TN;
+    const int row = m0 + m, n = n0 + c;
+    if (row >= a.M || n >= a.N) continue;
+    const size_t off = (size_t)row * a.N + n;
+    if (a.out_i32) {
+      a.out_i32[off] = part[o];
+      continue;
+    }
+    int8_t q;
+    const float y = h2pipe::requant(part[o], a.w_scale[n], a.bias[n],
+                                    a.act_scale, a.inv_act, a.relu != 0, &q);
+    a.out_q[off] = q;
+    if (a.out_f) a.out_f[off] = y;
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// x: [M, K] int8 @ w: [K, N] int8, W's K-blocks of `bk` rows
-// through an `n_buffers`-deep ring.  Exactly one of out_q (int8, fused
-// requant; out_f optional) and out_i32 (raw sums) is set.
+// x: [M, K] int8 @ w: [K, N] int8 with the plan of ops.mm_plan: tiles of
+// tn columns, a K split of `split` ranges of kr rows over a cluster, K
+// blocks of kblk rows through an nb-slot ring, copies of vec (w) and xvec
+// (x) bytes; smem: the bytes of its layout, which mm_layout() must
+// reproduce.  Exactly one of out_q (int8, fused requant; out_f optional)
+// and out_i32 (raw sums) is set.  Returns cudaGetLastError() after the
+// launch.
 int stream_matmul_int8_launch(const int8_t* x, const int8_t* w,
                               const float* w_scale, const float* bias,
                               float act_scale, float inv_act, int8_t* out_q,
                               float* out_f, int32_t* out_i32, int M, int K,
-                              int N, int bk,
-                              int n_buffers, int relu, cudaStream_t stream) {
-  if (bk < 1 || n_buffers < 1) return (int)cudaErrorInvalidValue;
+                              int N, int relu, int tn, int split, int kr,
+                              int kblk, int nb, int vec, int xvec, int smem,
+                              cudaStream_t stream) {
+  if ((tn != 32 && tn != 64) || split < 1 || split > MAX_SPLIT ||
+      kr < 16 || kr % 16 != 0 || (long)split * kr < K ||
+      (long)(split - 1) * kr >= K || kblk < 4 || kblk % 4 != 0 ||
+      nb < 1 || (vec != 1 && vec != 4 && vec != 8 && vec != 16) ||
+      N % vec != 0 || (xvec != 1 && xvec != 4 && xvec != 16) ||
+      K % xvec != 0)
+    return (int)cudaErrorInvalidValue;
+  MmLayout L = mm_layout(tn, kr, kblk, nb);
+  if (L.smem != smem) return (int)cudaErrorInvalidValue;
+  const bool few = consumers(kr) == 64;
+  void (*fn)(MmArgs) =
+      tn == 32 ? (few ? mm_kernel<32, 64> : mm_kernel<32, 128>)
+               : (few ? mm_kernel<64, 64> : mm_kernel<64, 128>);
   MmArgs a{x, w, w_scale, bias, act_scale, inv_act, out_q, out_f, out_i32,
-           M, K, N, bk, n_buffers, relu};
-  size_t smem = (size_t)smem_bytes(K, bk, n_buffers);
+           M, K, N, relu, tn, kr, kblk, nb, vec, xvec, L.xr, L.srow};
   cudaError_t err = cudaFuncSetAttribute(
-      (void*)mm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      (void*)fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((N + TN - 1) / TN, (M + TM - 1) / TM);
-  mm_kernel<<<grid, NT, smem, stream>>>(a);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((N + tn - 1) / tn, split, (M + TM - 1) / TM);
+  cfg.blockDim = dim3(consumers(kr) + NPROD);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = split;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, fn, a);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

@@ -7,14 +7,17 @@
                  resident for the call (on-chip tier)
 
 A CPU tensor runs the plain version in ``ref.py``; a CUDA tensor launches
-``csrc/stream_matmul.cu`` (int8 operands only) or raises.  ``bm``/``bn``
-are the JAX kernel's block sizes and only feed :func:`vmem_bytes`
-accounting (``vmem_bytes``); the CUDA kernel picks its own tiles and masks
+``csrc/stream_matmul.cu`` (int8 operands only) with the launch plan of
+:func:`mm_plan`, or raises.  ``bm``/``bn`` are the JAX kernel's block
+sizes and only feed :func:`vmem_bytes` accounting; the CUDA kernel picks
+its own tiles, takes ``bk`` as the largest K block of its ring, and masks
 ragged edges.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
@@ -25,7 +28,7 @@ from repro_torch.kernels.quant import reciprocal, requant_epilogue
 from repro_torch.kernels.stream_matmul.ref import stream_matmul_ref
 
 __all__ = ["stream_matmul", "stream_matmul_requant", "vmem_bytes",
-           "KERNELS"]
+           "mm_plan", "mm_layout", "mm_bytes_read", "MmPlan", "KERNELS"]
 
 #: launch-counter name per mode ("pinned"/"stream" replace _mm_kernel,
 #: "fifo" replaces _mm_manual_kernel)
@@ -37,7 +40,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("stream_matmul")
     if not getattr(lib, "_typed", False):
         lib.stream_matmul_int8_launch.argtypes = \
-            [_P, _P, _P, _P, _F, _F, _P, _P, _P] + [_I] * 6 + [_P]
+            [_P, _P, _P, _P, _F, _F, _P, _P, _P] + [_I] * 12 + [_P]
         lib.stream_matmul_int8_launch.restype = _I
         lib._typed = True
     return lib
@@ -54,11 +57,111 @@ def ring(mode: str, K: int, bk: int, n_buffers: int) -> Tuple[int, int]:
     raise ValueError(f"unknown mode {mode!r}")
 
 
-def smem_bytes(K: int, bk: int, n_buffers: int) -> int:
-    """Shared memory one CTA claims (mirrors ``smem_bytes`` in
-    ``csrc/stream_matmul.cu``)."""
-    nk = -(-K // bk)
-    return (8 * K + 3) // 4 * 4 + min(n_buffers, nk) * bk * 32
+# The launch plan; ``csrc/stream_matmul.cu`` mirrors the layout
+# (``mm_layout`` there) and takes the tiles, the K split and the ring from
+# it.
+MM_TM = 8                     # rows of x a CTA
+MM_TILES = (64, 32)           # output columns a CTA, widest first
+MM_MAX_SPLIT = 8              # CTAs of a cluster, at most (portable size)
+MM_SLOT_MAX = 32768           # bytes of a streamed K block, at most
+MM_SHORT_RANGE = 256          # K rows a CTA up to which 64 threads consume
+
+
+def mm_consumers(kr: int) -> int:
+    """Consumer threads of a CTA whose K range is ``kr`` rows (the .cu's
+    ``consumers``): 64 for a short range, where summing the threads'
+    shares takes longer than their MACs, else 128."""
+    return 64 if kr <= MM_SHORT_RANGE else 128
+
+
+@dataclass(frozen=True)
+class MmPlan:
+    """One launch: a CTA per (tile of ``tn`` columns, rank of a K split
+    of ``split`` ranges of ``kr`` rows, tile of ``MM_TM`` rows of x); the
+    ``split`` CTAs of a column tile form a cluster whose leader adds their
+    sums.  Each CTA streams its range in blocks of ``kblk`` rows through
+    ``nb`` slots; ``vec`` and ``xvec`` are the bytes a copy of w and of x
+    (1: byte loads)."""
+    tn: int
+    split: int
+    kr: int
+    kblk: int
+    nb: int
+    vec: int
+    xvec: int
+    n_tiles: int
+    m_tiles: int
+    smem_bytes: int
+
+    @property
+    def grid(self) -> Tuple[int, int, int]:
+        return self.n_tiles, self.split, self.m_tiles
+
+
+def mm_layout(tn: int, kr: int, kblk: int, nb: int) -> int:
+    """Shared-memory bytes of one CTA: the full and empty mbarriers of the
+    ``nb`` slots, the x tile ``[MM_TM][kr rounded up to 16]``, the slots
+    ``[nb][kblk][tn + 16]``, the consumer warps' sums ``[warps][MM_TM]
+    [tn]`` and the cluster's sums ``[MM_TM][tn]`` (int32)."""
+    return 16 * nb + MM_TM * -(-kr // 16) * 16 + nb * kblk * (tn + 16) \
+        + (mm_consumers(kr) // 32 + 1) * MM_TM * tn * 4
+
+
+@functools.lru_cache(maxsize=None)
+def mm_plan(M: int, K: int, N: int, mode: str, bk: int, n_buffers: int,
+            sm_count: int = 132) -> MmPlan:
+    """Tiles, K split and ring of one launch.  The widest column tile
+    whose CTAs reach a wave of ``sm_count`` with a split of at most
+    ``MM_MAX_SPLIT``, else the narrowest; the split is the smallest power
+    of two that reaches the wave, with every rank's range (a multiple of
+    16 rows) non-empty.  ``mode`` sets the ring (:func:`ring`): one block
+    of the whole range pinned, else blocks of at most ``bk`` rows and
+    ``MM_SLOT_MAX`` bytes, depth 2 (``stream``) or ``n_buffers``
+    (``fifo``).  Cached: it runs on every launch."""
+    blk, depth = ring(mode, K, bk, n_buffers)
+    if depth < 1:
+        raise ValueError("n_buffers must be >= 1")
+    m_tiles = -(-M // MM_TM)
+    tn = next((t for t in MM_TILES
+               if -(-N // t) * m_tiles * MM_MAX_SPLIT >= sm_count),
+              MM_TILES[-1])
+    n_tiles = -(-N // tn)
+    split = 1
+    while split < MM_MAX_SPLIT and n_tiles * m_tiles * split < sm_count:
+        split *= 2
+
+    def rows(sp):                    # a rank's range: ceil(K / sp) to 16
+        return -(-(-(-K // sp)) // 16) * 16
+    while split > 1 and (split - 1) * rows(split) >= K:
+        split //= 2
+    kr = rows(split)
+    if mode == "pinned":
+        kblk, nb = kr, 1
+    else:
+        cap = MM_SLOT_MAX // (tn + 16) // 16 * 16
+        kblk = max(4, min(blk, kr, cap) // 4 * 4)
+        nb = min(depth, -(-kr // kblk))
+    vec = 16 if N % 16 == 0 else 8 if N % 8 == 0 else 4 if N % 4 == 0 \
+        else 1
+    xvec = 16 if K % 16 == 0 else 4 if K % 4 == 0 else 1
+    smem = mm_layout(tn, kr, kblk, nb)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"matmul needs {smem} B of shared memory per "
+                         f"block, more than {MAX_SMEM_BYTES}")
+    return MmPlan(tn, split, kr, kblk, nb, vec, xvec, n_tiles, m_tiles,
+                  smem)
+
+
+def mm_bytes_read(plan: MmPlan, M: int, K: int, N: int) -> Tuple[int, int]:
+    """(weight bytes, x bytes) one launch with ``plan`` reads from device
+    memory: each tile of rows of x reads the weights once, each column
+    tile reads x once."""
+    return plan.m_tiles * K * N, plan.n_tiles * M * K
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _launch(x, w, w_scale, bias, act_scale: float, *, mode: str, bk: int,
@@ -70,14 +173,10 @@ def _launch(x, w, w_scale, bias, act_scale: float, *, mode: str, bk: int,
     K2, N = w.shape
     if K != K2:
         raise ValueError(f"shapes {tuple(x.shape)} @ {tuple(w.shape)}")
-    blk, nb = ring(mode, K, bk, n_buffers)
-    if nb < 1:
-        raise ValueError("n_buffers must be >= 1")
-    smem = smem_bytes(K, blk, nb)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"matmul needs {smem} B of shared memory per "
-                         f"block, more than {MAX_SMEM_BYTES}")
     dev = x.device
+    plan = mm_plan(M, K, N, mode, bk, n_buffers,
+                   _sm_count(dev.index if dev.index is not None
+                             else torch.cuda.current_device()))
     _build.check_cuda_tensor(x, "x", torch.int8, dev)
     _build.check_cuda_tensor(w, "w", torch.int8, dev)
     out_q = out_f = out_i = None
@@ -95,7 +194,8 @@ def _launch(x, w, w_scale, bias, act_scale: float, *, mode: str, bk: int,
     err = _lib().stream_matmul_int8_launch(
         ptr(x), ptr(w), ptr(w_scale), ptr(bias), act_scale,
         0.0 if raw else reciprocal(act_scale), ptr(out_q),
-        ptr(out_f), ptr(out_i), M, K, N, blk, nb, int(relu),
+        ptr(out_f), ptr(out_i), M, K, N, int(relu), plan.tn, plan.split,
+        plan.kr, plan.kblk, plan.nb, plan.vec, plan.xvec, plan.smem_bytes,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "stream_matmul")
     _build.count_launch(KERNELS[mode])

@@ -101,6 +101,47 @@ def test_conv_mma_matches_plain(dev, shape):
     assert LAUNCHES == {"conv2d_int8_pinned": 5}
 
 
+# The streamed tier's tensor-core kernel at the shapes its plan treats
+# apart (batch, h, w, C, C_out, k, stride): a 7x7 map at batch 8 (the
+# batch rides M: 56 pixels), the stride-2 3x3 at 14x14, a 1x1 at C = 2048
+# (three K blocks), VGG-16's fc0 (7x7 stride 7 on a 7x7 map: M = 8), the
+# 7x7 stem (C = 3: byte copies, two column segments), a ragged C_out
+# (4-byte weight loads), a 28x28 map (two images a CTA, four-row bands)
+# and a batch the image groups do not divide
+@pytest.mark.parametrize("shape", [
+    (8, 7, 7, 512, 512, 3, 1), (8, 14, 14, 512, 512, 3, 2),
+    (8, 7, 7, 2048, 512, 1, 1), (8, 7, 7, 512, 4096, 7, 7),
+    (2, 224, 224, 3, 64, 7, 2), (3, 14, 14, 48, 36, 3, 1),
+    (8, 28, 28, 256, 128, 3, 1), (5, 14, 14, 64, 64, 1, 2)])
+def test_conv_stream_matches_plain(dev, shape):
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.conv2d_int8.ops import (_sm_count, conv2d_int8,
+                                                     conv2d_int8_requant,
+                                                     stream_plan)
+    from repro_torch.kernels.conv2d_int8.ref import conv2d_int8_ref
+    from repro_torch.kernels.quant import requant_epilogue
+    batch, h, w, c, co, k, stride = shape
+    g = torch.Generator(device=dev).manual_seed(h * 1000 + c + co)
+    x, wt = _i8(g, dev, batch, h, w, c), _i8(g, dev, k, k, c, co)
+    ws = torch.rand(co, generator=g, device=dev) * 0.1 + 0.01
+    bias = torch.randn(co, generator=g, device=dev)
+    want = conv2d_int8_ref(x, wt, stride=stride)
+    reset_launches()
+    nbs = sorted({1, 2, 3, k * k})
+    for nb in nbs:
+        stream_plan(batch, h, w, c, co, k, k, stride, nb,
+                    _sm_count(dev.index or 0))
+        assert torch.equal(conv2d_int8(x, wt, stride=stride, stream=True,
+                                       n_buffers=nb), want), nb
+    for relu in (True, False):
+        want_q, want_f = requant_epilogue(want, ws, bias, 0.05, relu)
+        q, f = conv2d_int8_requant(x, wt, ws, bias, 0.05, stride=stride,
+                                   relu=relu, stream=True, want_float=True)
+        assert torch.equal(q, want_q) and torch.equal(f, want_f)
+    torch.cuda.synchronize()
+    assert LAUNCHES == {"conv2d_int8_stream": len(nbs) + 2}
+
+
 @pytest.mark.parametrize("k,stride,hw", [(3, 2, (112, 112)), (3, 2, (9, 8)),
                                          (2, 2, (7, 7))])
 def test_maxpool_kernel_matches_plain(dev, k, stride, hw):
@@ -143,6 +184,37 @@ def test_matmul_kernel_matches_plain(dev, m, k, n, mode, nb):
                                  bk=64, n_buffers=nb)
     want_q, want_f = requant_epilogue(want, ws, bias, 0.05, False)
     assert torch.equal(q, want_q) and torch.equal(f, want_f)
+
+
+# VGG-16's streamed heads as the engine launches them (fifo, K blocks of
+# 512 at most, n_buffers 2): fc1 (a K split of 4 over a cluster) and fc2
+# (N = 1000: 8-byte copies, a split of 8); and fc1 pinned
+@pytest.mark.parametrize("k,n,mode", [(4096, 4096, "fifo"),
+                                      (4096, 1000, "fifo"),
+                                      (4096, 4096, "pinned")])
+def test_matmul_vgg_heads_match_plain(dev, k, n, mode):
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.quant import requant_epilogue
+    from repro_torch.kernels.stream_matmul.ops import (_sm_count, mm_plan,
+                                                       stream_matmul,
+                                                       stream_matmul_requant)
+    from repro_torch.kernels.stream_matmul.ref import stream_matmul_ref
+    g = torch.Generator(device=dev).manual_seed(k + n)
+    x, w = _i8(g, dev, 8, k), _i8(g, dev, k, n)
+    ws = torch.rand(n, generator=g, device=dev) * 0.1 + 0.01
+    bias = torch.randn(n, generator=g, device=dev)
+    plan = mm_plan(8, k, n, mode, 512, 2, _sm_count(dev.index or 0))
+    assert plan.n_tiles * plan.split >= 128
+    want = stream_matmul_ref(x, w)
+    reset_launches()
+    assert torch.equal(stream_matmul(x, w, mode=mode, bk=512), want)
+    for relu in (True, False):
+        q, f = stream_matmul_requant(x, w, ws, bias, 0.05, relu=relu,
+                                     mode=mode, bk=512)
+        want_q, want_f = requant_epilogue(want, ws, bias, 0.05, relu)
+        assert torch.equal(q, want_q) and torch.equal(f, want_f)
+    torch.cuda.synchronize()
+    assert LAUNCHES == {f"stream_matmul_{mode}": 3}
 
 
 @pytest.mark.parametrize("name", ["mini_resnet18", "mini_resnet50",
