@@ -8,10 +8,12 @@ it is run outside a checkout of the repository.  Phases, one line each:
 
   1. build the CUDA kernels from ``src/repro_torch/kernels/csrc``, and
      beside them ``nvcc -Xptxas -v`` on ``dwconv_int8.cu``,
-     ``conv2d_int8.cu``, ``flash_attention.cu`` and ``stream_matmul.cu``:
-     registers, stack and spills of every kernel instance (full logs
-     ``ptxas_dwconv.log``, ``ptxas_conv.log``, ``ptxas_flash.log`` and
-     ``ptxas_matmul.log`` in the output directory), and from the SASS the
+     ``conv2d_int8.cu``, ``flash_attention.cu``, ``stream_matmul.cu``
+     (the int8 ``mm_kernel`` and the float ``mm_float`` instances) and
+     ``pool_int8.cu``: registers, stack and spills of every kernel
+     instance (full logs ``ptxas_dwconv.log``, ``ptxas_conv.log``,
+     ``ptxas_flash.log``, ``ptxas_matmul.log`` and ``ptxas_pool.log`` in
+     the output directory), and from the SASS the
      count of HGMMA, HMMA, IMMA and IDP instructions of each instance and
      the instructions a MAC of each 3x3 ``dw_kernel``'s MAC block; it
      fails unless the instance each main-path launch of K1 (``conv_mma``),
@@ -24,7 +26,12 @@ it is run outside a checkout of the repository.  Phases, one line each:
      tier with ``n_buffers`` in {1, 2, k*k}, the pinned one (K1) at every
      shape a config pins, the fc-head matmul (K7/K8) at every fc shape of
      the six configs in its pinned, stream and fifo modes, the pools at
-     the main path's shapes (int8, f32 and int32 outputs bit-identical),
+     the main path's shapes and at edge shapes (odd maps, k = 3 at
+     stride 1, the generic window, C of 4, 6 and 20) (int8, f32 and int32
+     outputs bit-identical); the float matmul (``mm_float``) at
+     ``FLOAT_CHECK_SHAPES`` in f32 and bf16 in every mode, the fifo ring
+     1 to 4 deep, mixed f32 x bf16 operands, and every fc shape at M = 8,
+     each output of the promoted type and within ``FLOAT_TOL``;
      the depthwise kernels at every dw shape of MobileNetV1, V2 and V3 in
      both tiers (streamed with ``n_buffers`` in {1, 2, k*k}); the
      flash-attention forward (o and lse) at the LM slice's prefill shape,
@@ -56,10 +63,20 @@ it is run outside a checkout of the repository.  Phases, one line each:
      within ``GRAD_REL_TOL``, L2), then ``Trainer.run`` for 3 steps of
      4x512 tokens (AdamW, remat, no checkpoint): exactly 64 K9, 32 K10 and
      32 K11 launches a step and a finite loss and grad norm at every step.
+     Then the float matmul's path: ``stream_matmul`` at every fc head of
+     the six configs as a matmul at M = 8, in the mode its engine runs,
+     and VGG-16's fc0 as a 25088 x 4096 matmul streamed, in f32 and bf16:
+     launches of ``stream_matmul_float_pinned`` and ``_fifo`` counted,
+     outputs of the promoted type within ``FLOAT_TOL`` of the plain path.
      Launch counters are zeroed just before and read just after each run;
   4. time each kernel at the slice's shapes, its plain version, one
      PyTorch call computing the same function where there is one
-     (``torch._int_mm`` for the 1x1 convs; for the fc heads and VGG-16's
+     (``F.max_pool2d(ceil_mode=True)`` for the maxpool, whose SAME padding
+     lies after the data at every main-path shape; ``torch.matmul`` in
+     the operands' type, TF32 off, for the float matmul; beside the
+     global average pool the launch floor, a graph-replayed one-element
+     ``add_``; ``torch._int_mm`` for the 1x1 convs; for the fc heads and
+     VGG-16's
      fc0, a [B, K] x [K, N] product, on x padded with zero rows to M = 32,
      since it refuses M <= 16 and no float conv is exact past 2^24; the
      faster exact of cuDNN's fp32 and TF32 conv for the other dense
@@ -88,7 +105,8 @@ beside its device time (the same forward replayed as a CUDA graph).
 ``bound_ms`` is the larger of the bytes it must move (inputs read once,
 of a windowed map only the rows and columns some window covers; outputs
 written once) over 3.35 TB/s and its operations over 1,979 TOP/s
-int8 or 989 TFLOP/s bf16 (H100 SXM data sheet; causal attention counts
+int8, 989 TFLOP/s bf16 or 67 TFLOP/s FP32 on the CUDA cores (the f32
+matmul; H100 SXM data sheet; causal attention counts
 half of 4·B·H·S²·hd, K10 3 and K11 4 products of 2·B·H·S²·hd, halved
 when causal).  ``library_ms`` covers ``library_launches`` of
 the kernel's launches, on which the kernel takes
@@ -114,6 +132,7 @@ SEED = 0
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
 BF16_FLOPS_PER_S = 9.89e14
+FP32_FLOPS_PER_S = 6.7e13      # FFMA on the CUDA cores, no TF32
 
 # the LM slice: Phi-4-mini at full width and depth, bf16, served with
 # ServingEngine(batch_slots=4, max_seq=1024): 8 prompts of 512 tokens
@@ -186,6 +205,22 @@ TRAIN_LAUNCHES = {"flash_attention_fwd": 64, "flash_attention_bwd_dq": 32,
 # as LM_REL_TOL was derived
 LOSS_REL_TOL, GRAD_REL_TOL = 1e-3, 0.07
 
+# the float matmul (mm_float) against its plain version: tests/
+# test_kernels.py's limits, rtol and a share of max |ref| as atol, by the
+# output's type (f32 for f32 and mixed operands, bf16 for bf16 x bf16)
+FLOAT_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# tests/test_kernels.py's MM_SHAPES and a ragged shape
+FLOAT_CHECK_SHAPES = [(128, 256, 128), (256, 1024, 384), (128, 512, 256),
+                      (17, 100, 36)]
+# VGG-16's fc0 as a matmul at M = 8: 205 MB of bf16 weights, beyond the L2
+FC0_MATMUL = (BATCH, 7 * 7 * 512, 4096)
+# the pools' edge shapes, held against their plain versions in phase 2:
+# maxpool (B, H, W, C, k, s) and global average pool (B, H, W, C)
+MAXPOOL_EDGES = [(2, 13, 11, 64, 3, 2), (2, 9, 7, 20, 3, 1),
+                 (3, 7, 9, 4, 2, 2), (2, 15, 17, 64, 3, 1),
+                 (2, 10, 9, 20, 5, 2), (1, 6, 5, 4, 3, 2)]
+GAP_EDGES = [(2, 3, 5, 20), (3, 4, 4, 6), (2, 1, 1, 64), (1, 56, 56, 48)]
+
 # kernel name -> (source, the Pallas kernel body it replaces)
 KERNELS = {
     "conv2d_int8_pinned": ("src/repro_torch/kernels/csrc/conv2d_int8.cu",
@@ -200,6 +235,12 @@ KERNELS = {
                              "src/repro/kernels/stream_matmul/kernel.py:59"),
     "stream_matmul_fifo": ("src/repro_torch/kernels/csrc/stream_matmul.cu",
                            "src/repro/kernels/stream_matmul/kernel.py:109"),
+    "stream_matmul_float_pinned": (
+        "src/repro_torch/kernels/csrc/stream_matmul.cu",
+        "src/repro/kernels/stream_matmul/kernel.py:59"),
+    "stream_matmul_float_fifo": (
+        "src/repro_torch/kernels/csrc/stream_matmul.cu",
+        "src/repro/kernels/stream_matmul/kernel.py:109"),
     "dwconv_int8_pinned": ("src/repro_torch/kernels/csrc/dwconv_int8.cu",
                            "src/repro/kernels/conv2d_int8/kernel.py:108"),
     "dwconv_int8_stream": ("src/repro_torch/kernels/csrc/dwconv_int8.cu",
@@ -215,7 +256,9 @@ KERNELS = {
 }
 LM_KERNEL = "flash_attention_fwd"
 BWD_KERNELS = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
-CNN_KERNELS = [k for k in KERNELS if k != LM_KERNEL and k not in BWD_KERNELS]
+FLOAT_MM_KERNELS = ("stream_matmul_float_pinned", "stream_matmul_float_fifo")
+CNN_KERNELS = [k for k in KERNELS if k != LM_KERNEL
+               and k not in BWD_KERNELS + FLOAT_MM_KERNELS]
 # MobileNetV2 with every dw layer forced onto the HBM tier
 MV2_DW_HBM = "mobilenetv2_dw_hbm"
 # launches per MobileNetV2 forward, as compiled and with the dw layers on HBM
@@ -296,6 +339,7 @@ class Kernel:
         self.library_covers = None
         self.bytes = self.ops = 0
         self.ops_per_s = ops_per_s
+        self.floor_ms = None          # a launch's floor, where it is timed
 
     def err(self, torch, got, want, tol=None, key=None):
         """Bit identity (the int8 kernels), or with ``tol = (rtol, atol)``
@@ -348,8 +392,17 @@ PTXAS_SOURCES = (
                            "flash_fwd_bf16<{},{}>"),
         "flash_fwd_f32": (r"flash_fwd_f32()", "flash_fwd_f32{}")}),
     ("stream_matmul", "ptxas_matmul.log", {
-        "mm_kernel": (r"mm_kernelILi(\d+)ELi(\d+)E", "mm_kernel<{},{}>")}),
+        "mm_kernel": (r"mm_kernelILi(\d+)ELi(\d+)E", "mm_kernel<{},{}>"),
+        "mm_float": (r"mm_floatI(f|13__nv_bfloat16)(f|13__nv_bfloat16|S1_)"
+                     r"Li(\d+)E", "mm_float<{},{},{}>")}),
+    ("pool_int8", "ptxas_pool.log", {
+        "maxpool_band": (r"maxpool_bandILi(\d)ELi(\d)ELi(\d+)ELi(\d)E",
+                         "maxpool_band<{},{},{},{}>"),
+        "gap_chunk": (r"gap_chunkILi(\d+)E", "gap_chunk<{}>")}),
 )
+# mangled template arguments, as the report names them (S1_: the
+# repeated bf16 of mm_float<bf16, bf16, TN>)
+MANGLED_ARGS = {"f": "f32", "13__nv_bfloat16": "bf16", "S1_": "bf16"}
 # the tensor-core instruction each redesigned kernel must issue (SASS)
 SASS_REQUIRED = {"conv_mma": "IMMA", "conv_stream": "IMMA",
                  "flash_fwd_wgmma": "HGMMA"}
@@ -362,7 +415,7 @@ def instance_name(text, templates):
     for tmpl, (pattern, fmt) in templates.items():
         m = re.search(pattern, text)
         if m:
-            args = list(m.groups())
+            args = [MANGLED_ARGS.get(a, a) for a in m.groups()]
             if pattern.startswith(tmpl + "ILb"):     # a bool first argument
                 args[0] = "true" if args[0] == "1" else "false"
             return tmpl, fmt.format(*args)
@@ -593,6 +646,41 @@ def library_readings(torch, calls, want):
             "library_calls": got}
 
 
+def library_maxpool(torch, F, x, k, s):
+    """``F.max_pool2d(kernel_size=k, stride=s, ceil_mode=True)`` on the
+    NHWC map ``x`` viewed as channels-last NCHW, a yardstick of time the
+    port never calls: it computes the SAME maxpool wherever SAME puts all
+    its padding after the data (every main-path shape; its windows start
+    at s * i and ignore what lies past the edge, as the -128 padding
+    does).  int8 where CUDA takes it, else an f16 copy (exact for int8
+    values) made outside the timed call.  Its device ms, the type it ran
+    in, and whether its output equals the plain version's."""
+    from repro_torch.kernels.conv2d_int8.ref import same_out_and_pad
+    from repro_torch.kernels.pool_int8.ref import maxpool_int8_ref
+    if same_out_and_pad(x.shape[1], k, s)[1] or \
+            same_out_and_pad(x.shape[2], k, s)[1]:
+        return {"library_ms": None,
+                "library_refused": "SAME pads before the data"}
+    want = maxpool_int8_ref(x, k=k, stride=s)
+    refused = {}
+    for dt in (torch.int8, torch.float16):
+        xin = x.to(dt).permute(0, 3, 1, 2)
+
+        def call():
+            return F.max_pool2d(xin, k, s, ceil_mode=True)
+        try:
+            out = call()
+        except (RuntimeError, NotImplementedError) as e:
+            refused[str(dt)] = str(e).splitlines()[0][:120]
+            continue
+        got = out.permute(0, 2, 3, 1).to(torch.int8)
+        return {"library": f"F.max_pool2d(ceil_mode=True) in {dt}",
+                "library_ms": device_ms(torch, call, reps=20),
+                "library_exact": torch.equal(got, want),
+                "library_refused": refused or None}
+    return {"library_ms": None, "library_refused": refused}
+
+
 def input_bytes_read(x, k, s):
     """Bytes of an NHWC int8 map that a SAME k x k window at stride s
     reads: only the rows and columns some output's window covers (a 1x1
@@ -765,6 +853,118 @@ def check_flash_bwd(torch, g, dev, ks, record):
                 n += 1
     record["vjp_share_of_limit"] = worst
     return n
+
+
+FLOAT_DTYPE_NAMES = ("float32", "bfloat16")
+
+
+def float_operands(torch, g, dev, shape, xd, wd):
+    """x [M, K] and w [K, N], normal from ``g``, in their types."""
+    M, K, N = shape
+    return (torch.randn(M, K, generator=g, device=dev).to(xd),
+            torch.randn(K, N, generator=g, device=dev).to(wd))
+
+
+def float_err(torch, kern, got, want):
+    """The float matmul against its plain version: same type and shape,
+    |got - want| <= tol |want| + tol max|want| with FLOAT_TOL of the
+    output's type (readings kept per type)."""
+    dname = str(want.dtype).split(".")[1]
+    tol = FLOAT_TOL[dname]
+    kern.err(torch, got, want, (tol, tol * float(want.float().abs().max())),
+             dname)
+
+
+def check_float_matmul(torch, g, dev, ks, fc_shapes, block_for):
+    """Phase 2 for the float modes of K7/K8 (mm_float): FLOAT_CHECK_SHAPES
+    in f32 and bf16, pinned, stream and fifo (n_buffers 1-4), each with
+    K blocks of 128 (the JAX test's) and of 16 (rings of many blocks);
+    mixed f32 x bf16 and bf16 x f32 operands at the first and the ragged
+    shape; every fc shape of the six configs at M = 8 in both types and
+    every mode, K blocks as the engines cut them."""
+    from repro_torch.kernels.stream_matmul.ops import stream_matmul
+    from repro_torch.kernels.stream_matmul.ref import stream_matmul_ref
+    rings = [("pinned", 2, 128), ("stream", 2, 128), ("stream", 2, 16)] + [
+        ("fifo", nb, bk) for nb in (1, 2, 3, 4) for bk in (128, 16)]
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [(shape, (d, d), rings) for shape in FLOAT_CHECK_SHAPES
+             for d in (f32, bf16)]
+    cases += [(shape, pair, rings) for shape in (FLOAT_CHECK_SHAPES[0],
+                                                 FLOAT_CHECK_SHAPES[-1])
+              for pair in ((f32, bf16), (bf16, f32))]
+    cases += [((BATCH, k, n), (d, d),
+               [(mode, 2, block_for(k, 512))
+                for mode in ("pinned", "stream", "fifo")])
+              for k, n in sorted(fc_shapes) for d in (f32, bf16)]
+    n = 0
+    for shape, (xd, wd), runs in cases:
+        x, w = float_operands(torch, g, dev, shape, xd, wd)
+        want = stream_matmul_ref(x, w)
+        for mode, nb, bk in runs:
+            kname = ("stream_matmul_float_fifo" if mode == "fifo"
+                     else "stream_matmul_float_pinned")
+            float_err(torch, ks[kname], stream_matmul(x, w, mode=mode, bk=bk,
+                                                      n_buffers=nb), want)
+            n += 1
+    return n
+
+
+def float_path(comps, select_engine):
+    """The float matmul's path: (K, N, mode) of every fc head of the six
+    configs in the mode its engine runs it, and VGG-16's fc0 as a matmul,
+    streamed."""
+    heads = set()
+    for comp in comps.values():
+        for sc in comp.plan.schedules:
+            if select_engine(sc.spec).name == "stream_matmul":
+                heads.add((sc.spec.c_in, sc.spec.c_out,
+                           "fifo" if sc.streamed else "pinned"))
+    return sorted(heads) + [(FC0_MATMUL[1], FC0_MATMUL[2], "fifo")]
+
+
+def drive_float_matmul(torch, g, dev, path, block_for, record):
+    """Phase 3 for the float matmul: ``stream_matmul`` at every entry of
+    ``path`` at M = BATCH in f32 and in bf16, launches counted over these
+    calls alone; each output of the promoted type, finite and within
+    FLOAT_TOL of the plain path.  Returns the launches and the inputs
+    (for phase 4)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.stream_matmul.ops import (FLOAT_KERNELS,
+                                                       stream_matmul)
+    from repro_torch.kernels.stream_matmul.ref import stream_matmul_ref
+    inputs = {(k, n, mode, dname): float_operands(
+                  torch, g, dev, (BATCH, k, n), getattr(torch, dname),
+                  getattr(torch, dname))
+              for k, n, mode in path for dname in FLOAT_DTYPE_NAMES}
+    outs = {}
+    _build.reset_launches()
+    for (k, n, mode, dname), (x, w) in inputs.items():
+        outs[k, n, mode, dname] = stream_matmul(x, w, mode=mode,
+                                                bk=block_for(k, 512),
+                                                n_buffers=2)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    want = {}
+    for _, _, mode, _ in inputs:
+        want[FLOAT_KERNELS[mode]] = want.get(FLOAT_KERNELS[mode], 0) + 1
+    if launches != want:
+        raise AssertionError(f"float matmul path: launches {launches} != "
+                             f"{want}")
+    path = Kernel("float matmul path")
+    for key, (x, w) in inputs.items():
+        if outs[key].shape != (BATCH, key[1]):
+            raise AssertionError(f"float matmul path {key}: shape "
+                                 f"{tuple(outs[key].shape)}")
+        float_err(torch, path, outs[key], stream_matmul_ref(x, w))
+    record["float_matmul_path"] = {"launches": launches,
+                                   "readings": path.readings}
+    log("slice", f"float matmul: {len(inputs)} calls of stream_matmul (fc "
+        f"heads at M = {BATCH} in their engines' modes and fc0 as a "
+        f"{FC0_MATMUL[1]} x {FC0_MATMUL[2]} matmul, f32 and bf16), "
+        f"launches {json.dumps(launches, sort_keys=True)}; outputs of the "
+        f"promoted type within FLOAT_TOL, readings "
+        f"{json.dumps(path.readings)}")
+    return launches, inputs
 
 
 def serve_lm(torch, np, dev, record):
@@ -1233,12 +1433,15 @@ def main():
                                                      stream_plan)
     from repro_torch.kernels.flash_attention.ops import flash_route
     from repro_torch.kernels.conv2d_int8.ref import conv2d_int8_ref, same_pad
-    from repro_torch.kernels.pool_int8.ops import (global_avgpool_int8,
-                                                   maxpool_int8)
+    from repro_torch.kernels.pool_int8.ops import (gap_plan,
+                                                   global_avgpool_int8,
+                                                   maxpool_int8, pool_plan)
     from repro_torch.kernels.pool_int8.ref import (global_avgpool_int8_ref,
                                                    maxpool_int8_ref)
     from repro_torch.kernels.quant import requant_epilogue
-    from repro_torch.kernels.stream_matmul.ops import (mm_bytes_read,
+    from repro_torch.kernels.stream_matmul.ops import (FLOAT_KERNELS,
+                                                       mm_bytes_read,
+                                                       mm_float_plan,
                                                        mm_plan,
                                                        stream_matmul,
                                                        stream_matmul_requant)
@@ -1288,7 +1491,7 @@ def main():
     check_main_path_instances(record, shapes, conv_plan, stream_plan,
                               sm_count, flash_route, torch)
     ks = {k: Kernel(k) for k in CNN_KERNELS}
-    for k in (LM_KERNEL,) + BWD_KERNELS:
+    for k in (LM_KERNEL,) + BWD_KERNELS + FLOAT_MM_KERNELS:
         ks[k] = Kernel(k, BF16_FLOPS_PER_S)
     # every plain version and product in f32 (no TF32): the references
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1353,15 +1556,15 @@ def main():
         ks["conv2d_int8_stream"].err(torch, gq, want_q)
         ks["conv2d_int8_stream"].err(torch, gf, want_f)
         n_checks += 2
-    for key in shapes["maxpool_int8"]:
-        h, w_, c, k, s = key
-        x = i8(BATCH, h, w_, c)
+    for b, h, w_, c, k, s in [(BATCH, *key) for key in shapes["maxpool_int8"]
+                              ] + MAXPOOL_EDGES:
+        x = i8(b, h, w_, c)
         ks["maxpool_int8"].err(torch, maxpool_int8(x, k=k, stride=s),
                                maxpool_int8_ref(x, k=k, stride=s))
         n_checks += 1
-    for key in shapes["global_avgpool_int8"]:
-        h, w_, c = key
-        x = i8(BATCH, h, w_, c)
+    for b, h, w_, c in [(BATCH, *key) for key in shapes["global_avgpool_int8"]
+                        ] + GAP_EDGES:
+        x = i8(b, h, w_, c)
         for act in (0.05, 0.1):
             ks["global_avgpool_int8"].err(
                 torch, global_avgpool_int8(x, act_scale=act),
@@ -1421,11 +1624,14 @@ def main():
                     raise AssertionError(f"{kname}: f32 values not asked for")
                 ks[kname].err(torch, gq, want_q)
                 n_checks += 4
+    n_float = check_float_matmul(torch, g, dev, ks, fc_shapes, block_for)
     n_flash = check_flash(torch, g, dev, ks[LM_KERNEL])
     n_bwd = check_flash_bwd(torch, g, dev, ks, record)
     torch.cuda.synchronize()
     watchdog.cancel()
     record["check_s"] = time.perf_counter() - t0
+    record["float_matmul_readings"] = {k: ks[k].readings
+                                       for k in FLOAT_MM_KERNELS}
     record["flash_readings"] = ks[LM_KERNEL].readings
     record["flash_bwd_readings"] = {k: ks[k].readings for k in BWD_KERNELS}
     log("check", f"{n_checks} kernel-vs-plain comparisons bit-identical "
@@ -1434,7 +1640,12 @@ def main():
         f"fc shapes; "
         f"{len(dw_inputs)} dw shapes of "
         f"MobileNetV1-V3; stream n_buffers in {{1, 2, k*k}}; matmul "
-        f"pinned/stream/fifo); {n_flash} flash-attention comparisons (o and "
+        f"pinned/stream/fifo; pools at {len(MAXPOOL_EDGES)} + "
+        f"{len(GAP_EDGES)} edge shapes); {n_float} float-matmul comparisons "
+        f"(f32, bf16 and mixed, n_buffers 1-4, every fc shape) within "
+        f"FLOAT_TOL, readings "
+        f"{json.dumps(record['float_matmul_readings'])}; {n_flash} "
+        f"flash-attention comparisons (o and "
         f"lse at {len(FLASH_CASES)} shapes in bf16 and f32, and the model "
         f"layout) within tolerance, readings "
         f"{json.dumps(ks[LM_KERNEL].readings)}; {n_bwd} flash-backward "
@@ -1497,6 +1708,10 @@ def main():
     for per in launches.values():
         for k, v in per.items():
             total_launches[k] = total_launches.get(k, 0) + v
+    fpath = float_path(comps, select_engine)
+    launches["float matmul"], float_inputs = drive_float_matmul(
+        torch, g, dev, fpath, block_for, record)
+    total_launches.update(launches["float matmul"])
     lm = serve_lm(torch, np, dev, record)
     launches[LM_ARCH] = lm["launches"]
     total_launches[LM_KERNEL] = lm["launches"][LM_KERNEL]
@@ -1610,27 +1825,72 @@ def main():
                 "launches": n, "ms": per_launch[kname][key],
                 "bytes": nbytes, "bound_ms": bound_ms(nbytes, ops)[0],
                 "library_ms": lib_ms}
+    # per pool shape: launches, device ms a launch, bytes, bound, the plan;
+    # for the maxpool F.max_pool2d(ceil_mode=True) (library_maxpool), for
+    # the global average pool the launch floor: a graph-replayed
+    # one-element add_ on the same card
+    one = torch.zeros(1, device=dev)
+    floor_ms = device_ms(torch, lambda: one.add_(1), reps=20)
+    pool_rows = {}
+    kern = ks["maxpool_int8"]
+    kern.library_ms = 0.0
     for key, n in shapes["maxpool_int8"].items():
         h, w_, c, k, s = key
         x = i8(BATCH, h, w_, c)
-        kern = ks["maxpool_int8"]
         time_kernel("maxpool_int8", [key],
                     lambda: maxpool_int8(x, k=k, stride=s))
         kern.plain_ms += n * plain_ms(lambda: maxpool_int8_ref(x, k=k,
                                                                stride=s))
         ho, wo = -(-h // s), -(-w_ // s)
-        kern.bytes += n * (input_bytes_read(x, k, s) + BATCH * ho * wo * c)
-        kern.ops += n * BATCH * ho * wo * c * k * k
+        nbytes = input_bytes_read(x, k, s) + BATCH * ho * wo * c
+        ops = BATCH * ho * wo * c * k * k
+        kern.bytes += n * nbytes
+        kern.ops += n * ops
+        lib = library_maxpool(torch, F, x, k, s)
+        if lib["library_ms"] is None:
+            raise AssertionError(f"maxpool {key}: no library call: {lib}")
+        kern.library_ms += n * lib["library_ms"]
+        plan = pool_plan(BATCH, h, w_, c, k, s, sm_count)
+        pool_rows["maxpool:" + ",".join(map(str, key))] = {
+            "launches": n, "ms": per_launch["maxpool_int8"][key],
+            "bytes": nbytes, "bound_ms": bound_ms(nbytes, ops)[0], **lib,
+            "plan": {f: getattr(plan, f) for f in (
+                "rows", "seg", "cc", "vec", "cols", "threads",
+                "smem_bytes")},
+            "ctas": plan.bands * plan.segs * plan.c_tiles * BATCH}
+    kern = ks["global_avgpool_int8"]
+    kern.floor_ms = floor_ms
     for key, n in shapes["global_avgpool_int8"].items():
         h, w_, c = key
         x = i8(BATCH, h, w_, c)
-        kern = ks["global_avgpool_int8"]
         time_kernel("global_avgpool_int8", [key],
                     lambda: global_avgpool_int8(x, act_scale=0.05))
         kern.plain_ms += n * plain_ms(
             lambda: global_avgpool_int8_ref(x, act_scale=0.05))
-        kern.bytes += n * (x.numel() + BATCH * c)
-        kern.ops += n * BATCH * h * w_ * c
+        nbytes, ops = x.numel() + BATCH * c, BATCH * h * w_ * c
+        kern.bytes += n * nbytes
+        kern.ops += n * ops
+        plan = gap_plan(BATCH, h, w_, c, sm_count)
+        ms = per_launch["global_avgpool_int8"][key]
+        pool_rows["gap:" + ",".join(map(str, key))] = {
+            "launches": n, "ms": ms, "bytes": nbytes,
+            "bound_ms": bound_ms(nbytes, ops)[0], "floor_ms": floor_ms,
+            "factor_on_floor": ms / floor_ms,
+            "plan": {f: getattr(plan, f) for f in (
+                "vec", "cc", "groups", "threads", "smem_bytes")},
+            "ctas": plan.c_tiles * BATCH}
+    record["pool_per_shape"] = pool_rows
+    log("time", "pools per shape (key: launches x us, bound us, library or "
+        "floor us; CTAs): " + "; ".join(
+            f"{key}: {r['launches']} x {r['ms'] * 1e3:.2f}, "
+            f"{r['bound_ms'] * 1e3:.2f}, "
+            + (f"F.max_pool2d {r['library_ms'] * 1e3:.2f}"
+               + ("" if r["library_exact"] else " (not exact)")
+               if "library_ms" in r else
+               f"floor {r['floor_ms'] * 1e3:.2f} "
+               f"({r['factor_on_floor']:.2f}x)")
+            + f"; {r['ctas']}" for key, r in pool_rows.items())
+        + f"  [{card}]")
     # per fc head: launches, device ms a launch, bytes, bound, the plan,
     # the bytes a launch reads and the weights' GB/s, and the library:
     # torch._int_mm, which refuses M <= 16, on x padded with zero rows to
@@ -1675,6 +1935,60 @@ def main():
                 "weight_bytes_read": wb, "x_bytes_read": xb,
                 "weight_gb_per_s": wb / (ms * 1e6)}
     record["matmul_per_shape"] = mm_shape_rows
+    # the float matmul per path entry (one launch each): device ms, bytes
+    # (operands read once, the output written once), bound (f32 products
+    # at 67 TFLOP/s FFMA, bf16 at 989), plain ms, and torch.matmul in the
+    # operands' type (TF32 off)
+    float_rows = {}
+    t_bytes = {k: 0.0 for k in FLOAT_MM_KERNELS}
+    t_ops = dict(t_bytes)
+    for kname in FLOAT_MM_KERNELS:
+        ks[kname].library_ms = 0.0
+    for (k_, n_, mode, dname), (x, w) in float_inputs.items():
+        kern = ks[FLOAT_KERNELS[mode]]
+        bk = block_for(k_, 512)
+        reps = 5 if (k_, n_) == FC0_MATMUL[1:] else 20
+
+        def fn():
+            return stream_matmul(x, w, mode=mode, bk=bk, n_buffers=2)
+        ms, cms = device_ms(torch, fn, reps=reps), call_ms(torch, fn, reps)
+        pms = device_ms(torch, lambda: stream_matmul_ref(x, w), reps=3,
+                        replays=2)
+        lms = device_ms(torch, lambda: torch.matmul(x, w), reps=reps)
+        ref = stream_matmul_ref(x, w).double()
+        lib_diff = float((torch.matmul(x, w).double() - ref).abs().max())
+        es = x.element_size()
+        nbytes = (BATCH * k_ + k_ * n_ + BATCH * n_) * es
+        ops = 2 * BATCH * k_ * n_
+        rate = FP32_FLOPS_PER_S if dname == "float32" else BF16_FLOPS_PER_S
+        b, by = bound_ms(nbytes, ops, rate)
+        kern.ms += ms
+        kern.plain_ms += pms
+        kern.library_ms += lms
+        kern.bound_ms += b
+        t_bytes[kern.name] += nbytes / HBM_BYTES_PER_S
+        t_ops[kern.name] += ops / rate
+        plan = mm_float_plan(BATCH, k_, n_, mode, bk, 2, es, es, sm_count)
+        float_rows[f"{mode}:{k_},{n_}:{dname}"] = {
+            "ms": ms, "call_ms": cms, "plain_ms": pms, "library_ms": lms,
+            "library_max_abs_diff": lib_diff, "bytes": nbytes,
+            "flops": ops, "bound_ms": b, "bound_by": by,
+            "factor_on_library": ms / lms, "weight_gb_per_s":
+                k_ * n_ * es / (ms * 1e6),
+            "plan": {f: getattr(plan, f) for f in (
+                "tn", "split", "kr", "kblk", "nb", "wvec", "smem_bytes")},
+            "ctas": plan.n_tiles * plan.split * plan.m_tiles}
+    for kname in FLOAT_MM_KERNELS:
+        ks[kname].bound_by = ("bytes" if t_bytes[kname] >= t_ops[kname]
+                              else "operations")
+    del float_inputs
+    record["float_matmul_per_shape"] = float_rows
+    log("time", "float matmul per path entry (mode:K,N:type: us, bound "
+        "us, torch.matmul us, factor; weight GB/s; CTAs): " + "; ".join(
+            f"{key}: {r['ms'] * 1e3:.2f}, {r['bound_ms'] * 1e3:.2f}, "
+            f"{r['library_ms'] * 1e3:.2f}, {r['factor_on_library']:.2f}; "
+            f"{r['weight_gb_per_s']:.0f}; {r['ctas']}"
+            for key, r in float_rows.items()) + f"  [{card}]")
     log("time", "matmul per fc head (mode:K,N: launches x us, bound us, "
         "padded torch._int_mm us; CTAs, weight GB/s): " + "; ".join(
             f"{key}: {r['launches']} x {r['ms'] * 1e3:.2f}, "
@@ -1857,6 +2171,8 @@ def main():
                      "library_ms": kern.library_ms,
                      "library_launches": lib_n,
                      "ms_on_library_launches": lib_k_ms})
+        if kern.floor_ms is not None:      # the launch floor, beside K6
+            rows[-1]["floor_ms"] = kern.floor_ms * total_launches[name]
         log("time", f"{name}: {kern.ms:.4f} ms per slice run (device), "
             f"plain {kern.plain_ms:.4f} ms, bound {kern.bound_ms:.4f} ms "
             f"({kern.bound_by}), library {kern.library_ms}  [{card}]")

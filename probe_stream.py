@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Time the streamed dense conv (K2) and the fc-head matmul (K7/K8) of a
-checkout of this repository, and the device time of each net's forward,
-on one CUDA card: the probe that holds two trees against each other in
-one call (PERF.md).
+"""Time the streamed dense conv (K2), the fc-head matmul (K7/K8) and the
+pools (K5, K6) of a checkout of this repository, and the device time of
+each net's forward, on one CUDA card: the probe that holds two trees
+against each other in one call (PERF.md).
 
     python3 probe_stream.py [ROOT]
 
@@ -10,8 +10,9 @@ ROOT is the checkout whose ``src/repro_torch`` is timed (default: the one
 holding this script); its kernels build into ROOT/build on first use.
 Shapes: every streamed dense conv of ResNet-50 and VGG-16 compiled for
 ``NX2100`` at batch 8 (n_buffers 2, as the executor launches them), every
-fc head of the six CNN configs in the mode the engine runs it, and the
-forwards of ResNet-50, ResNet-18, MobileNetV2 and VGG-16.  Device times:
+fc head of the six CNN configs in the mode the engine runs it, every
+maxpool and global-average-pool shape of ResNet-50, ResNet-18,
+MobileNetV2 and VGG-16, and the forwards of those four nets.  Device times:
 20 calls (a forward: 1) captured into a CUDA graph and replayed, L2 warm.
 Beside them, the rate device memory gives a plain reader of VGG-16's fc0
 weights (a 25088 x 4096 int8 matrix, 102.8 MB, more than the L2 holds)
@@ -121,6 +122,8 @@ def main():
     from repro_torch.compiler.engines import _block
     from repro_torch.configs.cnn import CNN_CONFIGS, get_cnn
     from repro_torch.kernels.conv2d_int8.ops import conv2d_int8_requant
+    from repro_torch.kernels.pool_int8.ops import (global_avgpool_int8,
+                                                   maxpool_int8)
     from repro_torch.kernels.stream_matmul.ops import stream_matmul_requant
     from repro_torch.models.cnn import cnn_input_shape, init_cnn_params
     from repro_torch.runtime.pipeline import PipelineExecutor
@@ -169,6 +172,24 @@ def main():
             mm[key] = device_ms(torch, lambda: stream_matmul_requant(
                 x, w, ws, b, 0.05, mode=mode, bk=_block(sp.c_in, 512),
                 n_buffers=max(2, sc.n_buffers)), 20)
+    pools = {}
+    for name in ("resnet50", "resnet18", "mobilenetv2", "vgg16"):
+        for sc in comps[name].plan.schedules:
+            sp = sc.spec
+            engine = select_engine(sp).name
+            if engine == "maxpool_int8":
+                key = "maxpool:" + ",".join(map(str, (
+                    sp.in_h, sp.in_w, sp.c_in, sp.k_h, sp.stride)))
+                fn = (lambda x, k=sp.k_h, s=sp.stride:
+                      maxpool_int8(x, k=k, stride=s))
+            elif engine == "global_avgpool_int8":
+                key = f"gap:{sp.in_h},{sp.in_w},{sp.c_in}"
+                fn = global_avgpool_int8
+            else:
+                continue
+            if key not in pools:
+                x = i8(BATCH, sp.in_h, sp.in_w, sp.c_in)
+                pools[key] = device_ms(torch, lambda: fn(x), 20)
     nets = {}
     for name in ("resnet50", "resnet18", "mobilenetv2", "vgg16"):
         comp = comps[name]
@@ -180,7 +201,8 @@ def main():
         nets[name] = device_ms(torch, lambda: ex.run(params, images), 1,
                                replays=10)
     print(json.dumps({"root": str(root), "card": card, "conv_ms": conv,
-                      "matmul_ms": mm, "net_device_ms": nets,
+                      "matmul_ms": mm, "pool_ms": pools,
+                      "net_device_ms": nets,
                       "dram_gb_per_s": dram_rates(torch, _build, root)}))
     return 0
 

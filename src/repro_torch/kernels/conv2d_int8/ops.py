@@ -533,6 +533,13 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def _device_sms(dev: torch.device) -> int:
+    """SMs of the CUDA device ``dev`` (the current one where it has no
+    index): the launch plans size their grids from it."""
+    return _sm_count(dev.index if dev.index is not None
+                     else torch.cuda.current_device())
+
+
 def _outputs(x, w, w_scale, bias, shape, raw: bool, want_float: bool):
     """Check the operands of a launch and allocate its outputs:
     (int8, f32 or None, None) with the fused requant, else (None, None,
@@ -569,8 +576,7 @@ def _launch(x, w, w_scale, bias, act_scale: float, *, stride: int,
     h_out, pad_t = same_out_and_pad(H, k_h, stride)
     w_out, pad_l = same_out_and_pad(W, k_w, stride)
     dev = x.device
-    sms = _sm_count(dev.index if dev.index is not None
-                    else torch.cuda.current_device())
+    sms = _device_sms(dev)
     if stream and w_out > 256:
         raise ValueError(f"output width {w_out} > 256 is not supported by "
                          f"the streamed tier")
@@ -611,8 +617,7 @@ def _launch_dw(x, w, w_scale, bias, act_scale: float, *, stride: int,
         raise ValueError(f"depthwise kernel {k_h}x{k_w} is not square")
     dev = x.device
     plan = dw_plan(B, H, W, C, k_h, stride, stream, n_buffers,
-                   _sm_count(dev.index if dev.index is not None
-                             else torch.cuda.current_device()))
+                   _device_sms(dev))
     h_out, pad_t = same_out_and_pad(H, k_h, stride)
     w_out, pad_l = same_out_and_pad(W, k_w, stride)
     out_q, out_f, out_i = _outputs(x, w, w_scale, bias, (B, h_out, w_out, C),

@@ -40,7 +40,30 @@
 //    2 us on 132 SMs, below the bytes.
 // The TPU block sizes of the engine table are accounting only; the kernel
 // masks the ragged M, N and K edges itself.
+//
+// The float modes (f32 or bf16 operands, f32 sums, the promoted result
+// type: bf16 for bf16 x bf16, else f32) are mm_float<TX, TW, TN>, with the
+// same work split, ring and credit rule as mm_kernel and a plan of their
+// own (ops.mm_float_plan, layout mm_float_layout below):
+//  * A slot holds a K block of the weights [kblk][tn] and of x [TM][kblk];
+//    both stream through the ring (cp.async of 16, 8 or 4 bytes, or plain
+//    2-byte copies of a bf16 operand whose rows are not 4-byte multiples),
+//    zeros past M, N and the rank's K range.
+//  * The products are FFMA on the CUDA cores, never TF32: each of 128
+//    consumer threads owns 4 columns x TM rows and a share of the block's
+//    K rows, 4 at a time (a bf16 value widens to f32 exactly, so every
+//    product is exact in f32 before its one rounding, as in the
+//    reference).  Shares are summed by shuffles, then across warps in
+//    shared memory; the leader of the cluster reads every rank's sums
+//    through distributed shared memory in rank order (deterministic) and
+//    writes the result in its type.
+//  * What bounds it: the weights' bytes at the fc-head shapes.  At M = 8
+//    a weight element takes 16 FLOP: 8 a byte in bf16 and 4 in f32,
+//    below the 20 a byte that 67 TFLOP/s FP32 over 3.35 TB/s would need.
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -283,6 +306,227 @@ __global__ void __launch_bounds__(NCONS + NPROD) mm_kernel(MmArgs a) {
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// The float modes: mm_float<TX, TW, TN>
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+constexpr int FCONS = 128;       // consumer threads (warps 0..3)
+
+// Four consecutive values of type T at p (16 bytes of f32, 8 of bf16),
+// widened to f32 exactly.
+template <typename T>
+__device__ __forceinline__ void load4(const unsigned char* p, float v[4]) {
+  if constexpr (std::is_same<T, float>::value) {
+    const float4 f = *reinterpret_cast<const float4*>(p);
+    v[0] = f.x, v[1] = f.y, v[2] = f.z, v[3] = f.w;
+  } else {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    v[0] = __uint_as_float(u.x << 16);
+    v[1] = __uint_as_float(u.x & 0xffff0000u);
+    v[2] = __uint_as_float(u.y << 16);
+    v[3] = __uint_as_float(u.y & 0xffff0000u);
+  }
+}
+
+struct MmFloatArgs {
+  const unsigned char* x;
+  const unsigned char* w;
+  void* out;
+  int M, K, N;
+  int kr, kblk, nb, wvec, xvec;   // the plan (ops.mm_float_plan)
+  int srow, xrow, slot;           // the layout (mm_float_layout() below)
+};
+
+struct MmFloatLayout {
+  int srow;   // bytes of a weight row of a slot: tn * w_bytes + 16
+  int xrow;   // bytes of an x row of a slot: kblk * x_bytes + 16
+  int slot;   // bytes of a slot: kblk weight rows, then TM x rows
+  long smem;
+};
+
+// ops.mm_float_layout mirrors this.  Shared memory of one CTA: the full
+// and empty mbarriers of the nb slots, the slots [nb][slot], the consumer
+// warps' sums [FCONS / 32][TM][tn] f32 and the CTA's sums [TM][tn] f32,
+// which the cluster's leader reads.
+MmFloatLayout mm_float_layout(int tn, int kblk, int nb, int x_bytes,
+                              int w_bytes) {
+  MmFloatLayout L;
+  L.srow = tn * w_bytes + 16;
+  L.xrow = kblk * x_bytes + 16;
+  L.slot = kblk * L.srow + TM * L.xrow;
+  L.smem = 16L * nb + (long)nb * L.slot +
+           (long)(FCONS / 32 + 1) * TM * tn * 4;
+  return L;
+}
+
+// One copy of `vec` bytes (16, 8 or 4 by cp.async, zero-filled where !ok;
+// 2: a plain bf16 copy).
+__device__ __forceinline__ void copy_chunk(int vec, unsigned char* dst,
+                                           const unsigned char* src,
+                                           bool ok) {
+  if (vec == 16)
+    h2pipe::cp_async16(dst, src, ok);
+  else if (vec == 8)
+    h2pipe::cp_async8(dst, src, ok);
+  else if (vec == 4)
+    h2pipe::cp_async4(dst, src, ok);
+  else
+    *reinterpret_cast<uint16_t*>(dst) =
+        ok ? *reinterpret_cast<const uint16_t*>(src) : (uint16_t)0;
+}
+
+// The producer warps: block by block, the weight rows of the rank's range
+// [k0, k1) (columns n0 .. n0 + tn) and x's rows m0 .. m0 + TM of the same
+// K rows into the ring; a slot is refilled only after its empty barrier
+// completes (the credit rule).
+template <int TN>
+__device__ __forceinline__ void mm_float_produce(
+    const MmFloatArgs& a, int xb, int wb, int m0, int n0, int k0, int k1,
+    int nkb, uint64_t* full, uint64_t* empty, unsigned char* ring) {
+  const int pt = threadIdx.x - FCONS;
+  const bool plain = a.wvec == 2 || a.xvec == 2;
+  const int per_wrow = TN * wb / a.wvec, per_xrow = a.kblk * xb / a.xvec;
+  h2pipe::RingPos pos;
+  for (int kb = 0; kb < nkb; ++kb) {
+    h2pipe::mbar_wait(empty + pos.slot, pos.phase ^ 1);
+    unsigned char* slot = ring + (size_t)pos.slot * a.slot;
+    unsigned char* xs = slot + (size_t)a.kblk * a.srow;
+    const int kbase = k0 + kb * a.kblk;
+    for (int idx = pt; idx < a.kblk * per_wrow; idx += NPROD) {
+      const int r = idx / per_wrow, cb = (idx - r * per_wrow) * a.wvec;
+      const int k = kbase + r, n = n0 + cb / wb;
+      const bool ok = k < k1 && n < a.N;
+      copy_chunk(a.wvec, slot + r * a.srow + cb,
+                 ok ? a.w + ((size_t)k * a.N + n) * wb : a.w, ok);
+    }
+    for (int idx = pt; idx < TM * per_xrow; idx += NPROD) {
+      const int m = idx / per_xrow, cb = (idx - m * per_xrow) * a.xvec;
+      const int k = kbase + cb / xb;
+      const bool ok = m0 + m < a.M && k < k1;
+      copy_chunk(a.xvec, xs + m * a.xrow + cb,
+                 ok ? a.x + ((size_t)(m0 + m) * a.K + k) * xb : a.x, ok);
+    }
+    if (plain) {
+      asm volatile("cp.async.wait_all;\n" ::: "memory");
+      h2pipe::mbar_arrive(full + pos.slot);
+    } else {
+      h2pipe::cp_async_mbar_arrive(full + pos.slot);
+    }
+    pos.next(a.nb);
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// A CTA: (tile of TN columns, rank in the K split, tile of TM rows).
+template <typename TX, typename TW, int TN>
+__global__ void __launch_bounds__(FCONS + NPROD) mm_float(MmFloatArgs a) {
+  constexpr int NWARPS = FCONS / 32;
+  constexpr int XB = sizeof(TX), WB = sizeof(TW);
+  using TO = typename std::conditional<std::is_same<TX, bf16>::value &&
+                                           std::is_same<TW, bf16>::value,
+                                       bf16, float>::type;
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + a.nb;
+  unsigned char* ring = smem + 16 * a.nb;
+  float* red = reinterpret_cast<float*>(ring + (size_t)a.nb * a.slot);
+  float* part = red + NWARPS * TM * TN;              // [TM][TN]
+
+  const int n0 = blockIdx.x * TN, m0 = blockIdx.z * TM;
+  const int k0 = min(a.K, rank * a.kr), k1 = min(a.K, k0 + a.kr);
+  const int nkb = (k1 - k0 + a.kblk - 1) / a.kblk;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < a.nb; ++s) {
+      h2pipe::mbar_init(full + s, NPROD);            // every producer thread
+      h2pipe::mbar_init(empty + s, NWARPS);          // every consumer warp
+    }
+    h2pipe::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (tid >= FCONS) {
+    mm_float_produce<TN>(a, XB, WB, m0, n0, k0, k1, nkb, full, empty, ring);
+  } else {
+    constexpr int quads = TN / 4, ways = FCONS / quads;
+    const int quad = tid % quads, way = tid / quads;
+    float acc[TM][4];
+#pragma unroll
+    for (int m = 0; m < TM; ++m)
+#pragma unroll
+      for (int n = 0; n < 4; ++n) acc[m][n] = 0.0f;
+    h2pipe::RingPos pos;
+    for (int kb = 0; kb < nkb; ++kb) {
+      h2pipe::mbar_wait(full + pos.slot, pos.phase);
+      const unsigned char* slot = ring + (size_t)pos.slot * a.slot;
+      const unsigned char* xs = slot + (size_t)a.kblk * a.srow;
+      const int rows = min(a.kblk, k1 - k0 - kb * a.kblk);
+      // 4 K rows at a time; the rows past the range are zeros
+      for (int k4 = way; 4 * k4 < rows; k4 += ways) {
+        float wv[4][4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          load4<TW>(slot + (4 * k4 + e) * a.srow + 4 * quad * WB, wv[e]);
+#pragma unroll
+        for (int m = 0; m < TM; ++m) {
+          float xv[4];
+          load4<TX>(xs + m * a.xrow + 4 * k4 * XB, xv);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+#pragma unroll
+            for (int n = 0; n < 4; ++n)
+              acc[m][n] = __fmaf_rn(xv[e], wv[e][n], acc[m][n]);
+        }
+      }
+      __syncwarp();
+      if ((tid & 31) == 0) h2pipe::mbar_arrive(empty + pos.slot);
+      pos.next(a.nb);
+    }
+    // the shares: over the ways of a warp by shuffles, then over the warps
+#pragma unroll
+    for (int m = 0; m < TM; ++m)
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int off = quads; off < 32; off <<= 1)
+          acc[m][n] += __shfl_xor_sync(0xffffffffu, acc[m][n], off);
+    const int lane = tid & 31, warp = tid >> 5;
+    if (lane < quads)
+#pragma unroll
+      for (int m = 0; m < TM; ++m)
+        *reinterpret_cast<float4*>(red + (warp * TM + m) * TN + 4 * lane) =
+            make_float4(acc[m][0], acc[m][1], acc[m][2], acc[m][3]);
+    asm volatile("bar.sync 1, %0;\n" ::"r"(FCONS) : "memory");
+    for (int o = tid; o < TM * TN; o += FCONS) {
+      float s = 0.0f;
+#pragma unroll
+      for (int wp = 0; wp < NWARPS; ++wp) s += red[wp * TM * TN + o];
+      part[o] = s;
+    }
+  }
+  cluster.sync();  // every rank's sums are in its shared memory
+  if (rank == 0 && tid < FCONS) {
+    const int split = (int)cluster.num_blocks();
+    TO* out = reinterpret_cast<TO*>(a.out);
+    for (int o = tid; o < TM * TN; o += FCONS) {
+      const int m = o / TN, c = o - m * TN;
+      const int row = m0 + m, n = n0 + c;
+      if (row >= a.M || n >= a.N) continue;
+      float s = 0.0f;
+      for (int r = 0; r < split; ++r) s += cluster.map_shared_rank(part, r)[o];
+      if constexpr (std::is_same<TO, float>::value)
+        out[(size_t)row * a.N + n] = s;
+      else
+        out[(size_t)row * a.N + n] = __float2bfloat16_rn(s);
+    }
+  }
+  cluster.sync();  // the leader has read every rank's sums
+}
+
 }  // namespace
 
 extern "C" {
@@ -322,6 +566,62 @@ int stream_matmul_int8_launch(const int8_t* x, const int8_t* w,
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((N + tn - 1) / tn, split, (M + TM - 1) / TM);
   cfg.blockDim = dim3(consumers(kr) + NPROD);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = split;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, fn, a);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// x: [M, K] @ w: [K, N], each f32 (x_bytes / w_bytes 4) or bf16 (2),
+// with the plan of ops.mm_float_plan: tiles of tn columns, a K split of
+// `split` ranges of kr rows over a cluster, K blocks of kblk rows of w and
+// x through an nb-slot ring, copies of wvec (w) and xvec (x) bytes; smem:
+// the bytes of its layout, which mm_float_layout() must reproduce.  out:
+// [M, N] bf16 for bf16 x bf16, else f32.  Returns cudaGetLastError()
+// after the launch.
+int stream_matmul_float_launch(const void* x, const void* w, void* out,
+                               int x_bytes, int w_bytes, int M, int K, int N,
+                               int tn, int split, int kr, int kblk, int nb,
+                               int wvec, int xvec, int smem,
+                               cudaStream_t stream) {
+  auto vec_ok = [](int vec, int es, long row_bytes) {
+    return (vec == 16 || vec == 8 || vec == 4 || (vec == 2 && es == 2)) &&
+           row_bytes % vec == 0;
+  };
+  if ((x_bytes != 2 && x_bytes != 4) || (w_bytes != 2 && w_bytes != 4) ||
+      M < 1 || K < 1 || N < 1 || (tn != 32 && tn != 64) || split < 1 ||
+      split > MAX_SPLIT || kr < 16 || kr % 16 != 0 ||
+      (long)split * kr < K || (long)(split - 1) * kr >= K || kblk < 8 ||
+      kblk % 8 != 0 || kblk > kr || nb < 1 ||
+      !vec_ok(wvec, w_bytes, (long)N * w_bytes) ||
+      !vec_ok(xvec, x_bytes, (long)K * x_bytes))
+    return (int)cudaErrorInvalidValue;
+  MmFloatLayout L = mm_float_layout(tn, kblk, nb, x_bytes, w_bytes);
+  if (L.smem != smem) return (int)cudaErrorInvalidValue;
+  void (*table[2][2][2])(MmFloatArgs) = {
+      {{mm_float<bf16, bf16, 32>, mm_float<bf16, bf16, 64>},
+       {mm_float<bf16, float, 32>, mm_float<bf16, float, 64>}},
+      {{mm_float<float, bf16, 32>, mm_float<float, bf16, 64>},
+       {mm_float<float, float, 32>, mm_float<float, float, 64>}}};
+  void (*fn)(MmFloatArgs) =
+      table[x_bytes == 4][w_bytes == 4][tn == 64];
+  MmFloatArgs a{static_cast<const unsigned char*>(x),
+                static_cast<const unsigned char*>(w), out, M, K, N, kr,
+                kblk, nb, wvec, xvec, L.srow, L.xrow, L.slot};
+  cudaError_t err = cudaFuncSetAttribute(
+      (void*)fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((N + tn - 1) / tn, split, (M + TM - 1) / TM);
+  cfg.blockDim = dim3(FCONS + NPROD);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];

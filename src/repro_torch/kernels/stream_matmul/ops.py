@@ -7,11 +7,13 @@
                  resident for the call (on-chip tier)
 
 A CPU tensor runs the plain version in ``ref.py``; a CUDA tensor launches
-``csrc/stream_matmul.cu`` (int8 operands only) with the launch plan of
-:func:`mm_plan`, or raises.  ``bm``/``bn`` are the JAX kernel's block
-sizes and only feed :func:`vmem_bytes` accounting; the CUDA kernel picks
-its own tiles, takes ``bk`` as the largest K block of its ring, and masks
-ragged edges.
+``csrc/stream_matmul.cu`` or raises: int8 operands ``mm_kernel`` with the
+launch plan of :func:`mm_plan`, f32 or bf16 operands (in any pair)
+``mm_float`` with the plan of :func:`mm_float_plan`; any other operand
+type raises ``NotImplementedError``.  ``bm``/``bn`` are the JAX kernel's
+block sizes and only feed :func:`vmem_bytes` accounting; the CUDA kernels
+pick their own tiles, take ``bk`` as the largest K block of their ring,
+and mask ragged edges.
 """
 from __future__ import annotations
 
@@ -23,16 +25,24 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.conv2d_int8.ops import MAX_SMEM_BYTES
+from repro_torch.kernels.conv2d_int8.ops import MAX_SMEM_BYTES, _device_sms
 from repro_torch.kernels.quant import reciprocal, requant_epilogue
-from repro_torch.kernels.stream_matmul.ref import stream_matmul_ref
+from repro_torch.kernels.stream_matmul.ref import (result_dtype,
+                                                   stream_matmul_ref)
 
 __all__ = ["stream_matmul", "stream_matmul_requant", "vmem_bytes",
-           "mm_plan", "mm_layout", "mm_bytes_read", "MmPlan", "KERNELS"]
+           "mm_plan", "mm_layout", "mm_bytes_read", "MmPlan", "KERNELS",
+           "mm_float_plan", "mm_float_layout", "MmFloatPlan",
+           "FLOAT_KERNELS", "FLOAT_DTYPES"]
 
 #: launch-counter name per mode ("pinned"/"stream" replace _mm_kernel,
-#: "fifo" replaces _mm_manual_kernel)
+#: "fifo" replaces _mm_manual_kernel): int8 operands, and the float modes
 KERNELS = {m: f"stream_matmul_{m}" for m in ("pinned", "stream", "fifo")}
+FLOAT_KERNELS = {"pinned": "stream_matmul_float_pinned",
+                 "stream": "stream_matmul_float_pinned",
+                 "fifo": "stream_matmul_float_fifo"}
+#: operand types of the float modes, in any pair
+FLOAT_DTYPES = (torch.float32, torch.bfloat16)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
@@ -42,6 +52,9 @@ def _lib() -> ctypes.CDLL:
         lib.stream_matmul_int8_launch.argtypes = \
             [_P, _P, _P, _P, _F, _F, _P, _P, _P] + [_I] * 12 + [_P]
         lib.stream_matmul_int8_launch.restype = _I
+        lib.stream_matmul_float_launch.argtypes = [_P, _P, _P] + [_I] * 13 \
+            + [_P]
+        lib.stream_matmul_float_launch.restype = _I
         lib._typed = True
     return lib
 
@@ -107,20 +120,12 @@ def mm_layout(tn: int, kr: int, kblk: int, nb: int) -> int:
         + (mm_consumers(kr) // 32 + 1) * MM_TM * tn * 4
 
 
-@functools.lru_cache(maxsize=None)
-def mm_plan(M: int, K: int, N: int, mode: str, bk: int, n_buffers: int,
-            sm_count: int = 132) -> MmPlan:
-    """Tiles, K split and ring of one launch.  The widest column tile
-    whose CTAs reach a wave of ``sm_count`` with a split of at most
+def _mm_split(M: int, K: int, N: int, sm_count: int
+              ) -> Tuple[int, int, int, int]:
+    """(m_tiles, tn, n_tiles, split) of both kernels: the widest column
+    tile whose CTAs reach a wave of ``sm_count`` with a split of at most
     ``MM_MAX_SPLIT``, else the narrowest; the split is the smallest power
-    of two that reaches the wave, with every rank's range (a multiple of
-    16 rows) non-empty.  ``mode`` sets the ring (:func:`ring`): one block
-    of the whole range pinned, else blocks of at most ``bk`` rows and
-    ``MM_SLOT_MAX`` bytes, depth 2 (``stream``) or ``n_buffers``
-    (``fifo``).  Cached: it runs on every launch."""
-    blk, depth = ring(mode, K, bk, n_buffers)
-    if depth < 1:
-        raise ValueError("n_buffers must be >= 1")
+    of two that reaches the wave, with every rank's range non-empty."""
     m_tiles = -(-M // MM_TM)
     tn = next((t for t in MM_TILES
                if -(-N // t) * m_tiles * MM_MAX_SPLIT >= sm_count),
@@ -129,12 +134,29 @@ def mm_plan(M: int, K: int, N: int, mode: str, bk: int, n_buffers: int,
     split = 1
     while split < MM_MAX_SPLIT and n_tiles * m_tiles * split < sm_count:
         split *= 2
-
-    def rows(sp):                    # a rank's range: ceil(K / sp) to 16
-        return -(-(-(-K // sp)) // 16) * 16
-    while split > 1 and (split - 1) * rows(split) >= K:
+    while split > 1 and (split - 1) * _range_rows(K, split) >= K:
         split //= 2
-    kr = rows(split)
+    return m_tiles, tn, n_tiles, split
+
+
+def _range_rows(K: int, split: int) -> int:
+    """A rank's K range: ceil(K / split) rounded up to 16 rows."""
+    return -(-(-(-K // split)) // 16) * 16
+
+
+@functools.lru_cache(maxsize=None)
+def mm_plan(M: int, K: int, N: int, mode: str, bk: int, n_buffers: int,
+            sm_count: int = 132) -> MmPlan:
+    """Tiles, K split and ring of one int8 launch (:func:`_mm_split`).
+    ``mode`` sets the ring (:func:`ring`): one block of the whole range
+    pinned, else blocks of at most ``bk`` rows and ``MM_SLOT_MAX`` bytes,
+    depth 2 (``stream``) or ``n_buffers`` (``fifo``).  Cached: it runs on
+    every launch."""
+    blk, depth = ring(mode, K, bk, n_buffers)
+    if depth < 1:
+        raise ValueError("n_buffers must be >= 1")
+    m_tiles, tn, n_tiles, split = _mm_split(M, K, N, sm_count)
+    kr = _range_rows(K, split)
     if mode == "pinned":
         kblk, nb = kr, 1
     else:
@@ -152,6 +174,100 @@ def mm_plan(M: int, K: int, N: int, mode: str, bk: int, n_buffers: int,
                   smem)
 
 
+# The float modes' plan; ``csrc/stream_matmul.cu`` mirrors the layout
+# (``mm_float_layout`` there).
+MM_FLOAT_CONSUMERS = 128      # consumer threads of a CTA (4 warps)
+MM_FLOAT_KBLK = 8             # K rows of a block: a multiple of this
+
+
+@dataclass(frozen=True)
+class MmFloatPlan:
+    """One launch of ``mm_float``: CTAs and cluster as :class:`MmPlan`;
+    each CTA streams its K range in blocks of ``kblk`` rows of the
+    weights and of x through ``nb`` slots; ``wvec`` and ``xvec`` are the
+    bytes a copy of w and of x (2: plain copies of bf16 values)."""
+    tn: int
+    split: int
+    kr: int
+    kblk: int
+    nb: int
+    wvec: int
+    xvec: int
+    n_tiles: int
+    m_tiles: int
+    smem_bytes: int
+
+    @property
+    def grid(self) -> Tuple[int, int, int]:
+        return self.n_tiles, self.split, self.m_tiles
+
+
+def mm_float_slot(tn: int, kblk: int, x_bytes: int, w_bytes: int) -> int:
+    """Bytes of one slot: ``kblk`` weight rows of ``tn * w_bytes + 16``
+    bytes, then ``MM_TM`` x rows of ``kblk * x_bytes + 16``."""
+    return kblk * (tn * w_bytes + 16) + MM_TM * (kblk * x_bytes + 16)
+
+
+def mm_float_layout(tn: int, kblk: int, nb: int, x_bytes: int,
+                    w_bytes: int) -> int:
+    """Shared-memory bytes of one CTA: the full and empty mbarriers of the
+    ``nb`` slots, the slots, the consumer warps' sums ``[warps][MM_TM]
+    [tn]`` and the CTA's sums ``[MM_TM][tn]`` (f32)."""
+    return 16 * nb + nb * mm_float_slot(tn, kblk, x_bytes, w_bytes) \
+        + (MM_FLOAT_CONSUMERS // 32 + 1) * MM_TM * tn * 4
+
+
+def _copy_bytes(row_bytes: int, elem_bytes: int) -> int:
+    """The widest cp.async (16, 8, 4 bytes) that tiles a row of
+    ``row_bytes``, else one element (a bf16 row of odd length)."""
+    return next((v for v in (16, 8, 4) if row_bytes % v == 0), elem_bytes)
+
+
+@functools.lru_cache(maxsize=None)
+def mm_float_plan(M: int, K: int, N: int, mode: str, bk: int,
+                  n_buffers: int, x_bytes: int, w_bytes: int,
+                  sm_count: int = 132) -> MmFloatPlan:
+    """Tiles, K split and ring of one float launch, x and w of
+    ``x_bytes`` and ``w_bytes`` an element (4: f32, 2: bf16).  Tiles and
+    split as :func:`_mm_split`; pinned, one block of the whole range, the
+    split doubled (up to ``MM_MAX_SPLIT``) while that block does not fit;
+    else blocks of at most ``max(bk, 8)`` rows (a multiple of 8) and
+    ``MM_SLOT_MAX`` bytes a slot, depth 2 (``stream``) or ``n_buffers``
+    (``fifo``), never more slots than the range has blocks.  Cached: it
+    runs on every launch."""
+    if x_bytes not in (2, 4) or w_bytes not in (2, 4):
+        raise ValueError(f"element bytes {x_bytes}, {w_bytes}: f32 (4) or "
+                         f"bf16 (2)")
+    blk, depth = ring(mode, K, bk, n_buffers)
+    if depth < 1:
+        raise ValueError("n_buffers must be >= 1")
+    m_tiles, tn, n_tiles, split = _mm_split(M, K, N, sm_count)
+    if mode == "pinned":
+        def fits(sp):
+            return mm_float_layout(tn, _range_rows(K, sp), 1, x_bytes,
+                                   w_bytes) <= MAX_SMEM_BYTES
+        while (not fits(split) and split < MM_MAX_SPLIT
+               and (2 * split - 1) * _range_rows(K, 2 * split) < K):
+            split *= 2
+    kr = _range_rows(K, split)
+    if mode == "pinned":
+        kblk, nb = kr, 1
+    else:
+        per_row = tn * w_bytes + 16 + MM_TM * x_bytes
+        cap = (MM_SLOT_MAX - 16 * MM_TM) // per_row
+        kblk = max(MM_FLOAT_KBLK, min(blk, kr, cap) // MM_FLOAT_KBLK
+                   * MM_FLOAT_KBLK)
+        nb = min(depth, -(-kr // kblk))
+    smem = mm_float_layout(tn, kblk, nb, x_bytes, w_bytes)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"float matmul needs {smem} B of shared memory "
+                         f"per block, more than {MAX_SMEM_BYTES}")
+    return MmFloatPlan(tn, split, kr, kblk, nb,
+                       _copy_bytes(N * w_bytes, w_bytes),
+                       _copy_bytes(K * x_bytes, x_bytes), n_tiles, m_tiles,
+                       smem)
+
+
 def mm_bytes_read(plan: MmPlan, M: int, K: int, N: int) -> Tuple[int, int]:
     """(weight bytes, x bytes) one launch with ``plan`` reads from device
     memory: each tile of rows of x reads the weights once, each column
@@ -159,24 +275,43 @@ def mm_bytes_read(plan: MmPlan, M: int, K: int, N: int) -> Tuple[int, int]:
     return plan.m_tiles * K * N, plan.n_tiles * M * K
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
+def _shapes(x, w) -> Tuple[int, int, int]:
+    if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
+        raise ValueError(f"shapes {tuple(x.shape)} @ {tuple(w.shape)}")
+    return x.shape[0], x.shape[1], w.shape[1]
+
+
+def _launch_float(x, w, *, mode: str, bk: int, n_buffers: int):
+    """The float modes on the card: ``mm_float`` -> [M, N] of the
+    promoted type."""
+    M, K, N = _shapes(x, w)
+    dev = x.device
+    xb, wb = x.element_size(), w.element_size()
+    plan = mm_float_plan(M, K, N, mode, bk, n_buffers, xb, wb,
+                         _device_sms(dev))
+    _build.check_cuda_tensor(x, "x", x.dtype, dev)
+    _build.check_cuda_tensor(w, "w", w.dtype, dev)
+    out = torch.empty((M, N), dtype=result_dtype(x.dtype, w.dtype),
+                      device=dev)
+    err = _lib().stream_matmul_float_launch(
+        x.data_ptr(), w.data_ptr(), out.data_ptr(), xb, wb, M, K, N,
+        plan.tn, plan.split, plan.kr, plan.kblk, plan.nb, plan.wvec,
+        plan.xvec, plan.smem_bytes,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "stream_matmul (float)")
+    _build.count_launch(FLOAT_KERNELS[mode])
+    return out
 
 
 def _launch(x, w, w_scale, bias, act_scale: float, *, mode: str, bk: int,
             n_buffers: int, relu: bool, raw: bool, want_float: bool):
     if x.dtype != torch.int8 or w.dtype != torch.int8:
         raise NotImplementedError(
-            "the CUDA matmul takes int8 operands; float modes run on the CPU")
-    M, K = x.shape
-    K2, N = w.shape
-    if K != K2:
-        raise ValueError(f"shapes {tuple(x.shape)} @ {tuple(w.shape)}")
+            f"the CUDA requant matmul takes int8 operands, not {x.dtype} x "
+            f"{w.dtype}")
+    M, K, N = _shapes(x, w)
     dev = x.device
-    plan = mm_plan(M, K, N, mode, bk, n_buffers,
-                   _sm_count(dev.index if dev.index is not None
-                             else torch.cuda.current_device()))
+    plan = mm_plan(M, K, N, mode, bk, n_buffers, _device_sms(dev))
     _build.check_cuda_tensor(x, "x", torch.int8, dev)
     _build.check_cuda_tensor(w, "w", torch.int8, dev)
     out_q = out_f = out_i = None
@@ -204,13 +339,21 @@ def _launch(x, w, w_scale, bias, act_scale: float, *, mode: str, bk: int,
 
 def stream_matmul(x: torch.Tensor, w: torch.Tensor, *, mode: str = "stream",
                   bk: int = 512, n_buffers: int = 2) -> torch.Tensor:
-    """x: [M, K] @ w: [K, N] -> int32 (int8 operands) or float32."""
+    """x: [M, K] @ w: [K, N] -> [M, N]: int32 for int8 operands, else the
+    promoted type (bf16 for bf16 x bf16, f32 for f32 or mixed f32/bf16
+    operands), summed in f32 on the card."""
     ring(mode, w.shape[0], bk, n_buffers)            # validates the mode
     if _build.runs_plain(x):
         return stream_matmul_ref(x, w)
-    return _launch(x, w, None, None, 0.0, mode=mode, bk=bk,
-                   n_buffers=n_buffers, relu=False, raw=True,
-                   want_float=False)
+    if x.dtype == torch.int8 and w.dtype == torch.int8:
+        return _launch(x, w, None, None, 0.0, mode=mode, bk=bk,
+                       n_buffers=n_buffers, relu=False, raw=True,
+                       want_float=False)
+    if x.dtype in FLOAT_DTYPES and w.dtype in FLOAT_DTYPES:
+        return _launch_float(x, w, mode=mode, bk=bk, n_buffers=n_buffers)
+    raise NotImplementedError(
+        f"the CUDA matmul takes int8 x int8 or f32/bf16 operands, not "
+        f"{x.dtype} x {w.dtype}")
 
 
 def stream_matmul_requant(x: torch.Tensor, w: torch.Tensor,

@@ -164,6 +164,149 @@ def test_gap_kernel_matches_plain(dev, shape):
                            global_avgpool_int8_ref(x, act_scale=act))
 
 
+# K5 at the main path's shapes at batch 8 (ResNet's 3x3/2 stem pool: two
+# rows a band; VGG-16's five 2x2/2 pools: channel chunks) and at
+# edge shapes: odd H and W, k = 3 with s = 1 (SAME pads before the data),
+# the generic instance (k = 5), C in {4, 20, 64} (4-byte copies below 16)
+@pytest.mark.parametrize("shape,k,stride", [
+    ((8, 112, 112, 64), 3, 2), ((8, 224, 224, 64), 2, 2),
+    ((8, 112, 112, 128), 2, 2), ((8, 56, 56, 256), 2, 2),
+    ((8, 28, 28, 512), 2, 2), ((8, 14, 14, 512), 2, 2),
+    ((2, 13, 11, 64), 3, 2), ((2, 9, 7, 20), 3, 1), ((3, 7, 9, 4), 2, 2),
+    ((2, 15, 17, 64), 3, 1), ((2, 10, 9, 20), 5, 2), ((1, 6, 5, 4), 3, 2)])
+def test_maxpool_band_matches_plain(dev, shape, k, stride):
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.pool_int8.ops import maxpool_int8
+    from repro_torch.kernels.pool_int8.ref import maxpool_int8_ref
+    g = torch.Generator(device=dev).manual_seed(sum(shape) + k)
+    x = _i8(g, dev, *shape)
+    reset_launches()
+    assert torch.equal(maxpool_int8(x, k=k, stride=stride),
+                       maxpool_int8_ref(x, k=k, stride=stride))
+    # the all -128 map: padding and data alike give -128
+    neg = torch.full_like(x, -128)
+    assert torch.equal(maxpool_int8(neg, k=k, stride=stride),
+                       maxpool_int8_ref(neg, k=k, stride=stride))
+    torch.cuda.synchronize()
+    assert LAUNCHES == {"maxpool_int8": 2}
+
+
+# K6 at the main path's shapes at batch 8 (ResNet-18, MobileNetV2,
+# ResNet-50) and at edge shapes: 4-byte and byte loads (C = 20, 6), one
+# pixel, many pixels a group
+@pytest.mark.parametrize("shape", [(8, 7, 7, 512), (8, 7, 7, 1280),
+                                   (8, 7, 7, 2048), (2, 3, 5, 20),
+                                   (3, 4, 4, 6), (2, 1, 1, 64),
+                                   (1, 56, 56, 48)])
+def test_gap_chunk_matches_plain(dev, shape):
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.pool_int8.ops import global_avgpool_int8
+    from repro_torch.kernels.pool_int8.ref import global_avgpool_int8_ref
+    g = torch.Generator(device=dev).manual_seed(sum(shape))
+    x = _i8(g, dev, *shape)
+    reset_launches()
+    for act in (0.05, 0.1, 0.0123):
+        assert torch.equal(global_avgpool_int8(x, act_scale=act),
+                           global_avgpool_int8_ref(x, act_scale=act))
+    for v in (127, -127):        # the largest sums, and the clip
+        full = torch.full_like(x, v)
+        assert torch.equal(global_avgpool_int8(full, act_scale=0.05),
+                           global_avgpool_int8_ref(full, act_scale=0.05))
+    torch.cuda.synchronize()
+    assert LAUNCHES == {"global_avgpool_int8": 5}
+
+
+# the float modes of K7/K8 (mm_float), limits of tests/test_kernels.py
+def _float_tol(dtype):
+    return 2e-2 if dtype == torch.bfloat16 else 2e-5
+
+
+def _check_float(got, want):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    tol = _float_tol(want.dtype)
+    w = want.double()
+    bound = tol * w.abs() + tol * float(w.abs().max())
+    assert bool(((got.double() - w).abs() <= bound).all()), \
+        float((got.double() - w).abs().max())
+
+
+def _float_operands(g, dev, m, k, n, xd, wd):
+    return (torch.randn(m, k, generator=g, device=dev).to(xd),
+            torch.randn(k, n, generator=g, device=dev).to(wd))
+
+
+# tests/test_kernels.py's MM_SHAPES in both types and all three modes, the
+# fifo ring 1 to 4 deep, with K blocks of 128 (the JAX test's) and of 16
+# (rings of many blocks)
+@pytest.mark.parametrize("shape", [(128, 256, 128), (256, 1024, 384),
+                                   (128, 512, 256)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_matmul_float_kernel_matches_plain(dev, shape, dtype):
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.stream_matmul.ops import stream_matmul
+    from repro_torch.kernels.stream_matmul.ref import stream_matmul_ref
+    g = torch.Generator(device=dev).manual_seed(sum(shape))
+    x, w = _float_operands(g, dev, *shape, dtype, dtype)
+    want = stream_matmul_ref(x, w)
+    reset_launches()
+    runs = [("pinned", 2, 128), ("stream", 2, 128), ("stream", 2, 16)] + [
+        ("fifo", nb, bk) for nb in (1, 2, 3, 4) for bk in (128, 16)]
+    for mode, nb, bk in runs:
+        _check_float(stream_matmul(x, w, mode=mode, bk=bk, n_buffers=nb),
+                     want)
+    torch.cuda.synchronize()
+    assert LAUNCHES == {"stream_matmul_float_pinned": 3,
+                        "stream_matmul_float_fifo": 8}
+
+
+# mixed operands, and a ragged shape (M = 17, K = 100, N = 36: three row
+# tiles, a ragged K split, 8-byte bf16 row copies)
+@pytest.mark.parametrize("xd,wd", [(torch.float32, torch.bfloat16),
+                                   (torch.bfloat16, torch.float32),
+                                   (torch.bfloat16, torch.bfloat16),
+                                   (torch.float32, torch.float32)])
+@pytest.mark.parametrize("shape", [(17, 100, 36), (128, 256, 128),
+                                   (5, 33, 7)])
+def test_matmul_float_mixed_and_ragged(dev, xd, wd, shape):
+    from repro_torch.kernels.stream_matmul.ops import stream_matmul
+    from repro_torch.kernels.stream_matmul.ref import stream_matmul_ref
+    g = torch.Generator(device=dev).manual_seed(sum(shape))
+    x, w = _float_operands(g, dev, *shape, xd, wd)
+    want = stream_matmul_ref(x, w)
+    for mode, nb in (("pinned", 2), ("stream", 2), ("fifo", 1), ("fifo", 3)):
+        _check_float(stream_matmul(x, w, mode=mode, bk=16, n_buffers=nb),
+                     want)
+
+
+# every fc head of the six CNN configs at M = 8, as the engines stream
+# them (K blocks of at most 512), in both types and the three modes
+@pytest.mark.parametrize("k,n", [(512, 1000), (1024, 1000), (1280, 1000),
+                                 (2048, 1000), (4096, 4096), (4096, 1000)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_matmul_float_fc_heads_match_plain(dev, k, n, dtype):
+    from repro_torch.compiler.engines import _block
+    from repro_torch.kernels.stream_matmul.ops import stream_matmul
+    from repro_torch.kernels.stream_matmul.ref import stream_matmul_ref
+    g = torch.Generator(device=dev).manual_seed(k + n)
+    x, w = _float_operands(g, dev, 8, k, n, dtype, dtype)
+    want = stream_matmul_ref(x, w)
+    for mode in ("pinned", "stream", "fifo"):
+        _check_float(stream_matmul(x, w, mode=mode, bk=_block(k, 512)), want)
+
+
+def test_matmul_float_refuses_other_types(dev):
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.stream_matmul.ops import stream_matmul
+    reset_launches()
+    x = torch.ones(8, 64, device=dev)
+    w = torch.ones(64, 32, device=dev)
+    for a, b in ((x.half(), w.half()), (x, w.half()), (x.double(), w),
+                 (x.to(torch.int8), w), (x, w.to(torch.int8))):
+        with pytest.raises(NotImplementedError, match="not torch"):
+            stream_matmul(a, b)
+    assert LAUNCHES == {}
+
+
 @pytest.mark.parametrize("m,k,n", [(8, 2048, 1000), (3, 100, 10),
                                    (17, 512, 36)])
 @pytest.mark.parametrize("mode,nb", [("pinned", 2), ("stream", 2),
@@ -194,8 +337,9 @@ def test_matmul_kernel_matches_plain(dev, m, k, n, mode, nb):
                                       (4096, 4096, "pinned")])
 def test_matmul_vgg_heads_match_plain(dev, k, n, mode):
     from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.conv2d_int8.ops import _sm_count
     from repro_torch.kernels.quant import requant_epilogue
-    from repro_torch.kernels.stream_matmul.ops import (_sm_count, mm_plan,
+    from repro_torch.kernels.stream_matmul.ops import (mm_plan,
                                                        stream_matmul,
                                                        stream_matmul_requant)
     from repro_torch.kernels.stream_matmul.ref import stream_matmul_ref
