@@ -44,13 +44,27 @@ it is run outside a checkout of the repository.  Phases, one line each:
      ``BWD_SUM_CASES``, within ``BWD_SUM_TOL``, which sees below bf16's
      precision; and the differentiable ``flash_attention_vjp`` against
      autograd through the plain forward at ``VJP_CASES``;
-  3. the slices: ``compile(cfg, NX2100)`` -> ``PipelineExecutor`` on the
-     card at batch 8 on 224x224 inputs, with seeded random weights, for
-     ResNet-50, ResNet-18, MobileNetV2 as compiled (every dw layer
-     pinned), VGG-16 (conv8-10 and fc0 on the streamed conv, fc1 and fc2
-     on the fifo matmul) and MobileNetV2 with every dw layer forced onto
-     the HBM tier (``with_offload``): logits equal to the plain path's bit
-     for bit (the plain path's time logged), the Eq. 2 report verified.
+  3. the slices: ``compile(cfg, NX2100)`` -> ``PipelineExecutor(...,
+     backend="eager")`` on the card at batch 8 on 224x224 inputs, with
+     seeded random weights, for ResNet-50, ResNet-18, MobileNetV2 as
+     compiled (every dw layer pinned), VGG-16 (conv8-10 and fc0 on the
+     streamed conv, fc1 and fc2 on the fifo matmul) and MobileNetV2 with
+     every dw layer forced onto the HBM tier (``with_offload``): logits
+     equal to the plain path's bit for bit (the plain path's time logged),
+     the Eq. 2 report verified.  Then the main path, the same five nets
+     through ``run()``'s default, the fused backend (the forward captured
+     once as a CUDA graph, replayed by every warm run): logits and report
+     equal to the eager run's, the launches of a warm run (added by the
+     replay) equal to the eager run's, one trace a net with its hits
+     counted.  Then ResNet-50 served over it (``cp.serve(microbatch=8,
+     credits=4)``): 64 requests of 1-8 images from 4 producer threads,
+     each bit-identical to the eager ``run()`` of its images, at most 4
+     microbatches in flight, one trace, the Eq. 2 words of the images,
+     microbatches x a forward's launches; images/s, latency percentiles,
+     pad fraction, the measured stall fractions and the host spans of the
+     traced interval beside the ceiling of 8 images a replay of the
+     forward's graph; then the adaptive ladder (1, 2, 4, 8) at light
+     load, its rungs captured mid-serve, bit-identical.
      Then Phi-4-mini (3.8B, full width and depth, bf16, random weights
      from seed 0) through ``ServingEngine(batch_slots=4, max_seq=1024)``:
      8 requests of 512 tokens, 16 new tokens each; exactly 64
@@ -89,7 +103,8 @@ it is run outside a checkout of the repository.  Phases, one line each:
      and last ``{"ok": true, "device": ...}``.
 
 Times are per slice run (one forward of each of the five nets, and the
-LM's engine run and 3 training steps): a kernel's ``ms`` sums its
+LM's engine run and 3 training steps; ``launches`` counts the fused warm run
+of each net): a kernel's ``ms`` sums its
 launches on that path (the record also splits it per net and per
 launch; for the dense and the depthwise kernels, per shape, the bytes,
 bound and library time beside the time a launch, ``conv_per_shape`` with
@@ -100,8 +115,9 @@ and K11 share one plain version and one library call, which compute dq,
 dk and dv together: each row carries the pair's time.
 Kernel, plain-version and library times are device times: back-to-back
 calls captured into a CUDA graph and replayed.  The record keeps beside them each kernel's time
-per call from Python, host included, and each forward's eager time
-beside its device time (the same forward replayed as a CUDA graph).
+per call from Python, host included, and each forward's eager and fused
+times (host clock, in turns) beside its device time (the same forward
+replayed as a CUDA graph).
 ``bound_ms`` is the larger of the bytes it must move (inputs read once,
 of a windowed map only the rows and columns some window covers; outputs
 written once) over 3.35 TB/s and its operations over 1,979 TOP/s
@@ -266,6 +282,16 @@ MV2_LAUNCHES = {"conv2d_int8_pinned": 35, "global_avgpool_int8": 1,
                 "stream_matmul_pinned": 1}
 EXPECTED = {"mobilenetv2": {**MV2_LAUNCHES, "dwconv_int8_pinned": 17},
             MV2_DW_HBM: {**MV2_LAUNCHES, "dwconv_int8_stream": 17}}
+# CNN serving: ResNet-50 (7 layers streamed, K2 and K8 on the path) under
+# cp.serve(microbatch=BATCH, credits=4): 64 requests of 1-8 images (sizes
+# from SEED) from 4 producer threads; then the adaptive ladder (1, 2, 4,
+# 8) at light load, closed loop over ADAPTIVE_SIZES, and a burst
+SERVE_NET, SERVE_REQUESTS, SERVE_PRODUCERS, SERVE_CREDITS = \
+    "resnet50", 64, 4, 4
+ADAPTIVE_SIZES = (1, 2, 1, 3, 5, 8, 2)
+# a longer interval of the same traffic, for the steady state
+SERVE_STEADY_REPEATS = 8
+FUSED_WARM_RUNS = 6
 
 
 def log(phase, msg):
@@ -1414,6 +1440,234 @@ def time_lm(torch, st, card, record):
         f"generated tokens/s  [{card}]")
 
 
+def drive_fused(torch, nets, params, images, logits, reports, launches,
+                record):
+    """Each net through ``run()``'s default, the fused backend: the first
+    run captures the forward as one CUDA graph, a warm run replays it.
+    The warm run's launches (counted from zero just before it, added by
+    the replay) must equal the eager run's, its logits and report the
+    eager run's; one trace a net, hits counted.  Returns the warm runs'
+    launches per net."""
+    from repro_torch.kernels import _build
+    out, rows = {}, {}
+    for name, comp in nets.items():
+        if comp.trace_count:
+            raise AssertionError(f"{name}: a trace before the first run")
+        t = time.perf_counter()
+        first, _ = comp.run(params[name], images[name])
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t
+        _build.reset_launches()
+        lg, rep = comp.run(params[name], images[name])
+        torch.cuda.synchronize()
+        out[name] = dict(_build.LAUNCHES)
+        for _ in range(FUSED_WARM_RUNS - 1):
+            comp.run(params[name], images[name])
+        torch.cuda.synchronize()
+        stats = comp.trace_cache_stats()
+        if out[name] != launches[name]:
+            raise AssertionError(f"{name}: fused launches {out[name]} != "
+                                 f"eager {launches[name]}")
+        for got, what in ((first, "first"), (lg, "warm")):
+            if not torch.equal(got, logits[name]):
+                diff = (got - logits[name]).abs().max().item()
+                raise AssertionError(f"{name}: the {what} fused run's logits "
+                                     f"differ from the eager run's by {diff}")
+        if rep.layers != reports[name].layers:
+            raise AssertionError(f"{name}: fused report != eager report")
+        rep.verify()
+        if comp.trace_count != 1 or stats["misses"] != 1 \
+                or stats["hits"] != FUSED_WARM_RUNS:
+            raise AssertionError(f"{name}: trace cache {stats}")
+        rows[name] = {"launches": out[name], "trace_cache": stats,
+                      "capture_s": capture_s}
+        log("fused", f"{name}: {FUSED_WARM_RUNS} warm runs replay one CUDA "
+            f"graph; logits and report equal the eager run's, launches "
+            f"{sum(out[name].values())} a forward as eager; trace cache "
+            f"{json.dumps(stats)}; first run (eager forward, capture, "
+            f"checked replay) {capture_s:.2f} s")
+    record["fused"] = rows
+    return out
+
+
+def fused_host_split(torch, comp, params, images):
+    """Where a fused run's time goes past the device's, host clock,
+    median of 10 single calls each: ``*_ms`` ends in a synchronise,
+    ``*_return_ms`` is the time until the call returns (what the host
+    spends before the card can finish).  ``run`` is ``comp.run`` (the
+    executor, the trace key, the report), ``fn`` the trace's call (the
+    copy-in, the replay, the clone), ``replay`` the bare graph replay."""
+    trace = comp.fused_trace(params, images, act_scale=0.05)
+    calls = {"run": lambda: comp.run(params, images),
+             "fn": lambda: trace.fn(params, images),
+             "replay": trace.fn.graph.replay}
+    out = {}
+    for key, fn in calls.items():
+        done, ret = [], []
+        for _ in range(10):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            t_ret = time.perf_counter()
+            torch.cuda.synchronize()
+            done.append((time.perf_counter() - t) * 1e3)
+            ret.append((t_ret - t) * 1e3)
+        out[f"{key}_ms"] = statistics.median(done)
+        out[f"{key}_return_ms"] = statistics.median(ret)
+    return out
+
+
+def serve_cnn(torch, np, comp, params, per_forward, dev, record):
+    """ResNet-50 served over the fused backend (``cp.serve``), then the
+    adaptive ladder at light load: every request's logits bit-identical to
+    the eager ``run()`` of its images on the card, the credit bound held,
+    one warm trace for the fixed shape, the Eq. 2 words of the images, and
+    microbatches x one forward's launches.  Records the report, the host
+    spans of a traced interval, and the ceiling of BATCH images a graph
+    replay of the forward."""
+    from repro_torch.kernels import _build
+    from repro_torch.models.cnn import cnn_input_shape
+    from repro_torch.obs import Tracer
+    from repro_torch.runtime.pipeline import PipelineExecutor
+    rng = np.random.default_rng(SEED)
+    sizes = [int(n) for n in rng.integers(1, BATCH + 1, SERVE_REQUESTS)]
+    shape = cnn_input_shape(comp.cfg, 1)[1:]
+    reqs = [rng.integers(-127, 128, size=(n,) + shape, dtype=np.int8)
+            for n in sizes]
+    eager = PipelineExecutor(comp, device=dev, backend="eager")
+
+    def check(got, req, what):
+        want = eager.run(params, torch.from_numpy(req).to(dev))[0].cpu()
+        if not np.array_equal(got, want.numpy()):
+            raise AssertionError(f"serving: {what} differs from the eager "
+                                 f"run of its {len(req)} images")
+
+    tracer = Tracer()
+    handles = [None] * len(reqs)
+    _build.reset_launches()
+    with comp.serve(params, microbatch=BATCH, credits=SERVE_CREDITS,
+                    tracer=tracer) as eng:
+        def producer(pid):
+            for i in range(pid, len(reqs), SERVE_PRODUCERS):
+                handles[i] = eng.submit(reqs[i])
+        threads = [threading.Thread(target=producer, args=(p,))
+                   for p in range(SERVE_PRODUCERS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+            if t.is_alive():
+                raise AssertionError("serving: a producer did not finish")
+        eng.drain(timeout=300)
+        rep = eng.report()
+    torch.cuda.synchronize()
+    served = dict(_build.LAUNCHES)
+    eng.admission.assert_quiescent()
+    if eng.admission.max_in_flight_seen > SERVE_CREDITS:
+        raise AssertionError(f"serving: {eng.admission.max_in_flight_seen} "
+                             f"microbatches in flight > {SERVE_CREDITS}")
+    if comp.trace_count != 1:
+        raise AssertionError(f"serving: {comp.trace_cache_stats()}")
+    if rep.images != sum(sizes) or rep.requests != len(reqs) \
+            or rep.hbm_words_useful != rep.images * eng.words_per_image:
+        raise AssertionError(f"serving: report {rep.images} images, "
+                             f"{rep.hbm_words_useful} useful words")
+    want = {k: v * rep.microbatches for k, v in per_forward.items()}
+    if served != want:
+        raise AssertionError(f"serving: launches {served} != {want}")
+    for i, (h, req) in enumerate(zip(handles, reqs)):
+        check(h.result(), req, f"request {i}")
+    # the ceiling: BATCH images a replay of the forward's graph
+    trace = comp.fused_trace(params, torch.zeros(
+        (BATCH,) + shape, dtype=torch.int8, device=dev), act_scale=0.05)
+    trace.fn.graph.replay()
+    graph_ms = event_ms(torch, trace.fn.graph.replay, 20) / 20
+    # the host spans of the traced interval, per name: count, total,
+    # median and largest ms (the first pack waits for the first request)
+    durs = {}
+    for ph, sname, _, _, dur, _, _ in tracer.events():
+        if ph == "X":
+            durs.setdefault(sname, []).append(dur * 1e3)
+    spans = {k: {"n": len(v), "total_ms": sum(v),
+                 "median_ms": statistics.median(v), "max_ms": max(v)}
+             for k, v in durs.items()}
+    be = rep.bandwidth_efficiency["measured"]
+    row = {"report": rep.to_dict(), "pad_fraction": rep.pad_fraction,
+           "device_ms_per_microbatch": graph_ms,
+           "ceiling_images_per_s": BATCH / graph_ms * 1e3,
+           "host_span_ms": spans, "launches": served,
+           "first_spans_ms": {k: v[:5] for k, v in durs.items()},
+           "tracer_dropped": tracer.dropped}
+    row["report"].pop("request_rows")
+    log("serve", f"{SERVE_NET}: {len(reqs)} requests, {rep.images} images in "
+        f"{rep.microbatches} microbatches of {BATCH} from "
+        f"{SERVE_PRODUCERS} producers, bit-identical to the eager run() of "
+        f"each; in flight <= {eng.admission.max_in_flight_seen}/"
+        f"{SERVE_CREDITS}; {rep.images_per_s:.1f} images/s against a "
+        f"ceiling of {row['ceiling_images_per_s']:.1f} ({BATCH} / "
+        f"{graph_ms:.4f} device ms); latency p50 {rep.p50_ms:.2f} p95 "
+        f"{rep.p95_ms:.2f} p99 {rep.p99_ms:.2f} ms; pad {rep.pad_fraction:.3f}"
+        f"; admission wait {be['admission_wait_fraction']:.3f}, dispatch gap "
+        f"{be['dispatch_gap_fraction']:.3f} of the wall ({rep.wall_s * 1e3:.1f}"
+        f" ms); host spans (n, total / median / max ms): " + "; ".join(
+            f"{k} {v['n']}, {v['total_ms']:.2f} / {v['median_ms']:.3f} / "
+            f"{v['max_ms']:.3f}" for k, v in spans.items())
+        + f"  [{record['card']}]")
+
+    # the steady state: the same requests SERVE_STEADY_REPEATS times over,
+    # from the main thread, untraced
+    with comp.serve(params, microbatch=BATCH,
+                    credits=SERVE_CREDITS) as eng:
+        outs, srep = eng.serve(reqs * SERVE_STEADY_REPEATS)
+    for i, (got, h) in enumerate(zip(outs, handles * SERVE_STEADY_REPEATS)):
+        if not np.array_equal(got, h.result()):
+            raise AssertionError(f"steady serving: request {i} differs")
+    sbe = srep.bandwidth_efficiency["measured"]
+    row["steady"] = {"requests": srep.requests, "images": srep.images,
+                     "images_per_s": srep.images_per_s,
+                     "wall_s": srep.wall_s, "p50_ms": srep.p50_ms,
+                     "p99_ms": srep.p99_ms, "pad_fraction": srep.pad_fraction,
+                     "admission_wait_fraction":
+                         sbe["admission_wait_fraction"],
+                     "dispatch_gap_fraction": sbe["dispatch_gap_fraction"]}
+    log("serve", f"{SERVE_NET} steady: the same requests x "
+        f"{SERVE_STEADY_REPEATS} ({srep.images} images, "
+        f"{srep.microbatches} microbatches) from one thread, bit-identical: "
+        f"{srep.images_per_s:.1f} images/s ({srep.wall_s * 1e3:.1f} ms), "
+        f"{100 * srep.images_per_s / row['ceiling_images_per_s']:.1f}% of "
+        f"the ceiling; admission wait {sbe['admission_wait_fraction']:.3f}, "
+        f"dispatch gap {sbe['dispatch_gap_fraction']:.3f}; first dispatch "
+        f"spans of the traced run (ms) "
+        f"{[round(v, 3) for v in durs['dispatch'][:5]]}  "
+        f"[{record['card']}]")
+
+    # the adaptive ladder at light load: rungs captured mid-serve
+    with comp.serve(params, microbatch=BATCH, credits=SERVE_CREDITS,
+                    adaptive=True) as eng:
+        singles = [rng.integers(-127, 128, size=(n,) + shape, dtype=np.int8)
+                   for n in ADAPTIVE_SIZES]
+        for i, req in enumerate(singles):
+            check(eng.submit(req).result(timeout=300), req, f"single {i}")
+        outs, arep = eng.serve(reqs[:16])
+    for i, (got, req) in enumerate(zip(outs, reqs[:16])):
+        check(got, req, f"burst request {i}")
+    if arep.trace_cache["entries"] > arep.trace_cache["max_entries"] \
+            or len(arep.microbatch_shapes) < 3:
+        raise AssertionError(f"adaptive: shapes {arep.microbatch_shapes}, "
+                             f"trace cache {arep.trace_cache}")
+    row["adaptive"] = {"microbatch_shapes": arep.microbatch_shapes,
+                       "trace_cache": arep.trace_cache,
+                       "images_per_s": arep.images_per_s,
+                       "p50_ms": arep.p50_ms, "p99_ms": arep.p99_ms,
+                       "pad_fraction": arep.pad_fraction}
+    record["serving"] = row
+    log("serve", f"{SERVE_NET} adaptive (ladder {eng.microbatch_ladder}): "
+        f"{len(singles)} closed-loop requests then a burst of 16, "
+        f"bit-identical; shapes used (rows: dispatches) "
+        f"{json.dumps(arep.microbatch_shapes)}; trace cache "
+        f"{json.dumps(arep.trace_cache)}; pad {arep.pad_fraction:.3f}")
+
+
 def main():
     import numpy as np
     import torch
@@ -1665,7 +1919,8 @@ def main():
         params[name] = init_cnn_params(cfg, gen, dev)
         images[name] = torch.randint(-127, 128, cnn_input_shape(cfg, BATCH),
                                      generator=gen, dtype=torch.int8).to(dev)
-    ex = {n: PipelineExecutor(c, device=dev) for n, c in nets.items()}
+    ex = {n: PipelineExecutor(c, device=dev, backend="eager")
+          for n, c in nets.items()}
     reports = {}
     for name in nets:
         _build.reset_launches()
@@ -1704,10 +1959,17 @@ def main():
             f"the plain path on the card (which took {t_plain * 1e3:.1f} ms); "
             f"Eq. 2 verified; streamed words {rep.total_hbm_words} = "
             f"{plan_words // BATCH} x {BATCH}")
+    # the main path: the same nets through run()'s default, the fused
+    # backend (one CUDA graph a shape), and ResNet-50 served over it
+    fused_launches = drive_fused(torch, nets, params, images, logits,
+                                 reports, launches, record)
     total_launches = {}
-    for per in launches.values():
+    for per in fused_launches.values():
         for k, v in per.items():
             total_launches[k] = total_launches.get(k, 0) + v
+    launches.update({f"{n} fused": v for n, v in fused_launches.items()})
+    serve_cnn(torch, np, nets[SERVE_NET], params[SERVE_NET],
+              fused_launches[SERVE_NET], dev, record)
     fpath = float_path(comps, select_engine)
     launches["float matmul"], float_inputs = drive_float_matmul(
         torch, g, dev, fpath, block_for, record)
@@ -2094,16 +2356,27 @@ def main():
                for k, d in per.items() if d}
          for net, per in per_net.items()} for times in (per_launch, per_call))
 
+    def host_ms(fn, n):
+        """ms of each of ``n`` calls on the host's clock, each ending in a
+        synchronise."""
+        out = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t) * 1e3)
+        return out
+
     e2e = {}
     for name, comp in nets.items():
         run = lambda: ex[name].run(params[name], images[name])  # noqa: E731
-        times = []
-        for _ in range(7):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            run()
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t) * 1e3)
+        # eager and fused in turns, so both see the same card and host
+        times, fused_t = [], []
+        for _ in range(2):
+            times += host_ms(run, 4)
+            fused_t += host_ms(lambda: comp.run(params[name], images[name]),
+                               4)
         plain_t = []
         for _ in range(2):
             torch.cuda.synchronize()
@@ -2122,17 +2395,27 @@ def main():
                                  f"differ from the eager run's")
         dev_ms = event_ms(torch, graph.replay, 10) / 10
         ms = statistics.median(times[1:])
+        fused_ms = statistics.median(fused_t)
+        split = fused_host_split(torch, comp, params[name], images[name])
         e2e[name] = {"ms_per_forward": ms, "images_per_s": BATCH / ms * 1e3,
                      "device_ms_per_forward": dev_ms,
                      "idle_share": 1 - dev_ms / ms,
+                     "fused_ms_per_forward": fused_ms,
+                     "fused_images_per_s": BATCH / fused_ms * 1e3,
+                     "fused_idle_share": 1 - dev_ms / fused_ms,
                      "plain_ms_per_forward": statistics.median(plain_t),
-                     "runs_ms": times}
-        log("time", f"{name} batch {BATCH}: {ms:.3f} ms per forward "
-            f"(warm median of {len(times) - 1}), "
-            f"{BATCH / ms * 1e3:.1f} images/s; device {dev_ms:.3f} ms "
-            f"(card idle {100 * (1 - dev_ms / ms):.0f}% of the forward); "
-            f"plain path {e2e[name]['plain_ms_per_forward']:.3f} ms  "
-            f"[{card}]")
+                     "runs_ms": times, "fused_runs_ms": fused_t,
+                     "fused_host_split": split}
+        log("time", f"{name} batch {BATCH}: eager {ms:.3f} ms per forward "
+            f"(warm median of {len(times) - 1}), fused {fused_ms:.3f} ms "
+            f"(median of {len(fused_t)}), {BATCH / fused_ms * 1e3:.1f} "
+            f"images/s fused; device {dev_ms:.3f} ms (card idle "
+            f"{100 * (1 - dev_ms / ms):.0f}% of the eager forward, "
+            f"{100 * (1 - dev_ms / fused_ms):.0f}% of the fused one); "
+            f"plain path {e2e[name]['plain_ms_per_forward']:.3f} ms; fused "
+            f"split (ms to return / to synchronised): " + ", ".join(
+                f"{k} {split[k + '_return_ms']:.3f} / {split[k + '_ms']:.3f}"
+                for k in ("run", "fn", "replay")) + f"  [{card}]")
     record["end_to_end"] = e2e
     time_lm(torch, lm, card, record)
     del lm

@@ -26,24 +26,40 @@ modules, so both packages make the same decisions):
                        ``target.vmem_bytes``; a pinned layer that does not
                        fit is re-placed to the HBM tier when its streamed
                        working set does, and layers that fit in neither
-                       tier abort with :class:`TargetBudgetError`.
+                       tier abort with :class:`TargetBudgetError`;
+  6. **trace**         per (input shape, dtype, device, act_scale) and, on
+                       the card, per params: the whole engine table walked
+                       over ``models.cnn.cnn_forward`` once more and
+                       captured into ONE ``torch.cuda.CUDAGraph``, so a
+                       warm ``run()`` is a single graph replay, not a
+                       Python walk over ~50 kernel launches.  The capture
+                       also yields the run's :class:`LayerExecStats`, the
+                       template every warm run's report is built from.
+                       Traces live in a bounded LRU on the pipeline
+                       (``trace_cache_size``).  On the CPU the "trace" is
+                       the eager walk itself.
 
 The result is immutable and reusable: ``CompiledPipeline.run()`` executes
-it eagerly, engine by engine, on the card by default
-(``repro_torch.runtime.pipeline``); ``engine_table()``/``vmem_report()``/
-``block_table()`` expose the decisions, ``with_offload()`` recompiles
-with a forced offload set, ``eq2_report().verify()`` cross-checks the
-plan's Eq. 2 words against what the engines report.
+it, on the card by default (``repro_torch.runtime.pipeline``), through the
+fused trace unless ``backend="eager"`` asks for the walk;
+``engine_table()``/``vmem_report()``/``block_table()`` expose the
+decisions, ``with_offload()`` recompiles with a forced offload set,
+``eq2_report().verify()`` cross-checks the plan's Eq. 2 words against
+what the engines report, ``serve()`` starts a CNN serving engine.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import functools
+import threading
 import time
+from collections import OrderedDict
 from dataclasses import dataclass
 from typing import (Any, Callable, Dict, List, Optional, Sequence, Tuple,
                     Union)
+
+import torch
 
 from repro_torch.compiler.engines import (  # noqa: F401 (re-export)
     EngineContext, LayerExecStats, get_engine, select_block_engine,
@@ -54,6 +70,8 @@ from repro_torch.configs.cnn import (CNNConfig, ResBlockSpec, StemUnitSpec,
 from repro_torch.core import fifo_sim, hbm_model, placement
 from repro_torch.core.schedule import (HBM, PINNED, LayerSchedule,
                                        PipelinePlan, detect_scan_groups)
+from repro_torch.kernels import _build
+from repro_torch.models.cnn import cnn_forward
 from repro_torch.obs.metrics import default_registry
 
 
@@ -154,6 +172,67 @@ class ScanGroupAssignment:
 
 
 @dataclass(frozen=True)
+class FusedTrace:
+    """One stage-6 artifact: the executable for a concrete input shape
+    (on the card a captured CUDA graph, on the CPU the eager walk) plus
+    the stats template its trace produced."""
+
+    fn: Callable                  # (params, images) -> logits
+    stats: Tuple[LayerExecStats, ...]
+
+
+class _TraceCache:
+    """The stage-6 trace cache: a bounded LRU keyed by (input shape,
+    dtype, device, act_scale, params on the card) with hit/miss/eviction
+    counters.
+
+    ``get_or_create`` holds the lock across the whole check-create-insert
+    sequence — a SINGLE critical section, not double-checked locking, so
+    two threads missing on one key never both trace (the loser's work
+    would be thrown away, or interleave with the eviction bookkeeping).
+    Tracing under the lock serializes captures per pipeline, which is
+    what ``run()`` wants: concurrent first calls on one shape share ONE
+    trace.  An evicted entry is dropped here: its graph goes with its
+    last holder, and the next capture empties the allocator's cache,
+    which frees the graph's private pool."""
+
+    def __init__(self, max_entries: int):
+        if max_entries < 1:
+            raise ValueError(f"trace cache needs >= 1 entry, "
+                             f"got {max_entries}")
+        self.max_entries = max_entries
+        self._entries: "OrderedDict[Any, Any]" = OrderedDict()
+        self._lock = threading.Lock()
+        self.hits = 0
+        self.misses = 0
+        self.evictions = 0
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def get_or_create(self, key, factory: Callable[[], Any]):
+        with self._lock:
+            hit = self._entries.get(key)
+            if hit is not None:
+                self.hits += 1
+                self._entries.move_to_end(key)
+                return hit
+            self.misses += 1
+            value = self._entries[key] = factory()
+            while len(self._entries) > self.max_entries:
+                self._entries.popitem(last=False)
+                self.evictions += 1
+            return value
+
+    def stats(self) -> Dict[str, int]:
+        with self._lock:
+            return {"entries": len(self._entries),
+                    "max_entries": self.max_entries,
+                    "hits": self.hits, "misses": self.misses,
+                    "evictions": self.evictions}
+
+
+@dataclass(frozen=True)
 class CompiledPipeline:
     """An executable, validated pipeline: plan + engine bindings + target."""
 
@@ -163,6 +242,18 @@ class CompiledPipeline:
     replaced: Tuple[str, ...] = ()    # layers stage 5 moved pin -> stream
     block_assignments: Tuple[BlockAssignment, ...] = ()
     scan_assignments: Tuple[ScanGroupAssignment, ...] = ()
+    #: bound on distinct stage-6 traces held live (LRU beyond it); see
+    #: ``trace_cache_stats``.
+    trace_cache_size: int = 8
+
+    def __post_init__(self):
+        # the stage-6 trace cache is created EAGERLY (not via
+        # cached_property, whose lazy first evaluation races on
+        # Python >= 3.12) so concurrent run()s on a fresh pipeline
+        # always see the same cache and the same lock.  Frozen
+        # dataclasses permit object.__setattr__ into __dict__.
+        object.__setattr__(self, "_fused_cache",
+                           _TraceCache(self.trace_cache_size))
 
     # -- introspection ------------------------------------------------------
 
@@ -275,21 +366,32 @@ class CompiledPipeline:
         that exceeds the target's working-set budget raises
         :class:`TargetBudgetError` instead of silently streaming."""
         return finalize(self.plan.with_offload(names), self.target,
-                        replace=False)
+                        replace=False,
+                        trace_cache_size=self.trace_cache_size)
 
     # -- execution ----------------------------------------------------------
 
     def executor(self, *, device="cuda", act_scale: float = 0.05,
-                 backend: str = "eager"):
+                 backend: str = "fused"):
         from repro_torch.runtime.pipeline import PipelineExecutor
         return PipelineExecutor(self, device=device, act_scale=act_scale,
                                 backend=backend)
 
-    def run(self, params, images, *, device="cuda", backend: str = "eager"):
+    def run(self, params, images, *, device="cuda", backend: str = "fused"):
         """One-shot: (logits, ExecutionReport) for ``images``, on
         ``device`` (the card unless the caller asks for the CPU)."""
         return self.executor(device=device,
                              backend=backend).run(params, images)
+
+    def serve(self, params, *, microbatch: int = 8, credits: int = 4, **kw):
+        """Continuous-streaming serving over this pipeline: a
+        :class:`~repro_torch.runtime.cnn_serving.CnnServingEngine` packing
+        mixed-size requests into ``microbatch``-shaped fused dispatches,
+        at most ``credits`` microbatches in flight (§V-A).  Use as a
+        context manager, or call ``.start()``."""
+        from repro_torch.runtime.cnn_serving import CnnServingEngine
+        return CnnServingEngine(self, params, microbatch=microbatch,
+                                credits=credits, **kw)
 
     # -- Eq. 2 template + hard-fail cross-check -----------------------------
 
@@ -344,6 +446,58 @@ class CompiledPipeline:
                               scan_assignments=self.scan_assignments)
         rep.layers.extend(self.stats_template(batch))
         return rep
+
+    # -- stage 6: the fused whole-pipeline trace ----------------------------
+    # _fused_cache: a bounded-LRU :class:`_TraceCache`, created in
+    # __post_init__ so it lives with the pipeline and every executor (and
+    # thread) shares the captures.
+
+    @property
+    def trace_count(self) -> int:
+        """How many distinct traces stage 6 holds LIVE — a warm shape must
+        NOT retrace (tested); bounded by ``trace_cache_size`` (LRU beyond
+        it)."""
+        return len(self._fused_cache)
+
+    def trace_cache_stats(self) -> Dict[str, int]:
+        """Stage-6 trace cache counters: ``entries`` / ``max_entries`` /
+        ``hits`` / ``misses`` / ``evictions``.  Surfaced by
+        :class:`~repro_torch.runtime.cnn_serving.ServingReport` so serving
+        exposes whether its shape population thrashes the bound."""
+        return self._fused_cache.stats()
+
+    def fused_trace(self, params, images, *,
+                    act_scale: float) -> FusedTrace:
+        """The stage-6 artifact for this input: on the card one CUDA
+        graph of the whole engine table over ``cnn_forward``, bound to
+        ``params`` (the graph holds their addresses), plus the stats
+        template collected while capturing it.  Cached in a bounded LRU
+        (``trace_cache_size`` entries); the fill is ONE critical section,
+        so concurrent ``run()``\\ s on one pipeline share a single
+        capture."""
+        return self.fused_trace_and_first(params, images, act_scale)[0]
+
+    def fused_trace_and_first(self, params, images, act_scale: float):
+        """(trace, logits): the logits of the forward a miss's trace ran
+        on ``images`` (checked against the eager walk on the card), or
+        None on a hit, so the first run of a shape does not run twice."""
+        leaves = _params_leaves(params) if images.is_cuda else ()
+        key = (tuple(images.shape), str(images.dtype), str(images.device),
+               act_scale, tuple(t.data_ptr() for t in leaves))
+        first = None
+
+        def _traced():
+            nonlocal first
+            with _pass_timer("trace_fused"):
+                trace, first = trace_fused(self, params, images,
+                                           act_scale=act_scale)
+            return trace
+
+        out = self._fused_cache.get_or_create(key, _traced)
+        reg = default_registry()
+        for k, v in self._fused_cache.stats().items():
+            reg.gauge("compile_trace_cache", counter=k).set(v)
+        return out, first
 
 
 @dataclass
@@ -527,14 +681,16 @@ def plan_pipeline(cfg: CNNConfig, target: Target) -> PipelinePlan:
 
 
 def finalize(plan: PipelinePlan, target: Optional[Target], *,
-             replace: bool = True, scan: bool = True) -> CompiledPipeline:
+             replace: bool = True, scan: bool = True,
+             trace_cache_size: int = 8) -> CompiledPipeline:
     """Stages 4-5 over an existing plan: bind every layer to a registered
     engine, then enforce the target's working-set budget — re-placing pinned
     layers whose working set only fits when streamed, and raising
     :class:`TargetBudgetError` for layers that fit in neither tier.
 
     ``scan=False`` disables scan-group binding (every block then runs
-    as its own unit).
+    as its own unit).  ``trace_cache_size`` bounds the stage-6 LRU trace
+    cache.
 
     Re-placement respects Algorithm 1's hard feasibility constraint: a
     move consumes the layer's ``p_i * p_o`` tensor-chain feeds from the
@@ -689,7 +845,8 @@ def finalize(plan: PipelinePlan, target: Optional[Target], *,
                             assignments=tuple(assignments),
                             replaced=tuple(moved),
                             block_assignments=tuple(blocks),
-                            scan_assignments=tuple(scans))
+                            scan_assignments=tuple(scans),
+                            trace_cache_size=trace_cache_size)
 
 
 def make_dispatchers(compiled: CompiledPipeline, ctx: EngineContext,
@@ -745,10 +902,128 @@ def make_dispatchers(compiled: CompiledPipeline, ctx: EngineContext,
     return dispatch, block_dispatch, scan_dispatch
 
 
+def walk(compiled: CompiledPipeline, params, images, *, act_scale: float,
+         collect: Optional[List[LayerExecStats]]):
+    """The eager walk: ``cnn_forward`` over the compile-time bindings,
+    each engine launching its kernels from Python, stats appended to
+    ``collect``."""
+    ctx = EngineContext(act_scale=act_scale)
+    dispatch, block_dispatch, scan_dispatch = make_dispatchers(
+        compiled, ctx, collect)
+    return cnn_forward(params, compiled.plan.cfg, images, engine=dispatch,
+                       block_engine=block_dispatch,
+                       scan_engine=scan_dispatch)
+
+
+def _params_leaves(params) -> Tuple[torch.Tensor, ...]:
+    """Every tensor of a CNN params tree, in the tree's order."""
+    return tuple(t for layer in params.values() for t in layer.values())
+
+
+# captures one at a time in the process: each on a stream of its own,
+# relaxed, so other threads' CUDA calls (a completer's copies) may go on
+_CAPTURE_LOCK = threading.Lock()
+
+
+class _GraphTrace:
+    """A forward captured as one CUDA graph: static input, static output,
+    the params it was captured with (held, so no freed address is reused
+    under a live graph) and the launches the capture recorded.
+
+    A call copies the images into the static input, replays, and returns
+    a clone of the static output, so a later call never overwrites logits
+    a caller holds; ``params`` is not read, since the trace key names the
+    captured ones.  Calls are serialised per trace under a lock, and a
+    caller's stream first waits on the previous call's event, since the
+    static buffers are shared by every stream that replays them."""
+
+    def __init__(self, graph, static_in, static_out, leaves, launches):
+        self.graph = graph
+        self.static_in = static_in
+        self.static_out = static_out
+        self.leaves = leaves
+        self.launches = launches
+        self._lock = threading.Lock()
+        self._done = torch.cuda.Event()
+
+    def __call__(self, params, images):
+        if images.shape != self.static_in.shape \
+                or images.dtype != self.static_in.dtype \
+                or images.device != self.static_in.device:
+            raise ValueError(
+                f"trace captured for {tuple(self.static_in.shape)} "
+                f"{self.static_in.dtype} on {self.static_in.device}, got "
+                f"{tuple(images.shape)} {images.dtype} on {images.device}")
+        stream = torch.cuda.current_stream(images.device)
+        with self._lock:
+            stream.wait_event(self._done)
+            self.static_in.copy_(images)
+            self.graph.replay()
+            out = self.static_out.clone()
+            self._done.record(stream)
+        _build.count_replay(self.launches)
+        return out
+
+
+def trace_fused(compiled: CompiledPipeline, params, images, *,
+                act_scale: float):
+    """Stage 6 for this input: ``(FusedTrace, logits)``.
+
+    On the card: one eager forward first (every kernel built and its
+    shared-memory attribute set before capture), then the walk captured
+    into ONE ``torch.cuda.CUDAGraph`` over a static input of the images'
+    shape (``capture_error_mode="relaxed"``: the launchers query the
+    device and set attributes as they launch), with the stats of that
+    capture as the template every warm run reports; a first replay on
+    ``images`` must equal the eager forward bit for bit.  A failed
+    capture or replay raises: nothing falls back to the eager walk.
+
+    On the CPU the trace is the eager walk: it runs once here, on
+    ``images``, for its stats, and its logits serve the call that asked.
+    """
+    stats: List[LayerExecStats] = []
+    if not images.is_cuda:
+        logits = walk(compiled, params, images, act_scale=act_scale,
+                      collect=stats)
+
+        def fn(p, x):
+            return walk(compiled, p, x, act_scale=act_scale, collect=None)
+        return FusedTrace(fn=fn, stats=tuple(stats)), logits
+
+    dev = images.device
+    with torch.cuda.device(dev):
+        eager = walk(compiled, params, images, act_scale=act_scale,
+                     collect=None)
+        static_in = images.clone()
+        graph = torch.cuda.CUDAGraph()
+        with _CAPTURE_LOCK:
+            torch.cuda.synchronize(dev)
+            # an evicted trace's private pool is freed only now, so that
+            # churning through shapes keeps device memory bounded
+            torch.cuda.empty_cache()
+            with _build.capturing_launches() as launches:
+                with torch.cuda.graph(graph, stream=torch.cuda.Stream(dev),
+                                      capture_error_mode="relaxed"):
+                    static_out = walk(compiled, params, static_in,
+                                      act_scale=act_scale, collect=stats)
+        runner = _GraphTrace(graph, static_in, static_out,
+                             _params_leaves(params), dict(launches))
+        logits = runner(params, images)
+        if not torch.equal(logits, eager):
+            raise RuntimeError(
+                "the captured forward's replay differs from the eager walk "
+                f"for input {tuple(images.shape)}")
+    return FusedTrace(fn=runner, stats=tuple(stats)), logits
+
+
 def compile(cfg: CNNConfig, target: Target = NX2100, *,
-            scan: bool = True) -> CompiledPipeline:
+            scan: bool = True, trace_cache_size: int = 8
+            ) -> CompiledPipeline:
     """Compile a CNN for a target: passes 1-5 up front, validated and
-    executable.  ``scan=False`` binds no scan groups."""
+    executable; the stage-6 fused trace is made (and cached) per input on
+    first ``run()``.  ``scan=False`` binds no scan groups;
+    ``trace_cache_size`` bounds the stage-6 LRU trace cache."""
     plan = plan_pipeline(cfg, target)
     with _pass_timer("finalize"):
-        return finalize(plan, target, scan=scan)
+        return finalize(plan, target, scan=scan,
+                        trace_cache_size=trace_cache_size)

@@ -17,6 +17,7 @@ starts one ``nvcc`` per source at once and waits for all of them.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -38,8 +39,13 @@ _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 
 #: Launches per kernel since the last :func:`reset_launches`.  Each wrapper
-#: adds one where it launches its kernel, and nowhere else.
+#: adds one where it launches its kernel, and nowhere else; a CUDA graph's
+#: replay adds the launches its capture recorded (:func:`count_replay`).
 LAUNCHES: Dict[str, int] = {}
+_count_lock = threading.Lock()
+# the launches a thread records into a CUDA graph being captured: capture
+# records kernels without running them, so they count at each replay
+_capture = threading.local()
 
 
 def _nvcc() -> str:
@@ -118,11 +124,36 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def count_launch(kernel: str) -> None:
-    LAUNCHES[kernel] = LAUNCHES.get(kernel, 0) + 1
+    sink = getattr(_capture, "sink", None)
+    if sink is not None:
+        sink[kernel] = sink.get(kernel, 0) + 1
+        return
+    with _count_lock:
+        LAUNCHES[kernel] = LAUNCHES.get(kernel, 0) + 1
+
+
+@contextlib.contextmanager
+def capturing_launches():
+    """While a CUDA graph is captured on this thread: the launches its
+    wrappers make go into the yielded dict, not into :data:`LAUNCHES`."""
+    sink: Dict[str, int] = {}
+    _capture.sink = sink
+    try:
+        yield sink
+    finally:
+        _capture.sink = None
+
+
+def count_replay(launches: Dict[str, int]) -> None:
+    """One replay of a captured graph: its recorded launches count."""
+    with _count_lock:
+        for kernel, n in launches.items():
+            LAUNCHES[kernel] = LAUNCHES.get(kernel, 0) + n
 
 
 def reset_launches() -> None:
-    LAUNCHES.clear()
+    with _count_lock:
+        LAUNCHES.clear()
 
 
 def runs_plain(x) -> bool:

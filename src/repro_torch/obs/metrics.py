@@ -1,25 +1,36 @@
-"""Labelled histogram registry with a ``snapshot()`` dict.
+"""Labelled counter/gauge/histogram registry with a ``snapshot()`` dict.
 
-The part of the JAX package's ``obs/metrics.py`` that ``compile()`` uses:
-each pass records its wall seconds into the process-wide
-:func:`default_registry` as ``compile_pass_seconds{pass=<name>}``.
+The numeric companion to :mod:`repro_torch.obs.trace`: where the tracer
+answers *when* (a timeline of one serving interval), the registry
+answers *how much* (monotone totals, point-in-time levels, bounded
+distributions) — cheap enough to stay always-on, serializable as one
+plain dict so reports and benchmark artifacts can embed it.
 
+  * :class:`Counter` — monotone float total (``inc``);
+  * :class:`Gauge` — last-write-wins level (``set``/``inc``);
   * :class:`Histogram` — exact ``count``/``sum``/``min``/``max`` over
     the full lifetime plus nearest-rank percentiles over a bounded
-    window of the most recent ``window`` observations.
+    window of the most recent ``window`` observations (a long-lived
+    server must not grow without bound — same policy as the serving
+    engines' METRIC_WINDOW deques).
 
 Instruments are identified by ``(name, sorted labels)``; getting an
 existing key returns the SAME instrument, so call sites never cache
-handles.  All operations are thread-safe.
+handles.  All operations are thread-safe.  Registries are cheap — each
+serving engine owns its own, so ``snapshot()`` is engine-local; the
+module-level :func:`default_registry` collects cross-cutting compiler
+timings (``compile()`` per-pass wall seconds, trace-cache state) where
+no engine exists to own them.
 """
 from __future__ import annotations
 
 import math
 import threading
 from collections import deque
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
-__all__ = ["Histogram", "MetricsRegistry", "default_registry"]
+__all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry",
+           "default_registry"]
 
 
 def _key(name: str, labels: Dict[str, Any]) -> str:
@@ -27,6 +38,38 @@ def _key(name: str, labels: Dict[str, Any]) -> str:
         return name
     inner = ",".join(f"{k}={labels[k]}" for k in sorted(labels))
     return f"{name}{{{inner}}}"
+
+
+class Counter:
+    """Monotone total."""
+
+    def __init__(self, key: str, lock: threading.Lock):
+        self.key = key
+        self._lock = lock
+        self.value = 0.0
+
+    def inc(self, n: float = 1.0) -> None:
+        if n < 0:
+            raise ValueError(f"{self.key}: counters only go up (inc {n})")
+        with self._lock:
+            self.value += n
+
+
+class Gauge:
+    """Point-in-time level (last write wins)."""
+
+    def __init__(self, key: str, lock: threading.Lock):
+        self.key = key
+        self._lock = lock
+        self.value = 0.0
+
+    def set(self, v: float) -> None:
+        with self._lock:
+            self.value = float(v)
+
+    def inc(self, n: float = 1.0) -> None:
+        with self._lock:
+            self.value += n
 
 
 class Histogram:
@@ -76,13 +119,32 @@ class Histogram:
 
 
 class MetricsRegistry:
-    """Get-or-create registry of histograms; ``snapshot()`` returns a
-    JSON-safe dict suitable for report embedding."""
+    """Get-or-create registry over the three instrument kinds.  One lock
+    per instrument (shared creation lock for the maps); ``snapshot()``
+    returns a JSON-safe dict suitable for report embedding."""
 
     def __init__(self, *, histogram_window: int = 1024):
         self.histogram_window = histogram_window
         self._create = threading.Lock()
+        self._counters: Dict[str, Counter] = {}
+        self._gauges: Dict[str, Gauge] = {}
         self._histograms: Dict[str, Histogram] = {}
+
+    def counter(self, name: str, **labels: Any) -> Counter:
+        key = _key(name, labels)
+        with self._create:
+            got = self._counters.get(key)
+            if got is None:
+                got = self._counters[key] = Counter(key, threading.Lock())
+            return got
+
+    def gauge(self, name: str, **labels: Any) -> Gauge:
+        key = _key(name, labels)
+        with self._create:
+            got = self._gauges.get(key)
+            if got is None:
+                got = self._gauges[key] = Gauge(key, threading.Lock())
+            return got
 
     def histogram(self, name: str, **labels: Any) -> Histogram:
         key = _key(name, labels)
@@ -94,16 +156,25 @@ class MetricsRegistry:
             return got
 
     def snapshot(self) -> Dict[str, Any]:
-        """``{"histograms": {key: summary}}``."""
+        """One JSON-safe dict of everything:
+        ``{"counters": {key: total}, "gauges": {key: level},
+        "histograms": {key: summary}}``."""
         with self._create:
+            counters = list(self._counters.values())
+            gauges = list(self._gauges.values())
             hists = list(self._histograms.values())
-        return {"histograms": {h.key: h.summary() for h in hists}}
+        return {
+            "counters": {c.key: c.value for c in counters},
+            "gauges": {g.key: g.value for g in gauges},
+            "histograms": {h.key: h.summary() for h in hists},
+        }
 
 
 _DEFAULT = MetricsRegistry()
 
 
 def default_registry() -> MetricsRegistry:
-    """The process-wide registry for producers with no engine to own a
-    registry (``compile()`` pass timings)."""
+    """The process-wide registry for cross-cutting producers with no
+    engine to own a registry (``compile()`` pass timings, trace-cache
+    instrumentation)."""
     return _DEFAULT

@@ -6,11 +6,21 @@ fused residual block), which registered
 its weights are pinned on chip or stream from HBM; this module executes
 a CNN under that :class:`CompiledPipeline`.
 
-Only the eager walk exists: ``models.cnn.cnn_forward`` offers every node
-to the ``engine``/``block_engine``/``scan_engine`` hooks and each engine
-launches its CUDA kernels from Python.  ``backend="fused"`` (one captured
-program per input shape in the JAX package) raises until it has a CUDA
-graph counterpart.
+Two backends:
+
+``backend="fused"`` (default)
+    The stage-6 path: on the card the whole engine table is walked over
+    ``models.cnn.cnn_forward`` once and captured into ONE CUDA graph per
+    (input shape, dtype, params), so a warm ``run()`` is a single graph
+    replay.  Traces are cached on the ``CompiledPipeline`` (shared across
+    executors and threads, bounded LRU); each run's report is the
+    capture's stats template.  On the CPU the trace is the eager walk.
+
+``backend="eager"``
+    The per-layer walk: ``cnn_forward`` offers every node to the
+    ``engine``/``block_engine``/``scan_engine`` hooks and each engine
+    launches its CUDA kernels from Python.  Bit-identical to the fused
+    path.
 
 Device: the executor runs on the card (``device="cuda"``) unless the
 caller asks for the CPU, where every engine runs its kernel's plain
@@ -26,18 +36,18 @@ from typing import Dict, Tuple, Union
 
 import torch
 
-from repro_torch.compiler.engines import EngineContext, LayerExecStats
+from repro_torch.compiler.engines import LayerExecStats
 from repro_torch.compiler.pipeline import (CompiledPipeline, ExecutionReport,
-                                           finalize, make_dispatchers)
+                                           finalize, walk)
 from repro_torch.core.schedule import PipelinePlan
-from repro_torch.models.cnn import cnn_forward, init_cnn_params
+from repro_torch.models.cnn import init_cnn_params
 
 __all__ = ["PipelineExecutor", "ExecutionReport", "LayerExecStats",
            "execute_cnn"]
 
 Params = Dict[str, Dict[str, torch.Tensor]]
 
-BACKENDS = ("eager",)
+BACKENDS = ("fused", "eager")
 
 
 def resolve_device(device) -> torch.device:
@@ -57,17 +67,17 @@ class PipelineExecutor:
     """Executes a CNN end-to-end under a :class:`CompiledPipeline`.
 
     A bare :class:`PipelinePlan` is accepted and gets engines bound on the
-    fly, without target budget enforcement."""
+    fly, without target budget enforcement.
+
+    ``backend`` picks the execution strategy: ``"fused"`` (one CUDA graph
+    per input shape, cached on the compiled pipeline) or ``"eager"`` (the
+    per-layer dispatch walk) — bit-identical by contract."""
 
     def __init__(self, compiled: Union[CompiledPipeline, PipelinePlan], *,
                  device="cuda", act_scale: float = 0.05,
-                 backend: str = "eager"):
+                 backend: str = "fused"):
         if isinstance(compiled, PipelinePlan):
             compiled = finalize(compiled, target=None)
-        if backend == "fused":
-            raise NotImplementedError(
-                "backend='fused' has no CUDA-graph counterpart yet; "
-                "use backend='eager'")
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; "
                              f"expected one of {BACKENDS}")
@@ -95,12 +105,15 @@ class PipelineExecutor:
                                  .block_assignments,
                                  scan_assignments=self.compiled
                                  .scan_assignments)
-        ctx = EngineContext(act_scale=self.act_scale)
-        dispatch, block_dispatch, scan_dispatch = make_dispatchers(
-            self.compiled, ctx, report.layers)
-        logits = cnn_forward(params, self.plan.cfg, images, engine=dispatch,
-                             block_engine=block_dispatch,
-                             scan_engine=scan_dispatch)
+        if self.backend == "fused":
+            trace, logits = self.compiled.fused_trace_and_first(
+                params, images, self.act_scale)
+            if logits is None:
+                logits = trace.fn(params, images)
+            report.layers.extend(trace.stats)     # the capture's template
+            return logits, report
+        logits = walk(self.compiled, params, images, act_scale=self.act_scale,
+                      collect=report.layers)
         return logits, report
 
     def __call__(self, params: Params, images: torch.Tensor) -> torch.Tensor:
@@ -109,7 +122,7 @@ class PipelineExecutor:
 
 def execute_cnn(plan: Union[CompiledPipeline, PipelinePlan], params: Params,
                 images: torch.Tensor, *, device="cuda",
-                backend: str = "eager"
+                backend: str = "fused"
                 ) -> Tuple[torch.Tensor, ExecutionReport]:
     """One-shot convenience: run ``images`` through ``plan``."""
     return PipelineExecutor(plan, device=device,

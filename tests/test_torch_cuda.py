@@ -750,3 +750,213 @@ def test_reduced_lm_train_step_on_card_matches_cpu(dev, tmp_path):
     for a, b in zip(hist["cuda"], hist["cpu"]):
         for key in ("loss", "grad_norm"):
             assert abs(a[key] - b[key]) <= 1e-4 * abs(b[key]), (key, a, b)
+
+
+# -- the fused backend (one CUDA graph per input) and CNN serving ------------
+
+
+def _mini_on_card(dev, name="mini_resnet18", seed=0, batch=4, **kw):
+    from repro_torch.compiler import MINI, compile
+    from repro_torch.configs import cnn
+    from repro_torch.models.cnn import cnn_input_shape, init_cnn_params
+    cfg = getattr(cnn, name)(**kw)
+    gen = torch.Generator().manual_seed(seed)
+    params = init_cnn_params(cfg, gen, dev)
+    x = torch.randint(-127, 128, cnn_input_shape(cfg, batch), generator=gen,
+                      dtype=torch.int8).to(dev)
+    return compile(cfg, MINI), params, x
+
+
+@pytest.mark.parametrize("name", ["mini_resnet18", "mini_resnet50",
+                                  "mini_mobilenet"])
+def test_fused_replay_bit_identical_to_eager(dev, name):
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    comp, params, x = _mini_on_card(dev, name)
+    variants = [comp]
+    if name == "mini_mobilenet":          # every dw layer on the HBM tier
+        dw = {s.spec.name for s in comp.schedules if s.spec.kind == "dwconv"}
+        variants.append(comp.with_offload(set(comp.streamed_names) | dw))
+    for cp in variants:
+        reset_launches()
+        eager, rep_e = cp.run(params, x, backend="eager")
+        torch.cuda.synchronize()
+        per_forward = dict(LAUNCHES)
+        first, _ = cp.run(params, x)
+        reset_launches()
+        warm, rep_f = cp.run(params, x)
+        torch.cuda.synchronize()
+        assert LAUNCHES == per_forward            # counted by the replay
+        assert torch.equal(first, eager) and torch.equal(warm, eager)
+        assert rep_f.layers == rep_e.layers
+        rep_f.verify()
+        assert cp.trace_cache_stats() == {"entries": 1, "max_entries": 8,
+                                          "hits": 1, "misses": 1,
+                                          "evictions": 0}
+
+
+def test_fused_graph_is_bound_to_its_params(dev):
+    """A graph holds its params' addresses: a second dict of the same
+    shapes gets a trace of its own and its own logits, and in-place
+    updates of the captured tensors are seen by the replay."""
+    from repro_torch.models.cnn import init_cnn_params
+    comp, params, x = _mini_on_card(dev)
+    other = init_cnn_params(comp.cfg, torch.Generator().manual_seed(1), dev)
+    a, _ = comp.run(params, x)
+    b, _ = comp.run(other, x)
+    assert comp.trace_count == 2
+    assert torch.equal(b, comp.run(other, x, backend="eager")[0])
+    assert not torch.equal(a, b)
+    with torch.no_grad():
+        for layer in params.values():
+            layer["w"].copy_(torch.flip(layer["w"], dims=[0]))
+    c, _ = comp.run(params, x)
+    assert comp.trace_count == 2
+    assert torch.equal(c, comp.run(params, x, backend="eager")[0])
+    assert not torch.equal(c, a)
+
+
+def test_fused_logits_survive_later_runs(dev):
+    comp, params, x = _mini_on_card(dev)
+    first, _ = comp.run(params, x)
+    kept = first.clone()
+    for _ in range(3):
+        comp.run(params, torch.flip(x, dims=[0]))
+    torch.cuda.synchronize()
+    assert torch.equal(first, kept)
+
+
+def test_fused_concurrent_runs_on_separate_streams(dev):
+    """4 threads, each on a stream of its own, replaying the same traces:
+    bit-identical logits and separate reports."""
+    import threading
+    comp, params, x = _mini_on_card(dev)
+    per_image = sum(comp.plan.hbm_words_per_image().values())
+    want = comp.run(params, x, backend="eager")[0]
+    comp.run(params, x)
+    comp.run(params, x[:2])
+    results, errors = {}, []
+
+    def worker(i):
+        try:
+            batch = 4 if i % 2 else 2
+            with torch.cuda.stream(torch.cuda.Stream(dev)):
+                outs = [comp.run(params, x[:batch]) for _ in range(8)]
+                torch.cuda.current_stream().synchronize()
+            results[i] = (batch, outs)
+        except Exception as e:            # surfaced below
+            errors.append(e)
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+        assert not t.is_alive()
+    assert not errors, errors
+    for batch, outs in results.values():
+        for logits, rep in outs:
+            assert torch.equal(logits, want[:batch])
+            assert rep.images == batch
+            assert rep.total_hbm_words == batch * per_image
+    assert comp.trace_count == 2
+
+
+def test_fused_eviction_frees_device_memory(dev):
+    """Churning twice through 3 x trace_cache_size batch sizes (every run
+    a miss that evicts): evicted graphs and their private pools go, so
+    the second churn reserves no more device memory than the first."""
+    from repro_torch.compiler import MINI, compile
+    comp, params, x = _mini_on_card(dev, batch=16, hw=32, width=32)
+    comp = compile(comp.cfg, MINI, trace_cache_size=2)
+    sizes = range(11, 17)
+    want = comp.run(params, x, backend="eager")[0]
+    reserved = []
+    for _ in range(2):
+        for b in sizes:
+            got, _ = comp.run(params, x[:b])
+            assert torch.equal(got, want[:b])
+        torch.cuda.synchronize()
+        reserved.append(torch.cuda.memory_reserved(dev))
+    stats = comp.trace_cache_stats()
+    assert stats["entries"] == 2 and stats["misses"] == 12
+    assert stats["evictions"] == 10
+    assert reserved[1] <= reserved[0], reserved
+
+
+def test_served_logits_bit_identical_to_eager_with_midserve_capture(dev):
+    import numpy as np
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    comp, params, x = _mini_on_card(dev, hw=8, width=16, stages=4)
+    rng = np.random.default_rng(0)
+    shape = tuple(x.shape[1:])
+    reqs = [rng.integers(-127, 128, size=(n,) + shape, dtype=np.int8)
+            for n in (1, 3, 2, 5, 1, 4, 2, 6, 3, 1)]
+
+    def eager(r):
+        return comp.run(params, torch.from_numpy(r).to(dev),
+                        backend="eager")[0].cpu().numpy()
+
+    reset_launches()
+    comp.run(params, x[:4], backend="eager")
+    torch.cuda.synchronize()
+    per_forward = dict(LAUNCHES)
+    comp.run(params, x[:4])
+    reset_launches()
+    with comp.serve(params, microbatch=4, credits=2) as eng:
+        outs, rep = eng.serve(reqs)
+    torch.cuda.synchronize()
+    assert LAUNCHES == {k: v * rep.microbatches
+                        for k, v in per_forward.items()}
+    for got, r in zip(outs, reqs):
+        assert np.array_equal(got, eager(r))
+    assert eng.admission.max_in_flight_seen <= 2
+    assert comp.trace_count == 1
+    # the adaptive ladder: a burst, then the 1- and 2-row rungs captured
+    # on the dispatcher thread mid-serve
+    with comp.serve(params, microbatch=4, credits=2, adaptive=True) as eng:
+        burst = [eng.submit(r) for r in reqs]
+        eng.drain(timeout=300)
+        singles = [eng.submit(reqs[0]).result(timeout=300),
+                   eng.submit(reqs[2]).result(timeout=300)]
+        rep = eng.report()
+    for h, r in zip(burst, reqs):
+        assert np.array_equal(h.result(), eager(r))
+    for got, r in zip(singles, [reqs[0], reqs[2]]):
+        assert np.array_equal(got, eager(r))
+    assert {"1", "2"} <= set(rep.microbatch_shapes)
+    assert comp.trace_count == 3
+
+
+def test_fused_capture_failure_raises(dev):
+    """An engine that syncs with the host cannot be captured: run() raises
+    and caches nothing; nothing falls back to the eager walk.  Last in
+    the file, since a failed capture may leave the context unusable."""
+    from repro_torch.compiler import get_engine, register_engine
+    from repro_torch.compiler import unregister_engine
+    comp, params, x = _mini_on_card(dev)
+    builtin = get_engine("stream_matmul")
+
+    @register_engine("fc_sync", priority=99)
+    class SyncingFCEngine:
+        def supports(self, spec):
+            return builtin.supports(spec)
+
+        def vmem_bytes(self, spec, sched):
+            return builtin.vmem_bytes(spec, sched)
+
+        def stats(self, sched, batch):
+            return builtin.stats(sched, batch)
+
+        def run(self, ctx, sched, p, xx, relu):
+            xx.float().sum().item()               # a host sync
+            return builtin.run(ctx, sched, p, xx, relu)
+
+    try:
+        from repro_torch.compiler import MINI, compile
+        syncing = compile(comp.cfg, MINI)
+        assert syncing.engine_table()["fc"] == "fc_sync"
+        with pytest.raises(RuntimeError):
+            syncing.run(params, x)
+        assert syncing.trace_count == 0
+    finally:
+        assert unregister_engine("fc_sync") is not None

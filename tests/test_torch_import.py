@@ -33,6 +33,8 @@ def test_import_with_jax_blocked():
         import repro_torch.optim.adamw, repro_torch.runtime.trainer
         import repro_torch.ckpt.checkpoint, repro_torch.data.pipeline
         import repro_torch.launch.train
+        import repro_torch.runtime.cnn_serving, repro_torch.obs.trace
+        import repro_torch.obs.stall, repro_torch.obs.metrics
         bad = sorted(m for m in sys.modules
                      if m in ("jax", "repro") or m.startswith(("jax.",
                                                                "repro.")))
@@ -143,12 +145,26 @@ def test_unported_archs_raise():
 
 
 def test_fused_backend_raises():
+    """The fused backend is the default and runs on the CPU (its trace is
+    the eager walk there); an unknown backend, and images on another
+    device than the executor's, raise."""
     from repro_torch.compiler import MINI, compile
     from repro_torch.configs.cnn import mini_resnet18
+    from repro_torch.models.cnn import cnn_input_shape, init_cnn_params
     from repro_torch.runtime.pipeline import PipelineExecutor
-    with pytest.raises(NotImplementedError):
-        PipelineExecutor(compile(mini_resnet18(), MINI), device="cpu",
-                         backend="fused")
+    cfg = mini_resnet18(hw=8, width=16)
+    comp = compile(cfg, MINI)
+    params = init_cnn_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    x = torch.zeros(cnn_input_shape(cfg, 1), dtype=torch.int8)
+    ex = PipelineExecutor(comp, device="cpu")
+    assert ex.backend == "fused"
+    fused, _ = ex.run(params, x)
+    eager, _ = comp.run(params, x, device="cpu", backend="eager")
+    assert torch.equal(fused, eager) and comp.trace_count == 1
+    with pytest.raises(ValueError, match="backend"):
+        PipelineExecutor(comp, device="cpu", backend="rtl")
+    with pytest.raises(ValueError, match="executor"):
+        ex.run(params, x.to("meta"))
 
 
 def test_cpu_tensors_take_the_plain_version_only():
