@@ -65,6 +65,25 @@ it is run outside a checkout of the repository.  Phases, one line each:
      traced interval beside the ceiling of 8 images a replay of the
      forward's graph; then the adaptive ladder (1, 2, 4, 8) at light
      load, its rungs captured mid-serve, bit-identical.
+     The autotuned compile path (``[autotune]`` lines): ResNet-50 and
+     VGG-16 through ``compile(cfg, NX2100, autotune=True)`` (the default
+     ``AutotuneConfig()``; the host search runs in a thread beside the
+     build), each search's ``summary()`` and host seconds, the streamed
+     sets and knobs equal to ``TUNED``; both tuned nets then run through
+     every step above beside the greedy nets (plain path, eager, fused:
+     bit-identical; Eq. 2 verified; K2 launches equal to the streamed
+     convs K2's engines own).  Tuned ResNet-50 is served at its tuned
+     credits (``cp.serve(microbatch=8)``, no ``credits``), the same 64
+     requests and checks.  Then the front end (``[frontend]`` lines):
+     ``MultiTenantFrontEnd`` over two engines on the card, tuned ResNet-50
+     and MobileNetV2 as compiled (``queue_depth=4``, at most 8 requests
+     outstanding), four tenants (``FRONTEND_TENANTS``) fed by 4 producer
+     threads: every request bit-identical to the eager ``run()`` of its
+     images; the credit bounds held and quiescent; under backlog the
+     ResNet-50 tenants' delivered images 4:1 within 20% and their Jain
+     index at least 0.95; the 0 ms deadline tenant promoted; images/s,
+     latency percentiles and deadline misses per tenant beside each
+     net's single-engine ceiling.
      Then Phi-4-mini (3.8B, full width and depth, bf16, random weights
      from seed 0) through ``ServingEngine(batch_slots=4, max_seq=1024)``:
      8 requests of 512 tokens, 16 new tokens each; exactly 64
@@ -292,6 +311,38 @@ ADAPTIVE_SIZES = (1, 2, 1, 3, 5, 8, 2)
 # a longer interval of the same traffic, for the steady state
 SERVE_STEADY_REPEATS = 8
 FUSED_WARM_RUNS = 6
+# the autotuned compile path on NX2100 with the default AutotuneConfig():
+# what the search picks (the streamed set, the burst, the burst-matching
+# and last-stage FIFO depths, the serving credits), held against the JAX
+# package's search by tests/test_torch_autotune.py, and the streamed
+# convs K2's engines own (VGG-16's fc0 runs on the streamed conv)
+TUNED = {
+    "resnet50": {"streamed": ("fc", "s0b1c2", "s1b1c2", "s1b2c2", "s1b3c0",
+                              "s2b1c2", "s2b3c2", "s2b4c2", "s3b0c1",
+                              "s3b0ds", "s3b1c0", "s3b1c1", "s3b2c1"),
+                 "burst": 32, "bm_words": 128, "laststage": 1024,
+                 "credits": 4, "conv2d_int8_stream": 12},
+    "vgg16": {"streamed": ("conv11", "conv2", "conv6", "conv8", "conv9",
+                           "fc0", "fc1", "fc2"),
+              "burst": 32, "bm_words": 256, "laststage": 512,
+              "credits": 4, "conv2d_int8_stream": 6},
+}
+TUNED_SUFFIX = "_tuned"
+# the front end: tuned ResNet-50 and MobileNetV2 as compiled, one engine
+# each (microbatch BATCH, queue_depth 4); (tenant, net, weight,
+# deadline_ms); each tenant FRONTEND_REQUESTS requests of 1-8 images
+# drawn from a pool of FRONTEND_POOL per net (sizes from SEED), from one
+# producer thread each
+FRONTEND_TENANTS = (("r50_light", "resnet50" + TUNED_SUFFIX, 1.0, None),
+                    ("r50_heavy", "resnet50" + TUNED_SUFFIX, 4.0, None),
+                    ("mv2_bulk", "mobilenetv2", 8.0, None),
+                    ("mv2_rt", "mobilenetv2", 1.0, 0.0))
+FRONTEND_REQUESTS, FRONTEND_POOL = 256, 32
+FRONTEND_OUTSTANDING, FRONTEND_QUEUE = 8, 4
+FRONTEND_SHARE_TOL, FRONTEND_MIN_JAIN = 0.2, 0.95
+# the shares are read between the heavy tenant's first eighth and three
+# quarters of its images delivered (see serve_frontend)
+FRONTEND_WINDOW = (1 / 8, 3 / 4)
 
 
 def log(phase, msg):
@@ -1440,6 +1491,67 @@ def time_lm(torch, st, card, record):
         f"generated tokens/s  [{card}]")
 
 
+def start_tuning(compile, get_cnn, target):
+    """``compile(cfg, target, autotune=True)`` for each net of ``TUNED``
+    in a thread of its own (the search is host work, so it runs beside
+    the kernels' build).  Returns a function that joins the thread and
+    gives {net: (pipeline, wall seconds, the thread's CPU seconds)}, or
+    raises what the thread raised."""
+    out, errors = {}, []
+
+    def work():
+        try:
+            for name in TUNED:
+                t, cpu = time.perf_counter(), time.thread_time()
+                cp = compile(get_cnn(name), target, autotune=True)
+                out[name] = (cp, time.perf_counter() - t,
+                             time.thread_time() - cpu)
+        except BaseException as e:            # re-raised by the join
+            errors.append(e)
+
+    thread = threading.Thread(target=work, daemon=True, name="autotune")
+    thread.start()
+
+    def join():
+        thread.join()
+        if errors:
+            raise errors[0]
+        return out
+    return join
+
+
+def check_tuned(tuned, record):
+    """Each tuned pipeline against ``TUNED``: the streamed set, the
+    knobs and the serving credits the search must have picked; logs each
+    ``summary()`` and the search's host seconds."""
+    rows = {}
+    for name, (cp, wall, cpu) in tuned.items():
+        want, cand = TUNED[name], cp.tuning.candidate
+        got = {"streamed": tuple(sorted(cp.streamed_names)),
+               "burst": cand.burst, "bm_words": cand.bm_words,
+               "laststage": cand.laststage,
+               "credits": cp.tuning.serving_credits}
+        for key, value in got.items():
+            if value != want[key]:
+                raise AssertionError(f"autotune {name}: {key} {value} != "
+                                     f"{want[key]}")
+        if cp.tuning.search != type(cp.tuning.search)() or cp.replaced:
+            raise AssertionError(f"autotune {name}: {cp.tuning.search}, "
+                                 f"replaced {cp.replaced}")
+        summary = cp.tuning.summary()
+        rows[name] = {"summary": summary, "search_wall_s": wall,
+                      "search_cpu_s": cpu, "streamed": got["streamed"],
+                      "scan_table": cp.scan_table()}
+        log("autotune", f"{name}: search {wall:.1f} s on the host "
+            f"({cpu:.1f} s of the thread's CPU, beside the build); "
+            f"{len(got['streamed'])} layers streamed "
+            f"{list(got['streamed'])}; burst {cand.burst}, bm_words "
+            f"{cand.bm_words}, laststage {cand.laststage}, credits "
+            f"{got['credits']}; scan groups {json.dumps(cp.scan_table())}"
+            f"; summary {json.dumps(summary)}")
+    record["autotune"] = rows
+
+
 def drive_fused(torch, nets, params, images, logits, reports, launches,
                 record):
     """Each net through ``run()``'s default, the fused backend: the first
@@ -1517,14 +1629,26 @@ def fused_host_split(torch, comp, params, images):
     return out
 
 
-def serve_cnn(torch, np, comp, params, per_forward, dev, record):
-    """ResNet-50 served over the fused backend (``cp.serve``), then the
-    adaptive ladder at light load: every request's logits bit-identical to
-    the eager ``run()`` of its images on the card, the credit bound held,
-    one warm trace for the fixed shape, the Eq. 2 words of the images, and
-    microbatches x one forward's launches.  Records the report, the host
-    spans of a traced interval, and the ceiling of BATCH images a graph
-    replay of the forward."""
+def graph_ms(torch, comp, params, shape, dev):
+    """Device ms of one replay of the forward's graph for BATCH images of
+    ``shape`` (the trace the serving engines replay)."""
+    trace = comp.fused_trace(params, torch.zeros(
+        (BATCH,) + shape, dtype=torch.int8, device=dev), act_scale=0.05)
+    trace.fn.graph.replay()
+    return event_ms(torch, trace.fn.graph.replay, 20) / 20
+
+
+def serve_cnn(torch, np, name, comp, params, per_forward, dev, record, *,
+              credits=SERVE_CREDITS, key="serving", steady=True):
+    """A net served over the fused backend (``cp.serve``), then, with
+    ``steady``, a longer interval and the adaptive ladder at light load:
+    every request's logits bit-identical to the eager ``run()`` of its
+    images on the card, the credit bound held, one warm trace for the
+    fixed shape, the Eq. 2 words of the images, and microbatches x one
+    forward's launches.  ``credits=None`` serves at the engine's default,
+    which must be the tuned bound of an autotuned pipeline.  Records the
+    report, the host spans of a traced interval, and the ceiling of BATCH
+    images a graph replay of the forward, under ``record[key]``."""
     from repro_torch.kernels import _build
     from repro_torch.models.cnn import cnn_input_shape
     from repro_torch.obs import Tracer
@@ -1545,8 +1669,13 @@ def serve_cnn(torch, np, comp, params, per_forward, dev, record):
     tracer = Tracer()
     handles = [None] * len(reqs)
     _build.reset_launches()
-    with comp.serve(params, microbatch=BATCH, credits=SERVE_CREDITS,
-                    tracer=tracer) as eng:
+    kw = {} if credits is None else {"credits": credits}
+    with comp.serve(params, microbatch=BATCH, tracer=tracer, **kw) as eng:
+        bound = eng.admission.capacity
+        if credits is None and bound != comp.tuning.serving_credits:
+            raise AssertionError(f"serving: {bound} credits, not the tuned "
+                                 f"{comp.tuning.serving_credits}")
+
         def producer(pid):
             for i in range(pid, len(reqs), SERVE_PRODUCERS):
                 handles[i] = eng.submit(reqs[i])
@@ -1563,9 +1692,9 @@ def serve_cnn(torch, np, comp, params, per_forward, dev, record):
     torch.cuda.synchronize()
     served = dict(_build.LAUNCHES)
     eng.admission.assert_quiescent()
-    if eng.admission.max_in_flight_seen > SERVE_CREDITS:
+    if eng.admission.max_in_flight_seen > bound:
         raise AssertionError(f"serving: {eng.admission.max_in_flight_seen} "
-                             f"microbatches in flight > {SERVE_CREDITS}")
+                             f"microbatches in flight > {bound}")
     if comp.trace_count != 1:
         raise AssertionError(f"serving: {comp.trace_cache_stats()}")
     if rep.images != sum(sizes) or rep.requests != len(reqs) \
@@ -1578,10 +1707,7 @@ def serve_cnn(torch, np, comp, params, per_forward, dev, record):
     for i, (h, req) in enumerate(zip(handles, reqs)):
         check(h.result(), req, f"request {i}")
     # the ceiling: BATCH images a replay of the forward's graph
-    trace = comp.fused_trace(params, torch.zeros(
-        (BATCH,) + shape, dtype=torch.int8, device=dev), act_scale=0.05)
-    trace.fn.graph.replay()
-    graph_ms = event_ms(torch, trace.fn.graph.replay, 20) / 20
+    replay_ms = graph_ms(torch, comp, params, shape, dev)
     # the host spans of the traced interval, per name: count, total,
     # median and largest ms (the first pack waits for the first request)
     durs = {}
@@ -1593,19 +1719,21 @@ def serve_cnn(torch, np, comp, params, per_forward, dev, record):
              for k, v in durs.items()}
     be = rep.bandwidth_efficiency["measured"]
     row = {"report": rep.to_dict(), "pad_fraction": rep.pad_fraction,
-           "device_ms_per_microbatch": graph_ms,
-           "ceiling_images_per_s": BATCH / graph_ms * 1e3,
+           "device_ms_per_microbatch": replay_ms,
+           "ceiling_images_per_s": BATCH / replay_ms * 1e3,
            "host_span_ms": spans, "launches": served,
            "first_spans_ms": {k: v[:5] for k, v in durs.items()},
-           "tracer_dropped": tracer.dropped}
+           "tracer_dropped": tracer.dropped, "credits": bound}
     row["report"].pop("request_rows")
-    log("serve", f"{SERVE_NET}: {len(reqs)} requests, {rep.images} images in "
+    record[key] = row
+    log("serve", f"{name}: {len(reqs)} requests, {rep.images} images in "
         f"{rep.microbatches} microbatches of {BATCH} from "
         f"{SERVE_PRODUCERS} producers, bit-identical to the eager run() of "
         f"each; in flight <= {eng.admission.max_in_flight_seen}/"
-        f"{SERVE_CREDITS}; {rep.images_per_s:.1f} images/s against a "
+        f"{bound}{' (the tuned default)' if credits is None else ''}; "
+        f"{rep.images_per_s:.1f} images/s against a "
         f"ceiling of {row['ceiling_images_per_s']:.1f} ({BATCH} / "
-        f"{graph_ms:.4f} device ms); latency p50 {rep.p50_ms:.2f} p95 "
+        f"{replay_ms:.4f} device ms); latency p50 {rep.p50_ms:.2f} p95 "
         f"{rep.p95_ms:.2f} p99 {rep.p99_ms:.2f} ms; pad {rep.pad_fraction:.3f}"
         f"; admission wait {be['admission_wait_fraction']:.3f}, dispatch gap "
         f"{be['dispatch_gap_fraction']:.3f} of the wall ({rep.wall_s * 1e3:.1f}"
@@ -1613,6 +1741,8 @@ def serve_cnn(torch, np, comp, params, per_forward, dev, record):
             f"{k} {v['n']}, {v['total_ms']:.2f} / {v['median_ms']:.3f} / "
             f"{v['max_ms']:.3f}" for k, v in spans.items())
         + f"  [{record['card']}]")
+    if not steady:
+        return
 
     # the steady state: the same requests SERVE_STEADY_REPEATS times over,
     # from the main thread, untraced
@@ -1630,7 +1760,7 @@ def serve_cnn(torch, np, comp, params, per_forward, dev, record):
                      "admission_wait_fraction":
                          sbe["admission_wait_fraction"],
                      "dispatch_gap_fraction": sbe["dispatch_gap_fraction"]}
-    log("serve", f"{SERVE_NET} steady: the same requests x "
+    log("serve", f"{name} steady: the same requests x "
         f"{SERVE_STEADY_REPEATS} ({srep.images} images, "
         f"{srep.microbatches} microbatches) from one thread, bit-identical: "
         f"{srep.images_per_s:.1f} images/s ({srep.wall_s * 1e3:.1f} ms), "
@@ -1660,12 +1790,174 @@ def serve_cnn(torch, np, comp, params, per_forward, dev, record):
                        "images_per_s": arep.images_per_s,
                        "p50_ms": arep.p50_ms, "p99_ms": arep.p99_ms,
                        "pad_fraction": arep.pad_fraction}
-    record["serving"] = row
-    log("serve", f"{SERVE_NET} adaptive (ladder {eng.microbatch_ladder}): "
+    log("serve", f"{name} adaptive (ladder {eng.microbatch_ladder}): "
         f"{len(singles)} closed-loop requests then a burst of 16, "
         f"bit-identical; shapes used (rows: dispatches) "
         f"{json.dumps(arep.microbatch_shapes)}; trace cache "
         f"{json.dumps(arep.trace_cache)}; pad {arep.pad_fraction:.3f}")
+
+
+def serve_frontend(torch, np, nets, params, per_forward, dev, record):
+    """``MultiTenantFrontEnd`` over one engine per net of
+    ``FRONTEND_TENANTS`` on the card.  Each tenant's producer thread
+    submits FRONTEND_REQUESTS requests at once, so the backlog pools at
+    the front door.  Every request bit-identical to the eager ``run()``
+    of its images; the front end's credit bound and each engine's held,
+    quiescent at stop; launches = microbatches x a forward's, per net;
+    the ResNet-50 tenants' images delivered between two snapshots under
+    backlog in the ratio of their weights (4:1) within
+    FRONTEND_SHARE_TOL and their Jain index at least FRONTEND_MIN_JAIN;
+    the deadline tenant promoted.
+    Records per tenant images/s, latency percentiles and deadline misses
+    beside each net's ceiling."""
+    from repro_torch.core.admission import jain_fairness
+    from repro_torch.kernels import _build
+    from repro_torch.models.cnn import cnn_input_shape
+    from repro_torch.runtime.frontend import MultiTenantFrontEnd
+    from repro_torch.runtime.pipeline import PipelineExecutor
+    rng = np.random.default_rng(SEED)
+    net_names = sorted({net for _, net, _, _ in FRONTEND_TENANTS})
+    shapes = {n: cnn_input_shape(nets[n].cfg, 1)[1:] for n in net_names}
+    pools = {n: [rng.integers(-127, 128, size=(int(k),) + shapes[n],
+                              dtype=np.int8)
+                 for k in rng.integers(1, BATCH + 1, FRONTEND_POOL)]
+             for n in net_names}
+    picks = {t: rng.integers(0, FRONTEND_POOL, FRONTEND_REQUESTS)
+             for t, _, _, _ in FRONTEND_TENANTS}
+    net_of = {t: net for t, net, _, _ in FRONTEND_TENANTS}
+    engines = {n: nets[n].serve(params[n], microbatch=BATCH,
+                                queue_depth=FRONTEND_QUEUE)
+               for n in net_names}
+    fe = MultiTenantFrontEnd(engines, max_outstanding=FRONTEND_OUTSTANDING)
+    for t, net, w, deadline in FRONTEND_TENANTS:
+        fe.register_tenant(t, network=net, weight=w, deadline_ms=deadline)
+    handles, errors = {}, []
+
+    def producer(t):
+        try:
+            handles[t] = [fe.submit(t, pools[net_of[t]][i])
+                          for i in picks[t]]
+        except BaseException as e:            # re-raised below
+            errors.append(e)
+
+    heavy, light = "r50_heavy", "r50_light"
+    heavy_images = sum(len(pools[net_of[heavy]][i]) for i in picks[heavy])
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    def delivered():
+        fe.admission.check_invariants()
+        return {r["tenant"]: r["images"] for r in fe.report().tenant_rows}
+
+    with fe:
+        threads = [threading.Thread(target=producer, args=(t,))
+                   for t in net_of]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+            if th.is_alive():
+                raise AssertionError("frontend: a producer did not finish")
+        if errors:
+            raise errors[0]
+        # the shares under backlog, between two snapshots taken when the
+        # heavy tenant has FRONTEND_WINDOW of its images back: what the
+        # scheduler forwarded while the producers started, before both
+        # ResNet-50 tenants were backlogged, is delivered before the
+        # first, and the light tenant is still backlogged at the second
+        snaps = []
+        for frac in FRONTEND_WINDOW:
+            while True:
+                done = delivered()
+                if done[heavy] >= frac * heavy_images \
+                        or time.perf_counter() - t0 > 300:
+                    break
+                time.sleep(0.001)
+            snaps.append(done)
+        first, done = snaps
+        fe.drain(timeout=300)
+        rep = fe.report()
+        eng_reps = {n: e.report() for n, e in engines.items()}
+    torch.cuda.synchronize()
+    served = dict(_build.LAUNCHES)
+    ctl = fe.admission
+    ctl.assert_quiescent()
+    if ctl.max_in_flight_seen > FRONTEND_OUTSTANDING \
+            or ctl.admitted_total != len(net_of) * FRONTEND_REQUESTS:
+        raise AssertionError(f"frontend: {ctl.max_in_flight_seen} in "
+                             f"flight, {ctl.admitted_total} admitted")
+    for n, eng in engines.items():
+        eng.admission.assert_quiescent()
+        if eng.admission.max_in_flight_seen > eng.admission.capacity:
+            raise AssertionError(f"frontend: {n} engine over its credits")
+    want = {}
+    for n, per in per_forward.items():
+        for k, v in per.items():
+            want[k] = want.get(k, 0) + v * eng_reps[n].microbatches
+    if served != want:
+        raise AssertionError(f"frontend: launches {served} != {want}")
+    refs = {}
+    for n in net_names:
+        eager = PipelineExecutor(nets[n], device=dev, backend="eager")
+        refs[n] = [eager.run(params[n], torch.from_numpy(r).to(dev))[0]
+                   .cpu().numpy() for r in pools[n]]
+    for t, hs in handles.items():
+        for j, (h, i) in enumerate(zip(hs, picks[t])):
+            if not np.array_equal(h.result(), refs[net_of[t]][i]):
+                raise AssertionError(f"frontend: {t} request {j} differs "
+                                     f"from the eager run of its images")
+    rows = {r["tenant"]: r for r in rep.tenant_rows}
+    got = {t: done[t] - first[t] for t in (heavy, light)}
+    ratio = got[heavy] / max(1, got[light])
+    jain = jain_fairness({t: got[t] / rows[t]["weight"] for t in got})
+    share = rows[heavy]["weight"] / rows[light]["weight"]
+    if not abs(ratio / share - 1) <= FRONTEND_SHARE_TOL \
+            or jain < FRONTEND_MIN_JAIN:
+        raise AssertionError(f"frontend: heavy:light {ratio:.3f} (images "
+                             f"{got[heavy]}:{got[light]} between "
+                             f"snapshots {first} and {done}), Jain "
+                             f"{jain:.4f}")
+    mv2_sched = fe._lanes[net_of["mv2_rt"]].sched
+    if rep.promotions <= 0 or mv2_sched.promotions <= 0 \
+            or rows["mv2_rt"]["deadline_misses"] <= 0:
+        raise AssertionError(f"frontend: promotions {rep.promotions}, "
+                             f"mv2_rt misses "
+                             f"{rows['mv2_rt']['deadline_misses']}")
+    ceilings = {n: BATCH / graph_ms(torch, nets[n], params[n], shapes[n],
+                                    dev) * 1e3 for n in net_names}
+    per_net = {n: sum(r["images"] for r in rep.tenant_rows
+                      if r["network"] == n) / rep.wall_s for n in net_names}
+    record["frontend"] = {
+        "report": rep.to_dict(), "launches": served,
+        "engines": {n: {"microbatches": r.microbatches,
+                        "pad_fraction": r.pad_fraction,
+                        "images_per_s": r.images_per_s,
+                        "max_in_flight": r.max_in_flight}
+                    for n, r in eng_reps.items()},
+        "backlog_snapshots": {"first": first, "second": done,
+                              "ratio": ratio, "jain": jain},
+        "ceiling_images_per_s": ceilings, "images_per_s_by_net": per_net,
+        "max_in_flight": ctl.max_in_flight_seen}
+    log("frontend", f"{rep.requests} requests, {rep.images} images from "
+        f"{len(net_of)} producer threads over {len(net_names)} engines on "
+        f"one card, every request bit-identical to the eager run() of its "
+        f"images; front-end credits <= {ctl.max_in_flight_seen}/"
+        f"{FRONTEND_OUTSTANDING}, quiescent; under backlog heavy:light "
+        f"{ratio:.3f} ({got[heavy]}:{got[light]} images between snapshots "
+        f"from {first[heavy]}:{first[light]}), Jain {jain:.4f}; "
+        f"promotions {rep.promotions}; "
+        f"{rep.images_per_s:.1f} images/s in all over "
+        f"{rep.wall_s * 1e3:.1f} ms  [{record['card']}]")
+    for t, r in rows.items():
+        log("frontend", f"{t} ({r['network']}, weight {r['weight']}, "
+            f"deadline {r['deadline_ms']} ms): {r['requests']} requests, "
+            f"{r['images']} images, {r['images_per_s']:.1f} images/s, p50 "
+            f"{r['p50_ms']:.2f} p95 {r['p95_ms']:.2f} p99 {r['p99_ms']:.2f} "
+            f"ms, deadline misses {r['deadline_misses']}  "
+            f"[{record['card']}]")
+    log("frontend", "images/s per net beside its single-engine ceiling "
+        "(BATCH images a graph replay): " + "; ".join(
+            f"{n} {per_net[n]:.1f} / {ceilings[n]:.1f}" for n in net_names)
+        + f"  [{record['card']}]")
 
 
 def main():
@@ -1709,7 +2001,8 @@ def main():
     card = card_line()
     record = {"card": card, "batch": BATCH, "seed": SEED}
 
-    # -- 1. build -----------------------------------------------------------
+    # -- 1. build (and the autotuner's host search beside it) -----------------
+    tuned_join = start_tuning(compile, get_cnn, NX2100)
     t0 = time.perf_counter()
     ptxas = start_ptxas_report(_build)
     _build.build_all()
@@ -1734,6 +2027,10 @@ def main():
     mv2 = nets["mobilenetv2"]
     nets[MV2_DW_HBM] = mv2.with_offload(set(mv2.streamed_names)
                                         | dw_names(mv2.cfg))
+    tuned = tuned_join()
+    check_tuned(tuned, record)
+    for n, (cp, _, _) in tuned.items():
+        nets[n + TUNED_SUFFIX] = cp
     per_net = {n: main_path_shapes(c, select_engine)
                for n, c in nets.items()}
     shapes = {k: {} for k in KERNELS}           # per slice run (both nets)
@@ -1782,7 +2079,9 @@ def main():
              for n in CNN_CONFIGS}
     dense = [((sc.spec.in_h, sc.spec.in_w, sc.spec.c_in, sc.spec.c_out,
                sc.spec.k_h, sc.spec.stride), sc.streamed)
-             for comp in comps.values() for sc in comp.plan.schedules
+             for comp in list(comps.values()) + [
+                 nets[n + TUNED_SUFFIX] for n in TUNED]
+             for sc in comp.plan.schedules
              if select_engine(sc.spec).name == "conv2d_int8"]
     conv_shapes = main_conv | {key6 for key6, _ in dense}
     pinned_shapes = {key6 for key6, streamed in dense if not streamed}
@@ -1937,6 +2236,10 @@ def main():
             raise AssertionError(f"{name}: launches {launches[name]} != "
                                  f"plan {want} / expected "
                                  f"{EXPECTED.get(name)}")
+        if name.endswith(TUNED_SUFFIX) and launches[name].get(
+                "conv2d_int8_stream") != TUNED[name[:-len(TUNED_SUFFIX)]][
+                    "conv2d_int8_stream"]:
+            raise AssertionError(f"{name}: K2 launches {launches[name]}")
         lg, rep = logits[name], reports[name]
         classes = comp.cfg.num_classes
         if lg.shape != (BATCH, classes) or not torch.isfinite(lg).all():
@@ -1968,8 +2271,15 @@ def main():
         for k, v in per.items():
             total_launches[k] = total_launches.get(k, 0) + v
     launches.update({f"{n} fused": v for n, v in fused_launches.items()})
-    serve_cnn(torch, np, nets[SERVE_NET], params[SERVE_NET],
+    serve_cnn(torch, np, SERVE_NET, nets[SERVE_NET], params[SERVE_NET],
               fused_launches[SERVE_NET], dev, record)
+    tuned_net = SERVE_NET + TUNED_SUFFIX
+    serve_cnn(torch, np, tuned_net, nets[tuned_net], params[tuned_net],
+              fused_launches[tuned_net], dev, record, credits=None,
+              key="serving_tuned", steady=False)
+    serve_frontend(torch, np, nets, params, {
+        n: fused_launches[n] for _, n, _, _ in FRONTEND_TENANTS},
+        dev, record)
     fpath = float_path(comps, select_engine)
     launches["float matmul"], float_inputs = drive_float_matmul(
         torch, g, dev, fpath, block_for, record)
@@ -2417,6 +2727,19 @@ def main():
                 f"{k} {split[k + '_return_ms']:.3f} / {split[k + '_ms']:.3f}"
                 for k in ("run", "fn", "replay")) + f"  [{card}]")
     record["end_to_end"] = e2e
+    for n in TUNED:
+        g_, t_ = e2e[n], e2e[n + TUNED_SUFFIX]
+        log("autotune", f"{n} tuned against greedy, batch {BATCH}, same "
+            f"call: fused {t_['fused_ms_per_forward']:.3f} / "
+            f"{g_['fused_ms_per_forward']:.3f} ms, eager "
+            f"{t_['ms_per_forward']:.3f} / {g_['ms_per_forward']:.3f} ms, "
+            f"device {t_['device_ms_per_forward']:.3f} / "
+            f"{g_['device_ms_per_forward']:.3f} ms; card idle "
+            f"{100 * t_['fused_idle_share']:.0f}% / "
+            f"{100 * g_['fused_idle_share']:.0f}% of the fused forward; "
+            f"streamed words a forward "
+            f"{reports[n + TUNED_SUFFIX].total_hbm_words} / "
+            f"{reports[n].total_hbm_words}  [{card}]")
     time_lm(torch, lm, card, record)
     del lm
     record["time_s"] = time.perf_counter() - t0

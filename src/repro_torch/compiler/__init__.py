@@ -8,8 +8,18 @@
     per-layer kernel registry;
   * :class:`CompiledPipeline` — ``engine_table()``, ``block_table()``,
     ``scan_table()``, ``vmem_report()``, ``run()`` (on the card unless
-    ``device="cpu"``), ``stats_template()`` / ``eq2_report().verify()``.
+    ``device="cpu"``), ``stats_template()`` / ``eq2_report().verify()``,
+    ``serve()``;
+  * :func:`autotune_plan` / :class:`AutotuneConfig` — the search-based
+    placement + FIFO co-optimizer (``compile(cfg, target,
+    autotune=...)`` is the integrated path), seeded by the greedy Alg. 1
+    plan, never worse than the seed and deterministic per seed.
 """
+from repro_torch.compiler.autotune import (AutotuneConfig,  # noqa: F401
+                                           AutotuneError, AutotuneResult,
+                                           Candidate, Evaluation,
+                                           autotune_plan,
+                                           solve_serving_credits)
 from repro_torch.compiler.engines import (EngineContext,  # noqa: F401
                                           LayerEngine, LayerExecStats,
                                           get_engine, register_engine,

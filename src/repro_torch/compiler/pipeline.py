@@ -46,6 +46,9 @@ fused trace unless ``backend="eager"`` asks for the walk;
 decisions, ``with_offload()`` recompiles with a forced offload set,
 ``eq2_report().verify()`` cross-checks the plan's Eq. 2 words against
 what the engines report, ``serve()`` starts a CNN serving engine.
+``compile(..., autotune=...)`` replaces stages 2-3 with the placement +
+FIFO co-optimizer (``compiler/autotune.py``) and attaches its record as
+``.tuning``.
 """
 from __future__ import annotations
 
@@ -56,10 +59,14 @@ import threading
 import time
 from collections import OrderedDict
 from dataclasses import dataclass
-from typing import (Any, Callable, Dict, List, Optional, Sequence, Tuple,
-                    Union)
+from typing import (TYPE_CHECKING, Any, Callable, Dict, List, Optional,
+                    Sequence, Tuple, Union)
 
 import torch
+
+if TYPE_CHECKING:                     # import cycle guard: autotune uses
+    from repro_torch.compiler.autotune import (  # pragma: no cover
+        AutotuneConfig, AutotuneResult)
 
 from repro_torch.compiler.engines import (  # noqa: F401 (re-export)
     EngineContext, LayerExecStats, get_engine, select_block_engine,
@@ -245,6 +252,11 @@ class CompiledPipeline:
     #: bound on distinct stage-6 traces held live (LRU beyond it); see
     #: ``trace_cache_stats``.
     trace_cache_size: int = 8
+    #: search provenance when the plan came from the placement + FIFO
+    #: co-optimizer (``compile(..., autotune=...)``): the greedy-vs-tuned
+    #: evaluations plus the co-optimized serving credit bound that
+    #: ``serve()`` defaults to.  ``None`` for plain greedy compiles.
+    tuning: Optional["AutotuneResult"] = None
 
     def __post_init__(self):
         # the stage-6 trace cache is created EAGERLY (not via
@@ -383,13 +395,20 @@ class CompiledPipeline:
         return self.executor(device=device,
                              backend=backend).run(params, images)
 
-    def serve(self, params, *, microbatch: int = 8, credits: int = 4, **kw):
+    def serve(self, params, *, microbatch: int = 8,
+              credits: Optional[int] = None, **kw):
         """Continuous-streaming serving over this pipeline: a
         :class:`~repro_torch.runtime.cnn_serving.CnnServingEngine` packing
         mixed-size requests into ``microbatch``-shaped fused dispatches,
-        at most ``credits`` microbatches in flight (§V-A).  Use as a
-        context manager, or call ``.start()``."""
+        at most ``credits`` microbatches in flight (§V-A).  ``credits``
+        defaults to the co-optimized bound when the pipeline was
+        autotuned (``tuning.serving_credits`` — the smallest in-flight
+        count that still saturates dispatch), else 4.  Use as a context
+        manager, or call ``.start()``."""
         from repro_torch.runtime.cnn_serving import CnnServingEngine
+        if credits is None:
+            credits = (self.tuning.serving_credits
+                       if self.tuning is not None else 4)
         return CnnServingEngine(self, params, microbatch=microbatch,
                                 credits=credits, **kw)
 
@@ -681,7 +700,9 @@ def plan_pipeline(cfg: CNNConfig, target: Target) -> PipelinePlan:
 
 
 def finalize(plan: PipelinePlan, target: Optional[Target], *,
-             replace: bool = True, scan: bool = True,
+             replace: bool = True,
+             tuning: Optional["AutotuneResult"] = None,
+             scan: bool = True,
              trace_cache_size: int = 8) -> CompiledPipeline:
     """Stages 4-5 over an existing plan: bind every layer to a registered
     engine, then enforce the target's working-set budget — re-placing pinned
@@ -702,7 +723,8 @@ def finalize(plan: PipelinePlan, target: Optional[Target], *,
     ``with_offload``: a caller-forced offload set must not be silently
     expanded — validation fails instead).  ``target=None`` binds engines
     without budget enforcement (the deprecation-compat path for raw
-    ``PipelinePlan`` values).
+    ``PipelinePlan`` values).  ``tuning`` attaches the autotuner's
+    provenance record when the plan came out of the co-optimizer.
     """
     # engine choice depends only on the spec, so bind once per layer and
     # reuse across the re-placement and assignment passes
@@ -846,7 +868,8 @@ def finalize(plan: PipelinePlan, target: Optional[Target], *,
                             replaced=tuple(moved),
                             block_assignments=tuple(blocks),
                             scan_assignments=tuple(scans),
-                            trace_cache_size=trace_cache_size)
+                            trace_cache_size=trace_cache_size,
+                            tuning=tuning)
 
 
 def make_dispatchers(compiled: CompiledPipeline, ctx: EngineContext,
@@ -1017,13 +1040,33 @@ def trace_fused(compiled: CompiledPipeline, params, images, *,
 
 
 def compile(cfg: CNNConfig, target: Target = NX2100, *,
+            autotune: Union[None, bool, "AutotuneConfig"] = None,
             scan: bool = True, trace_cache_size: int = 8
             ) -> CompiledPipeline:
     """Compile a CNN for a target: passes 1-5 up front, validated and
     executable; the stage-6 fused trace is made (and cached) per input on
-    first ``run()``.  ``scan=False`` binds no scan groups;
-    ``trace_cache_size`` bounds the stage-6 LRU trace cache."""
-    plan = plan_pipeline(cfg, target)
+    first ``run()``.
+
+    ``autotune`` swaps stage 2-3's one-shot greedy placement + §IV-A
+    FIFO sizing for the search-based co-optimizer
+    (:mod:`repro_torch.compiler.autotune`, a host-side search): ``True``
+    runs it with defaults, an :class:`AutotuneConfig` carries explicit
+    search knobs.  The result is a normal, fully validated pipeline —
+    same stages 4-5, same ``eq2_report().verify()`` guarantees — whose
+    tier decisions are taken verbatim from the search (no stage-5
+    re-placement), with the search record attached as ``.tuning``.
+
+    ``scan=False`` binds no scan groups; ``trace_cache_size`` bounds the
+    stage-6 LRU trace cache."""
+    if autotune is None or autotune is False:
+        plan = plan_pipeline(cfg, target)
+        with _pass_timer("finalize"):
+            return finalize(plan, target, scan=scan,
+                            trace_cache_size=trace_cache_size)
+    from repro_torch.compiler.autotune import AutotuneConfig, autotune_plan
+    at = AutotuneConfig() if autotune is True else autotune
+    with _pass_timer("autotune"):
+        result = autotune_plan(cfg, target, at)
     with _pass_timer("finalize"):
-        return finalize(plan, target, scan=scan,
-                        trace_cache_size=trace_cache_size)
+        return finalize(result.plan, target, replace=False, tuning=result,
+                        scan=scan, trace_cache_size=trace_cache_size)

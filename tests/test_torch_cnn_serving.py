@@ -29,6 +29,7 @@ from repro_torch.convert import params_from_numpy
 from repro_torch.models.cnn import cnn_input_shape
 from repro_torch.runtime.cnn_serving import (CnnServingEngine, ServingReport,
                                              restore_tuple_fields)
+from torch_testdata import numpy_cnn_params
 
 JMINI = jcfg.mini_resnet18(hw=8, width=16, stages=4)   # 3 streamed layers
 MINI = tcfg.mini_resnet18(hw=8, width=16, stages=4)
@@ -41,30 +42,12 @@ INT_FIELDS = ("requests", "images", "microbatches", "microbatch_size",
               "hbm_words_executed", "dispatched_rows")
 
 
-def _numpy_params(cfg, seed):
-    """Seeded int8 weights, per-channel scales and biases for every
-    weighted node, as numpy arrays: what both packages are given."""
-    rng = np.random.default_rng(seed)
-    out = {}
-    for spec in cfg.layers:
-        if spec.is_pool:
-            continue
-        dw = spec.kind == "dwconv"
-        c_out = spec.c_in if dw else spec.c_out
-        shape = (spec.k_h, spec.k_w, 1 if dw else spec.c_in, c_out)
-        out[spec.name] = {
-            "w": rng.integers(-127, 128, size=shape, dtype=np.int8),
-            "w_scale": rng.uniform(0.01, 0.06, c_out).astype(np.float32),
-            "bias": rng.normal(0.0, 0.5, c_out).astype(np.float32)}
-    return out
-
-
 @pytest.fixture(scope="module")
 def setup():
     """Seeded params in both packages, and the JAX pipeline whose
     ``run()`` at batch MB is the reference (one compiled program: every
     reference call and the JAX engine share that shape)."""
-    np_params = _numpy_params(MINI, seed=0)
+    np_params = numpy_cnn_params(MINI, seed=0)
     jcp = jc.compile(JMINI, jc.TPU_INTERPRET)
     cp = tc.compile(MINI, tc.MINI)
     assert cp.streamed_names

@@ -927,6 +927,106 @@ def test_served_logits_bit_identical_to_eager_with_midserve_capture(dev):
     assert comp.trace_count == 3
 
 
+@pytest.mark.parametrize("name", ["mini_resnet18", "mini_resnet50"])
+def test_tuned_mini_fused_bit_identical_to_eager_and_plain(dev, name):
+    """``compile(..., autotune=...)`` on the card: the tuned plan's fused
+    replay equals its eager walk and the plain path bit for bit, with the
+    same launches and a verified Eq. 2 report; ``serve()`` takes the
+    tuned credits."""
+    from repro_torch.compiler import MINI, AutotuneConfig, compile
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models.cnn import cnn_forward
+    greedy, params, x = _mini_on_card(dev, name, hw=8, width=16, stages=4)
+    cfg = greedy.cfg
+    cp = compile(cfg, MINI, autotune=AutotuneConfig(iterations=60))
+    assert cp.tuning is not None and cp.streamed_names
+    reset_launches()
+    eager, rep_e = cp.run(params, x, backend="eager")
+    torch.cuda.synchronize()
+    per_forward = dict(LAUNCHES)
+    assert per_forward.get("conv2d_int8_stream") or \
+        per_forward.get("stream_matmul_fifo")
+    first, _ = cp.run(params, x)
+    reset_launches()
+    warm, rep_f = cp.run(params, x)
+    torch.cuda.synchronize()
+    assert LAUNCHES == per_forward
+    plain = cnn_forward(params, cfg, x)
+    assert torch.equal(eager, plain)
+    assert torch.equal(first, eager) and torch.equal(warm, eager)
+    assert rep_f.layers == rep_e.layers
+    rep_f.verify()
+    assert rep_f.total_hbm_words == \
+        x.shape[0] * sum(cp.plan.hbm_words_per_image().values())
+    assert cp.trace_count == 1
+    eng = cp.serve(params)
+    assert eng.admission.capacity == cp.tuning.serving_credits
+
+
+def test_two_engine_front_end_on_card_bit_identical(dev):
+    """Two engines on one card behind one front door: a tuned mini
+    ResNet-50 at a fixed shape, and a mini MobileNet on the adaptive
+    ladder, whose rungs are captured mid-serve while the other engine
+    replays and copies.  Every request bit-identical to the eager run()
+    of its images; every credit bound held and quiescent at stop."""
+    import threading
+
+    import numpy as np
+    from repro_torch.compiler import MINI, AutotuneConfig, compile
+    from repro_torch.runtime.frontend import MultiTenantFrontEnd
+    greedy, p50, x50 = _mini_on_card(dev, "mini_resnet50", hw=8, width=16,
+                                     stages=4)
+    cp50 = compile(greedy.cfg, MINI, autotune=AutotuneConfig(iterations=60))
+    cpmb, pmb, xmb = _mini_on_card(dev, "mini_mobilenet", seed=1)
+    nets = {"r50": (cp50, p50, tuple(x50.shape[1:])),
+            "mbv1": (cpmb, pmb, tuple(xmb.shape[1:]))}
+    fe = MultiTenantFrontEnd(
+        {"r50": cp50.serve(p50, microbatch=4, queue_depth=2),
+         "mbv1": cpmb.serve(pmb, microbatch=4, queue_depth=2,
+                            adaptive=True)},
+        max_outstanding=4)
+    fe.register_tenant("light", network="r50", weight=1.0)
+    fe.register_tenant("heavy", network="r50", weight=4.0)
+    fe.register_tenant("bulk", network="mbv1", weight=8.0)
+    fe.register_tenant("rt", network="mbv1", weight=1.0, deadline_ms=0.0)
+    net_of = {"light": "r50", "heavy": "r50", "bulk": "mbv1", "rt": "mbv1"}
+    rng = np.random.default_rng(0)
+    traffic = {t: [rng.integers(-127, 128, size=(int(n),)
+                                + nets[net_of[t]][2], dtype=np.int8)
+                   for n in rng.integers(1, 5, 12)] for t in net_of}
+    handles, errors = {}, []
+
+    def producer(t):
+        try:
+            handles[t] = [fe.submit(t, r) for r in traffic[t]]
+        except Exception as e:                # surfaced below
+            errors.append(e)
+
+    with fe:
+        threads = [threading.Thread(target=producer, args=(t,))
+                   for t in net_of]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+            assert not th.is_alive()
+        assert not errors, errors
+        fe.drain(timeout=300)
+        rep = fe.report()
+    fe.admission.assert_quiescent()
+    assert fe.admission.max_in_flight_seen <= 4
+    for net, lane in fe._lanes.items():
+        lane.engine.admission.assert_quiescent()
+    for t, reqs in handles.items():
+        cp, params, _ = nets[net_of[t]]
+        for h, r in zip(reqs, traffic[t]):
+            want = cp.run(params, torch.from_numpy(r).to(dev),
+                          backend="eager")[0].cpu().numpy()
+            assert np.array_equal(h.result(), want), t
+    assert rep.requests == 48 and rep.promotions > 0
+    assert cpmb.trace_count >= 2
+
+
 def test_fused_capture_failure_raises(dev):
     """An engine that syncs with the host cannot be captured: run() raises
     and caches nothing; nothing falls back to the eager walk.  Last in

@@ -23,30 +23,13 @@ from repro_torch.configs import cnn as tcfg
 from repro_torch.convert import params_from_numpy
 from repro_torch.models.cnn import cnn_forward, cnn_input_shape
 from repro_torch.runtime.pipeline import PipelineExecutor
+from torch_testdata import numpy_cnn_params
 
 JMINI = jcfg.mini_resnet18(hw=16, width=32)
 MINI = tcfg.mini_resnet18(hw=16, width=32)
 # batch sizes through a 2-entry cache: miss, miss, hit, miss + eviction,
 # hit; three distinct shapes, so the JAX side compiles three programs
 SEQUENCE = (2, 1, 2, 3, 2)
-
-
-def _numpy_params(cfg, seed):
-    """Seeded int8 weights, per-channel scales and biases for every
-    weighted node, as numpy arrays: what both packages are given."""
-    rng = np.random.default_rng(seed)
-    out = {}
-    for spec in cfg.layers:
-        if spec.is_pool:
-            continue
-        dw = spec.kind == "dwconv"
-        c_out = spec.c_in if dw else spec.c_out
-        shape = (spec.k_h, spec.k_w, 1 if dw else spec.c_in, c_out)
-        out[spec.name] = {
-            "w": rng.integers(-127, 128, size=shape, dtype=np.int8),
-            "w_scale": rng.uniform(0.01, 0.06, c_out).astype(np.float32),
-            "bias": rng.normal(0.0, 0.5, c_out).astype(np.float32)}
-    return out
 
 
 def _rows(result):
@@ -61,7 +44,7 @@ def both():
     rng = np.random.default_rng(0)
     x = rng.integers(-127, 128, size=cnn_input_shape(MINI, max(SEQUENCE)),
                      dtype=np.int8)
-    params = _numpy_params(MINI, seed=0)
+    params = numpy_cnn_params(MINI, seed=0)
     jcp = jc.compile(JMINI, jc.TPU_INTERPRET, trace_cache_size=2)
     tcp = tc.compile(MINI, tc.MINI, trace_cache_size=2)
     tparams = params_from_numpy(params, "cpu")
@@ -106,7 +89,7 @@ def test_trace_cache_sequence_evicts(both):
 @pytest.fixture(scope="module")
 def port():
     rng = np.random.default_rng(1)
-    params = params_from_numpy(_numpy_params(MINI, seed=1), "cpu")
+    params = params_from_numpy(numpy_cnn_params(MINI, seed=1), "cpu")
     x = torch.from_numpy(rng.integers(
         -127, 128, size=cnn_input_shape(MINI, 2), dtype=np.int8))
     return tc.compile(MINI, tc.MINI), params, x
