@@ -84,6 +84,26 @@ it is run outside a checkout of the repository.  Phases, one line each:
      index at least 0.95; the 0 ms deadline tenant promoted; images/s,
      latency percentiles and deadline misses per tenant beside each
      net's single-engine ceiling.
+     Then sharded serving (``[sharded]`` lines): ResNet-50 cut into S = 1,
+     2 and 4 stages and VGG-16 into 4 (``compiled.partition(S)``: its
+     ``describe()`` and ``modelled_throughput(8·S)``, per-stage Eq. 2
+     verified and summing to 8,095,354 and 28,878,467 words an image),
+     each served by ``compiled.serve_sharded(params, mesh=compat_make_mesh(
+     (S,), ("model",), devices=["cuda:0"] * S), microbatch=8)``: one
+     captured CUDA graph and one stream a stage on the one card, the
+     stage graphs' launches summing to a forward's; the serving phase's
+     64 requests (12 for VGG-16) from 4 threads round-robin, then again
+     with explicit ``shard=`` routing, then SERVE_STEADY_REPEATS times
+     over from one thread (the steady state): every request
+     bit-identical to the eager ``run()`` of its images, the credit bound
+     held and quiescent, launches (microbatches + empty slots) x the
+     stage graphs'; printed
+     without a claim: images/s, latency percentiles and round fill per S
+     beside the single engine's ``cp.serve`` figure and the ceiling of 8
+     images a graph replay, each stage graph's device ms, a round's
+     device span beside the sum of its stage replays (whether the stage
+     streams overlap on the die), and the modelled speedup beside the
+     measured S-stage / 1-stage ratio.
      Then Phi-4-mini (3.8B, full width and depth, bf16, random weights
      from seed 0) through ``ServingEngine(batch_slots=4, max_seq=1024)``:
      8 requests of 512 tokens, 16 new tokens each; exactly 64
@@ -311,6 +331,16 @@ ADAPTIVE_SIZES = (1, 2, 1, 3, 5, 8, 2)
 # a longer interval of the same traffic, for the steady state
 SERVE_STEADY_REPEATS = 8
 FUSED_WARM_RUNS = 6
+# sharded serving: each net cut into S stages on one card
+# (compat_make_mesh((S,), ("model",), devices=["cuda:0"] * S): a CUDA
+# stream and a captured graph a stage), microbatch BATCH, the engine's
+# default rounds (8·S microbatches) and credits (two rounds); the
+# requests of 1-8 images (sizes from SEED, as SERVE_REQUESTS) from
+# SERVE_PRODUCERS threads round-robin, then the same requests again with
+# explicit shard= routing
+SHARDED = (("resnet50", (1, 2, 4), SERVE_REQUESTS), ("vgg16", (4,), 12))
+# Eq. 2 words per image the stages must sum to
+SHARDED_WORDS = {"resnet50": 8_095_354, "vgg16": 28_878_467}
 # the autotuned compile path on NX2100 with the default AutotuneConfig():
 # what the search picks (the streamed set, the burst, the burst-matching
 # and last-stage FIFO depths, the serving credits), held against the JAX
@@ -1638,6 +1668,15 @@ def graph_ms(torch, comp, params, shape, dev):
     return event_ms(torch, trace.fn.graph.replay, 20) / 20
 
 
+def seeded_requests(np, shape, n):
+    """``n`` requests of 1 to BATCH images of ``shape`` (the sizes, then
+    the images, drawn from SEED), and the generator, to draw more."""
+    rng = np.random.default_rng(SEED)
+    sizes = [int(k) for k in rng.integers(1, BATCH + 1, n)]
+    return rng, [rng.integers(-127, 128, size=(k,) + shape, dtype=np.int8)
+                 for k in sizes]
+
+
 def serve_cnn(torch, np, name, comp, params, per_forward, dev, record, *,
               credits=SERVE_CREDITS, key="serving", steady=True):
     """A net served over the fused backend (``cp.serve``), then, with
@@ -1653,11 +1692,8 @@ def serve_cnn(torch, np, name, comp, params, per_forward, dev, record, *,
     from repro_torch.models.cnn import cnn_input_shape
     from repro_torch.obs import Tracer
     from repro_torch.runtime.pipeline import PipelineExecutor
-    rng = np.random.default_rng(SEED)
-    sizes = [int(n) for n in rng.integers(1, BATCH + 1, SERVE_REQUESTS)]
     shape = cnn_input_shape(comp.cfg, 1)[1:]
-    reqs = [rng.integers(-127, 128, size=(n,) + shape, dtype=np.int8)
-            for n in sizes]
+    rng, reqs = seeded_requests(np, shape, SERVE_REQUESTS)
     eager = PipelineExecutor(comp, device=dev, backend="eager")
 
     def check(got, req, what):
@@ -1697,7 +1733,7 @@ def serve_cnn(torch, np, name, comp, params, per_forward, dev, record, *,
                              f"microbatches in flight > {bound}")
     if comp.trace_count != 1:
         raise AssertionError(f"serving: {comp.trace_cache_stats()}")
-    if rep.images != sum(sizes) or rep.requests != len(reqs) \
+    if rep.images != sum(map(len, reqs)) or rep.requests != len(reqs) \
             or rep.hbm_words_useful != rep.images * eng.words_per_image:
         raise AssertionError(f"serving: report {rep.images} images, "
                              f"{rep.hbm_words_useful} useful words")
@@ -1795,6 +1831,210 @@ def serve_cnn(torch, np, name, comp, params, per_forward, dev, record, *,
         f"bit-identical; shapes used (rows: dispatches) "
         f"{json.dumps(arep.microbatch_shapes)}; trace cache "
         f"{json.dumps(arep.trace_cache)}; pad {arep.pad_fraction:.3f}")
+
+
+def serve_sharded(torch, np, name, comp, params, per_forward, dev, record,
+                  stages, n_requests):
+    """A net cut into S stages for each S in ``stages`` and served by
+    ``comp.serve_sharded`` on one card, one stream a stage: the
+    partition's ``describe()`` and modelled throughput (the FPGA cycle
+    model), per-stage Eq. 2 verified and summing to SHARDED_WORDS; each
+    stage graph's launches summing to one forward's (``per_forward``) and
+    its device ms; a round's device span beside the sum of its stage
+    times (whether the stage streams overlap on the die); then the
+    requests from SERVE_PRODUCERS threads round-robin, again with
+    explicit ``shard=`` routing, and SERVE_STEADY_REPEATS times over from
+    this thread: every request bit-identical to the eager ``run()`` of
+    its images, the credit bound held and quiescent,
+    launches (microbatches + empty slots) x the stage graphs'.  Returns
+    the launches of the served intervals, counted from zero just before
+    each and read just after."""
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import compat_make_mesh
+    from repro_torch.models.cnn import cnn_input_shape
+    from repro_torch.runtime.pipeline import PipelineExecutor
+    shape = tuple(cnn_input_shape(comp.cfg, 1)[1:])
+    _, reqs = seeded_requests(np, shape, n_requests)
+    eager = PipelineExecutor(comp, device=dev, backend="eager")
+    want = [eager.run(params, torch.from_numpy(r).to(dev))[0].cpu().numpy()
+            for r in reqs]
+    words = sum(comp.plan.hbm_words_per_image().values())
+    if words != SHARDED_WORDS[name]:
+        raise AssertionError(f"sharded {name}: {words} words per image")
+    ceiling = BATCH / graph_ms(torch, comp, params, shape, dev) * 1e3
+    single = record["serving"] if name == SERVE_NET else None
+    rows, launches = {}, {}
+    for S in stages:
+        part = comp.partition(S)
+        M = 8 * S
+        modelled = part.modelled_throughput(M)
+        part.verify_eq2(batch=BATCH)
+        stage_words = [sp.hbm_words_per_image for sp in part.stages]
+        if sum(stage_words) != words:
+            raise AssertionError(f"sharded {name}: stage words "
+                                 f"{stage_words} do not sum to {words}")
+        for line in part.describe().splitlines():
+            log("sharded", f"{name} S={S} | {line}")
+        log("sharded", f"{name} S={S}: modelled_throughput({M}) "
+            + json.dumps(modelled))
+        mesh = compat_make_mesh((S,), ("model",), devices=[dev] * S)
+        t = time.perf_counter()
+        eng = comp.serve_sharded(params, mesh=mesh, microbatch=BATCH)
+        eng.start()
+        start_s = time.perf_counter() - t
+        handles, routed = [None] * len(reqs), []
+        try:
+            progs, ring = eng.stage_programs, eng._ring
+            per_mb = {}
+            for prog in progs:
+                for k, v in prog.runner.launches.items():
+                    per_mb[k] = per_mb.get(k, 0) + v
+            if per_mb != per_forward:
+                raise AssertionError(f"sharded {name} S={S}: the stage "
+                                     f"graphs launch {per_mb}, a forward "
+                                     f"{per_forward}")
+            if len({st.cuda_stream for st in ring.streams}) != S:
+                raise AssertionError(f"sharded {name}: {S} stages share "
+                                     f"streams")
+            stage_ms = [event_ms(torch, p.runner.graph.replay, 20) / 20
+                        for p in progs]
+            # one round through the ring, forked from and joined into
+            # this stream, three times back to back
+            x = torch.zeros((M, BATCH) + shape, dtype=torch.int8,
+                            device=dev)
+            ring.run(None, x)
+            span_ms = event_ms(torch, lambda: ring.run(None, x), 3) / 3
+            _build.reset_launches()
+
+            def producer(pid):
+                for i in range(pid, len(reqs), SERVE_PRODUCERS):
+                    handles[i] = eng.submit(reqs[i])
+            threads = [threading.Thread(target=producer, args=(p,))
+                       for p in range(SERVE_PRODUCERS)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=300)
+                if th.is_alive():
+                    raise AssertionError("sharded: a producer hung")
+            eng.drain(timeout=300)
+            rep = eng.report()
+            routed = [eng.submit(r, shard=(S - 1 - i) % S)
+                      for i, r in enumerate(reqs)]
+            eng.drain(timeout=300)
+            mid = eng.report()
+            # the steady state: the same requests SERVE_STEADY_REPEATS
+            # times over from this thread, rounds filled by the backlog
+            t = time.perf_counter()
+            steady_outs, total = eng.serve(reqs * SERVE_STEADY_REPEATS)
+            steady_s = time.perf_counter() - t
+        finally:
+            eng.stop()
+        torch.cuda.synchronize()
+        served = dict(_build.LAUNCHES)
+        for i, (h, r, w) in enumerate(zip(handles, routed, want)):
+            if not (np.array_equal(h.result(), w)
+                    and np.array_equal(r.result(), w)):
+                raise AssertionError(f"sharded {name} S={S}: request {i} "
+                                     f"differs from the eager run() of its "
+                                     f"{len(w)} images")
+        for i, (got, w) in enumerate(zip(steady_outs,
+                                         want * SERVE_STEADY_REPEATS)):
+            if not np.array_equal(got, w):
+                raise AssertionError(f"sharded {name} S={S}: steady "
+                                     f"request {i} differs")
+        eng.admission.assert_quiescent()
+        slots = total.microbatches + total.empty_microbatches
+        shard_want = [len(range(k, len(reqs), S))
+                      + sum(1 for i in range(len(reqs))
+                            if (S - 1 - i) % S == k) for k in range(S)]
+        if served != {k: v * slots for k, v in per_mb.items()}:
+            raise AssertionError(f"sharded {name} S={S}: launches "
+                                 f"{served} != {slots} x {per_mb}")
+        n_images = sum(len(r) for r in reqs)
+        if total.max_in_flight > total.credits \
+                or mid.shard_requests != tuple(shard_want) \
+                or total.stage_hbm_words_per_image != tuple(stage_words) \
+                or total.images != (2 + SERVE_STEADY_REPEATS) * n_images \
+                or total.hbm_words_useful != total.images * words:
+            raise AssertionError(f"sharded {name} S={S}: report "
+                                 f"{total.to_json()}")
+        steady = {"images_per_s": SERVE_STEADY_REPEATS * n_images
+                  / steady_s, "wall_s": steady_s,
+                  "round_fill_fraction":
+                      (total.microbatches - mid.microbatches)
+                      / ((total.rounds - mid.rounds) * M)}
+        for k, v in served.items():
+            launches[k] = launches.get(k, 0) + v
+        stage_sum = M * sum(stage_ms)
+        row = {"stages": [stage_row(sp) for sp in part.stages],
+               "modelled": modelled, "start_s": start_s,
+               "stage_device_ms": stage_ms, "round_microbatches": M,
+               "round_device_ms": span_ms, "round_stage_sum_ms": stage_sum,
+               "overlap_x": stage_sum / span_ms,
+               "images_per_s": rep.images_per_s, "p50_ms": rep.p50_ms,
+               "p95_ms": rep.p95_ms, "p99_ms": rep.p99_ms,
+               "round_fill_fraction": rep.round_fill_fraction,
+               "rounds": rep.rounds, "microbatches": rep.microbatches,
+               "empty_microbatches": rep.empty_microbatches,
+               "max_in_flight": total.max_in_flight,
+               "credits": total.credits, "launches": served,
+               "steady": steady,
+               "report": total.to_dict(), "ceiling_images_per_s": ceiling}
+        row["report"].pop("request_rows")
+        rows[S] = row
+        log("sharded", f"{name} S={S}: {len(reqs)} requests ({rep.images} "
+            f"images) from {SERVE_PRODUCERS} producers round-robin, then "
+            f"again with explicit shard= routing (shard requests "
+            f"{list(mid.shard_requests)}): every request bit-identical "
+            f"to the eager run() of its images; {S} stage graph(s) "
+            f"replayed on {S} stream(s) of one card, captured in "
+            f"{start_s:.2f} s; per-stage Eq. 2 verified, words "
+            f"{stage_words} = {words} a image; in flight <= "
+            f"{total.max_in_flight}/{total.credits}, quiescent; launches "
+            f"{sum(served.values())} = {slots} slots x "
+            f"{sum(per_mb.values())}  [{record['card']}]")
+        log("sharded", f"{name} S={S}: {rep.images_per_s:.1f} images/s "
+            f"(round-robin pass), latency p50 {rep.p50_ms:.2f} p95 "
+            f"{rep.p95_ms:.2f} p99 {rep.p99_ms:.2f} ms, round fill "
+            f"{rep.round_fill_fraction:.3f} ({rep.microbatches} of "
+            f"{rep.rounds} x {M}); stage graphs' device ms "
+            f"{[round(v, 4) for v in stage_ms]}; a round of {M} "
+            f"microbatches {span_ms:.3f} device ms against "
+            f"{stage_sum:.3f} summed over its stage replays "
+            f"({stage_sum / span_ms:.2f}x)"
+            + ("; single engine cp.serve "
+               f"{single['report']['images_per_s']:.1f} images/s"
+               if single else "")
+            + f"; ceiling {ceiling:.1f} images/s ({BATCH} a graph replay)"
+            f"  [{record['card']}]")
+        log("sharded", f"{name} S={S} steady: the same requests x "
+            f"{SERVE_STEADY_REPEATS} from one thread, bit-identical: "
+            f"{steady['images_per_s']:.1f} images/s ({steady_s * 1e3:.1f} "
+            f"ms, host clock to the last delivery), round fill "
+            f"{steady['round_fill_fraction']:.3f}; device "
+            f"{span_ms / M:.4f} ms a microbatch in a full round  "
+            f"[{record['card']}]")
+    if 1 in rows:
+        for S, row in rows.items():
+            row["measured_speedup_x"] = \
+                row["images_per_s"] / rows[1]["images_per_s"]
+            row["steady_speedup_x"] = row["steady"]["images_per_s"] \
+                / rows[1]["steady"]["images_per_s"]
+            log("sharded", f"{name} S={S}: modelled speedup "
+                f"{row['modelled']['sharded_speedup_x']:.3f}x (FPGA cycle "
+                f"model, balance {row['modelled']['balance']:.3f}) against "
+                f"a measured {row['measured_speedup_x']:.3f}x of the S=1 "
+                f"ring's images/s ({row['steady_speedup_x']:.3f}x steady), "
+                f"same call  [{record['card']}]")
+    record.setdefault("sharded", {})[name] = rows
+    return launches
+
+
+def stage_row(sp):
+    return {"stage": sp.stage, "layer_range": list(sp.layer_range),
+            "layers": len(sp.layers), "cycles": sp.cycles,
+            "hbm_words_per_image": sp.hbm_words_per_image}
 
 
 def serve_frontend(torch, np, nets, params, per_forward, dev, record):
@@ -2280,6 +2520,15 @@ def main():
     serve_frontend(torch, np, nets, params, {
         n: fused_launches[n] for _, n, _, _ in FRONTEND_TENANTS},
         dev, record)
+    for name, stages, n_requests in SHARDED:
+        served = serve_sharded(torch, np, name, nets[name], params[name],
+                               fused_launches[name], dev, record, stages,
+                               n_requests)
+        launches[f"{name} sharded"] = served
+        absent = [k for k in fused_launches[name] if not served.get(k)]
+        if absent:
+            raise AssertionError(f"sharded {name}: kernels of the path "
+                                 f"never launched: {absent}")
     fpath = float_path(comps, select_engine)
     launches["float matmul"], float_inputs = drive_float_matmul(
         torch, g, dev, fpath, block_for, record)

@@ -10,6 +10,11 @@
     ``scan_table()``, ``vmem_report()``, ``run()`` (on the card unless
     ``device="cpu"``), ``stats_template()`` / ``eq2_report().verify()``,
     ``serve()``;
+  * :func:`partition_pipeline` / :class:`StagePartition` — the sharding
+    stage (``CompiledPipeline.partition(n_stages)``): contiguous stage
+    programs balanced by the cycle model, fused residual blocks atomic,
+    with per-stage Eq. 2 accounting and ``verify_eq2()``;
+    ``serve_sharded(params, mesh=...)`` serves them as a stage ring;
   * :func:`autotune_plan` / :class:`AutotuneConfig` — the search-based
     placement + FIFO co-optimizer (``compile(cfg, target,
     autotune=...)`` is the integrated path), seeded by the greedy Alg. 1
@@ -28,6 +33,10 @@ from repro_torch.compiler.engines import (EngineContext,  # noqa: F401
                                           select_engine, select_scan_engine,
                                           select_stem_engine,
                                           unregister_engine)
+from repro_torch.compiler.partition import (PartitionError,  # noqa: F401
+                                            StagePartition, StageProgram,
+                                            partition_pipeline,
+                                            stage_forward_fns)
 from repro_torch.compiler.pipeline import (BlockAssignment,  # noqa: F401
                                            CompileError, CompiledPipeline,
                                            EngineAssignment,

@@ -45,7 +45,9 @@ fused trace unless ``backend="eager"`` asks for the walk;
 ``engine_table()``/``vmem_report()``/``block_table()`` expose the
 decisions, ``with_offload()`` recompiles with a forced offload set,
 ``eq2_report().verify()`` cross-checks the plan's Eq. 2 words against
-what the engines report, ``serve()`` starts a CNN serving engine.
+what the engines report, ``serve()`` starts a CNN serving engine,
+``partition(n)`` cuts the layer order into stage programs and
+``serve_sharded()`` serves them as a stage ring.
 ``compile(..., autotune=...)`` replaces stages 2-3 with the placement +
 FIFO co-optimizer (``compiler/autotune.py``) and attaches its record as
 ``.tuning``.
@@ -67,6 +69,8 @@ import torch
 if TYPE_CHECKING:                     # import cycle guard: autotune uses
     from repro_torch.compiler.autotune import (  # pragma: no cover
         AutotuneConfig, AutotuneResult)
+    from repro_torch.compiler.partition import (  # pragma: no cover
+        StagePartition)
 
 from repro_torch.compiler.engines import (  # noqa: F401 (re-export)
     EngineContext, LayerExecStats, get_engine, select_block_engine,
@@ -411,6 +415,33 @@ class CompiledPipeline:
                        if self.tuning is not None else 4)
         return CnnServingEngine(self, params, microbatch=microbatch,
                                 credits=credits, **kw)
+
+    # -- multi-stage sharding -----------------------------------------------
+
+    def partition(self, n_stages: int) -> "StagePartition":
+        """Cut the placed schedule into ``n_stages`` stage programs,
+        balanced by the per-layer cycle model with fused residual blocks
+        atomic (:mod:`repro_torch.compiler.partition`).  The result
+        carries per-stage Eq. 2 accounting and ``verify_eq2()`` — the
+        same hard-fail plan-vs-dispatch cross-check, per stage."""
+        from repro_torch.compiler.partition import partition_pipeline
+        return partition_pipeline(self, n_stages)
+
+    def serve_sharded(self, params, *, mesh, axis: str = "model",
+                      microbatch: int = 4, **kw):
+        """Stage-pipelined serving: one stage per slot of the ``axis``
+        of ``mesh`` (a slot may repeat a device: on one card each gets
+        its own CUDA stream), activations handed from stage to stage
+        around the ring, each stage replaying its slice of the compiled
+        engine table as one CUDA graph, with shard-local producer queues
+        and one shared §V-A ``AdmissionController`` bounding in-flight
+        microbatches across the mesh.  Returns a
+        ``runtime.sharded_serving.ShardedCnnServingEngine`` (context
+        manager, like :meth:`serve`)."""
+        from repro_torch.runtime.sharded_serving import \
+            ShardedCnnServingEngine
+        return ShardedCnnServingEngine(self, params, mesh=mesh, axis=axis,
+                                       microbatch=microbatch, **kw)
 
     # -- Eq. 2 template + hard-fail cross-check -----------------------------
 
@@ -926,16 +957,18 @@ def make_dispatchers(compiled: CompiledPipeline, ctx: EngineContext,
 
 
 def walk(compiled: CompiledPipeline, params, images, *, act_scale: float,
-         collect: Optional[List[LayerExecStats]]):
+         collect: Optional[List[LayerExecStats]],
+         layer_range: Optional[Tuple[int, int]] = None):
     """The eager walk: ``cnn_forward`` over the compile-time bindings,
     each engine launching its kernels from Python, stats appended to
-    ``collect``."""
+    ``collect``; ``layer_range`` walks one stage's slice of the layer
+    order (``cnn_forward``'s rule: no cut inside a residual block)."""
     ctx = EngineContext(act_scale=act_scale)
     dispatch, block_dispatch, scan_dispatch = make_dispatchers(
         compiled, ctx, collect)
     return cnn_forward(params, compiled.plan.cfg, images, engine=dispatch,
                        block_engine=block_dispatch,
-                       scan_engine=scan_dispatch)
+                       scan_engine=scan_dispatch, layer_range=layer_range)
 
 
 def _params_leaves(params) -> Tuple[torch.Tensor, ...]:
@@ -989,8 +1022,12 @@ class _GraphTrace:
 
 
 def trace_fused(compiled: CompiledPipeline, params, images, *,
-                act_scale: float):
-    """Stage 6 for this input: ``(FusedTrace, logits)``.
+                act_scale: float,
+                layer_range: Optional[Tuple[int, int]] = None):
+    """Stage 6 for this input: ``(FusedTrace, logits)``; with
+    ``layer_range``, for one stage's slice of the layer order (what the
+    sharded engine captures per stage; the result is then the stage's
+    boundary activation, or the logits for the last stage).
 
     On the card: one eager forward first (every kernel built and its
     shared-memory attribute set before capture), then the walk captured
@@ -1007,16 +1044,17 @@ def trace_fused(compiled: CompiledPipeline, params, images, *,
     stats: List[LayerExecStats] = []
     if not images.is_cuda:
         logits = walk(compiled, params, images, act_scale=act_scale,
-                      collect=stats)
+                      collect=stats, layer_range=layer_range)
 
         def fn(p, x):
-            return walk(compiled, p, x, act_scale=act_scale, collect=None)
+            return walk(compiled, p, x, act_scale=act_scale, collect=None,
+                        layer_range=layer_range)
         return FusedTrace(fn=fn, stats=tuple(stats)), logits
 
     dev = images.device
     with torch.cuda.device(dev):
         eager = walk(compiled, params, images, act_scale=act_scale,
-                     collect=None)
+                     collect=None, layer_range=layer_range)
         static_in = images.clone()
         graph = torch.cuda.CUDAGraph()
         with _CAPTURE_LOCK:
@@ -1028,7 +1066,8 @@ def trace_fused(compiled: CompiledPipeline, params, images, *,
                 with torch.cuda.graph(graph, stream=torch.cuda.Stream(dev),
                                       capture_error_mode="relaxed"):
                     static_out = walk(compiled, params, static_in,
-                                      act_scale=act_scale, collect=stats)
+                                      act_scale=act_scale, collect=stats,
+                                      layer_range=layer_range)
         runner = _GraphTrace(graph, static_in, static_out,
                              _params_leaves(params), dict(launches))
         logits = runner(params, images)

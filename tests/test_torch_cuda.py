@@ -1027,6 +1027,172 @@ def test_two_engine_front_end_on_card_bit_identical(dev):
     assert cpmb.trace_count >= 2
 
 
+@pytest.mark.parametrize("name", ["mini_resnet18", "mini_resnet50"])
+def test_sharded_ring_on_card_bit_identical_over_many_rounds(dev, name):
+    """Four stages on ``cuda:0``'s streams, 250 rounds or more of short
+    rounds (3 microbatches of 2) from two producers: every request
+    bit-identical to the eager ``run()``.  A ring that overwrote a
+    boundary buffer before the next stage consumed it would corrupt some
+    request here.  Launches: (microbatches + empty slots) x the stage
+    graphs' launches, which sum to one forward's."""
+    import threading
+
+    import numpy as np
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.mesh import compat_make_mesh
+    comp, params, x = _mini_on_card(dev, name, hw=8, width=16, stages=4)
+    S = 4
+    mesh = compat_make_mesh((S,), ("model",), devices=["cuda:0"] * S)
+    rng = np.random.default_rng(0)
+    shape = tuple(x.shape[1:])
+    reqs = [rng.integers(-127, 128, size=(int(n),) + shape, dtype=np.int8)
+            for n in rng.integers(1, 6, 500)]
+    big = np.concatenate(reqs)
+    ref = np.concatenate([
+        comp.run(params, torch.from_numpy(big[i:i + 64]).to(dev),
+                 backend="eager")[0].cpu().numpy()
+        for i in range(0, len(big), 64)])
+    reset_launches()
+    comp.run(params, x[:2], backend="eager")
+    torch.cuda.synchronize()
+    per_forward = dict(LAUNCHES)
+    handles = [None] * len(reqs)
+    with comp.serve_sharded(params, mesh=mesh, microbatch=2,
+                            round_microbatches=3) as eng:
+        per_mb = {}
+        for prog in eng.stage_programs:
+            for k, v in prog.runner.launches.items():
+                per_mb[k] = per_mb.get(k, 0) + v
+        assert per_mb == per_forward
+        assert len({id(st) for st in eng._ring.streams}) == S
+        reset_launches()
+
+        def producer(pid):
+            for i in range(pid, len(reqs), 2):
+                handles[i] = eng.submit(reqs[i])
+        threads = [threading.Thread(target=producer, args=(p,))
+                   for p in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+            assert not t.is_alive()
+        eng.drain(timeout=600)
+        rep = eng.report()
+    torch.cuda.synchronize()
+    eng.admission.assert_quiescent()
+    assert rep.rounds >= 250 and rep.max_in_flight <= rep.credits
+    assert LAUNCHES == {k: v * (rep.microbatches + rep.empty_microbatches)
+                        for k, v in per_mb.items()}
+    off = 0
+    for i, (h, r) in enumerate(zip(handles, reqs)):
+        assert np.array_equal(h.result(), ref[off:off + len(r)]), i
+        off += len(r)
+    assert comp.trace_count == 0          # the stage graphs stay the engine's
+
+
+SHARDED_CAPTURE_FAILURES = """
+import sys
+import torch
+from repro_torch.compiler import (MINI, compile, get_engine,
+                                  register_engine, unregister_engine)
+from repro_torch.configs.cnn import mini_resnet18
+from repro_torch.launch.mesh import compat_make_mesh
+from repro_torch.models.cnn import init_cnn_params
+
+cfg = mini_resnet18(hw=8, width=16, stages=4)
+params = init_cnn_params(cfg, torch.Generator().manual_seed(0), "cuda")
+mesh = compat_make_mesh((4,), ("model",), devices=["cuda:0"] * 4)
+builtin = get_engine("stream_matmul")
+
+
+def fc_engine(name, run):
+    @register_engine(name, priority=99)
+    class Engine:
+        def supports(self, spec):
+            return builtin.supports(spec)
+
+        def vmem_bytes(self, spec, sched):
+            return builtin.vmem_bytes(spec, sched)
+
+        def stats(self, sched, batch):
+            return builtin.stats(sched, batch)
+
+        def run(self, ctx, sched, p, xx, relu):
+            return run(ctx, sched, p, xx, relu)
+
+
+def expect_start_to_raise(what, match):
+    cp = compile(cfg, MINI)
+    eng = cp.serve_sharded(params, mesh=mesh, microbatch=2)
+    try:
+        eng.start()
+    except RuntimeError as e:
+        msg = str(e)
+    else:
+        sys.exit(f"{what}: start() did not raise")
+    assert match in msg, (what, msg)
+    assert not eng._started and eng._ring is None and not eng.stage_programs
+    try:
+        eng.submit(torch.zeros((1, 8, 8, 3), dtype=torch.int8).numpy())
+    except RuntimeError as e:
+        assert "not started" in str(e)
+    else:
+        sys.exit(f"{what}: a request was taken")
+    print(what, "raised:", msg[:80])
+
+
+# the fc head adds how often it ran: the eager walk adds 1, the capture
+# bakes in 2, so the first replay differs from the eager walk
+calls = [0]
+
+
+def drift(ctx, sched, p, xx, relu):
+    calls[0] += 1
+    y_q, y_f, st = builtin.run(ctx, sched, p, xx, relu)
+    return y_q, y_f + float(calls[0]), st
+
+
+fc_engine("fc_drift", drift)
+try:
+    expect_start_to_raise("replay differs", "differs from the eager walk")
+finally:
+    unregister_engine("fc_drift")
+
+
+def host_sync(ctx, sched, p, xx, relu):
+    xx.float().sum().item()                    # cannot be captured
+    return builtin.run(ctx, sched, p, xx, relu)
+
+
+fc_engine("fc_sync", host_sync)
+try:
+    expect_start_to_raise("capture fails", "")
+finally:
+    unregister_engine("fc_sync")
+print("OK")
+"""
+
+
+def test_sharded_capture_failure_or_unequal_replay_raises_from_start(dev):
+    """A stage graph whose first replay differs from the eager walk of its
+    stage, and a stage that cannot be captured, both raise from
+    ``start()``: no ring, no request taken, nothing falls back to the
+    eager walk.  In a process of its own, since a failed capture may
+    leave the context unusable."""
+    import os
+    import pathlib
+    import subprocess
+    import sys
+    root = pathlib.Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    r = subprocess.run([sys.executable, "-c", SHARDED_CAPTURE_FAILURES],
+                       cwd=root, env=env, capture_output=True, text=True,
+                       timeout=600)
+    assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-4000:]
+    assert r.stdout.strip().endswith("OK"), r.stdout
+
+
 def test_fused_capture_failure_raises(dev):
     """An engine that syncs with the host cannot be captured: run() raises
     and caches nothing; nothing falls back to the eager walk.  Last in

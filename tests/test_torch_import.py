@@ -35,6 +35,9 @@ def test_import_with_jax_blocked():
         import repro_torch.launch.train
         import repro_torch.runtime.cnn_serving, repro_torch.obs.trace
         import repro_torch.obs.stall, repro_torch.obs.metrics
+        import repro_torch.compiler.partition, repro_torch.core.dataflow
+        import repro_torch.runtime.sharded_serving
+        import repro_torch.launch.mesh
         bad = sorted(m for m in sys.modules
                      if m in ("jax", "repro") or m.startswith(("jax.",
                                                                "repro.")))
