@@ -18,8 +18,10 @@ it is run outside a checkout of the repository.  Phases, one line each:
      the instructions a MAC of each 3x3 ``dw_kernel``'s MAC block; it
      fails unless the instance each main-path launch of K1 (``conv_mma``),
      K2 (``conv_stream``, from the conv plans of its shape) and K9
-     (``flash_fwd_wgmma<128>``, from the flash route of Phi-4-mini's head
-     dims) takes issues IMMA or HGMMA, and where a K2 instance spills;
+     (``flash_fwd_wgmma<128>`` for Phi-4-mini and Qwen2-MoE,
+     ``flash_fwd_bf16<192,128>`` for DeepSeek-V2's MLA, from the flash
+     route of their head dims) takes issues IMMA, HGMMA or HMMA, and
+     where a K2 instance spills;
   2. hold every kernel against its plain PyTorch version on the card: the
      streamed dense conv (K2) at every dense conv shape of the six CNN
      configs compiled for ``NX2100`` at batch 8, forced onto the streamed
@@ -35,8 +37,10 @@ it is run outside a checkout of the repository.  Phases, one line each:
      the depthwise kernels at every dw shape of MobileNetV1, V2 and V3 in
      both tiers (streamed with ``n_buffers`` in {1, 2, k*k}); the
      flash-attention forward (o and lse) at the LM slice's prefill shape,
-     at S = 2048, at the five ``ATTN_CASES`` of ``tests/test_kernels.py``
-     and at hd=192/hd_v=128, in bf16 and f32, within ``FLASH_TOL`` (per
+     at S = 2048, at the five ``ATTN_CASES`` of ``tests/test_kernels.py``,
+     at hd=192/hd_v=128 and at the LM families' prefill shapes
+     (``FLASH_QWEN``, ``FLASH_DSV2``), in bf16 and f32, within
+     ``FLASH_TOL`` (per
      dtype and output; lse to 1e-4); the flash-attention backward (K10:
      dq; K11: dk, dv) at the same shapes and dtypes on K9's o and lse,
      within ``BWD_TOL``; their f32 sums (bf16 operands, f32 outputs)
@@ -116,6 +120,25 @@ it is run outside a checkout of the repository.  Phases, one line each:
      within ``GRAD_REL_TOL``, L2), then ``Trainer.run`` for 3 steps of
      4x512 tokens (AdamW, remat, no checkpoint): exactly 64 K9, 32 K10 and
      32 K11 launches a step and a finite loss and grad norm at every step.
+     Then the LM families (``FAMILIES``), with Phi-4-mini's weights
+     freed, each through ``ServingEngine`` as Phi-4-mini: Qwen2-MoE-A2.7B
+     at full width and depth (14,004,668,416 params, exactly 48 K9
+     launches on ``flash_fwd_wgmma<128>``) and DeepSeek-V2 at full width
+     cut to 6 of its 60 layers (24,881,329,152 params, exactly 12 on
+     ``flash_fwd_bf16<192,128>``): every request complete, admission
+     quiescent; MoE routing read layer by layer on both paths, rows
+     whose routing agrees held to the plain path's prefill logits and
+     first token, every layer, from the plain path's input and routing,
+     within ``LM_REL_TOL`` of the plain layer's output, and every row's
+     logits with the plain path's routing forced on the kernel path
+     within ``FORCED_LIMIT`` times the plain path's distance from an f32
+     walk of the same weights, planted faults of ``PLANTS_CAUGHT`` seen
+     past it (``serve_family``); the peak device memory of each LM
+     phase.  Then
+     both in f32 (``FAMILIES_F32``: Qwen2-MoE whole, DeepSeek-V2 at 3
+     layers), one batch prefilled on both paths: logits within
+     ``F32_REL_TOL`` with the plain path's routing forced to the kernel
+     path's, and on the rows whose routing agrees.
      Then the float matmul's path: ``stream_matmul`` at every fc head of
      the six configs as a matmul at M = 8, in the mode its engine runs,
      and VGG-16's fc0 as a 25088 x 4096 matmul streamed, in f32 and bf16:
@@ -134,9 +157,10 @@ it is run outside a checkout of the repository.  Phases, one line each:
      since it refuses M <= 16 and no float conv is exact past 2^24; the
      faster exact of cuDNN's fp32 and TF32 conv for the other dense
      convs; cuDNN's fp32 conv for the depthwise conv;
-     ``scaled_dot_product_attention`` for attention, its backward for the
-     K10/K11 pair), each net end to end, the LM's prefill, decode step and
-     engine run, and the training step (eager ms of steps 2-3, and one
+     ``scaled_dot_product_attention`` for attention, every backend tried
+     and the fastest that takes the operands kept, its backward for the
+     K10/K11 pair), each net end to end, each LM's prefill, decode step
+     and engine run, and the training step (eager ms of steps 2-3, and one
      more step traced by ``torch.profiler`` for its device ms);
   5. print the ``kernels`` JSON line, the card's name and power limit,
      and last ``{"ok": true, "device": ...}``.
@@ -169,6 +193,8 @@ the kernel's launches, on which the kernel takes
 the run goes to ``chip_smoke.json`` in the output directory beside this
 script.
 """
+import contextlib
+import functools
 import json
 import os
 import statistics
@@ -199,6 +225,11 @@ LM_REL_TOL = 2e-2        # prefill logits: kernel path vs plain path
 # tests/test_kernels.py, and one hd != hd_v case.
 FLASH_SLICE = (LM_SLOTS, 24, 8, LM_PROMPT, 128, 128, True, 0, 0.0)
 FLASH_LONG = (LM_SLOTS, 24, 8, 2048, 128, 128, True, 0, 0.0)
+# the LM families' prefill shapes: Qwen2-MoE-A2.7B (16 heads of 128, the
+# wgmma route) and DeepSeek-V2's MLA (128 heads, qk 192 / v 128, the
+# mma.sync route)
+FLASH_QWEN = (LM_SLOTS, 16, 16, LM_PROMPT, 128, 128, True, 0, 0.0)
+FLASH_DSV2 = (LM_SLOTS, 128, 128, LM_PROMPT, 192, 128, True, 0, 0.0)
 FLASH_CASES = [FLASH_SLICE, FLASH_LONG,
                (2, 4, 4, 256, 64, 64, True, 0, 0.0),
                (2, 4, 2, 256, 64, 64, True, 64, 0.0),
@@ -275,6 +306,39 @@ MAXPOOL_EDGES = [(2, 13, 11, 64, 3, 2), (2, 9, 7, 20, 3, 1),
                  (3, 7, 9, 4, 2, 2), (2, 15, 17, 64, 3, 1),
                  (2, 10, 9, 20, 5, 2), (1, 6, 5, 4, 3, 2)]
 GAP_EDGES = [(2, 3, 5, 20), (3, 4, 4, 6), (2, 1, 1, 64), (1, 56, 56, 48)]
+
+# the LM families, after the Phi-4-mini phases: (arch, n_layers or None
+# for full depth, the parameters at that depth, K9's prefill shape).
+# Both at full width, bf16, random weights from SEED, served as
+# Phi-4-mini is (LM_SLOTS, LM_MAX_SEQ, LM_REQUESTS x LM_PROMPT, LM_NEW);
+# DeepSeek-V2 cut to 6 of its 60 layers: 478.8 GB of bf16 weights at
+# full depth, 49.8 GB at 6
+FAMILIES = (("qwen2-moe-a2.7b", None, 14_004_668_416, FLASH_QWEN),
+            ("deepseek-v2-236b", 6, 24_881_329_152, FLASH_DSV2))
+# K9's main-path shapes: Phi-4-mini's (serving and training), then the
+# families'
+FLASH_MAIN = (FLASH_SLICE, FLASH_QWEN, FLASH_DSV2)
+# the same families in f32 (the layers that fit the card: 56.0 GB for
+# Qwen2-MoE whole, 51.9 GB for 3 of DeepSeek-V2's layers), one batch of
+# the prompts prefilled on both paths: where bf16's rounding is what
+# parts them, f32's (2^-24 against 2^-8) leaves the kernel path's logits
+# with the plain path's routing forced on it within F32_REL_TOL x
+# max|logit|, the CPU tests' f32 tolerance
+FAMILIES_F32 = (("qwen2-moe-a2.7b", None), ("deepseek-v2-236b", 3))
+F32_REL_TOL = 1e-4
+# the families' bf16 logits on every row, the MoE routing forced to the
+# plain path's on the kernel path and on an f32 walk of the same weights
+# (``forced_walk``): the kernel path's distance from the f32 walk, as a
+# share of max|logit|, at most FORCED_LIMIT times the plain path's.
+# PLANTS: faults planted in the kernel path (every attention sublayer's
+# output scaled by 1 + p), read against that limit on the first batch;
+# those of PLANTS_CAUGHT must exceed it.  The limit lies between the
+# readings on an H100: the sound kernel path 0.84-0.88 of the plain
+# path's distance, the plant 2^-5 1.91-2.11 (2^-7 1.00-1.13, 2^-3
+# 6.6-7.3), for both families
+FORCED_LIMIT = 1.5
+PLANTS = (2 ** -7, 2 ** -5, 2 ** -3)
+PLANTS_CAUGHT = (2 ** -5, 2 ** -3)
 
 # kernel name -> (source, the Pallas kernel body it replaces)
 KERNELS = {
@@ -512,7 +576,7 @@ PTXAS_SOURCES = (
 MANGLED_ARGS = {"f": "f32", "13__nv_bfloat16": "bf16", "S1_": "bf16"}
 # the tensor-core instruction each redesigned kernel must issue (SASS)
 SASS_REQUIRED = {"conv_mma": "IMMA", "conv_stream": "IMMA",
-                 "flash_fwd_wgmma": "HGMMA"}
+                 "flash_fwd_wgmma": "HGMMA", "flash_fwd_bf16": "HMMA"}
 
 
 def instance_name(text, templates):
@@ -619,10 +683,12 @@ def start_ptxas_report(_build):
 def check_main_path_instances(record, shapes, conv_plan, stream_plan,
                               sm_count, flash_route, torch):
     """The kernel instance each main-path launch of K1, K2 and K9 takes
-    (from the conv plans of its shape and the flash route of Phi-4-mini's
-    head dims), and that each issues its tensor-core instruction in the
-    SASS of the build report, and a K2 instance spills nothing; fails
-    where one does not."""
+    (from the conv plans of its shape and the flash route of each LM's
+    head dims: ``flash_fwd_wgmma<128>`` for Phi-4-mini and Qwen2-MoE,
+    ``flash_fwd_bf16<192,128>`` for DeepSeek-V2's MLA), and that each
+    issues its tensor-core instruction (IMMA, HGMMA, HMMA) in the SASS of
+    the build report, and a K2 instance spills nothing; fails where one
+    does not."""
     used = {}
     for key in shapes["conv2d_int8_pinned"]:
         h, w, c, co, k, s = key[:6]
@@ -635,12 +701,13 @@ def check_main_path_instances(record, shapes, conv_plan, stream_plan,
         plan = stream_plan(BATCH, h, w, c, co, k, k, s, nb, sm_count)
         inst = f"conv_stream<{plan.wn},{plan.nf},{plan.vec}>"
         used.setdefault(("conv2d_int8", inst), []).append(list(key[:6]))
-    hd = FLASH_SLICE[4]
-    route = flash_route(torch.bfloat16, hd, FLASH_SLICE[5])
-    used[("flash_attention",
-          f"flash_fwd_wgmma<{hd}>" if route == "wgmma"
-          else f"flash_fwd_bf16<{hd},{FLASH_SLICE[5]}>")] = [
-              list(FLASH_SLICE[:6])]
+    for case in FLASH_MAIN:
+        hd, hd_v = case[4:6]
+        route = flash_route(torch.bfloat16, hd, hd_v)
+        used.setdefault(("flash_attention",
+                         f"flash_fwd_wgmma<{hd}>" if route == "wgmma"
+                         else f"flash_fwd_bf16<{hd},{hd_v}>"), []).append(
+            list(case[:6]))
     rows = {}
     for (src, inst), keys in used.items():
         rep = record["ptxas"][src].get(inst, {})
@@ -652,17 +719,16 @@ def check_main_path_instances(record, shapes, conv_plan, stream_plan,
                 rep.get("spill_stores", 0) or rep.get("spill_loads", 0)):
             raise AssertionError(f"{inst}, launched at {keys}, spills: "
                                  f"{rep}")
-        rows[inst] = {"shapes": keys, op: rep[op],
+        rows[inst] = {"shapes": keys, "op": op, op: rep[op],
                       "registers": rep.get("registers"),
                       "spill_bytes": rep.get("spill_stores", 0)
                       + rep.get("spill_loads", 0)}
     record["main_path_instances"] = rows
     log("build", "main-path instances (launch shapes; tensor-core SASS "
         "instructions, registers, spill bytes): " + "; ".join(
-            f"{inst}: {len(r['shapes'])} shapes, "
-            f"{r.get('IMMA', r.get('HGMMA'))} "
-            f"{'IMMA' if 'IMMA' in r else 'HGMMA'}, {r['registers']}, "
-            f"{r['spill_bytes']}" for inst, r in rows.items()))
+            f"{inst}: {len(r['shapes'])} shapes, {r[r['op']]} {r['op']}, "
+            f"{r['registers']}, {r['spill_bytes']}"
+            for inst, r in rows.items()))
 
 
 def library_conv(torch, F, x, w, s, same_pad):
@@ -855,14 +921,15 @@ def flash_kw(case):
 
 def check_flash(torch, g, dev, kern):
     """Phase 2 for K9: the kernel against its plain version (at the JAX
-    call's blocks, min(128, S)) at every case of FLASH_CASES in bf16 and
-    f32, o and lse; and the model-layout entry the main path calls, which
-    reads q/k/v and writes o through their strides."""
+    call's blocks, min(128, S)) at every case of FLASH_CASES and at the LM
+    families' prefill shapes in bf16 and f32, o and lse; and the
+    model-layout entry the main path calls, which reads q/k/v and writes o
+    through their strides."""
     from repro_torch.kernels.flash_attention.ops import (
         flash_attention, flash_attention_kernel)
     from repro_torch.kernels.flash_attention.ref import flash_attention_plain
     n = 0
-    for case in FLASH_CASES:
+    for case in FLASH_CASES + [FLASH_QWEN, FLASH_DSV2]:
         for dname in FLASH_DTYPES:
             q, k, v = flash_inputs(torch, g, dev, case, getattr(torch, dname))
             want_o, want_lse = flash_attention_plain(q, k, v,
@@ -1086,6 +1153,7 @@ def serve_lm(torch, np, dev, record):
     from repro_torch.models.accounting import weight_bytes
     from repro_torch.runtime.serving import Request, ServingEngine
     arch = get_arch(LM_ARCH)
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = tmod.init_params(torch.Generator(device=dev).manual_seed(SEED),
                               arch, dev)
@@ -1149,13 +1217,15 @@ def serve_lm(torch, np, dev, record):
                 sure += ok
     rec["first_token_checked"] = sure
     rec["launches"] = launches
+    rec["peak_bytes"] = torch.cuda.max_memory_allocated()
     record["lm"] = rec
     log("slice", f"{LM_ARCH} (full width and depth, {rec['params']:,} "
         f"params, bf16): {LM_REQUESTS} requests x {LM_NEW} tokens served "
         f"with {LM_SLOTS} slots, launches {json.dumps(launches)}; prefill "
         f"logits within {max(rec['prefill_logit_diff']):.4g} of the plain "
         f"path (bound {min(rec['prefill_logit_bound']):.4g}); first token "
-        f"equal on the {sure} rows whose top-2 margin exceeds the bound")
+        f"equal on the {sure} rows whose top-2 margin exceeds the bound; "
+        f"peak device memory {rec['peak_bytes'] / 1e9:.2f} GB")
     return {"params": params, "arch": arch, "engine": engine,
             "prompts": prompts, "batches": batches, "launches": launches}
 
@@ -1404,57 +1474,98 @@ def time_flash_bwd(torch, F, g, dev, ks, n_launches, card, record):
     record["flash_bwd_per_launch"] = {str(S): d for S, d in per.items()}
 
 
-def time_flash(torch, F, g, dev, kern, n_launches, card, record):
-    """Phase 4 for K9: device ms per launch at the slice shape and at S =
-    2048 (model layout, as the main path calls it), its plain version,
-    and F.scaled_dot_product_attention on the same tensors."""
+def sdpa_readings(torch, F, q, k, v):
+    """``F.scaled_dot_product_attention`` (causal, GQA) on kernel-layout
+    views, backend by backend: {backend: device ms per call, or the
+    reason it refuses these operands}, and the fastest backend's call."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    found, best = {}, None
+    for b in (SDPBackend.CUDNN_ATTENTION, SDPBackend.FLASH_ATTENTION,
+              SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        def call(b=b):
+            with sdpa_kernel([b]):
+                return F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, enable_gqa=True)
+        try:
+            call()
+            ms = device_ms(torch, call, reps=20 if b != SDPBackend.MATH
+                           else 3, replays=5 if b != SDPBackend.MATH else 2)
+        except RuntimeError as e:
+            found[b.name] = f"refused: {str(e).splitlines()[0][:160]}"
+            continue
+        found[b.name] = ms
+        if best is None or ms < found[best[0]]:
+            best = (b.name, call)
+    return found, best
+
+
+def time_flash(torch, F, g, dev, kern, launches_by_case, card, record):
+    """Phase 4 for K9: device ms per launch at each main-path shape
+    (``launches_by_case``: Phi-4-mini's serving and training, Qwen2-MoE's
+    and DeepSeek-V2's prefills) and at S = 2048 (model layout, as the
+    main path calls it), its plain version, and
+    F.scaled_dot_product_attention on the same tensors (every backend
+    tried, the fastest that takes the operands kept); the kernel's row
+    sums them over the launches of each shape."""
     from repro_torch.kernels.flash_attention.ops import (flash_attention,
                                                          flash_route)
     from repro_torch.kernels.flash_attention.ref import flash_attention_plain
     per = {}
-    for case in (FLASH_SLICE, FLASH_LONG):
+    for case in FLASH_MAIN + (FLASH_LONG,):
         B, H, KV, S, hd, hd_v = case[:6]
+        key = "x".join(str(n) for n in case[:6])
         q, k, v = (t.transpose(1, 2).contiguous() for t in flash_inputs(
             torch, g, dev, case, torch.bfloat16))
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-
-        def lib():
-            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                  enable_gqa=True)
+        libs, (lib_name, lib) = sdpa_readings(torch, F, qt, kt, vt)
         lib_diff = float((lib().transpose(1, 2).float()
                           - flash_attention(q, k, v).float()).abs().max())
         nbytes = 2 * (q.numel() + k.numel() + v.numel() + B * S * H * hd_v) \
             + 4 * B * H * S
-        flops = 4 * B * H * S * S * hd // 2
+        flops = 2 * B * H * S * S * (hd + hd_v) // 2
         b, by = bound_ms(nbytes, flops, BF16_FLOPS_PER_S)
-        per[S] = {"ms": device_ms(torch, lambda: flash_attention(q, k, v),
-                                  reps=20),
-                  "call_ms": call_ms(torch, lambda: flash_attention(q, k, v),
-                                     reps=20),
-                  "plain_ms": device_ms(torch, lambda: flash_attention_plain(
-                      qt, kt, vt), reps=3, replays=2),
-                  "library_ms": device_ms(torch, lib, reps=20),
-                  "bound_ms": b, "bound_by": by, "bytes": nbytes,
-                  "flops": flops, "library_max_abs_diff": lib_diff}
-        per[S]["route"] = flash_route(torch.bfloat16, hd, hd_v)
-        per[S]["factor"] = per[S]["ms"] / per[S]["library_ms"]
-        log("time", f"{LM_KERNEL} B={B} H={H} KV={KV} S={S} hd={hd} bf16 "
-            f"causal ({per[S]['route']} route): {per[S]['ms']:.4f} ms per "
-            f"launch (device), plain {per[S]['plain_ms']:.4f} ms, SDPA "
-            f"{per[S]['library_ms']:.4f} ms ({per[S]['factor']:.3f}x), "
-            f"bound {b:.4f} ms ({by}), {flops / per[S]['ms'] / 1e9:.1f} "
-            f"TFLOP/s  [{card}]")
-    t = per[LM_PROMPT]
-    kern.ms, kern.plain_ms = n_launches * t["ms"], n_launches * t["plain_ms"]
-    kern.library_ms = n_launches * t["library_ms"]
-    kern.bound_ms, kern.bound_by = n_launches * t["bound_ms"], t["bound_by"]
-    record["flash_per_launch"] = {str(S): d for S, d in per.items()}
+        t = per[key] = {
+            "case": list(case), "launches": launches_by_case.get(case, 0),
+            "ms": device_ms(torch, lambda: flash_attention(q, k, v),
+                            reps=20),
+            "call_ms": call_ms(torch, lambda: flash_attention(q, k, v),
+                               reps=20),
+            "plain_ms": device_ms(torch, lambda: flash_attention_plain(
+                qt, kt, vt), reps=3, replays=2),
+            "library_ms": libs[lib_name], "library_backend": lib_name,
+            "library_backends": libs, "bound_ms": b, "bound_by": by,
+            "bytes": nbytes, "flops": flops,
+            "library_max_abs_diff": lib_diff,
+            "route": flash_route(torch.bfloat16, hd, hd_v)}
+        t["factor"] = t["ms"] / t["library_ms"]
+        log("time", f"{LM_KERNEL} B={B} H={H} KV={KV} S={S} hd={hd} "
+            f"hd_v={hd_v} bf16 causal ({t['route']} route, "
+            f"{t['launches']} main-path launches): {t['ms']:.4f} ms per "
+            f"launch (device), plain {t['plain_ms']:.4f} ms, SDPA "
+            f"{t['library_ms']:.4f} ms ({lib_name}; {t['factor']:.3f}x), "
+            f"bound {b:.4f} ms ({by}), {flops / t['ms'] / 1e9:.1f} TFLOP/s; "
+            f"SDPA backends: " + ", ".join(
+                f"{n} {v:.4f} ms" if isinstance(v, float) else f"{n} {v}"
+                for n, v in libs.items()) + f"  [{card}]")
+    main = [t for t in per.values() if t["launches"]]
+    for what in ("ms", "plain_ms", "library_ms", "bound_ms"):
+        setattr(kern, what, sum(t["launches"] * t[what] for t in main))
+    by_time = {}
+    for t in main:
+        by_time[t["bound_by"]] = by_time.get(t["bound_by"], 0.0) + \
+            t["launches"] * t["bound_ms"]
+    kern.bound_by = max(by_time, key=by_time.get)
+    kern.per_shape = [{k: t[k] for k in (
+        "case", "route", "launches", "ms", "plain_ms", "bound_ms",
+        "bound_by", "library_ms", "library_backend")} for t in main]
+    record["flash_per_launch"] = per
 
 
-def time_lm(torch, st, card, record):
-    """Phase 4 for the LM: eager prefill ms per batch, decode ms per step
+def time_lm(torch, st, card, lm_rec, name=LM_ARCH):
+    """Phase 4 for an LM: eager prefill ms per batch, decode ms per step
     and tokens/s of whole engine runs; one prefill and one decode step
-    replayed as CUDA graphs for device time and the card's idle share."""
+    replayed as CUDA graphs for device time and the card's idle share.
+    Adds them to ``lm_rec``."""
     from repro_torch.models import transformer as tmod
     from repro_torch.runtime.serving import Request
     params, arch, engine = st["params"], st["arch"], st["engine"]
@@ -1490,7 +1601,7 @@ def time_lm(torch, st, card, record):
         torch.cuda.synchronize()
         gdiff = float((g_logits - logits).abs().max())
         if not gdiff <= LM_REL_TOL * float(logits.abs().max()):
-            raise AssertionError(f"{LM_ARCH}: the replayed prefill's logits "
+            raise AssertionError(f"{name}: the replayed prefill's logits "
                                  f"differ from the eager one's by {gdiff}")
         pre_dev = event_ms(torch, graph.replay, 5) / 5
         del graph
@@ -1512,13 +1623,451 @@ def time_lm(torch, st, card, record):
            "tokens_per_s": n_tok / run * 1e3,
            "prefill_tokens_per_s": B * LM_PROMPT / pre * 1e3,
            "graph_prefill_max_abs_diff": gdiff}
-    record["lm"].update(rec)
-    log("time", f"{LM_ARCH} batch {B}x{LM_PROMPT}: prefill {pre:.3f} ms "
+    lm_rec.update(rec)
+    log("time", f"{name} batch {B}x{LM_PROMPT}: prefill {pre:.3f} ms "
         f"eager, {pre_dev:.3f} ms device (idle {100 * rec['prefill_idle_share']:.0f}%); "
         f"decode step {dec:.3f} ms eager, {dec_dev:.3f} ms device (idle "
         f"{100 * rec['decode_idle_share']:.0f}%); engine.run of "
         f"{LM_REQUESTS} requests {run:.1f} ms, {rec['tokens_per_s']:.1f} "
         f"generated tokens/s  [{card}]")
+
+
+def routing_masks(torch, arch, top_e):
+    """The experts each token of a prefill picked and those of its choices
+    the capacity cut kept, as two ``[T, E]`` bool masks, from its top-k
+    experts ``[T, k]`` (the grouped path's groups and positions)."""
+    from repro_torch.models import ffn
+    T, k = top_e.shape
+    tg = min(ffn.MOE_GROUP, T)
+    pos = ffn.capacity_positions(top_e.reshape(T // tg, tg, k),
+                                 arch.moe.n_experts).reshape(T, k)
+    keep = pos < ffn.moe_capacity(arch, tg)
+    chosen = torch.zeros((T, arch.moe.n_experts), dtype=torch.bool,
+                         device=top_e.device).scatter_(1, top_e, True)
+    return chosen, torch.zeros_like(chosen).scatter_(1, top_e, keep)
+
+
+def routed_apart(torch, arch, a, b):
+    """[T] True where two routings ``[T, k]`` of one prefill differ in the
+    experts a token picked or in those of its choices the capacity cut
+    kept."""
+    ca, ka = routing_masks(torch, arch, a)
+    cb, kb = routing_masks(torch, arch, b)
+    return ((ca != cb) | (ka != kb)).any(-1)
+
+
+@contextlib.contextmanager
+def moe_routing(forced=None):
+    """Reads or forces the MoE routing of what runs inside.  Yields a list
+    that gets, call by call, the top-k experts ``[T, k]`` each MoE layer
+    took.  With ``forced`` (such a list, in the same order) each call
+    takes the next one's experts instead of its router's top-k, its gates
+    the router's probabilities renormalised over them.  Patches
+    ``repro_torch.models.ffn.top_k``, which ``moe_router`` calls once a
+    layer (the package itself has no such option)."""
+    from repro_torch.models import ffn
+    own = ffn.top_k
+    it = None if forced is None else iter(forced)
+    taken = []
+
+    def top_k(probs, k):
+        if it is None:
+            p, e = own(probs, k)
+        else:
+            e = next(it).reshape(*probs.shape[:-1], k)
+            p = probs.gather(-1, e)
+        taken.append(e.reshape(-1, k))
+        return p, e
+
+    ffn.top_k = top_k
+    try:
+        yield taken
+    finally:
+        ffn.top_k = own
+
+
+def layer_by_layer(torch, tmod, lm_layers, params, arch, toks):
+    """Each layer of an MoE arch on the plain path's input to it, once with
+    kernel mode off and once on, the kernel run's MoE routing forced to
+    the plain run's: per layer, the tokens whose routing the two runs'
+    routers picked apart from that one input, and max |kernel - plain|
+    over LM_REL_TOL x max |plain| of the layer's output (the bound)."""
+    from repro_torch.models.ffn import moe_router
+    from repro_torch.models.layers import rmsnorm
+    B, S = toks.shape
+    positions = torch.arange(S, device=toks.device).expand(B, S)
+    x = tmod._embed_inputs(params, arch, {"tokens": toks})
+    out = []
+
+    def half(x, lp, on):
+        lm_layers.set_kernel_mode(on)
+        try:
+            x, _ = tmod._attn_block(arch, x, lp, None, positions)
+        finally:
+            lm_layers.set_kernel_mode(True)
+        h2 = rmsnorm(lp["ln2"], x, arch.norm_eps)
+        return x, moe_router(lp["ffn"], arch, h2.reshape(B * S, -1))[2]
+
+    for lp in tmod._unstack(params["layers"], arch.n_layers):
+        xp, rp = half(x, lp, False)
+        xk, rk = half(x, lp, True)
+        with moe_routing([rp, rp]):
+            yp = tmod._ffn_block(arch, xp, lp, with_aux=False)[0]
+            yk = tmod._ffn_block(arch, xk, lp, with_aux=False)[0]
+        out.append((int(routed_apart(torch, arch, rk, rp).sum()),
+                    float((yk - yp).abs().max())
+                    / (LM_REL_TOL * float(yp.abs().max()))))
+        x = yp
+    return out
+
+
+def forced_walk(torch, tmod, lm_layers, params, arch, toks, routes, *,
+                kernel, f32=False, plant=0.0):
+    """Last-token logits of the forward of ``toks``, walked layer by layer
+    with the package's functions, every MoE layer's routing forced to
+    ``routes`` (``moe_routing``), kernel mode ``kernel``.  ``f32``: from
+    the bf16 embedding on in f32, each layer's weights cast as it runs
+    (TF32 off): the reference that both bf16 paths are held to.
+    ``plant``: every attention sublayer's output scaled by 1 + plant, a
+    planted fault for the check to see."""
+    import dataclasses
+
+    import torch.utils._pytree as pytree
+    from repro_torch.models.layers import rmsnorm
+    if f32 and torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("the f32 walk needs TF32 off")
+    run_arch = dataclasses.replace(arch, dtype="float32") if f32 else arch
+    B, S = toks.shape
+    positions = torch.arange(S, device=toks.device).expand(B, S)
+    x = tmod._embed_inputs(params, arch, {"tokens": toks})
+    x = x.float() if f32 else x
+    lm_layers.set_kernel_mode(kernel)
+    try:
+        with moe_routing(routes):
+            for lp in tmod._unstack(params["layers"], arch.n_layers):
+                if f32:
+                    lp = pytree.tree_map(lambda t: t.float(), lp)
+                y, _ = tmod._attn_block(run_arch, x, lp, None, positions)
+                if plant:
+                    y = x + (y - x) * (1 + plant)
+                x, _ = tmod._ffn_block(run_arch, y, lp, with_aux=False)
+                del lp
+    finally:
+        lm_layers.set_kernel_mode(True)
+    h = rmsnorm(params["ln_f"], x, arch.norm_eps)
+    return tmod.logits_from_hidden(params, arch, h[:, -1])
+
+
+def family_f32(torch, np, dev, record, name, n_layers):
+    """The f32 check of ``FAMILIES_F32``: ``name`` in f32 at full width
+    (``n_layers`` of its layers, or all), random weights from SEED, the
+    first LM_SLOTS prompts prefilled with kernel mode on (K9's f32 route)
+    and off; the rows whose routing agrees in every layer, and the
+    logits of the plain path with the kernel path's routing forced on
+    it, held within F32_REL_TOL x max|logit|."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import layers as lm_layers
+    from repro_torch.models import transformer as tmod
+    gc.collect()
+    torch.cuda.empty_cache()
+    arch = dataclasses.replace(get_arch(name), dtype="float32")
+    if n_layers:
+        arch = dataclasses.replace(arch, n_layers=n_layers)
+    params = tmod.init_params(torch.Generator(device=dev).manual_seed(SEED),
+                              arch, dev)
+    rng = np.random.default_rng(SEED)
+    toks = torch.from_numpy(np.stack([
+        rng.integers(0, arch.vocab_size, LM_PROMPT).astype(np.int32)
+        for _ in range(LM_SLOTS)])).to(dev)
+    feed = {"tokens": toks}
+    with torch.no_grad():
+        with moe_routing() as rk:
+            lk, _ = tmod.prefill(params, arch, feed, LM_MAX_SEQ)
+        lm_layers.set_kernel_mode(False)
+        try:
+            with moe_routing() as rp:
+                lp, _ = tmod.prefill(params, arch, feed, LM_MAX_SEQ)
+            with moe_routing(rk):
+                lf, _ = tmod.prefill(params, arch, feed, LM_MAX_SEQ)
+        finally:
+            lm_layers.set_kernel_mode(True)
+        apart = torch.zeros(LM_SLOTS, dtype=torch.bool, device=dev)
+        n_apart = 0
+        for a, b in zip(rk, rp):
+            tok = routed_apart(torch, arch, a, b)
+            n_apart += int(tok.sum())
+            apart |= tok.reshape(LM_SLOTS, -1).any(-1)
+    scale = float(lp.abs().max())
+    row = ((lk - lp).abs().amax(-1) / scale).tolist()
+    forced = float((lk - lf).abs().max()) / scale
+    rec = {"arch": name, "n_layers": arch.n_layers,
+           "params": arch.param_count(), "rows_routed_apart":
+           int(apart.sum()), "token_layers_routed_apart": n_apart,
+           "row_logit_diff_share": row, "forced_logit_diff_share": forced,
+           "peak_bytes": torch.cuda.max_memory_allocated()}
+    record.setdefault("families_f32", {})[name] = rec
+    agree = [r for r, a in zip(row, apart.tolist()) if not a]
+    if not bool(torch.isfinite(lk).all()) or forced > F32_REL_TOL or any(
+            r > F32_REL_TOL for r in agree):
+        raise AssertionError(f"{name} in f32: kernel against plain prefill "
+                             f"logits {row} of max|logit| (routing apart "
+                             f"{apart.tolist()}), {forced} with the routing "
+                             f"forced; bound {F32_REL_TOL}")
+    log("slice", f"{name} in f32 (full width, {arch.n_layers} layers, "
+        f"{rec['params']:,} params): kernel against plain path, "
+        f"{LM_SLOTS}x{LM_PROMPT} prefill: routing apart in "
+        f"{rec['rows_routed_apart']} of {LM_SLOTS} rows ({n_apart} "
+        f"token-layers); logits of the rows that agree within "
+        f"{max(agree, default=0.0):.3g} of max|logit|, every row within "
+        f"{forced:.3g} with the kernel path's routing forced (bound "
+        f"{F32_REL_TOL}); peak device memory "
+        f"{rec['peak_bytes'] / 1e9:.2f} GB")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def serve_family(torch, np, dev, record, card, name, n_layers, n_params,
+                 case):
+    """Phase 3 for an LM family: ``name`` at full width (``n_layers`` of
+    its layers, or all), bf16, random weights from SEED, through
+    ServingEngine as Phi-4-mini: launches counted over engine.run (K9
+    once a layer and prefill, on the route ``case``'s head dims take),
+    every request complete, admission quiescent.  Then, per batch, the
+    kernel path (prefill) against the plain path (kernel mode off).  A
+    token whose k-th and (k+1)-th router probabilities lie within the two
+    attention routes' bf16 difference routes apart, which moves it by far
+    more than the bound, and the random weights carry that into every
+    later token of its row.  So both paths' routing is read, layer by
+    layer, as each prefill runs (``moe_routing``): a row whose every
+    token picked and kept the same experts in every layer is held to the
+    bound (LM_REL_TOL x max|logit|), and its first token, where the top-2
+    margin exceeds the bound, to the plain path's.  Every layer is held
+    too, on every row: from the plain path's input to it, the kernel run
+    with its routing forced to the plain run's within LM_REL_TOL x
+    max|output| (``layer_by_layer``).  And the whole model, on every row,
+    with the plain path's routing forced on the kernel path and on an f32
+    walk of the same weights (``forced_walk``): the kernel path's logits
+    within FORCED_LIMIT times the plain path's distance from the f32
+    walk; on the first batch each of PLANTS, a fault planted in the
+    kernel path's attention, read against that limit, and those of
+    PLANTS_CAUGHT held past it.
+    Then the timings of ``time_lm``.  Returns the launches."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention.ops import flash_route
+    from repro_torch.models import layers as lm_layers
+    from repro_torch.models import transformer as tmod
+    from repro_torch.models.accounting import weight_bytes
+    from repro_torch.runtime.serving import Request, ServingEngine
+    gc.collect()                  # the earlier LM phases' weights go first
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    arch = get_arch(name)
+    if n_layers:
+        log("slice", f"{name} reduced: n_layers {arch.n_layers} → "
+            f"{n_layers} ({weight_bytes(arch) / 1e9:.1f} GB of bf16 "
+            f"weights; one card holds 80 GB)")
+        arch = dataclasses.replace(arch, n_layers=n_layers)
+    if arch.param_count() != n_params:
+        raise AssertionError(f"{name}: {arch.param_count():,} params != "
+                             f"{n_params:,}")
+    mla = arch.mla
+    hd, hd_v, kv = ((mla.qk_nope_head_dim + mla.qk_rope_head_dim,
+                     mla.v_head_dim, arch.n_heads) if mla else
+                    (arch.resolved_head_dim, arch.resolved_head_dim,
+                     arch.n_kv_heads))
+    if (LM_SLOTS, arch.n_heads, kv, LM_PROMPT, hd, hd_v) != case[:6]:
+        raise AssertionError(f"{name}: K9 shape {case} is not the arch's")
+    route = flash_route(torch.bfloat16, hd, hd_v)
+    t0 = time.perf_counter()
+    params = tmod.init_params(torch.Generator(device=dev).manual_seed(SEED),
+                              arch, dev)
+    torch.cuda.synchronize()
+    rec = {"arch": name, "n_layers": arch.n_layers, "params": n_params,
+           "weight_bytes": weight_bytes(arch), "route": route,
+           "init_s": time.perf_counter() - t0,
+           "init_peak_bytes": torch.cuda.max_memory_allocated()}
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, arch.vocab_size, LM_PROMPT).astype(np.int32)
+               for _ in range(LM_REQUESTS)]
+    engine = ServingEngine(params, arch, batch_slots=LM_SLOTS,
+                           max_seq=LM_MAX_SEQ, device=dev)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    done = engine.run([Request(i, p, max_new=LM_NEW)
+                       for i, p in enumerate(prompts)])
+    torch.cuda.synchronize()
+    rec["first_run_s"] = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    n_prefill = -(-LM_REQUESTS // LM_SLOTS)
+    if launches != {LM_KERNEL: n_prefill * arch.n_layers}:
+        raise AssertionError(f"{name}: launches {launches} != {n_prefill} "
+                             f"prefills x {arch.n_layers} layers")
+    vp = params["embed"]["table"].shape[0]
+    outs = {r.rid: r.out for r in done}
+    if sorted(outs) != list(range(LM_REQUESTS)) or any(
+            not r.done or len(r.out) != LM_NEW
+            or not all(0 <= t < vp for t in r.out) for r in done):
+        raise AssertionError(f"{name}: requests incomplete: {outs}")
+    engine.admission.assert_quiescent()
+    batches = [torch.from_numpy(np.stack(prompts[i:i + LM_SLOTS])).to(dev)
+               for i in range(0, LM_REQUESTS, LM_SLOTS)]
+    flips = [0] * arch.n_layers        # tokens routed apart, per layer
+    tf_flips = [0] * arch.n_layers     # the same from one input
+    tf_share = [0.0] * arch.n_layers   # a layer's |kernel - plain| / bound
+    diffs, bounds, agree_rows, forced = [], [], [], []
+    plants = {}
+    sure = walk_equal = 0
+    with torch.no_grad():
+        for bi, toks in enumerate(batches):
+            feed = {"tokens": toks}
+            with moe_routing() as rk:
+                lk, _ = tmod.prefill(params, arch, feed, LM_MAX_SEQ)
+            lm_layers.set_kernel_mode(False)
+            try:
+                with moe_routing() as rp:
+                    lp, _ = tmod.prefill(params, arch, feed, LM_MAX_SEQ)
+            finally:
+                lm_layers.set_kernel_mode(True)
+            walk = functools.partial(forced_walk, torch, tmod, lm_layers,
+                                     params, arch, toks)
+            lw = walk(rk, kernel=True)
+            bound = LM_REL_TOL * float(lp.abs().max())
+            walk_equal += bool(torch.equal(lw, lk))
+            if not float((lw - lk).abs().max()) <= bound:
+                raise AssertionError(f"{name}: forced_walk's logits differ "
+                                     f"from prefill's")
+            apart = torch.zeros(LM_SLOTS, dtype=torch.bool, device=dev)
+            for li, (a, b) in enumerate(zip(rk, rp)):
+                tok = routed_apart(torch, arch, a, b)
+                flips[li] += int(tok.sum())
+                apart |= tok.reshape(LM_SLOTS, -1).any(-1)
+            for li, (tf_apart, share) in enumerate(layer_by_layer(
+                    torch, tmod, lm_layers, params, arch, toks)):
+                tf_flips[li] += tf_apart
+                tf_share[li] = max(tf_share[li], share)
+            row = (lk - lp).abs().amax(-1)
+            agree = ~apart
+            if not bool(torch.isfinite(lk).all()) or bool(
+                    (agree & (row > bound)).any()):
+                raise AssertionError(
+                    f"{name}: prefill logits of the kernel path differ "
+                    f"from the plain path by {row.tolist()} on rows whose "
+                    f"routing agrees ({agree.tolist()}); bound {bound}")
+            diffs.append(float(row[agree].max()) if bool(agree.any())
+                         else None)
+            bounds.append(bound)
+            agree_rows.append(int(agree.sum()))
+            ref = walk(rp, kernel=False, f32=True)
+            torch.cuda.empty_cache()     # the f32 copy of a layer goes
+            scale = float(ref.abs().max())
+            lkf = walk(rp, kernel=True)
+            e_plain = float((lp - ref).abs().max()) / scale
+            e_kernel = float((lkf - ref).abs().max()) / scale
+            forced.append({"kernel_vs_f32": e_kernel,
+                           "plain_vs_f32": e_plain,
+                           "ratio": e_kernel / e_plain,
+                           "kernel_vs_plain": float((lkf - lp).abs().max())
+                           / float(lp.abs().max())})
+            if not e_kernel <= FORCED_LIMIT * e_plain:
+                raise AssertionError(
+                    f"{name}: with the plain path's routing forced, the "
+                    f"kernel path's logits lie {e_kernel:.4g} of max|logit|"
+                    f" from the f32 walk's, the plain path's {e_plain:.4g}:"
+                    f" over FORCED_LIMIT = {FORCED_LIMIT} times")
+            if bi == 0:
+                for plant in PLANTS:
+                    e = float((walk(rp, kernel=True, plant=plant) - ref)
+                              .abs().max()) / scale
+                    plants[plant] = e / e_plain
+                missed = [p for p in PLANTS_CAUGHT
+                          if not plants[p] > FORCED_LIMIT]
+                if missed:
+                    raise AssertionError(
+                        f"{name}: the forced check misses the planted "
+                        f"faults {missed} (readings {plants}, limit "
+                        f"{FORCED_LIMIT})")
+            top2 = lp.topk(2, dim=-1).values
+            margin_ok = (((top2[:, 0] - top2[:, 1]) > bound)
+                         & agree).tolist()
+            first = lp.argmax(-1).tolist()
+            for i, ok in enumerate(margin_ok):
+                rid = bi * LM_SLOTS + i
+                if ok and outs[rid][0] != first[i]:
+                    raise AssertionError(
+                        f"{name}: request {rid} first token {outs[rid][0]}"
+                        f" != the plain path's {first[i]}")
+                sure += ok
+    worst = max(range(arch.n_layers), key=lambda li: tf_share[li])
+    if not tf_share[worst] <= 1.0:
+        raise AssertionError(
+            f"{name}: layer {worst} of the kernel path differs from the "
+            f"plain path's, from the same input and routing, by "
+            f"{tf_share[worst]:.3f} of the bound (LM_REL_TOL x max|out|)")
+    n_rows = LM_REQUESTS
+    rec.update(launches=launches, prefill_logit_diff_agreeing=diffs,
+               prefill_logit_bound=bounds, rows_routing_agrees=agree_rows,
+               rows_routed_apart=n_rows - sum(agree_rows),
+               tokens_routed_apart_per_layer=flips,
+               layer_tokens_routed_apart_same_input=tf_flips,
+               layer_share_of_bound=tf_share,
+               forced_walk_equals_prefill=walk_equal,
+               forced_routing=forced, forced_limit=FORCED_LIMIT,
+               planted_ratio={str(p): r for p, r in plants.items()},
+               first_token_checked=sure,
+               serve_peak_bytes=torch.cuda.max_memory_allocated())
+    ratio = max(f["ratio"] for f in forced)
+    log("slice", f"{name} (full width, {arch.n_layers} layers, "
+        f"{n_params:,} params, bf16): {LM_REQUESTS} requests x {LM_NEW} "
+        f"tokens served with {LM_SLOTS} slots, launches "
+        f"{json.dumps(launches)} on the {route} route; each layer of the "
+        f"kernel path within {max(tf_share):.3f} of the bound of the plain"
+        f" path's from the same input and routing (worst layer {worst}); "
+        f"from one input the two routers part on {sum(tf_flips)} of "
+        f"{n_rows * LM_PROMPT * arch.n_layers} token-layers (per layer "
+        f"{tf_flips}); walking each path on its own, routing apart in "
+        f"{n_rows - sum(agree_rows)} of {n_rows} rows ({sum(flips)} "
+        f"token-layers, per layer {flips}); prefill logits of the "
+        f"{sum(agree_rows)} rows that agree within "
+        f"{max([d for d in diffs if d is not None], default=0.0):.4g} of "
+        f"the plain path (bound {min(bounds):.4g}); first token equal on "
+        f"the {sure} agreeing rows whose top-2 margin exceeds the bound")
+    log("slice", f"{name}, every row with the plain path's routing "
+        f"forced: logits of the kernel path against the f32 walk "
+        f"{[round(f['kernel_vs_f32'], 5) for f in forced]} of max|logit|,"
+        f" of the plain path {[round(f['plain_vs_f32'], 5) for f in forced]}"
+        f" (ratio up to {ratio:.3f}, limit {FORCED_LIMIT}); kernel "
+        f"against plain {[round(f['kernel_vs_plain'], 5) for f in forced]}"
+        f" of max|logit|; planted faults (attention output x (1 + p)) on "
+        f"batch 0, ratio to the plain path's distance: "
+        f"{json.dumps({str(p): round(r, 3) for p, r in plants.items()})}; "
+        f"forced_walk bit-identical to prefill in {walk_equal} of "
+        f"{len(batches)} batches; peak device memory "
+        f"{rec['serve_peak_bytes'] / 1e9:.2f} GB (init "
+        f"{rec['init_peak_bytes'] / 1e9:.2f} GB)")
+    st = {"params": params, "arch": arch, "engine": engine,
+          "prompts": prompts, "batches": batches}
+    torch.cuda.reset_peak_memory_stats()
+    time_lm(torch, st, card, rec, name)
+    rec["time_peak_bytes"] = torch.cuda.max_memory_allocated()
+    peak = rec["time_peak_bytes"] / 1e9
+    log("time", f"{name}: peak device memory {peak:.2f} GB while timed; weights {rec['weight_bytes'] / 1e9:.2f} GB "
+        f"(a decode step reads about all of them: "
+        f"{rec['weight_bytes'] / rec['decode_device_ms'] / 1e6:.0f} GB/s "
+        f"on the card)  [{card}]")
+    record.setdefault("families", {})[name] = rec
+    del st, params, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 def start_tuning(compile, get_cnn, target):
@@ -2536,6 +3085,7 @@ def main():
     lm = serve_lm(torch, np, dev, record)
     launches[LM_ARCH] = lm["launches"]
     total_launches[LM_KERNEL] = lm["launches"][LM_KERNEL]
+    flash_launches = {FLASH_SLICE: lm["launches"][LM_KERNEL]}
 
     # -- 4. timing ------------------------------------------------------------
     t0 = time.perf_counter()
@@ -2989,7 +3539,7 @@ def main():
             f"streamed words a forward "
             f"{reports[n + TUNED_SUFFIX].total_hbm_words} / "
             f"{reports[n].total_hbm_words}  [{card}]")
-    time_lm(torch, lm, card, record)
+    time_lm(torch, lm, card, record["lm"])
     del lm
     record["time_s"] = time.perf_counter() - t0
 
@@ -2998,14 +3548,25 @@ def main():
     launches[LM_ARCH + " training"] = train
     for k in (LM_KERNEL,) + BWD_KERNELS:
         total_launches[k] = total_launches.get(k, 0) + train[k]
+    flash_launches[FLASH_SLICE] += train[LM_KERNEL]
+
+    # -- 3 and 4 for the LM families, with Phi-4-mini's weights freed ------
+    for name, n_layers, n_params, case in FAMILIES:
+        fam = serve_family(torch, np, dev, record, card, name, n_layers,
+                           n_params, case)
+        launches[name] = fam
+        total_launches[LM_KERNEL] += fam[LM_KERNEL]
+        flash_launches[case] = fam[LM_KERNEL]
+    for name, n_layers in FAMILIES_F32:
+        torch.cuda.reset_peak_memory_stats()
+        family_f32(torch, np, dev, record, name, n_layers)
     missing = [k for k in KERNELS if not total_launches.get(k)]
     if missing:
         raise AssertionError(f"kernels never launched on the path: "
                              f"{missing}")
     record["launches"] = launches
     t0 = time.perf_counter()
-    time_flash(torch, F, g, dev, ks[LM_KERNEL], total_launches[LM_KERNEL],
-               card, record)
+    time_flash(torch, F, g, dev, ks[LM_KERNEL], flash_launches, card, record)
     time_flash_bwd(torch, F, g, dev, ks, total_launches, card, record)
     record["time_s"] += time.perf_counter() - t0
 
@@ -3028,6 +3589,8 @@ def main():
                      "ms_on_library_launches": lib_k_ms})
         if kern.floor_ms is not None:      # the launch floor, beside K6
             rows[-1]["floor_ms"] = kern.floor_ms * total_launches[name]
+        if getattr(kern, "per_shape", None):  # K9: each shape and route
+            rows[-1]["per_shape"] = kern.per_shape
         log("time", f"{name}: {kern.ms:.4f} ms per slice run (device), "
             f"plain {kern.plain_ms:.4f} ms, bound {kern.bound_ms:.4f} ms "
             f"({kern.bound_by}), library {kern.library_ms}  [{card}]")

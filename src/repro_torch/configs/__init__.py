@@ -17,6 +17,8 @@ from repro_torch.configs.cnn import (CNN_CONFIGS, CNNConfig,  # noqa: F401
 # the archs whose whole path the port runs (ROADMAP Queue 1 lists the rest)
 _ARCH_MODULES = {
     "phi4-mini-3.8b": "phi4_mini_3_8b",
+    "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
+    "deepseek-v2-236b": "deepseek_v2_236b",
 }
 
 ARCH_IDS = tuple(_ARCH_MODULES)

@@ -17,6 +17,7 @@ cross-attention for the encoder-decoder family.
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -43,20 +44,67 @@ def kernel_mode_enabled() -> bool:
 
 
 # ---------------------------------------------------------------------------
-# initializers
+# initializers: a module's params are first a tree of ``Leaf`` (shape,
+# dtype, the normal's std), then drawn, so that a stack of layers can be
+# allocated once and each layer drawn straight into its slice
 # ---------------------------------------------------------------------------
 
 
-def _dense_init(gen: torch.Generator, shape, dtype, device,
-                scale: Optional[float] = None) -> torch.Tensor:
-    """A normal times ``1/sqrt(fan_in)`` (or ``scale``), drawn in f32 and
-    cast, as the JAX package draws it (other numbers: a torch.Generator)."""
+@dataclass(frozen=True)
+class Leaf:
+    """One parameter: drawn as a normal times ``std`` (in f32, then cast),
+    or zeros where ``std`` is 0 (no draw)."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+    std: float = 0.0
+
+
+def dense_leaf(shape, dtype, scale: Optional[float] = None) -> Leaf:
+    """A normal times ``1/sqrt(fan_in)`` (or ``scale``), as the JAX
+    package's ``_dense_init`` draws it (other numbers: a torch.Generator)."""
     fan_in = shape[0] if len(shape) <= 2 else math.prod(shape[:-1])
     if len(shape) >= 3:                    # [d, H, hd] style
         fan_in = shape[0]
     std = scale if scale is not None else 1.0 / math.sqrt(max(fan_in, 1))
-    x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
-    return (x * std).to(dtype)
+    return Leaf(tuple(shape), dtype, std)
+
+
+def map_leaves(fn, tree):
+    """``fn`` on every leaf of a nested dict."""
+    if isinstance(tree, dict):
+        return {k: map_leaves(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def draw(gen: torch.Generator, spec, device, out=None):
+    """A tree of ``Leaf`` -> the same tree of tensors on ``device`` (``gen``
+    must live there too), leaves drawn in the tree's order.  With ``out``
+    (a tree of tensors of the same shapes) each leaf is written into its
+    tensor in place; a leaf's f32 draw is the only transient."""
+    if isinstance(spec, dict):
+        return {k: draw(gen, s, device, None if out is None else out[k])
+                for k, s in spec.items()}
+    if out is None:
+        out = torch.empty(spec.shape, dtype=spec.dtype, device=device)
+    if spec.std:
+        x = torch.randn(spec.shape, generator=gen, dtype=torch.float32,
+                        device=device)
+        out.copy_(x.mul_(spec.std))
+    else:
+        out.zero_()
+    return out
+
+
+def draw_stacked(gen: torch.Generator, spec, n: int, device):
+    """``n`` draws of ``spec`` stacked on a leading axis, equal bit for bit
+    to ``torch.stack`` of ``n`` separate draws: each stacked leaf is
+    allocated once and each layer drawn straight into its slice, in the
+    same order, so the peak is the stack plus one leaf's f32 draw."""
+    stack = map_leaves(lambda leaf: torch.empty(
+        (n,) + leaf.shape, dtype=leaf.dtype, device=device), spec)
+    for i in range(n):
+        draw(gen, spec, device, out=map_leaves(lambda t: t[i], stack))
+    return stack
 
 
 # ---------------------------------------------------------------------------
@@ -64,8 +112,8 @@ def _dense_init(gen: torch.Generator, shape, dtype, device,
 # ---------------------------------------------------------------------------
 
 
-def init_rmsnorm(d: int, device) -> Params:
-    return {"scale": torch.zeros((d,), dtype=torch.float32, device=device)}
+def rmsnorm_spec(d: int) -> Params:
+    return {"scale": Leaf((d,), torch.float32)}
 
 
 def rmsnorm(params: Params, x: torch.Tensor, eps: float = 1e-6):
@@ -107,10 +155,9 @@ def pad_vocab(v: int, multiple: int = 128) -> int:
     return ((v + multiple - 1) // multiple) * multiple
 
 
-def init_embedding(gen, vocab: int, d: int, dtype, device) -> Params:
-    vp = pad_vocab(vocab)
-    return {"table": _dense_init(gen, (vp, d), dtype, device,
-                                 scale=d ** -0.5)}
+def embedding_spec(vocab: int, d: int, dtype) -> Params:
+    return {"table": dense_leaf((pad_vocab(vocab), d), dtype,
+                                scale=d ** -0.5)}
 
 
 def embed(params: Params, tokens: torch.Tensor) -> torch.Tensor:
@@ -132,19 +179,19 @@ def unembed(params: Params, x: torch.Tensor, softcap: float = 0.0):
 # ---------------------------------------------------------------------------
 
 
-def init_attention(gen, cfg, device) -> Params:
+def attention_spec(cfg) -> Params:
     d, hd = cfg.d_model, cfg.resolved_head_dim
     dtype = getattr(torch, cfg.dtype)
     p = {
-        "wq": _dense_init(gen, (d, cfg.n_heads, hd), dtype, device),
-        "wk": _dense_init(gen, (d, cfg.n_kv_heads, hd), dtype, device),
-        "wv": _dense_init(gen, (d, cfg.n_kv_heads, hd), dtype, device),
-        "wo": _dense_init(gen, (cfg.n_heads, hd, d), dtype, device),
+        "wq": dense_leaf((d, cfg.n_heads, hd), dtype),
+        "wk": dense_leaf((d, cfg.n_kv_heads, hd), dtype),
+        "wv": dense_leaf((d, cfg.n_kv_heads, hd), dtype),
+        "wo": dense_leaf((cfg.n_heads, hd, d), dtype),
     }
     if cfg.qkv_bias:
         for name, heads in (("bq", cfg.n_heads), ("bk", cfg.n_kv_heads),
                             ("bv", cfg.n_kv_heads)):
-            p[name] = torch.zeros((heads, hd), dtype=dtype, device=device)
+            p[name] = Leaf((heads, hd), dtype)
     return p
 
 

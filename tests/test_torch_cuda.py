@@ -604,6 +604,92 @@ def test_reduced_lm_on_card_matches_cpu(dev):
     assert (got.cpu() - want).abs().max() <= 1e-4 * scale
 
 
+# K9 at the LM families' full-width prefill shapes (B, H, KV, S, hd, hd_v):
+# Qwen2-MoE-A2.7B on the wgmma route, DeepSeek-V2's MLA on mma.sync
+@pytest.mark.parametrize("shape,route", [
+    ((4, 16, 16, 512, 128, 128), "wgmma"),
+    ((4, 128, 128, 512, 192, 128), "mma_sync")])
+def test_flash_kernel_matches_plain_at_lm_family_shapes(dev, shape, route):
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                         flash_route)
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+    B, H, KV, S, hd, hd_v = shape
+    assert flash_route(torch.bfloat16, hd, hd_v) == route
+    g = torch.Generator(device=dev).manual_seed(H + hd)
+    q = torch.randn(B, S, H, hd, generator=g, device=dev).bfloat16()
+    k = torch.randn(B, S, KV, hd, generator=g, device=dev).bfloat16()
+    v = torch.randn(B, S, KV, hd_v, generator=g, device=dev).bfloat16()
+    want_o, want_lse = flash_attention_plain(
+        *(t.transpose(1, 2) for t in (q, k, v)))
+    reset_launches()
+    o, lse = flash_attention(q, k, v, return_lse=True)
+    torch.cuda.synchronize()
+    assert LAUNCHES == {"flash_attention_fwd": 1}
+    rtol, atol = FLASH_TOL[torch.bfloat16, "o"]
+    torch.testing.assert_close(o.transpose(1, 2).float(), want_o.float(),
+                               rtol=rtol, atol=atol)
+    rtol, atol = FLASH_TOL[torch.bfloat16, "lse"]
+    torch.testing.assert_close(lse, want_lse, rtol=rtol, atol=atol)
+
+
+def _moe_arch(name, dtype):
+    """A reduced MoE arch whose attention head dims K9 takes: hd 32 for
+    Qwen2-MoE, MLA's qk 128 + 64 and v 128 (full width's) for
+    DeepSeek-V2."""
+    import dataclasses
+
+    from repro_torch.configs import MLAConfig, get_arch
+    arch = dataclasses.replace(get_arch(name).reduced(), dtype=dtype,
+                               head_dim=32)
+    if arch.mla is not None:
+        arch = dataclasses.replace(arch, mla=MLAConfig(
+            kv_lora_rank=32, q_lora_rank=32, qk_nope_head_dim=128,
+            qk_rope_head_dim=64, v_head_dim=128))
+    return arch
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", ["qwen2-moe-a2.7b", "deepseek-v2-236b"])
+def test_reduced_moe_archs_kernel_route_matches_plain_route(dev, name,
+                                                            dtype):
+    """Reduced Qwen2-MoE and DeepSeek-V2 on the card, same weights: the
+    prefill logits through K9 (once a layer) against kernel mode off (the
+    blockwise route), with the plain route's MoE routing forced to the
+    kernel route's (``moe_routing``): a token whose top-k experts lie
+    within rounding of each other may route apart in bf16.  In f32 the
+    routing agrees and ``prefill``'s logits are held unforced."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import layers
+    from repro_torch.models import transformer as tmod
+    from torch_testdata import moe_routing
+    arch = _moe_arch(name, dtype)
+    params = tmod.init_params(torch.Generator(device=dev).manual_seed(0),
+                              arch, dev)
+    toks = torch.randint(0, 128, (4, 256), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(1))
+    feed = {"tokens": toks}
+    reset_launches()
+    with moe_routing() as routes:
+        logits, cache = tmod.prefill(params, arch, feed, 512)
+    torch.cuda.synchronize()
+    assert LAUNCHES == {"flash_attention_fwd": arch.n_layers}
+    assert len(routes) == arch.n_layers
+    layers.set_kernel_mode(False)
+    try:
+        plain, _ = tmod.prefill(params, arch, feed, 512)
+        with moe_routing(routes):
+            forced, _ = tmod.prefill(params, arch, feed, 512)
+    finally:
+        layers.set_kernel_mode(True)
+    rel = {"float32": 1e-4, "bfloat16": 2e-2}[dtype]
+    scale = float(plain.abs().max())
+    if dtype == "float32":
+        assert (logits - plain).abs().max() <= rel * scale
+    assert (logits - forced).abs().max() <= rel * scale
+    assert sorted(cache) == (["c", "pe"] if arch.mla else ["k", "v"])
+
+
 # (rtol, share of max|want| as atol) per operand dtype, for dq, dk and dv
 # of K10/K11 against their plain version, as chip_smoke.BWD_TOL
 BWD_TOL = {torch.bfloat16: (1e-2, 1e-3), torch.float32: (2e-5, 2e-6)}

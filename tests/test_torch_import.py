@@ -38,6 +38,9 @@ def test_import_with_jax_blocked():
         import repro_torch.compiler.partition, repro_torch.core.dataflow
         import repro_torch.runtime.sharded_serving
         import repro_torch.launch.mesh
+        import repro_torch.models.ffn, repro_torch.models.mla
+        import repro_torch.configs.qwen2_moe_a2_7b
+        import repro_torch.configs.deepseek_v2_236b
         bad = sorted(m for m in sys.modules
                      if m in ("jax", "repro") or m.startswith(("jax.",
                                                                "repro.")))
@@ -141,8 +144,9 @@ def test_unported_archs_raise():
         get_arch("gemma2-9b")
     arch = get_arch("phi4-mini-3.8b").reduced()
     gen = torch.Generator().manual_seed(0)
-    for change in (dict(family="moe"), dict(family="ssm"),
-                   dict(enc_dec=True), dict(attn_kind="mla")):
+    for change in (dict(family="hybrid"), dict(family="ssm"),
+                   dict(family="vlm"), dict(enc_dec=True),
+                   dict(attn_kind="none")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tmod.init_params(gen, dataclasses.replace(arch, **change), "cpu")
 
