@@ -2,8 +2,7 @@
 and the registry of the LM architectures the port can run.
 
 ``get_arch("<id>")`` accepts the public ids with dashes/dots, as the JAX
-package's registry does, and raises ``KeyError`` for an id the port does
-not run yet.
+package's registry does, and raises ``KeyError`` for an unknown id.
 """
 from __future__ import annotations
 
@@ -14,11 +13,17 @@ from repro_torch.configs.base import (ArchConfig, MLAConfig,  # noqa: F401
 from repro_torch.configs.cnn import (CNN_CONFIGS, CNNConfig,  # noqa: F401
                                      ConvLayerSpec, get_cnn)
 
-# the archs whose whole path the port runs (ROADMAP Queue 1 lists the rest)
 _ARCH_MODULES = {
+    "command-r-plus-104b": "command_r_plus_104b",
+    "gemma2-9b": "gemma2_9b",
     "phi4-mini-3.8b": "phi4_mini_3_8b",
+    "qwen2-72b": "qwen2_72b",
     "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
     "deepseek-v2-236b": "deepseek_v2_236b",
+    "hymba-1.5b": "hymba_1_5b",
+    "internvl2-26b": "internvl2_26b",
+    "seamless-m4t-medium": "seamless_m4t_medium",
+    "xlstm-125m": "xlstm_125m",
 }
 
 ARCH_IDS = tuple(_ARCH_MODULES)

@@ -32,16 +32,19 @@ def _leaf(a, device) -> torch.Tensor:
     return t.to(device)
 
 
-def lm_params_from_numpy(tree: Dict[str, Any],
-                         device="cuda") -> Dict[str, Any]:
+def lm_params_from_numpy(tree, device="cuda"):
     """The JAX package's LM params (``repro.models.transformer.
     init_params``), as a nested dict of array-likes with the ``[L]``-stacked
-    ``layers`` subtree, -> the same tree of tensors on ``device``, leaf for
-    leaf.  Dtypes are kept: bf16 leaves bit for bit, RMSNorm scales f32
-    (the JAX side's ``arch.dtype`` picks the weights' dtype)."""
-    return {k: (lm_params_from_numpy(v, device) if isinstance(v, dict)
-                else _leaf(v, device))
-            for k, v in tree.items()}
+    ``layers`` subtree (xLSTM: the list of ``blocks``), -> the same tree of
+    tensors on ``device``, leaf for leaf; lists and tuples (xLSTM's
+    blocks, the recurrent states of a cache) stay lists and tuples.
+    Dtypes are kept: bf16 leaves bit for bit, RMSNorm scales f32 (the JAX
+    side's ``arch.dtype`` picks the weights' dtype)."""
+    if isinstance(tree, dict):
+        return {k: lm_params_from_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(lm_params_from_numpy(v, device) for v in tree)
+    return _leaf(tree, device)
 
 
 def adamw_state_from_numpy(state: Dict[str, Any],

@@ -1,19 +1,20 @@
-"""Deterministic data pipeline — the numpy part of
-``repro.data.pipeline`` (``DataConfig``, ``TokenDataset``), copied so
-that the port needs nothing of the JAX package.
+"""Deterministic data pipeline — the port of ``repro.data.pipeline``:
+``DataConfig``, ``TokenDataset`` and ``ImageDataset`` copied (numpy),
+and ``device_batch``, which takes a torch device where the JAX package
+takes a sharding.
 
 Every (step, example-index) pair maps to content by a counter-based
 PRNG (one Philox stream each), so a restart at step k regenerates
 exactly the batches the failed run would have seen, and the JAX package
-and the port train on the same batches bit for bit.  ``ImageDataset``
-and ``device_batch`` wait for the CNN serving slice.
+and the port train on the same batches bit for bit.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
+import torch
 
 
 @dataclass(frozen=True)
@@ -65,3 +66,28 @@ class TokenDataset:
         lo = host_id * per
         exs = [self.example(step, lo + i) for i in range(per)]
         return {k: np.stack([e[k] for e in exs]) for k in exs[0]}
+
+
+class ImageDataset:
+    """Synthetic int8 image/label pairs for the CNN examples."""
+
+    def __init__(self, shape: Tuple[int, int, int] = (224, 224, 3),
+                 num_classes: int = 1000, seed: int = 0):
+        self.shape = shape
+        self.num_classes = num_classes
+        self.seed = seed
+
+    def batch(self, step: int, batch_size: int) -> Dict[str, np.ndarray]:
+        rng = _counter_rng(self.seed, step, 0)
+        imgs = rng.integers(-127, 128, size=(batch_size,) + self.shape,
+                            dtype=np.int8)
+        labels = rng.integers(0, self.num_classes, size=(batch_size,),
+                              dtype=np.int32)
+        return {"images": imgs, "labels": labels}
+
+
+def device_batch(host_batch: Dict[str, np.ndarray],
+                 device="cuda") -> Dict[str, torch.Tensor]:
+    """Put a host batch on ``device``, dtypes kept."""
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+            for k, v in host_batch.items()}

@@ -26,7 +26,7 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -42,6 +42,9 @@ _libs: Dict[str, ctypes.CDLL] = {}
 #: adds one where it launches its kernel, and nowhere else; a CUDA graph's
 #: replay adds the launches its capture recorded (:func:`count_replay`).
 LAUNCHES: Dict[str, int] = {}
+#: The same launches by ``(kernel, shape)``, for the wrappers that name
+#: the shape they launch (``count_launch(kernel, shape)``).
+SHAPE_LAUNCHES: Dict[Tuple[str, tuple], int] = {}
 _count_lock = threading.Lock()
 # the launches a thread records into a CUDA graph being captured: capture
 # records kernels without running them, so they count at each replay
@@ -123,13 +126,16 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
-def count_launch(kernel: str) -> None:
+def count_launch(kernel: str, shape: Optional[tuple] = None) -> None:
+    """One launch of ``kernel``; with ``shape``, also one of ``(kernel,
+    shape)`` in :data:`SHAPE_LAUNCHES`."""
+    keys = (kernel,) if shape is None else (kernel, (kernel, shape))
     sink = getattr(_capture, "sink", None)
     if sink is not None:
-        sink[kernel] = sink.get(kernel, 0) + 1
+        for key in keys:
+            sink[key] = sink.get(key, 0) + 1
         return
-    with _count_lock:
-        LAUNCHES[kernel] = LAUNCHES.get(kernel, 0) + 1
+    count_replay(dict.fromkeys(keys, 1))
 
 
 @contextlib.contextmanager
@@ -145,15 +151,19 @@ def capturing_launches():
 
 
 def count_replay(launches: Dict[str, int]) -> None:
-    """One replay of a captured graph: its recorded launches count."""
+    """One replay of a captured graph: its recorded launches count (a
+    kernel's name into :data:`LAUNCHES`, a ``(kernel, shape)`` pair into
+    :data:`SHAPE_LAUNCHES`)."""
     with _count_lock:
-        for kernel, n in launches.items():
-            LAUNCHES[kernel] = LAUNCHES.get(kernel, 0) + n
+        for key, n in launches.items():
+            into = LAUNCHES if isinstance(key, str) else SHAPE_LAUNCHES
+            into[key] = into.get(key, 0) + n
 
 
 def reset_launches() -> None:
     with _count_lock:
         LAUNCHES.clear()
+        SHAPE_LAUNCHES.clear()
 
 
 def runs_plain(x) -> bool:

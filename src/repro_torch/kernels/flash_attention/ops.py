@@ -37,7 +37,7 @@ from repro_torch.kernels.flash_attention.ref import (
 __all__ = ["flash_attention", "flash_attention_kernel",
            "flash_attention_bwd", "flash_attention_vjp", "KERNEL",
            "KERNEL_DQ", "KERNEL_DKV", "HEAD_DIMS", "HEAD_DIMS_V",
-           "WGMMA_HEAD_DIMS", "flash_route"]
+           "WGMMA_HEAD_DIMS", "flash_route", "launch_shape"]
 
 #: launch-counter names (replace ``_flash_kernel``, ``_flash_bwd_dq_kernel``
 #: and ``_flash_bwd_dkv_kernel``)
@@ -93,6 +93,16 @@ def flash_route(dtype, hd: int, hd_v: int) -> str:
     return "wgmma" if hd == hd_v and hd in WGMMA_HEAD_DIMS else "mma_sync"
 
 
+def launch_shape(dtype, B: int, H: int, KV: int, Sq: int, Sk: int, hd: int,
+                 hd_v: int, causal: bool, window: int,
+                 softcap: float) -> tuple:
+    """The forward's key in ``_build.SHAPE_LAUNCHES`` (under ``KERNEL``):
+    ``("bfloat16" or "float32", B, H, KV, Sq, Sk, hd, hd_v, causal,
+    window, softcap)``."""
+    return (str(dtype).removeprefix("torch."), B, H, KV, Sq, Sk, hd, hd_v,
+            bool(causal), int(window), float(softcap))
+
+
 def _check(t: torch.Tensor, name: str, dtype, device) -> None:
     if t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
@@ -136,7 +146,8 @@ def _launch(q, k, v, o, lse, *, causal: bool, window: int,
         strides, int(causal), int(window), float(softcap),
         1.0 / math.sqrt(hd), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "flash_attention")
-    _build.count_launch(KERNEL)
+    _build.count_launch(KERNEL, launch_shape(q.dtype, B, H, KV, Sq, Sk, hd,
+                                             hd_v, causal, window, softcap))
 
 
 def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,

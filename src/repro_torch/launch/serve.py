@@ -4,8 +4,13 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch phi4-mini-3.8b \\
       --reduced --device cpu --requests 6 --max-new 8
 
-Runs on the card by default and raises when there is none; ``--device
-cpu`` runs the plain versions.  Weights are random, drawn from seed 0.
+Takes every arch of ``repro_torch.configs.ARCH_IDS``.  Runs on the card
+by default and raises when there is none; ``--device cpu`` runs the plain
+versions.  Weights are random, drawn from seed 0; prompts are 8 tokens
+(a VLM's ``n_patches``, if more), the stub front ends' patches and
+frames zeros.  ``--max-seq`` defaults to 128, or to the prompt plus
+``--max-new`` where that is longer; a ``--max-seq`` shorter than that is
+refused.
 """
 from __future__ import annotations
 
@@ -29,19 +34,26 @@ def main(argv=None) -> int:
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--slots", type=int, default=2)
     ap.add_argument("--max-new", type=int, default=8)
-    ap.add_argument("--max-seq", type=int, default=128)
+    ap.add_argument("--max-seq", type=int, default=None)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    dev = resolve_device(args.device)
     arch = get_arch(args.arch)
     if args.reduced:
         arch = arch.reduced()
+    # a VLM prompt holds at least its n_patches image slots
+    prompt = max(8, arch.n_patches)
+    need = prompt + args.max_new
+    max_seq = max(128, need) if args.max_seq is None else args.max_seq
+    if max_seq < need:
+        ap.error(f"--max-seq {max_seq} is shorter than the prompt ({prompt} "
+                 f"tokens) plus --max-new ({args.max_new})")
+    dev = resolve_device(args.device)
     params = tmod.init_params(torch.Generator(dev).manual_seed(0), arch, dev)
     engine = ServingEngine(params, arch, batch_slots=args.slots,
-                           max_seq=args.max_seq, device=dev)
+                           max_seq=max_seq, device=dev)
     rng = np.random.default_rng(0)
-    reqs = [Request(i, rng.integers(0, arch.vocab_size, size=8).astype(
+    reqs = [Request(i, rng.integers(0, arch.vocab_size, size=prompt).astype(
         np.int32), max_new=args.max_new) for i in range(args.requests)]
     t0 = time.perf_counter()
     done = engine.run(reqs)

@@ -11,14 +11,13 @@ Conventions, as in the JAX package:
 Rounding follows the JAX package where it matters: the score einsums of
 the blockwise and decode routes produce the model dtype and are then cast
 to f32; RoPE and RMSNorm compute in f32; the unembed multiplies f32 casts
-(TF32 kept off).  The sharding helpers wait for the sharded slice, and
-cross-attention for the encoder-decoder family.
+(TF32 kept off).  The sharding helpers wait for the LM sharding slice.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -53,10 +52,13 @@ def kernel_mode_enabled() -> bool:
 @dataclass(frozen=True)
 class Leaf:
     """One parameter: drawn as a normal times ``std`` (in f32, then cast),
-    or zeros where ``std`` is 0 (no draw)."""
+    or zeros where ``std`` is 0 (no draw), or by ``fill``: ``fill(gen,
+    shape, device)`` gives its f32 values (the SSM blocks' structured
+    init, ``models/ssm.py``)."""
     shape: Tuple[int, ...]
     dtype: torch.dtype
     std: float = 0.0
+    fill: Optional[Callable[..., torch.Tensor]] = None
 
 
 def dense_leaf(shape, dtype, scale: Optional[float] = None) -> Leaf:
@@ -86,7 +88,9 @@ def draw(gen: torch.Generator, spec, device, out=None):
                 for k, s in spec.items()}
     if out is None:
         out = torch.empty(spec.shape, dtype=spec.dtype, device=device)
-    if spec.std:
+    if spec.fill is not None:
+        out.copy_(spec.fill(gen, spec.shape, device))
+    elif spec.std:
         x = torch.randn(spec.shape, generator=gen, dtype=torch.float32,
                         device=device)
         out.copy_(x.mul_(spec.std))
@@ -358,3 +362,35 @@ def _flash_call(q, k, v, *, causal: bool, window: int, softcap: float):
         return flash_attention_vjp.apply(q, k, v, causal, window, softcap)
     return flash_attention(q, k, v, causal=causal, window=window,
                            softcap=softcap)
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (encoder-decoder)
+# ---------------------------------------------------------------------------
+
+
+def cross_attention_kv(params: Params, cfg, memory):
+    """Project the encoder output once; the (k, v) pair is cached for the
+    whole decode.  memory: [B,Sm,d] -> k, v [B,Sm,KV,hd]."""
+    k = torch.einsum("bsd,dhk->bshk", memory, params["wk"])
+    v = torch.einsum("bsd,dhk->bshk", memory, params["wv"])
+    if cfg.qkv_bias:
+        k = k + params["bk"]
+        v = v + params["bv"]
+    return k, v
+
+
+def cross_attention_forward(params: Params, cfg, x, kv):
+    """Non-causal attention of decoder states x [B,S,d] over the cached
+    encoder K/V (no RoPE), as plain einsums with f32 scores."""
+    k, v = kv
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
+    if cfg.qkv_bias:
+        q = q + params["bq"]
+    n_rep = cfg.n_heads // cfg.n_kv_heads
+    kr, vr = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
+    scale = 1.0 / math.sqrt(cfg.resolved_head_dim)
+    scores = torch.einsum("bqhk,bshk->bhqs", q, kr).float() * scale
+    w = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhqs,bshk->bqhk", w.to(vr.dtype), vr)
+    return torch.einsum("bshk,hkd->bsd", out.to(x.dtype), params["wo"])

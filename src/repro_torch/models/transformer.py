@@ -1,10 +1,13 @@
-"""The dense decoder-only LM — the port of ``repro.models.transformer``.
+"""The LM for every assigned architecture — the port of
+``repro.models.transformer``.
 
 Layer params are stacked on a leading ``[L]`` axis as in the JAX package,
 so carrying its params across is leaf for leaf; the layer scan is a
-Python loop over the stack.  Per-layer attention windows are an ``[L]``
-tensor (0-d entries), which routes windowed layers to the blockwise
-attention as the JAX package's traced windows do.
+Python loop over the stack.  xLSTM's heterogeneous blocks (mLSTM on even
+blocks, sLSTM on odd ones) are a Python list, as in the JAX package.
+Per-layer attention windows are an ``[L]`` tensor (0-d entries), which
+routes windowed layers to the blockwise attention as the JAX package's
+traced windows do.
 
 Public API
 ----------
@@ -14,10 +17,11 @@ lm_loss / loss_fn                        chunked causal-LM cross-entropy
 logits_from_hidden                       last-token f32 logits
 init_cache / prefill / decode_step       the serving path
 
-The dense and MoE families run, with global, windowed or latent (MLA)
-attention.  Families ``hybrid``, ``ssm``, ``vlm`` and ``audio``, the
-encoder-decoder and ``attn_kind="none"`` raise ``NotImplementedError``:
-they wait for the remaining-LM-families item of ROADMAP Queue 1.
+Families: dense and MoE (global, windowed or latent attention), hybrid
+(attention and Mamba side by side in every layer, mixed by a learned
+gate), ssm (xLSTM), vlm (patch embeddings replace the first token
+slots) and the encoder-decoder (``audio``: a non-causal encoder over the
+frames, cross-attention in every decoder layer).
 """
 from __future__ import annotations
 
@@ -27,30 +31,28 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.ffn import ffn, ffn_spec, moe_ffn, moe_spec
-from repro_torch.models.layers import (Params, attention_forward,
-                                       attention_spec, draw, draw_stacked,
+from repro_torch.models.layers import (Leaf, Params, attention_forward,
+                                       attention_spec, cross_attention_forward,
+                                       cross_attention_kv, draw, draw_stacked,
                                        embed, embedding_spec, rmsnorm,
                                        rmsnorm_spec, unembed)
 from repro_torch.models.mla import mla_forward, mla_spec
 
 
 def _check_supported(cfg: ArchConfig) -> None:
+    """Raise ``ValueError`` for a config that lacks the sub-config its
+    family or attention kind needs."""
     what = None
-    if cfg.enc_dec:
-        what = "the encoder-decoder family"
-    elif cfg.family not in ("dense", "moe"):
-        what = f"family {cfg.family!r}"
-    elif (cfg.family == "moe") != (cfg.moe is not None):
-        what = f"family {cfg.family!r} with moe={cfg.moe!r}"
-    elif cfg.attn_kind == "none":
-        what = f"attn_kind {cfg.attn_kind!r}"
-    elif (cfg.attn_kind == "mla") != (cfg.mla is not None):
-        what = f"attn_kind {cfg.attn_kind!r} with mla={cfg.mla!r}"
+    if cfg.family in ("hybrid", "ssm") and cfg.ssm is None:
+        what = f"family {cfg.family!r} without an ssm config"
+    elif cfg.family == "moe" and cfg.moe is None:
+        what = "family 'moe' without a moe config"
+    elif cfg.attn_kind == "mla" and cfg.mla is None:
+        what = "attn_kind 'mla' without an mla config"
     if what is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: {what} is not ported yet (ROADMAP Queue 1, the "
-            f"remaining LM families)")
+        raise ValueError(f"{cfg.name}: {what}")
 
 
 def _dtype(cfg: ArchConfig) -> torch.dtype:
@@ -64,13 +66,26 @@ def _dtype(cfg: ArchConfig) -> torch.dtype:
 
 def _layer_spec(cfg: ArchConfig) -> Params:
     p: Params = {"ln1": rmsnorm_spec(cfg.d_model),
-                 "ln2": rmsnorm_spec(cfg.d_model),
-                 "attn": (mla_spec(cfg) if cfg.attn_kind == "mla"
-                          else attention_spec(cfg))}
+                 "ln2": rmsnorm_spec(cfg.d_model)}
+    if cfg.attn_kind == "mla":
+        p["attn"] = mla_spec(cfg)
+    elif cfg.attn_kind != "none":
+        p["attn"] = attention_spec(cfg)
+    if cfg.family == "hybrid":
+        p["mamba"] = ssm_mod.mamba_spec(cfg)
+        p["alpha"] = Leaf((), torch.float32)     # sigmoid(0) = .5 mix
     if cfg.moe is not None:
         p["ffn"] = moe_spec(cfg)
     elif cfg.d_ff:
         p["ffn"] = ffn_spec(cfg.d_model, cfg.d_ff, _dtype(cfg))
+    return p
+
+
+def _dec_layer_spec(cfg: ArchConfig) -> Params:
+    """A decoder layer with cross-attention (encoder-decoder archs)."""
+    p = _layer_spec(cfg)
+    p["lnx"] = rmsnorm_spec(cfg.d_model)
+    p["cross"] = attention_spec(cfg)
     return p
 
 
@@ -93,8 +108,10 @@ def init_params(gen: torch.Generator, cfg: ArchConfig,
     """Seeded random weights drawn on ``device`` (``gen`` must live there
     too): normals times 1/sqrt(fan_in) in the model dtype (the MoE router
     in f32), RMSNorm scales zero in f32, as the JAX package initialises
-    (other numbers).  Each ``[L]``-stacked leaf is allocated once and
-    every layer drawn into its slice (``draw_stacked``): the peak is the
+    (other numbers); the SSM blocks' structured leaves (``A_log``,
+    ``dt_bias``, ``D``, zero biases and mix gates) as the JAX package
+    sets them.  Each ``[L]``-stacked leaf is allocated once and every
+    layer drawn into its slice (``draw_stacked``): the peak is the
     weights plus one leaf's f32 draw."""
     _check_supported(cfg)
     table = embedding_spec(cfg.vocab_size, cfg.d_model, _dtype(cfg))
@@ -102,8 +119,21 @@ def init_params(gen: torch.Generator, cfg: ArchConfig,
     if not cfg.tie_embeddings:
         spec["unembed"] = table
     params = draw(gen, spec, device)
-    params["layers"] = draw_stacked(gen, _layer_spec(cfg), cfg.n_layers,
-                                    device)
+    if cfg.family == "ssm":               # xLSTM: alternating blocks
+        params["blocks"] = [draw(gen, {
+            "ln": rmsnorm_spec(cfg.d_model),
+            "core": (ssm_mod.mlstm_spec(cfg) if i % 2 == 0
+                     else ssm_mod.slstm_spec(cfg))}, device)
+            for i in range(cfg.n_layers)]
+    elif cfg.enc_dec:
+        params["enc_layers"] = draw_stacked(gen, _layer_spec(cfg),
+                                            cfg.n_enc_layers, device)
+        params["dec_layers"] = draw_stacked(gen, _dec_layer_spec(cfg),
+                                            cfg.n_layers, device)
+        params["ln_enc"] = draw(gen, rmsnorm_spec(cfg.d_model), device)
+    else:
+        params["layers"] = draw_stacked(gen, _layer_spec(cfg), cfg.n_layers,
+                                        device)
     return params
 
 
@@ -139,21 +169,53 @@ def _scale_embedding(cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 def _embed_inputs(params, cfg: ArchConfig, batch: Dict[str, Any]):
-    x = embed(params["embed"], batch["tokens"]).to(_dtype(cfg))
-    return _scale_embedding(cfg, x)
+    """Token embeddings; for the VLM, the patch embeddings replace the
+    first ``n_patches`` token slots."""
+    x = _scale_embedding(cfg, embed(params["embed"],
+                                    batch["tokens"]).to(_dtype(cfg)))
+    if cfg.family == "vlm" and "patches" in batch:
+        p = batch["patches"].to(x.dtype)
+        if p.shape[1] > x.shape[1]:
+            raise ValueError(f"{p.shape[1]} patches do not fit a prompt of "
+                             f"{x.shape[1]} tokens")
+        x = torch.cat([p, x[:, p.shape[1]:]], dim=1)
+    return x
+
+
+def _mix(a, m, alpha):
+    """The hybrid layer's gate: sigmoid(alpha) attention + the rest
+    Mamba, in the model dtype."""
+    mix = torch.sigmoid(alpha).to(m.dtype)
+    return mix * a + (1.0 - mix) * m
 
 
 def _attn_block(cfg: ArchConfig, x, layer_params, window, positions, *,
                 causal=True):
-    """x + the attention (or MLA) sublayer of one layer.  Returns (x, kv):
-    kv the layer's (k, v), or MLA's latents (c_kv, k_pe)."""
+    """x + the attention (or MLA; for the hybrid, mixed with Mamba on the
+    same normed input) sublayer of one layer.  Returns (x, kv, mstate):
+    kv the layer's (k, v), or MLA's latents (c_kv, k_pe), or None without
+    attention; mstate the hybrid's Mamba state (conv, h), else None."""
     h = rmsnorm(layer_params["ln1"], x, cfg.norm_eps)
     if cfg.attn_kind == "mla":
         a, kv = mla_forward(layer_params["attn"], cfg, h, positions)
+    elif cfg.attn_kind == "none":
+        a, kv = 0.0, None
     else:
         a, kv = attention_forward(layer_params["attn"], cfg, h, positions,
                                   window=window, causal=causal)
-    return x + a, kv
+    mstate = None
+    if cfg.family == "hybrid":
+        m, mstate = ssm_mod.mamba_forward(layer_params["mamba"], cfg, h)
+        a = _mix(a, m, layer_params["alpha"])
+    return x + a, kv, mstate
+
+
+def _cross_block(cfg: ArchConfig, x, layer_params, cross_kv):
+    """x + the cross-attention sublayer of a decoder layer over the
+    encoder's (k, v)."""
+    hx = rmsnorm(layer_params["lnx"], x, cfg.norm_eps)
+    return x + cross_attention_forward(layer_params["cross"], cfg, hx,
+                                       cross_kv)
 
 
 def _ffn_block(cfg: ArchConfig, x, layer_params, with_aux=True):
@@ -173,62 +235,118 @@ def _ffn_block(cfg: ArchConfig, x, layer_params, with_aux=True):
 
 
 def _dense_layer_body(cfg: ArchConfig, x, layer_params, window, positions,
-                      *, causal=True):
-    """One transformer layer (attention or MLA + FFN or MoE).  Returns
-    (x, aux, kv)."""
-    x, kv = _attn_block(cfg, x, layer_params, window, positions,
-                        causal=causal)
+                      *, causal=True, memory=None):
+    """One transformer layer (attention or MLA [+ Mamba] [+ cross-attention
+    over ``memory``, the encoder output] + FFN or MoE).  Returns (x, aux,
+    kv, mstate)."""
+    x, kv, mstate = _attn_block(cfg, x, layer_params, window, positions,
+                                causal=causal)
+    if memory is not None:
+        x = _cross_block(cfg, x, layer_params, cross_attention_kv(
+            layer_params["cross"], cfg, memory))
     x, aux = _ffn_block(cfg, x, layer_params)
-    return x, aux, kv
+    return x, aux, kv, mstate
+
+
+def _stack_pairs(pairs):
+    """[(a, b)] per layer -> (a stacked, b stacked) on a leading [L]."""
+    return tuple(torch.stack(t) for t in zip(*pairs))
 
 
 def _scan_layers(params_stack, cfg: ArchConfig, x, positions, windows, *,
-                 causal=True, remat=False, collect_kv=False):
-    """The layer loop over the stacked params.  Returns (x, aux_sum, kvs):
-    aux_sum the layers' MoE losses summed (0.0 for a dense FFN), kvs the
-    per-layer (k, v) (or MLA latents) stacked to [L,B,S,...] when
-    ``collect_kv``.
+                 causal=True, memory=None, remat=False, collect_kv=False):
+    """The layer loop over the stacked params.  Returns (x, aux_sum, kvs,
+    mstates): aux_sum the layers' MoE losses summed (0.0 for a dense
+    FFN); when ``collect_kv``, kvs the per-layer (k, v) (or MLA latents)
+    stacked to [L,B,S,...] and for the hybrid mstates its Mamba states
+    (conv [L,B,K-1,inner], h [L,B,inner,state]), else None.
 
     ``remat``: each layer saves only its input for the backward and runs
     again during it, as ``jax.checkpoint(policy=nothing_saveable)`` on the
     JAX package's scan body (with the flash kernels: K9 twice per layer
     and step, K10 and K11 once)."""
     n = next(iter(params_stack["ln1"].values())).shape[0]
-    ks, vs = [], []
+    kvs, mstates = [], []
     aux_sum = 0.0
     for i, lp in enumerate(_unstack(params_stack, n)):
         w = None if windows is None else windows[i]
         if remat:
             # no random numbers in a layer: nothing to replay
-            x, aux, (k, v) = torch.utils.checkpoint.checkpoint(
+            x, aux, kv, mstate = torch.utils.checkpoint.checkpoint(
                 _dense_layer_body, cfg, x, lp, w, positions, causal=causal,
-                use_reentrant=False, preserve_rng_state=False)
+                memory=memory, use_reentrant=False,
+                preserve_rng_state=False)
         else:
-            x, aux, (k, v) = _dense_layer_body(cfg, x, lp, w, positions,
-                                               causal=causal)
+            x, aux, kv, mstate = _dense_layer_body(
+                cfg, x, lp, w, positions, causal=causal, memory=memory)
         aux_sum = aux_sum + aux
         if collect_kv:
-            ks.append(k)
-            vs.append(v)
-    kvs = (torch.stack(ks), torch.stack(vs)) if collect_kv else None
-    return x, aux_sum, kvs
+            kvs.append(kv)
+            mstates.append(mstate)
+    if not collect_kv:
+        return x, aux_sum, None, None
+    return (x, aux_sum, _stack_pairs(kvs),
+            _stack_pairs(mstates) if cfg.family == "hybrid" else None)
+
+
+def _ssm_blocks(params, cfg: ArchConfig, x, states=None):
+    """xLSTM's blocks: mLSTM on even blocks, sLSTM on odd ones, each a
+    pre-norm residual.  ``states``: per block, the state to start from
+    (decode), or None.  Returns (x, the blocks' new states)."""
+    new_states = []
+    for i, blk in enumerate(params["blocks"]):
+        h = rmsnorm(blk["ln"], x, cfg.norm_eps)
+        fwd = ssm_mod.mlstm_forward if i % 2 == 0 else ssm_mod.slstm_forward
+        y, st = fwd(blk["core"], cfg, h,
+                    state=None if states is None else states[i])
+        new_states.append(st)
+        x = x + y
+    return x, new_states
+
+
+def _positions(B: int, S: int, device) -> torch.Tensor:
+    return torch.arange(S, device=device).expand(B, S)
 
 
 def forward(params: Params, cfg: ArchConfig, batch: Dict[str, Any], *,
             remat: bool = False, collect_kv: bool = False):
     """Returns (hidden [B,S,d], aux): aux["moe_loss"] the layers' MoE
-    load-balance losses summed (0.0 for a dense FFN), aux["kv"] the
-    stacked per-layer K/V (MLA: latents) when ``collect_kv``.  ``remat``:
-    see ``_scan_layers``."""
+    load-balance losses summed (0.0 for a dense FFN); with
+    ``collect_kv``, aux["kv"] the stacked per-layer K/V (MLA: latents),
+    and for the hybrid aux["mstate"] its Mamba states, for xLSTM
+    aux["states"] the blocks' states.  The encoder-decoder reads
+    batch["frames"] [B,F,d] (the stub front end's frame embeddings) and
+    puts the encoder's output in aux["enc_memory"]; the VLM reads
+    batch["patches"] [B,n_patches,d] where given.  ``remat``: see
+    ``_scan_layers``."""
     _check_supported(cfg)
+    aux: Dict[str, Any] = {"moe_loss": 0.0}
     x = _embed_inputs(params, cfg, batch)
+    if cfg.family == "ssm":
+        x, states = _ssm_blocks(params, cfg, x)
+        if collect_kv:
+            aux["states"] = states
+        return rmsnorm(params["ln_f"], x, cfg.norm_eps), aux
     B, S = batch["tokens"].shape
-    positions = torch.arange(S, device=x.device).expand(B, S)
-    windows = layer_windows(cfg, S, x.device)
-    x, aux_sum, kvs = _scan_layers(params["layers"], cfg, x, positions,
-                                   windows, remat=remat,
-                                   collect_kv=collect_kv)
-    aux: Dict[str, Any] = {"moe_loss": aux_sum}
+    positions = _positions(B, S, x.device)
+    if cfg.enc_dec:
+        frames = batch["frames"]
+        enc_x, _, _, _ = _scan_layers(
+            params["enc_layers"], cfg, frames.to(_dtype(cfg)),
+            _positions(frames.shape[0], frames.shape[1], x.device), None,
+            causal=False, remat=remat)
+        memory = rmsnorm(params["ln_enc"], enc_x, cfg.norm_eps)
+        aux["enc_memory"] = memory
+        x, aux["moe_loss"], kvs, _ = _scan_layers(
+            params["dec_layers"], cfg, x, positions, None, memory=memory,
+            remat=remat, collect_kv=collect_kv)
+    else:
+        x, aux["moe_loss"], kvs, mstates = _scan_layers(
+            params["layers"], cfg, x, positions,
+            layer_windows(cfg, S, x.device), remat=remat,
+            collect_kv=collect_kv)
+        if collect_kv:
+            aux["mstate"] = mstates
     if collect_kv:
         aux["kv"] = kvs
     return rmsnorm(params["ln_f"], x, cfg.norm_eps), aux
@@ -313,53 +431,92 @@ def kv_cache_len(cfg: ArchConfig, max_seq: int) -> int:
     return max_seq
 
 
-def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
-               device="cuda") -> Params:
-    """Zeroed caches in the model dtype: K/V [L, B, S_c, n_kv, hd], or for
+def init_cache(cfg: ArchConfig, batch: int, max_seq: int, device="cuda",
+               enc_len: int = 0) -> Params:
+    """Zeroed caches: K/V [L, B, S_c, n_kv, hd] in the model dtype, or for
     MLA the latents c [L, B, S_c, kv_lora_rank] and pe [L, B, S_c,
-    rope]."""
+    rope]; for the hybrid also its Mamba states, conv [L, B, K-1, inner]
+    (model dtype) and h [L, B, inner, state] (f32); for the
+    encoder-decoder also the cross K/V [L, B, enc_len, n_kv, hd]; for
+    xLSTM only "states", a list of each block's state (mLSTM (C, n, m),
+    sLSTM (c, n, m, h), f32)."""
     _check_supported(cfg)
-    lead = (cfg.n_layers, batch, kv_cache_len(cfg, max_seq))
+    if cfg.family == "ssm":
+        return {"states": [
+            ssm_mod.init_mlstm_state(cfg, batch, device) if i % 2 == 0
+            else ssm_mod.init_slstm_state(cfg, batch, device)
+            for i in range(cfg.n_layers)]}
+    L = cfg.n_layers
+    lead = (L, batch, kv_cache_len(cfg, max_seq))
+    kv = (cfg.n_kv_heads, cfg.resolved_head_dim)
+    shapes = {}
     if cfg.attn_kind == "mla":
         m = cfg.mla
         shapes = {"c": lead + (m.kv_lora_rank,),
                   "pe": lead + (m.qk_rope_head_dim,)}
-    else:
-        kv = lead + (cfg.n_kv_heads, cfg.resolved_head_dim)
-        shapes = {"k": kv, "v": kv}
-    return {name: torch.zeros(shape, dtype=_dtype(cfg), device=device)
-            for name, shape in shapes.items()}
+    elif cfg.attn_kind != "none":
+        shapes = {"k": lead + kv, "v": lead + kv}
+    if cfg.enc_dec:
+        shapes["cross_k"] = shapes["cross_v"] = (L, batch, enc_len) + kv
+    cache = {name: torch.zeros(shape, dtype=_dtype(cfg), device=device)
+             for name, shape in shapes.items()}
+    if cfg.family == "hybrid":
+        conv, h = ssm_mod.init_mamba_state(cfg, batch, device)
+        cache["conv"] = conv.expand((L,) + conv.shape).clone()
+        cache["h"] = h.expand((L,) + h.shape).clone()
+    return cache
 
 
 def _cache_seq_len(cfg: ArchConfig, cache: Params) -> int:
-    return cache["c" if cfg.attn_kind == "mla" else "k"].shape[2]
+    if cfg.attn_kind == "mla":
+        return cache["c"].shape[2]
+    return cache["k"].shape[2] if "k" in cache else 0
 
 
 def decode_step(params: Params, cfg: ArchConfig, cache: Params,
                 tokens: torch.Tensor, pos: int):
     """One decode step.  tokens: [B,1]; pos: absolute position of the new
     token (every sequence of the batch is at the same position).  Writes
-    the new K/V (MLA: latents) into ``cache`` in place.  Returns (logits
-    [B,vocab_pad], cache)."""
+    the new K/V (MLA: latents) and the hybrid's Mamba states into
+    ``cache`` in place; xLSTM's block states are replaced.  Returns
+    (logits [B,vocab_pad], cache)."""
     _check_supported(cfg)
     B = tokens.shape[0]
     x = _scale_embedding(cfg, embed(params["embed"], tokens).to(_dtype(cfg)))
+    if cfg.family == "ssm":
+        x, states = _ssm_blocks(params, cfg, x, cache["states"])
+        x = rmsnorm(params["ln_f"], x, cfg.norm_eps)
+        return logits_from_hidden(params, cfg, x[:, 0]), {"states": states}
     positions = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)
     ring = cfg.attn_kind == "sliding"
     windows = layer_windows(cfg, _cache_seq_len(cfg, cache), x.device)
-    for i, lp in enumerate(_unstack(params["layers"], cfg.n_layers)):
+    stack = params["dec_layers" if cfg.enc_dec else "layers"]
+    for i, lp in enumerate(_unstack(stack, cfg.n_layers)):
         h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
         if cfg.attn_kind == "mla":
             a, _ = mla_forward(lp["attn"], cfg, h, positions,
                                kv_cache=(cache["c"][i], cache["pe"][i]),
                                cache_index=pos)
+        elif cfg.attn_kind == "none":
+            a = 0.0
         else:
             a, _ = attention_forward(
                 lp["attn"], cfg, h, positions,
                 window=None if windows is None else windows[i],
                 kv_cache=(cache["k"][i], cache["v"][i]), cache_index=pos,
                 ring=ring)
-        x, _ = _ffn_block(cfg, x + a, lp, with_aux=False)
+        if cfg.family == "hybrid":
+            m, (conv, hs) = ssm_mod.mamba_forward(
+                lp["mamba"], cfg, h, state=(cache["conv"][i],
+                                            cache["h"][i]))
+            cache["conv"][i].copy_(conv)
+            cache["h"][i].copy_(hs)
+            a = _mix(a, m, lp["alpha"])
+        x = x + a
+        if cfg.enc_dec:
+            x = _cross_block(cfg, x, lp, (cache["cross_k"][i],
+                                          cache["cross_v"][i]))
+        x, _ = _ffn_block(cfg, x, lp, with_aux=False)
     x = rmsnorm(params["ln_f"], x, cfg.norm_eps)
     return logits_from_hidden(params, cfg, x[:, 0]), cache
 
@@ -368,21 +525,39 @@ def prefill(params: Params, cfg: ArchConfig, batch: Dict[str, Any],
             max_seq: int):
     """Run the full prompt, build the decode cache, return last-token
     logits.  For ring-buffer (sliding) archs only the last ``window``
-    positions go into the cache; MLA stores its latents."""
+    positions go into the cache; MLA stores its latents; the hybrid its
+    Mamba states, xLSTM its blocks' states, the encoder-decoder the
+    cross K/V of every decoder layer."""
     hidden, aux = forward(params, cfg, batch, collect_kv=True)
     B, S = batch["tokens"].shape
-    cache = init_cache(cfg, B, max_seq, hidden.device)
-    k, v = aux["kv"]              # [L,B,S,kv,hd] each, or MLA's latents
-    names = ("c", "pe") if cfg.attn_kind == "mla" else ("k", "v")
-    S_c = cache[names[0]].shape[2]
-    if S_c < S:
-        if cfg.attn_kind != "sliding":
-            raise ValueError(f"prompt of {S} tokens exceeds max_seq "
-                             f"{max_seq}")
-        # ring: keep the tail, rolled so that slot = pos % S_c
-        shift = (S - S_c) % S_c
-        k = torch.roll(k[:, :, S - S_c:], shift, dims=2)
-        v = torch.roll(v[:, :, S - S_c:], shift, dims=2)
-    cache[names[0]][:, :, :k.shape[2]] = k
-    cache[names[1]][:, :, :v.shape[2]] = v
-    return logits_from_hidden(params, cfg, hidden[:, -1]), cache
+    cache = init_cache(cfg, B, max_seq, hidden.device,
+                       enc_len=batch["frames"].shape[1] if cfg.enc_dec
+                       else 0)
+    logits = logits_from_hidden(params, cfg, hidden[:, -1])
+    if cfg.family == "ssm":
+        cache["states"] = aux["states"]
+        return logits, cache
+    if cfg.attn_kind != "none":
+        k, v = aux["kv"]          # [L,B,S,kv,hd] each, or MLA's latents
+        names = ("c", "pe") if cfg.attn_kind == "mla" else ("k", "v")
+        S_c = cache[names[0]].shape[2]
+        if S_c < S:
+            if cfg.attn_kind != "sliding":
+                raise ValueError(f"prompt of {S} tokens exceeds max_seq "
+                                 f"{max_seq}")
+            # ring: keep the tail, rolled so that slot = pos % S_c
+            shift = (S - S_c) % S_c
+            k = torch.roll(k[:, :, S - S_c:], shift, dims=2)
+            v = torch.roll(v[:, :, S - S_c:], shift, dims=2)
+        cache[names[0]][:, :, :k.shape[2]] = k
+        cache[names[1]][:, :, :v.shape[2]] = v
+    if cfg.family == "hybrid":
+        cache["conv"], cache["h"] = aux["mstate"]
+    if cfg.enc_dec:
+        memory = aux["enc_memory"]
+        ck, cv = _stack_pairs(
+            cross_attention_kv(lp["cross"], cfg, memory)
+            for lp in _unstack(params["dec_layers"], cfg.n_layers))
+        cache["cross_k"].copy_(ck)
+        cache["cross_v"].copy_(cv)
+    return logits, cache

@@ -92,6 +92,15 @@ class ServingEngine:
         for i, r in enumerate(batch):
             toks[i, S - len(r.prompt):] = r.prompt      # left pad
         feed = {"tokens": torch.from_numpy(toks).to(self.device)}
+        # the stub front ends' inputs, zeros as in the JAX engine
+        if arch.family == "vlm":
+            feed["patches"] = torch.zeros(
+                (len(batch), arch.n_patches, arch.d_model),
+                dtype=torch.float32, device=self.device)
+        if arch.enc_dec:
+            feed["frames"] = torch.zeros(
+                (len(batch), arch.n_frames, arch.d_model),
+                dtype=torch.float32, device=self.device)
         logits, cache = tmod.prefill(self.params, arch, feed, self.max_seq)
         nxt = logits.argmax(-1)
         for r, t in zip(batch, nxt.tolist()):

@@ -41,6 +41,10 @@ def test_import_with_jax_blocked():
         import repro_torch.models.ffn, repro_torch.models.mla
         import repro_torch.configs.qwen2_moe_a2_7b
         import repro_torch.configs.deepseek_v2_236b
+        import repro_torch.models.ssm
+        from repro_torch.configs import ARCH_IDS, get_arch
+        for name in ARCH_IDS:
+            get_arch(name)
         bad = sorted(m for m in sys.modules
                      if m in ("jax", "repro") or m.startswith(("jax.",
                                                                "repro.")))
@@ -137,18 +141,17 @@ def test_serve_launcher_runs_on_cpu_when_asked(capsys):
 
 
 def test_unported_archs_raise():
-    import dataclasses
-    from repro_torch.configs import get_arch
+    """An id the registry lacks raises ``KeyError``; every registered arch
+    (all ten of the JAX package's) initialises at ``.reduced()``."""
+    from repro_torch.configs import ARCH_IDS, get_arch
     from repro_torch.models import transformer as tmod
     with pytest.raises(KeyError, match="available"):
-        get_arch("gemma2-9b")
-    arch = get_arch("phi4-mini-3.8b").reduced()
-    gen = torch.Generator().manual_seed(0)
-    for change in (dict(family="hybrid"), dict(family="ssm"),
-                   dict(family="vlm"), dict(enc_dec=True),
-                   dict(attn_kind="none")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tmod.init_params(gen, dataclasses.replace(arch, **change), "cpu")
+        get_arch("gemma3-27b")
+    assert len(ARCH_IDS) == 10
+    for name in ARCH_IDS:
+        params = tmod.init_params(torch.Generator().manual_seed(0),
+                                  get_arch(name).reduced(), "cpu")
+        assert "embed" in params, name
 
 
 def test_fused_backend_raises():
@@ -184,3 +187,28 @@ def test_cpu_tensors_take_the_plain_version_only():
     y = conv2d_int8(x, w, stream=True)
     assert y.dtype == torch.int32 and y.shape == (1, 4, 4, 4)
     assert LAUNCHES == {}
+
+
+def test_launch_counts_by_shape():
+    """A wrapper that names its shape counts it beside the kernel; a
+    captured graph's shapes count at each replay; a reset clears both."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention.ops import KERNEL, launch_shape
+    shape = launch_shape(torch.bfloat16, 4, 16, 16, 1024, 1024, 64, 64,
+                         False, 0, 0.0)
+    assert shape == ("bfloat16", 4, 16, 16, 1024, 1024, 64, 64, False, 0,
+                     0.0)
+    _build.reset_launches()
+    try:
+        _build.count_launch(KERNEL, shape)
+        _build.count_launch("maxpool_int8")
+        with _build.capturing_launches() as graph:
+            _build.count_launch(KERNEL, shape)
+        assert graph == {KERNEL: 1, (KERNEL, shape): 1}
+        _build.count_replay(graph)
+        _build.count_replay(graph)
+        assert _build.LAUNCHES == {KERNEL: 3, "maxpool_int8": 1}
+        assert _build.SHAPE_LAUNCHES == {(KERNEL, shape): 3}
+    finally:
+        _build.reset_launches()
+    assert _build.LAUNCHES == {} and _build.SHAPE_LAUNCHES == {}

@@ -39,7 +39,9 @@ import torch.utils._pytree as pytree
 
 from repro.configs import get_arch as jax_get_arch
 from repro.data.pipeline import DataConfig as JaxDataConfig
+from repro.data.pipeline import ImageDataset as JaxImageDataset
 from repro.data.pipeline import TokenDataset as JaxTokenDataset
+from repro.data.pipeline import device_batch as jax_device_batch
 from repro.kernels.flash_attention.kernel import (
     flash_attention_bwd as jax_flash_bwd, flash_attention_kernel as
     jax_flash_kernel)
@@ -53,7 +55,8 @@ from repro.runtime.trainer import Trainer as JaxTrainer
 from repro_torch.ckpt import checkpoint as ckpt
 from repro_torch.configs import get_arch
 from repro_torch.convert import adamw_state_from_numpy, lm_params_from_numpy
-from repro_torch.data.pipeline import DataConfig, TokenDataset
+from repro_torch.data.pipeline import (DataConfig, ImageDataset,
+                                       TokenDataset, device_batch)
 from repro_torch.kernels import LAUNCHES, reset_launches
 from repro_torch.kernels.flash_attention.ops import flash_attention_vjp
 from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_plain
@@ -352,6 +355,26 @@ def test_token_dataset_matches_jax():
             np.testing.assert_array_equal(got.global_batch(step)[k], v)
         np.testing.assert_array_equal(got.host_batch(step, 1, 2)["tokens"],
                                       want.host_batch(step, 1, 2)["tokens"])
+
+
+@pytest.mark.parametrize("shape,classes,seed", [((224, 224, 3), 1000, 0),
+                                                 ((8, 8, 16), 10, 3)])
+def test_image_dataset_and_device_batch_match_jax(shape, classes, seed):
+    """Images and labels bit for bit, and ``device_batch`` keeps values
+    and dtypes as the JAX package's does."""
+    want = JaxImageDataset(shape, classes, seed)
+    got = ImageDataset(shape, classes, seed)
+    for step in (0, 4):
+        jb, b = want.batch(step, 3), got.batch(step, 3)
+        assert sorted(b) == sorted(jb) == ["images", "labels"]
+        for k, v in jb.items():
+            assert b[k].dtype == v.dtype
+            np.testing.assert_array_equal(b[k], v)
+        jdev, dev = jax_device_batch(jb), device_batch(b, device="cpu")
+        for k, v in jdev.items():
+            assert dev[k].device.type == "cpu"
+            assert str(dev[k].dtype).removeprefix("torch.") == str(v.dtype)
+            np.testing.assert_array_equal(dev[k].numpy(), np.asarray(v))
 
 
 def _tcfg(cls, acls, path, **kw):
