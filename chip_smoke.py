@@ -42,15 +42,17 @@ it is run outside a checkout of the repository.  Phases, one line each:
      at hd=192/hd_v=128 and at the LM families' prefill shapes
      (``FLASH_MAIN``: Qwen2-MoE's, DeepSeek-V2's, SeamlessM4T's
      non-causal encoder at S = 1024 and its decoder, InternVL2's,
-     Qwen2-72B's, Command R+'s), in bf16 and f32, within
-     ``FLASH_TOL`` (per
+     Qwen2-72B's, Command R+'s), in bf16 and f32, and at the dry run's
+     Phi-4-mini cells (``FLASH_DRYRUN``: S = 32768 and 4096 at batch 1)
+     in bf16, within ``FLASH_TOL`` (per
      dtype and output; lse to 1e-4); the flash-attention backward (K10:
-     dq; K11: dk, dv) at the same shapes and dtypes on K9's o and lse,
-     within ``BWD_TOL``; their f32 sums (bf16 operands, f32 outputs)
+     dq; K11: dk, dv) at ``FLASH_CASES`` and the train_4k cell's shape in
+     both dtypes on K9's o and lse, within ``BWD_TOL``; their f32 sums (bf16 operands, f32 outputs)
      against the plain backward on the f32 casts of the same operands at
      ``BWD_SUM_CASES``, within ``BWD_SUM_TOL``, which sees below bf16's
      precision; and the differentiable ``flash_attention_vjp`` against
-     autograd through the plain forward at ``VJP_CASES``;
+     autograd through the plain forward at ``VJP_CASES`` (at batch 1
+     also given a gradient of batch stride 1);
   3. the slices: ``compile(cfg, NX2100)`` -> ``PipelineExecutor(...,
      backend="eager")`` on the card at batch 8 on 224x224 inputs, with
      seeded random weights, for ResNet-50, ResNet-18, MobileNetV2 as
@@ -153,6 +155,18 @@ it is run outside a checkout of the repository.  Phases, one line each:
      rest, teacher-forced prefill and a decode step against forward
      within ``F32_REL_TOL``, and Hymba, xLSTM and Gemma2 against the same
      port on the host CPU.
+     Then the LM dry run (``[dryrun]`` lines, ``repro_torch.launch.
+     dryrun``): the meta sweep, every arch x shape on the 16x16 and
+     2x16x16 meshes counted on ``meta`` by ``DRYRUN_JOBS`` processes, 0
+     failures and the SKIPs of ``shape_applicable`` (``dryrun_sweep``);
+     then Phi-4-mini at full width and depth on the (1, 1) local mesh at
+     ``DRYRUN_CELLS`` (each shape's seq_len, the batch one card holds)
+     (``dryrun_cells``): the plan's dp = 1 note, the kernel-off count
+     taken on the card equal to meta's bit for bit, the kernel-mode
+     step's launches (K9; K9, K10, K11 for train) and their charges in
+     its count, the warm step time at least the count's t_bound
+     (measured / t_bound and the model-FLOP share printed), and the peak
+     memory at least the per-device argument bytes.
      Then the float matmul's path: ``stream_matmul`` at every fc head of
      the six configs as a matmul at M = 8, in the mode its engine runs,
      and VGG-16's fc0 as a 25088 x 4096 matmul streamed, in f32 and bf16:
@@ -181,9 +195,10 @@ it is run outside a checkout of the repository.  Phases, one line each:
 
 Times are per slice run (one forward of each of the five nets, and the
 LM's engine run and 3 training steps; ``launches`` counts the fused warm run
-of each net): a kernel's ``ms`` sums its
-launches on that path (the record also splits it per net and per
-launch; for the dense and the depthwise kernels, per shape, the bytes,
+of each net, and for K9–K11 also the dry run's counted steps): a kernel's
+``ms`` sums its launches on that path, K9–K11's each at the shape it was
+launched at (the record also splits it per net and per launch, and K9–K11's
+per shape; for the dense and the depthwise kernels, per shape, the bytes,
 bound and library time beside the time a launch, ``conv_per_shape`` with
 the plan and each library call's time and whether its output equals the
 int32 sums, the streamed conv's bytes read from device memory beside the
@@ -219,15 +234,18 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+# the card's peaks, one copy in the port (roofline/hw.py: H100 SXM data
+# sheet); outside a checkout this import fails and the script with it
+from repro_torch.roofline.hw import (  # noqa: E402
+    HBM_BW as HBM_BYTES_PER_S, PEAK_FLOPS_BF16 as BF16_FLOPS_PER_S,
+    PEAK_FLOPS_FP32 as FP32_FLOPS_PER_S, PEAK_FLOPS_INT8 as INT8_OPS_PER_S)
+
 BATCH = 8
 # phase 2 takes seconds; a kernel that never finishes (a ring whose
 # barriers lost step) fails it after this long instead of hanging the run
 CHECK_LIMIT_S = 120
 SEED = 0
-HBM_BYTES_PER_S = 3.35e12
-INT8_OPS_PER_S = 1.979e15
-BF16_FLOPS_PER_S = 9.89e14
-FP32_FLOPS_PER_S = 6.7e13      # FFMA on the CUDA cores, no TF32
 
 # the LM slice: Phi-4-mini at full width and depth, bf16, served with
 # ServingEngine(batch_slots=4, max_seq=1024): 8 prompts of 512 tokens
@@ -243,6 +261,11 @@ FLASH_LONG = (LM_SLOTS, 24, 8, 2048, 128, 128, True, 0, 0.0)
 # wgmma route) and DeepSeek-V2's MLA (128 heads, qk 192 / v 128, the
 # mma.sync route)
 FLASH_QWEN = (LM_SLOTS, 16, 16, LM_PROMPT, 128, 128, True, 0, 0.0)
+# the dry run's cells on the card (DRYRUN_CELLS): Phi-4-mini's K9 at
+# prefill_32k and train_4k, batch 1, and K10/K11 at train_4k
+FLASH_DRY_PREFILL = (1, 24, 8, 32768, 128, 128, True, 0, 0.0)
+FLASH_DRY_TRAIN = (1, 24, 8, 4096, 128, 128, True, 0, 0.0)
+FLASH_DRYRUN = (FLASH_DRY_PREFILL, FLASH_DRY_TRAIN)
 FLASH_DSV2 = (LM_SLOTS, 128, 128, LM_PROMPT, 192, 128, True, 0, 0.0)
 FLASH_CASES = [FLASH_SLICE, FLASH_LONG,
                (2, 4, 4, 256, 64, 64, True, 0, 0.0),
@@ -287,7 +310,11 @@ BWD_SUM_TOL = (1e-5, 1e-6)
 # rounds p to bf16 before PV and autograd differentiates that rounding
 # (worst 0.35 of the bf16 limit; f32 0.012 of a limit five times this one)
 VJP_REL_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
-VJP_CASES = (FLASH_SLICE, (1, 8, 2, 128, 32, 32, True, 0, 50.0))
+VJP_CASES = (FLASH_SLICE, (1, 8, 2, 128, 32, 32, True, 0, 50.0),
+             FLASH_DRY_TRAIN)
+# K10/K11's main-path shapes: Phi-4-mini's training slice and its
+# train_4k dry-run cell
+BWD_MAIN = (FLASH_SLICE, FLASH_DRY_TRAIN)
 
 # the LM training slice: Phi-4-mini at full width and depth, bf16, random
 # weights from SEED, TokenDataset(seq_len=512, global_batch=4), 3 steps of
@@ -393,7 +420,11 @@ F32_HOST_ARCHS = ("hymba-1.5b", "xlstm-125m", "gemma2-9b")
 # K9's main-path shapes: Phi-4-mini's (serving and training), then the
 # families'
 FLASH_MAIN = (FLASH_SLICE, FLASH_QWEN, FLASH_DSV2, FLASH_SEAMLESS_ENC,
-              FLASH_SEAMLESS_DEC, FLASH_INTERNVL, FLASH_QWEN72, FLASH_CMDR)
+              FLASH_SEAMLESS_DEC, FLASH_INTERNVL, FLASH_QWEN72, FLASH_CMDR
+              ) + FLASH_DRYRUN
+# the plain forward at a longer S is timed by one eager call (CUDA events
+# around it; its blocks' loop is too many launches to capture in a graph)
+PLAIN_GRAPH_MAX_S = 4096
 F32_REL_TOL = 1e-4
 # the families' bf16 logits on every row, the MoE routing forced to the
 # plain path's on the kernel path and on an f32 walk of the same weights
@@ -513,6 +544,23 @@ FRONTEND_TENANTS = (("r50_light", "resnet50" + TUNED_SUFFIX, 1.0, None),
 FRONTEND_REQUESTS, FRONTEND_POOL = 256, 32
 FRONTEND_OUTSTANDING, FRONTEND_QUEUE = 8, 4
 FRONTEND_SHARE_TOL, FRONTEND_MIN_JAIN = 0.2, 0.95
+# the LM dry run (repro_torch.launch.dryrun): every arch x shape x {16x16,
+# 2x16x16} on meta in a subprocess of DRYRUN_JOBS counting processes (64
+# PASS, 16 SKIP: the eight archs with full attention skip long_500k), then
+# Phi-4-mini at full width and depth on the (1, 1) local mesh, each shape
+# at its seq_len with the batch one card holds (decode_32k: 34 GB of KV
+# cache), DRYRUN_TIMED warm steps timed after one more
+DRYRUN_JOBS, DRYRUN_SWEEP_LIMIT_S, DRYRUN_TIMED = 7, 600, 3
+DRYRUN_SWEEP = {"PASS": 64, "SKIP": 16, "FAIL": 0}
+DRYRUN_CELLS = (("prefill_32k", 1), ("decode_32k", 8), ("train_4k", 1))
+DRYRUN_NOTE = "dp=1: streaming impossible, all replicated"
+# the cells whose kernel-off count is taken on the card at full depth
+# (check (b)); prefill_32k's blockwise loops take minutes there under the
+# counter, so its count is taken from the first layers on both sides
+DRYRUN_FULL_OFF = ("decode_32k", "train_4k")
+# the flash launches a step makes (a decode step runs none)
+DRYRUN_LAUNCHES = {"prefill": {"flash_attention_fwd": 32}, "decode": {},
+                   "train": TRAIN_LAUNCHES}
 # the shares are read between the heavy tenant's first eighth and three
 # quarters of its images delivered (see serve_frontend)
 FRONTEND_WINDOW = (1 / 8, 3 / 4)
@@ -998,21 +1046,29 @@ def flash_kw(case):
     return dict(causal=case[6], window=case[7], softcap=case[8])
 
 
-def check_flash(torch, g, dev, kern):
+def check_flash(torch, g, dev, kern, record):
     """Phase 2 for K9: the kernel against its plain version (at the JAX
     call's blocks, min(128, S)) at every case of FLASH_CASES and at the LM
-    families' prefill shapes in bf16 and f32, o and lse; and the
+    families' prefill shapes in bf16 and f32, at the dry run's shapes
+    (FLASH_DRYRUN) in bf16, the dtype they run in, o and lse; and the
     model-layout entry the main path calls, which reads q/k/v and writes o
-    through their strides."""
+    through their strides.  The plain version's bf16 call past
+    PLAIN_GRAPH_MAX_S is timed by CUDA events here (``plain_once_ms``),
+    for phase 4."""
     from repro_torch.kernels.flash_attention.ops import (
         flash_attention, flash_attention_kernel)
     from repro_torch.kernels.flash_attention.ref import flash_attention_plain
-    n = 0
+    n, once = 0, record.setdefault("plain_once_ms", {})
     for case in FLASH_CASES + list(FLASH_MAIN[1:]):
-        for dname in FLASH_DTYPES:
+        for dname in (("bfloat16",) if case in FLASH_DRYRUN
+                      else FLASH_DTYPES):
             q, k, v = flash_inputs(torch, g, dev, case, getattr(torch, dname))
-            want_o, want_lse = flash_attention_plain(q, k, v,
-                                                     **flash_kw(case))
+            out = []
+            ms = event_ms(torch, lambda: out.append(flash_attention_plain(
+                q, k, v, **flash_kw(case))), 1)
+            want_o, want_lse = out.pop()
+            if case[3] > PLAIN_GRAPH_MAX_S and dname == "bfloat16":
+                once[case_key(case)] = ms
             o, lse = flash_attention_kernel(q, k, v, return_lse=True,
                                             **flash_kw(case))
             for what, got, want in (("o", o, want_o), ("lse", lse, want_lse)):
@@ -1029,18 +1085,21 @@ def check_flash(torch, g, dev, kern):
 
 def check_flash_bwd(torch, g, dev, ks, record):
     """Phase 2 for K10/K11: the pair against flash_attention_bwd_plain (at
-    the JAX call's blocks) at every case of FLASH_CASES in bf16 and f32,
-    on the forward o and lse of K9 (its f32 variant for f32): dq, dk and
-    dv within BWD_TOL.  Then the pair's f32 sums against the plain
-    backward on f32 casts at BWD_SUM_CASES, within BWD_SUM_TOL, and
+    the JAX call's blocks) at every case of FLASH_CASES and at the dry
+    run's train_4k shape (FLASH_DRY_TRAIN) in bf16 and f32, on the
+    forward o and lse of K9 (its f32 variant for f32): dq, dk and dv
+    within BWD_TOL.  Then the pair's f32 sums against the plain backward
+    on f32 casts at BWD_SUM_CASES, within BWD_SUM_TOL, and
     flash_attention_vjp in model layout against autograd through
-    flash_attention_plain at VJP_CASES."""
+    flash_attention_plain at VJP_CASES; at batch 1 also with the
+    gradient's batch stride 1 (as autograd may hand it over), which must
+    give the same grads bit for bit."""
     from repro_torch.kernels.flash_attention.ops import (
         flash_attention_bwd, flash_attention_kernel, flash_attention_vjp)
     from repro_torch.kernels.flash_attention.ref import (
         flash_attention_bwd_plain, flash_attention_plain)
     n = 0
-    for case in FLASH_CASES:
+    for case in FLASH_CASES + [FLASH_DRY_TRAIN]:
         H, hd_v = case[1], case[5]
         for dname in FLASH_DTYPES:
             dt = getattr(torch, dname)
@@ -1093,6 +1152,20 @@ def check_flash_bwd(torch, g, dev, ks, record):
                 (o.transpose(1, 2).float() * w).sum(), (q, k, v))
             o = flash_attention_vjp.apply(q, k, v, *case[6:9])
             got = torch.autograd.grad((o.float() * w).sum(), (q, k, v))
+            if case[0] == 1:
+                # the same gradient of o, with batch stride 1
+                do = w.to(dt).contiguous()
+                odd = do.reshape(-1).as_strided(do.shape,
+                                                (1,) + do.stride()[1:])
+                o = flash_attention_vjp.apply(q, k, v, *case[6:9])
+                usual = torch.autograd.grad(o, (q, k, v), do)
+                o = flash_attention_vjp.apply(q, k, v, *case[6:9])
+                if not all(torch.equal(a, b) for a, b in zip(
+                        usual, torch.autograd.grad(o, (q, k, v), odd))):
+                    raise AssertionError(
+                        f"flash_attention_vjp {case} {dname}: a gradient "
+                        f"of batch stride 1 gives other grads")
+                n += 1
             for name, gt, wt in zip(("dq", "dk", "dv"), got, want):
                 bound = VJP_REL_TOL[dname] * float(wt.float().abs().max())
                 diff = float((gt.float() - wt.float()).abs().max())
@@ -1372,7 +1445,8 @@ def train_lm(torch, np, dev, record, card):
     Then Trainer.run for TRAIN_STEPS steps with the kernels: exactly
     TRAIN_LAUNCHES a step, a finite loss and grad_norm at every step; the
     eager ms of each step; one more step traced by torch.profiler for the
-    step's device ms."""
+    step's device ms.  Returns the launches and, per kernel, its launches
+    by shape."""
     import gc
 
     from repro_torch.configs import get_arch
@@ -1439,11 +1513,13 @@ def train_lm(torch, np, dev, record, card):
         tr.run(n_steps=1)
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t) * 1e3)
-    launches, by_case = dict(_build.LAUNCHES), k9_by_case()
+    launches = dict(_build.LAUNCHES)
+    by_case = {k: k9_by_case(k) for k in TRAIN_LAUNCHES}
     want = {k: TRAIN_STEPS * n for k, n in TRAIN_LAUNCHES.items()}
-    if launches != want or by_case != {FLASH_SLICE: want[LM_KERNEL]}:
+    if launches != want or by_case != {k: {FLASH_SLICE: n}
+                                       for k, n in want.items()}:
         raise AssertionError(f"{LM_ARCH} training: launches {launches}, "
-                             f"K9's by shape {by_case} != {want} (K9 at "
+                             f"by shape {by_case} != {want} (each at "
                              f"{FLASH_SLICE})")
     hist = list(tr.history)
     if [h["step"] for h in hist] != list(range(1, TRAIN_STEPS + 1)) or \
@@ -1479,16 +1555,24 @@ def train_lm(torch, np, dev, record, card):
     return launches, by_case
 
 
-def time_flash_bwd(torch, F, g, dev, ks, n_launches, card, record):
-    """Phase 4 for K10/K11: device ms per launch of each at the training
-    shape and at S = 2048 (model layout, as the training path calls
-    them), the plain version's ms for the pair, and the backward of
-    F.scaled_dot_product_attention (causal, GQA) for the pair."""
+def time_flash_bwd(torch, F, g, dev, ks, launches_by_case, card, record):
+    """Phase 4 for K10/K11: device ms per launch of each at their
+    main-path shapes (``launches_by_case``: kernel -> the training
+    phase's and the dry run's launches, counted by shape at the launch;
+    each must be one of BWD_MAIN) and at S = 2048 (model layout, as the
+    training path calls them), the plain version's ms for the pair, and
+    the backward of F.scaled_dot_product_attention (causal, GQA) for the
+    pair; each row sums them over the launches of each shape."""
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention.ref import \
         flash_attention_bwd_plain
+    stray = {k: [c for c in by if c not in BWD_MAIN]
+             for k, by in launches_by_case.items()}
+    if any(stray.values()):
+        raise AssertionError(f"K10/K11 launched on the main path at shapes "
+                             f"BWD_MAIN lacks: {stray}")
     per = {}
-    for case in (FLASH_SLICE, FLASH_LONG):
+    for case in BWD_MAIN + (FLASH_LONG,):
         B, H, KV, S, hd, hd_v = case[:6]
         q, k, v = (t.transpose(1, 2).contiguous() for t in flash_inputs(
             torch, g, dev, case, torch.bfloat16))
@@ -1522,39 +1606,58 @@ def time_flash_bwd(torch, F, g, dev, ks, n_launches, card, record):
         n_dkv = 2 * (elems_q + elems_kv + B * H * S * hd_v
                      + B * H * S * (hd + hd_v)) + 8 * B * H * S
         # autograd runs the backward on the forward's stream, which a CUDA
-        # graph cannot capture: its device time comes from the profiler
+        # graph cannot capture: its device time comes from the profiler,
+        # or where its trace shows no device activity from CUDA events
+        # around the calls (host included)
         prof = profile_device_ms(torch, lambda: [lib() for _ in range(reps)])
-        per[S] = {"library_ms": prof["busy_ms"] / reps,
-                  "plain_ms": device_ms(torch, lambda: flash_attention_bwd_plain(
-                      qt, kt, vt, o, lse, dot), reps=2, replays=2),
-                  "library_max_abs_diff_dq": lib_diff}
+        t = per[case] = {
+            "library_ms": (prof["busy_ms"] / reps if prof is not None
+                           else call_ms(torch, lib, reps)),
+            "library_timing": "profiler" if prof is not None else "events",
+            "plain_ms": plain_ms(torch, lambda: flash_attention_bwd_plain(
+                qt, kt, vt, o, lse, dot), S, record, None, reps=2),
+            "library_max_abs_diff_dq": lib_diff}
         for kname, which, nbytes, ops_ in (
                 (BWD_KERNELS[0], (0,), n_dq, 3 * flop),
                 (BWD_KERNELS[1], (1,), n_dkv, 4 * flop)):
             b, by = bound_ms(nbytes, ops_, BF16_FLOPS_PER_S)
-            per[S][kname] = {
+            t[kname] = {
                 "ms": device_ms(torch, launch(which), reps=reps),
                 "call_ms": call_ms(torch, launch(which), reps=reps),
                 "bound_ms": b, "bound_by": by, "bytes": nbytes,
                 "flops": ops_}
         log("time", f"flash backward B={B} H={H} KV={KV} S={S} hd={hd} bf16 "
-            f"causal: dq {per[S][BWD_KERNELS[0]]['ms']:.4f} ms, dk/dv "
-            f"{per[S][BWD_KERNELS[1]]['ms']:.4f} ms per launch (device); "
-            f"bounds {per[S][BWD_KERNELS[0]]['bound_ms']:.4f} / "
-            f"{per[S][BWD_KERNELS[1]]['bound_ms']:.4f} ms; the pair: plain "
-            f"{per[S]['plain_ms']:.4f} ms, SDPA backward "
-            f"{per[S]['library_ms']:.4f} ms  [{card}]")
-    t = per[TRAIN_SEQ]
+            f"causal: dq {t[BWD_KERNELS[0]]['ms']:.4f} ms, dk/dv "
+            f"{t[BWD_KERNELS[1]]['ms']:.4f} ms per launch (device); "
+            f"bounds {t[BWD_KERNELS[0]]['bound_ms']:.4f} / "
+            f"{t[BWD_KERNELS[1]]['bound_ms']:.4f} ms; the pair: plain "
+            f"{t['plain_ms']:.4f} ms, SDPA backward "
+            f"{t['library_ms']:.4f} ms; main-path launches "
+            f"{[launches_by_case[k].get(case, 0) for k in BWD_KERNELS]}"
+            f"  [{card}]")
     for kname in BWD_KERNELS:
-        kern, n = ks[kname], n_launches[kname]
-        kern.ms = n * t[kname]["ms"]
-        kern.bound_ms, kern.bound_by = n * t[kname]["bound_ms"], \
-            t[kname]["bound_by"]
+        kern, by = ks[kname], launches_by_case[kname]
+        main = [(n, per[c]) for c, n in by.items() if n]
+        kern.ms = sum(n * t[kname]["ms"] for n, t in main)
+        kern.bound_ms = sum(n * t[kname]["bound_ms"] for n, t in main)
+        by_time = {}
+        for n, t in main:
+            by_time[t[kname]["bound_by"]] = by_time.get(
+                t[kname]["bound_by"], 0.0) + n * t[kname]["bound_ms"]
+        kern.bound_by = max(by_time, key=by_time.get)
         # the plain version and the library compute dq, dk and dv in one
         # call: each row carries the pair's time
-        kern.plain_ms, kern.library_ms = n * t["plain_ms"], \
-            n * t["library_ms"]
-    record["flash_bwd_per_launch"] = {str(S): d for S, d in per.items()}
+        kern.plain_ms = sum(n * t["plain_ms"] for n, t in main)
+        kern.library_ms = sum(n * t["library_ms"] for n, t in main)
+        kern.per_shape = [{
+            "case": list(c), "launches": n, "ms": per[c][kname]["ms"],
+            "plain_ms": per[c]["plain_ms"],
+            "bound_ms": per[c][kname]["bound_ms"],
+            "bound_by": per[c][kname]["bound_by"],
+            "library_ms": per[c]["library_ms"]}
+            for c, n in by.items() if n]
+    record["flash_bwd_per_launch"] = {"x".join(map(str, c[:6])): d
+                                      for c, d in per.items()}
 
 
 def sdpa_readings(torch, F, q, k, v, causal=True):
@@ -1583,6 +1686,23 @@ def sdpa_readings(torch, F, q, k, v, causal=True):
     return found, best
 
 
+def case_key(case):
+    """A FLASH case's key in the record: B x H x KV x S x hd x hd_v, and
+    "-nc" where not causal."""
+    return "x".join(str(n) for n in case[:6]) + ("" if case[6] else "-nc")
+
+
+def plain_ms(torch, fn, S, record, key, reps=3, replays=2):
+    """A plain version's device ms per call (``device_ms``), or, past
+    PLAIN_GRAPH_MAX_S, the ms of one eager call by CUDA events (its host
+    dispatch included): the one phase 2 timed under ``key``
+    (``plain_once_ms``), else one call now."""
+    if S <= PLAIN_GRAPH_MAX_S:
+        return device_ms(torch, fn, reps=reps, replays=replays)
+    once = record.get("plain_once_ms", {})
+    return once[key] if key in once else event_ms(torch, fn, 1)
+
+
 def time_flash(torch, F, g, dev, kern, launches_by_case, card, record):
     """Phase 4 for K9: device ms per launch at each main-path shape
     (``launches_by_case``: the LM phases' launches, counted by shape at
@@ -1601,7 +1721,7 @@ def time_flash(torch, F, g, dev, kern, launches_by_case, card, record):
     per = {}
     for case in FLASH_MAIN + (FLASH_LONG,):
         B, H, KV, S, hd, hd_v, causal = case[:7]
-        key = "x".join(str(n) for n in case[:6]) + ("" if causal else "-nc")
+        key = case_key(case)
         q, k, v = (t.transpose(1, 2).contiguous() for t in flash_inputs(
             torch, g, dev, case, torch.bfloat16))
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -1620,8 +1740,8 @@ def time_flash(torch, F, g, dev, kern, launches_by_case, card, record):
                             reps=20),
             "call_ms": call_ms(torch, lambda: flash_attention(q, k, v, **kw),
                                reps=20),
-            "plain_ms": device_ms(torch, lambda: flash_attention_plain(
-                qt, kt, vt, **kw), reps=3, replays=2),
+            "plain_ms": plain_ms(torch, lambda: flash_attention_plain(
+                qt, kt, vt, **kw), S, record, key),
             "library_ms": libs[lib_name], "library_backend": lib_name,
             "library_backends": libs, "bound_ms": b, "bound_by": by,
             "bytes": nbytes, "flops": flops,
@@ -1870,16 +1990,17 @@ def dense_walk(torch, tmod, lm_layers, params, arch, feed, *, kernel,
     return tmod.logits_from_hidden(params, arch, h[:, -1])
 
 
-def k9_by_case():
-    """K9's launches since the last reset, by the shape the wrapper
-    counted them under, keyed as the FLASH cases are (B, H, KV, S, hd,
-    hd_v, causal, window, softcap) where the launch was bf16 with as many
-    keys as queries, as the main path's prefills are; any other launch
-    keeps the wrapper's own key, so that it shows in a comparison."""
+def k9_by_case(name=LM_KERNEL):
+    """K9's (or K10's or K11's, by ``name``) launches since the last
+    reset, by the shape the wrapper counted them under, keyed as the
+    FLASH cases are (B, H, KV, S, hd, hd_v, causal, window, softcap) where
+    the launch was bf16 with as many keys as queries, as the main path's
+    are; any other launch keeps the wrapper's own key, so that it shows
+    in a comparison."""
     from repro_torch.kernels import _build
     out = {}
     for (kernel, key), n in _build.SHAPE_LAUNCHES.items():
-        if kernel == LM_KERNEL:
+        if kernel == name:
             dtype, B, H, KV, Sq, Sk, *rest = key
             out[(B, H, KV, Sq, *rest) if dtype == "bfloat16" and Sq == Sk
                 else key] = n
@@ -2284,6 +2405,217 @@ def lm_f32(torch, np, dev, record, name, n_layers, S, change):
     torch.cuda.empty_cache()
 
 
+def dryrun_sweep(shape_applicable, arch_ids, get_arch, shapes, record):
+    """The dry run's meta sweep (``python -m repro_torch.launch.dryrun``
+    with no cell named, DRYRUN_JOBS processes): every arch x shape x
+    {16x16, 2x16x16} counted on meta.  Fails unless it exits 0 with
+    DRYRUN_SWEEP's PASS / SKIP / FAIL lines and its SKIPs are the cells
+    ``shape_applicable`` refuses.  Its report and log go to the output
+    directory."""
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--mesh", "both",
+         "--jobs", str(DRYRUN_JOBS), "--out",
+         str(out_dir / "dryrun_report.json")], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=DRYRUN_SWEEP_LIMIT_S)
+    secs = time.perf_counter() - t0
+    (out_dir / "dryrun_sweep.log").write_text(proc.stdout + proc.stderr)
+    lines = proc.stdout.splitlines()
+    got = {k: sum(line.startswith(k + " ") for line in lines)
+           for k in DRYRUN_SWEEP}
+    skipped = {line.split(":")[0].split(" ", 1)[1] for line in lines
+               if line.startswith("SKIP ")}
+    want_skips = {f"{a} x {s}" for a in arch_ids for s in shapes
+                  if not shape_applicable(get_arch(a), shapes[s])[0]}
+    record["dryrun_sweep"] = {"seconds": secs, "lines": got,
+                              "processes": DRYRUN_JOBS,
+                              "returncode": proc.returncode}
+    log("dryrun", f"meta sweep: {got['PASS']} PASS, {got['SKIP']} SKIP, "
+        f"{got['FAIL']} FAIL over {len(arch_ids)} archs x {len(shapes)} "
+        f"shapes x 2 meshes in {secs:.1f} s ({DRYRUN_JOBS} processes)")
+    if proc.returncode != 0 or got != DRYRUN_SWEEP or skipped != want_skips:
+        raise AssertionError(
+            f"the dry run's meta sweep: exit {proc.returncode}, {got} "
+            f"(want {DRYRUN_SWEEP}), skips {sorted(skipped ^ want_skips)} "
+            f"differ; the tail of its output:\n{proc.stdout[-2000:]}"
+            f"{proc.stderr[-2000:]}")
+
+
+def dryrun_cells(torch, dev, record, card):
+    """Phi-4-mini's dry-run cells on the card (DRYRUN_CELLS), at full width
+    and depth on the (1, 1) local mesh, random weights from SEED.  For
+    each: (a) the placement plan's note is DRYRUN_NOTE (dp = 1); (b) with
+    kernel mode off the step's count taken on the card equals the same
+    cell's count on meta, FLOPs and bytes bit for bit: at full depth on
+    both and equal to the meta sweep's count (extrapolated from the first
+    layers) for DRYRUN_FULL_OFF, from the first layers on both for the
+    others (the blockwise route's Python loops at 32k take minutes at
+    full depth under the counter); (c) with kernel mode on one step at
+    full depth on the card launches DRYRUN_LAUNCHES, its count holds
+    their charges and equals the count on meta extrapolated from the
+    first layers; (d) the warm step time by CUDA events is at least
+    the kernel-mode count's t_bound; (e) the peak device memory is at
+    least the cell's per-device argument bytes.  Returns the launches of
+    the kernel-mode counted steps, in all and per kernel by shape."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.kernels import _build
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import layers as lm_layers
+    from repro_torch.models import transformer as tmod
+    from repro_torch.roofline import analysis
+    from repro_torch.roofline.op_cost import Cost, counting
+    gc.collect()
+    torch.cuda.empty_cache()
+    arch = get_arch(LM_ARCH)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = tmod.init_params(gen, arch, dev)
+    mesh = make_local_mesh()
+    if mesh.devices.shape != (1, 1):
+        raise AssertionError(f"the local mesh is {mesh.devices.shape}, not "
+                             f"one card")
+    rows, launches, by_case = {}, {}, {}
+    try:
+        for shape_id, batch in DRYRUN_CELLS:
+            shape = dataclasses.replace(SHAPES[shape_id], global_batch=batch)
+            name = f"{LM_ARCH} x {shape_id} (batch {batch})"
+            # (b) kernel mode off: the card's count and meta's, at full
+            # depth or each from the first layers (the card runs the
+            # shallow steps for real)
+            lm_layers.set_kernel_mode(False)
+            full = shape_id in DRYRUN_FULL_OFF
+            t0 = time.perf_counter()
+            if full:
+                off_card = dryrun.step_cost(arch, shape, params=params,
+                                            device=dev)
+            else:
+                off_card = dryrun.extrapolated_cost(arch, shape, device=dev)
+            count_s = time.perf_counter() - t0
+            off_meta = [dryrun.extrapolated_cost(arch, shape)]
+            if full:
+                off_meta.append(dryrun.step_cost(arch, shape))
+            if any(off_card != c for c in off_meta):
+                raise AssertionError(f"{name}, kernel mode off: the card's "
+                                     f"count {off_card} differs from meta's "
+                                     f"{off_meta}")
+            gc.collect()
+            torch.cuda.empty_cache()
+            # (c) kernel mode on: one counted step, its launches and charges
+            lm_layers.set_kernel_mode(True)
+            torch.cuda.reset_peak_memory_stats()
+            step, state = dryrun.make_step(arch, shape, params, device=dev,
+                                           gen=gen)
+            charged = Cost()
+
+            def charge(flops, nbytes, mm):
+                nonlocal charged
+                charged += Cost(flops, nbytes, nbytes, mm)
+            _build.add_charge_sink(charge)
+            _build.reset_launches()
+            try:
+                with counting() as c:
+                    step()
+                torch.cuda.synchronize()
+            finally:
+                _build.remove_charge_sink(charge)
+            got = {k: v for k, v in _build.LAUNCHES.items() if v}
+            for k in got:
+                for case, n in k9_by_case(k).items():
+                    by_case.setdefault(k, {})[case] = \
+                        by_case.get(k, {}).get(case, 0) + n
+            on_meta = dryrun.extrapolated_cost(arch, shape)
+            if got != DRYRUN_LAUNCHES[shape.kind]:
+                raise AssertionError(f"{name}: launches {got}, want "
+                                     f"{DRYRUN_LAUNCHES[shape.kind]}")
+            if c.cost != on_meta:
+                raise AssertionError(f"{name}, kernel mode on: the card's "
+                                     f"count {c.cost} differs from meta's "
+                                     f"{on_meta}")
+            if bool(got) != bool(charged.flops) or \
+                    c.cost.flops < charged.flops or \
+                    c.cost.bytes < charged.bytes:
+                raise AssertionError(f"{name}: the count {c.cost} does not "
+                                     f"hold the kernels' charges {charged}")
+            for k, n in got.items():
+                launches[k] = launches.get(k, 0) + n
+            # (a) and the cell's per-device argument bytes
+            info = dryrun.lower_cell(arch, shape, mesh, params=params,
+                                     count=c.cost)
+            if info["plan"] != DRYRUN_NOTE:
+                raise AssertionError(f"{name}: plan {info['plan']!r}, want "
+                                     f"{DRYRUN_NOTE!r}")
+            roof = analysis.analyze(
+                arch=LM_ARCH, shape=shape_id, mesh_name="1x1", chips=1,
+                model_flops=info["model_flops"],
+                global_flops=c.cost.flops, global_bytes=c.cost.bytes,
+                bytes_per_device=info["arg_bytes"]["total"])
+            # (d) the warm step time against the bound
+            step()
+            times = [event_ms(torch, step, 1) for _ in range(DRYRUN_TIMED)]
+            ms = statistics.median(times)
+            peak = torch.cuda.max_memory_allocated()
+            args = info["arg_bytes"]["total"]
+            share = info["model_flops"] / (ms / 1e3 * BF16_FLOPS_PER_S)
+            row = {"batch": batch, "seq_len": shape.seq_len,
+                   "count_off": off_card.as_dict(),
+                   "count_off_depth": "full" if full else "first layers",
+                   "count_on": c.cost.as_dict(), "charged": charged.as_dict(),
+                   "launches": got, "plan": info["plan"],
+                   "t_compute_ms": roof.t_compute * 1e3,
+                   "t_memory_ms": roof.t_memory * 1e3,
+                   "t_bound_ms": roof.t_bound * 1e3,
+                   "dominant": roof.dominant, "ms": ms, "runs_ms": times,
+                   "over_bound": ms / (roof.t_bound * 1e3),
+                   "model_flops": info["model_flops"],
+                   "model_flop_share": share,
+                   "mfu_at_bound": roof.mfu_at_bound,
+                   "peak_bytes": peak, "arg_bytes": info["arg_bytes"],
+                   "peak_over_args": peak / args,
+                   "card_count_s": count_s}
+            rows[shape_id] = row
+            log("dryrun", f"{name}: (a) plan {info['plan']!r}; (b) count "
+                f"off on the card = meta "
+                f"({'full depth' if full else 'first layers'}): "
+                f"{off_card.flops:.6e} FLOPs, "
+                f"{off_card.bytes:.6e} bytes ({count_s:.1f} s counting); "
+                f"(c) launches {got}, count on (full depth on the card = "
+                f"meta) {c.cost.flops:.6e} FLOPs "
+                f"{c.cost.bytes:.6e} bytes with {charged.flops:.6e} FLOPs "
+                f"{charged.bytes:.6e} bytes charged; (d) {ms:.3f} ms a warm "
+                f"step (median of {DRYRUN_TIMED}), t_compute "
+                f"{roof.t_compute * 1e3:.3f} ms, t_memory "
+                f"{roof.t_memory * 1e3:.3f} ms -> {roof.dominant}-bound, "
+                f"measured / t_bound {row['over_bound']:.3f}, model-FLOP "
+                f"share {share:.4f}; (e) peak {peak / 1e9:.3f} GB / "
+                f"arguments {args / 1e9:.3f} GB = {peak / args:.3f}  "
+                f"[{card}]")
+            if row["over_bound"] < 1.0:
+                raise AssertionError(f"{name}: {ms:.3f} ms under the bound "
+                                     f"{roof.t_bound * 1e3:.3f} ms: the "
+                                     f"count misses work")
+            if peak < args:
+                raise AssertionError(f"{name}: peak {peak} bytes under the "
+                                     f"arguments' {args}")
+            del step, state
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        lm_layers.set_kernel_mode(True)
+        lm_layers.set_mesh_axis_sizes({})
+    record["dryrun_cells"] = rows
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, by_case
+
+
 def start_tuning(compile, get_cnn, target):
     """``compile(cfg, target, autotune=True)`` for each net of ``TUNED``
     in a thread of its own (the search is host work, so it runs beside
@@ -2650,7 +2982,7 @@ def serve_sharded(torch, np, name, comp, params, per_forward, dev, record,
             progs, ring = eng.stage_programs, eng._ring
             per_mb = {}
             for prog in progs:
-                for k, v in prog.runner.launches.items():
+                for k, v in prog.runner.launches.counts.items():
                     per_mb[k] = per_mb.get(k, 0) + v
             if per_mb != per_forward:
                 raise AssertionError(f"sharded {name} S={S}: the stage "
@@ -2970,7 +3302,6 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.compiler import NX2100, compile, select_engine
     from repro_torch.configs.cnn import CNN_CONFIGS, get_cnn
     from repro_torch.kernels import _build
@@ -3181,7 +3512,7 @@ def main():
                 ks[kname].err(torch, gq, want_q)
                 n_checks += 4
     n_float = check_float_matmul(torch, g, dev, ks, fc_shapes, block_for)
-    n_flash = check_flash(torch, g, dev, ks[LM_KERNEL])
+    n_flash = check_flash(torch, g, dev, ks[LM_KERNEL], record)
     n_bwd = check_flash_bwd(torch, g, dev, ks, record)
     torch.cuda.synchronize()
     watchdog.cancel()
@@ -3761,11 +4092,12 @@ def main():
     def add_k9(by_case):
         for case, n in by_case.items():
             flash_launches[case] = flash_launches.get(case, 0) + n
-    train, k9 = train_lm(torch, np, dev, record, card)
+    train, train_cases = train_lm(torch, np, dev, record, card)
     launches[LM_ARCH + " training"] = train
     for k in (LM_KERNEL,) + BWD_KERNELS:
         total_launches[k] = total_launches.get(k, 0) + train[k]
-    add_k9(k9)
+    add_k9(train_cases[LM_KERNEL])
+    bwd_launches = {k: dict(train_cases[k]) for k in BWD_KERNELS}
 
     # -- 3 and 4 for the other LM families, one arch at a time, with
     # Phi-4-mini's weights freed; then each in f32 ---------------------------
@@ -3777,6 +4109,19 @@ def main():
         add_k9(k9)
     for name, (n_layers, S, change) in LM_F32.items():
         lm_f32(torch, np, dev, record, name, n_layers, S, change)
+
+    # -- the LM dry run: the meta sweep, then Phi-4-mini's cells on the card
+    from repro_torch.configs import ARCH_IDS, get_arch
+    from repro_torch.configs.base import SHAPES, shape_applicable
+    dryrun_sweep(shape_applicable, ARCH_IDS, get_arch, SHAPES, record)
+    dryrun_launches, dryrun_cases = dryrun_cells(torch, dev, record, card)
+    launches[LM_ARCH + " dry run"] = dryrun_launches
+    for k, n in dryrun_launches.items():
+        total_launches[k] = total_launches.get(k, 0) + n
+    add_k9(dryrun_cases.get(LM_KERNEL, {}))
+    for k in BWD_KERNELS:
+        for case, n in dryrun_cases.get(k, {}).items():
+            bwd_launches[k][case] = bwd_launches[k].get(case, 0) + n
     missing = [k for k in KERNELS if not total_launches.get(k)]
     if missing:
         raise AssertionError(f"kernels never launched on the path: "
@@ -3784,7 +4129,7 @@ def main():
     record["launches"] = launches
     t0 = time.perf_counter()
     time_flash(torch, F, g, dev, ks[LM_KERNEL], flash_launches, card, record)
-    time_flash_bwd(torch, F, g, dev, ks, total_launches, card, record)
+    time_flash_bwd(torch, F, g, dev, ks, bwd_launches, card, record)
     record["time_s"] += time.perf_counter() - t0
 
     # -- 5. report ------------------------------------------------------------
@@ -3806,7 +4151,7 @@ def main():
                      "ms_on_library_launches": lib_k_ms})
         if kern.floor_ms is not None:      # the launch floor, beside K6
             rows[-1]["floor_ms"] = kern.floor_ms * total_launches[name]
-        if getattr(kern, "per_shape", None):  # K9: each shape and route
+        if getattr(kern, "per_shape", None):  # K9-K11: each shape
             rows[-1]["per_shape"] = kern.per_shape
         log("time", f"{name}: {kern.ms:.4f} ms per slice run (device), "
             f"plain {kern.plain_ms:.4f} ms, bound {kern.bound_ms:.4f} ms "

@@ -1,7 +1,8 @@
 """Atomic, async, keep-N checkpoints — the port of ``repro.ckpt.checkpoint``
 (``save``, ``AsyncCheckpointer``, ``available_steps``,
-``restore_latest``; the elastic ``shardings`` hook waits for the sharded
-slice).
+``restore_latest`` with its elastic-rescale hook ``shardings``: where the
+JAX package takes a tree of ``NamedSharding``, the port takes a matching
+tree of devices and restores each leaf onto its device).
 
 The same durability contract and layout as the JAX package:
 
@@ -30,17 +31,10 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.models.layers import flatten_with_paths
+
 MANIFEST = "manifest.json"
 COMMIT = "COMMITTED"
-
-
-def _flat(tree, prefix: str = "") -> List[Tuple[str, Any]]:
-    """(key path, leaf) pairs, dict keys sorted; paths as ``jax.tree_util.
-    keystr`` writes them (``['params']['embed']['table']``)."""
-    if isinstance(tree, dict):
-        return [pair for k in sorted(tree)
-                for pair in _flat(tree[k], f"{prefix}[{k!r}]")]
-    return [(prefix, tree)]
 
 
 def _unflat(like, by_key: Dict[str, Any], prefix: str = ""):
@@ -62,7 +56,7 @@ def _host(leaf: torch.Tensor) -> Tuple[np.ndarray, str]:
 
 
 def _host_tree(tree) -> List[Tuple[str, np.ndarray, str]]:
-    return [(key, *_host(leaf)) for key, leaf in _flat(tree)]
+    return [(key, *_host(leaf)) for key, leaf in flatten_with_paths(tree)]
 
 
 def _write(path: str, step: int, host: List[Tuple[str, np.ndarray, str]],
@@ -163,19 +157,27 @@ def available_steps(path: str) -> List[int]:
             and _verify(os.path.join(path, d))]
 
 
-def _tensor(arr: np.ndarray, dtype_name: str, like: torch.Tensor
-            ) -> torch.Tensor:
+def _tensor(arr: np.ndarray, dtype_name: str, like: torch.Tensor,
+            device) -> torch.Tensor:
     t = torch.from_numpy(np.array(arr, copy=True))
     if dtype_name == "bfloat16":
         t = t.view(torch.bfloat16)
-    return t.to(device=like.device, dtype=like.dtype)
+    return t.to(device=device, dtype=like.dtype)
 
 
-def restore_latest(path: str, like_tree) -> Optional[Tuple[int, Any]]:
+def restore_latest(path: str, like_tree, *,
+                   shardings=None) -> Optional[Tuple[int, Any]]:
     """Restore the newest verifiable checkpoint into the structure, dtypes
-    and devices of ``like_tree`` (a tree of tensors).  Returns (step,
-    tree), or None when there is none."""
-    like = _flat(like_tree)
+    and devices of ``like_tree`` (a tree of tensors).  ``shardings``: a
+    matching tree of devices (or None) — the elastic-rescale hook: pass
+    the new placement and each leaf is restored onto its device.  Returns
+    (step, tree), or None when there is none."""
+    like = flatten_with_paths(like_tree)
+    devices = ([ref.device for _, ref in like] if shardings is None
+               else [torch.device(d) for _, d in flatten_with_paths(shardings)])
+    if len(devices) != len(like):
+        raise ValueError(f"shardings has {len(devices)} leaves, like_tree "
+                         f"{len(like)}")
     for step in sorted(available_steps(path), reverse=True):
         d = os.path.join(path, f"step_{step:08d}")
         try:
@@ -184,8 +186,9 @@ def restore_latest(path: str, like_tree) -> Optional[Tuple[int, Any]]:
             if len(man["leaves"]) != len(like):
                 continue
             leaves = [_tensor(np.load(os.path.join(d, leaf["file"])),
-                              leaf["dtype"], ref)
-                      for leaf, (_, ref) in zip(man["leaves"], like)]
+                              leaf["dtype"], ref, dev)
+                      for leaf, (_, ref), dev in zip(man["leaves"], like,
+                                                     devices)]
         except (OSError, ValueError, KeyError):
             continue                          # corrupt -> try older
         return step, _unflat(like_tree, {key: leaf for (key, _), leaf

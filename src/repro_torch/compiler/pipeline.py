@@ -1069,7 +1069,7 @@ def trace_fused(compiled: CompiledPipeline, params, images, *,
                                       act_scale=act_scale, collect=stats,
                                       layer_range=layer_range)
         runner = _GraphTrace(graph, static_in, static_out,
-                             _params_leaves(params), dict(launches))
+                             _params_leaves(params), launches)
         logits = runner(params, images)
         if not torch.equal(logits, eager):
             raise RuntimeError(

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import dataclasses
 import hashlib
 import os
 import shutil
@@ -26,7 +27,7 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -45,6 +46,9 @@ LAUNCHES: Dict[str, int] = {}
 #: The same launches by ``(kernel, shape)``, for the wrappers that name
 #: the shape they launch (``count_launch(kernel, shape)``).
 SHAPE_LAUNCHES: Dict[Tuple[str, tuple], int] = {}
+# the active cost counters (``roofline/op_cost.py``): each launch's charge
+# goes to every one of them
+_charge_sinks: list = []
 _count_lock = threading.Lock()
 # the launches a thread records into a CUDA graph being captured: capture
 # records kernels without running them, so they count at each replay
@@ -126,23 +130,80 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
-def count_launch(kernel: str, shape: Optional[tuple] = None) -> None:
+class Charge(NamedTuple):
+    """What one launch charges to the cost counter
+    (``roofline/op_cost.py``), which cannot see a launch through ctypes.
+    Each ``ops.py`` computes its kernels' charges from the launch's
+    shapes alone, by the reference's rule for a ``pl.pallas_call``
+    (``repro/roofline/jaxpr_cost.py``): the bytes are the operands plus
+    the results (scratch never round-trips HBM), the FLOPs the kernel
+    body's, counted per jaxpr equation as the reference counts them,
+    times the grid (a ``pl.when`` counts its branch at every grid step).
+    The body counts are those of the JAX package's bodies (K1-K11), held
+    on the CPU against ``jaxpr_cost.cost_of`` of the JAX call."""
+    flops: int
+    bytes: int
+    matmul_flops: int          # the dots of the body, times the grid
+
+
+def count_launch(kernel: str, shape: Optional[tuple] = None,
+                 cost: Optional[tuple] = None) -> None:
     """One launch of ``kernel``; with ``shape``, also one of ``(kernel,
-    shape)`` in :data:`SHAPE_LAUNCHES`."""
-    keys = (kernel,) if shape is None else (kernel, (kernel, shape))
+    shape)`` in :data:`SHAPE_LAUNCHES`; with ``cost`` (``(flops, bytes,
+    matmul_flops)``), its charge to the active cost counters."""
+    counts = dict.fromkeys((kernel,) if shape is None
+                           else (kernel, (kernel, shape)), 1)
     sink = getattr(_capture, "sink", None)
-    if sink is not None:
-        for key in keys:
-            sink[key] = sink.get(key, 0) + 1
-        return
-    count_replay(dict.fromkeys(keys, 1))
+    if sink is None:
+        count_replay(Recorded(counts, cost))
+    else:
+        sink.add(Recorded(counts, cost))
+
+
+@dataclasses.dataclass
+class Recorded:
+    """What a captured CUDA graph launches at each replay: ``counts`` (a
+    kernel's name or a ``(kernel, shape)`` pair -> launches) and
+    ``charge``, the ``(flops, bytes, matmul_flops)`` those launches charge
+    to a cost counter, or None."""
+    counts: Dict = dataclasses.field(default_factory=dict)
+    charge: Optional[tuple] = None
+
+    def add(self, other: "Recorded") -> None:
+        for key, n in other.counts.items():
+            self.counts[key] = self.counts.get(key, 0) + n
+        if other.charge is not None:
+            self.charge = tuple(other.charge) if self.charge is None \
+                else tuple(a + b for a, b in zip(self.charge, other.charge))
+
+
+def add_charge_sink(fn) -> None:
+    """``fn(flops, nbytes, matmul_flops)`` receives each launch's charge
+    until :func:`remove_charge_sink`."""
+    with _count_lock:
+        _charge_sinks.append(fn)
+
+
+def remove_charge_sink(fn) -> None:
+    with _count_lock:
+        _charge_sinks.remove(fn)
+
+
+def charge(cost: tuple) -> None:
+    """Charge ``(flops, bytes, matmul_flops)`` to the active counters
+    without counting a launch (a wrapper given ``meta`` tensors)."""
+    with _count_lock:
+        sinks = list(_charge_sinks)
+    for fn in sinks:
+        fn(*cost)
 
 
 @contextlib.contextmanager
 def capturing_launches():
     """While a CUDA graph is captured on this thread: the launches its
-    wrappers make go into the yielded dict, not into :data:`LAUNCHES`."""
-    sink: Dict[str, int] = {}
+    wrappers make go into the yielded :class:`Recorded`, not into
+    :data:`LAUNCHES`."""
+    sink = Recorded()
     _capture.sink = sink
     try:
         yield sink
@@ -150,14 +211,17 @@ def capturing_launches():
         _capture.sink = None
 
 
-def count_replay(launches: Dict[str, int]) -> None:
+def count_replay(recorded: Recorded) -> None:
     """One replay of a captured graph: its recorded launches count (a
     kernel's name into :data:`LAUNCHES`, a ``(kernel, shape)`` pair into
-    :data:`SHAPE_LAUNCHES`)."""
+    :data:`SHAPE_LAUNCHES`) and their recorded charge goes to the active
+    cost counters."""
     with _count_lock:
-        for key, n in launches.items():
+        for key, n in recorded.counts.items():
             into = LAUNCHES if isinstance(key, str) else SHAPE_LAUNCHES
             into[key] = into.get(key, 0) + n
+    if recorded.charge is not None:
+        charge(recorded.charge)
 
 
 def reset_launches() -> None:
@@ -166,14 +230,21 @@ def reset_launches() -> None:
         SHAPE_LAUNCHES.clear()
 
 
-def runs_plain(x) -> bool:
+def runs_plain(x, *, meta_launches: bool = False) -> bool:
     """Whether a wrapper given ``x`` runs its plain version: CPU tensors
-    do, CUDA tensors launch the kernel, anything else is refused."""
+    do, CUDA tensors launch the kernel.  ``meta`` tensors (a dry run's
+    shapes without data) run the plain version, or where the wrapper
+    passes ``meta_launches`` its launch path, which on ``meta`` charges
+    the kernel's cost and allocates its outputs but launches nothing.
+    Any other device is refused."""
     if x.device.type == "cpu":
         return True
     if x.device.type == "cuda":
         return False
-    raise ValueError(f"unsupported device {x.device}")
+    if x.device.type == "meta":
+        return not meta_launches
+    raise ValueError(f"unsupported device {x.device}: the kernels run on "
+                     f"cuda, their plain versions on cpu (and meta)")
 
 
 def check_cuda_tensor(t, name: str, dtype, device) -> None:

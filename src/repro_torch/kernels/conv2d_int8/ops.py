@@ -562,6 +562,36 @@ def _ptr(t) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
+def charge(B: int, H: int, W: int, C: int, C_out: int, k_h: int, k_w: int,
+         stride: int, *, depthwise: bool) -> _build.Charge:
+    """K1–K4's charge (``_build.Charge``): x [B,H,W,C] int8 (the
+    reference reads it SAME-padded), w
+    ``[k_h,k_w,C,C_out]`` (``[k_h,k_w,1,C]`` depthwise) int8 -> int32
+    ``[B,ceil(H/s),ceil(W/s),C_out]``.  Pinned and streamed weights
+    charge alike: the ring's copies count no FLOPs.  The requantizing
+    launches fuse the epilogue and write int8 where the reference's
+    ``pallas_call`` writes int32 and the epilogue runs as separate
+    elementwise ops: the charge is the ``pallas_call``'s."""
+    h_pad, w_pad = (same_padded_width(H, k_h, stride),
+                    same_padded_width(W, k_w, stride))
+    h_out, w_out = -(-H // stride), -(-W // stride)
+    T = k_h * k_w
+    if depthwise:
+        C_out = C
+        dots = 0
+        body = T * w_pad * C + 4 * T * w_out * C + 2 * T * C \
+            + 2 * w_out * C + 4
+        w_bytes = T * C
+    else:
+        dots = 2 * T * w_out * C * C_out
+        body = (dots + T * w_out * C_out + T * w_out * C + T * C * C_out
+                + T * w_pad * C + 2 * w_out * C_out + 4)
+        w_bytes = T * C * C_out
+    grid = B * h_out
+    nbytes = B * h_pad * w_pad * C + w_bytes + 4 * B * h_out * w_out * C_out
+    return _build.Charge(body * grid, nbytes, dots * grid)
+
+
 def _launch(x, w, w_scale, bias, act_scale: float, *, stride: int,
             stream: bool, n_buffers: int, relu: bool, raw: bool,
             want_float: bool):
@@ -601,7 +631,9 @@ def _launch(x, w, w_scale, bias, act_scale: float, *, stride: int,
             *args, p.wn, p.nf, p.rows_per_band, int(p.packed), p.smem_bytes,
             cuda_stream)
     _build.check(err, "conv2d_int8")
-    _build.count_launch(KERNEL_STREAM if stream else KERNEL_PINNED)
+    _build.count_launch(KERNEL_STREAM if stream else KERNEL_PINNED,
+                        cost=charge(B, H, W, C, c_out, k_h, k_w, stride,
+                                    depthwise=False))
     return out_i if raw else (out_q, out_f)
 
 
@@ -631,7 +663,9 @@ def _launch_dw(x, w, w_scale, bias, act_scale: float, *, stride: int,
         int(stream), n_buffers, int(relu),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "dwconv_int8")
-    _build.count_launch(KERNEL_DW_STREAM if stream else KERNEL_DW_PINNED)
+    _build.count_launch(KERNEL_DW_STREAM if stream else KERNEL_DW_PINNED,
+                        cost=charge(B, H, W, C, C, k_h, k_w, stride,
+                                    depthwise=True))
     return out_i if raw else (out_q, out_f)
 
 

@@ -22,6 +22,12 @@ keys), the other bf16 pairs on ``mma.sync`` (64 by 64), f32 on the CUDA
 cores (64 by 32).  Each reads the operands through their strides, so the
 model layout goes in and out without a transposed copy; the bases and
 strides must be 16-byte aligned (TMA and ``cp.async`` need it).
+
+Every launch charges its cost to the active cost counter
+(``charge_fwd``, ``charge_bwd_dq``, ``charge_bwd_dkv``).  ``meta``
+tensors take the launch path without launching: the outputs are
+allocated on ``meta`` and the charge is made, so a dry run counts the
+kernels as the card runs them.
 """
 from __future__ import annotations
 
@@ -96,11 +102,96 @@ def flash_route(dtype, hd: int, hd_v: int) -> str:
 def launch_shape(dtype, B: int, H: int, KV: int, Sq: int, Sk: int, hd: int,
                  hd_v: int, causal: bool, window: int,
                  softcap: float) -> tuple:
-    """The forward's key in ``_build.SHAPE_LAUNCHES`` (under ``KERNEL``):
+    """A launch's key in ``_build.SHAPE_LAUNCHES`` (under ``KERNEL``,
+    ``KERNEL_DQ`` or ``KERNEL_DKV``):
     ``("bfloat16" or "float32", B, H, KV, Sq, Sk, hd, hd_v, causal,
     window, softcap)``."""
     return (str(dtype).removeprefix("torch."), B, H, KV, Sq, Sk, hd, hd_v,
             bool(causal), int(window), float(softcap))
+
+
+def kernel_strides(t: torch.Tensor) -> tuple:
+    """``t``'s strides as the kernels are given them: a size-1 dim's stride
+    is never read, but TMA wants every stride aligned, so it becomes the
+    span of the other dims (an autograd gradient of batch 1 may come with
+    stride 1 there)."""
+    span = max((n * s for n, s in zip(t.shape, t.stride()) if n > 1),
+               default=1)
+    return tuple(span if n == 1 else s for n, s in zip(t.shape, t.stride()))
+
+
+def _flash_blocks(Sq: int, Sk: int):
+    """The JAX call's blocks: ``min(128, S)``."""
+    bq, bk = min(128, Sq), min(128, Sk)
+    return bq, bk, -(-Sq // bq), -(-Sk // bk)
+
+
+def charge_fwd(B: int, H: int, KV: int, Sq: int, Sk: int, hd: int, hd_v: int,
+              elem_bytes: int, *, causal: bool, window: int,
+              softcap: float) -> _build.Charge:
+    """K9's charge (``_build.Charge``): q [B,H,Sq,hd], k [B,KV,Sk,hd], v
+    [B,KV,Sk,hd_v] -> o [B,H,Sq,hd_v] and lse [B,H,Sq] f32."""
+    bq, bk, nq, nk = _flash_blocks(Sq, Sk)
+    f32 = elem_bytes == 4
+    dots = 2 * bq * bk * (hd + hd_v)
+    body = (dots
+            + (13 + 2 * bool(causal) + 3 * bool(window) + 3 * bool(softcap)
+               - f32) * bq * bk
+            + bq * hd + bk * hd + bk * hd_v + (10 - f32) * bq * hd_v
+            + 25 * bq + 10)
+    grid = B * H * nq * nk
+    nbytes = (elem_bytes * (B * H * Sq * hd + B * KV * Sk * (hd + hd_v)
+                            + B * H * Sq * hd_v) + 4 * B * H * Sq)
+    return _build.Charge(body * grid, nbytes, dots * grid)
+
+
+def _flash_bwd_common(Sq, Sk, causal, window, softcap):
+    bq, bk, nq, nk = _flash_blocks(Sq, Sk)
+    per_tile = (14 + 2 * bool(causal) + 3 * bool(window)
+                + 7 * bool(softcap)) * bq * bk + 4 * bq + 10
+    return bq, bk, nq, nk, per_tile
+
+
+def _flash_bwd_in_bytes(B, H, KV, Sq, Sk, hd, hd_v, elem_bytes):
+    """q, k, v (at KV heads), do, lse and delta."""
+    return (elem_bytes * (B * H * Sq * hd + B * KV * Sk * (hd + hd_v)
+                          + B * H * Sq * hd_v) + 8 * B * H * Sq)
+
+
+def charge_bwd_dq(B: int, H: int, KV: int, Sq: int, Sk: int, hd: int,
+                 hd_v: int, elem_bytes: int, out_bytes: int, *, causal: bool,
+                 window: int, softcap: float) -> _build.Charge:
+    """K10's charge: dq [B,H,Sq,hd] from q, k, v, do, lse, delta.  K10
+    and K11 read k and v at their ``KV`` heads (the JAX wrapper hands its
+    kernels k and v repeated to ``H`` heads), and the charge counts the
+    bytes the port's launch reads."""
+    bq, bk, nq, nk, per_tile = _flash_bwd_common(Sq, Sk, causal, window,
+                                                 softcap)
+    c = 1 if elem_bytes == 4 else 2           # a load and its f32 cast
+    dots = 2 * bq * bk * (2 * hd + hd_v)
+    body = (dots + per_tile + (7 + 2 * c) * bq * hd + c * bq * hd_v
+            + c * bk * hd + c * bk * hd_v)
+    grid = B * H * nq * nk
+    nbytes = (_flash_bwd_in_bytes(B, H, KV, Sq, Sk, hd, hd_v, elem_bytes)
+              + out_bytes * B * H * Sq * hd)
+    return _build.Charge(body * grid, nbytes, dots * grid)
+
+
+def charge_bwd_dkv(B: int, H: int, KV: int, Sq: int, Sk: int, hd: int,
+                  hd_v: int, elem_bytes: int, out_bytes: int, *,
+                  causal: bool, window: int, softcap: float) -> _build.Charge:
+    """K11's charge: dk [B,H,Sk,hd] and dv [B,H,Sk,hd_v] (per query
+    head)."""
+    bq, bk, nq, nk, per_tile = _flash_bwd_common(Sq, Sk, causal, window,
+                                                 softcap)
+    c = 1 if elem_bytes == 4 else 2
+    dots = 2 * bq * bk * (2 * hd + 2 * hd_v)
+    body = (dots + per_tile + c * bq * hd + c * bq * hd_v
+            + (7 + 2 * c) * bk * hd + (6 + 2 * c) * bk * hd_v)
+    grid = B * H * nq * nk
+    nbytes = (_flash_bwd_in_bytes(B, H, KV, Sq, Sk, hd, hd_v, elem_bytes)
+              + out_bytes * B * H * Sk * (hd + hd_v))
+    return _build.Charge(body * grid, nbytes, dots * grid)
 
 
 def _check(t: torch.Tensor, name: str, dtype, device) -> None:
@@ -109,7 +200,8 @@ def _check(t: torch.Tensor, name: str, dtype, device) -> None:
     if t.dtype != dtype:
         raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
     align = 16 // t.element_size()
-    if t.stride(3) != 1 or any(s % align for s in t.stride()[:3]) \
+    strides = kernel_strides(t)
+    if strides[3] != 1 or any(s % align for s in strides[:3]) \
             or t.data_ptr() % 16:
         raise ValueError(f"{name}: the head dim must be contiguous, and the "
                          f"base and strides 16-byte aligned for the TMA and "
@@ -139,7 +231,13 @@ def _launch(q, k, v, o, lse, *, causal: bool, window: int,
     dev = q.device
     for t, name in ((q, "q"), (k, "k"), (v, "v"), (o, "o")):
         _check(t, name, q.dtype, dev)
-    strides = _Strides(*(s for t in (q, k, v, o) for s in t.stride()[:3]))
+    cost = charge_fwd(B, H, KV, Sq, Sk, hd, hd_v, q.element_size(),
+                      causal=causal, window=window, softcap=softcap)
+    if dev.type == "meta":
+        _build.charge(cost)
+        return
+    strides = _Strides(*(s for t in (q, k, v, o)
+                         for s in kernel_strides(t)[:3]))
     err = _lib().flash_attention_fwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), _ROUTES[route], B, H, KV, Sq, Sk, hd, hd_v,
@@ -147,7 +245,8 @@ def _launch(q, k, v, o, lse, *, causal: bool, window: int,
         1.0 / math.sqrt(hd), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "flash_attention")
     _build.count_launch(KERNEL, launch_shape(q.dtype, B, H, KV, Sq, Sk, hd,
-                                             hd_v, causal, window, softcap))
+                                             hd_v, causal, window, softcap),
+                        cost)
 
 
 def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
@@ -156,7 +255,7 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
                            return_lse: bool = False):
     """q: [B,H,Sq,hd]; k: [B,KV,Sk,hd]; v: [B,KV,Sk,hd_v] -> o
     [B,H,Sq,hd_v] in q's dtype (and lse [B,H,Sq] f32 if requested)."""
-    if _build.runs_plain(q):
+    if _build.runs_plain(q, meta_launches=True):
         o, lse = flash_attention_plain(q, k, v, causal=causal,
                                        window=window, softcap=softcap)
     else:
@@ -174,7 +273,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     softcap: float = 0.0, return_lse: bool = False):
     """q: [B,Sq,H,hd]; k/v: [B,Sk,KV,hd] -> [B,Sq,H,hd_v] (model
     layout), and lse [B,H,Sq] f32 if requested."""
-    if _build.runs_plain(q):
+    if _build.runs_plain(q, meta_launches=True):
         o, lse = flash_attention_kernel(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             causal=causal, window=window, softcap=softcap, return_lse=True)
@@ -212,8 +311,16 @@ def _launch_bwd(q, k, v, do, lse, delta, dq, dk, dv, *, causal: bool,
         _check(t, name, torch.float32 if f32_sums else q.dtype, dev)
     for t, name in ((lse, "lse"), (delta, "delta")):
         _build.check_cuda_tensor(t, name, torch.float32, dev)
+    charges = tuple(
+        fn(B, H, KV, Sq, Sk, hd, hd_v, q.element_size(), dq.element_size(),
+           causal=causal, window=window, softcap=softcap)
+        for fn in (charge_bwd_dq, charge_bwd_dkv))
+    if dev.type == "meta":
+        for kernel in which:
+            _build.charge(charges[kernel])
+        return
     strides = _BwdStrides(*(s for t in (q, k, v, do, dq, dk, dv)
-                            for s in t.stride()[:3]))
+                            for s in kernel_strides(t)[:3]))
     lib = _bwd_lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
     for kernel in which:
@@ -225,7 +332,9 @@ def _launch_bwd(q, k, v, do, lse, delta, dq, dk, dv, *, causal: bool,
             hd_v, strides, int(causal), int(window), float(softcap),
             1.0 / math.sqrt(hd), stream)
         _build.check(err, name)
-        _build.count_launch(name)
+        _build.count_launch(name, launch_shape(q.dtype, B, H, KV, Sq, Sk, hd,
+                                               hd_v, causal, window, softcap),
+                            charges[kernel])
 
 
 def _delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
@@ -261,7 +370,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
             (q.dtype, out_dtype) != (torch.bfloat16, torch.float32):
         raise TypeError(f"grads in {out_dtype} from {q.dtype} operands: "
                         f"only bf16 operands give f32 grads")
-    if _build.runs_plain(q):
+    if _build.runs_plain(q, meta_launches=True):
         return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
                                          window=window, softcap=softcap,
                                          out_dtype=out_dtype)

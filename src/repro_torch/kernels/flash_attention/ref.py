@@ -79,7 +79,10 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
     """The kernel's arithmetic, block by block: scores in f32 straight from
     the operands, running max ``m`` and sum ``l`` in f32, ``p`` rounded to
     v's dtype before the PV product, masked scores at -1e30 with their
-    ``p`` zeroed, the denominator clamped at 1e-30.  Returns
+    ``p`` zeroed, the denominator clamped at 1e-30.  Tiles the mask hides
+    entirely are skipped, as the CUDA kernel skips them (exact: there p
+    is zero and the running max does not move, so m, l and acc keep
+    their bits).  Returns
     ``(o [B,H,Sq,hd_v] in q's dtype, lse [B,H,Sq] f32)``."""
     B, H, Sq, hd = q.shape
     Sk, hd_v = k.shape[2], v.shape[3]
@@ -104,6 +107,8 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
                        device=dev)
         l = torch.zeros((B, H, bq, 1), dtype=torch.float32, device=dev)
         for k0 in range(0, Sk, bk):
+            if not _tile_visible(q0, bq, k0, bk, causal, window):
+                continue
             kb = k[:, :, k0:k0 + bk]
             vb = v[:, :, k0:k0 + bk]
             s = torch.matmul(qb, kb.float().transpose(-1, -2)) * scale

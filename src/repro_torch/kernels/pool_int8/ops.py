@@ -19,7 +19,8 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.conv2d_int8.ops import MAX_SMEM_BYTES, _device_sms
-from repro_torch.kernels.conv2d_int8.ref import same_out_and_pad
+from repro_torch.kernels.conv2d_int8.ref import (same_out_and_pad,
+                                                 same_padded_width)
 from repro_torch.kernels.quant import reciprocal
 from repro_torch.kernels.pool_int8.ref import (global_avgpool_int8_ref,
                                                maxpool_int8_ref)
@@ -184,6 +185,25 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def charge_maxpool(B: int, H: int, W: int, C: int, k: int,
+                   stride: int) -> _build.Charge:
+    """K5's charge (``_build.Charge``): SAME maxpool, int8 in and
+    out."""
+    h_pad, w_pad = (same_padded_width(H, k, stride),
+                    same_padded_width(W, k, stride))
+    h_out, w_out = -(-H // stride), -(-W // stride)
+    T = k * k
+    body = T * w_pad * C + 2 * T * w_out * C + 2 * w_out * C + 3
+    return _build.Charge(body * B * h_out,
+                  B * h_pad * w_pad * C + B * h_out * w_out * C, 0)
+
+
+def charge_global_avgpool(B: int, H: int, W: int, C: int) -> _build.Charge:
+    """K6's charge: [B,H,W,C] int8 -> [B,1,1,C] int8."""
+    body = 2 * H * W * C + 9 * C + 2
+    return _build.Charge(body * B, B * H * W * C + B * C, 0)
+
+
 def maxpool_int8(x: torch.Tensor, *, k: int, stride: int) -> torch.Tensor:
     """SAME maxpool, int8 in / int8 out.
     x: [B, H, W, C] -> [B, ceil(H/s), ceil(W/s), C]."""
@@ -202,7 +222,8 @@ def maxpool_int8(x: torch.Tensor, *, k: int, stride: int) -> torch.Tensor:
         plan.c_tiles, plan.vec, plan.cols, plan.threads, plan.smem_bytes,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "maxpool_int8")
-    _build.count_launch(KERNEL_MAXPOOL)
+    _build.count_launch(KERNEL_MAXPOOL,
+                        cost=charge_maxpool(B, H, W, C, k, stride))
     return out
 
 
@@ -222,5 +243,6 @@ def global_avgpool_int8(x: torch.Tensor, *,
         reciprocal(H * W), reciprocal(act_scale),
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "global_avgpool_int8")
-    _build.count_launch(KERNEL_GAP)
+    _build.count_launch(KERNEL_GAP,
+                        cost=charge_global_avgpool(B, H, W, C))
     return out

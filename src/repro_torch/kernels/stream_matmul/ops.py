@@ -281,6 +281,31 @@ def _shapes(x, w) -> Tuple[int, int, int]:
     return x.shape[0], x.shape[1], w.shape[1]
 
 
+def charge(M: int, K: int, N: int, x_bytes: int, w_bytes: int,
+           out_bytes: int, *, mode: str, bk: int = 512,
+           n_buffers: int = 2) -> _build.Charge:
+    """K7's (``pinned``, ``stream``) and K8's (``fifo``) charge
+    (``_build.Charge``): x [M,K] @ w [K,N] at
+    the JAX call's blocks (bm = bn = 128, bk = K when pinned).  A body
+    that casts its f32 sums to a narrower result (bf16) counts the cast."""
+    bm, bn = min(128, M), min(128, N)
+    bk = K if mode == "pinned" else min(bk, K)
+    nm, nn, nk = -(-M // bm), -(-N // bn), -(-K // bk)
+    acc_bytes = 4
+    cast = int(out_bytes != acc_bytes)
+    dot = 2 * bm * bk * bn
+    if mode == "fifo":
+        # a K loop in the body (a scan of nk trips), one (m, n) a step
+        body = (nk * (dot + bk * bn + bm * K + bm * bk + bm * bn + 14)
+                + (2 + cast) * bm * bn + 1 + min(n_buffers, nk))
+        grid = nm * nn
+    else:
+        body = dot + bk * bn + bm * bk + (7 + cast) * bm * bn + 5
+        grid = nm * nn * nk
+    nbytes = M * K * x_bytes + K * N * w_bytes + M * N * out_bytes
+    return _build.Charge(body * grid, nbytes, 2 * M * K * N)
+
+
 def _launch_float(x, w, *, mode: str, bk: int, n_buffers: int):
     """The float modes on the card: ``mm_float`` -> [M, N] of the
     promoted type."""
@@ -299,7 +324,9 @@ def _launch_float(x, w, *, mode: str, bk: int, n_buffers: int):
         plan.xvec, plan.smem_bytes,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "stream_matmul (float)")
-    _build.count_launch(FLOAT_KERNELS[mode])
+    _build.count_launch(FLOAT_KERNELS[mode], cost=charge(
+        M, K, N, xb, wb, out.element_size(), mode=mode, bk=bk,
+        n_buffers=n_buffers))
     return out
 
 
@@ -333,7 +360,9 @@ def _launch(x, w, w_scale, bias, act_scale: float, *, mode: str, bk: int,
         plan.kr, plan.kblk, plan.nb, plan.vec, plan.xvec, plan.smem_bytes,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "stream_matmul")
-    _build.count_launch(KERNELS[mode])
+    # the charge of the reference's call, which writes int32 sums
+    _build.count_launch(KERNELS[mode], cost=charge(
+        M, K, N, 1, 1, 4, mode=mode, bk=bk, n_buffers=n_buffers))
     return out_i if raw else (out_q, out_f)
 
 

@@ -1,14 +1,20 @@
-"""Stage meshes: named axes over devices.
+"""Meshes: named axes over devices.
 
 The JAX package builds ``jax.sharding.Mesh`` objects over TPU (or forced
 host) devices; the stage ring of :mod:`repro_torch.core.dataflow` needs
-only their shape, their axis names and which device holds each slot.
+only their shape, their axis names and which device holds each slot, and
+the dry run (``launch/dryrun.py``) their axis sizes.
 Here a :class:`Mesh` is that: ``axis_names`` and a numpy object array
 ``devices`` of :class:`torch.device`, one per slot.  A device may repeat:
 ``["cuda:0"] * 4`` is a 4-stage mesh on one card (each slot gets its own
 CUDA stream there), ``["cpu"] * 4`` one on the CPU.
 
 Building a mesh touches no device state at import time.
+``make_production_mesh`` gives the JAX package's production meshes, (16,
+16) or (2, 16, 16), over ``meta`` devices: abstract, as the JAX dry run's
+512 forced host devices are.  ``make_local_mesh`` covers the cards of
+this process.  Both record their axis sizes for the spec builders
+(``models.layers.set_mesh_axis_sizes``).
 """
 from __future__ import annotations
 
@@ -18,6 +24,8 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.models.layers import set_mesh_axis_sizes
 
 
 @dataclass(frozen=True, eq=False)
@@ -80,3 +88,37 @@ def compat_make_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...], *,
 
 def mesh_axis_sizes(mesh: Mesh) -> Dict[str, int]:
     return dict(zip(mesh.axis_names, mesh.devices.shape))
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The single-pod (data 16, model 16) or two-pod (pod 2, data 16,
+    model 16) production mesh, every slot a ``meta`` device."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    mesh = compat_make_mesh(shape, axes,
+                            devices=["meta"] * math.prod(shape))
+    set_mesh_axis_sizes(dict(zip(axes, shape)))
+    return mesh
+
+
+def make_local_mesh(model: int = 1, data: Optional[int] = None, *,
+                    device=None) -> Mesh:
+    """(data, model) over this process's cards (``torch.cuda.
+    device_count()``); raises without a card.  ``device="cpu"`` gives the
+    one-slot (1, 1) mesh on the CPU instead."""
+    if device is not None and torch.device(device).type == "cpu":
+        n, devices = 1, ["cpu"]
+    else:
+        n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if n == 0:
+            raise RuntimeError("make_local_mesh: no CUDA device; pass "
+                               "device='cpu' for the CPU")
+        devices = None
+    data = data or (n // model)
+    if data * model != n:
+        raise ValueError(f"a ({data}, {model}) mesh does not cover {n} "
+                         f"device(s)")
+    mesh = compat_make_mesh((data, model), ("data", "model"),
+                            devices=devices)
+    set_mesh_axis_sizes({"data": data, "model": model})
+    return mesh

@@ -11,6 +11,8 @@ in integers and requantizes through the shared epilogue
 (``kernels/quant.py``).  The functions here are the plain reference the
 pipeline executor is held against; they run on whatever device their
 tensors are on.  Activations are NHWC int8 and weights HWIO int8.
+``conv_layer_specs`` and ``cnn_param_specs`` give the partition specs
+(copies of the JAX package's; the port runs no partitioner).
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ from repro_torch.kernels.conv2d_int8.ref import conv2d_int8_ref
 from repro_torch.kernels.pool_int8.ref import (global_avgpool_int8_ref,
                                                maxpool_int8_ref)
 from repro_torch.kernels.quant import requant_epilogue
+from repro_torch.models.layers import MODEL_AXIS, P, maybe_axis
 
 Params = Dict[str, Dict[str, torch.Tensor]]
 
@@ -55,6 +58,18 @@ def init_cnn_params(cfg: CNNConfig, generator: torch.Generator,
     weightless topology engines and get no entry."""
     return {l.name: init_conv_layer(l, generator, device)
             for l in cfg.layers if not l.is_pool}
+
+
+def conv_layer_specs(spec: ConvLayerSpec) -> Dict[str, P]:
+    """The partition specs of one layer's params (output channels over
+    ``model`` where it divides them), as the JAX package's."""
+    ax = maybe_axis(spec.c_in if spec.kind == "dwconv" else spec.c_out,
+                    MODEL_AXIS)
+    return {"w": P(None, None, None, ax), "w_scale": P(ax), "bias": P(ax)}
+
+
+def cnn_param_specs(cfg: CNNConfig) -> Dict[str, Dict[str, P]]:
+    return {l.name: conv_layer_specs(l) for l in cfg.layers if not l.is_pool}
 
 
 def conv_layer_forward(params: Dict[str, torch.Tensor], spec: ConvLayerSpec,

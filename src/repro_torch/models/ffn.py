@@ -6,9 +6,10 @@ tokens take the dropless path (every expert computes every token, the
 gates zero the ones not chosen); more tokens take the grouped path:
 groups of ``MOE_GROUP`` tokens, a capacity per expert and group, the
 choices past it dropped, gathers in and out.  The expert-parallel
-``shard_map`` path and the sharding specs wait for the sharding helpers
-(ROADMAP Queue 1); on one device the JAX package takes the grouped path
-too.
+``shard_map`` path waits for a later slice (ROADMAP Queue 1); on one
+device the JAX package takes the grouped path too.  ``ffn_spec`` and
+``moe_spec`` give the init trees of ``Leaf``; ``ffn_specs`` and
+``moe_specs`` the partition specs, copies of the JAX package's.
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ from typing import Any, Dict
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import dense_leaf
+from repro_torch.models.layers import MODEL_AXIS, P, dense_leaf, maybe_axis
 
 Params = Dict[str, Any]
 
@@ -39,6 +40,11 @@ def ffn_spec(d: int, d_ff: int, dtype) -> Params:
         "w_up": dense_leaf((d, d_ff), dtype),
         "w_down": dense_leaf((d_ff, d), dtype),
     }
+
+
+def ffn_specs(d_ff: int) -> Params:
+    ax = maybe_axis(d_ff, MODEL_AXIS)
+    return {"w_gate": P(None, ax), "w_up": P(None, ax), "w_down": P(ax, None)}
 
 
 def ffn(params: Params, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
@@ -66,6 +72,21 @@ def moe_spec(cfg) -> Params:
     }
     if m.n_shared:
         p["shared"] = ffn_spec(d, f * m.n_shared, dtype)
+    return p
+
+
+def moe_specs(cfg) -> Params:
+    m = cfg.moe
+    e_ax = maybe_axis(m.n_experts, MODEL_AXIS)
+    f_ax = maybe_axis(m.d_ff_expert, MODEL_AXIS) if e_ax is None else None
+    p = {
+        "router": P(None, None),
+        "w_gate": P(e_ax, None, f_ax),
+        "w_up": P(e_ax, None, f_ax),
+        "w_down": P(e_ax, f_ax, None),
+    }
+    if m.n_shared:
+        p["shared"] = ffn_specs(m.d_ff_expert * m.n_shared)
     return p
 
 

@@ -11,17 +11,31 @@ Conventions, as in the JAX package:
 Rounding follows the JAX package where it matters: the score einsums of
 the blockwise and decode routes produce the model dtype and are then cast
 to f32; RoPE and RMSNorm compute in f32; the unembed multiplies f32 casts
-(TF32 kept off).  The sharding helpers wait for the LM sharding slice.
+(TF32 kept off).
+
+Two kinds of tree per module.  The singular ``*_spec`` functions
+(``rmsnorm_spec``, ``attention_spec``, ...) give the init tree of
+:class:`Leaf` that ``draw`` fills; the plural ``*_specs`` functions
+(``rmsnorm_specs``, ``attention_specs``, ...) give the partition specs,
+trees of :class:`P` of the same structure, copied from the JAX package:
+``DP_AXES = ("pod", "data")`` shards batch, ``MODEL_AXIS = "model"``
+heads, ffn hidden, experts and vocab, and a dim that the mesh axis does
+not divide is replicated (``maybe_axis``).  The port has no SPMD
+partitioner: the specs drive the dry run's per-device bytes and the
+placement plan (``core/streaming.py``), and ``constrain`` is a no-op.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
 Params = Dict[str, Any]
+
+DP_AXES = ("pod", "data")
+MODEL_AXIS = "model"
 
 # ---------------------------------------------------------------------------
 # kernel mode: route prefill attention through the flash kernel.  The JAX
@@ -40,6 +54,78 @@ def set_kernel_mode(enabled: bool) -> None:
 
 def kernel_mode_enabled() -> bool:
     return _KERNEL_MODE["enabled"]
+
+
+# ---------------------------------------------------------------------------
+# sharding helpers (copies of the JAX package's)
+# ---------------------------------------------------------------------------
+
+
+class P(tuple):
+    """A partition spec: one entry per tensor dim, a mesh axis name, a
+    tuple of names, or None (replicated) — the counterpart of
+    ``jax.sharding.PartitionSpec``, compared as a tuple."""
+
+    def __new__(cls, *parts):
+        return super().__new__(cls, parts)
+
+    def __repr__(self) -> str:
+        return f"P{tuple.__repr__(self)}"
+
+
+_MESH_AXIS_SIZES: Dict[str, int] = {}
+
+
+def set_mesh_axis_sizes(sizes: Dict[str, int]) -> None:
+    """Record the active mesh axis sizes so spec builders can check
+    divisibility.  Called by the launcher before building specs."""
+    _MESH_AXIS_SIZES.clear()
+    _MESH_AXIS_SIZES.update(sizes)
+
+
+def axis_size(name) -> int:
+    if isinstance(name, (tuple, list)):
+        return math.prod(axis_size(n) for n in name)
+    return _MESH_AXIS_SIZES.get(name, 1)
+
+
+def maybe_axis(dim: int, name):
+    """Return the mesh axis name if ``dim`` is divisible by its size (so the
+    tensor dim can be sharded), else None (replicate)."""
+    s = axis_size(name)
+    return name if (s > 1 and dim % s == 0) else None
+
+
+def dp_spec(batch: int):
+    """Batch sharding over the data-parallel axes present in the active
+    mesh (("pod","data"), ("data",) or none), with divisibility fallback.
+    ``batch == 0`` means 'unknown, assume divisible' (spec builders)."""
+    present = tuple(a for a in DP_AXES if a in _MESH_AXIS_SIZES)
+    if not present:
+        return None
+    full = axis_size(present)
+    if full > 1 and (batch == 0 or batch % full == 0):
+        return present if len(present) > 1 else present[-1]
+    if "data" in present and axis_size("data") > 1 and \
+            (batch == 0 or batch % axis_size("data") == 0):
+        return "data"
+    return None
+
+
+def constrain(x, spec: P):
+    """The JAX package's ``with_sharding_constraint``: a no-op here, since
+    the port has no SPMD partitioner to hand the constraint to."""
+    return x
+
+
+def spec_shard_count(spec: Optional[P]) -> int:
+    """How many shards a tensor with ``spec`` is cut into on the active
+    mesh (the product of the sizes of the axes it names)."""
+    n = 1
+    for ax in spec or ():
+        if ax is not None:
+            n *= axis_size(ax)
+    return n
 
 
 # ---------------------------------------------------------------------------
@@ -76,6 +162,36 @@ def map_leaves(fn, tree):
     if isinstance(tree, dict):
         return {k: map_leaves(fn, v) for k, v in tree.items()}
     return fn(tree)
+
+
+def flatten_with_paths(tree, prefix: str = "") -> List[Tuple[str, Any]]:
+    """(path, leaf) pairs in ``jax.tree_util.tree_flatten_with_path``'s
+    order and ``keystr``'s spelling.  A ``P`` is a leaf, as is anything
+    that is not a dict, list or tuple."""
+    if isinstance(tree, P):
+        return [(prefix, tree)]
+    if isinstance(tree, dict):
+        return [pair for k in sorted(tree)
+                for pair in flatten_with_paths(tree[k], f"{prefix}[{k!r}]")]
+    if isinstance(tree, (list, tuple)):
+        return [pair for i, v in enumerate(tree)
+                for pair in flatten_with_paths(v, f"{prefix}[{i}]")]
+    return [(prefix, tree)]
+
+
+def map_with_paths(fn: Callable[[str, Any], Any], tree, prefix: str = ""):
+    """``tree`` with each leaf replaced by ``fn(path, leaf)``; the same
+    containers, in their own key order."""
+    if isinstance(tree, P):
+        return fn(prefix, tree)
+    if isinstance(tree, dict):
+        return {k: map_with_paths(fn, v, f"{prefix}[{k!r}]")
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        out = [map_with_paths(fn, v, f"{prefix}[{i}]")
+               for i, v in enumerate(tree)]
+        return out if isinstance(tree, list) else tuple(out)
+    return fn(prefix, tree)
 
 
 def draw(gen: torch.Generator, spec, device, out=None):
@@ -118,6 +234,10 @@ def draw_stacked(gen: torch.Generator, spec, n: int, device):
 
 def rmsnorm_spec(d: int) -> Params:
     return {"scale": Leaf((d,), torch.float32)}
+
+
+def rmsnorm_specs() -> Params:
+    return {"scale": P(None)}
 
 
 def rmsnorm(params: Params, x: torch.Tensor, eps: float = 1e-6):
@@ -164,6 +284,10 @@ def embedding_spec(vocab: int, d: int, dtype) -> Params:
                                 scale=d ** -0.5)}
 
 
+def embedding_specs(vocab: int) -> Params:
+    return {"table": P(maybe_axis(pad_vocab(vocab), MODEL_AXIS), None)}
+
+
 def embed(params: Params, tokens: torch.Tensor) -> torch.Tensor:
     return params["table"][tokens]
 
@@ -196,6 +320,22 @@ def attention_spec(cfg) -> Params:
         for name, heads in (("bq", cfg.n_heads), ("bk", cfg.n_kv_heads),
                             ("bv", cfg.n_kv_heads)):
             p[name] = Leaf((heads, hd), dtype)
+    return p
+
+
+def attention_specs(cfg) -> Params:
+    h_ax = maybe_axis(cfg.n_heads, MODEL_AXIS)
+    kv_ax = maybe_axis(cfg.n_kv_heads, MODEL_AXIS)
+    p = {
+        "wq": P(None, h_ax, None),
+        "wk": P(None, kv_ax, None),
+        "wv": P(None, kv_ax, None),
+        "wo": P(h_ax, None, None),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = P(h_ax, None)
+        p["bk"] = P(kv_ax, None)
+        p["bv"] = P(kv_ax, None)
     return p
 
 

@@ -7,8 +7,9 @@ Prefill decompresses K and V and runs the flash kernel with split head
 dims (qk ``nope + rope``, v ``v_head_dim``) where the JAX package's rule
 holds, else the blockwise attention.  Decode uses the absorbed form
 (``W_UK`` folded into the query, ``W_UV`` into the output), so a step
-reads only the latent cache ``[S, kv_lora_rank + rope]``.  The sharding
-specs wait for the sharding helpers (ROADMAP Queue 1).
+reads only the latent cache ``[S, kv_lora_rank + rope]``.  ``mla_spec``
+gives the init tree of ``Leaf``, ``mla_specs`` the partition specs (a
+copy of the JAX package's).
 """
 from __future__ import annotations
 
@@ -18,8 +19,10 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.models import layers
-from repro_torch.models.layers import (apply_rope, blockwise_attention,
-                                       dense_leaf, rmsnorm, rmsnorm_spec)
+from repro_torch.models.layers import (MODEL_AXIS, P, apply_rope,
+                                       blockwise_attention, dense_leaf,
+                                       maybe_axis, rmsnorm, rmsnorm_spec,
+                                       rmsnorm_specs)
 
 Params = Dict[str, Any]
 
@@ -38,6 +41,21 @@ def mla_spec(cfg) -> Params:
         "wk_b": dense_leaf((m.kv_lora_rank, H, m.qk_nope_head_dim), dtype),
         "wv_b": dense_leaf((m.kv_lora_rank, H, m.v_head_dim), dtype),
         "wo": dense_leaf((H, m.v_head_dim, d), dtype),
+    }
+
+
+def mla_specs(cfg) -> Params:
+    """The partition specs (``mla_spec`` is the init tree)."""
+    h_ax = maybe_axis(cfg.n_heads, MODEL_AXIS)
+    return {
+        "wq_a": P(None, None),
+        "q_norm": rmsnorm_specs(),
+        "wq_b": P(None, h_ax, None),
+        "wkv_a": P(None, None),
+        "kv_norm": rmsnorm_specs(),
+        "wk_b": P(None, h_ax, None),
+        "wv_b": P(None, h_ax, None),
+        "wo": P(h_ax, None, None),
     }
 
 

@@ -20,6 +20,10 @@ The in-chunk cumulative sums are ``torch.cumsum`` (sequential), where
 XLA pairs the terms as an associative scan: the two differ by f32
 rounding.  Decode carries an explicit state, so a token costs
 O(d_inner * d_state).
+
+``mamba_spec``, ``mlstm_spec`` and ``slstm_spec`` give the init trees of
+``Leaf``; ``mamba_specs``, ``mlstm_specs`` and ``slstm_specs`` the
+partition specs (copies of the JAX package's).
 """
 from __future__ import annotations
 
@@ -29,7 +33,8 @@ from typing import List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import Leaf, Params, dense_leaf
+from repro_torch.models.layers import (MODEL_AXIS, Leaf, P, Params,
+                                       dense_leaf, maybe_axis)
 
 CHUNK = 128
 
@@ -124,6 +129,23 @@ def mamba_spec(cfg) -> Params:
         "A_log": Leaf((inner, s.state_dim), torch.float32, fill=_a_log),
         "D": Leaf((inner,), torch.float32, fill=_ones),
         "out_proj": dense_leaf((inner, d), dtype),
+    }
+
+
+def mamba_specs(cfg) -> Params:
+    """The partition specs (``mamba_spec`` is the init tree)."""
+    inner = _inner_dim(cfg)
+    ax = maybe_axis(inner, MODEL_AXIS)
+    return {
+        "in_proj": P(None, ax),     # 2*inner divisible iff inner is
+        "conv_w": P(None, ax),
+        "conv_b": P(ax),
+        "x_proj": P(ax, None),
+        "dt_proj": P(None, ax),
+        "dt_bias": P(ax),
+        "A_log": P(ax, None),
+        "D": P(ax),
+        "out_proj": P(ax, None),
     }
 
 
@@ -234,6 +256,17 @@ def mlstm_spec(cfg) -> Params:
     }
 
 
+def mlstm_specs(cfg) -> Params:
+    dm, _ = _mlstm_dims(cfg)
+    ax = maybe_axis(dm, MODEL_AXIS)
+    h_ax = maybe_axis(cfg.n_heads, MODEL_AXIS)
+    return {
+        "up": P(None, ax), "wq": P(None, ax), "wk": P(None, ax),
+        "wv": P(None, ax), "w_if": P(None, h_ax), "b_if": P(h_ax),
+        "down": P(ax, None),
+    }
+
+
 def mlstm_forward(params: Params, cfg, x, *, state=None):
     """mLSTM = gated linear attention with matrix memory C [B,H,hd,hd].
 
@@ -324,6 +357,15 @@ def slstm_spec(cfg) -> Params:
         "up": dense_leaf((d, ds), dtype),
         "down": dense_leaf((ds, d), dtype),
     }
+
+
+def slstm_specs(cfg) -> Params:
+    d = cfg.d_model
+    ds = int(d * cfg.ssm.slstm_proj_factor)
+    ax4 = maybe_axis(4 * d, MODEL_AXIS)
+    axs = maybe_axis(ds, MODEL_AXIS)
+    return {"w_x": P(None, ax4), "w_h": P(None, ax4), "b": P(ax4),
+            "up": P(None, axs), "down": P(axs, None)}
 
 
 def slstm_forward(params: Params, cfg, x, *, state=None):

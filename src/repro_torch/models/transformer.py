@@ -12,6 +12,8 @@ traced windows do.
 Public API
 ----------
 init_params(gen, cfg, device)            seeded random weights
+param_specs(cfg) / cache_specs(cfg, b)   partition specs (trees of ``P``)
+abstract_params(cfg)                     the params as meta tensors
 forward(params, cfg, batch, remat=)      -> (hidden [B,S,d], aux dict)
 lm_loss / loss_fn                        chunked causal-LM cross-entropy
 logits_from_hidden                       last-token f32 logits
@@ -22,6 +24,11 @@ Families: dense and MoE (global, windowed or latent attention), hybrid
 gate), ssm (xLSTM), vlm (patch embeddings replace the first token
 slots) and the encoder-decoder (``audio``: a non-causal encoder over the
 frames, cross-attention in every decoder layer).
+
+``_layer_spec`` / ``_dec_layer_spec`` give a layer's init tree of
+``Leaf``; ``_layer_specs``, ``_dec_layer_specs``, ``_stack_specs``,
+``param_specs`` and ``cache_specs`` the partition specs (copies of the
+JAX package's).
 """
 from __future__ import annotations
 
@@ -32,13 +39,18 @@ import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.ffn import ffn, ffn_spec, moe_ffn, moe_spec
-from repro_torch.models.layers import (Leaf, Params, attention_forward,
-                                       attention_spec, cross_attention_forward,
-                                       cross_attention_kv, draw, draw_stacked,
-                                       embed, embedding_spec, rmsnorm,
-                                       rmsnorm_spec, unembed)
-from repro_torch.models.mla import mla_forward, mla_spec
+from repro_torch.models.ffn import (ffn, ffn_spec, ffn_specs, moe_ffn,
+                                    moe_spec, moe_specs)
+from repro_torch.models.layers import (MODEL_AXIS, Leaf, P, Params,
+                                       attention_forward, attention_spec,
+                                       attention_specs,
+                                       cross_attention_forward,
+                                       cross_attention_kv, dp_spec, draw,
+                                       draw_stacked, embed, embedding_spec,
+                                       embedding_specs, map_leaves,
+                                       maybe_axis, rmsnorm, rmsnorm_spec,
+                                       rmsnorm_specs, unembed)
+from repro_torch.models.mla import mla_forward, mla_spec, mla_specs
 
 
 def _check_supported(cfg: ArchConfig) -> None:
@@ -89,6 +101,93 @@ def _dec_layer_spec(cfg: ArchConfig) -> Params:
     return p
 
 
+# ---------------------------------------------------------------------------
+# partition specs (copies of the JAX package's; ``_layer_spec`` above is
+# the init tree, ``_layer_specs`` below the specs)
+# ---------------------------------------------------------------------------
+
+
+def _layer_specs(cfg: ArchConfig) -> Params:
+    p: Params = {"ln1": rmsnorm_specs(), "ln2": rmsnorm_specs()}
+    if cfg.attn_kind == "mla":
+        p["attn"] = mla_specs(cfg)
+    elif cfg.attn_kind != "none":
+        p["attn"] = attention_specs(cfg)
+    if cfg.family == "hybrid":
+        p["mamba"] = ssm_mod.mamba_specs(cfg)
+        p["alpha"] = P()
+    if cfg.moe is not None:
+        p["ffn"] = moe_specs(cfg)
+    elif cfg.d_ff:
+        p["ffn"] = ffn_specs(cfg.d_ff)
+    return p
+
+
+def _dec_layer_specs(cfg: ArchConfig) -> Params:
+    p = _layer_specs(cfg)
+    p["lnx"] = rmsnorm_specs()
+    p["cross"] = attention_specs(cfg)
+    return p
+
+
+def _stack_specs(tree):
+    """Prepend the stacked layer axis (unsharded) to every leaf spec."""
+    return map_leaves(lambda s: P(None, *s), tree)
+
+
+def param_specs(cfg: ArchConfig) -> Params:
+    specs: Params = {
+        "embed": embedding_specs(cfg.vocab_size),
+        "ln_f": rmsnorm_specs(),
+    }
+    if not cfg.tie_embeddings:
+        specs["unembed"] = embedding_specs(cfg.vocab_size)
+    if cfg.family == "ssm":
+        specs["blocks"] = [
+            {"ln": rmsnorm_specs(),
+             "core": (ssm_mod.mlstm_specs(cfg) if i % 2 == 0
+                      else ssm_mod.slstm_specs(cfg))}
+            for i in range(cfg.n_layers)]
+        return specs
+    if cfg.enc_dec:
+        specs["enc_layers"] = _stack_specs(_layer_specs(cfg))
+        specs["dec_layers"] = _stack_specs(_dec_layer_specs(cfg))
+        specs["ln_enc"] = rmsnorm_specs()
+        return specs
+    specs["layers"] = _stack_specs(_layer_specs(cfg))
+    return specs
+
+
+def cache_specs(cfg: ArchConfig, batch: int = 0) -> Params:
+    """PartitionSpecs for the cache: batch over DP (when divisible);
+    kv-heads over model where divisible, else the sequence axis over model
+    (context-parallel decode: keeps the 32k x 128 caches inside per-chip
+    HBM)."""
+    dp = dp_spec(batch)
+    kv_ax = maybe_axis(cfg.n_kv_heads, MODEL_AXIS)
+    seq_ax = None if kv_ax is not None else MODEL_AXIS
+    cache: Params = {}
+    if cfg.family == "ssm":
+        cache["states"] = [
+            tuple(P(dp) for _ in range(3)) if i % 2 == 0
+            else tuple(P(dp) for _ in range(4))
+            for i in range(cfg.n_layers)]
+        return cache
+    if cfg.attn_kind == "mla":
+        cache["c"] = P(None, dp, MODEL_AXIS, None)
+        cache["pe"] = P(None, dp, MODEL_AXIS, None)
+    elif cfg.attn_kind != "none":
+        cache["k"] = P(None, dp, seq_ax, kv_ax, None)
+        cache["v"] = P(None, dp, seq_ax, kv_ax, None)
+    if cfg.family == "hybrid":
+        cache["conv"] = P(None, dp, None, None)
+        cache["h"] = P(None, dp, None, None)
+    if cfg.enc_dec:
+        cache["cross_k"] = P(None, dp, None, kv_ax, None)
+        cache["cross_v"] = P(None, dp, None, kv_ax, None)
+    return cache
+
+
 def _unstack(stack: Params, n: int) -> List[Params]:
     """The [L]-stacked tree as n per-layer trees, through one ``unbind``
     per leaf: under autograd each stacked leaf then gets its gradient
@@ -103,6 +202,29 @@ def _unstack(stack: Params, n: int) -> List[Params]:
     return layers
 
 
+def _param_tree(cfg: ArchConfig) -> Params:
+    """The init tree, in draw order: ``Leaf`` trees, xLSTM's list of
+    blocks, and each ``[L]`` stack as ``(layer tree, L)``."""
+    _check_supported(cfg)
+    table = embedding_spec(cfg.vocab_size, cfg.d_model, _dtype(cfg))
+    spec: Params = {"embed": table, "ln_f": rmsnorm_spec(cfg.d_model)}
+    if not cfg.tie_embeddings:
+        spec["unembed"] = table
+    if cfg.family == "ssm":               # xLSTM: alternating blocks
+        spec["blocks"] = [{
+            "ln": rmsnorm_spec(cfg.d_model),
+            "core": (ssm_mod.mlstm_spec(cfg) if i % 2 == 0
+                     else ssm_mod.slstm_spec(cfg))}
+            for i in range(cfg.n_layers)]
+    elif cfg.enc_dec:
+        spec["enc_layers"] = (_layer_spec(cfg), cfg.n_enc_layers)
+        spec["dec_layers"] = (_dec_layer_spec(cfg), cfg.n_layers)
+        spec["ln_enc"] = rmsnorm_spec(cfg.d_model)
+    else:
+        spec["layers"] = (_layer_spec(cfg), cfg.n_layers)
+    return spec
+
+
 def init_params(gen: torch.Generator, cfg: ArchConfig,
                 device="cuda") -> Params:
     """Seeded random weights drawn on ``device`` (``gen`` must live there
@@ -113,27 +235,34 @@ def init_params(gen: torch.Generator, cfg: ArchConfig,
     sets them.  Each ``[L]``-stacked leaf is allocated once and every
     layer drawn into its slice (``draw_stacked``): the peak is the
     weights plus one leaf's f32 draw."""
-    _check_supported(cfg)
-    table = embedding_spec(cfg.vocab_size, cfg.d_model, _dtype(cfg))
-    spec: Params = {"embed": table, "ln_f": rmsnorm_spec(cfg.d_model)}
-    if not cfg.tie_embeddings:
-        spec["unembed"] = table
-    params = draw(gen, spec, device)
-    if cfg.family == "ssm":               # xLSTM: alternating blocks
-        params["blocks"] = [draw(gen, {
-            "ln": rmsnorm_spec(cfg.d_model),
-            "core": (ssm_mod.mlstm_spec(cfg) if i % 2 == 0
-                     else ssm_mod.slstm_spec(cfg))}, device)
-            for i in range(cfg.n_layers)]
-    elif cfg.enc_dec:
-        params["enc_layers"] = draw_stacked(gen, _layer_spec(cfg),
-                                            cfg.n_enc_layers, device)
-        params["dec_layers"] = draw_stacked(gen, _dec_layer_spec(cfg),
-                                            cfg.n_layers, device)
-        params["ln_enc"] = draw(gen, rmsnorm_spec(cfg.d_model), device)
-    else:
-        params["layers"] = draw_stacked(gen, _layer_spec(cfg), cfg.n_layers,
-                                        device)
+    params: Params = {}
+    for name, v in _param_tree(cfg).items():
+        if isinstance(v, tuple):
+            params[name] = draw_stacked(gen, v[0], v[1], device)
+        elif isinstance(v, list):
+            params[name] = [draw(gen, b, device) for b in v]
+        else:
+            params[name] = draw(gen, v, device)
+    return params
+
+
+def abstract_params(cfg: ArchConfig) -> Params:
+    """The params of ``init_params`` as ``meta`` tensors (shapes and
+    dtypes only, nothing drawn): the counterpart of the JAX package's
+    ``jax.eval_shape(init_params)``, each stack on a leading ``[L]`` as
+    ``draw_stacked`` lays it out."""
+    def meta(leaf, lead=()):
+        return torch.empty(lead + leaf.shape, dtype=leaf.dtype,
+                           device="meta")
+
+    params: Params = {}
+    for name, v in _param_tree(cfg).items():
+        if isinstance(v, tuple):
+            params[name] = map_leaves(lambda l, n=v[1]: meta(l, (n,)), v[0])
+        elif isinstance(v, list):
+            params[name] = [map_leaves(meta, b) for b in v]
+        else:
+            params[name] = map_leaves(meta, v)
     return params
 
 

@@ -12,8 +12,10 @@ the update is the reference's, step for step; the scalars (learning
 rate, bias corrections, clip scale) are 0-d f32 tensors on the params'
 device, so a step never waits for the host.
 
-The ZeRO-1 moment sharding (``state_specs``) waits for the sharded slice
-(ROADMAP Queue 1).
+``state_specs`` gives the JAX package's ZeRO-1 partition specs of the
+state (each moment's param spec with a ``data``-axis sharding on its
+first free, evenly divisible dim); the port has no partitioner, so they
+drive the dry run's per-device bytes.
 """
 from __future__ import annotations
 
@@ -23,6 +25,8 @@ from typing import Any, Dict, Iterator, Tuple
 
 import torch
 import torch.utils._pytree as pytree
+
+from repro_torch.models.layers import P, axis_size
 
 Params = Any
 
@@ -69,6 +73,46 @@ def init(params: Params, cfg: AdamWConfig) -> Dict[str, Any]:
     if cfg.compress_int8:
         state["residual"] = pytree.tree_map(zeros32, params)
     return state
+
+
+def _shard_extra_dim(spec: P, shape) -> P:
+    """Extend a param spec with a ``data``-axis sharding on the first free,
+    evenly-divisible dim (ZeRO-1 partitioning)."""
+    d_sz = axis_size("data")
+    if d_sz <= 1:
+        return spec
+    parts = list(spec) + [None] * (len(shape) - len(spec))
+    used = {a for p in parts if p is not None
+            for a in (p if isinstance(p, tuple) else (p,))}
+    if "data" in used:
+        return spec
+    for i, (p, dim) in enumerate(zip(parts, shape)):
+        if p is None and dim % d_sz == 0:
+            parts[i] = "data"
+            return P(*parts)
+    return spec
+
+
+def _map_specs(fn, specs, params):
+    """``fn(spec, param)`` over a spec tree and the param tree of the same
+    structure (dicts and lists; a ``P`` is a leaf)."""
+    if isinstance(specs, P):
+        return fn(specs, params)
+    if isinstance(specs, dict):
+        return {k: _map_specs(fn, v, params[k]) for k, v in specs.items()}
+    return [_map_specs(fn, s, p) for s, p in zip(specs, params)]
+
+
+def state_specs(params: Params, param_specs: Params,
+                cfg: AdamWConfig) -> Dict[str, Any]:
+    """The partition specs of ``init(params, cfg)``'s state.  ``params``
+    needs only shapes (meta tensors do)."""
+    mom_specs = _map_specs(lambda spec, p: _shard_extra_dim(spec, p.shape),
+                           param_specs, params)
+    specs = {"step": P(), "mu": mom_specs, "nu": mom_specs}
+    if cfg.compress_int8:
+        specs["residual"] = mom_specs
+    return specs
 
 
 def _slabs(t: torch.Tensor) -> Iterator[torch.Tensor]:
@@ -136,10 +180,12 @@ def apply(grads: Params, state: Dict[str, Any], params: Params,
     scale = torch.clamp(cfg.clip_norm / gnorm.clamp_min(1e-12), max=1.0)
     lr = lr_schedule(cfg, state["step"])
     stepf = step.to(torch.float32)
-    bc1 = 1 - torch.pow(torch.tensor(cfg.b1, dtype=torch.float32,
-                                     device=stepf.device), stepf)
-    bc2 = 1 - torch.pow(torch.tensor(cfg.b2, dtype=torch.float32,
-                                     device=stepf.device), stepf)
+    # the betas as 0-d tensors made on the device itself (``torch.full``):
+    # no host copy, and the same aten op on every device
+    bc1 = 1 - torch.pow(torch.full((), cfg.b1, dtype=torch.float32,
+                                   device=stepf.device), stepf)
+    bc2 = 1 - torch.pow(torch.full((), cfg.b2, dtype=torch.float32,
+                                   device=stepf.device), stepf)
     p_leaves = pytree.tree_leaves(params)
     mu_leaves = pytree.tree_leaves(state["mu"])
     nu_leaves = pytree.tree_leaves(state["nu"])

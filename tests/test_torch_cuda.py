@@ -804,6 +804,27 @@ def test_flash_vjp_matches_autograd_through_plain(dev, ci, dtype):
             rel * wt.float().abs().max()
 
 
+def test_flash_vjp_takes_a_unit_batch_gradient_of_any_stride(dev):
+    """Batch 1: autograd may hand the backward a gradient whose batch
+    stride is 1; K10/K11 take it (a size-1 dim's stride is never read) and
+    give the grads of a gradient with the usual strides."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention_vjp
+    g = torch.Generator(device=dev).manual_seed(7)
+    S, H, KV, hd = 256, 8, 4, 128
+    q, k, v = (torch.randn(1, S, n, hd, generator=g, device=dev,
+                           dtype=torch.bfloat16).requires_grad_(True)
+               for n in (H, KV, KV))
+    do = torch.randn(1, S, H, hd, generator=g, device=dev,
+                     dtype=torch.bfloat16)
+    odd = do.reshape(-1).as_strided(do.shape, (1,) + do.stride()[1:])
+    grads = []
+    for grad_out in (do, odd):
+        o = flash_attention_vjp.apply(q, k, v, True, 0, 0.0)
+        grads.append(torch.autograd.grad(o, (q, k, v), grad_out))
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+
+
 def test_reduced_lm_train_step_on_card_matches_cpu(dev, tmp_path):
     """Reduced Phi-4-mini in f32 (head_dim 32, so the kernels run): two
     Trainer steps on the card against the plain versions on the CPU, from
@@ -1147,7 +1168,7 @@ def test_sharded_ring_on_card_bit_identical_over_many_rounds(dev, name):
                             round_microbatches=3) as eng:
         per_mb = {}
         for prog in eng.stage_programs:
-            for k, v in prog.runner.launches.items():
+            for k, v in prog.runner.launches.counts.items():
                 per_mb[k] = per_mb.get(k, 0) + v
         assert per_mb == per_forward
         assert len({id(st) for st in eng._ring.streams}) == S

@@ -255,3 +255,18 @@ def test_phi4_mini_takes_the_wgmma_route():
     arch = get_arch("phi4-mini-3.8b")
     assert flash_route(torch.bfloat16, arch.head_dim, arch.head_dim) == \
         "wgmma"
+
+
+def test_kernel_strides_align_a_unit_batch():
+    """A gradient of batch 1 may come with stride 1 on its batch dim
+    (``contiguous()`` ignores a size-1 dim's stride); the kernels are
+    given the span there, which TMA takes, and the other strides as
+    they are."""
+    from repro_torch.kernels.flash_attention.ops import kernel_strides
+    S, H, hd = 64, 4, 32
+    g = torch.zeros(S * H * hd).as_strided((1, S, H, hd), (1, H * hd, hd, 1))
+    assert g.is_contiguous()
+    t = g.transpose(1, 2)                       # the kernel layout
+    assert kernel_strides(t) == (S * H * hd, hd, H * hd, 1)
+    x = torch.zeros(2, S, H, hd).transpose(1, 2)
+    assert kernel_strides(x) == x.stride()

@@ -42,6 +42,9 @@ def test_import_with_jax_blocked():
         import repro_torch.configs.qwen2_moe_a2_7b
         import repro_torch.configs.deepseek_v2_236b
         import repro_torch.models.ssm
+        import repro_torch.core.streaming, repro_torch.core.write_path
+        import repro_torch.launch.dryrun, repro_torch.roofline.analysis
+        import repro_torch.roofline.op_cost, repro_torch.roofline.hw
         from repro_torch.configs import ARCH_IDS, get_arch
         for name in ARCH_IDS:
             get_arch(name)
@@ -105,6 +108,17 @@ def test_lm_entry_points_raise_without_cuda(no_cuda):
         ServingEngine(params, arch)
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["--arch", "phi4-mini-3.8b", "--reduced"])
+
+
+def test_dryrun_local_mesh_raises_without_cuda(no_cuda, tmp_path, capsys):
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_local_mesh
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_local_mesh()
+    assert dryrun.main(["--arch", "phi4-mini-3.8b", "--shape", "decode_32k",
+                        "--mesh", "local",
+                        "--out", str(tmp_path / "r.json")]) == 1
+    assert "FAIL phi4-mini-3.8b" in capsys.readouterr().out
 
 
 def test_train_entry_points_raise_without_cuda(no_cuda, tmp_path):
@@ -204,7 +218,7 @@ def test_launch_counts_by_shape():
         _build.count_launch("maxpool_int8")
         with _build.capturing_launches() as graph:
             _build.count_launch(KERNEL, shape)
-        assert graph == {KERNEL: 1, (KERNEL, shape): 1}
+        assert graph.counts == {KERNEL: 1, (KERNEL, shape): 1}
         _build.count_replay(graph)
         _build.count_replay(graph)
         assert _build.LAUNCHES == {KERNEL: 3, "maxpool_int8": 1}
