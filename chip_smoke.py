@@ -125,6 +125,21 @@ it is run outside a checkout of the repository.  Phases, one line each:
      within ``GRAD_REL_TOL``, L2), then ``Trainer.run`` for 3 steps of
      4x512 tokens (AdamW, remat, no checkpoint): exactly 64 K9, 32 K10 and
      32 K11 launches a step and a finite loss and grad norm at every step.
+     Then GPipe training (``[gpipe]`` lines, ``gpipe_lm``), the training
+     weights freed: Phi-4-mini's 32 decoder layers at full width cut into
+     4 stages on ``compat_make_mesh((4,), ("model",), devices=["cuda:0"]
+     * 4)`` (a stream a stage), 4 microbatches of 1x512 tokens'
+     embeddings through ``gpipe_train_step``: exactly 128 K9, K10 and K11
+     launches at (1, 24, 8, 512) (``FLASH_GPIPE``), the loss and every
+     gradient leaf against the same stages under plain autograd with no
+     ring (``LOSS_REL_TOL``, ``GRAD_REL_TOL``), every stage's gradients
+     finite and non-zero; the step's ms, its device span beside the
+     sequential run's and the peak memory printed.  Then
+     ``trace_fused_abstract`` (``[abstract]`` lines) of ResNet-50 and
+     VGG-16 compiled for ``NX2100`` at batch 8, scanned and unrolled, on
+     ``meta``: the seconds and the aten ops counted, the card's allocated
+     memory unchanged across each call and the engines dispatched equal
+     to the engine table.
      K9's launches are counted by shape at the launch, in every LM phase.
      Then the other LM families (``LM_ARCHS``, ``serve_arch``), with
      Phi-4-mini's weights freed, one at a time, each freed before the
@@ -148,11 +163,19 @@ it is run outside a checkout of the repository.  Phases, one line each:
      layer's output, and every row's logits with the plain path's routing
      forced within ``FORCED_LIMIT`` times the plain path's distance from
      an f32 walk of the same weights, planted faults of
-     ``PLANTS_CAUGHT`` seen past it; the timings of ``time_lm``.  Then
+     ``PLANTS_CAUGHT`` seen past it; for the MoE families the
+     expert-parallel MoE (``[ep]`` lines, ``ep_prefills``): the first
+     4x512 prefill feed under ``compat_make_mesh((1, 4), ("data",
+     "model"), devices=["cuda:0"] * 4)`` (Qwen2-MoE's 60 experts 15 a
+     slot, DeepSeek-V2's 160 40 a slot) and with no mesh: the EP region
+     at every MoE layer and never without the mesh, each MoE layer from
+     one input and the logits with the grouped run's routing forced
+     within ``LM_REL_TOL`` of the grouped path's, K9's launches equal,
+     both prefills' device ms; the timings of ``time_lm``.  Then
      each in f32 (``LM_F32``, ``lm_f32``): the MoE families' kernel path
      against the plain path within ``F32_REL_TOL`` (the rows whose
-     routing agrees, and every row with the routing forced); for the
-     rest, teacher-forced prefill and a decode step against forward
+     routing agrees, and every row with the routing forced), and
+     ``ep_prefills`` within ``F32_REL_TOL``; for the rest, teacher-forced prefill and a decode step against forward
      within ``F32_REL_TOL``, and Hymba, xLSTM and Gemma2 against the same
      port on the host CPU.
      Then the LM dry run (``[dryrun]`` lines, ``repro_torch.launch.
@@ -195,7 +218,8 @@ it is run outside a checkout of the repository.  Phases, one line each:
 
 Times are per slice run (one forward of each of the five nets, and the
 LM's engine run and 3 training steps; ``launches`` counts the fused warm run
-of each net, and for K9–K11 also the dry run's counted steps): a kernel's
+of each net, and for K9–K11 also the dry run's counted steps, the GPipe
+step and the expert-parallel prefills): a kernel's
 ``ms`` sums its launches on that path, K9–K11's each at the shape it was
 launched at (the record also splits it per net and per launch, and K9–K11's
 per shape; for the dense and the depthwise kernels, per shape, the bytes,
@@ -266,6 +290,8 @@ FLASH_QWEN = (LM_SLOTS, 16, 16, LM_PROMPT, 128, 128, True, 0, 0.0)
 FLASH_DRY_PREFILL = (1, 24, 8, 32768, 128, 128, True, 0, 0.0)
 FLASH_DRY_TRAIN = (1, 24, 8, 4096, 128, 128, True, 0, 0.0)
 FLASH_DRYRUN = (FLASH_DRY_PREFILL, FLASH_DRY_TRAIN)
+# GPipe training's microbatch (``gpipe_lm``): Phi-4-mini at batch 1
+FLASH_GPIPE = (1, 24, 8, LM_PROMPT, 128, 128, True, 0, 0.0)
 FLASH_DSV2 = (LM_SLOTS, 128, 128, LM_PROMPT, 192, 128, True, 0, 0.0)
 FLASH_CASES = [FLASH_SLICE, FLASH_LONG,
                (2, 4, 4, 256, 64, 64, True, 0, 0.0),
@@ -311,10 +337,23 @@ BWD_SUM_TOL = (1e-5, 1e-6)
 # (worst 0.35 of the bf16 limit; f32 0.012 of a limit five times this one)
 VJP_REL_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 VJP_CASES = (FLASH_SLICE, (1, 8, 2, 128, 32, 32, True, 0, 50.0),
-             FLASH_DRY_TRAIN)
-# K10/K11's main-path shapes: Phi-4-mini's training slice and its
-# train_4k dry-run cell
-BWD_MAIN = (FLASH_SLICE, FLASH_DRY_TRAIN)
+             FLASH_DRY_TRAIN, FLASH_GPIPE)
+# GPipe training (``gpipe_lm``): Phi-4-mini's 32 decoder layers at full
+# width, bf16, kernel mode on, cut by split_stages into GPIPE_STAGES
+# stages on compat_make_mesh((4,), ("model",), devices=["cuda:0"] * 4),
+# GPIPE_MICROBATCHES microbatches of 1 x LM_PROMPT tokens' embeddings
+# against a seeded target, loss mean((o - y)^2) in f32, no remat: K9,
+# K10 and K11 once a layer and microbatch, at FLASH_GPIPE.  Held against
+# the same stages run microbatch by microbatch under plain autograd on
+# the card (no ring): the loss within LOSS_REL_TOL, every leaf within
+# GRAD_REL_TOL (L2)
+GPIPE_STAGES, GPIPE_MICROBATCHES = 4, 4
+GPIPE_LAUNCHES = {k: 32 * GPIPE_MICROBATCHES for k in (
+    "flash_attention_fwd", "flash_attention_bwd_dq",
+    "flash_attention_bwd_dkv")}
+# K10/K11's main-path shapes: Phi-4-mini's training slice, its train_4k
+# dry-run cell and its GPipe microbatch
+BWD_MAIN = (FLASH_SLICE, FLASH_DRY_TRAIN, FLASH_GPIPE)
 
 # the LM training slice: Phi-4-mini at full width and depth, bf16, random
 # weights from SEED, TokenDataset(seq_len=512, global_batch=4), 3 steps of
@@ -421,7 +460,18 @@ F32_HOST_ARCHS = ("hymba-1.5b", "xlstm-125m", "gemma2-9b")
 # families'
 FLASH_MAIN = (FLASH_SLICE, FLASH_QWEN, FLASH_DSV2, FLASH_SEAMLESS_ENC,
               FLASH_SEAMLESS_DEC, FLASH_INTERNVL, FLASH_QWEN72, FLASH_CMDR
-              ) + FLASH_DRYRUN
+              ) + FLASH_DRYRUN + (FLASH_GPIPE,)
+# the expert-parallel MoE (``ep_prefills``, inside serve_arch and lm_f32
+# for the MoE families): the serving phase's first LM_SLOTS x LM_PROMPT
+# prefill feed under compat_make_mesh(EP_MESH, ("data", "model"),
+# devices=["cuda:0"] * 4) (Qwen2-MoE's 60 experts 15 a slot,
+# DeepSeek-V2's 160 40 a slot; data 1, so the flash call's mesh rule
+# does not engage) and with no mesh: the EP region at every MoE layer
+# and never without the mesh; each MoE layer from the grouped run's
+# input, and the logits with the grouped run's routing forced, within
+# LM_REL_TOL (bf16) or F32_REL_TOL (f32) x max|output| of the grouped
+# path's; K9's launches equal on both
+EP_MESH = (1, 4)
 # the plain forward at a longer S is timed by one eager call (CUDA events
 # around it; its blocks' loop is too many launches to capture in a graph)
 PLAIN_GRAPH_MAX_S = 4096
@@ -1099,7 +1149,7 @@ def check_flash_bwd(torch, g, dev, ks, record):
     from repro_torch.kernels.flash_attention.ref import (
         flash_attention_bwd_plain, flash_attention_plain)
     n = 0
-    for case in FLASH_CASES + [FLASH_DRY_TRAIN]:
+    for case in FLASH_CASES + [c for c in BWD_MAIN if c not in FLASH_CASES]:
         H, hd_v = case[1], case[5]
         for dname in FLASH_DTYPES:
             dt = getattr(torch, dname)
@@ -1555,6 +1605,199 @@ def train_lm(torch, np, dev, record, card):
     return launches, by_case
 
 
+def gpipe_lm(torch, np, dev, record, card):
+    """GPipe training (``[gpipe]`` lines), after the training phase with
+    its weights freed: Phi-4-mini's 32 decoder layers at full width,
+    bf16, random weights from SEED, kernel mode on, cut by split_stages
+    into GPIPE_STAGES stages on a model axis of ``["cuda:0"] *
+    GPIPE_STAGES`` (a CUDA stream a stage), GPIPE_MICROBATCHES
+    microbatches of 1 x LM_PROMPT tokens' embeddings (seeded tokens)
+    against a seeded target, through ``gpipe_train_step``; each stage
+    runs the port's own layer loop (``_scan_layers``, no remat).  Fails
+    unless the launches are exactly GPIPE_LAUNCHES, all at FLASH_GPIPE;
+    the loss is within LOSS_REL_TOL and every gradient leaf within
+    GRAD_REL_TOL (L2) of the same stages run microbatch by microbatch
+    under plain autograd with no ring; and every stage's gradients are
+    finite and non-zero.  Prints the step's ms and the sequential run's
+    (host clock, in turns), the step's device span (CUDA events) beside
+    the sequential run's, which is the sum of the stage work on one
+    stream, and the peak memory.  Returns the launches and, per kernel,
+    its launches by shape."""
+    import gc
+
+    import torch.utils._pytree as pytree
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core.dataflow import gpipe_train_step, split_stages
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import compat_make_mesh
+    from repro_torch.models import transformer as tmod
+    gc.collect()                  # the training phase's weights go first
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    arch = get_arch(LM_ARCH)
+    params = tmod.init_params(torch.Generator(device=dev).manual_seed(SEED),
+                              arch, dev)
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    toks = torch.randint(0, arch.vocab_size,
+                         (GPIPE_MICROBATCHES, 1, LM_PROMPT), generator=g,
+                         device=dev)
+    with torch.no_grad():
+        x_mb = torch.stack([tmod.embed(params["embed"], t) for t in toks])
+    y_mb = torch.randn(x_mb.shape, generator=g, device=dev).to(x_mb.dtype)
+    staged = split_stages(params["layers"], GPIPE_STAGES)
+    del params
+    mesh = compat_make_mesh((GPIPE_STAGES,), ("model",),
+                            devices=[dev] * GPIPE_STAGES)
+    positions = torch.arange(LM_PROMPT, device=dev).expand(1, LM_PROMPT)
+
+    def layer_fn(p, x):
+        return tmod._scan_layers(p, arch, x, positions, None,
+                                 remat=False)[0]
+
+    def loss_fn(o, y):
+        return ((o.float() - y.float()) ** 2).mean()
+
+    def gpipe():
+        return gpipe_train_step(layer_fn, loss_fn, staged, x_mb, y_mb,
+                                mesh=mesh)
+
+    def sequential():
+        leaves, spec = pytree.tree_flatten(staged)
+        local = [[a[s].detach().requires_grad_(True) for a in leaves]
+                 for s in range(GPIPE_STAGES)]
+        losses = []
+        for m in range(GPIPE_MICROBATCHES):
+            x = x_mb[m]
+            for ls in local:
+                x = layer_fn(pytree.tree_unflatten(ls, spec), x)
+            losses.append(loss_fn(x, y_mb[m]))
+        loss = torch.stack(losses).mean()
+        got = torch.autograd.grad(loss, [t for ls in local for t in ls])
+        n = len(leaves)
+        return loss.detach(), pytree.tree_unflatten(
+            [torch.stack(got[i::n]) for i in range(n)], spec)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    loss, grads = gpipe()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    by_case = {k: k9_by_case(k) for k in GPIPE_LAUNCHES}
+    peak = torch.cuda.max_memory_allocated()
+    if launches != GPIPE_LAUNCHES or by_case != {
+            k: {FLASH_GPIPE: n} for k, n in GPIPE_LAUNCHES.items()}:
+        raise AssertionError(f"[gpipe] launches {launches}, by shape "
+                             f"{by_case} != {GPIPE_LAUNCHES} (each at "
+                             f"{FLASH_GPIPE})")
+    want_loss, want = sequential()
+    loss, want_loss = float(loss), float(want_loss)
+    rel = {name: rel_l2(torch, a, b) for (name, a), (_, b) in
+           zip(named_leaves(grads), named_leaves(want))}
+    worst = max(rel, key=rel.get)
+    empty = [f"{name} stage {s}" for name, t in named_leaves(grads)
+             for s in range(GPIPE_STAGES)
+             if not bool(torch.isfinite(t[s]).all())
+             or float(t[s].float().norm()) == 0.0]
+    if not (np.isfinite(loss) and abs(loss - want_loss)
+            <= LOSS_REL_TOL * abs(want_loss)):
+        raise AssertionError(f"[gpipe] loss {loss} against the sequential "
+                             f"run's {want_loss}")
+    if not rel[worst] <= GRAD_REL_TOL or empty:
+        raise AssertionError(f"[gpipe] grads of {worst} differ by "
+                             f"{rel[worst]} > {GRAD_REL_TOL} (L2) from the "
+                             f"sequential run's, or are zero or not finite: "
+                             f"{empty}")
+    del grads, want
+
+    def host_and_span(fn):
+        """(host ms, device span ms, the allocator's cudaMalloc calls)"""
+        torch.cuda.synchronize()
+        mallocs = torch.cuda.memory_stats().get("num_device_alloc", 0)
+        a, b = torch.cuda.Event(enable_timing=True), \
+            torch.cuda.Event(enable_timing=True)
+        t = time.perf_counter()
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        return ((time.perf_counter() - t) * 1e3, a.elapsed_time(b),
+                torch.cuda.memory_stats().get("num_device_alloc", 0)
+                - mallocs)
+    times = {"gpipe": [], "sequential": []}
+    for name in ("gpipe", "sequential", "sequential", "gpipe"):
+        times[name].append(host_and_span(gpipe if name == "gpipe"
+                                         else sequential))
+    med = {k: (statistics.median(h for h, _, _ in v),
+               statistics.median(d for _, d, _ in v)) for k, v in
+           times.items()}
+    rec = {"stages": GPIPE_STAGES, "microbatches": GPIPE_MICROBATCHES,
+           "tokens": LM_PROMPT, "loss": loss, "sequential_loss": want_loss,
+           "grad_rel_l2": rel, "launches": launches, "peak_bytes": peak,
+           "first_step_s": first_s, "runs_ms": times,
+           "ms": med["gpipe"][0], "span_ms": med["gpipe"][1],
+           "sequential_ms": med["sequential"][0],
+           "sequential_span_ms": med["sequential"][1],
+           "seconds": time.perf_counter() - t_phase}
+    record["gpipe"] = rec
+    log("gpipe", f"{LM_ARCH} 32 layers (full width, bf16) in {GPIPE_STAGES} "
+        f"stages on one card, {GPIPE_MICROBATCHES} microbatches of "
+        f"1x{LM_PROMPT}: loss {loss:.6f} against the sequential run's "
+        f"{want_loss:.6f}, worst leaf {worst} {rel[worst]:.4g} (bound "
+        f"{GRAD_REL_TOL}); every stage's grads finite and non-zero; "
+        f"launches {json.dumps(launches)} at {FLASH_GPIPE}; peak device "
+        f"memory {peak / 1e9:.2f} GB")
+    log("time", f"[gpipe] step {rec['ms']:.3f} ms (host, median of 2), "
+        f"sequential {rec['sequential_ms']:.3f} ms; device span "
+        f"{rec['span_ms']:.3f} ms against the sum of the stage work (the "
+        f"sequential run's span on one stream) "
+        f"{rec['sequential_span_ms']:.3f} ms; cudaMalloc calls a run "
+        f"{[n for _, _, n in times['gpipe']]} and "
+        f"{[n for _, _, n in times['sequential']]}; first step "
+        f"{first_s:.2f} s; phase {rec['seconds']:.1f} s  [{card}]")
+    del staged, x_mb, y_mb
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, by_case
+
+
+def abstract_traces(torch, compile, get_cnn, target, record, card):
+    """``[abstract]`` lines: ``trace_fused_abstract`` of ResNet-50 and
+    VGG-16 as compiled for ``target`` at batch BATCH, scanned and
+    unrolled: the seconds and the aten ops counted.  Fails unless the
+    card's allocated memory is the same before and after each call and
+    the engines the trace dispatched are the compiled net's engine
+    table."""
+    from repro_torch.compiler import count_jaxpr_eqns, trace_fused_abstract
+    rows = {}
+    for name in ("resnet50", "vgg16"):
+        for scan in (True, False):
+            cp = compile(get_cnn(name), target, scan=scan)
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            trace, secs = trace_fused_abstract(cp, BATCH)
+            torch.cuda.synchronize()
+            after = torch.cuda.memory_allocated()
+            engines = {s.name: s.kernel for s in trace.stats}
+            if after != before or engines != cp.engine_table():
+                raise AssertionError(
+                    f"[abstract] {name} scan={scan}: device memory "
+                    f"{before} -> {after} bytes, or the engines dispatched "
+                    f"differ from the engine table")
+            rows[f"{name} {'scanned' if scan else 'unrolled'}"] = {
+                "seconds": secs, "ops": count_jaxpr_eqns(trace),
+                "scan_groups": len(cp.scan_table())}
+    record["abstract_trace"] = rows
+    log("abstract", f"trace_fused_abstract at batch {BATCH} on meta (aten "
+        f"ops, seconds): " + "; ".join(
+            f"{k} {v['ops']} ops in {v['seconds']:.3f} s "
+            f"({v['scan_groups']} scan groups)" for k, v in rows.items())
+        + f"; device memory unchanged across each call  [{card}]")
+
+
 def time_flash_bwd(torch, F, g, dev, ks, launches_by_case, card, record):
     """Phase 4 for K10/K11: device ms per launch of each at their
     main-path shapes (``launches_by_case``: kernel -> the training
@@ -2007,6 +2250,119 @@ def k9_by_case(name=LM_KERNEL):
     return out
 
 
+def ep_prefills(torch, dev, params, arch, toks, name, card, f32=False):
+    """``[ep]`` lines: the expert-parallel MoE on one card.  The prefill
+    of ``toks`` (the serving phase's first LM_SLOTS x LM_PROMPT feed) with
+    no mesh (the grouped path), then under compat_make_mesh(EP_MESH,
+    ("data", "model"), devices=[dev] * 4) with the grouped run's routing
+    forced (``moe_routing``).  Fails unless the EP region
+    (``ffn._moe_ep_shardmap``, counted by a spy) ran once at every MoE
+    layer under the mesh and never without it; each MoE layer, from the
+    grouped run's input to it, gives the EP output within ``tol`` x
+    max|output| of the grouped one, and the logits are within ``tol`` x
+    max|logit| (``tol``: LM_REL_TOL in bf16, F32_REL_TOL in f32); K9's
+    launches by shape are the same on both runs (data 1: the flash
+    call's mesh rule does not engage).  Prints both prefills' device ms
+    (each captured once into a CUDA graph and replayed).  Returns the
+    record and, in bf16, K9's launches by shape on the mesh run."""
+    import math
+
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import compat_make_mesh
+    from repro_torch.models import ffn
+    from repro_torch.models import transformer as tmod
+    tol = F32_REL_TOL if f32 else LM_REL_TOL
+    mesh = compat_make_mesh(EP_MESH, ("data", "model"),
+                            devices=[dev] * math.prod(EP_MESH))
+    feed = {"tokens": toks}
+    own_ep, own_moe = ffn._moe_ep_shardmap, tmod.moe_ffn
+    calls, inputs = [], []
+
+    def ep_spy(*a, **k):
+        calls.append(1)
+        return own_ep(*a, **k)
+
+    def moe_spy(p, cfg, x, *a, **k):
+        inputs.append((p, x))
+        return own_moe(p, cfg, x, *a, **k)
+
+    def share(a, b):
+        return float((a.float() - b.float()).abs().max()) / (
+            tol * float(b.float().abs().max()))
+
+    def replayed_ms(fn):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+            fn()
+        graph.replay()
+        ms = event_ms(torch, graph.replay, 5) / 5
+        del graph
+        return ms
+
+    ffn._moe_ep_shardmap = ep_spy
+    try:
+        with torch.no_grad():
+            tmod.moe_ffn = moe_spy
+            try:
+                _build.reset_launches()
+                with moe_routing() as routes:
+                    lg, _ = tmod.prefill(params, arch, feed, LM_MAX_SEQ)
+                k9_grouped = k9_by_case()
+            finally:
+                tmod.moe_ffn = own_moe
+            n_moe, grouped_calls = len(routes), len(calls)
+            _build.reset_launches()
+            with mesh, moe_routing(routes):
+                le, _ = tmod.prefill(params, arch, feed, LM_MAX_SEQ)
+            k9_ep, prefill_calls = k9_by_case(), len(calls) - grouped_calls
+            layer = []
+            for p, x in inputs:
+                yg = own_moe(p, arch, x, arch.act, with_aux=False)[0]
+                with mesh:
+                    ye = own_moe(p, arch, x, arch.act, with_aux=False)[0]
+                layer.append(share(ye, yg))
+            del inputs[:]
+            layer_calls = len(calls) - grouped_calls - prefill_calls
+            grouped_ms = replayed_ms(
+                lambda: tmod.prefill(params, arch, feed, LM_MAX_SEQ))
+            with mesh:
+                ep_ms = replayed_ms(
+                    lambda: tmod.prefill(params, arch, feed, LM_MAX_SEQ))
+    finally:
+        ffn._moe_ep_shardmap = own_ep
+    rec = {"mesh": list(EP_MESH), "moe_layers": n_moe,
+           "experts_a_slot": arch.moe.n_experts // EP_MESH[1],
+           "dtype": arch.dtype, "tol": tol,
+           "ep_calls": {"grouped_prefill": grouped_calls,
+                        "ep_prefill": prefill_calls, "layers": layer_calls},
+           "layer_share_of_bound": layer,
+           "logits_share_of_bound": share(le, lg),
+           "k9_grouped": [[list(c), n] for c, n in k9_grouped.items()],
+           "k9_ep": [[list(c), n] for c, n in k9_ep.items()],
+           "grouped_device_ms": grouped_ms, "ep_device_ms": ep_ms}
+    bad = []
+    if grouped_calls or prefill_calls != n_moe or layer_calls != n_moe \
+            or not n_moe:
+        bad.append(f"EP calls {rec['ep_calls']} for {n_moe} MoE layers")
+    if not (max(layer) <= 1.0 and rec["logits_share_of_bound"] <= 1.0
+            and bool(torch.isfinite(le).all())):
+        bad.append("EP output over the bound of the grouped path's")
+    if k9_ep != k9_grouped:
+        bad.append("K9's launches differ")
+    if bad:
+        raise AssertionError(f"[ep] {name} {arch.dtype}: {bad}: {rec}")
+    log("ep", f"{name} ({arch.n_layers} layers, {arch.dtype}) prefill "
+        f"{LM_SLOTS}x{LM_PROMPT} under a {EP_MESH} mesh on one card "
+        f"({rec['experts_a_slot']} experts a slot): the EP region at all "
+        f"{n_moe} MoE layers, none without the mesh; each MoE layer within "
+        f"{max(layer):.3f} of the bound ({tol} x max|output|) of the "
+        f"grouped path's from the same input, the logits (grouped routing "
+        f"forced) within {rec['logits_share_of_bound']:.3f}; K9 launches "
+        f"{json.dumps(rec['k9_ep'])} on both; device ms: grouped "
+        f"{grouped_ms:.3f}, expert-parallel {ep_ms:.3f}  [{card}]")
+    return rec, ({} if f32 else k9_ep)
+
+
 def serve_arch(torch, np, dev, record, card, name, n_layers, n_params,
                prompt, max_seq, cases):
     """Phase 3 for an LM family after Phi-4-mini (``LM_ARCHS``): ``name``
@@ -2040,7 +2396,9 @@ def serve_arch(torch, np, dev, record, card, name, n_layers, n_params,
     * a first token (served, or the seeded feed's) other than the plain
       path's on an agreeing row whose top-2 margin exceeds the bound.
 
-    Then ``time_lm``.  Returns the launches and K9's launches by case."""
+    For the MoE families, then ``ep_prefills`` on the first batch.  Then
+    ``time_lm``.  Returns the main path's launches (the engine's and the
+    EP prefill's) and K9's launches by case."""
     import dataclasses
     import gc
 
@@ -2219,6 +2577,14 @@ def serve_arch(torch, np, dev, record, card, name, n_layers, n_params,
                planted_ratio={str(p): r for p, r in plants.items()},
                walk_equals_prefill=walk_equal,
                serve_peak_bytes=torch.cuda.max_memory_allocated())
+    # the main path's launches: the engine's, and the EP prefill's
+    path_launches, path_by_case = dict(launches), dict(by_case)
+    if arch.moe is not None:
+        rec["ep"], ep_k9 = ep_prefills(torch, dev, params, arch, batches[0],
+                                       name, card)
+        for case, n in ep_k9.items():
+            path_by_case[case] = path_by_case.get(case, 0) + n
+            path_launches[LM_KERNEL] += n
     st = {"params": params, "arch": arch, "engine": engine,
           "prompts": prompts, "batches": batches, "prompt": prompt,
           "max_seq": max_seq, "extra": zeros,
@@ -2268,10 +2634,10 @@ def serve_arch(torch, np, dev, record, card, name, n_layers, n_params,
     del st, params, engine
     gc.collect()
     torch.cuda.empty_cache()
-    return launches, by_case
+    return path_launches, path_by_case
 
 
-def lm_f32(torch, np, dev, record, name, n_layers, S, change):
+def lm_f32(torch, np, dev, record, card, name, n_layers, S, change):
     """The f32 checks of ``LM_F32``: ``name`` in f32 at full width
     (``n_layers`` of its layers, or all; ``change`` to the config), random
     weights from SEED, TF32 off, each check failing the run past
@@ -2280,7 +2646,7 @@ def lm_f32(torch, np, dev, record, name, n_layers, S, change):
     * an MoE arch: its first LM_SLOTS prompts prefilled with kernel mode
       on (K9's f32 route) and off, the rows whose routing agrees in every
       layer, and every row with the kernel path's routing forced on the
-      plain path;
+      plain path; then ``ep_prefills`` on the same prompts in f32;
     * with ``S``: batch 2 of seeded tokens (and frames or patches),
       teacher-forced ``prefill`` of S tokens and one ``decode_step``
       against ``forward`` on S + 1; for F32_HOST_ARCHS, row 0 of both
@@ -2340,6 +2706,8 @@ def lm_f32(torch, np, dev, record, name, n_layers, S, change):
                        agreeing_rows_kernel_vs_plain=max(agree, default=0.0),
                        forced_kernel_vs_plain=share(lk, lf))
             outs.append(lk)
+            rec["ep"], _ = ep_prefills(torch, dev, params, arch,
+                                       feed["tokens"], name, card, f32=True)
             said.append(
                 f"kernel against plain path, {LM_SLOTS}x{LM_PROMPT} "
                 f"prefill: routing apart in {rec['rows_routed_apart']} of "
@@ -4098,6 +4466,15 @@ def main():
         total_launches[k] = total_launches.get(k, 0) + train[k]
     add_k9(train_cases[LM_KERNEL])
     bwd_launches = {k: dict(train_cases[k]) for k in BWD_KERNELS}
+    gpipe, gpipe_cases = gpipe_lm(torch, np, dev, record, card)
+    launches[LM_ARCH + " GPipe"] = gpipe
+    for k, n in gpipe.items():
+        total_launches[k] += n
+    add_k9(gpipe_cases[LM_KERNEL])
+    for k in BWD_KERNELS:
+        for case, n in gpipe_cases[k].items():
+            bwd_launches[k][case] = bwd_launches[k].get(case, 0) + n
+    abstract_traces(torch, compile, get_cnn, NX2100, record, card)
 
     # -- 3 and 4 for the other LM families, one arch at a time, with
     # Phi-4-mini's weights freed; then each in f32 ---------------------------
@@ -4108,7 +4485,7 @@ def main():
         total_launches[LM_KERNEL] += got.get(LM_KERNEL, 0)
         add_k9(k9)
     for name, (n_layers, S, change) in LM_F32.items():
-        lm_f32(torch, np, dev, record, name, n_layers, S, change)
+        lm_f32(torch, np, dev, record, card, name, n_layers, S, change)
 
     # -- the LM dry run: the meta sweep, then Phi-4-mini's cells on the card
     from repro_torch.configs import ARCH_IDS, get_arch

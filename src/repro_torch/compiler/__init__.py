@@ -9,7 +9,10 @@
   * :class:`CompiledPipeline` — ``engine_table()``, ``block_table()``,
     ``scan_table()``, ``vmem_report()``, ``run()`` (on the card unless
     ``device="cpu"``), ``stats_template()`` / ``eq2_report().verify()``,
-    ``serve()``;
+    ``serve()``; :func:`trace_fused` (stage 6, a :class:`FusedTrace`)
+    and :func:`trace_fused_abstract` (the stage-6 forward walked on
+    ``meta`` tensors, its aten ops recorded; :func:`count_jaxpr_eqns`
+    counts them);
   * :func:`partition_pipeline` / :class:`StagePartition` — the sharding
     stage (``CompiledPipeline.partition(n_stages)``): contiguous stage
     programs balanced by the cycle model, fused residual blocks atomic,
@@ -19,6 +22,10 @@
     placement + FIFO co-optimizer (``compile(cfg, target,
     autotune=...)`` is the integrated path), seeded by the greedy Alg. 1
     plan, never worse than the seed and deterministic per seed.
+
+The JAX package's ``TPU_INTERPRET`` preset is not here, by design: the
+port has no interpret mode (its kernels run on the card, their plain
+versions on the CPU and ``meta``).
 """
 from repro_torch.compiler.autotune import (AutotuneConfig,  # noqa: F401
                                            AutotuneError, AutotuneResult,
@@ -41,10 +48,11 @@ from repro_torch.compiler.pipeline import (BlockAssignment,  # noqa: F401
                                            CompileError, CompiledPipeline,
                                            EngineAssignment,
                                            Eq2MismatchError, ExecutionReport,
-                                           ScanGroupAssignment,
+                                           FusedTrace, ScanGroupAssignment,
                                            TargetBudgetError, compile,
-                                           finalize, make_dispatchers,
-                                           plan_pipeline)
+                                           count_jaxpr_eqns, finalize,
+                                           make_dispatchers, plan_pipeline,
+                                           trace_fused, trace_fused_abstract)
 from repro_torch.compiler.target import (DEFAULT_VMEM_BYTES,  # noqa: F401
                                          MINI, NX2100, PRESETS, Target,
                                          get_target)

@@ -65,6 +65,7 @@ from typing import (TYPE_CHECKING, Any, Callable, Dict, List, Optional,
                     Sequence, Tuple, Union)
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 if TYPE_CHECKING:                     # import cycle guard: autotune uses
     from repro_torch.compiler.autotune import (  # pragma: no cover
@@ -1076,6 +1077,64 @@ def trace_fused(compiled: CompiledPipeline, params, images, *,
                 "the captured forward's replay differs from the eager walk "
                 f"for input {tuple(images.shape)}")
     return FusedTrace(fn=runner, stats=tuple(stats)), logits
+
+
+@dataclass(frozen=True)
+class AbstractTrace:
+    """What ``trace_fused_abstract`` recorded: the aten ops of one walk of
+    the fused forward, in order (``"aten::convolution"``, ...), and the
+    stats its dispatches returned."""
+
+    ops: Tuple[str, ...]
+    stats: Tuple[LayerExecStats, ...]
+
+
+class _OpRecorder(TorchDispatchMode):
+    """Appends the name of every aten op run under it to ``ops``."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops: List[str] = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.ops.append(func.name())
+        return func(*args, **(kwargs or {}))
+
+
+def trace_fused_abstract(compiled: CompiledPipeline, batch: int = 1, *,
+                         act_scale: float = 0.05
+                         ) -> Tuple[AbstractTrace, float]:
+    """Trace the stage-6 forward with ABSTRACT params and input: returns
+    ``(trace, seconds)``, nothing drawn, allocated on a device or run.
+
+    The params are ``meta`` tensors of ``init_cnn_params``'s shapes and
+    dtypes (``abstract_cnn_params``) and the input an int8 ``meta``
+    tensor of ``cnn_input_shape(cfg, batch)``; the forward is walked
+    through ``make_dispatchers``, where every wrapper given ``meta``
+    tensors takes its plain version, while the aten ops are recorded.
+    The trace is those ops, not a jaxpr: the port has no IR of its own.
+    The JAX package's version takes ``interpret``; the port has no
+    interpret mode."""
+    from repro_torch.models.cnn import abstract_cnn_params, cnn_input_shape
+    cfg = compiled.plan.cfg
+    params = abstract_cnn_params(cfg)
+    x = torch.empty(cnn_input_shape(cfg, batch), dtype=torch.int8,
+                    device="meta")
+    stats: List[LayerExecStats] = []
+    t0 = time.perf_counter()
+    with _OpRecorder() as rec:
+        walk(compiled, params, x, act_scale=act_scale, collect=stats)
+    seconds = time.perf_counter() - t0
+    return AbstractTrace(ops=tuple(rec.ops), stats=tuple(stats)), seconds
+
+
+def count_jaxpr_eqns(trace: AbstractTrace) -> int:
+    """The number of aten ops in a ``trace_fused_abstract`` trace: the
+    port's counterpart of the JAX package's jaxpr equation count, which
+    counts a scan body once.  The port's scan groups are a Python loop
+    over their blocks, so a scanned net records about as many ops as the
+    same net unrolled."""
+    return len(trace.ops)
 
 
 def compile(cfg: CNNConfig, target: Target = NX2100, *,

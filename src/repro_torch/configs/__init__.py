@@ -1,5 +1,7 @@
 """CNN configurations (the paper's networks and the executable mini nets)
-and the registry of the LM architectures the port can run.
+and the registry of the LM architectures the port can run, with the
+dry run's input shapes (``SHAPES``, ``shape_applicable``,
+``reduced_shape``).
 
 ``get_arch("<id>")`` accepts the public ids with dashes/dots, as the JAX
 package's registry does, and raises ``KeyError`` for an unknown id.
@@ -7,9 +9,12 @@ package's registry does, and raises ``KeyError`` for an unknown id.
 from __future__ import annotations
 
 import importlib
+from typing import Dict
 
-from repro_torch.configs.base import (ArchConfig, MLAConfig,  # noqa: F401
-                                      MoEConfig, ShapeConfig, SSMConfig)
+from repro_torch.configs.base import (SHAPES, ArchConfig,  # noqa: F401
+                                      MLAConfig, MoEConfig, ShapeConfig,
+                                      SSMConfig, reduced_shape,
+                                      shape_applicable)
 from repro_torch.configs.cnn import (CNN_CONFIGS, CNNConfig,  # noqa: F401
                                      ConvLayerSpec, get_cnn)
 
@@ -37,3 +42,14 @@ def get_arch(name: str) -> ArchConfig:
     mod = importlib.import_module(
         f"repro_torch.configs.{_ARCH_MODULES[key]}")
     return mod.CONFIG
+
+
+def all_archs() -> Dict[str, ArchConfig]:
+    return {k: get_arch(k) for k in ARCH_IDS}
+
+
+__all__ = [
+    "ArchConfig", "MoEConfig", "MLAConfig", "SSMConfig", "ShapeConfig",
+    "SHAPES", "shape_applicable", "reduced_shape", "ARCH_IDS", "get_arch",
+    "all_archs", "CNNConfig", "ConvLayerSpec", "CNN_CONFIGS", "get_cnn",
+]

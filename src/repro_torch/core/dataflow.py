@@ -31,6 +31,7 @@ composition of the stages bit for bit on either device.
 from __future__ import annotations
 
 import contextlib
+import threading
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -93,6 +94,17 @@ def _check_microbatches(x_mb: torch.Tensor) -> None:
         raise ValueError(
             f"x_mb must be [M, mb, ...] with M >= 1 microbatches, got "
             f"shape {tuple(x_mb.shape)}")
+
+
+def _on_stream(device: torch.device, stream):
+    """A context that makes ``stream`` on ``device`` current (nothing
+    without a stream: the CPU)."""
+    if stream is None:
+        return contextlib.nullcontext()
+    stack = contextlib.ExitStack()
+    stack.enter_context(torch.cuda.device(device))
+    stack.enter_context(torch.cuda.stream(stream))
+    return stack
 
 
 class StageRing:
@@ -178,12 +190,8 @@ class StageRing:
         return len(self.fns)
 
     def _on(self, s: int):
-        if not self.cuda:
-            return contextlib.nullcontext()
-        stack = contextlib.ExitStack()
-        stack.enter_context(torch.cuda.device(self.devices[s]))
-        stack.enter_context(torch.cuda.stream(self.streams[s]))
-        return stack
+        return _on_stream(self.devices[s],
+                          self.streams[s] if self.cuda else None)
 
     def run(self, params, x_mb: torch.Tensor, *,
             join: bool = True) -> torch.Tensor:
@@ -270,6 +278,17 @@ class StageRing:
         return nxt
 
 
+def _check_staged(params_staged, n_stages: int, axis: str) -> None:
+    bad = [tuple(a.shape) for a in _tree_leaves(params_staged)
+           if tuple(a.shape[:1]) != (n_stages,)]
+    if bad:
+        raise ValueError(
+            f"params_staged leaves must carry a leading stage dimension of "
+            f"{n_stages} (the {axis!r} mesh axis size); got leading dims "
+            f"{sorted({s[0] if s else None for s in bad})} — build them "
+            f"with split_stages(params, {n_stages})")
+
+
 def pipeline_apply(layer_fn: Callable, params_staged, x_mb: torch.Tensor, *,
                    mesh, axis: str = "model") -> torch.Tensor:
     """Run microbatches through the homogeneous stage ring.
@@ -284,14 +303,7 @@ def pipeline_apply(layer_fn: Callable, params_staged, x_mb: torch.Tensor, *,
     """
     n_stages = _validate_mesh_axis(mesh, axis)
     _check_microbatches(x_mb)
-    bad = [tuple(a.shape) for a in _tree_leaves(params_staged)
-           if tuple(a.shape[:1]) != (n_stages,)]
-    if bad:
-        raise ValueError(
-            f"params_staged leaves must carry a leading stage dimension of "
-            f"{n_stages} (the {axis!r} mesh axis size); got leading dims "
-            f"{sorted({s[0] if s else None for s in bad})} — build them "
-            f"with split_stages(params, {n_stages})")
+    _check_staged(params_staged, n_stages, axis)
     devices = mesh.axis_devices(axis)
     fns = []
     for s, dev in enumerate(devices):
@@ -348,3 +360,115 @@ def staged_pipeline_apply(stage_fns: Sequence[Callable], params,
                      boundary_shapes=boundary_shapes, out_shape=out_shape,
                      out_dtype=out_dtype, carry_dtype=carry_dtype)
     return ring.run(params, x_mb)
+
+
+# slot (device, stage index) -> the CUDA stream every recording round
+# runs that stage on: the caching allocator keeps freed blocks per
+# stream, so a fresh stream each step would allocate every activation
+# and gradient anew
+_STAGE_STREAMS: Dict[Tuple[torch.device, int], Any] = {}
+_STAGE_STREAMS_LOCK = threading.Lock()
+
+
+def _stage_stream(device: torch.device, s: int):
+    with _STAGE_STREAMS_LOCK:
+        st = _STAGE_STREAMS.get((device, s))
+        if st is None:
+            st = _STAGE_STREAMS[device, s] = torch.cuda.Stream(device=device)
+        return st
+
+
+def _recording_round(stage_fns: Sequence[Callable],
+                     devices: Sequence[torch.device], x_mb: torch.Tensor,
+                     last_fn: Callable[[int, torch.Tensor], torch.Tensor]
+                     ) -> List[torch.Tensor]:
+    """One round of the stage ring that autograd records: the ring's tick
+    order and, on CUDA devices, its stage streams, but every (stage,
+    microbatch) hand-off a fresh tensor (no reused input buffer, no copy
+    into an output), since autograd keeps what a stage read for its
+    backward.  ``last_fn(m, y)`` runs on the last stage's stream on
+    microbatch ``m``'s output; returns its results, which the caller's
+    current stream may read.  A backward op runs on its forward op's
+    stream, so each stage's backward is its own stream's work too."""
+    S, M = len(stage_fns), x_mb.shape[0]
+    cuda = devices[0].type == "cuda"
+    streams = [None] * S
+    if cuda:
+        streams = [_stage_stream(d, s) for s, d in enumerate(devices)]
+        done = [torch.cuda.Event() for _ in devices]
+        begin = torch.cuda.Event()
+        begin.record(torch.cuda.current_stream(devices[0]))
+        for st in streams:
+            st.wait_event(begin)
+        x_mb.record_stream(streams[0])
+
+    held: List[Optional[torch.Tensor]] = [None] * S
+    results: List[Optional[torch.Tensor]] = [None] * M
+    for t in range(M + S - 1):
+        for s in reversed(range(S)):     # each hand-off: last tick's output
+            m = t - s
+            if not 0 <= m < M:
+                continue
+            with _on_stream(devices[s], streams[s]):
+                if s == 0:
+                    x = x_mb[m].to(devices[0])
+                else:
+                    if cuda:
+                        streams[s].wait_event(done[s - 1])
+                    x = held[s - 1]
+                y = stage_fns[s](x)
+                if s == S - 1:
+                    results[m] = last_fn(m, y)
+                else:
+                    held[s] = y.to(devices[s + 1])
+                    if cuda:
+                        held[s].record_stream(streams[s + 1])
+                if cuda:
+                    done[s].record(streams[s])
+    if cuda:
+        caller = torch.cuda.current_stream(devices[-1])
+        caller.wait_event(done[-1])
+        for r in results:
+            r.record_stream(caller)
+    return results
+
+
+def gpipe_train_step(layer_fn: Callable, loss_fn: Callable, params_staged,
+                     x_mb: torch.Tensor, y_mb: torch.Tensor, *, mesh,
+                     axis: str = "model"):
+    """GPipe: every microbatch forward through the stage ring, the mean
+    over microbatches of ``loss_fn(out[m], y_mb[m])``, and its gradient
+    by autograd through the same schedule.  Returns ``(loss, grads)``:
+    ``grads`` a tree shaped like ``params_staged`` ([S, L/S, ...]), on
+    its leaves' devices.
+
+    ``layer_fn`` and ``params_staged`` are ``pipeline_apply``'s, with its
+    errors.  Stage ``s`` differentiates a detached copy of its slice of
+    the params on its device, so the caller's tensors are neither
+    mutated nor given a ``.grad``.  On CUDA devices each stage's forward
+    and backward run on the stage's own stream (``_recording_round``);
+    on the CPU the same schedule runs in one thread, and the result
+    equals the sequential composition of the stages' autograd."""
+    n_stages = _validate_mesh_axis(mesh, axis)
+    _check_microbatches(x_mb)
+    _check_staged(params_staged, n_stages, axis)
+    devices = mesh.axis_devices(axis)
+    leaves = _tree_leaves(params_staged)
+    local = [_tree_map(lambda a, _s=s, _d=dev:
+                       a[_s].detach().to(_d).requires_grad_(True),
+                       params_staged)
+             for s, dev in enumerate(devices)]
+    fns = [lambda x, _l=local[s]: layer_fn(_l, x) for s in range(n_stages)]
+    y_mb = y_mb.to(devices[-1])
+    losses = _recording_round(fns, devices, x_mb,
+                              lambda m, y: loss_fn(y, y_mb[m]))
+    loss = torch.stack(losses).mean()
+    inputs = [t for tree in local for t in _tree_leaves(tree)]
+    got = torch.autograd.grad(loss, inputs, allow_unused=True)
+    got = [torch.zeros_like(t) if g is None else g
+           for t, g in zip(inputs, got)]
+    per = len(leaves)
+    stacked = iter([torch.stack([got[s * per + i].to(a.device)
+                                 for s in range(n_stages)])
+                    for i, a in enumerate(leaves)])
+    return loss.detach(), _tree_map(lambda _: next(stacked), params_staged)

@@ -25,3 +25,9 @@ from repro_torch.kernels.pool_int8.ops import (  # noqa: F401
     global_avgpool_int8, maxpool_int8)
 from repro_torch.kernels.stream_matmul.ops import (  # noqa: F401
     stream_matmul, stream_matmul_requant)
+
+__all__ = ["stream_matmul", "conv2d_int8", "conv2d_int8_requant",
+           "maxpool_int8", "global_avgpool_int8", "flash_attention",
+           "stream_matmul_requant", "flash_attention_bwd",
+           "flash_attention_kernel", "flash_attention_vjp", "LAUNCHES",
+           "reset_launches"]

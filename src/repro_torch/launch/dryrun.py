@@ -29,8 +29,14 @@ and 3 layers, or 2 and 4), and for a train
 step with gradient accumulation at 2 and 3 microbatches, and the count
 is extrapolated multilinearly to the real depth and microbatches — exact
 for identical layers and microbatches (``tests/test_torch_dryrun.py``
-holds it to the full count at a small depth).  A count does not depend
-on the mesh, so each (arch, shape) is counted once for both meshes.
+holds it to the full count at a small depth).  The step is counted
+inside its mesh (``with mesh:``), as the JAX package lowers it there: on
+the production meshes an arch whose experts the model axis divides
+(DeepSeek-V2's 160 over 16) runs its MoE layers expert-parallel, and
+with ``--kernels on`` the flash call takes the blockwise path where the
+query or KV heads do not divide 16.  The two production meshes agree on
+all a count reads of them (``count_key``), so each (arch, shape) is
+counted once for both.
 
 ``--mesh local`` runs the cell for real on this process's card (``--device
 cpu`` for the CPU) at full depth with random weights from seed 0, and
@@ -63,7 +69,9 @@ from repro_torch.launch.mesh import (Mesh, make_local_mesh,
                                      make_production_mesh, mesh_axis_sizes)
 from repro_torch.models import transformer as tmod
 from repro_torch.models.accounting import count_params
-from repro_torch.models.layers import (P, dp_spec, flatten_with_paths,
+from repro_torch.models.layers import (P, _current_physical_mesh,
+                                       axis_size, dp_spec,
+                                       flatten_with_paths,
                                        kernel_mode_enabled, set_kernel_mode,
                                        set_mesh_axis_sizes, spec_shard_count)
 from repro_torch.optim import adamw
@@ -277,18 +285,33 @@ def extrapolated_cost(arch: ArchConfig, shape: ShapeConfig, counts=None,
     return _extrapolate(values, points, target)
 
 
+def count_key(arch_id: str, shape: ShapeConfig, kernels: bool) -> tuple:
+    """The key of a cell's count, read inside the entered mesh: the arch,
+    the shape, the kernel mode and what of the mesh the count reads —
+    where the mesh has more than one slot, the model axis's size (the
+    expert-parallel MoE, the flash call's mesh rule) and whether the
+    data axes split the batch a step's attention sees (the rule)."""
+    mesh = _current_physical_mesh()
+    per = shape.global_batch // (train_microbatches(shape)
+                                 if shape.kind == "train" else 1)
+    on_mesh = None if mesh is None else (axis_size("model"),
+                                         dp_spec(per) is not None)
+    return (arch_id, shape, kernels, on_mesh)
+
+
 def _corner_task(arch_id: str, shape: ShapeConfig, depths, mb,
-                 kernels: bool) -> Dict[str, int]:
+                 kernels: bool, multi_pod: bool) -> Dict[str, int]:
     set_kernel_mode(kernels)
-    return corner_cost(get_arch(arch_id), shape, depths, mb).as_dict()
+    with make_production_mesh(multi_pod=multi_pod):
+        return corner_cost(get_arch(arch_id), shape, depths, mb).as_dict()
 
 
-def count_cells(cells, kernels: bool, jobs: int
-                ) -> Dict[Tuple[str, ShapeConfig, bool], Cost]:
-    """Count every (arch id, shape) of ``cells`` on ``meta`` with ``jobs``
-    worker processes, each corner of each cell a task, the longest
-    first: ``{(arch id, shape, kernels): count}``, as ``run_cell`` takes
-    them."""
+def count_cells(cells, kernels: bool, jobs: int, *, multi_pod: bool = False
+                ) -> Dict[tuple, Cost]:
+    """Count every (arch id, shape) of ``cells`` on ``meta`` inside the
+    single-pod (or ``multi_pod``) production mesh with ``jobs`` worker
+    processes, each corner of each cell a task, the longest first:
+    ``{count_key(...): count}``, as ``run_cell`` takes them."""
     import concurrent.futures
     import multiprocessing
 
@@ -304,14 +327,15 @@ def count_cells(cells, kernels: bool, jobs: int
     done: Dict[Tuple[str, ShapeConfig], Dict[int, Cost]] = {}
     ctx = multiprocessing.get_context("spawn")
     with concurrent.futures.ProcessPoolExecutor(jobs, mp_context=ctx) as ex:
-        futs = {ex.submit(_corner_task, a, s, d, mb, kernels): (a, s, i)
-                for _, a, s, i, d, mb in tasks}
+        futs = {ex.submit(_corner_task, a, s, d, mb, kernels, multi_pod):
+                (a, s, i) for _, a, s, i, d, mb in tasks}
         for fut in concurrent.futures.as_completed(futs):
             a, s, i = futs[fut]
             done.setdefault((a, s), {})[i] = Cost.from_dict(fut.result())
-    return {(a, s, kernels): extrapolated_cost(
-        get_arch(a), s, [by_i[i] for i in range(len(by_i))])
-        for (a, s), by_i in done.items()}
+    with make_production_mesh(multi_pod=multi_pod):
+        return {count_key(a, s, kernels): extrapolated_cost(
+            get_arch(a), s, [by_i[i] for i in range(len(by_i))])
+            for (a, s), by_i in done.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -373,7 +397,8 @@ def lower_cell(arch: ArchConfig, shape: ShapeConfig, mesh: Mesh, *,
     On the production meshes (``meta`` devices) the params are abstract
     and the count is ``extrapolated_cost``.  On a local mesh ``params``
     are real tensors on its device, and the step is counted as it runs
-    there, in full; ``count`` reuses a count already taken."""
+    there, in full; ``count`` reuses a count already taken.  The step is
+    counted inside ``with mesh:``."""
     set_mesh_axis_sizes(mesh_axis_sizes(mesh))
     device = mesh.devices.flat[0]
     abstract = tmod.abstract_params(arch)
@@ -390,8 +415,10 @@ def lower_cell(arch: ArchConfig, shape: ShapeConfig, mesh: Mesh, *,
     _, state = make_step(arch, shape, abstract)       # shapes alone
     args = argument_bytes(arch, shape, abstract, pspecs, state)
     if count is None:
-        count = (extrapolated_cost(arch, shape) if device.type == "meta"
-                 else step_cost(arch, shape, params=params, device=device))
+        with mesh:
+            count = (extrapolated_cost(arch, shape) if device.type == "meta"
+                     else step_cost(arch, shape, params=params,
+                                    device=device))
     mf, tokens = model_flops(arch, shape)
     return {"plan": plan_notes, "model_flops": mf, "tokens": tokens,
             "global_flops": count.flops, "global_bytes": count.bytes,
@@ -405,8 +432,8 @@ def run_cell(arch_id: str, shape_id: str, mesh_kind: str, *,
              ) -> Optional[Dict[str, Any]]:
     """One cell on ``mesh_kind`` ("single", "multi" or "local"; ``device``
     for "local"); ``shape`` overrides ``SHAPES[shape_id]`` (a cut batch).
-    ``counts`` (``{(arch id, shape, kernels): count}``, as
-    ``count_cells`` gives them) holds the meta counts already taken, and
+    ``counts`` (``{count_key(...): count}``, as ``count_cells`` gives
+    them) holds the meta counts already taken, and
     a meta count this call takes is added to it.  Returns the cell's
     row, or a SKIP row for an inapplicable shape."""
     set_kernel_mode(kernels)
@@ -427,7 +454,8 @@ def run_cell(arch_id: str, shape_id: str, mesh_kind: str, *,
     if dev.type != "meta" and params is None:
         params = tmod.init_params(torch.Generator(dev).manual_seed(0), arch,
                                   dev)
-    key = (arch_id, shape, kernels)
+    with mesh:
+        key = count_key(arch_id, shape, kernels)
     cached = counts.get(key) if counts is not None and dev.type == "meta" \
         else None
     t0 = time.time()
@@ -489,14 +517,14 @@ def main(argv=None) -> int:
     rows = []
     failures = []
     kernels0 = kernel_mode_enabled()
-    counts: Dict[Tuple[str, ShapeConfig, bool], Cost] = {}
+    counts: Dict[tuple, Cost] = {}
     try:
         if args.jobs > 1 and args.mesh != "local":
             t0 = time.time()
             counts = count_cells(
                 [(a, SHAPES[s]) for a in archs for s in shapes
                  if shape_applicable(get_arch(a), SHAPES[s])[0]],
-                kernels, args.jobs)
+                kernels, args.jobs, multi_pod=meshes[0] == "multi")
             print(f"counted {len(counts)} cells on meta with {args.jobs} "
                   f"processes in {time.time() - t0:.1f} s")
         for mk in meshes:

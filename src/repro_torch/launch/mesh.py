@@ -7,7 +7,9 @@ the dry run (``launch/dryrun.py``) their axis sizes.
 Here a :class:`Mesh` is that: ``axis_names`` and a numpy object array
 ``devices`` of :class:`torch.device`, one per slot.  A device may repeat:
 ``["cuda:0"] * 4`` is a 4-stage mesh on one card (each slot gets its own
-CUDA stream there), ``["cpu"] * 4`` one on the CPU.
+CUDA stream there), ``["cpu"] * 4`` one on the CPU; entered, ``(1, 4)``
+over ``["cuda:0"] * 4`` is a 4-way model axis on one card, whose slots
+the expert-parallel MoE runs one after another.
 
 Building a mesh touches no device state at import time.
 ``make_production_mesh`` gives the JAX package's production meshes, (16,
@@ -25,16 +27,31 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.models.layers import set_mesh_axis_sizes
+from repro_torch.models.layers import (enter_mesh, exit_mesh,
+                                      set_mesh_axis_sizes)
 
 
 @dataclass(frozen=True, eq=False)
 class Mesh:
     """Named axes over a grid of devices (``devices.shape`` is the mesh
-    shape, one name per dimension)."""
+    shape, one name per dimension).
+
+    ``with mesh:`` makes it the active mesh of the thread, as in JAX:
+    inside, ``models.layers._current_physical_mesh()`` returns it where
+    it has more than one slot (the expert-parallel MoE and the flash
+    call's mesh rule read it), and its axis sizes are the spec builders'.
+    Leaving restores the mesh and sizes before it, on an exception too;
+    meshes nest."""
 
     devices: np.ndarray
     axis_names: Tuple[str, ...]
+
+    def __enter__(self) -> "Mesh":
+        enter_mesh(self)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        exit_mesh(self)
 
     def axis_devices(self, axis: str) -> Tuple[torch.device, ...]:
         """The devices along ``axis``, at index 0 of every other axis:

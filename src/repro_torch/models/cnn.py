@@ -31,17 +31,18 @@ from repro_torch.models.layers import MODEL_AXIS, P, maybe_axis
 Params = Dict[str, Dict[str, torch.Tensor]]
 
 
+def _conv_shapes(spec: ConvLayerSpec) -> Tuple[Tuple[int, ...], int]:
+    """(HWIO weight shape, output channels) of one layer."""
+    if spec.kind == "dwconv":
+        return (spec.k_h, spec.k_w, 1, spec.c_in), spec.c_in  # depthwise
+    return (spec.k_h, spec.k_w, spec.c_in, spec.c_out), spec.c_out
+
+
 def init_conv_layer(spec: ConvLayerSpec, generator: torch.Generator,
                     device="cuda") -> Dict[str, torch.Tensor]:
     """Random int8 weights in [-127, 127] drawn from ``generator`` (on the
     generator's device, then moved to ``device``), scales 0.05, bias 0."""
-    kw, kh = spec.k_w, spec.k_h
-    if spec.kind == "dwconv":
-        w_shape = (kh, kw, 1, spec.c_in)                    # HWIO depthwise
-        c_out = spec.c_in
-    else:
-        w_shape = (kh, kw, spec.c_in, spec.c_out)
-        c_out = spec.c_out
+    w_shape, c_out = _conv_shapes(spec)
     w = torch.randint(-127, 128, w_shape, generator=generator,
                       dtype=torch.int8, device=generator.device)
     return {
@@ -58,6 +59,23 @@ def init_cnn_params(cfg: CNNConfig, generator: torch.Generator,
     weightless topology engines and get no entry."""
     return {l.name: init_conv_layer(l, generator, device)
             for l in cfg.layers if not l.is_pool}
+
+
+def abstract_cnn_params(cfg: CNNConfig) -> Params:
+    """``init_cnn_params``'s shapes and dtypes as ``meta`` tensors: nothing
+    drawn or allocated (the JAX package's ``jax.eval_shape`` of it)."""
+    def meta(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    out = {}
+    for l in cfg.layers:
+        if l.is_pool:
+            continue
+        w_shape, c_out = _conv_shapes(l)
+        out[l.name] = {"w": meta(w_shape, torch.int8),
+                       "w_scale": meta((c_out,), torch.float32),
+                       "bias": meta((c_out,), torch.float32)}
+    return out
 
 
 def conv_layer_specs(spec: ConvLayerSpec) -> Dict[str, P]:

@@ -5,9 +5,12 @@ The MoE routes each token to its top-k experts.  At most ``MOE_DENSE_T``
 tokens take the dropless path (every expert computes every token, the
 gates zero the ones not chosen); more tokens take the grouped path:
 groups of ``MOE_GROUP`` tokens, a capacity per expert and group, the
-choices past it dropped, gathers in and out.  The expert-parallel
-``shard_map`` path waits for a later slice (ROADMAP Queue 1); on one
-device the JAX package takes the grouped path too.  ``ffn_spec`` and
+choices past it dropped, gathers in and out.  Under an entered mesh
+whose ``model`` axis has more than one slot and divides the experts
+(``_ep_available``) the grouped path's experts run expert-parallel, as
+the JAX package's ``shard_map`` region does: each slot of the axis runs
+its own E/n experts on the choices routed to them, and the partial
+outputs are summed in slot order (``_moe_ep_shardmap``).  ``ffn_spec`` and
 ``moe_spec`` give the init trees of ``Leaf``; ``ffn_specs`` and
 ``moe_specs`` the partition specs, copies of the JAX package's.
 """
@@ -18,7 +21,9 @@ from typing import Any, Dict
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import MODEL_AXIS, P, dense_leaf, maybe_axis
+from repro_torch.models.layers import (MODEL_AXIS, P,
+                                      _current_physical_mesh, axis_size,
+                                      dense_leaf, maybe_axis)
 
 Params = Dict[str, Any]
 
@@ -179,30 +184,100 @@ def moe_ffn(params: Params, cfg, x: torch.Tensor, act: str = "silu", *,
         probs, top_p, top_e = moe_router(params, cfg, xg)     # [G,tg,.]
         pos = capacity_positions(top_e, E)                     # [G,tg,k]
         keep = pos < cap
-        flat_keep = keep.reshape(G, tg * k)
-        slot = torch.where(flat_keep, (top_e * cap + pos).reshape(G, -1), 0)
-        tok = torch.arange(tg * k, device=x.device) // k
-        slot_tok = torch.zeros((G, E * cap), dtype=torch.int64,
-                               device=x.device).scatter_reduce_(
-            1, slot, torch.where(flat_keep, tok, 0), "amax")
-        valid = torch.zeros((G, E * cap), dtype=torch.int64,
-                            device=x.device).scatter_reduce_(
-            1, slot, flat_keep.long(), "amax")
-        xe = torch.gather(xg, 1, slot_tok[..., None].expand(G, E * cap, d))
-        xe = xe * valid[..., None].to(xe.dtype)                # [G,E*C,d]
-        ye = _experts(params, xe.reshape(G, E, cap, d).transpose(0, 1)
-                      .reshape(E, G * cap, d), act)
-        ye = ye.reshape(E, G, cap, d).transpose(0, 1)          # [G,E,C,d]
         gate = torch.where(keep, top_p, 0.0)
-        g_idx = torch.arange(G, device=x.device)[:, None, None]
-        back = ye[g_idx, top_e, pos.clamp(0, cap - 1)]         # [G,tg,k,d]
-        y = torch.einsum("gtkd,gtk->gtd", back,
-                         gate.to(back.dtype)).reshape(T, d)
+        if _ep_available(m):
+            y = _moe_ep_shardmap(params, cfg, xg, top_e, pos, gate, cap,
+                                 act).reshape(T, d)
+        else:
+            ye = _routed_experts(params, xg, top_e, pos, keep, E, cap, act)
+            g_idx = torch.arange(G, device=x.device)[:, None, None]
+            back = ye[g_idx, top_e, pos.clamp(0, cap - 1)]     # [G,tg,k,d]
+            y = torch.einsum("gtkd,gtk->gtd", back,
+                             gate.to(back.dtype)).reshape(T, d)
         aux = (_aux_loss(probs.reshape(T, E), top_e.reshape(T, k), E)
                if with_aux else 0.0)
     if m.n_shared:
         y = y + ffn(params["shared"], xt[None], act)[0]
     return y.reshape(B, S, d), aux
+
+
+def _routed_experts(params: Params, xg: torch.Tensor, rel: torch.Tensor,
+                 pos: torch.Tensor, mine: torch.Tensor, n_experts: int,
+                 cap: int, act: str) -> torch.Tensor:
+    """``n_experts`` experts (``params``' leading dim) on the choices
+    ``mine`` routes to them: ``xg [G, tg, d]``, each choice's expert
+    ``rel`` and buffer position ``pos`` ``[G, tg, k]`` -> the experts'
+    outputs ``[G, E, C, d]``.  The slot -> token map is a scatter-max
+    over zeros (a choice not ``mine`` writes token 0 to slot (0, 0),
+    which a real token there wins), as the JAX package's
+    ``.at[...].max``."""
+    G, tg, d = xg.shape
+    k = rel.shape[-1]
+    flat = mine.reshape(G, tg * k)
+    slot = torch.where(flat, (rel * cap + pos).reshape(G, -1), 0)
+    tok = torch.arange(tg * k, device=xg.device) // k
+    slot_tok = torch.zeros((G, n_experts * cap), dtype=torch.int64,
+                           device=xg.device).scatter_reduce_(
+        1, slot, torch.where(flat, tok, 0), "amax")
+    valid = torch.zeros((G, n_experts * cap), dtype=torch.int64,
+                        device=xg.device).scatter_reduce_(
+        1, slot, flat.long(), "amax")
+    xe = torch.gather(xg, 1, slot_tok[..., None].expand(G, n_experts * cap,
+                                                        d))
+    xe = xe * valid[..., None].to(xe.dtype)                    # [G,E*C,d]
+    ye = _experts(params, xe.reshape(G, n_experts, cap, d).transpose(0, 1)
+                  .reshape(n_experts, G * cap, d), act)
+    return ye.reshape(n_experts, G, cap, d).transpose(0, 1)    # [G,E,C,d]
+
+
+def _ep_available(m) -> bool:
+    """The expert-parallel path: an entered mesh of more than one slot
+    whose ``model`` axis has more than one slot and divides the
+    experts."""
+    mesh = _current_physical_mesh()
+    return (mesh is not None and "model" in mesh.axis_names
+            and axis_size("model") > 1
+            and m.n_experts % axis_size("model") == 0)
+
+
+def _moe_ep_shardmap(params: Params, cfg, xg: torch.Tensor,
+                     top_e: torch.Tensor, pos: torch.Tensor,
+                     gate: torch.Tensor, cap: int, act: str) -> torch.Tensor:
+    """Expert parallelism, the JAX package's ``shard_map`` region as a
+    loop over the ``model`` axis's slots (``mesh.axis_devices``; a
+    device may repeat).  Slot ``c`` holds experts ``[c·E/n, (c+1)·E/n)``:
+    it gathers the choices routed to them (the routing, positions and
+    kept gates are global and computed once, outside), runs its experts
+    and combines back through the clipped indices, weighted by its kept
+    gates in the model dtype.  The partial ``[G, tg, d]`` outputs are
+    summed in slot order on ``xg``'s device, as the region's ``psum``
+    over ``model``, in f32 and rounded once to the model dtype, as the
+    grouped path's combine rounds: the JAX package's ``psum`` adds the
+    partials in the model dtype, which in bf16 rounds each token's
+    output twice (in f32 the two agree).  One process runs every group,
+    so the data axes split nothing here."""
+    m = cfg.moe
+    mesh = _current_physical_mesh()
+    slots = mesh.axis_devices("model")
+    E_local = m.n_experts // len(slots)
+    G = xg.shape[0]
+    y = None
+    for c, dev in enumerate(slots):
+        lo = c * E_local
+        local = {n: params[n][lo:lo + E_local].to(dev)
+                 for n in ("w_gate", "w_up", "w_down")}
+        te, p_, gt = top_e.to(dev), pos.to(dev), gate.to(dev)
+        rel = te - lo
+        mine = (rel >= 0) & (rel < E_local) & (p_ < cap)
+        ye = _routed_experts(local, xg.to(dev), rel, p_, mine, E_local, cap,
+                          act)
+        g_idx = torch.arange(G, device=dev)[:, None, None]
+        back = ye[g_idx, rel.clamp(0, E_local - 1), p_.clamp(0, cap - 1)]
+        w = (gt * mine.to(gt.dtype)).to(back.dtype)
+        part = torch.einsum("gtkd,gtk->gtd", back.float(),
+                            w.float()).to(xg.device)
+        y = part if y is None else y + part
+    return y.to(xg.dtype)
 
 
 def _aux_loss(probs: torch.Tensor, top_e: torch.Tensor,

@@ -23,10 +23,16 @@ heads, ffn hidden, experts and vocab, and a dim that the mesh axis does
 not divide is replicated (``maybe_axis``).  The port has no SPMD
 partitioner: the specs drive the dry run's per-device bytes and the
 placement plan (``core/streaming.py``), and ``constrain`` is a no-op.
+A mesh entered with ``with mesh:`` (``launch/mesh.py``) is the active
+one of its thread and sets the axis sizes while it is entered;
+``_current_physical_mesh`` returns it where it has more than one slot,
+and the flash call's mesh rule and the expert-parallel MoE
+(``models/ffn.py``) read it, as in the JAX package.
 """
 from __future__ import annotations
 
 import math
+import threading
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -81,6 +87,45 @@ def set_mesh_axis_sizes(sizes: Dict[str, int]) -> None:
     divisibility.  Called by the launcher before building specs."""
     _MESH_AXIS_SIZES.clear()
     _MESH_AXIS_SIZES.update(sizes)
+
+
+# the meshes entered with ``with mesh:`` (``launch/mesh.py``), innermost
+# last, each beside the axis sizes it replaced: the counterpart of JAX's
+# thread-local physical mesh
+_ACTIVE_MESHES = threading.local()
+
+
+def _mesh_stack() -> list:
+    stack = getattr(_ACTIVE_MESHES, "stack", None)
+    if stack is None:
+        stack = _ACTIVE_MESHES.stack = []
+    return stack
+
+
+def enter_mesh(mesh) -> None:
+    """Make ``mesh`` the active mesh of this thread and record its axis
+    sizes; ``exit_mesh`` restores the previous mesh and sizes."""
+    _mesh_stack().append((mesh, dict(_MESH_AXIS_SIZES)))
+    set_mesh_axis_sizes(dict(zip(mesh.axis_names, mesh.devices.shape)))
+
+
+def exit_mesh(mesh) -> None:
+    stack = _mesh_stack()
+    if not stack or stack[-1][0] is not mesh:
+        raise RuntimeError("meshes must be left in the reverse order they "
+                           "were entered")
+    _, sizes = stack.pop()
+    set_mesh_axis_sizes(sizes)
+
+
+def _current_physical_mesh():
+    """The innermost entered mesh where it has more than one slot, else
+    None (one slot is no physical mesh), as the JAX package's."""
+    stack = _mesh_stack()
+    if not stack:
+        return None
+    mesh = stack[-1][0]
+    return mesh if mesh.devices.size > 1 else None
 
 
 def axis_size(name) -> int:
@@ -447,11 +492,12 @@ def attention_forward(params: Params, cfg, x, positions, *, window=None,
                       and (window is None or isinstance(window, int))
                       and q.shape[-1] == v.shape[-1]
                       and S % min(128, S) == 0)
+        out = None
         if use_kernel:
             out = _flash_call(q, k, v, causal=causal,
                               window=int(window or 0),
                               softcap=cfg.attn_logit_softcap)
-        else:
+        if out is None:
             out = blockwise_attention(q, k, v, causal=causal, window=window,
                                       softcap=cfg.attn_logit_softcap)
         new_kv = (k, v)
@@ -494,9 +540,22 @@ def _flash_call(q, k, v, *, causal: bool, window: int, softcap: float):
     enabled and an input requires it) the differentiable wrapper runs:
     K9 forward, K10/K11 backward, as the JAX package's
     ``flash_attention_vjp``; otherwise the forward alone.  On CPU tensors
-    the plain versions run at the JAX call's blocks, ``min(128, S)``."""
+    the plain versions run at the JAX call's blocks, ``min(128, S)``.
+
+    The JAX package's mesh rule: under an active mesh that shards the
+    batch (``dp_spec`` of it is not None) the kernel's region shards the
+    heads over ``model``, so where the query or the KV heads do not
+    divide that axis this returns None and the caller takes the
+    blockwise path.  Otherwise the kernel runs on the whole batch: one
+    process needs no split by heads or batch, and each head's output is
+    the same either way."""
     from repro_torch.kernels.flash_attention.ops import (flash_attention,
                                                          flash_attention_vjp)
+    if _current_physical_mesh() is not None and \
+            dp_spec(q.shape[0]) is not None and \
+            (maybe_axis(q.shape[2], MODEL_AXIS) is None
+             or maybe_axis(k.shape[2], MODEL_AXIS) is None):
+        return None
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return flash_attention_vjp.apply(q, k, v, causal, window, softcap)

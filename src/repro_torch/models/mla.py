@@ -100,12 +100,14 @@ def mla_forward(params: Params, cfg, x, positions, *,
             *k_nope.shape[:3], m.qk_rope_head_dim)], dim=-1)
         q = torch.cat([q_nope, q_pe], dim=-1)
         S = q.shape[1]
+        out = None
         if layers.kernel_mode_enabled() and S % min(128, S) == 0:
             # the flash kernel with split head dims (qk 192 / v 128 at
-            # full width)
+            # full width); None under a mesh whose model axis the heads
+            # do not divide
             out = layers._flash_call(q, k, v, causal=True, window=0,
                                      softcap=0.0)
-        else:
+        if out is None:
             out = blockwise_attention(q, k, v, causal=True)
         new_cache = (c_new, kpe_new)
     else:

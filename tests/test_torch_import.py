@@ -226,3 +226,58 @@ def test_launch_counts_by_shape():
     finally:
         _build.reset_launches()
     assert _build.LAUNCHES == {} and _build.SHAPE_LAUNCHES == {}
+
+
+def _reference_exports(package: str):
+    """The public names the JAX package's ``package/__init__.py`` imports
+    or assigns (its ``__all__`` where it has one), parsed with ``ast``."""
+    import ast
+    tree = ast.parse((SRC / "repro" / package / "__init__.py").read_text())
+    names = []
+    for node in tree.body:
+        if isinstance(node, ast.ImportFrom):
+            names += [a.asname or a.name for a in node.names]
+        elif isinstance(node, ast.Assign):
+            for t in node.targets:
+                if isinstance(t, ast.Name):
+                    if t.id == "__all__":
+                        return list(ast.literal_eval(node.value))
+                    names.append(t.id)
+        elif isinstance(node, ast.FunctionDef):
+            names.append(node.name)
+    return [n for n in names if not n.startswith("_")]
+
+
+def _reference_arch_ids():
+    import ast
+    tree = ast.parse((SRC / "repro" / "configs" / "__init__.py").read_text())
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and \
+                getattr(node.targets[0], "id", None) == "_ARCH_MODULES":
+            return list(ast.literal_eval(node.value))
+    raise AssertionError("no _ARCH_MODULES in the JAX package's configs")
+
+
+def test_configs_exports_equal_the_jax_packages():
+    import repro_torch.configs as configs
+    from repro_torch.configs.base import SHAPES, reduced_shape
+    assert configs.__all__ == _reference_exports("configs")
+    assert all(hasattr(configs, n) for n in configs.__all__)
+    archs = configs.all_archs()
+    assert list(archs) == _reference_arch_ids() == list(configs.ARCH_IDS)
+    assert all(a == configs.get_arch(k) for k, a in archs.items())
+    assert configs.SHAPES is SHAPES and configs.reduced_shape is \
+        reduced_shape
+
+
+@pytest.mark.parametrize("package", ["core", "compiler", "kernels"])
+def test_package_exports_cover_the_jax_packages(package):
+    """Every public name of the JAX package's ``__init__`` (its
+    ``__all__`` where it has one) but the interpret-mode preset, which
+    the port has not by design."""
+    import importlib
+    mod = importlib.import_module(f"repro_torch.{package}")
+    want = set(_reference_exports(package)) - {"TPU_INTERPRET"}
+    assert want and not {n for n in want if not hasattr(mod, n)}
+    assert not hasattr(mod, "TPU_INTERPRET")
+    assert want <= set(getattr(mod, "__all__", want))
