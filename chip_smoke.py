@@ -246,6 +246,7 @@ the kernel's launches, on which the kernel takes
 the run goes to ``chip_smoke.json`` in the output directory beside this
 script.
 """
+import atexit
 import contextlib
 import functools
 import json
@@ -351,10 +352,6 @@ GPIPE_STAGES, GPIPE_MICROBATCHES = 4, 4
 GPIPE_LAUNCHES = {k: 32 * GPIPE_MICROBATCHES for k in (
     "flash_attention_fwd", "flash_attention_bwd_dq",
     "flash_attention_bwd_dkv")}
-# K10/K11's main-path shapes: Phi-4-mini's training slice, its train_4k
-# dry-run cell and its GPipe microbatch
-BWD_MAIN = (FLASH_SLICE, FLASH_DRY_TRAIN, FLASH_GPIPE)
-
 # the LM training slice: Phi-4-mini at full width and depth, bf16, random
 # weights from SEED, TokenDataset(seq_len=512, global_batch=4), 3 steps of
 # TrainConfig(microbatches=1, remat=True), no checkpoint written
@@ -461,6 +458,71 @@ F32_HOST_ARCHS = ("hymba-1.5b", "xlstm-125m", "gemma2-9b")
 FLASH_MAIN = (FLASH_SLICE, FLASH_QWEN, FLASH_DSV2, FLASH_SEAMLESS_ENC,
               FLASH_SEAMLESS_DEC, FLASH_INTERNVL, FLASH_QWEN72, FLASH_CMDR
               ) + FLASH_DRYRUN + (FLASH_GPIPE,)
+# [train_families] (``train_family``): the other families trained after
+# GPipe, one at a time, each freed before the next: (arch, n_layers or
+# None for full depth, batch, sequence, K9-K11's shapes as (case, "enc"
+# or "dec"), the gradient check, its bounds, its plant), each at full
+# width, bf16, random weights from SEED, kernel mode on,
+# TrainConfig(microbatches=1, remat=True), AdamW: FAMILY_STEPS steps
+# through Trainer (SeamlessM4T's frames and InternVL2's patches, seeded
+# as stub_inputs draws them, go through make_train_step directly: the
+# Trainer feeds tokens alone, in both packages), then one more under
+# torch.profiler.  Depth is cut only where the training state does not
+# fit one card: 12 B a parameter (bf16 weight and gradient, f32 mu and
+# nu) and 8 B an unembed-table entry (lm_loss's f32 copy and its
+# gradient), parameters counted by accounting.count_params.  Command R+
+# stays out: 56.6 + 25.2 = 81.8 GB at 1 of its 64 layers.  Hymba takes
+# the 2 x 2048 tokens its 1024-token window acts on, at 16 of its 32
+# layers for the script's time: its row took 65 s of an 804 s run at 32
+# (Mamba's scan, 252,126 kernels a step, host-bound).  Gemma2 and Hymba
+# (windowed attention) and xLSTM (no attention) launch no kernel, as in
+# the JAX package.
+#
+# The gradient check, one value_and_grad on the first batch: "kernel",
+# against kernel mode off (blockwise attention), the MoE routing of the
+# kernel run forced on the plain one (``moe_routing``; a token whose
+# experts lie within rounding routes apart in bf16); "f32", against the
+# params cast to f32 (TF32 off) on the card.  The bounds, set from an
+# H100's readings (PERF.md §6): the loss's share |loss - ref| / |ref|,
+# and the worst leaf's |g - g_ref| / |g_ref| (L2) over the leaves whose
+# |g_ref| is at least LEAF_FLOOR of the largest leaf's.  The leaves
+# below it are ill-conditioned, small differences of large terms, and
+# are printed, not held: SeamlessM4T's cross-attention wq and wk over
+# frames of 0.01 N(0, 1) (2e-5 of the largest leaf; 0.18 from f32 as
+# from the plain path).  Qwen2-MoE's leaf bound is twice the others':
+# both packages draw a [E, d, f] expert stack with std 1/sqrt(E), taking
+# the expert count for the fan-in (models/layers.py::dense_leaf, as the
+# JAX package's _dense_init), 5.8x the 1/sqrt(d) rule's for its 60
+# experts, so its MoE branches outweigh the residual stream, each
+# layer's bf16 rounding carries forward undiluted and every leaf reads
+# 0.053-0.064 over 6 layers (DeepSeek-V2's one layer 0.0136).  The plant,
+# the same check on a planted fault, must exceed a bound: "k11", K11
+# built from a copy of flash_attention_bwd.cu that leaves every block's
+# last key tile out (those 64 keys' dk and dv stay zero;
+# ``start_k11_plant``); "slstm", every sLSTM layer's backward scaled by
+# SLSTM_PLANT in the bf16 run (``slstm_scaled``)
+TRAIN_FAMILIES = (
+    ("deepseek-v2-236b", 1, TRAIN_BATCH, TRAIN_SEQ, ((FLASH_DSV2, "dec"),),
+     "kernel", (1e-5, 0.04), "k11"),
+    ("qwen2-moe-a2.7b", 6, TRAIN_BATCH, TRAIN_SEQ, ((FLASH_QWEN, "dec"),),
+     "kernel", (1e-4, 0.08), "k11"),
+    ("seamless-m4t-medium", None, TRAIN_BATCH, TRAIN_SEQ,
+     ((FLASH_SEAMLESS_ENC, "enc"), (FLASH_SEAMLESS_DEC, "dec")), "kernel",
+     (5e-5, 0.045), "k11"),
+    ("internvl2-26b", 8, TRAIN_BATCH, TRAIN_SEQ, ((FLASH_INTERNVL, "dec"),),
+     "kernel", (1e-4, 0.04), "k11"),
+    ("qwen2-72b", 2, TRAIN_BATCH, TRAIN_SEQ, ((FLASH_QWEN72, "dec"),),
+     "kernel", (1e-5, 0.04), "k11"),
+    ("gemma2-9b", 16, TRAIN_BATCH, TRAIN_SEQ, (), "f32", (2e-5, 0.04), None),
+    ("hymba-1.5b", 16, 2, 2048, (), "f32", (1.5e-5, 0.04), None),
+    ("xlstm-125m", None, TRAIN_BATCH, TRAIN_SEQ, (), "f32", (5e-4, 0.03),
+     "slstm"),
+)
+FAMILY_STEPS = 2
+LEAF_FLOOR = 1e-4
+SLSTM_PLANT = 1.03
+BWD_MAIN = (FLASH_SLICE, FLASH_DRY_TRAIN, FLASH_GPIPE) + tuple(
+    case for row in TRAIN_FAMILIES for case, _ in row[4])
 # the expert-parallel MoE (``ep_prefills``, inside serve_arch and lm_f32
 # for the MoE families): the serving phase's first LM_SLOTS x LM_PROMPT
 # prefill feed under compat_make_mesh(EP_MESH, ("data", "model"),
@@ -1436,9 +1498,10 @@ def serve_lm(torch, np, dev, record):
 
 
 def named_leaves(tree, prefix=""):
-    """(dotted name, tensor) of a nested dict of tensors."""
-    for k, v in tree.items():
-        if isinstance(v, dict):
+    """(dotted name, tensor) of nested dicts and lists of tensors."""
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    for k, v in items:
+        if isinstance(v, (dict, list)):
             yield from named_leaves(v, f"{prefix}{k}.")
         else:
             yield f"{prefix}{k}", v
@@ -1456,21 +1519,32 @@ def rel_l2(torch, a, b):
 
 def profile_device_ms(torch, fn):
     """Device ms of the CUDA kernels in one torch.profiler trace of fn()
-    (the sum of their durations and the length of their union), and the
-    ten kernels with the most device time; None where the trace shows no
-    device activity."""
+    (the sum of their durations and the length of their union), the ten
+    kernels with the most device time and the seconds the trace and its
+    reading took; None where the trace shows no device activity.  Only
+    the device is traced: a step of hundreds of thousands of host ops
+    traces faster without them."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    t_trace = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    t_parse = time.perf_counter()
     spans, by_name = [], {}
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+    # the profiler's own events, read without the event tree that
+    # prof.events() builds (tens of seconds past 10^5 events): torch's
+    # private _KinetoEvent list (device_type, is_hidden_event, start_ns,
+    # duration_ns, name: torch 2.11 and 2.13 have them), which raises
+    # here if a version lacks one
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CUDA or \
+                e.is_hidden_event():
             continue
-        t0, t1 = e.time_range.start, e.time_range.end
+        t0 = e.start_ns() / 1e3
+        t1 = t0 + e.duration_ns() / 1e3
         spans.append((t0, t1))
-        by_name[e.name] = by_name.get(e.name, 0.0) + (t1 - t0) / 1e3
+        by_name[e.name()] = by_name.get(e.name(), 0.0) + (t1 - t0) / 1e3
+    t_parse, t_trace = time.perf_counter() - t_parse, t_parse - t_trace
     if not spans:
         return None
     busy, end = 0.0, None
@@ -1484,7 +1558,8 @@ def profile_device_ms(torch, fn):
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     return {"sum_ms": sum(t1 - t0 for t0, t1 in spans) / 1e3,
             "busy_ms": busy / 1e3, "kernels": len(spans),
-            "top_ms": [[n[:120], t] for n, t in top]}
+            "top_ms": [[n[:120], t] for n, t in top],
+            "trace_s": t_trace, "parse_s": t_parse}
 
 
 def train_lm(torch, np, dev, record, card):
@@ -1764,6 +1839,363 @@ def gpipe_lm(torch, np, dev, record, card):
     return launches, by_case
 
 
+def family_arch(name, n_layers):
+    """``name``'s config at full width, cut to ``n_layers`` (None: all)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    arch = get_arch(name)
+    return arch if n_layers is None else dataclasses.replace(
+        arch, n_layers=n_layers)
+
+
+def family_batch(torch, data, extra, step, dev):
+    """Step ``step``'s batch of ``data`` on the card, with the stub front
+    end's seeded frames or patches ``extra``."""
+    return {**{k: torch.from_numpy(v).to(dev, torch.int64)
+               for k, v in data.global_batch(step).items()}, **extra}
+
+
+# K11's key loop in flash_bwd_dkv_tc, and the same loop run no time in
+# the last key tile (k0 + TC_BM >= Sk) of every (batch, head)
+K11_FUNCTION = "flash_bwd_dkv_tc(BwdArgs a)"
+K11_LOOP = "  for (int qt = lo; qt <= hi; ++qt) {"
+K11_PLANT = ("  for (int qt = lo; qt <= (k0 + TC_BM >= a.Sk ? lo - 1 : hi); "
+             "++qt) {")
+
+
+def start_k11_plant(_build):
+    """Start nvcc on the "k11" plant of TRAIN_FAMILIES: a copy of
+    ``csrc/flash_attention_bwd.cu`` whose K11 (``flash_bwd_dkv_tc``)
+    leaves every block's last key tile out (K11_PLANT), built into the
+    build directory under the hash of the planted source and the headers,
+    so a later run loads it without building.  The returned function
+    waits for nvcc and returns the library's path (nvcc is killed at exit
+    if the script ends first)."""
+    import hashlib
+    import tempfile
+    text = (_build.CSRC / "flash_attention_bwd.cu").read_text()
+    at = text.index(K11_FUNCTION)
+    if K11_LOOP not in text[at:]:
+        raise AssertionError("K11's key loop not found")
+    planted = text[:at] + text[at:].replace(K11_LOOP, K11_PLANT, 1)
+    h = hashlib.sha256(planted.encode())
+    for header in sorted(_build.CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    out = _build.BUILD_DIR / f"k11_plant-{h.hexdigest()[:16]}.so"
+    if out.exists():
+        return lambda: out
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src = out.with_suffix(".cu")
+    src.write_text(planted)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_build.BUILD_DIR)
+    os.close(fd)
+    proc = subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o",
+         tmp, str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+
+    def finish():
+        if not out.exists():
+            log_text, _ = proc.communicate()
+            if proc.returncode != 0:
+                os.unlink(tmp)
+                raise RuntimeError(f"nvcc failed on the K11 plant:\n"
+                                   f"{log_text}")
+            os.replace(tmp, out)
+        return out
+    return finish
+
+
+@contextlib.contextmanager
+def k11_planted(_build, path):
+    """The flash backward library at ``path`` (``start_k11_plant``) in
+    place of the sound one, for the launches inside."""
+    import ctypes
+    own = _build.load("flash_attention_bwd")
+    _build._libs["flash_attention_bwd"] = ctypes.CDLL(str(path))
+    try:
+        yield
+    finally:
+        _build._libs["flash_attention_bwd"] = own
+
+
+@contextlib.contextmanager
+def slstm_scaled(torch):
+    """The "slstm" plant of TRAIN_FAMILIES: inside, every sLSTM layer's
+    output passes through a node whose backward scales the gradient by
+    SLSTM_PLANT."""
+    from repro_torch.models import ssm
+
+    class Scale(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x):
+            return x.view_as(x)
+
+        @staticmethod
+        def backward(ctx, g):
+            return g * SLSTM_PLANT
+
+    own = ssm.slstm_forward
+
+    def slstm_forward(*args, **kw):
+        y, state = own(*args, **kw)
+        return Scale.apply(y), state
+    ssm.slstm_forward = slstm_forward
+    try:
+        yield
+    finally:
+        ssm.slstm_forward = own
+
+
+def family_grads(torch, params, arch, batch, check, plant=None):
+    """The gradient check of ``TRAIN_FAMILIES`` on one batch: loss_fn and
+    its gradient (``value_and_grad``, remat on) as trained, and the
+    reference's: with kernel mode off ("kernel"; the MoE routing of the
+    kernel run forced on it, call by call, the remat's recompute
+    included), or from the params cast to f32 ("f32", TF32 off).
+    ``plant``: a context manager factory; the trained run once more
+    inside it (the same routing forced), held to the same reference.
+    Returns (loss, reference loss, {leaf: |g - g_ref| / |g_ref| (L2)},
+    {leaf: |g_ref|}, and with ``plant`` the planted loss and {leaf: its
+    |g - g_ref| / |g_ref|}, else None and None)."""
+    import dataclasses
+
+    import torch.utils._pytree as pytree
+
+    from repro_torch.models import layers as lm_layers
+    from repro_torch.runtime.trainer import value_and_grad
+    with moe_routing() as routes:
+        loss, g = value_and_grad(params, arch, batch)
+    if check == "kernel":
+        if arch.moe is not None and len(routes) != 2 * arch.n_layers:
+            raise AssertionError(f"{arch.name}: {len(routes)} routings, "
+                                 f"not the forward's and the recompute's")
+        lm_layers.set_kernel_mode(False)
+        try:
+            with moe_routing(routes):
+                ref_loss, g_ref = value_and_grad(params, arch, batch)
+        finally:
+            lm_layers.set_kernel_mode(True)
+    else:
+        if torch.backends.cuda.matmul.allow_tf32:
+            raise AssertionError("the f32 reference needs TF32 off")
+        p32 = pytree.tree_map(lambda t: t.float(), params)
+        ref_loss, g_ref = value_and_grad(
+            p32, dataclasses.replace(arch, dtype="float32"), batch)
+        del p32
+
+    def rel_to_ref(grads):
+        return {n: rel_l2(torch, a, b) for (n, a), (_, b) in
+                zip(named_leaves(grads), named_leaves(g_ref))}
+    rel = rel_to_ref(g)
+    norm = {n: float(b.float().norm()) for n, b in named_leaves(g_ref)}
+    del g
+    planted_loss = planted_rel = None
+    if plant is not None:
+        with plant(), moe_routing(routes):
+            planted_loss, g = value_and_grad(params, arch, batch)
+        planted_loss, planted_rel = float(planted_loss), rel_to_ref(g)
+        del g
+    return (float(loss), float(ref_loss), rel, norm, planted_loss,
+            planted_rel)
+
+
+def train_family(torch, np, dev, record, card, row, plants):
+    """``[train_families]``, one row of TRAIN_FAMILIES: the arch at full
+    width (its ``n_layers`` layers, or all), bf16, random weights from
+    SEED, kernel mode on.  The training state reckoned (12 B a parameter
+    of accounting.count_params, 8 B an unembed-table entry).  First
+    ``family_grads`` on the first batch: the loss's share and the worst
+    leaf at or above LEAF_FLOOR within the row's bounds, and its plant
+    (``plants[plant]``, a context manager factory) past one of them.  Then
+    FAMILY_STEPS steps of ``batch`` x ``seq`` tokens, each step's loss and
+    grad norm finite and K9, K10 and K11 launched exactly as ``cases``
+    say a step (K9 twice a layer under remat, K10 and K11 once), by
+    shape; the eager ms of each step, the peak device memory beside the
+    reckoning; one more step traced by torch.profiler for its device ms.
+    Returns the launches and, per kernel, its launches by shape."""
+    import gc
+
+    from repro_torch.data.pipeline import DataConfig, TokenDataset
+    from repro_torch.kernels import _build
+    from repro_torch.models import transformer as tmod
+    from repro_torch.models.accounting import count_params
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.trainer import (TrainConfig, Trainer,
+                                             make_train_step)
+    name, n_layers, batch, seq, cases, check, bounds, plant = row
+    t_arch = time.perf_counter()
+    gc.collect()                  # the earlier phases' weights go first
+    torch.cuda.empty_cache()
+    arch = family_arch(name, n_layers)
+    mla = arch.mla
+    hd, hd_v, kv = ((mla.qk_nope_head_dim + mla.qk_rope_head_dim,
+                     mla.v_head_dim, arch.n_heads) if mla else
+                    (arch.resolved_head_dim, arch.resolved_head_dim,
+                     arch.n_kv_heads))
+    per_step = {}
+    for case, part in cases:
+        want = (batch, arch.n_heads, kv,
+                arch.n_frames if part == "enc" else seq, hd, hd_v,
+                part == "dec")
+        if tuple(case[:7]) != want:
+            raise AssertionError(f"{name}: training shape {case} is not "
+                                 f"the arch's {part} shape {want}")
+        per_step[case] = arch.n_enc_layers if part == "enc" else \
+            arch.n_layers
+    n_count = count_params(arch)
+    data = TokenDataset(DataConfig(arch.vocab_size, seq, batch, seed=SEED))
+    extra = stub_inputs(torch, np, arch, batch, dev, seeded=True)
+    rec = {"arch": name, "n_layers": arch.n_layers, "batch": batch,
+           "seq": seq, "check": check, "bounds": bounds, "plant": plant,
+           "count_params": n_count}
+
+    # 1. the gradient check on the first batch, then on its plant
+    params = tmod.init_params(torch.Generator(device=dev).manual_seed(SEED),
+                              arch, dev)
+    table = tmod._unembed_table(params, arch)["table"].numel()
+    rec["reckoned_state_bytes"] = 12 * n_count + 8 * table
+    b0 = family_batch(torch, data, extra, 0, dev)
+    loss, ref_loss, rel, norm, p_loss, p_rel = family_grads(
+        torch, params, arch, b0, check, plants[plant] if plant else None)
+    del params
+    parts = {"grad_check": time.perf_counter() - t_arch}
+    big = max(norm.values())
+    held = [n for n in rel if norm[n] >= LEAF_FLOOR * big]
+    below = sorted(set(rel) - set(held), key=rel.get, reverse=True)
+    worst = max(held, key=rel.get)
+    loss_share = abs(loss - ref_loss) / abs(ref_loss)
+    rec.update(loss=loss, ref_loss=ref_loss, loss_share=loss_share,
+               grad_rel_l2=rel, grad_norm_ref=norm, worst_leaf=worst,
+               leaves_below_floor=below)
+    tol_loss, tol_grad = bounds
+    ref = "kernel mode off" if check == "kernel" else "the f32 params"
+    if not (np.isfinite(loss) and all(np.isfinite(list(rel.values())))):
+        raise AssertionError(f"{name}: loss {loss} or grads not finite: "
+                             f"{rel}")
+    if not loss_share <= tol_loss:
+        raise AssertionError(f"{name}: loss {loss} against {ref_loss} with "
+                             f"{ref}: {loss_share} > {tol_loss}")
+    if not rel[worst] <= tol_grad:
+        raise AssertionError(f"{name}: grads of {worst} differ from {ref}'s "
+                             f"by {rel[worst]} > {tol_grad} (L2)")
+    top = sorted(held, key=rel.get, reverse=True)[:3]
+    log("train_families", f"{name} loss_fn grad against {ref}: loss "
+        f"{loss:.6f} vs {ref_loss:.6f} ({loss_share:.3g}, bound "
+        f"{tol_loss}); worst leaves (L2 share, |g| over the largest "
+        f"leaf's) " + ", ".join(f"{n} {rel[n]:.4g} ({norm[n] / big:.2g})"
+                                for n in top) + f" (bound {tol_grad}); "
+        f"below {LEAF_FLOOR} of the largest, not held: " + (", ".join(
+            f"{n} {rel[n]:.4g} ({norm[n] / big:.2g})" for n in below)
+            or "none"))
+    if plant:
+        p_share = abs(p_loss - ref_loss) / abs(ref_loss)
+        p_worst = max(held, key=p_rel.get)
+        caught = p_share > tol_loss or p_rel[p_worst] > tol_grad
+        rec["planted"] = {"loss_share": p_share, "worst_leaf": p_worst,
+                          "worst": p_rel[p_worst], "caught": caught,
+                          "grad_rel_l2": p_rel}
+        log("train_families", f"{name} plant {plant}: loss share "
+            f"{p_share:.3g} (bound {tol_loss}), worst leaf {p_worst} "
+            f"{p_rel[p_worst]:.4g} (bound {tol_grad}): "
+            f"{'caught' if caught else 'MISSED'}")
+        if not caught:
+            raise AssertionError(f"{name}: the {plant} plant passes the "
+                                 f"gradient check's bounds {bounds}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 2. FAMILY_STEPS steps and one profiled
+    tcfg = TrainConfig(steps=FAMILY_STEPS, microbatches=1, remat=True,
+                       ckpt_every=FAMILY_STEPS + 2, log_every=1,
+                       ckpt_path=str(ROOT / "build" / "train_ckpt"))
+    hist = []
+    if extra:
+        # frames or patches: make_train_step on the batches directly
+        state = {"params": tmod.init_params(
+            torch.Generator(device=dev).manual_seed(SEED), arch, dev)}
+        state["opt"] = adamw.init(state["params"], tcfg.adamw)
+        step_fn = make_train_step(arch, tcfg)
+
+        def one_step():
+            i = len(hist)
+            state["params"], state["opt"], m = step_fn(
+                state["params"], state["opt"],
+                family_batch(torch, data, extra, i, dev))
+            hist.append({"step": i + 1, "loss": float(m["loss"]),
+                         "grad_norm": float(m["grad_norm"])})
+    else:
+        state = {"trainer": Trainer(arch, tcfg, data, seed=SEED, device=dev)}
+
+        def one_step():
+            state["trainer"].run(n_steps=1)
+            hist[:] = state["trainer"].history
+    torch.cuda.synchronize()
+    parts["init"] = time.perf_counter() - t_arch - sum(parts.values())
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = []
+    _build.reset_launches()
+    for _ in range(FAMILY_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        one_step()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    launches = dict(_build.LAUNCHES)
+    by_case = {k: k9_by_case(k) for k in TRAIN_LAUNCHES}
+    want = {LM_KERNEL: {c: 2 * FAMILY_STEPS * n for c, n in per_step.items()},
+            **{k: {c: FAMILY_STEPS * n for c, n in per_step.items()}
+               for k in BWD_KERNELS}}
+    if by_case != want or launches != {
+            k: sum(by.values()) for k, by in want.items() if by}:
+        raise AssertionError(f"{name} training: launches {launches}, by "
+                             f"shape {by_case} != {want}")
+    if [h["step"] for h in hist] != list(range(1, FAMILY_STEPS + 1)) or \
+            not all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
+                    for h in hist):
+        raise AssertionError(f"{name} training: history {hist}")
+    rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+    parts["steps"] = time.perf_counter() - t_arch - sum(parts.values())
+    prof = profile_device_ms(torch, one_step)
+    parts["profiled_step"] = time.perf_counter() - t_arch - sum(
+        parts.values())
+    if list(Path(tcfg.ckpt_path).glob("step_*")):
+        raise AssertionError(f"a checkpoint was written to {tcfg.ckpt_path}")
+    ms = step_ms[-1]
+    rec.update(history=hist, step_ms=step_ms, ms_per_step=ms,
+               tokens_per_s=batch * seq / ms * 1e3, profiled_step=prof,
+               launches=launches,
+               device_ms_per_step=prof and prof["busy_ms"],
+               idle_share=prof and 1 - prof["busy_ms"] / ms)
+    state.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["seconds"] = time.perf_counter() - t_arch
+    rec["parts_s"] = parts
+    record.setdefault("train_families", {})[name] = rec
+    idle = ("not measured (no device activity in the trace)" if prof is None
+            else f"{prof['busy_ms']:.3f} ms device, idle "
+                 f"{100 * rec['idle_share']:.0f}%")
+    log("train_families", f"{name} ({arch.n_layers} layers, full width, "
+        f"bf16) trained {FAMILY_STEPS} steps of {batch}x{seq} tokens"
+        f"{' with ' + next(iter(extra)) if extra else ''}: losses "
+        f"{[round(h['loss'], 4) for h in hist]}, grad norms "
+        f"{[round(h['grad_norm'], 4) for h in hist]}; launches a step "
+        f"{json.dumps({k: n // FAMILY_STEPS for k, n in launches.items()})}"
+        f"; peak device memory {rec['peak_bytes'] / 1e9:.2f} GB against "
+        f"{rec['reckoned_state_bytes'] / 1e9:.2f} GB of reckoned state "
+        f"({n_count:,} parameters); {rec['seconds']:.1f} s ("
+        + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()) + ")")
+    log("time", f"{name} train step {batch}x{seq}: {ms:.3f} ms eager (step "
+        f"{FAMILY_STEPS}), {rec['tokens_per_s']:.1f} tokens/s; {idle}; "
+        f"costliest kernels "
+        f"{[[n[:60], round(t, 3)] for n, t in (prof or {}).get('top_ms', [])]}"
+        f"  [{card}]")
+    return launches, by_case
+
+
 def abstract_traces(torch, compile, get_cnn, target, record, card):
     """``[abstract]`` lines: ``trace_fused_abstract`` of ResNet-50 and
     VGG-16 as compiled for ``target`` at batch BATCH, scanned and
@@ -1804,8 +2236,9 @@ def time_flash_bwd(torch, F, g, dev, ks, launches_by_case, card, record):
     phase's and the dry run's launches, counted by shape at the launch;
     each must be one of BWD_MAIN) and at S = 2048 (model layout, as the
     training path calls them), the plain version's ms for the pair, and
-    the backward of F.scaled_dot_product_attention (causal, GQA) for the
-    pair; each row sums them over the launches of each shape."""
+    the backward of F.scaled_dot_product_attention (GQA, causal where the
+    shape is) for the pair; each row sums them over the launches of each
+    shape."""
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention.ref import \
         flash_attention_bwd_plain
@@ -1816,13 +2249,14 @@ def time_flash_bwd(torch, F, g, dev, ks, launches_by_case, card, record):
                              f"BWD_MAIN lacks: {stray}")
     per = {}
     for case in BWD_MAIN + (FLASH_LONG,):
-        B, H, KV, S, hd, hd_v = case[:6]
+        B, H, KV, S, hd, hd_v, causal = case[:7]
         q, k, v = (t.transpose(1, 2).contiguous() for t in flash_inputs(
             torch, g, dev, case, torch.bfloat16))
         do = torch.randn((B, S, H, hd_v), generator=g,
                          device=dev).to(torch.bfloat16)
         qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))
-        o, lse = ops.flash_attention_kernel(qt, kt, vt, return_lse=True)
+        o, lse = ops.flash_attention_kernel(qt, kt, vt, return_lse=True,
+                                            causal=causal)
         delta = ops._delta(o, dot)
         dq = torch.empty_like(q)
         dk = torch.empty((B, S, H, hd), dtype=q.dtype, device=dev)
@@ -1831,51 +2265,48 @@ def time_flash_bwd(torch, F, g, dev, ks, launches_by_case, card, record):
         def launch(which):
             return lambda: ops._launch_bwd(
                 qt, kt, vt, dot, lse, delta, dq.transpose(1, 2),
-                dk.transpose(1, 2), dv.transpose(1, 2), causal=True,
+                dk.transpose(1, 2), dv.transpose(1, 2), causal=causal,
                 window=0, softcap=0.0, which=which)
         reps = 20 if S <= 512 else 5
-        lq, lk, lv = (t.detach().requires_grad_(True) for t in (qt, kt, vt))
-        out = F.scaled_dot_product_attention(lq, lk, lv, is_causal=True,
-                                             enable_gqa=True)
-
-        def lib():
-            return torch.autograd.grad(out, (lq, lk, lv), dot,
-                                       retain_graph=True)
-        got = ops.flash_attention_bwd(qt, kt, vt, o, lse, dot)
-        lib_diff = float((lib()[0].float() - got[0].float()).abs().max())
+        got = ops.flash_attention_bwd(qt, kt, vt, o, lse, dot, causal=causal)
+        backends, best = sdpa_bwd_readings(torch, F, qt, kt, vt, dot, causal,
+                                           reps)
+        lib_diff = float((best[1][0].float() - got[0].float()).abs().max())
         elems_q, elems_kv = B * H * S * hd, B * KV * S * (hd + hd_v)
-        flop = 2 * B * H * S * S * hd // 2
+        # the (query, key) pairs the mask keeps; K10 takes q k^T, dO v^T
+        # and dS k over them, K11 q k^T, dO v^T, p^T dO and dS^T q
+        pairs = B * H * S * S // (2 if causal else 1)
         n_dq = 2 * (2 * elems_q + elems_kv + B * H * S * hd_v) + 8 * B * H * S
         n_dkv = 2 * (elems_q + elems_kv + B * H * S * hd_v
                      + B * H * S * (hd + hd_v)) + 8 * B * H * S
-        # autograd runs the backward on the forward's stream, which a CUDA
-        # graph cannot capture: its device time comes from the profiler,
-        # or where its trace shows no device activity from CUDA events
-        # around the calls (host included)
-        prof = profile_device_ms(torch, lambda: [lib() for _ in range(reps)])
         t = per[case] = {
-            "library_ms": (prof["busy_ms"] / reps if prof is not None
-                           else call_ms(torch, lib, reps)),
-            "library_timing": "profiler" if prof is not None else "events",
+            "library_ms": backends[best[0]],
+            "library_backend": best[0], "library_backends": backends,
             "plain_ms": plain_ms(torch, lambda: flash_attention_bwd_plain(
-                qt, kt, vt, o, lse, dot), S, record, None, reps=2),
+                qt, kt, vt, o, lse, dot, causal=causal), S, record, None,
+                reps=2),
             "library_max_abs_diff_dq": lib_diff}
         for kname, which, nbytes, ops_ in (
-                (BWD_KERNELS[0], (0,), n_dq, 3 * flop),
-                (BWD_KERNELS[1], (1,), n_dkv, 4 * flop)):
+                (BWD_KERNELS[0], (0,), n_dq, 2 * pairs * (2 * hd + hd_v)),
+                (BWD_KERNELS[1], (1,), n_dkv,
+                 2 * pairs * (2 * hd + 2 * hd_v))):
             b, by = bound_ms(nbytes, ops_, BF16_FLOPS_PER_S)
             t[kname] = {
                 "ms": device_ms(torch, launch(which), reps=reps),
                 "call_ms": call_ms(torch, launch(which), reps=reps),
                 "bound_ms": b, "bound_by": by, "bytes": nbytes,
                 "flops": ops_}
-        log("time", f"flash backward B={B} H={H} KV={KV} S={S} hd={hd} bf16 "
-            f"causal: dq {t[BWD_KERNELS[0]]['ms']:.4f} ms, dk/dv "
+        log("time", f"flash backward B={B} H={H} KV={KV} S={S} hd={hd} "
+            f"hd_v={hd_v} bf16 {'causal' if causal else 'non-causal'}: "
+            f"dq {t[BWD_KERNELS[0]]['ms']:.4f} ms, dk/dv "
             f"{t[BWD_KERNELS[1]]['ms']:.4f} ms per launch (device); "
             f"bounds {t[BWD_KERNELS[0]]['bound_ms']:.4f} / "
             f"{t[BWD_KERNELS[1]]['bound_ms']:.4f} ms; the pair: plain "
             f"{t['plain_ms']:.4f} ms, SDPA backward "
-            f"{t['library_ms']:.4f} ms; main-path launches "
+            f"{t['library_ms']:.4f} ms ({t['library_backend']}; "
+            + ", ".join(f"{n} refused" if isinstance(v, str) else
+                        f"{n} {v:.4f}" for n, v in backends.items())
+            + f"); main-path launches "
             f"{[launches_by_case[k].get(case, 0) for k in BWD_KERNELS]}"
             f"  [{card}]")
     for kname in BWD_KERNELS:
@@ -1899,8 +2330,56 @@ def time_flash_bwd(torch, F, g, dev, ks, launches_by_case, card, record):
             "bound_by": per[c][kname]["bound_by"],
             "library_ms": per[c]["library_ms"]}
             for c, n in by.items() if n]
-    record["flash_bwd_per_launch"] = {"x".join(map(str, c[:6])): d
-                                      for c, d in per.items()}
+    record["flash_bwd_per_launch"] = {case_key(c): d for c, d in per.items()}
+
+
+def backward_ms(torch, forward, inputs, do, reps, replays=5):
+    """Device ms of autograd's backward of ``forward(*inputs)`` against
+    the gradient ``do``, and its first grads.  Autograd runs a backward
+    op on its forward op's stream, so the forward runs on a side stream
+    and the CUDA graph of ``reps`` backward calls is captured on that
+    stream, then replayed and timed by events (the profiler's trace of
+    cuDNN's backward came back empty or partial on an H100, and events
+    around eager calls time the host)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        out = forward(*inputs)
+        first = torch.autograd.grad(out, inputs, do, retain_graph=True)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side, capture_error_mode="relaxed"):
+        for _ in range(reps):
+            torch.autograd.grad(out, inputs, do, retain_graph=True)
+    graph.replay()
+    return event_ms(torch, graph.replay, replays) / (reps * replays), first
+
+
+def sdpa_bwd_readings(torch, F, q, k, v, do, causal, reps):
+    """The backward of ``F.scaled_dot_product_attention`` (GQA, causal or
+    not) on kernel-layout views, backend by backend: {backend: its device
+    ms a call (``backward_ms``), or the reason it refuses these
+    operands}, and the fastest backend with its (dq, dk, dv)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    found, best = {}, None
+    for b in (SDPBackend.CUDNN_ATTENTION, SDPBackend.FLASH_ATTENTION,
+              SDPBackend.EFFICIENT_ATTENTION):
+        lq, lk, lv = (t.detach().requires_grad_(True) for t in (q, k, v))
+
+        def forward(q_, k_, v_, b=b):
+            with sdpa_kernel([b]):
+                return F.scaled_dot_product_attention(
+                    q_, k_, v_, is_causal=causal, enable_gqa=True)
+        try:
+            forward(lq, lk, lv)
+        except RuntimeError as e:
+            found[b.name] = f"refused: {str(e).splitlines()[0][:160]}"
+            continue
+        found[b.name], first = backward_ms(torch, forward, (lq, lk, lv), do,
+                                           reps)
+        if best is None or found[b.name] < found[best[0]]:
+            best = (b.name, first)
+    return found, best
 
 
 def sdpa_readings(torch, F, q, k, v, causal=True):
@@ -3707,10 +4186,12 @@ def main():
     tuned_join = start_tuning(compile, get_cnn, NX2100)
     t0 = time.perf_counter()
     ptxas = start_ptxas_report(_build)
+    k11_plant = start_k11_plant(_build)
     _build.build_all()
+    k11_plant = k11_plant()
     record["build_s"] = time.perf_counter() - t0
-    log("build", f"{len(_build.SOURCES)} sources built with nvcc in "
-        f"{record['build_s']:.1f} s")
+    log("build", f"{len(_build.SOURCES)} sources and the K11 plant built "
+        f"with nvcc in {record['build_s']:.1f} s")
     record["ptxas"] = ptxas()
     for src, found in record["ptxas"].items():
         log("build", f"{src}.cu under -Xptxas -v (registers, stack, spill "
@@ -4474,6 +4955,24 @@ def main():
     for k in BWD_KERNELS:
         for case, n in gpipe_cases[k].items():
             bwd_launches[k][case] = bwd_launches[k].get(case, 0) + n
+    # the other families' training, each freed before the next
+    t0 = time.perf_counter()
+    plants = {"k11": lambda: k11_planted(_build, k11_plant),
+              "slstm": lambda: slstm_scaled(torch)}
+    for row in TRAIN_FAMILIES:
+        got, by_case = train_family(torch, np, dev, record, card, row,
+                                    plants)
+        launches[row[0] + " training"] = got
+        for k, n in got.items():
+            total_launches[k] += n
+        add_k9(by_case[LM_KERNEL])
+        for k in BWD_KERNELS:
+            for case, n in by_case[k].items():
+                bwd_launches[k][case] = bwd_launches[k].get(case, 0) + n
+    log("train_families", f"{len(TRAIN_FAMILIES)} archs trained in "
+        f"{time.perf_counter() - t0:.1f} s: " + ", ".join(
+            f"{n} {r['seconds']:.1f} s"
+            for n, r in record["train_families"].items()))
     abstract_traces(torch, compile, get_cnn, NX2100, record, card)
 
     # -- 3 and 4 for the other LM families, one arch at a time, with

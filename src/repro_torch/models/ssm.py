@@ -12,7 +12,10 @@ with the carry threaded from chunk to chunk:
   same recursion, so the same order of f32 operations), then adds the
   carry-in;
 * mLSTM evaluates a chunk as masked quadratic attention plus a read of
-  the carried matrix memory, its running max by ``torch.cummax``;
+  the carried matrix memory, its running max by ``torch.cummax``; it
+  masks the chunk's log-weights before their exp, so its gradient stays
+  finite where the JAX package's turns NaN (0 x inf past one chunk of
+  forget gates);
 * sLSTM is a true recurrence through ``h``: a Python loop over time, as
   the JAX package's ``lax.scan``.
 
@@ -309,7 +312,11 @@ def mlstm_forward(params: Params, cfg, x, *, state=None):
         m_t = torch.maximum(lse_in, Fc + run_max)
         # intra-chunk: D[t,s] = F_t - F_s + i_s  (s <= t)
         D = Fc[:, :, None] - Fc[:, None, :] + ic[:, None, :, :]  # [B,t,s,H]
-        W = torch.where(mask, torch.exp(D - m_t[:, :, None]), 0.0)
+        # masked before the exp, where the JAX package masks after it:
+        # above the diagonal D - m_t sums up to a chunk of -log(forget)
+        # and overflows, and the gradient of its where, 0 x inf, is NaN.
+        # The same W bit for bit; the gradient finite
+        W = torch.exp(torch.where(mask, D - m_t[:, :, None], -math.inf))
         scores = torch.einsum("bthd,bshd->btsh", qc, kc) * W
         y_intra = torch.einsum("btsh,bshd->bthd", scores, vc)
         n_intra = torch.einsum("btsh,bshd->bthd", scores, kc)

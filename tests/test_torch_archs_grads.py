@@ -5,7 +5,9 @@ The seven archs of ``tests/test_torch_archs.py`` at ``.reduced()``, the
 JAX package's params carried across, in f32 on the kernel route (the JAX
 kernel in interpret mode, the port's plain versions of K9-K11), with
 remat on and off in the port: the loss and every leaf's gradient within
-1e-4 x max|ref|.
+1e-4 x max|ref|.  And one ``make_train_step`` step against the JAX
+package's on the same batch (SeamlessM4T's carries frames, InternVL2's
+patches): the params and both AdamW moments within the same tolerance.
 """
 import jax
 import pytest
@@ -15,7 +17,7 @@ from repro.models import layers as jax_layers
 from repro.models import transformer as jax_tmod
 from repro_torch.runtime.trainer import value_and_grad
 from torch_archdata import (ARCHS, REL_TOL, B, S, as_jnp, as_torch, build,
-                            near, same_tree, seeded_feed)
+                            check_train_step, near, same_tree, seeded_feed)
 
 
 @pytest.fixture(scope="module")
@@ -53,3 +55,10 @@ def test_loss_fn_grads_match_jax(jax_grads, name, remat):
         assert torch.isfinite(got).all()
         near(got, want, rel)
     same_tree(g, jg, close)
+
+
+@pytest.mark.parametrize("name", ARCHS)
+def test_train_step_matches_jax(jax_grads, name):
+    jloss, jg, feed = jax_grads(name)
+    _, jparams, arch, params = build(name, "float32")
+    check_train_step(jloss, jg, jparams, arch, params, as_torch(feed))

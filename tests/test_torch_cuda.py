@@ -705,8 +705,24 @@ def _bwd_inputs(c, dtype, dev, seed):
             torch.randn(B, c["H"], S, hd_v, generator=g, device=dev).to(dtype))
 
 
+# K10/K11 at FLASH_CASES and at the shapes the LM families train at
+# (chip_smoke.BWD_MAIN): DeepSeek-V2's MLA (qk 192 / v 128), Qwen2-MoE,
+# SeamlessM4T's encoder (non-causal, hd 64, 1024 frames) and decoder,
+# InternVL2 and Qwen2-72B, 4 x 512 tokens
+BWD_CASES = FLASH_CASES + [
+    dict(B=4, H=128, KV=128, S=512, hd=192, hd_v=128, causal=True, window=0,
+         softcap=0.0),
+    dict(B=4, H=16, KV=16, S=512, hd=128, causal=True, window=0, softcap=0.0),
+    dict(B=4, H=16, KV=16, S=1024, hd=64, causal=False, window=0,
+         softcap=0.0),
+    dict(B=4, H=16, KV=16, S=512, hd=64, causal=True, window=0, softcap=0.0),
+    dict(B=4, H=48, KV=8, S=512, hd=128, causal=True, window=0, softcap=0.0),
+    dict(B=4, H=64, KV=8, S=512, hd=128, causal=True, window=0, softcap=0.0),
+]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("ci", range(len(FLASH_CASES)))
+@pytest.mark.parametrize("ci", range(len(BWD_CASES)))
 def test_flash_bwd_kernels_match_plain(dev, ci, dtype):
     """K10 (dq) and K11 (dk, dv per query head) against
     flash_attention_bwd_plain on the same forward o and lse (K9's)."""
@@ -715,7 +731,7 @@ def test_flash_bwd_kernels_match_plain(dev, ci, dtype):
         flash_attention_bwd, flash_attention_kernel)
     from repro_torch.kernels.flash_attention.ref import \
         flash_attention_bwd_plain
-    c = FLASH_CASES[ci]
+    c = BWD_CASES[ci]
     q, k, v, do = _bwd_inputs(c, dtype, dev, ci)
     kw = dict(causal=c["causal"], window=c["window"], softcap=c["softcap"])
     o, lse = flash_attention_kernel(q, k, v, return_lse=True, **kw)

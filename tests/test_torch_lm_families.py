@@ -6,7 +6,8 @@ d_model 64, with the JAX package's params carried across leaf for leaf.
 ``forward`` hidden states and ``moe_loss`` on both attention routes (the
 JAX kernel in interpret mode, the port's plain version of K9) and on
 both MoE paths; ``loss_fn`` and its gradients in f32 with remat on and
-off; ``prefill`` and teacher-forced ``decode_step``; and the f32
+off, and one ``make_train_step`` step (params and AdamW moments);
+``prefill`` and teacher-forced ``decode_step``; and the f32
 ``ServingEngine`` tokens equal to the JAX engine's.  Tolerance: 1e-4 x
 max|ref| in f32, 2e-2 x max|ref| in bf16, as ``tests/test_torch_lm.py``.
 Also: ``init_params``, which draws each layer into its slice of the
@@ -35,6 +36,7 @@ from repro_torch.models import layers
 from repro_torch.models import transformer as tmod
 from repro_torch.runtime.serving import Request, ServingEngine
 from repro_torch.runtime.trainer import value_and_grad
+from torch_archdata import check_train_step
 from torch_testdata import moe_routing
 
 ARCHS = ("qwen2-moe-a2.7b", "deepseek-v2-236b")
@@ -252,6 +254,16 @@ def test_loss_fn_grads_match_jax(jax_grads, name, remat):
         assert got.dtype == _leaf(params, path).dtype
         _near(got, want, rel)
     assert float(np.abs(np.asarray(jg["layers"]["ffn"]["router"])).max()) > 0
+
+
+@pytest.mark.parametrize("name", ARCHS)
+def test_train_step_matches_jax(jax_grads, name):
+    """The routing of f32 agrees between the packages, so nothing is
+    forced."""
+    jloss, jg, batch = jax_grads(name)
+    _, jparams, arch, params = _build(name, "float32")
+    check_train_step(jloss, jg, jparams, arch, params, {
+        k: torch.from_numpy(v).long() for k, v in batch.items()})
 
 
 @pytest.mark.parametrize("name", ARCHS)

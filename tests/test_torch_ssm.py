@@ -152,6 +152,58 @@ def test_mlstm_steps_differ_from_its_chunk_in_both_packages():
     np.testing.assert_allclose(gap, jgap, rtol=0, atol=1e-4 * jgap.max())
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_mlstm_grad(jarch):
+    """d sum(y * w) / d params of the JAX package's mLSTM, jitted."""
+    return jax.jit(jax.grad(lambda p, x, w: jnp.sum(
+        jax_ssm.mlstm_forward(p, jarch, x)[0] * w)))
+
+
+def _mlstm_grads(forget_bias):
+    """Both packages' mLSTM gradients of sum(y * w) at S = 256 (two chunks
+    of CHUNK), f32, from the reduced params with the forget gates' bias
+    set to ``forget_bias`` (None: the init's zeros)."""
+    jarch, jparams, arch, _ = _build("mlstm", "float32")
+    if forget_bias is not None:
+        b = np.asarray(jparams["b_if"]).copy()
+        b[jarch.n_heads:] = forget_bias
+        jparams = {**jparams, "b_if": jnp.asarray(b)}
+    x, w = _x(11, 256, "float32"), _x(12, 256, "float32")
+    jg = _jax_mlstm_grad(jarch)(jparams, jnp.asarray(x), jnp.asarray(w))
+    params = {k: v.requires_grad_(True) for k, v in lm_params_from_numpy(
+        jax.tree.map(np.asarray, jparams), "cpu").items()}
+    y, _ = ssm.mlstm_forward(params, arch, _t(x))
+    g = torch.autograd.grad((y * _t(w)).sum(), list(params.values()))
+    return {k: np.asarray(v) for k, v in jg.items()}, dict(zip(params, g))
+
+
+def test_mlstm_grads_match_jax_past_a_chunk():
+    """Forget gates near 1 (bias 5): the in-chunk log-weights stay small,
+    and every gradient equals the JAX package's."""
+    jg, g = _mlstm_grads(5.0)
+    for k, want in jg.items():
+        assert np.isfinite(want).all(), k
+        _near(g[k], want, REL_TOL["float32"])
+
+
+def test_mlstm_grads_finite_where_the_jax_package_gives_nan():
+    """A deliberate difference from the JAX package.  Its chunk weighs
+    ``where(mask, exp(D - m), 0)``: above the diagonal D - m sums up to a
+    chunk of -log(forget) (about 0.69 a step at the init's zero bias), so
+    the exp overflows past 88 and its gradient, 0 x inf, is NaN in the
+    gate weights and in everything before them.  The port masks before
+    the exp (``exp(where(mask, D - m, -inf))``): the same forward bit for
+    bit (``test_block_output_and_state_match_jax``), finite gradients,
+    and equal to the JAX package's where those are finite."""
+    jg, g = _mlstm_grads(None)
+    assert sorted(k for k, v in jg.items() if np.isnan(v).any()) == \
+        ["b_if", "up", "w_if"]
+    for k, want in jg.items():
+        assert torch.isfinite(g[k]).all(), k
+        if np.isfinite(want).all():
+            _near(g[k], want, REL_TOL["float32"])
+
+
 @pytest.mark.parametrize("block", sorted(BLOCKS))
 def test_init_state_matches_jax(block):
     jarch, _, arch, _ = _build(block, "bfloat16")
