@@ -57,15 +57,24 @@ it is run outside a checkout of the repository.  Phases, one line each:
      backend="eager")`` on the card at batch 8 on 224x224 inputs, with
      seeded random weights, for ResNet-50, ResNet-18, MobileNetV2 as
      compiled (every dw layer pinned), VGG-16 (conv8-10 and fc0 on the
-     streamed conv, fc1 and fc2 on the fifo matmul) and MobileNetV2 with
+     streamed conv, fc1 and fc2 on the fifo matmul), MobileNetV1,
+     MobileNetV3 and MobileNetV2 with
      every dw layer forced onto the HBM tier (``with_offload``): logits
      equal to the plain path's bit for bit (the plain path's time logged),
-     the Eq. 2 report verified.  Then the main path, the same five nets
+     the Eq. 2 report verified.  Then the main path, the same seven nets
      through ``run()``'s default, the fused backend (the forward captured
      once as a CUDA graph, replayed by every warm run): logits and report
      equal to the eager run's, the launches of a warm run (added by the
      replay) equal to the eager run's, one trace a net with its hits
-     counted.  Then ResNet-50 served over it (``cp.serve(microbatch=8,
+     counted.  Then the ``H100`` target (``[h100]`` lines,
+     ``h100_target``): the card's opt-in shared memory a block, read
+     from the driver, equal to ``MAX_SMEM_BYTES``; the six nets compiled
+     for it keeping NX2100's tiers; MobileNetV1 and V3 compiled for it,
+     eager and fused, bit-identical to the NX2100-compiled runs;
+     ``WIDE_CONV``, a conv no pinned plan fits, whose launch raises
+     compiled for NX2100 and which runs streamed, bit-identical to the
+     plain path, compiled for ``H100``.
+     Then ResNet-50 served over it (``cp.serve(microbatch=8,
      credits=4)``): 64 requests of 1-8 images from 4 producer threads,
      each bit-identical to the eager ``run()`` of its images, at most 4
      microbatches in flight, one trace, the Eq. 2 words of the images,
@@ -213,10 +222,14 @@ it is run outside a checkout of the repository.  Phases, one line each:
      K10/K11 pair), each net end to end, each LM's prefill, decode step
      and engine run, and the training step (eager ms of steps 2-3, and one
      more step traced by ``torch.profiler`` for its device ms);
-  5. print the ``kernels`` JSON line, the card's name and power limit,
-     and last ``{"ok": true, "device": ...}``.
+  5. the port's six examples (``[examples]`` lines, ``run_examples``):
+     each ``examples_torch/*.py`` ``main()`` in this process on the card
+     at its default arguments (``train_lm`` at 20 steps), its output in
+     ``example_<name>.txt`` in the output directory, its own checks read
+     from it; then print the ``kernels`` JSON line, the card's name and
+     power limit, and last ``{"ok": true, "device": ...}``.
 
-Times are per slice run (one forward of each of the five nets, and the
+Times are per slice run (one forward of each of the seven nets, and the
 LM's engine run and 3 training steps; ``launches`` counts the fused warm run
 of each net, and for K9–K11 also the dry run's counted steps, the GPipe
 step and the expert-parallel prefills): a kernel's
@@ -676,6 +689,28 @@ DRYRUN_LAUNCHES = {"prefill": {"flash_attention_fwd": 32}, "decode": {},
 # the shares are read between the heavy tenant's first eighth and three
 # quarters of its images delivered (see serve_frontend)
 FRONTEND_WINDOW = (1 / 8, 3 / 4)
+# the H100 target (``[h100]`` lines): the nets compiled for it beside
+# NX2100 and run; the driver attribute of the card's opt-in shared memory
+# a block; a 3x3 conv, C 2048 -> 16 on a 4x64 map, that no pinned launch
+# plan fits and a streamed one does (then a global average pool and an
+# fc head): the working-set check pins it, the card's check streams it
+H100_NETS = ("mobilenetv1", "mobilenetv3")
+CU_ATTR_SMEM_PER_BLOCK_OPTIN = 97
+WIDE_CONV = (("wide", "conv", 3, 3, 2048, 16, 1, 4, 64),
+             ("gap", "gap", 4, 64, 16, 16, 64, 4, 64),
+             ("fc", "fc", 1, 1, 16, 16, 1, 1, 1))
+# the port's examples (``examples_torch/``), each main() in this process
+# on the card at its default arguments (train_lm at 20 steps), and what
+# each prints when its own checks pass
+EXAMPLES = (("cnn_dataflow", []), ("quickstart", []), ("serve_batched", []),
+            ("serve_mini_resnet18", []), ("serve_multitenant", []),
+            ("train_lm", ["--steps", "20"]))
+EXAMPLES_PASSED = {"cnn_dataflow": "bit-identical to reference: True",
+                   "quickstart": "quickstart OK",
+                   "serve_batched": "64 tokens in",
+                   "serve_mini_resnet18": "Eq.2 words",
+                   "serve_multitenant": "spot-checked bit-identical",
+                   "train_lm": "OK: decreased"}
 
 
 def log(phase, msg):
@@ -4142,6 +4177,185 @@ def serve_frontend(torch, np, nets, params, per_forward, dev, record):
         + f"  [{record['card']}]")
 
 
+def optin_smem_bytes(torch):
+    """The card's opt-in shared memory a block, from the driver
+    (``cuDeviceGetAttribute``); torch's device properties, where they
+    carry it, must say the same."""
+    import ctypes
+    cuda = ctypes.CDLL("libcuda.so.1")
+    out = ctypes.POINTER(ctypes.c_int)
+    cuda.cuInit.argtypes = [ctypes.c_uint]
+    cuda.cuDeviceGet.argtypes = [out, ctypes.c_int]
+    cuda.cuDeviceGetAttribute.argtypes = [out, ctypes.c_int, ctypes.c_int]
+    for fn in (cuda.cuInit, cuda.cuDeviceGet, cuda.cuDeviceGetAttribute):
+        fn.restype = ctypes.c_int
+    dev, val = ctypes.c_int(), ctypes.c_int()
+    for what, err in (
+            ("cuInit", lambda: cuda.cuInit(0)),
+            ("cuDeviceGet", lambda: cuda.cuDeviceGet(
+                ctypes.byref(dev), torch.cuda.current_device())),
+            ("cuDeviceGetAttribute", lambda: cuda.cuDeviceGetAttribute(
+                ctypes.byref(val), CU_ATTR_SMEM_PER_BLOCK_OPTIN, dev))):
+        code = err()
+        if code != 0:
+            raise RuntimeError(f"{what} returned CUDA error {code}")
+    props = torch.cuda.get_device_properties(torch.cuda.current_device())
+    torch_says = getattr(props, "shared_memory_per_block_optin", None)
+    if torch_says is not None and torch_says != val.value:
+        raise AssertionError(f"the driver says {val.value} B of opt-in "
+                             f"shared memory a block, torch {torch_says}")
+    return val.value
+
+
+def h100_target(torch, nets, params, images, logits, dev, record, card):
+    """The ``H100`` target on the card.  The card's opt-in shared memory a
+    block read from the driver must equal ``MAX_SMEM_BYTES``, what the
+    launch plans and the target's stage-5 check assume.  Each of the six
+    nets compiled for ``H100`` keeps NX2100's streamed set (its largest
+    plan printed).  MobileNetV1 and V3 (``H100_NETS``) compiled for
+    ``H100`` run eager and fused: logits equal to the NX2100-compiled
+    eager run's (itself equal to the plain path's), warm fused launches
+    equal to eager's.  ``WIDE_CONV``: compiled for NX2100 its conv stays
+    pinned and the launch raises the plan's ``ValueError``; compiled for
+    ``H100`` stage 5 streams it, and eager and fused runs equal the
+    plain path with one K2 launch a forward."""
+    from repro_torch.compiler import H100, NX2100, compile
+    from repro_torch.configs.cnn import CNN_CONFIGS, CNNConfig, ConvLayerSpec
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.conv2d_int8.ops import MAX_SMEM_BYTES
+    from repro_torch.models.cnn import (cnn_forward, cnn_input_shape,
+                                        init_cnn_params)
+    out = {"optin_smem_bytes": optin_smem_bytes(torch)}
+    if out["optin_smem_bytes"] != MAX_SMEM_BYTES:
+        raise AssertionError(f"the card offers {out['optin_smem_bytes']} B "
+                             f"of shared memory a block, the plans assume "
+                             f"{MAX_SMEM_BYTES}")
+    log("h100", f"the card's opt-in shared memory a block: "
+        f"{out['optin_smem_bytes']} B, equal to MAX_SMEM_BYTES  [{card}]")
+    largest = {}
+    for name, cfg in CNN_CONFIGS.items():
+        nx, h = compile(cfg, NX2100), compile(cfg, H100)
+        if h.streamed_names != nx.streamed_names or h.replaced:
+            raise AssertionError(f"{name}: H100 streams {h.streamed_names}, "
+                                 f"NX2100 {nx.streamed_names}")
+        report = h.vmem_report()
+        top = max(report, key=report.get)
+        largest[name] = (top, report[top], len(h.streamed_names))
+    out["largest_plan"] = largest
+    log("h100", "the six nets compiled for H100 keep NX2100's tiers "
+        "(net: streamed layers; its largest launch plan at batch 1): "
+        + "; ".join(f"{n}: {k}; {top} {b} B"
+                    for n, (top, b, k) in largest.items()))
+    for name in H100_NETS:
+        comp = compile(CNN_CONFIGS[name], H100)
+        _build.reset_launches()
+        eager, rep = comp.run(params[name], images[name], device=dev,
+                             backend="eager")
+        torch.cuda.synchronize()
+        eager_launches = dict(_build.LAUNCHES)
+        first, _ = comp.run(params[name], images[name], device=dev)
+        _build.reset_launches()
+        fused, frep = comp.run(params[name], images[name], device=dev)
+        torch.cuda.synchronize()
+        fused_launches = dict(_build.LAUNCHES)
+        for got, what in ((eager, "eager"), (first, "first fused"),
+                          (fused, "warm fused")):
+            if not torch.equal(got, logits[name]):
+                raise AssertionError(f"{name}: the H100-compiled {what} "
+                                     f"run's logits differ from NX2100's")
+        if fused_launches != eager_launches:
+            raise AssertionError(f"{name} on H100: fused launches "
+                                 f"{fused_launches} != eager "
+                                 f"{eager_launches}")
+        rep.verify()
+        frep.verify()
+        out[name] = fused_launches
+        log("h100", f"{name} compiled for H100: eager, first and warm "
+            f"fused logits equal to the NX2100-compiled eager run's and "
+            f"the plain path's; launches a forward "
+            f"{json.dumps(fused_launches, sort_keys=True)}")
+    cfg = CNNConfig("wide3x3", tuple(ConvLayerSpec(*row)
+                                     for row in WIDE_CONV), num_classes=16)
+    gen = torch.Generator().manual_seed(SEED)
+    p = init_cnn_params(cfg, gen, dev)
+    x = torch.randint(-127, 128, cnn_input_shape(cfg, BATCH), generator=gen,
+                      dtype=torch.int8).to(dev)
+    plain = cnn_forward(p, cfg, x)
+    pinned = compile(cfg, NX2100)
+    if pinned.streamed_names:
+        raise AssertionError(f"NX2100 streams {pinned.streamed_names}")
+    try:
+        pinned.run(p, x, device=dev)
+    except ValueError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("the pinned wide conv launched on the card")
+    if "shared memory" not in refused:
+        raise AssertionError(f"the pinned wide conv failed otherwise: "
+                             f"{refused}")
+    streamed = compile(cfg, H100)
+    if streamed.streamed_names != ("wide",) or \
+            streamed.replaced != ("wide",):
+        raise AssertionError(f"H100 streams {streamed.streamed_names}")
+    eager, rep = streamed.run(p, x, device=dev, backend="eager")
+    streamed.run(p, x, device=dev)
+    _build.reset_launches()
+    fused, _ = streamed.run(p, x, device=dev)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    for got, what in ((eager, "eager"), (fused, "fused")):
+        if not torch.equal(got, plain):
+            raise AssertionError(f"the H100-compiled wide conv's {what} run "
+                                 f"differs from the plain path")
+    if launches.get("conv2d_int8_stream") != 1:
+        raise AssertionError(f"wide conv launches {launches}")
+    rep.verify()
+    out["wide_conv"] = {"nx2100_refused": refused, "h100_launches": launches,
+                        "h100_plan_bytes": streamed.vmem_report()["wide"]}
+    log("h100", f"wide conv (3x3, 2048 -> 16, 4x64, batch {BATCH}): "
+        f"compiled for NX2100 it stays pinned and its launch raises "
+        f"({refused}); compiled for H100 stage 5 streams it "
+        f"({streamed.vmem_report()['wide']} B a block at batch 1), eager "
+        f"and fused runs bit-identical to the plain path, launches "
+        f"{json.dumps(launches, sort_keys=True)}")
+    record["h100"] = out
+
+
+def run_examples(record, card):
+    """Each example of ``examples_torch/`` (``EXAMPLES``): its ``main()``
+    in this process on the card, its output kept in the output directory
+    and its own checks read from it (``EXAMPLES_PASSED``)."""
+    import contextlib
+    import importlib.util
+    import io
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    rows = {}
+    t0 = time.perf_counter()
+    for name, args in EXAMPLES:
+        spec = importlib.util.spec_from_file_location(
+            f"examples_torch_{name}", ROOT / "examples_torch" / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        text = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(text):
+            mod.main(list(args))
+        seconds = time.perf_counter() - t
+        text = text.getvalue()
+        (out_dir / f"example_{name}.txt").write_text(text)
+        if EXAMPLES_PASSED[name] not in text:
+            raise AssertionError(f"example {name}: its checks did not pass; "
+                                 f"its output ends {text[-500:]!r}")
+        rows[name] = {"args": list(args), "seconds": seconds}
+        log("examples", f"{name} {' '.join(args)}: its checks passed on the "
+            f"card in {seconds:.1f} s; last line: "
+            f"{text.strip().splitlines()[-1]}")
+    total = time.perf_counter() - t0
+    record["examples"] = {"seconds": total, "rows": rows}
+    log("examples", f"six examples in {total:.1f} s  [{card}]")
+
+
 def main():
     import numpy as np
     import torch
@@ -4206,7 +4420,8 @@ def main():
                 for k, v in sorted(found.items())))
 
     nets = {n: compile(get_cnn(n), NX2100)
-            for n in ("resnet50", "resnet18", "mobilenetv2", "vgg16")}
+            for n in ("resnet50", "resnet18", "mobilenetv2", "vgg16",
+                      "mobilenetv1", "mobilenetv3")}
     mv2 = nets["mobilenetv2"]
     nets[MV2_DW_HBM] = mv2.with_offload(set(mv2.streamed_names)
                                         | dw_names(mv2.cfg))
@@ -4454,6 +4669,7 @@ def main():
         for k, v in per.items():
             total_launches[k] = total_launches.get(k, 0) + v
     launches.update({f"{n} fused": v for n, v in fused_launches.items()})
+    h100_target(torch, nets, params, images, logits, dev, record, card)
     serve_cnn(torch, np, SERVE_NET, nets[SERVE_NET], params[SERVE_NET],
               fused_launches[SERVE_NET], dev, record)
     tuned_net = SERVE_NET + TUNED_SUFFIX
@@ -4858,6 +5074,10 @@ def main():
         {net: {k: sum(n * times[k][key] for key, n in d.items())
                for k, d in per.items() if d}
          for net, per in per_net.items()} for times in (per_launch, per_call))
+    log("time", "kernels' device ms a forward by net: " + "; ".join(
+        f"{net} {sum(d.values()):.4f} (" + ", ".join(
+            f"{k} {v:.5f}" for k, v in d.items()) + ")"
+        for net, d in record["kernel_ms_by_net"].items()) + f"  [{card}]")
 
     def host_ms(fn, n):
         """ms of each of ``n`` calls on the host's clock, each ending in a
@@ -5007,6 +5227,7 @@ def main():
     time_flash(torch, F, g, dev, ks[LM_KERNEL], flash_launches, card, record)
     time_flash_bwd(torch, F, g, dev, ks, bwd_launches, card, record)
     record["time_s"] += time.perf_counter() - t0
+    run_examples(record, card)
 
     # -- 5. report ------------------------------------------------------------
     rows = []

@@ -3,7 +3,9 @@
   * :func:`compile` — ``compile(cfg, target) -> CompiledPipeline``: the
     staged flow (parallelism -> Alg. 1 placement -> FIFO sizing -> engine
     binding -> working-set validation);
-  * :class:`Target` + presets :data:`NX2100` / :data:`MINI`;
+  * :class:`Target` + presets :data:`NX2100` / :data:`MINI` /
+    :data:`H100` (NX2100's budgets, each layer checked against the CUDA
+    launch plan the card runs);
   * :func:`register_engine` / :class:`LayerEngine` — the pluggable
     per-layer kernel registry;
   * :class:`CompiledPipeline` — ``engine_table()``, ``block_table()``,
@@ -54,5 +56,5 @@ from repro_torch.compiler.pipeline import (BlockAssignment,  # noqa: F401
                                            make_dispatchers, plan_pipeline,
                                            trace_fused, trace_fused_abstract)
 from repro_torch.compiler.target import (DEFAULT_VMEM_BYTES,  # noqa: F401
-                                         MINI, NX2100, PRESETS, Target,
-                                         get_target)
+                                         H100, MINI, NX2100, PRESETS,
+                                         Target, get_target)

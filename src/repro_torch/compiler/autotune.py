@@ -44,7 +44,10 @@ objective-traded):
     positive-score layer streams), the bound relaxes to the seed's own
     footprint: the tuned plan may never be *worse* than the seed;
   * ``target.vmem_bytes`` — every layer's engine working set in its
-    candidate tier (same allowance relaxation as BRAM);
+    candidate tier (same allowance relaxation as BRAM); under a target
+    that checks launch plans (``H100``), the CUDA launch plan of every
+    layer in its candidate tier within ``target.smem_bytes``
+    (``Target.claim`` / ``Target.fits``, the check stage 5 makes);
   * modelled throughput — the §VI model may never drop below the seed's
     images/s: stalls and BRAM are only ever bought at equal-or-better
     throughput.
@@ -354,8 +357,14 @@ class _CostModel:
                 f"{m20ks} on-chip M20Ks exceed the allowance {bram_allow}")
 
         for s in plan.schedules:
-            vb = self.engines[s.spec.name].vmem_bytes(s.spec, s)
-            if vb > self.target.vmem_bytes:
+            vb = self.target.claim(self.engines[s.spec.name], s.spec, s)
+            if self.target.fits(vb):
+                continue
+            if self.target.checks_plans:
+                violations.append(
+                    f"{s.spec.name}: no launch plan within the card's "
+                    f"{self.target.smem_bytes} B of shared memory a block")
+            else:
                 violations.append(
                     f"{s.spec.name}: {vb} B exceeds the per-engine VMEM "
                     f"budget {self.target.vmem_bytes}")

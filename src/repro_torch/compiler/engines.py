@@ -14,6 +14,12 @@ where its weights live (pinned M20K vs HBM-streamed).  A
                                   fit.  The numbers are the JAX package's,
                                   so both packages compile to the same
                                   tables;
+  * ``plan_bytes(spec, sched)``   the shared memory a block of the CUDA
+                                  launch plan the card will run claims,
+                                  or None where the card has no plan for
+                                  the layer (its launch would raise): the
+                                  claim the ``H100`` target checks in
+                                  place of ``vmem_bytes``;
   * ``run(ctx, sched, params, x, relu)``
                                   the actual dispatch.  Engines hold NO
                                   mutable state and RETURN their
@@ -54,14 +60,46 @@ import torch
 from repro_torch.configs.cnn import (POOL_KINDS, ConvLayerSpec, ResBlockSpec,
                                      StemUnitSpec)
 from repro_torch.core.schedule import HBM, PINNED, LayerSchedule
-from repro_torch.kernels.conv2d_int8.ops import (conv2d_int8_requant,
-                                                 same_padded_width)
-from repro_torch.kernels.pool_int8.ops import (global_avgpool_int8,
-                                               maxpool_int8)
+from repro_torch.kernels.conv2d_int8.ops import (STREAM_MAX_W_OUT,
+                                                 conv2d_int8_requant,
+                                                 conv_plan, dw_plan,
+                                                 same_padded_width,
+                                                 stream_plan)
+from repro_torch.kernels.pool_int8.ops import (gap_plan, global_avgpool_int8,
+                                               maxpool_int8, pool_plan)
 from repro_torch.kernels.stream_matmul import ops as sm_ops
 from repro_torch.models.cnn import residual_join
 
 Params = Dict[str, Any]
+
+#: The launch plans ``plan_bytes`` reads are taken at batch ``PLAN_BATCH``
+#: on a card of ``PLAN_SMS`` SMs (the H100 SXM's).  Whether a plan exists
+#: does not depend on either for the convs, the pools and the depthwise
+#: conv: the dense plans shrink their bands (and the streamed one its
+#: image group) down to one output row of one image before they refuse,
+#: the depthwise tile search does not read them, and the pools' stages
+#: follow the map and the channels.  The fc matmul's does: its K split
+#: narrows as the batch adds row tiles, and its block grows, so its plan
+#: is taken where the split is 1 (``PLAN_SMS`` tiles of ``MM_TM`` rows),
+#: the largest block any batch gives.
+PLAN_BATCH = 1
+PLAN_SMS = 132
+
+
+def _plan_smem(plan, *args) -> Optional[int]:
+    """``plan(*args).smem_bytes``, or None where the plan refuses (no
+    tile of the launch fits a block's shared memory)."""
+    try:
+        return plan(*args).smem_bytes
+    except ValueError:
+        return None
+
+
+def _max_claim(claims) -> Optional[int]:
+    """A unit's plan bytes: the largest of its members' (each member is
+    a launch of its own), None when any member has no plan."""
+    claims = list(claims)
+    return None if any(c is None for c in claims) else max(claims)
 
 
 @functools.lru_cache(maxsize=None)
@@ -158,6 +196,12 @@ class LayerEngine(Protocol):
 
     def vmem_bytes(self, spec: ConvLayerSpec, sched: LayerSchedule) -> int:
         """Working-set bytes one dispatch claims (batch-1 convention)."""
+        ...
+
+    def plan_bytes(self, spec: ConvLayerSpec,
+                   sched: LayerSchedule) -> Optional[int]:
+        """Shared-memory bytes a block of the card's launch plan claims
+        (``PLAN_BATCH``), or None where there is no plan."""
         ...
 
     def stats(self, sched: LayerSchedule, batch: int) -> LayerExecStats:
@@ -333,6 +377,22 @@ class Conv2DInt8Engine:
         out_row = out_w * c_out * 4                                # int32
         return line_buf + w + 2 * out_row                          # + acc
 
+    def plan_bytes(self, spec: ConvLayerSpec,
+                   sched: LayerSchedule) -> Optional[int]:
+        geo = (PLAN_BATCH, spec.in_h, spec.in_w, spec.c_in)
+        if self.depthwise:
+            if spec.k_h != spec.k_w:
+                return None                   # the launcher refuses it
+            return _plan_smem(dw_plan, *geo, spec.k_h, spec.stride,
+                              sched.streamed, sched.n_buffers, PLAN_SMS)
+        conv = (spec.c_out, spec.k_h, spec.k_w, spec.stride)
+        if not sched.streamed:
+            return _plan_smem(conv_plan, *geo, *conv, PLAN_SMS)
+        if spec.out_w > STREAM_MAX_W_OUT:
+            return None
+        return _plan_smem(stream_plan, *geo, *conv, sched.n_buffers,
+                          PLAN_SMS)
+
     def stats(self, sched: LayerSchedule, batch: int) -> LayerExecStats:
         """The shape-static stats one dispatch returns: the kernel emits
         ``spec.out_h`` SAME-padded output rows per image (out_h is the
@@ -378,6 +438,13 @@ class StreamMatmulFCEngine:
             bn=_block(spec.c_out, self.BN),
             n_buffers=max(2, sched.n_buffers))
 
+    def plan_bytes(self, spec: ConvLayerSpec,
+                   sched: LayerSchedule) -> Optional[int]:
+        return _plan_smem(
+            sm_ops.mm_plan, sm_ops.MM_TM * PLAN_SMS, spec.c_in, spec.c_out,
+            "fifo" if sched.streamed else "pinned",
+            _block(spec.c_in, self.BK), max(2, sched.n_buffers), PLAN_SMS)
+
     def stats(self, sched: LayerSchedule, batch: int) -> LayerExecStats:
         """One matmul dispatch == one output 'row' of weight reads."""
         return LayerExecStats.for_dispatch(sched, kernel=self.name,
@@ -421,6 +488,11 @@ class MaxPoolInt8Engine:
         out_row = spec.out_w * spec.c_in                           # int8
         return line_buf + 2 * out_row
 
+    def plan_bytes(self, spec: ConvLayerSpec,
+                   sched: LayerSchedule) -> Optional[int]:
+        return _plan_smem(pool_plan, PLAN_BATCH, spec.in_h, spec.in_w,
+                          spec.c_in, spec.k_h, spec.stride, PLAN_SMS)
+
     def stats(self, sched: LayerSchedule, batch: int) -> LayerExecStats:
         return LayerExecStats.for_dispatch(sched, kernel=self.name,
                                            batch=batch,
@@ -455,6 +527,11 @@ class GlobalAvgPoolInt8Engine:
         acc = spec.c_in * 4                                        # int32
         return in_map + acc + 2 * spec.c_in
 
+    def plan_bytes(self, spec: ConvLayerSpec,
+                   sched: LayerSchedule) -> Optional[int]:
+        return _plan_smem(gap_plan, PLAN_BATCH, spec.in_h, spec.in_w,
+                          spec.c_in, PLAN_SMS)
+
     def stats(self, sched: LayerSchedule, batch: int) -> LayerExecStats:
         return LayerExecStats.for_dispatch(sched, kernel=self.name,
                                            batch=batch, rows=1, mode=PINNED)
@@ -486,6 +563,10 @@ class JnpReferenceEngine:
 
     def vmem_bytes(self, spec: ConvLayerSpec, sched: LayerSchedule) -> int:
         return 0
+
+    def plan_bytes(self, spec: ConvLayerSpec,
+                   sched: LayerSchedule) -> Optional[int]:
+        return 0                              # no launch plan of its own
 
     def stats(self, sched: LayerSchedule, batch: int) -> LayerExecStats:
         return LayerExecStats.for_dispatch(sched, kernel=self.name,
@@ -524,6 +605,11 @@ class ResBlockInt8Engine:
     targets instead of falling back per-layer early; ``compile()`` only
     binds the block when the total fits the target's budget, else
     the layers keep per-layer bindings.
+
+    On the card the members are separate launches (inside one CUDA graph
+    when fused) and the identity stays in device memory, so under the
+    ``H100`` target the unit fits when every member's launch plan does:
+    its ``plan_bytes`` is the largest member's, not a sum.
     """
 
     is_block = True
@@ -550,6 +636,12 @@ class ResBlockInt8Engine:
         widest = max(m.out_h * m.out_w * m.c_out                 # int8 stage
                      for m in block.members)
         return members + identity + widest
+
+    def plan_bytes(self, block: ResBlockSpec,
+                   scheds: Tuple[LayerSchedule, ...]) -> Optional[int]:
+        return _max_claim(
+            eng.plan_bytes(s.spec, s)
+            for eng, s in zip(self._member_engines(block), scheds))
 
     def stats(self, block: ResBlockSpec, scheds: Tuple[LayerSchedule, ...],
               batch: int) -> Tuple[LayerExecStats, ...]:
@@ -603,6 +695,8 @@ class ScannedResBlockInt8Engine:
 
     Working set: one block's claim plus the pinned weights of the
     remaining ``n_blocks - 1`` iterations (the JAX package's accounting).
+    Plan bytes: the largest of its blocks' (every member a launch of its
+    own, nothing stacked on the card).
     """
 
     is_scan = True
@@ -621,6 +715,13 @@ class ScannedResBlockInt8Engine:
         pinned = sum(s.spec.weight_count for s in scheds_per_block[0]
                      if not s.streamed)
         return body + (len(blocks) - 1) * pinned
+
+    def plan_bytes(self, blocks: Sequence[ResBlockSpec],
+                   scheds_per_block: Sequence[Tuple[LayerSchedule, ...]]
+                   ) -> Optional[int]:
+        return _max_claim(
+            select_block_engine(b).plan_bytes(b, scheds)
+            for b, scheds in zip(blocks, scheds_per_block))
 
     def stats(self, blocks: Sequence[ResBlockSpec],
               scheds_per_block: Sequence[Tuple[LayerSchedule, ...]],
@@ -653,7 +754,8 @@ class StemPoolInt8Engine:
     instead of two separate nodes.  Members execute on their per-layer
     engine bindings (the conv pinned or HBM-streamed per its schedule,
     the pool weightless), joined by the conv's output map as the only
-    intermediate the unit stages."""
+    intermediate the unit stages.  Plan bytes: the larger of its two
+    launches'."""
 
     is_stem = True
 
@@ -676,6 +778,11 @@ class StemPoolInt8Engine:
         return (select_engine(unit.conv).vmem_bytes(unit.conv, cs)
                 + select_engine(unit.pool).vmem_bytes(unit.pool, ps)
                 + handoff)
+
+    def plan_bytes(self, unit: StemUnitSpec,
+                   scheds: Tuple[LayerSchedule, ...]) -> Optional[int]:
+        return _max_claim(select_engine(m).plan_bytes(m, s)
+                          for m, s in zip(unit.members, scheds))
 
     def stats(self, unit: StemUnitSpec, scheds: Tuple[LayerSchedule, ...],
               batch: int) -> Tuple[LayerExecStats, ...]:

@@ -22,11 +22,16 @@ modules, so both packages make the same decisions):
                        the stem conv + maxpool pair to ``stem_pool_int8``,
                        and homogeneous block runs to
                        ``scanned_res_block_int8``;
-  5. **validation**    each binding's working set is checked against
-                       ``target.vmem_bytes``; a pinned layer that does not
-                       fit is re-placed to the HBM tier when its streamed
-                       working set does, and layers that fit in neither
-                       tier abort with :class:`TargetBudgetError`;
+  5. **validation**    each binding's claim is checked against the
+                       target: its working set against
+                       ``target.vmem_bytes``, or, under a target that
+                       checks launch plans (``H100``), the shared memory
+                       of the CUDA launch plan the card runs against
+                       ``target.smem_bytes`` (no plan: no fit); a pinned
+                       layer that does not fit is re-placed to the HBM
+                       tier when its streamed claim does, and layers that
+                       fit in neither tier abort with
+                       :class:`TargetBudgetError`;
   6. **trace**         per (input shape, dtype, device, act_scale) and, on
                        the card, per params: the whole engine table walked
                        over ``models.cnn.cnn_forward`` once more and
@@ -114,20 +119,29 @@ class Eq2MismatchError(RuntimeError):
 
 
 class TargetBudgetError(CompileError):
-    """One or more layers exceed the target's working-set budget in the weight
-    tier they were compiled to.  Carries the per-layer report so callers
-    see the whole picture, not just the first offender."""
+    """One or more layers exceed the target's working-set budget (or, under
+    a target that checks launch plans, have no CUDA launch plan that fits
+    the card) in the weight tier they were compiled to.  Carries the
+    per-layer report (None: no plan) so callers see the whole picture, not
+    just the first offender."""
 
-    def __init__(self, target: Target, report: Dict[str, int],
+    def __init__(self, target: Target, report: Dict[str, Optional[int]],
                  offenders: Sequence[str], reason: str):
         self.target = target
         self.vmem_report = dict(report)
         self.offenders = tuple(offenders)
-        lines = [f"{name}: {report[name]} B" for name in offenders]
+        if target.checks_plans:
+            what = (f"have no CUDA launch plan within the card's per-block "
+                    f"shared memory ({target.smem_bytes} B)")
+        else:
+            what = (f"exceed the per-engine working-set budget "
+                    f"({target.vmem_bytes} B)")
+        lines = [f"{name}: " + ("no launch plan" if report[name] is None
+                                else f"{report[name]} B")
+                 for name in offenders]
         super().__init__(
-            f"target {target.name!r}: {len(offenders)} layer(s) exceed the "
-            f"per-engine working-set budget ({target.vmem_bytes} B) {reason}: "
-            + "; ".join(lines))
+            f"target {target.name!r}: {len(offenders)} layer(s) {what} "
+            f"{reason}: " + "; ".join(lines))
 
 
 @dataclass(frozen=True)
@@ -140,7 +154,9 @@ class EngineAssignment:
     layer: str
     engine: str                   # registry name (resolved at dispatch)
     mode: str                     # PINNED | HBM
-    vmem_bytes: int               # working set the binding claims
+    vmem_bytes: int               # what the binding claims under the
+    #                               target's check: the working set, or
+    #                               the launch plan's shared memory
     block: Optional[str] = None   # owning block unit, if any
     scan: Optional[str] = None    # owning scan group, if any
 
@@ -328,7 +344,10 @@ class CompiledPipeline:
         return idx
 
     def vmem_report(self) -> Dict[str, int]:
-        """layer name -> working-set bytes of its engine binding."""
+        """layer name -> the bytes its engine binding claims under the
+        target's check: the working set, or under a target that checks
+        launch plans (``H100``) the shared memory a block of the CUDA
+        launch plan claims."""
         return {a.layer: a.vmem_bytes for a in self.assignments}
 
     def assignment_for(self, name: str) -> Optional[EngineAssignment]:
@@ -342,8 +361,10 @@ class CompiledPipeline:
 
     def describe(self) -> str:
         """Human-readable engine table (what runs where, before it runs)."""
+        col = "smem" if self.target is not None \
+            and self.target.checks_plans else "vmem"
         hdr = f"{'layer':12s} {'kind':7s} {'tier':7s} {'engine':14s} " \
-              f"{'vmem':>10s}  pc"
+              f"{col:>10s}  pc"
         rows = [hdr, "-" * len(hdr)]
         for s, a in zip(self.plan.schedules, self.assignments):
             pc = f"PC{s.pc}" if s.pc is not None else "-"
@@ -737,9 +758,11 @@ def finalize(plan: PipelinePlan, target: Optional[Target], *,
              scan: bool = True,
              trace_cache_size: int = 8) -> CompiledPipeline:
     """Stages 4-5 over an existing plan: bind every layer to a registered
-    engine, then enforce the target's working-set budget — re-placing pinned
-    layers whose working set only fits when streamed, and raising
-    :class:`TargetBudgetError` for layers that fit in neither tier.
+    engine, then enforce the target's check (``Target.claim`` /
+    ``Target.fits``: the working-set budget, or the card's launch plans)
+    — re-placing pinned layers whose claim only fits when streamed, and
+    raising :class:`TargetBudgetError` for layers that fit in neither
+    tier.
 
     ``scan=False`` disables scan-group binding (every block then runs
     as its own unit).  ``trace_cache_size`` bounds the stage-6 LRU trace
@@ -762,17 +785,22 @@ def finalize(plan: PipelinePlan, target: Optional[Target], *,
     # reuse across the re-placement and assignment passes
     engines = {s.spec.name: select_engine(s.spec) for s in plan.schedules}
 
+    def claim(eng, spec, scheds):
+        if target is None:
+            return eng.vmem_bytes(spec, scheds)
+        return target.claim(eng, spec, scheds)
+
     moved = []
     if target is not None and replace:
         free_bw = target.chain_budget - sum(
             s.p_i * s.p_o for s in plan.streamed)
         for s in plan.schedules:
             eng = engines[s.spec.name]
-            if s.streamed or eng.vmem_bytes(s.spec, s) <= target.vmem_bytes:
+            if s.streamed or target.fits(claim(eng, s.spec, s)):
                 continue
             streamed = dataclasses.replace(s, mode=HBM)
             chains = s.p_i * s.p_o
-            if eng.vmem_bytes(s.spec, streamed) <= target.vmem_bytes \
+            if target.fits(claim(eng, s.spec, streamed)) \
                     and chains <= free_bw:
                 moved.append(s.spec.name)
                 free_bw -= chains
@@ -799,10 +827,10 @@ def finalize(plan: PipelinePlan, target: Optional[Target], *,
     offenders = []
     for s in plan.schedules:
         eng = engines[s.spec.name]
-        vb = eng.vmem_bytes(s.spec, s)
+        vb = claim(eng, s.spec, s)
         assignments.append(EngineAssignment(
             layer=s.spec.name, engine=eng.name, mode=s.mode, vmem_bytes=vb))
-        if target is not None and vb > target.vmem_bytes:
+        if target is not None and not target.fits(vb):
             offenders.append(s.spec.name)
     if offenders:
         reason = ("in every feasible weight tier (pinned over budget; HBM "
@@ -826,8 +854,8 @@ def finalize(plan: PipelinePlan, target: Optional[Target], *,
         if beng is None:
             continue
         scheds = plan.schedules_for([m.name for m in blk.members])
-        vb = beng.vmem_bytes(blk, scheds)
-        if target is not None and vb > target.vmem_bytes:
+        vb = claim(beng, blk, scheds)
+        if target is not None and not target.fits(vb):
             continue
         blocks.append(BlockAssignment(
             block=blk.name, engine=beng.name,
@@ -848,8 +876,8 @@ def finalize(plan: PipelinePlan, target: Optional[Target], *,
         seng = select_stem_engine(su)
         if seng is not None:
             scheds = plan.schedules_for([m.name for m in su.members])
-            vb = seng.vmem_bytes(su, scheds)
-            if target is None or vb <= target.vmem_bytes:
+            vb = claim(seng, su, scheds)
+            if target is None or target.fits(vb):
                 blocks.append(BlockAssignment(
                     block=su.name, engine=seng.name,
                     members=tuple(m.name for m in su.members),
@@ -879,8 +907,8 @@ def finalize(plan: PipelinePlan, target: Optional[Target], *,
             if sceng is None:
                 continue
             scheds_pb = [plan.schedules_for(ms) for ms in g.members]
-            vb = sceng.vmem_bytes(group_blocks, scheds_pb)
-            if target is not None and vb > target.vmem_bytes:
+            vb = claim(sceng, group_blocks, scheds_pb)
+            if target is not None and not target.fits(vb):
                 continue                  # stacked weights over budget
             per_block = sum(s.weight_words_per_image
                             for s in scheds_pb[0] if s.streamed)

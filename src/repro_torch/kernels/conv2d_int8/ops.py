@@ -27,7 +27,7 @@ from repro_torch.kernels.quant import reciprocal, requant_epilogue
 
 __all__ = ["conv2d_int8", "conv2d_int8_requant", "same_padded_width",
            "stream_plan", "stream_layout", "stream_bytes_read", "StreamPlan",
-           "conv_plan",
+           "STREAM_MAX_W_OUT", "conv_plan",
            "conv_layout", "ConvPlan",
            "stem_k_index", "dw_plan", "dw_layout", "DwPlan", "KERNEL_PINNED",
            "KERNEL_STREAM", "KERNEL_DW_PINNED", "KERNEL_DW_STREAM"]
@@ -195,6 +195,7 @@ STREAM_CTAS_PER_SM = 2        # the launch bounds' minimum blocks a SM
 STREAM_A_STAGES = 2           # input-row stages in flight
 STREAM_STAGING = 4            # raw weight slices staged (3 in flight)
 STREAM_SMALL_M = 16           # pixels a CTA up to which warps split N only
+STREAM_MAX_W_OUT = 256        # output columns the streamed tier takes
 
 
 @dataclass(frozen=True)
@@ -607,9 +608,9 @@ def _launch(x, w, w_scale, bias, act_scale: float, *, stride: int,
     w_out, pad_l = same_out_and_pad(W, k_w, stride)
     dev = x.device
     sms = _device_sms(dev)
-    if stream and w_out > 256:
-        raise ValueError(f"output width {w_out} > 256 is not supported by "
-                         f"the streamed tier")
+    if stream and w_out > STREAM_MAX_W_OUT:
+        raise ValueError(f"output width {w_out} > {STREAM_MAX_W_OUT} is not "
+                         f"supported by the streamed tier")
     p = (stream_plan(B, H, W, C, c_out, k_h, k_w, stride, n_buffers, sms)
          if stream else conv_plan(B, H, W, C, c_out, k_h, k_w, stride, sms))
     shape = (B, h_out, w_out, c_out)

@@ -1349,3 +1349,69 @@ def test_fused_capture_failure_raises(dev):
         assert syncing.trace_count == 0
     finally:
         assert unregister_engine("fc_sync") is not None
+
+
+@pytest.mark.parametrize("name", ["resnet18", "resnet50", "vgg16",
+                                  "mobilenetv1", "mobilenetv2",
+                                  "mobilenetv3"])
+def test_h100_compiled_layers_match_plain(dev, name):
+    """Every layer of the net compiled for ``H100`` launched through its
+    engine at batch 8, in the tier stage 5 checked, against the plain
+    reference engine on the same inputs: int8 (and the fc heads' f32)
+    outputs bit-identical, one launch a layer."""
+    from repro_torch.compiler import H100, compile, get_engine, select_engine
+    from repro_torch.compiler.engines import EngineContext
+    from repro_torch.configs.cnn import get_cnn
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models.cnn import init_conv_layer
+    cp = compile(get_cnn(name), H100)
+    ctx = EngineContext(act_scale=0.05)
+    ref = get_engine("jnp_ref")
+    g = torch.Generator().manual_seed(7)
+    last = cp.cfg.layers[-1].name
+    for s in cp.plan.schedules:
+        sp = s.spec
+        eng = select_engine(sp)
+        x = torch.randint(-127, 128, (8, sp.in_h, sp.in_w, sp.c_in),
+                          generator=g, dtype=torch.int8).to(dev)
+        p = {} if sp.is_pool else init_conv_layer(sp, g, dev)
+        reset_launches()
+        got_q, got_f, _ = eng.run(ctx, s, p, x, sp.name != last)
+        torch.cuda.synchronize()
+        assert sum(LAUNCHES.values()) == 1, (sp.name, LAUNCHES)
+        want_q, want_f, _ = ref.run(ctx, s, p, x, sp.name != last)
+        assert torch.equal(got_q, want_q), sp.name
+        if got_f is not None:
+            assert torch.equal(got_f, want_f), sp.name
+
+
+def test_wide_conv_launch_raises_under_nx2100_and_streams_under_h100(dev):
+    """A 3x3 conv, C 2048 -> 16, that no pinned launch plan fits: compiled
+    for NX2100 (pinned, as the working-set check allows) its launch
+    raises; compiled for H100 stage 5 streams it, and the run equals the
+    plain path bit for bit."""
+    from repro_torch.compiler import H100, NX2100, compile
+    from repro_torch.configs import cnn
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models.cnn import (cnn_forward, cnn_input_shape,
+                                        init_cnn_params)
+    from torch_testdata import wide_conv_cfg
+    cfg = wide_conv_cfg(cnn)
+    gen = torch.Generator().manual_seed(8)
+    params = init_cnn_params(cfg, gen, dev)
+    x = torch.randint(-127, 128, cnn_input_shape(cfg, 8), generator=gen,
+                      dtype=torch.int8).to(dev)
+    pinned = compile(cfg, NX2100)
+    assert pinned.streamed_names == ()
+    with pytest.raises(ValueError, match="shared memory"):
+        pinned.run(params, x)
+    streamed = compile(cfg, H100)
+    assert streamed.streamed_names == ("wide",)
+    reset_launches()
+    got, rep = streamed.run(params, x, backend="eager")
+    torch.cuda.synchronize()
+    assert LAUNCHES.get("conv2d_int8_stream") == 1
+    assert torch.equal(got, cnn_forward(params, cfg, x))
+    fused, _ = streamed.run(params, x)
+    assert torch.equal(fused, got)
+    rep.verify()

@@ -72,6 +72,33 @@ def test_no_jax_or_repro_import_in_sources():
     assert not offenders, offenders
 
 
+EXAMPLES = SRC.parent / "examples_torch"
+# what the port's examples may import: the port, torch, numpy and the
+# standard library modules they use
+EXAMPLE_IMPORTS = {"repro_torch", "torch", "numpy", "argparse",
+                   "dataclasses", "tempfile", "threading", "time"}
+
+
+def test_no_jax_or_repro_import_in_examples():
+    files = sorted(EXAMPLES.glob("*.py"))
+    assert len(files) == 6
+    offenders = [f"{p.name}: {m.group(0).strip()}"
+                 for p in files for m in IMPORT_RE.finditer(p.read_text())]
+    assert not offenders, offenders
+
+
+def test_examples_import_only_the_port_torch_and_numpy():
+    import ast
+    for p in sorted(EXAMPLES.glob("*.py")):
+        tops = set()
+        for node in ast.walk(ast.parse(p.read_text())):
+            if isinstance(node, ast.Import):
+                tops |= {a.name.split(".")[0] for a in node.names}
+            elif isinstance(node, ast.ImportFrom):
+                tops.add(node.module.split(".")[0])
+        assert tops <= EXAMPLE_IMPORTS, (p.name, tops - EXAMPLE_IMPORTS)
+
+
 def test_chip_smoke_imports_no_jax():
     text = (SRC.parent / "chip_smoke.py").read_text()
     assert not IMPORT_RE.search(text)

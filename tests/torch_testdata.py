@@ -24,6 +24,21 @@ def numpy_cnn_params(cfg, seed):
     return out
 
 
+def wide_conv_cfg(m):
+    """A config of module ``m`` (either package's ``configs.cnn``): one 3x3
+    conv, C 2048 -> 16 on a 4x64 map, that no pinned launch plan of the
+    card fits (9 taps of 16 x 2064 bytes of weights alone exceed a block)
+    and a streamed one does; then a global average pool and an fc head.
+    At 64 columns a chain feed costs 22 tensor blocks, so the parallelism
+    pass leaves the conv 64 feeds, within the pseudo-channel pool that
+    re-placement may draw from (at 4x4 it would take 512)."""
+    return m.CNNConfig("wide3x3", (
+        m.ConvLayerSpec("wide", "conv", 3, 3, 2048, 16, 1, 4, 64),
+        m.ConvLayerSpec("gap", "gap", 4, 64, 16, 16, 64, 4, 64),
+        m.ConvLayerSpec("fc", "fc", 1, 1, 16, 16, 1, 1, 1)),
+        num_classes=16)
+
+
 @contextlib.contextmanager
 def moe_routing(forced=None):
     """Reads or forces the MoE routing of what runs inside.  Yields a list
