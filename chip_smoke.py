@@ -6,11 +6,12 @@
 Needs one CUDA card and ``nvcc``; exits non-zero without them, and when
 it is run outside a checkout of the repository.  Phases, one line each:
 
-  1. build the CUDA kernels from ``src/repro_torch/kernels/csrc``, and
-     beside them ``nvcc -Xptxas -v`` on ``dwconv_int8.cu``,
-     ``conv2d_int8.cu``, ``flash_attention.cu``, ``stream_matmul.cu``
-     (the int8 ``mm_kernel`` and the float ``mm_float`` instances) and
-     ``pool_int8.cu``: registers, stack and spills of every kernel
+  1. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
+     ``nvcc`` a source, all at once), and from the build's own
+     ``-Xptxas -v`` report of ``dwconv_int8.cu``, ``conv2d_int8.cu``,
+     ``flash_attention.cu``, ``stream_matmul.cu`` (the int8 ``mm_kernel``
+     and the float ``mm_float`` instances) and ``pool_int8.cu``:
+     registers, stack and spills of every kernel
      instance (full logs ``ptxas_dwconv.log``, ``ptxas_conv.log``,
      ``ptxas_flash.log``, ``ptxas_matmul.log`` and ``ptxas_pool.log`` in
      the output directory), and from the SASS the
@@ -20,9 +21,10 @@ it is run outside a checkout of the repository.  Phases, one line each:
      K2 (``conv_stream``, from the conv plans of its shape) and K9
      (``flash_fwd_wgmma<128>`` for Phi-4-mini, Qwen2-MoE, InternVL2,
      Qwen2-72B and Command R+, ``flash_fwd_wgmma<64>`` for SeamlessM4T,
-     ``flash_fwd_bf16<192,128>`` for DeepSeek-V2's MLA, from the flash
-     route of their head dims) takes issues IMMA, HGMMA or HMMA, and
-     where a K2 instance spills;
+     ``flash_fwd_bf16<192,128>`` for DeepSeek-V2's MLA and
+     ``flash_fwd_bf16<32,32>`` for the reduced configs' head dims 16 and
+     24, from the flash route and ``kernel_widths`` of their head dims)
+     takes issues IMMA, HGMMA or HMMA, and where a K2 instance spills;
   2. hold every kernel against its plain PyTorch version on the card: the
      streamed dense conv (K2) at every dense conv shape of the six CNN
      configs compiled for ``NX2100`` at batch 8, forced onto the streamed
@@ -33,8 +35,11 @@ it is run outside a checkout of the repository.  Phases, one line each:
      stride 1, the generic window, C of 4, 6 and 20) (int8, f32 and int32
      outputs bit-identical); the float matmul (``mm_float``) at
      ``FLOAT_CHECK_SHAPES`` in f32 and bf16 in every mode, the fifo ring
-     1 to 4 deep, mixed f32 x bf16 operands, and every fc shape at M = 8,
-     each output of the promoted type and within ``FLOAT_TOL``;
+     1 to 4 deep, mixed f32 x bf16 operands, every fc shape at M = 8, and
+     each of ``NEW_FLOAT_PAIRS`` (every pair over f32, bf16, f16 and int8
+     that takes f16 or int8, but int8 x int8) at two of those shapes and
+     at every entry of the float path, each output of the promoted type
+     and within ``FLOAT_TOL`` (an f16 output within bf16's);
      the depthwise kernels at every dw shape of MobileNetV1, V2 and V3 in
      both tiers (streamed with ``n_buffers`` in {1, 2, k*k}); the
      flash-attention forward (o and lse) at the LM slice's prefill shape,
@@ -42,7 +47,9 @@ it is run outside a checkout of the repository.  Phases, one line each:
      at hd=192/hd_v=128 and at the LM families' prefill shapes
      (``FLASH_MAIN``: Qwen2-MoE's, DeepSeek-V2's, SeamlessM4T's
      non-causal encoder at S = 1024 and its decoder, InternVL2's,
-     Qwen2-72B's, Command R+'s), in bf16 and f32, and at the dry run's
+     Qwen2-72B's, Command R+'s) and the reduced configs'
+     (``FLASH_REDUCED``: head dims 16 and 24 / 16 at 8, 16 and 64
+     tokens), in bf16 and f32, and at the dry run's
      Phi-4-mini cells (``FLASH_DRYRUN``: S = 32768 and 4096 at batch 1)
      in bf16, within ``FLASH_TOL`` (per
      dtype and output; lse to 1e-4); the flash-attention backward (K10:
@@ -52,7 +59,10 @@ it is run outside a checkout of the repository.  Phases, one line each:
      ``BWD_SUM_CASES``, within ``BWD_SUM_TOL``, which sees below bf16's
      precision; and the differentiable ``flash_attention_vjp`` against
      autograd through the plain forward at ``VJP_CASES`` (at batch 1
-     also given a gradient of batch stride 1);
+     also given a gradient of batch stride 1); at the reduced head dims,
+     which the kernels run padded to a width of 32, K9-K11 on rows with
+     NaN past the head dim into rows with a sentinel past it, which must
+     stay finite and in place (``check_padded_rows``);
   3. the slices: ``compile(cfg, NX2100)`` -> ``PipelineExecutor(...,
      backend="eager")`` on the card at batch 8 on 224x224 inputs, with
      seeded random weights, for ResNet-50, ResNet-18, MobileNetV2 as
@@ -199,17 +209,26 @@ it is run outside a checkout of the repository.  Phases, one line each:
      its count, the warm step time at least the count's t_bound
      (measured / t_bound and the model-FLOP share printed), and the peak
      memory at least the per-device argument bytes.
+     Then the reduced configs (``[reduced]`` lines,
+     ``reduced_launchers``): ``launch.serve --reduced`` for the ten archs
+     and ``launch.train --reduced --steps 3`` for the nine of
+     ``REDUCED_TRAIN``, on the card, K9-K11's launches exactly
+     ``REDUCED_SERVE`` and ``REDUCED_TRAIN``'s by shape, every request
+     served, every loss finite.
      Then the float matmul's path: ``stream_matmul`` at every fc head of
      the six configs as a matmul at M = 8, in the mode its engine runs,
-     and VGG-16's fc0 as a 25088 x 4096 matmul streamed, in f32 and bf16:
-     launches of ``stream_matmul_float_pinned`` and ``_fifo`` counted,
-     outputs of the promoted type within ``FLOAT_TOL`` of the plain path.
+     and VGG-16's fc0 as a 25088 x 4096 matmul streamed, at each operand
+     pair of ``FLOAT_PAIRS``: launches of ``stream_matmul_float_pinned``
+     and ``_fifo`` counted, outputs of the promoted type within
+     ``FLOAT_TOL`` of the plain path.
      Launch counters are zeroed just before and read just after each run;
   4. time each kernel at the slice's shapes, its plain version, one
      PyTorch call computing the same function where there is one
      (``F.max_pool2d(ceil_mode=True)`` for the maxpool, whose SAME padding
      lies after the data at every main-path shape; ``torch.matmul`` in
-     the operands' type, TF32 off, for the float matmul; beside the
+     the operands' type, TF32 off, for the float matmul, on a mixed pair
+     both operands converted to the result type inside the timed call;
+     beside the
      global average pool the launch floor, a graph-replayed one-element
      ``add_``; ``torch._int_mm`` for the 1x1 convs; for the fc heads and
      VGG-16's
@@ -351,7 +370,7 @@ BWD_SUM_TOL = (1e-5, 1e-6)
 # (worst 0.35 of the bf16 limit; f32 0.012 of a limit five times this one)
 VJP_REL_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 VJP_CASES = (FLASH_SLICE, (1, 8, 2, 128, 32, 32, True, 0, 50.0),
-             FLASH_DRY_TRAIN, FLASH_GPIPE)
+             FLASH_DRY_TRAIN, FLASH_GPIPE, (1, 4, 4, 64, 24, 16, True, 0, 0.0))
 # GPipe training (``gpipe_lm``): Phi-4-mini's 32 decoder layers at full
 # width, bf16, kernel mode on, cut by split_stages into GPIPE_STAGES
 # stages on compat_make_mesh((4,), ("model",), devices=["cuda:0"] * 4),
@@ -383,8 +402,10 @@ LOSS_REL_TOL, GRAD_REL_TOL = 1e-3, 0.07
 
 # the float matmul (mm_float) against its plain version: tests/
 # test_kernels.py's limits, rtol and a share of max |ref| as atol, by the
-# output's type (f32 for f32 and mixed operands, bf16 for bf16 x bf16)
-FLOAT_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# output's type (f32 for every pair with an f32 operand and for f16 x
+# bf16; bf16 and f16 for their own pairs and with int8; f16 takes the
+# bf16 bound)
+FLOAT_TOL = {"float32": 2e-5, "bfloat16": 2e-2, "float16": 2e-2}
 # tests/test_kernels.py's MM_SHAPES and a ragged shape
 FLOAT_CHECK_SHAPES = [(128, 256, 128), (256, 1024, 384), (128, 512, 256),
                       (17, 100, 36)]
@@ -466,11 +487,52 @@ LM_F32 = {"qwen2-moe-a2.7b": (None, None, {}),
           "qwen2-72b": (2, 127, {}),
           "command-r-plus-104b": (2, 127, {})}
 F32_HOST_ARCHS = ("hymba-1.5b", "xlstm-125m", "gemma2-9b")
+# [reduced] (``reduced_launchers``): the JAX package's own reduced LM
+# configs (ArchConfig.reduced(): 2 layers, d_model 64, 4 heads of 16;
+# DeepSeek-V2's MLA at qk 24 / v 16) through the launchers as a user runs
+# them, on the card at their defaults: ``launch.serve --arch A --reduced``
+# (4 requests of 8 tokens on 2 slots, 8 new each) for all ten archs, and
+# ``launch.train --arch A --reduced --steps 3`` (8 x 64 tokens a step,
+# remat) for the nine whose JAX counterpart runs: ``repro.launch.train
+# --reduced`` raises KeyError 'frames' for SeamlessM4T, whose frames the
+# Trainer does not feed, in both packages.  The launches K9-K11 make, by
+# shape: serving, K9 once a layer and prefill (2 prefills; SeamlessM4T's
+# encoder also, non-causal over its 16 frames); training, K9 twice a
+# layer and step (the forward, then the remat recompute), K10 and K11
+# once.  Gemma2, Hymba (windowed attention) and xLSTM launch none, as in
+# the JAX package.  The reduced head dims run padded to the kernels'
+# width of 32 (``kernel_widths``)
+FLASH_R_GQA = (2, 4, 2, 8, 16, 16, True, 0, 0.0)
+FLASH_R_MHA = (2, 4, 4, 8, 16, 16, True, 0, 0.0)
+FLASH_R_MLA = (2, 4, 4, 8, 24, 16, True, 0, 0.0)
+FLASH_R_ENC = (2, 4, 4, 16, 16, 16, False, 0, 0.0)
+FLASH_RT_GQA = (8, 4, 2, 64, 16, 16, True, 0, 0.0)
+FLASH_RT_MHA = (8, 4, 4, 64, 16, 16, True, 0, 0.0)
+FLASH_RT_MLA = (8, 4, 4, 64, 24, 16, True, 0, 0.0)
+REDUCED_STEPS, REDUCED_LAYERS = 3, 2
+# arch -> (K9's serving shapes as (case, prefill launches), the training
+# shape or None where the arch's attention takes no kernel; arch not
+# trained: absent from REDUCED_TRAIN)
+REDUCED_SERVE = {
+    "command-r-plus-104b": {FLASH_R_GQA: 4}, "gemma2-9b": {},
+    "phi4-mini-3.8b": {FLASH_R_GQA: 4}, "qwen2-72b": {FLASH_R_GQA: 4},
+    "qwen2-moe-a2.7b": {FLASH_R_MHA: 4},
+    "deepseek-v2-236b": {FLASH_R_MLA: 4}, "hymba-1.5b": {},
+    "internvl2-26b": {FLASH_R_GQA: 4},
+    "seamless-m4t-medium": {FLASH_R_ENC: 4, FLASH_R_MHA: 4},
+    "xlstm-125m": {}}
+REDUCED_TRAIN = {
+    "command-r-plus-104b": FLASH_RT_GQA, "gemma2-9b": None,
+    "phi4-mini-3.8b": FLASH_RT_GQA, "qwen2-72b": FLASH_RT_GQA,
+    "qwen2-moe-a2.7b": FLASH_RT_MHA, "deepseek-v2-236b": FLASH_RT_MLA,
+    "hymba-1.5b": None, "internvl2-26b": FLASH_RT_GQA, "xlstm-125m": None}
+FLASH_REDUCED = (FLASH_R_GQA, FLASH_R_MHA, FLASH_R_MLA, FLASH_R_ENC,
+                 FLASH_RT_GQA, FLASH_RT_MHA, FLASH_RT_MLA)
 # K9's main-path shapes: Phi-4-mini's (serving and training), then the
-# families'
+# families', then the reduced configs'
 FLASH_MAIN = (FLASH_SLICE, FLASH_QWEN, FLASH_DSV2, FLASH_SEAMLESS_ENC,
               FLASH_SEAMLESS_DEC, FLASH_INTERNVL, FLASH_QWEN72, FLASH_CMDR
-              ) + FLASH_DRYRUN + (FLASH_GPIPE,)
+              ) + FLASH_DRYRUN + (FLASH_GPIPE,) + FLASH_REDUCED
 # [train_families] (``train_family``): the other families trained after
 # GPipe, one at a time, each freed before the next: (arch, n_layers or
 # None for full depth, batch, sequence, K9-K11's shapes as (case, "enc"
@@ -535,7 +597,8 @@ FAMILY_STEPS = 2
 LEAF_FLOOR = 1e-4
 SLSTM_PLANT = 1.03
 BWD_MAIN = (FLASH_SLICE, FLASH_DRY_TRAIN, FLASH_GPIPE) + tuple(
-    case for row in TRAIN_FAMILIES for case, _ in row[4])
+    case for row in TRAIN_FAMILIES for case, _ in row[4]) + (
+    FLASH_RT_GQA, FLASH_RT_MHA, FLASH_RT_MLA)
 # the expert-parallel MoE (``ep_prefills``, inside serve_arch and lm_f32
 # for the MoE families): the serving phase's first LM_SLOTS x LM_PROMPT
 # prefill feed under compat_make_mesh(EP_MESH, ("data", "model"),
@@ -838,16 +901,18 @@ PTXAS_SOURCES = (
         "flash_fwd_f32": (r"flash_fwd_f32()", "flash_fwd_f32{}")}),
     ("stream_matmul", "ptxas_matmul.log", {
         "mm_kernel": (r"mm_kernelILi(\d+)ELi(\d+)E", "mm_kernel<{},{}>"),
-        "mm_float": (r"mm_floatI(f|13__nv_bfloat16)(f|13__nv_bfloat16|S1_)"
-                     r"Li(\d+)E", "mm_float<{},{},{}>")}),
+        "mm_float": (r"mm_floatI(f|a|6__half|13__nv_bfloat16)"
+                     r"(f|a|6__half|13__nv_bfloat16|S\d*_)Li(\d+)E",
+                     "mm_float<{},{},{}>")}),
     ("pool_int8", "ptxas_pool.log", {
         "maxpool_band": (r"maxpool_bandILi(\d)ELi(\d)ELi(\d+)ELi(\d)E",
                          "maxpool_band<{},{},{},{}>"),
         "gap_chunk": (r"gap_chunkILi(\d+)E", "gap_chunk<{}>")}),
 )
-# mangled template arguments, as the report names them (S1_: the
-# repeated bf16 of mm_float<bf16, bf16, TN>)
-MANGLED_ARGS = {"f": "f32", "13__nv_bfloat16": "bf16", "S1_": "bf16"}
+# mangled template arguments, as the report names them (a substitution,
+# S1_ say, repeats the argument before it: mm_float<bf16, bf16, TN>)
+MANGLED_ARGS = {"f": "f32", "13__nv_bfloat16": "bf16", "6__half": "f16",
+                "a": "int8"}
 # the tensor-core instruction each redesigned kernel must issue (SASS)
 SASS_REQUIRED = {"conv_mma": "IMMA", "conv_stream": "IMMA",
                  "flash_fwd_wgmma": "HGMMA", "flash_fwd_bf16": "HMMA"}
@@ -860,7 +925,10 @@ def instance_name(text, templates):
     for tmpl, (pattern, fmt) in templates.items():
         m = re.search(pattern, text)
         if m:
-            args = [MANGLED_ARGS.get(a, a) for a in m.groups()]
+            args = []
+            for a in m.groups():
+                args.append(args[-1] if re.fullmatch(r"S\d*_", a)
+                            else MANGLED_ARGS.get(a, a))
             if pattern.startswith(tmpl + "ILb"):     # a bool first argument
                 args[0] = "true" if args[0] == "1" else "false"
             return tmpl, fmt.format(*args)
@@ -888,70 +956,52 @@ def sass_per_mac(body):
     return (hi - lo + 1) / (3 * len(idp))
 
 
-def start_ptxas_report(_build):
-    """Start ``nvcc -Xptxas -v`` on each source of ``PTXAS_SOURCES`` (beside
-    the build, all at once); the returned function waits for them, writes
-    each log to the output directory and returns {source: {instance:
-    registers, stack and spill bytes, the count of each tensor-core or
-    dp4a SASS instruction (HGMMA, HMMA, IMMA, IDP), and for a 3x3
-    dw_kernel the SASS instructions a MAC of its MAC block}}."""
+def ptxas_report(_build):
+    """From each source of ``PTXAS_SOURCES``: its build log (the
+    ``-Xptxas -v`` report ``_build`` keeps beside the library; written to
+    the output directory) and the SASS of its library; returns {source:
+    {instance: registers, stack and spill bytes, the count of each
+    tensor-core or dp4a SASS instruction (HGMMA, HMMA, IMMA, IDP), and
+    for a 3x3 dw_kernel the SASS instructions a MAC of its MAC block}}."""
     import re
-    import tempfile
-    started = []
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    report = {}
     for src, log_name, templates in PTXAS_SOURCES:
-        out = tempfile.NamedTemporaryFile(suffix=".so", delete=False).name
-        proc = subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o", out,
-             str(_build.CSRC / f"{src}.cu")], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True)
-        started.append((src, log_name, templates, out, proc))
-
-    def finish():
-        out_dir = ROOT / "chiprun_out"
-        out_dir.mkdir(exist_ok=True)
-        report = {}
-        for src, log_name, templates, out, proc in started:
-            log_text, _ = proc.communicate()
-            (out_dir / log_name).write_text(log_text)
-            if proc.returncode != 0:
-                Path(out).unlink(missing_ok=True)
-                raise RuntimeError(f"nvcc -Xptxas -v failed on {src}.cu:\n"
-                                   f"{log_text}")
-            sass = subprocess.run(
-                [str(Path(_build._nvcc()).parent / "cuobjdump"), "-sass",
-                 out], capture_output=True, text=True, timeout=300,
-                check=True).stdout
-            Path(out).unlink(missing_ok=True)
-            found, cur = {}, None
-            for line in log_text.splitlines():
-                if re.search(r"entry function|Function properties for",
-                             line):
-                    named = instance_name(line, templates)
-                    cur = named and named[1]
-                    if cur:
-                        found.setdefault(cur, {"template": named[0]})
-                    continue
-                m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
-                              r"stores, (\d+) bytes spill loads", line)
-                if m and cur:
-                    found[cur].update(stack=int(m.group(1)),
-                                      spill_stores=int(m.group(2)),
-                                      spill_loads=int(m.group(3)))
-                m = re.search(r"Used (\d+) registers", line)
-                if m and cur:
-                    found[cur]["registers"] = int(m.group(1))
-            for body in re.split(r"\n\s+Function : ", sass)[1:]:
-                named = instance_name(body.split("\n")[0], templates)
-                if not named:
-                    continue
-                rec = found.setdefault(named[1], {"template": named[0]})
-                for op in ("HGMMA", "HMMA", "IMMA", "IDP"):
-                    rec[op] = len(re.findall(rf"\b{op}\.", body))
-                if named[0] == "dw_kernel" and named[1].split(",")[1] == "3":
-                    rec["sass_instr_per_mac"] = sass_per_mac(body)
-            report[src] = found
-        return report
-    return finish
+        log_text = _build.build_log(src)
+        (out_dir / log_name).write_text(log_text)
+        sass = subprocess.run(
+            [str(Path(_build._nvcc()).parent / "cuobjdump"), "-sass",
+             str(_build.library_path(src))], capture_output=True, text=True,
+            timeout=300, check=True).stdout
+        found, cur = {}, None
+        for line in log_text.splitlines():
+            if re.search(r"entry function|Function properties for", line):
+                named = instance_name(line, templates)
+                cur = named and named[1]
+                if cur:
+                    found.setdefault(cur, {"template": named[0]})
+                continue
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", line)
+            if m and cur:
+                found[cur].update(stack=int(m.group(1)),
+                                  spill_stores=int(m.group(2)),
+                                  spill_loads=int(m.group(3)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and cur:
+                found[cur]["registers"] = int(m.group(1))
+        for body in re.split(r"\n\s+Function : ", sass)[1:]:
+            named = instance_name(body.split("\n")[0], templates)
+            if not named:
+                continue
+            rec = found.setdefault(named[1], {"template": named[0]})
+            for op in ("HGMMA", "HMMA", "IMMA", "IDP"):
+                rec[op] = len(re.findall(rf"\b{op}\.", body))
+            if named[0] == "dw_kernel" and named[1].split(",")[1] == "3":
+                rec["sass_instr_per_mac"] = sass_per_mac(body)
+        report[src] = found
+    return report
 
 
 def check_main_path_instances(record, shapes, conv_plan, stream_plan,
@@ -959,7 +1009,9 @@ def check_main_path_instances(record, shapes, conv_plan, stream_plan,
     """The kernel instance each main-path launch of K1, K2 and K9 takes
     (from the conv plans of its shape and the flash route of each LM's
     head dims: ``flash_fwd_wgmma<128>`` for Phi-4-mini and Qwen2-MoE,
-    ``flash_fwd_bf16<192,128>`` for DeepSeek-V2's MLA), and that each
+    ``flash_fwd_bf16<192,128>`` for DeepSeek-V2's MLA, at the widths of
+    ``kernel_widths``: ``flash_fwd_bf16<32,32>`` for the reduced
+    configs' head dims 16 and 24), and that each
     issues its tensor-core instruction (IMMA, HGMMA, HMMA) in the SASS of
     the build report, and a K2 instance spills nothing; fails where one
     does not."""
@@ -975,12 +1027,14 @@ def check_main_path_instances(record, shapes, conv_plan, stream_plan,
         plan = stream_plan(BATCH, h, w, c, co, k, k, s, nb, sm_count)
         inst = f"conv_stream<{plan.wn},{plan.nf},{plan.vec}>"
         used.setdefault(("conv2d_int8", inst), []).append(list(key[:6]))
+    from repro_torch.kernels.flash_attention.ops import kernel_widths
     for case in FLASH_MAIN:
         hd, hd_v = case[4:6]
         route = flash_route(torch.bfloat16, hd, hd_v)
         used.setdefault(("flash_attention",
                          f"flash_fwd_wgmma<{hd}>" if route == "wgmma"
-                         else f"flash_fwd_bf16<{hd},{hd_v}>"), []).append(
+                         else "flash_fwd_bf16<{},{}>".format(
+                             *kernel_widths(hd, hd_v))), []).append(
             list(case[:6]))
     rows = {}
     for (src, inst), keys in used.items():
@@ -1328,14 +1382,34 @@ def check_flash_bwd(torch, g, dev, ks, record):
     return n
 
 
-FLOAT_DTYPE_NAMES = ("float32", "bfloat16")
+# the float matmul's operand pairs (x, w) on the path: f32 and bf16, then
+# every pair over {f32, bf16, f16, int8} with an f16 or int8 operand but
+# int8 x int8 (mm_kernel's)
+FLOAT_TYPES = ("float32", "bfloat16", "float16", "int8")
+NEW_FLOAT_PAIRS = tuple((a, b) for a in FLOAT_TYPES for b in FLOAT_TYPES
+                        if {a, b} & {"float16", "int8"}
+                        and (a, b) != ("int8", "int8"))
+FLOAT_PAIRS = (("float32", "float32"), ("bfloat16", "bfloat16")) \
+    + NEW_FLOAT_PAIRS
+
+
+def pair_name(xd, wd):
+    """A float operand pair's name in the record: the type, or x's and
+    w's types."""
+    return xd if xd == wd else f"{xd}x{wd}"
 
 
 def float_operands(torch, g, dev, shape, xd, wd):
-    """x [M, K] and w [K, N], normal from ``g``, in their types."""
+    """x [M, K] and w [K, N] in their types: normal from ``g``, int8 as
+    integers in [-127, 127]."""
     M, K, N = shape
-    return (torch.randn(M, K, generator=g, device=dev).to(xd),
-            torch.randn(K, N, generator=g, device=dev).to(wd))
+
+    def draw(shape, dt):
+        if dt == torch.int8:
+            return torch.randint(-127, 128, shape, generator=g, device=dev,
+                                 dtype=torch.int8)
+        return torch.randn(*shape, generator=g, device=dev).to(dt)
+    return draw((M, K), xd), draw((K, N), wd)
 
 
 def float_err(torch, kern, got, want):
@@ -1348,13 +1422,16 @@ def float_err(torch, kern, got, want):
              dname)
 
 
-def check_float_matmul(torch, g, dev, ks, fc_shapes, block_for):
+def check_float_matmul(torch, g, dev, ks, fc_shapes, block_for, fpath):
     """Phase 2 for the float modes of K7/K8 (mm_float): FLOAT_CHECK_SHAPES
     in f32 and bf16, pinned, stream and fifo (n_buffers 1-4), each with
     K blocks of 128 (the JAX test's) and of 16 (rings of many blocks);
-    mixed f32 x bf16 and bf16 x f32 operands at the first and the ragged
-    shape; every fc shape of the six configs at M = 8 in both types and
-    every mode, K blocks as the engines cut them."""
+    mixed f32 x bf16 and bf16 x f32 operands, and each of NEW_FLOAT_PAIRS,
+    at the first and the ragged shape; every fc shape of the six configs
+    at M = 8 in both types and every mode, K blocks as the engines cut
+    them; and each of NEW_FLOAT_PAIRS at every entry of the float
+    matmul's path (``float_path``: every fc head and fc0) at M = 8, in
+    every mode whose plan fits (fc0 streamed)."""
     from repro_torch.kernels.stream_matmul.ops import stream_matmul
     from repro_torch.kernels.stream_matmul.ref import stream_matmul_ref
     rings = [("pinned", 2, 128), ("stream", 2, 128), ("stream", 2, 16)] + [
@@ -1364,11 +1441,18 @@ def check_float_matmul(torch, g, dev, ks, fc_shapes, block_for):
              for d in (f32, bf16)]
     cases += [(shape, pair, rings) for shape in (FLOAT_CHECK_SHAPES[0],
                                                  FLOAT_CHECK_SHAPES[-1])
-              for pair in ((f32, bf16), (bf16, f32))]
+              for pair in ((f32, bf16), (bf16, f32)) + tuple(
+                  (getattr(torch, a), getattr(torch, b))
+                  for a, b in NEW_FLOAT_PAIRS)]
     cases += [((BATCH, k, n), (d, d),
                [(mode, 2, block_for(k, 512))
                 for mode in ("pinned", "stream", "fifo")])
               for k, n in sorted(fc_shapes) for d in (f32, bf16)]
+    cases += [((BATCH, k, n), (getattr(torch, a), getattr(torch, b)),
+               [(m, 2, block_for(k, 512)) for m in (
+                   ("pinned", "stream", "fifo") if mode == "pinned"
+                   or (k, n) != FC0_MATMUL[1:] else (mode,))])
+              for k, n, mode in fpath for a, b in NEW_FLOAT_PAIRS]
     n = 0
     for shape, (xd, wd), runs in cases:
         x, w = float_operands(torch, g, dev, shape, xd, wd)
@@ -1397,18 +1481,18 @@ def float_path(comps, select_engine):
 
 def drive_float_matmul(torch, g, dev, path, block_for, record):
     """Phase 3 for the float matmul: ``stream_matmul`` at every entry of
-    ``path`` at M = BATCH in f32 and in bf16, launches counted over these
-    calls alone; each output of the promoted type, finite and within
-    FLOAT_TOL of the plain path.  Returns the launches and the inputs
-    (for phase 4)."""
+    ``path`` at M = BATCH for each operand pair of FLOAT_PAIRS, launches
+    counted over these calls alone; each output of the promoted type,
+    finite and within FLOAT_TOL of the plain path.  Returns the launches
+    and the inputs, keyed (K, N, mode, ``pair_name``), for phase 4."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.stream_matmul.ops import (FLOAT_KERNELS,
                                                        stream_matmul)
     from repro_torch.kernels.stream_matmul.ref import stream_matmul_ref
-    inputs = {(k, n, mode, dname): float_operands(
-                  torch, g, dev, (BATCH, k, n), getattr(torch, dname),
-                  getattr(torch, dname))
-              for k, n, mode in path for dname in FLOAT_DTYPE_NAMES}
+    inputs = {(k, n, mode, pair_name(xd, wd)): float_operands(
+                  torch, g, dev, (BATCH, k, n), getattr(torch, xd),
+                  getattr(torch, wd))
+              for k, n, mode in path for xd, wd in FLOAT_PAIRS}
     outs = {}
     _build.reset_launches()
     for (k, n, mode, dname), (x, w) in inputs.items():
@@ -1433,7 +1517,8 @@ def drive_float_matmul(torch, g, dev, path, block_for, record):
                                    "readings": path.readings}
     log("slice", f"float matmul: {len(inputs)} calls of stream_matmul (fc "
         f"heads at M = {BATCH} in their engines' modes and fc0 as a "
-        f"{FC0_MATMUL[1]} x {FC0_MATMUL[2]} matmul, f32 and bf16), "
+        f"{FC0_MATMUL[1]} x {FC0_MATMUL[2]} matmul, at {len(FLOAT_PAIRS)} "
+        f"operand pairs: f32, bf16 and every pair with f16 or int8), "
         f"launches {json.dumps(launches, sort_keys=True)}; outputs of the "
         f"promoted type within FLOAT_TOL, readings "
         f"{json.dumps(path.readings)}")
@@ -4321,6 +4406,158 @@ def h100_target(torch, nets, params, images, logits, dev, record, card):
     record["h100"] = out
 
 
+def reduced_launchers(torch, np, record, card):
+    """``[reduced]`` lines: the JAX package's reduced LM configs through
+    the launchers a user runs, on the card at their defaults:
+    ``repro_torch.launch.serve.main(["--arch", A, "--reduced"])`` for
+    every arch of REDUCED_SERVE, then ``repro_torch.launch.train.main([
+    "--arch", A, "--reduced", "--steps", REDUCED_STEPS, ...])`` for every
+    arch of REDUCED_TRAIN (the checkpoint into a temporary directory).
+    Each run's output goes to ``reduced_<arch>_<serve|train>.txt`` in the
+    output directory.  Fails unless K9-K11 launch exactly as REDUCED_SERVE
+    and REDUCED_TRAIN predict by shape, and nowhere else; every served
+    request gets its 8 tokens on the card; every logged training loss and
+    grad norm is finite.  Returns the launches by kernel and, per kernel,
+    by shape."""
+    import contextlib
+    import gc
+    import io
+    import tempfile
+
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve as serve_launcher
+    from repro_torch.launch import train as train_launcher
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    rec, launches = {}, {}
+    by_case = {k: {} for k in (LM_KERNEL,) + BWD_KERNELS}
+    t_all = time.perf_counter()
+
+    def run(what, arch, fn, args):
+        _build.reset_launches()
+        text = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(text):
+            rc = fn(args)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        text = text.getvalue()
+        (out_dir / f"reduced_{arch}_{what}.txt").write_text(text)
+        if rc != 0:
+            raise AssertionError(f"[reduced] {what} {arch}: exit {rc}")
+        got = {k: k9_by_case(k) for k in by_case}
+        for k, d in got.items():
+            for case, n in d.items():
+                by_case[k][case] = by_case[k].get(case, 0) + n
+        for k, n in _build.LAUNCHES.items():
+            launches[k] = launches.get(k, 0) + n
+        rec.setdefault(arch, {})[what] = {
+            "seconds": seconds, "launches": dict(_build.LAUNCHES),
+            "by_shape": {k: {case_key(c): n for c, n in d.items()}
+                         for k, d in got.items() if d}}
+        gc.collect()
+        torch.cuda.empty_cache()
+        return text, got
+
+    for arch, cases in REDUCED_SERVE.items():
+        text, got = run("serve", arch, serve_launcher.main,
+                        ["--arch", arch, "--reduced"])
+        want = {LM_KERNEL: dict(cases), BWD_KERNELS[0]: {},
+                BWD_KERNELS[1]: {}}
+        if got != want:
+            raise AssertionError(f"[reduced] serve {arch}: K9-K11 by shape "
+                                 f"{got} != {want}")
+        reqs = [line for line in text.splitlines() if line.startswith("req ")]
+        if len(reqs) != 4 or any(len(json.loads(line.split(": ", 1)[1]))
+                                 != 8 for line in reqs) or \
+                "32 tokens in" not in text or "on cuda" not in text:
+            raise AssertionError(f"[reduced] serve {arch}: {text[-600:]!r}")
+        served = rec[arch]["serve"]
+        log("reduced", f"launch.serve --arch {arch} --reduced on the card: "
+            f"4 requests, 32 tokens in {served['seconds']:.2f} s; K9 by "
+            f"shape {served['by_shape'].get(LM_KERNEL, {})}")
+    with tempfile.TemporaryDirectory(prefix="reduced_ckpt_") as ckpt:
+        for arch, case in REDUCED_TRAIN.items():
+            text, got = run("train", arch, train_launcher.main,
+                            ["--arch", arch, "--reduced", "--steps",
+                             str(REDUCED_STEPS), "--ckpt", f"{ckpt}/{arch}",
+                             "--ckpt-every", str(REDUCED_STEPS + 1)])
+            per_step = REDUCED_STEPS * REDUCED_LAYERS
+            want = ({LM_KERNEL: {case: 2 * per_step},
+                     BWD_KERNELS[0]: {case: per_step},
+                     BWD_KERNELS[1]: {case: per_step}} if case else
+                    {k: {} for k in by_case})
+            if got != want:
+                raise AssertionError(f"[reduced] train {arch}: K9-K11 by "
+                                     f"shape {got} != {want}")
+            hist = [json.loads(line) for line in text.splitlines()
+                    if line.startswith("{")]
+            if not hist or hist[-1]["step"] != REDUCED_STEPS or not all(
+                    np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
+                    for h in hist) or "on cuda" not in text:
+                raise AssertionError(f"[reduced] train {arch}: "
+                                     f"{text[-600:]!r}")
+            rec[arch]["train"]["history"] = hist
+            log("reduced", f"launch.train --arch {arch} --reduced --steps "
+                f"{REDUCED_STEPS} on the card: losses "
+                f"{[round(h['loss'], 4) for h in hist]} in "
+                f"{rec[arch]['train']['seconds']:.2f} s; K9-K11 by shape "
+                f"{rec[arch]['train']['by_shape']}")
+    seconds = time.perf_counter() - t_all
+    record["reduced"] = {"seconds": seconds, "archs": rec,
+                         "launches": launches}
+    log("reduced", f"{len(REDUCED_SERVE)} archs served and "
+        f"{len(REDUCED_TRAIN)} trained through the launchers in "
+        f"{seconds:.1f} s; launches {json.dumps(launches, sort_keys=True)}"
+        f"  [{card}]")
+    return launches, by_case
+
+
+def check_padded_rows(torch, g, dev, ks):
+    """Phase 2 for K9-K11 at the reduced configs' head dims, which the
+    kernels run padded to a width of 32: at each serving shape of
+    FLASH_REDUCED and at its training shapes in both dtypes, q, k, v and
+    do are views of rows with NaN past hd (hd_v), and o, dq, dk and dv
+    views of rows holding a sentinel past it.  Fails if an output is not
+    finite (a kernel read past a row's head dim) or a sentinel moved (it
+    wrote past it); the values are held to the plain version by
+    ``check_flash`` and ``check_flash_bwd``."""
+    from repro_torch.kernels.flash_attention import ops
+    n = 0
+    for case in FLASH_REDUCED:
+        B, H, KV, S, hd, hd_v = case[:6]
+        kw = flash_kw(case)
+        for dname in FLASH_DTYPES:
+            dt = getattr(torch, dname)
+
+            def rows(heads, d, fill):
+                t = torch.full((B, heads, S, d + 8), fill, device=dev,
+                               dtype=dt)
+                t[..., :d] = torch.randn(B, heads, S, d, generator=g,
+                                         device=dev)
+                return t
+            q, k, v, do = (rows(h_, d, float("nan"))[..., :d] for h_, d in (
+                (H, hd), (KV, hd), (KV, hd_v), (H, hd_v)))
+            outs = [torch.full((B, H, S, d + 8), 7.0, device=dev, dtype=dt)
+                    for d in (hd_v, hd, hd, hd_v)]
+            o, dq, dk, dv = (t[..., :d] for t, d in zip(
+                outs, (hd_v, hd, hd, hd_v)))
+            lse = torch.empty((B, H, S), device=dev)
+            ops._launch(q, k, v, o, lse, **kw)
+            ops._launch_bwd(q, k, v, do, lse, ops._delta(o, do), dq, dk, dv,
+                            **kw)
+            torch.cuda.synchronize()
+            for name, t, d in zip(("o", "dq", "dk", "dv"), outs,
+                                  (hd_v, hd, hd, hd_v)):
+                if not (bool(torch.isfinite(t[..., :d]).all())
+                        and bool((t[..., d:] == 7.0).all())):
+                    raise AssertionError(
+                        f"flash {case} {dname}: {name} read or wrote past "
+                        f"its row's head dim {d}")
+                n += 1
+    return n
+
+
 def run_examples(record, card):
     """Each example of ``examples_torch/`` (``EXAMPLES``): its ``main()``
     in this process on the card, its output kept in the output directory
@@ -4386,7 +4623,8 @@ def main():
                                                        mm_plan,
                                                        stream_matmul,
                                                        stream_matmul_requant)
-    from repro_torch.kernels.stream_matmul.ref import stream_matmul_ref
+    from repro_torch.kernels.stream_matmul.ref import (result_dtype,
+                                                       stream_matmul_ref)
     from repro_torch.models.cnn import (cnn_forward, cnn_input_shape,
                                         init_cnn_params)
     from repro_torch.runtime.pipeline import PipelineExecutor
@@ -4399,14 +4637,13 @@ def main():
     # -- 1. build (and the autotuner's host search beside it) -----------------
     tuned_join = start_tuning(compile, get_cnn, NX2100)
     t0 = time.perf_counter()
-    ptxas = start_ptxas_report(_build)
     k11_plant = start_k11_plant(_build)
     _build.build_all()
     k11_plant = k11_plant()
     record["build_s"] = time.perf_counter() - t0
     log("build", f"{len(_build.SOURCES)} sources and the K11 plant built "
         f"with nvcc in {record['build_s']:.1f} s")
-    record["ptxas"] = ptxas()
+    record["ptxas"] = ptxas_report(_build)
     for src, found in record["ptxas"].items():
         log("build", f"{src}.cu under -Xptxas -v (registers, stack, spill "
             f"stores/loads bytes; tensor-core and dp4a SASS instructions; "
@@ -4575,9 +4812,12 @@ def main():
                     raise AssertionError(f"{kname}: f32 values not asked for")
                 ks[kname].err(torch, gq, want_q)
                 n_checks += 4
-    n_float = check_float_matmul(torch, g, dev, ks, fc_shapes, block_for)
+    fpath = float_path(comps, select_engine)
+    n_float = check_float_matmul(torch, g, dev, ks, fc_shapes, block_for,
+                                 fpath)
     n_flash = check_flash(torch, g, dev, ks[LM_KERNEL], record)
     n_bwd = check_flash_bwd(torch, g, dev, ks, record)
+    n_pad = check_padded_rows(torch, g, dev, ks)
     torch.cuda.synchronize()
     watchdog.cancel()
     record["check_s"] = time.perf_counter() - t0
@@ -4604,8 +4844,9 @@ def main():
         f"f32, their f32 sums at {len(BWD_SUM_CASES)} shapes, and "
         f"flash_attention_vjp against autograd) within tolerance, "
         f"readings {json.dumps(record['flash_bwd_readings'])}, vjp share of "
-        f"limit {json.dumps(record['vjp_share_of_limit'])}; in "
-        f"{record['check_s']:.1f} s")
+        f"limit {json.dumps(record['vjp_share_of_limit'])}; {n_pad} outputs "
+        f"of K9-K11 at the reduced head dims (padded to 32) read and wrote "
+        f"nothing past a row's head dim; in {record['check_s']:.1f} s")
 
     # -- 3. the slice through the kernels ------------------------------------
     params, images, logits = {}, {}, {}
@@ -4688,7 +4929,6 @@ def main():
         if absent:
             raise AssertionError(f"sharded {name}: kernels of the path "
                                  f"never launched: {absent}")
-    fpath = float_path(comps, select_engine)
     launches["float matmul"], float_inputs = drive_float_matmul(
         torch, g, dev, fpath, block_for, record)
     total_launches.update(launches["float matmul"])
@@ -4916,32 +5156,44 @@ def main():
                 "weight_bytes_read": wb, "x_bytes_read": xb,
                 "weight_gb_per_s": wb / (ms * 1e6)}
     record["matmul_per_shape"] = mm_shape_rows
-    # the float matmul per path entry (one launch each): device ms, bytes
-    # (operands read once, the output written once), bound (f32 products
-    # at 67 TFLOP/s FFMA, bf16 at 989), plain ms, and torch.matmul in the
-    # operands' type (TF32 off)
+    # the float matmul per path entry and operand pair (one launch each):
+    # device ms, bytes (operands read once, the output written once),
+    # bound (products with an f32 operand at 67 TFLOP/s FFMA, the others
+    # at the 989 of bf16 and f16), plain ms, and torch.matmul (TF32 off)
+    # in the operands' type, or, for a mixed pair, on both converted to
+    # the result type inside the timed call (an int8 operand's
+    # conversion timed with it)
     float_rows = {}
     t_bytes = {k: 0.0 for k in FLOAT_MM_KERNELS}
     t_ops = dict(t_bytes)
     for kname in FLOAT_MM_KERNELS:
         ks[kname].library_ms = 0.0
-    for (k_, n_, mode, dname), (x, w) in float_inputs.items():
+        ks[kname].per_shape = []
+    for (k_, n_, mode, pname), (x, w) in float_inputs.items():
         kern = ks[FLOAT_KERNELS[mode]]
         bk = block_for(k_, 512)
         reps = 5 if (k_, n_) == FC0_MATMUL[1:] else 20
+        out_t = result_dtype(x.dtype, w.dtype)
 
         def fn():
             return stream_matmul(x, w, mode=mode, bk=bk, n_buffers=2)
+
+        def lib():
+            if x.dtype == w.dtype:
+                return torch.matmul(x, w)
+            return torch.matmul(x.to(out_t), w.to(out_t))
         ms, cms = device_ms(torch, fn, reps=reps), call_ms(torch, fn, reps)
         pms = device_ms(torch, lambda: stream_matmul_ref(x, w), reps=3,
                         replays=2)
-        lms = device_ms(torch, lambda: torch.matmul(x, w), reps=reps)
+        lms = device_ms(torch, lib, reps=reps)
         ref = stream_matmul_ref(x, w).double()
-        lib_diff = float((torch.matmul(x, w).double() - ref).abs().max())
-        es = x.element_size()
-        nbytes = (BATCH * k_ + k_ * n_ + BATCH * n_) * es
+        lib_diff = float((lib().double() - ref).abs().max())
+        xb, wb = x.element_size(), w.element_size()
+        ob = torch.empty((), dtype=out_t).element_size()
+        nbytes = BATCH * k_ * xb + k_ * n_ * wb + BATCH * n_ * ob
         ops = 2 * BATCH * k_ * n_
-        rate = FP32_FLOPS_PER_S if dname == "float32" else BF16_FLOPS_PER_S
+        rate = FP32_FLOPS_PER_S if torch.float32 in (x.dtype, w.dtype) \
+            else BF16_FLOPS_PER_S
         b, by = bound_ms(nbytes, ops, rate)
         kern.ms += ms
         kern.plain_ms += pms
@@ -4949,16 +5201,20 @@ def main():
         kern.bound_ms += b
         t_bytes[kern.name] += nbytes / HBM_BYTES_PER_S
         t_ops[kern.name] += ops / rate
-        plan = mm_float_plan(BATCH, k_, n_, mode, bk, 2, es, es, sm_count)
-        float_rows[f"{mode}:{k_},{n_}:{dname}"] = {
+        plan = mm_float_plan(BATCH, k_, n_, mode, bk, 2, xb, wb, sm_count)
+        key = f"{mode}:{k_},{n_}:{pname}"
+        float_rows[key] = {
             "ms": ms, "call_ms": cms, "plain_ms": pms, "library_ms": lms,
             "library_max_abs_diff": lib_diff, "bytes": nbytes,
             "flops": ops, "bound_ms": b, "bound_by": by,
             "factor_on_library": ms / lms, "weight_gb_per_s":
-                k_ * n_ * es / (ms * 1e6),
+                k_ * n_ * wb / (ms * 1e6),
             "plan": {f: getattr(plan, f) for f in (
                 "tn", "split", "kr", "kblk", "nb", "wvec", "smem_bytes")},
             "ctas": plan.n_tiles * plan.split * plan.m_tiles}
+        kern.per_shape.append({"case": key, "launches": 1, "ms": ms,
+                               "plain_ms": pms, "bound_ms": b,
+                               "bound_by": by, "library_ms": lms})
     for kname in FLOAT_MM_KERNELS:
         ks[kname].bound_by = ("bytes" if t_bytes[kname] >= t_ops[kname]
                               else "operations")
@@ -5217,6 +5473,15 @@ def main():
     add_k9(dryrun_cases.get(LM_KERNEL, {}))
     for k in BWD_KERNELS:
         for case, n in dryrun_cases.get(k, {}).items():
+            bwd_launches[k][case] = bwd_launches[k].get(case, 0) + n
+    # -- the reduced configs through the launchers ---------------------------
+    reduced, reduced_cases = reduced_launchers(torch, np, record, card)
+    launches["reduced"] = reduced
+    for k, n in reduced.items():
+        total_launches[k] = total_launches.get(k, 0) + n
+    add_k9(reduced_cases[LM_KERNEL])
+    for k in BWD_KERNELS:
+        for case, n in reduced_cases[k].items():
             bwd_launches[k][case] = bwd_launches[k].get(case, 0) + n
     missing = [k for k in KERNELS if not total_launches.get(k)]
     if missing:

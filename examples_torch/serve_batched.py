@@ -8,14 +8,11 @@ prefill + credit-bounded continuous decode).
 Runs on the CUDA card by default and raises without one; ``--device
 cpu`` runs the kernels' plain versions.
 
-Serves a stream of requests against a reduced model (at head dim 32 or
-more: the reduced config's 16 is below the narrowest head the flash
-kernels take), reporting tokens/s, admission behaviour (credits) and
-per-request outputs.  The same engine code serves the full-width
-models (``python -m repro_torch.launch.serve``).
+Serves a stream of requests against a reduced model, reporting tokens/s,
+admission behaviour (credits) and per-request outputs.  The same engine
+code serves the full-width models (``python -m repro_torch.launch.serve``).
 """
 import argparse
-import dataclasses
 import time
 
 import numpy as np
@@ -38,7 +35,6 @@ def main(argv=None):
     dev = resolve_device(args.device)
 
     arch = get_arch(args.arch).reduced()
-    arch = dataclasses.replace(arch, head_dim=max(arch.head_dim, 32))
     params = tmod.init_params(torch.Generator(dev).manual_seed(0), arch, dev)
     engine = ServingEngine(params, arch, batch_slots=args.slots,
                            max_seq=128, device=dev)

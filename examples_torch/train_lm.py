@@ -10,13 +10,10 @@ checkpoints, crash recovery).
   PYTHONPATH=src python examples_torch/train_lm.py --full --steps 300
 
 Runs on the CUDA card by default and raises without one; ``--device
-cpu`` runs the kernels' plain versions.  A reduced config runs at head
-dim 32 or more (the reduced config's 16 is below the narrowest head the
-flash kernels take); the checkpoints go to a temporary directory, removed
-at the end.
+cpu`` runs the kernels' plain versions.  The checkpoints go to a
+temporary directory, removed at the end.
 """
 import argparse
-import dataclasses
 import tempfile
 
 from repro_torch.configs import get_arch
@@ -42,7 +39,6 @@ def main(argv=None):
     arch = get_arch(args.arch)
     if not args.full:
         arch = arch.reduced()
-        arch = dataclasses.replace(arch, head_dim=max(arch.head_dim, 32))
     data = TokenDataset(DataConfig(vocab_size=arch.vocab_size,
                                    seq_len=args.seq_len,
                                    global_batch=args.batch))

@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""Time the streamed dense conv (K2), the fc-head matmul (K7/K8) and the
-pools (K5, K6) of a checkout of this repository, and the device time of
-each net's forward, on one CUDA card: the probe that holds two trees
-against each other in one call (PERF.md).
+"""Time the streamed dense conv (K2), the fc-head matmul (K7/K8, int8
+and its f32 and bf16 modes), the pools (K5, K6) and the attention
+kernels' bf16 ``mma.sync`` routes (K9 at DeepSeek-V2's qk 192 / v 128,
+K10/K11 at Phi-4-mini's shape) of a checkout of this repository, and the
+device time of each net's forward, on one CUDA card: the probe that
+holds two trees against each other in one call (PERF.md).
 
     python3 probe_stream.py [ROOT]
 
@@ -10,7 +12,8 @@ ROOT is the checkout whose ``src/repro_torch`` is timed (default: the one
 holding this script); its kernels build into ROOT/build on first use.
 Shapes: every streamed dense conv of ResNet-50 and VGG-16 compiled for
 ``NX2100`` at batch 8 (n_buffers 2, as the executor launches them), every
-fc head of the six CNN configs in the mode the engine runs it, every
+fc head of the six CNN configs in the mode the engine runs it (the float
+modes also at VGG-16's fc0 streamed, f32 and bf16 at M = 8), every
 maxpool and global-average-pool shape of ResNet-50, ResNet-18,
 MobileNetV2 and VGG-16, and the forwards of those four nets.  Device times:
 20 calls (a forward: 1) captured into a CUDA graph and replayed, L2 warm.
@@ -172,6 +175,34 @@ def main():
             mm[key] = device_ms(torch, lambda: stream_matmul_requant(
                 x, w, ws, b, 0.05, mode=mode, bk=_block(sp.c_in, 512),
                 n_buffers=max(2, sc.n_buffers)), 20)
+    from repro_torch.kernels.stream_matmul.ops import stream_matmul
+    float_mm = {}
+    for key in list(mm) + ["fifo:25088,4096"]:
+        mode, kn = key.split(":")
+        k_, n_ = map(int, kn.split(","))
+        for dt in (torch.float32, torch.bfloat16):
+            x = torch.randn(BATCH, k_, generator=g, device=dev).to(dt)
+            w = torch.randn(k_, n_, generator=g, device=dev).to(dt)
+            float_mm[f"{key}:{str(dt)[6:]}"] = device_ms(
+                torch, lambda: stream_matmul(x, w, mode=mode,
+                                             bk=_block(k_, 512),
+                                             n_buffers=2),
+                5 if k_ == 25088 else 20)
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, flash_attention_bwd, flash_attention_kernel)
+    flash = {}
+    for B, H, KV, S, hd, hd_v in ((4, 128, 128, 512, 192, 128),
+                                  (4, 24, 8, 512, 128, 128)):
+        q, k, v, do = (torch.randn(B, S, h, d, generator=g, device=dev)
+                       .bfloat16() for h, d in ((H, hd), (KV, hd),
+                                                (KV, hd_v), (H, hd_v)))
+        qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))
+        key = f"{B}x{H}x{KV}x{S}x{hd}x{hd_v}"
+        flash[f"fwd:{key}"] = device_ms(
+            torch, lambda: flash_attention(q, k, v), 20)
+        o, lse = flash_attention_kernel(qt, kt, vt, return_lse=True)
+        flash[f"bwd:{key}"] = device_ms(
+            torch, lambda: flash_attention_bwd(qt, kt, vt, o, lse, dot), 10)
     pools = {}
     for name in ("resnet50", "resnet18", "mobilenetv2", "vgg16"):
         for sc in comps[name].plan.schedules:
@@ -197,11 +228,15 @@ def main():
         params = init_cnn_params(comp.cfg, gen, dev)
         images = torch.randint(-127, 128, cnn_input_shape(comp.cfg, BATCH),
                                generator=gen, dtype=torch.int8).to(dev)
-        ex = PipelineExecutor(comp, device=dev)
+        # the per-layer walk, captured whole into the probe's graph (the
+        # fused backend's run is itself a graph replay, which a capture
+        # cannot take)
+        ex = PipelineExecutor(comp, device=dev, backend="eager")
         nets[name] = device_ms(torch, lambda: ex.run(params, images), 1,
                                replays=10)
     print(json.dumps({"root": str(root), "card": card, "conv_ms": conv,
-                      "matmul_ms": mm, "pool_ms": pools,
+                      "matmul_ms": mm, "float_matmul_ms": float_mm,
+                      "flash_ms": flash, "pool_ms": pools,
                       "net_device_ms": nets,
                       "dram_gb_per_s": dram_rates(torch, _build, root)}))
     return 0

@@ -4,10 +4,13 @@ Each ``csrc/<name>.cu`` compiles on first use into its own shared library
 with a plain C interface:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o build/kernels/<name>-<sha>.so csrc/<name>.cu
+         -Xcompiler -fPIC -Xptxas -v -o build/kernels/<name>-<sha>.so
+         csrc/<name>.cu
 
 ``<sha>`` is the hash of the source, so an edited source rebuilds and a
-stale library is never loaded.  Only the sources in this package are
+stale library is never loaded.  The compiler's report (``-Xptxas -v``:
+each kernel's registers, stack and spills) is kept beside the library
+(:func:`build_log`).  Only the sources in this package are
 built.  ``--use_fast_math`` is deliberately absent: the fused requant
 epilogues rely on IEEE division and round-half-even, and the attention
 kernels on accurate ``logf``/``tanhf``, IEEE division and, but for the
@@ -75,16 +78,23 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
+def build_log(name: str) -> str:
+    """What nvcc reported (``-Xptxas -v``) when it built the library of
+    ``csrc/<name>.cu``."""
+    return library_path(name).with_suffix(".log").read_text()
+
+
 def _start(name: str):
     """Start nvcc for one source into a temporary file; None when the
-    library for this source hash is already built."""
+    library for this source hash and its build log are already there."""
     out = library_path(name)
-    if out.exists():
+    if out.exists() and out.with_suffix(".log").exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp,
+           str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out
@@ -99,6 +109,7 @@ def _finish(name: str, started) -> None:
         os.unlink(tmp)
         raise RuntimeError(f"nvcc failed for csrc/{name}.cu "
                            f"(exit {proc.returncode}):\n{log}")
+    out.with_suffix(".log").write_text(log)
     os.replace(tmp, out)        # atomic: concurrent builders never see half
 
 

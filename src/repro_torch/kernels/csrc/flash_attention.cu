@@ -52,9 +52,16 @@
 //     distinct banks.  QK^T and PV run on the tensor cores as mma.sync
 //     m16n8k16 (bf16 in, f32 accumulate), their operands loaded with
 //     ldmatrix (.trans for V).  p goes from registers to the tensor cores
-//     rounded to bf16, without shared memory.
+//     rounded to bf16, without shared memory.  Head dims: any multiple of
+//     8 from 8 to 256 (hd and hd_v each), run at the narrowest width the
+//     kernel is built at that holds it (width(): hd 32, 64, 128, 192, 256;
+//     hd_v 32, 64, 128, 256).  The copies zero-fill the columns past hd in
+//     Q and K and past hd_v in V (their products add 0) and read nothing
+//     past a row's hd or hd_v; only hd_v columns of o are written; the
+//     scale is the true 1/sqrt(hd), which the wrapper passes.
 //   flash_fwd_f32  f32 operands, for tight tests: the same tiles and
-//     steps on the CUDA cores with fmaf, scores and acc in shared memory.
+//     steps on the CUDA cores with fmaf, scores and acc in shared memory,
+//     at the true head dims.
 // In both bf16 kernels the softcap and the mask run as separate loops
 // behind branches that are uniform over the warpgroup or CTA, and only
 // the tiles on the causal diagonal or the window's edge evaluate the mask.
@@ -173,19 +180,19 @@ __global__ void __launch_bounds__(NT) flash_fwd_bf16(FlashArgs a) {
   k_tiles(a, q0, BQ, BK, &lo, &hi);
   // the K/V tiles go through a ring of two buffers: tile kt+1 is copied
   // (cp.async) while tile kt is consumed
-  load_tile<HD, NT>(Qs, LQ, q, a.qs_s, q0, a.Sq, BQ);
+  load_tile<HD, NT>(Qs, LQ, q, a.qs_s, q0, a.Sq, BQ, a.hd);
   if (lo <= hi) {
-    load_tile<HD, NT>(Ks, LQ, k, a.ks_s, lo * BK, a.Sk, BK);
-    load_tile<HDV, NT>(Vs, LV, v, a.vs_s, lo * BK, a.Sk, BK);
+    load_tile<HD, NT>(Ks, LQ, k, a.ks_s, lo * BK, a.Sk, BK, a.hd);
+    load_tile<HDV, NT>(Vs, LV, v, a.vs_s, lo * BK, a.Sk, BK, a.hdv);
   }
   cp_async_commit();
   for (int kt = lo; kt <= hi; ++kt) {
     const int k0 = kt * BK, buf = (kt - lo) & 1;
     if (kt < hi) {
       load_tile<HD, NT>(Ks + (buf ^ 1) * BK * LQ, LQ, k, a.ks_s, k0 + BK,
-                        a.Sk, BK);
+                        a.Sk, BK, a.hd);
       load_tile<HDV, NT>(Vs + (buf ^ 1) * BK * LV, LV, v, a.vs_s, k0 + BK,
-                         a.Sk, BK);
+                         a.Sk, BK, a.hdv);
     }
     cp_async_commit();
     cp_async_wait1();  // Q and tile kt have landed
@@ -310,6 +317,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_bf16(FlashArgs a) {
 #pragma unroll
   for (int n = 0; n < HDV / 8; ++n) {
     const int col = n * 8 + 2 * t;
+    if (n * 8 >= a.hdv) break;  // the padding columns are not written
     if (row0 < a.Sq)
       *reinterpret_cast<uint32_t*>(out + row0 * a.os_s + col) =
           pack_bf16(o[n][0] / d0, o[n][1] / d0);
@@ -848,17 +856,13 @@ __global__ void __launch_bounds__(NT32) flash_fwd_f32(FlashArgs a) {
 
 template <int HD, int HDV>
 cudaError_t launch_bf16(const FlashArgs& a, dim3 grid, cudaStream_t stream) {
-  if constexpr (HD == HDV && (HD == 64 || HD == 128)) {
-    return cudaErrorInvalidValue;  // the wgmma route's pairs
-  } else {
-    const size_t smem = smem_bf16<HD, HDV>();
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_bf16<HD, HDV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return err;
-    flash_fwd_bf16<HD, HDV><<<grid, NT, smem, stream>>>(a);
-    return cudaGetLastError();
-  }
+  const size_t smem = smem_bf16<HD, HDV>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_bf16<HD, HDV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  flash_fwd_bf16<HD, HDV><<<grid, NT, smem, stream>>>(a);
+  return cudaGetLastError();
 }
 
 // cuTensorMapEncodeTiled from the driver through the runtime, so that the
@@ -935,10 +939,11 @@ cudaError_t launch_wgmma(const FlashArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// flash_fwd_bf16<HD, HDV> at the widths of width() (mma_bf16.cuh)
 template <int HD>
 cudaError_t launch_bf16_hdv(const FlashArgs& a, dim3 grid,
                             cudaStream_t stream) {
-  switch (a.hdv) {
+  switch (width(a.hdv, WIDTHS_HDV)) {
     case 32: return launch_bf16<HD, 32>(a, grid, stream);
     case 64: return launch_bf16<HD, 64>(a, grid, stream);
     case 128: return launch_bf16<HD, 128>(a, grid, stream);
@@ -954,7 +959,8 @@ extern "C" {
 // q [B,H,Sq,hd], k [B,KV,Sk,hd], v [B,KV,Sk,hd_v], o [B,H,Sq,hd_v] given
 // by their element strides over (batch, head, seq) in `strides` (q, k, v,
 // o in turn; the last dim contiguous); lse [B,H,Sq] f32, contiguous.
-// route 0: bf16 on mma.sync; 1: f32; 2: bf16 on wgmma and TMA, for hd =
+// hd and hd_v: multiples of 8 from 8 to 256.  route 0: bf16 on mma.sync,
+// at the widths of width(); 1: f32; 2: bf16 on wgmma and TMA, for hd =
 // hd_v in {64, 128} only, which route 0 refuses (ops.flash_route picks it
 // from (dtype, hd, hd_v)).  Returns a cudaError_t.
 int flash_attention_fwd_launch(const void* q, const void* k, const void* v,
@@ -963,7 +969,9 @@ int flash_attention_fwd_launch(const void* q, const void* k, const void* v,
                                const long long* strides, int causal,
                                int window, float softcap, float scale,
                                cudaStream_t stream) {
-  if (KV < 1 || H % KV != 0 || window < 0) return (int)cudaErrorInvalidValue;
+  if (KV < 1 || H % KV != 0 || window < 0 || !head_dim_ok(hd) ||
+      !head_dim_ok(hd_v))
+    return (int)cudaErrorInvalidValue;
   if (B == 0 || H == 0 || Sq == 0) return (int)cudaSuccess;
   FlashArgs a{q, k, v, o, lse,
               strides[0], strides[1], strides[2], strides[3], strides[4],
@@ -986,8 +994,9 @@ int flash_attention_fwd_launch(const void* q, const void* k, const void* v,
     flash_fwd_f32<<<grid, NT32, smem, stream>>>(a);
     return (int)cudaGetLastError();
   }
-  if (route != 0) return (int)cudaErrorInvalidValue;
-  switch (hd) {
+  if (route != 0 || (hd == hd_v && (hd == 64 || hd == 128)))
+    return (int)cudaErrorInvalidValue;
+  switch (width(hd, WIDTHS_HD)) {
     case 32: return (int)launch_bf16_hdv<32>(a, grid, stream);
     case 64: return (int)launch_bf16_hdv<64>(a, grid, stream);
     case 128: return (int)launch_bf16_hdv<128>(a, grid, stream);

@@ -50,12 +50,20 @@
 //   of the head-dim columns (both compute the same scores).  The sums are
 //   written once, rounded to bf16 (dtype 0) or as the f32 sums themselves
 //   (dtype 2, the check that can see below bf16's precision); no atomics,
-//   so both kernels are deterministic.
+//   so both kernels are deterministic.  Head dims: any multiple of 8 from 8
+//   to 256 (hd and hd_v each), run at the narrowest width the kernels are
+//   built at that holds it (width(): hd 32, 64, 128, 192, 256; hd_v 32, 64,
+//   128, 256; a wide head is one whose width is above 128).  The copies
+//   zero-fill the columns past hd in Q and K and past hd_v in V and dO,
+//   and read nothing past a row's hd or hd_v: the padded products add 0,
+//   the padded columns of dq, dk and dv come out 0 and are not written.
+//   The scale is the true 1/sqrt(hd), which the wrapper passes.
 //
 //   f32 (dtype 1, the check path of the f32 card tests, as flash_fwd_f32
 //   is for K9): flash_bwd_dq_f32 and flash_bwd_dkv_f32, every
 //   operand in f32 in shared memory and every product an f32 FMA on the
-//   CUDA cores; eight warps of 8 rows, K/V (or Q/dO) tiles of 32.
+//   CUDA cores; eight warps of 8 rows, K/V (or Q/dO) tiles of 32; a lane
+//   owns the columns lane + 32c below the true head dim.
 //
 // Tiles the mask hides entirely are skipped on both routes, which is exact
 // (p and ds are zero there); tiles every element of which is visible skip
@@ -166,15 +174,15 @@ __device__ __forceinline__ void dots(float* out, const float* A, int lda,
 
 // acc[i][c] += sum_j W[i][j] X[j][lane + 32c] over J (a multiple of 4)
 // columns of the warp's ROWS rows of W (row stride ldw, broadcast) and
-// rows of X (row stride ldx), for c < nc.
+// rows of X (row stride ldx), for the columns lane + 32c < D.
 template <int MAXC>
 __device__ __forceinline__ void accumulate(float (*acc)[MAXC], const float* W,
                                            int ldw, const float* X, int ldx,
-                                           int J, int nc, int lane) {
+                                           int J, int D, int lane) {
   for (int j = 0; j < J; j += 4) {
 #pragma unroll
     for (int c = 0; c < MAXC; ++c) {
-      if (c < nc) {
+      if (lane + 32 * c < D) {
         const float* x = X + j * ldx + lane + 32 * c;
         const float x0 = x[0], x1 = x[ldx], x2 = x[2 * ldx], x3 = x[3 * ldx];
 #pragma unroll
@@ -270,7 +278,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_f32(BwdArgs a) {
       Ds[(r0 + i) * LD + lane] = ds;
     }
     __syncwarp();  // a warp reads back only its own rows of Ds
-    accumulate<MAXC>(acc, Ds + r0 * LD, LD, Ks, LQ, BK10, a.hd / 32, lane);
+    accumulate<MAXC>(acc, Ds + r0 * LD, LD, Ks, LQ, BK10, a.hd, lane);
     __syncwarp();
   }
 
@@ -281,7 +289,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_f32(BwdArgs a) {
     if (row >= a.Sq) continue;
 #pragma unroll
     for (int c = 0; c < MAXC; ++c)
-      if (c < a.hd / 32)
+      if (lane + 32 * c < a.hd)
         dq[row * a.s[DQ_ + 2] + lane + 32 * c] = acc[i][c];
   }
 }
@@ -361,8 +369,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_f32(BwdArgs a) {
       Ds[(r0 + i) * LP + lane] = ds;
     }
     __syncwarp();  // a warp reads back only its own rows of Ps and Ds
-    accumulate<MAXC>(dv, Ps + r0 * LP, LP, Os, LV, BQ11, a.hdv / 32, lane);
-    accumulate<MAXC>(dk, Ds + r0 * LP, LP, Qs, LQ, BQ11, a.hd / 32, lane);
+    accumulate<MAXC>(dv, Ps + r0 * LP, LP, Os, LV, BQ11, a.hdv, lane);
+    accumulate<MAXC>(dk, Ds + r0 * LP, LP, Qs, LQ, BQ11, a.hd, lane);
     __syncwarp();
   }
 
@@ -374,9 +382,9 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_f32(BwdArgs a) {
     if (key >= a.Sk) continue;
 #pragma unroll
     for (int c = 0; c < MAXC; ++c) {
-      if (c < a.hd / 32)
+      if (lane + 32 * c < a.hd)
         gk[key * a.s[DK_ + 2] + lane + 32 * c] = dk[i][c];
-      if (c < a.hdv / 32)
+      if (lane + 32 * c < a.hdv)
         gv[key * a.s[DV_ + 2] + lane + 32 * c] = dv[i][c];
     }
   }
@@ -548,19 +556,21 @@ __global__ void __launch_bounds__(NTC) flash_bwd_dq_tc(BwdArgs a) {
   const int hi = a.causal ? min(nkt - 1, q_last / TC_BN) : nkt - 1;
   const int lo = a.window > 0 ? max(0, q0 - a.window + 1) / TC_BN : 0;
   if (lo <= hi) {
-    load_tile<HD, NTC>(Qs, LQ, q, a.s[Q_ + 2], q0, a.Sq, TC_BM);
-    load_tile<HDV, NTC>(Os, LV, dout, a.s[DO_ + 2], q0, a.Sq, TC_BM);
-    load_tile<HD, NTC>(Ks, LQ, k, a.s[K_ + 2], lo * TC_BN, a.Sk, TC_BN);
-    load_tile<HDV, NTC>(Vs, LV, v, a.s[V_ + 2], lo * TC_BN, a.Sk, TC_BN);
+    load_tile<HD, NTC>(Qs, LQ, q, a.s[Q_ + 2], q0, a.Sq, TC_BM, a.hd);
+    load_tile<HDV, NTC>(Os, LV, dout, a.s[DO_ + 2], q0, a.Sq, TC_BM, a.hdv);
+    load_tile<HD, NTC>(Ks, LQ, k, a.s[K_ + 2], lo * TC_BN, a.Sk, TC_BN,
+                       a.hd);
+    load_tile<HDV, NTC>(Vs, LV, v, a.s[V_ + 2], lo * TC_BN, a.Sk, TC_BN,
+                        a.hdv);
   }
   cp_async_commit();
   for (int kt = lo; kt <= hi; ++kt) {
     const int k0 = kt * TC_BN, buf = (kt - lo) & 1;
     if (kt < hi) {
       load_tile<HD, NTC>(Ks + (buf ^ 1) * TC_BN * LQ, LQ, k, a.s[K_ + 2],
-                         k0 + TC_BN, a.Sk, TC_BN);
+                         k0 + TC_BN, a.Sk, TC_BN, a.hd);
       load_tile<HDV, NTC>(Vs + (buf ^ 1) * TC_BN * LV, LV, v, a.s[V_ + 2],
-                          k0 + TC_BN, a.Sk, TC_BN);
+                          k0 + TC_BN, a.Sk, TC_BN, a.hdv);
     }
     cp_async_commit();
     cp_async_wait1();  // Q, dO and tile kt have landed
@@ -606,6 +616,7 @@ __global__ void __launch_bounds__(NTC) flash_bwd_dq_tc(BwdArgs a) {
 #pragma unroll
   for (int n = 0; n < DC / 8; ++n) {
     const int col = wc * DC + n * 8 + 2 * t;
+    if (wc * DC + n * 8 >= a.hd) break;  // the padding columns
     if (row0 < a.Sq)
       store_pair(a.dq, a.s + DQ_, b, h, row0, col, acc[n][0], acc[n][1],
                  a.f32_out);
@@ -652,9 +663,9 @@ __global__ void __launch_bounds__(NTC) flash_bwd_dkv_tc(BwdArgs a) {
   // Q, dO, lse and delta of query rows [q0, q0 + BN) into buffer `buf`
   auto load_q = [&](int buf, int q0) {
     load_tile<HD, NTC>(Qs + buf * TC_BN * LQ, LQ, q, a.s[Q_ + 2], q0, a.Sq,
-                       TC_BN);
+                       TC_BN, a.hd);
     load_tile<HDV, NTC>(Os + buf * TC_BN * LV, LV, dout, a.s[DO_ + 2], q0,
-                        a.Sq, TC_BN);
+                        a.Sq, TC_BN, a.hdv);
     if (threadIdx.x < 2 * TC_BN) {
       const int i = threadIdx.x % TC_BN, row = q0 + i;
       const bool d = threadIdx.x >= TC_BN, valid = row < a.Sq;
@@ -671,8 +682,8 @@ __global__ void __launch_bounds__(NTC) flash_bwd_dkv_tc(BwdArgs a) {
                      ? min(nqt - 1, (k_last + a.window - 1) / TC_BN)
                      : nqt - 1;
   if (lo <= hi) {
-    load_tile<HD, NTC>(Ks, LQ, k, a.s[K_ + 2], k0, a.Sk, TC_BM);
-    load_tile<HDV, NTC>(Vs, LV, v, a.s[V_ + 2], k0, a.Sk, TC_BM);
+    load_tile<HD, NTC>(Ks, LQ, k, a.s[K_ + 2], k0, a.Sk, TC_BM, a.hd);
+    load_tile<HDV, NTC>(Vs, LV, v, a.s[V_ + 2], k0, a.Sk, TC_BM, a.hdv);
     load_q(0, lo * TC_BN);
   }
   cp_async_commit();
@@ -736,6 +747,7 @@ __global__ void __launch_bounds__(NTC) flash_bwd_dkv_tc(BwdArgs a) {
 #pragma unroll
   for (int n = 0; n < DKC / 8; ++n) {
     const int col = wc * DKC + n * 8 + 2 * t;
+    if (wc * DKC + n * 8 >= a.hd) break;  // the padding columns
     if (key0 < a.Sk)
       store_pair(a.dk, a.s + DK_, b, h, key0, col, dk[n][0], dk[n][1],
                  a.f32_out);
@@ -746,6 +758,7 @@ __global__ void __launch_bounds__(NTC) flash_bwd_dkv_tc(BwdArgs a) {
 #pragma unroll
   for (int n = 0; n < DVC / 8; ++n) {
     const int col = wc * DVC + n * 8 + 2 * t;
+    if (wc * DVC + n * 8 >= a.hdv) break;  // the padding columns
     if (key0 < a.Sk)
       store_pair(a.dv, a.s + DV_, b, h, key0, col, dv[n][0], dv[n][1],
                  a.f32_out);
@@ -798,9 +811,11 @@ cudaError_t launch_tc(const BwdArgs& a, int which, cudaStream_t stream) {
                 threads, a, stream);
 }
 
+// the tensor-core kernels at the widths of width() (mma_bf16.cuh); only
+// the true columns of dq, dk and dv are written
 template <int HD>
 cudaError_t launch_tc_hdv(const BwdArgs& a, int which, cudaStream_t stream) {
-  switch (a.hdv) {
+  switch (width(a.hdv, WIDTHS_HDV)) {
     case 32: return launch_tc<HD, 32>(a, which, stream);
     case 64: return launch_tc<HD, 64>(a, which, stream);
     case 128: return launch_tc<HD, 128>(a, which, stream);
@@ -810,7 +825,7 @@ cudaError_t launch_tc_hdv(const BwdArgs& a, int which, cudaStream_t stream) {
 }
 
 cudaError_t launch_bf16(const BwdArgs& a, int which, cudaStream_t stream) {
-  switch (a.hd) {
+  switch (width(a.hd, WIDTHS_HD)) {
     case 32: return launch_tc_hdv<32>(a, which, stream);
     case 64: return launch_tc_hdv<64>(a, which, stream);
     case 128: return launch_tc_hdv<128>(a, which, stream);
@@ -819,8 +834,6 @@ cudaError_t launch_bf16(const BwdArgs& a, int which, cudaStream_t stream) {
     default: return cudaErrorInvalidValue;
   }
 }
-
-bool head_dim_ok(int d) { return d % 32 == 0 && d >= 32 && d <= 256; }
 
 }  // namespace
 
@@ -833,9 +846,9 @@ extern "C" {
 // [B,H,Sq] f32, contiguous.  which 0 launches K10 (writes dq), 1 launches
 // K11 (writes dk and dv).  dtype 0: bf16 operands and outputs (tensor
 // cores); 1: f32 operands and outputs (CUDA cores); 2: bf16 operands, f32
-// outputs (the tensor-core kernels' sums before their rounding).  The
-// bf16 route takes hd in {32, 64, 128, 192, 256} and hd_v in {32, 64,
-// 128, 256}.  Returns a cudaError_t.
+// outputs (the tensor-core kernels' sums before their rounding).  hd and
+// hd_v: multiples of 8 from 8 to 256 (the bf16 route runs them at the
+// widths of width()).  Returns a cudaError_t.
 int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
                                const void* dout, const float* lse,
                                const float* delta, void* dq, void* dk,

@@ -1,7 +1,8 @@
 // Tensor-core helpers shared by the flash-attention kernels (K9 in
 // flash_attention.cu, K10/K11 in flash_attention_bwd.cu): cp.async tile
-// copies into padded shared-memory rows, ldmatrix fragment loads and
-// mma.sync m16n8k16 with bf16 operands and f32 sums.
+// copies into padded shared-memory rows, ldmatrix fragment loads,
+// mma.sync m16n8k16 with bf16 operands and f32 sums, and the head-dim
+// widths the kernels are built at.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -67,20 +68,39 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// Start copying rows [row0, row0 + rows) of a [S, D] operand (row stride
-// `stride`) into shared memory with row stride `ld`, NT threads sharing
-// the work; rows at or past S arrive as zeros.
+// Start copying rows [row0, row0 + rows) of a [S, cols] operand (row
+// stride `stride`) into D columns of shared memory with row stride `ld`,
+// NT threads sharing the work; rows at or past S and columns at or past
+// `cols` (a multiple of 8, at most D: a head dim padded to the kernel's
+// width) arrive as zeros, and nothing past a row's `cols` is read.
 template <int D, int NT>
 __device__ __forceinline__ void load_tile(bf16* dst, int ld, const bf16* src,
                                           long long stride, int row0, int S,
-                                          int rows) {
+                                          int rows, int cols) {
   constexpr int CH = D / 8;  // 16-byte chunks per row
   for (int idx = threadIdx.x; idx < rows * CH; idx += NT) {
     const int r = idx / CH, c = idx % CH;
-    const bool valid = row0 + r < S;
+    const bool valid = row0 + r < S && 8 * c < cols;
     cp_async16(dst + r * ld + c * 8,
                valid ? src + (row0 + r) * stride + c * 8 : src, valid);
   }
 }
+
+// The widths (hd, hd_v) the bf16 kernels of both files are built at
+// (ops.KERNEL_HD, KERNEL_HD_V): a head dim runs at the narrowest that
+// holds it (width()), its columns past hd (hd_v) zero in shared memory
+// (load_tile) and never written.
+constexpr int WIDTHS_HD[] = {32, 64, 128, 192, 256};
+constexpr int WIDTHS_HDV[] = {32, 64, 128, 256};
+
+template <int N>
+inline int width(int d, const int (&widths)[N]) {
+  for (int w : widths)
+    if (d <= w) return w;
+  return 0;
+}
+
+// the head dims the kernels take: every multiple of 8 from 8 to 256
+inline bool head_dim_ok(int d) { return d % 8 == 0 && d >= 8 && d <= 256; }
 
 }  // namespace h2pipe_mma

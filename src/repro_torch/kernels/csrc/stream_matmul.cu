@@ -41,27 +41,31 @@
 // The TPU block sizes of the engine table are accounting only; the kernel
 // masks the ragged M, N and K edges itself.
 //
-// The float modes (f32 or bf16 operands, f32 sums, the promoted result
-// type: bf16 for bf16 x bf16, else f32) are mm_float<TX, TW, TN>, with the
-// same work split, ring and credit rule as mm_kernel and a plan of their
-// own (ops.mm_float_plan, layout mm_float_layout below):
+// The float modes are mm_float<TX, TW, TN>: every operand pair over f32,
+// bf16, f16 and int8 but int8 x int8 (mm_kernel's), f32 sums as the
+// reference's _acc_dtype takes them, the result in the type
+// jnp.promote_types gives (Promoted below: f16 x f16 -> f16, f16 x bf16
+// -> f32, int8 x bf16 -> bf16, int8 x f16 -> f16, any with f32 -> f32),
+// with the same work split, ring and credit rule as mm_kernel and a plan
+// of their own (ops.mm_float_plan, layout mm_float_layout below):
 //  * A slot holds a K block of the weights [kblk][tn] and of x [TM][kblk];
 //    both stream through the ring (cp.async of 16, 8 or 4 bytes, or plain
-//    2-byte copies of a bf16 operand whose rows are not 4-byte multiples),
-//    zeros past M, N and the rank's K range.
+//    copies of one element where a row of bf16, f16 or int8 values is not
+//    a multiple of 4 bytes), zeros past M, N and the rank's K range.
 //  * The products are FFMA on the CUDA cores, never TF32: each of 128
 //    consumer threads owns 4 columns x TM rows and a share of the block's
-//    K rows, 4 at a time (a bf16 value widens to f32 exactly, so every
-//    product is exact in f32 before its one rounding, as in the
-//    reference).  Shares are summed by shuffles, then across warps in
-//    shared memory; the leader of the cluster reads every rank's sums
-//    through distributed shared memory in rank order (deterministic) and
-//    writes the result in its type.
+//    K rows, 4 at a time (a bf16, f16 or int8 value widens to f32 exactly
+//    as it is read from its slot, so every product is exact in f32 before
+//    its one rounding, as in the reference).  Shares are summed by
+//    shuffles, then across warps in shared memory; the leader of the
+//    cluster reads every rank's sums through distributed shared memory in
+//    rank order (deterministic) and writes the result in its type.
 //  * What bounds it: the weights' bytes at the fc-head shapes.  At M = 8
 //    a weight element takes 16 FLOP: 8 a byte in bf16 and 4 in f32,
 //    below the 20 a byte that 67 TFLOP/s FP32 over 3.35 TB/s would need.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 
 #include <type_traits>
 
@@ -314,20 +318,66 @@ __global__ void __launch_bounds__(NCONS + NPROD) mm_kernel(MmArgs a) {
 using bf16 = __nv_bfloat16;
 constexpr int FCONS = 128;       // consumer threads (warps 0..3)
 
-// Four consecutive values of type T at p (16 bytes of f32, 8 of bf16),
-// widened to f32 exactly.
+// Four consecutive values of type T at p (16 bytes of f32, 8 of bf16 or
+// f16, 4 of int8), widened to f32 exactly.
 template <typename T>
 __device__ __forceinline__ void load4(const unsigned char* p, float v[4]) {
   if constexpr (std::is_same<T, float>::value) {
     const float4 f = *reinterpret_cast<const float4*>(p);
     v[0] = f.x, v[1] = f.y, v[2] = f.z, v[3] = f.w;
-  } else {
+  } else if constexpr (std::is_same<T, bf16>::value) {
     const uint2 u = *reinterpret_cast<const uint2*>(p);
     v[0] = __uint_as_float(u.x << 16);
     v[1] = __uint_as_float(u.x & 0xffff0000u);
     v[2] = __uint_as_float(u.y << 16);
     v[3] = __uint_as_float(u.y & 0xffff0000u);
+  } else if constexpr (std::is_same<T, __half>::value) {
+    const __half2* h = reinterpret_cast<const __half2*>(p);
+    const float2 lo = __half22float2(h[0]), hi = __half22float2(h[1]);
+    v[0] = lo.x, v[1] = lo.y, v[2] = hi.x, v[3] = hi.y;
+  } else {
+    static_assert(std::is_same<T, int8_t>::value, "f32, bf16, f16 or int8");
+    const char4 c = *reinterpret_cast<const char4*>(p);
+    v[0] = (float)c.x, v[1] = (float)c.y, v[2] = (float)c.z;
+    v[3] = (float)c.w;
   }
+}
+
+// The result type of TX x TW, as jnp.promote_types gives it (int8 x int8
+// is mm_kernel's): bf16 or f16 where both operands are that type or one
+// of them is int8, else f32.
+template <typename TX, typename TW>
+struct Promoted {
+  using type = float;
+};
+template <typename T>
+struct Promoted<T, T> {
+  using type = T;
+};
+template <>
+struct Promoted<bf16, int8_t> {
+  using type = bf16;
+};
+template <>
+struct Promoted<int8_t, bf16> {
+  using type = bf16;
+};
+template <>
+struct Promoted<__half, int8_t> {
+  using type = __half;
+};
+template <>
+struct Promoted<int8_t, __half> {
+  using type = __half;
+};
+
+// An f32 sum rounded once to the result type.
+__device__ __forceinline__ void store_out(float* p, float s) { *p = s; }
+__device__ __forceinline__ void store_out(bf16* p, float s) {
+  *p = __float2bfloat16_rn(s);
+}
+__device__ __forceinline__ void store_out(__half* p, float s) {
+  *p = __float2half_rn(s);
 }
 
 struct MmFloatArgs {
@@ -361,8 +411,12 @@ MmFloatLayout mm_float_layout(int tn, int kblk, int nb, int x_bytes,
   return L;
 }
 
-// One copy of `vec` bytes (16, 8 or 4 by cp.async, zero-filled where !ok;
-// 2: a plain bf16 copy).
+// One copy of `vec` bytes of an operand of ES-byte elements (16, 8 or 4
+// by cp.async, zero-filled where !ok; else one element by a plain copy).
+// The one-byte copy exists only in the int8 operands' instances: a fifth
+// case in the producer's loop made the f32 and bf16 instances 5-18%
+// slower on an H100 (probe_stream.py).
+template <int ES>
 __device__ __forceinline__ void copy_chunk(int vec, unsigned char* dst,
                                            const unsigned char* src,
                                            bool ok) {
@@ -372,6 +426,8 @@ __device__ __forceinline__ void copy_chunk(int vec, unsigned char* dst,
     h2pipe::cp_async8(dst, src, ok);
   else if (vec == 4)
     h2pipe::cp_async4(dst, src, ok);
+  else if constexpr (ES == 1)
+    *dst = ok ? *src : (unsigned char)0;
   else
     *reinterpret_cast<uint16_t*>(dst) =
         ok ? *reinterpret_cast<const uint16_t*>(src) : (uint16_t)0;
@@ -381,12 +437,12 @@ __device__ __forceinline__ void copy_chunk(int vec, unsigned char* dst,
 // [k0, k1) (columns n0 .. n0 + tn) and x's rows m0 .. m0 + TM of the same
 // K rows into the ring; a slot is refilled only after its empty barrier
 // completes (the credit rule).
-template <int TN>
+template <int TN, int xb, int wb>
 __device__ __forceinline__ void mm_float_produce(
-    const MmFloatArgs& a, int xb, int wb, int m0, int n0, int k0, int k1,
-    int nkb, uint64_t* full, uint64_t* empty, unsigned char* ring) {
+    const MmFloatArgs& a, int m0, int n0, int k0, int k1, int nkb,
+    uint64_t* full, uint64_t* empty, unsigned char* ring) {
   const int pt = threadIdx.x - FCONS;
-  const bool plain = a.wvec == 2 || a.xvec == 2;
+  const bool plain = a.wvec <= 2 || a.xvec <= 2;
   const int per_wrow = TN * wb / a.wvec, per_xrow = a.kblk * xb / a.xvec;
   h2pipe::RingPos pos;
   for (int kb = 0; kb < nkb; ++kb) {
@@ -398,14 +454,14 @@ __device__ __forceinline__ void mm_float_produce(
       const int r = idx / per_wrow, cb = (idx - r * per_wrow) * a.wvec;
       const int k = kbase + r, n = n0 + cb / wb;
       const bool ok = k < k1 && n < a.N;
-      copy_chunk(a.wvec, slot + r * a.srow + cb,
+      copy_chunk<wb>(a.wvec, slot + r * a.srow + cb,
                  ok ? a.w + ((size_t)k * a.N + n) * wb : a.w, ok);
     }
     for (int idx = pt; idx < TM * per_xrow; idx += NPROD) {
       const int m = idx / per_xrow, cb = (idx - m * per_xrow) * a.xvec;
       const int k = kbase + cb / xb;
       const bool ok = m0 + m < a.M && k < k1;
-      copy_chunk(a.xvec, xs + m * a.xrow + cb,
+      copy_chunk<xb>(a.xvec, xs + m * a.xrow + cb,
                  ok ? a.x + ((size_t)(m0 + m) * a.K + k) * xb : a.x, ok);
     }
     if (plain) {
@@ -424,9 +480,7 @@ template <typename TX, typename TW, int TN>
 __global__ void __launch_bounds__(FCONS + NPROD) mm_float(MmFloatArgs a) {
   constexpr int NWARPS = FCONS / 32;
   constexpr int XB = sizeof(TX), WB = sizeof(TW);
-  using TO = typename std::conditional<std::is_same<TX, bf16>::value &&
-                                           std::is_same<TW, bf16>::value,
-                                       bf16, float>::type;
+  using TO = typename Promoted<TX, TW>::type;
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
@@ -450,7 +504,7 @@ __global__ void __launch_bounds__(FCONS + NPROD) mm_float(MmFloatArgs a) {
   __syncthreads();
 
   if (tid >= FCONS) {
-    mm_float_produce<TN>(a, XB, WB, m0, n0, k0, k1, nkb, full, empty, ring);
+    mm_float_produce<TN, XB, WB>(a, m0, n0, k0, k1, nkb, full, empty, ring);
   } else {
     constexpr int quads = TN / 4, ways = FCONS / quads;
     const int quad = tid % quads, way = tid / quads;
@@ -518,13 +572,43 @@ __global__ void __launch_bounds__(FCONS + NPROD) mm_float(MmFloatArgs a) {
       if (row >= a.M || n >= a.N) continue;
       float s = 0.0f;
       for (int r = 0; r < split; ++r) s += cluster.map_shared_rank(part, r)[o];
-      if constexpr (std::is_same<TO, float>::value)
-        out[(size_t)row * a.N + n] = s;
-      else
-        out[(size_t)row * a.N + n] = __float2bfloat16_rn(s);
+      store_out(out + (size_t)row * a.N + n, s);
     }
   }
   cluster.sync();  // the leader has read every rank's sums
+}
+
+// The element types of the float modes, by their codes in
+// ops.FLOAT_TYPE_CODES, and their bytes.
+enum { T_F32 = 0, T_BF16 = 1, T_F16 = 2, T_I8 = 3 };
+constexpr int TYPE_BYTES[4] = {4, 2, 2, 1};
+
+using FloatKernel = void (*)(MmFloatArgs);
+
+// mm_float<TX, TW, TN> for the type code of TW
+template <typename TX, int TN>
+FloatKernel float_kernel_w(int w_type) {
+  switch (w_type) {
+    case T_F32: return mm_float<TX, float, TN>;
+    case T_BF16: return mm_float<TX, bf16, TN>;
+    case T_F16: return mm_float<TX, __half, TN>;
+    default:
+      if constexpr (std::is_same<TX, int8_t>::value)
+        return nullptr;  // int8 x int8 is mm_kernel's
+      else
+        return mm_float<TX, int8_t, TN>;
+  }
+}
+
+// mm_float<TX, TW, TN> for the type codes of TX and TW
+template <int TN>
+FloatKernel float_kernel(int x_type, int w_type) {
+  switch (x_type) {
+    case T_F32: return float_kernel_w<float, TN>(w_type);
+    case T_BF16: return float_kernel_w<bf16, TN>(w_type);
+    case T_F16: return float_kernel_w<__half, TN>(w_type);
+    default: return float_kernel_w<int8_t, TN>(w_type);
+  }
 }
 
 }  // namespace
@@ -580,39 +664,39 @@ int stream_matmul_int8_launch(const int8_t* x, const int8_t* w,
   return (int)cudaGetLastError();
 }
 
-// x: [M, K] @ w: [K, N], each f32 (x_bytes / w_bytes 4) or bf16 (2),
-// with the plan of ops.mm_float_plan: tiles of tn columns, a K split of
-// `split` ranges of kr rows over a cluster, K blocks of kblk rows of w and
-// x through an nb-slot ring, copies of wvec (w) and xvec (x) bytes; smem:
-// the bytes of its layout, which mm_float_layout() must reproduce.  out:
-// [M, N] bf16 for bf16 x bf16, else f32.  Returns cudaGetLastError()
-// after the launch.
+// x: [M, K] @ w: [K, N] of the element types x_type and w_type (T_F32,
+// T_BF16, T_F16, T_I8; not both int8), with the plan of
+// ops.mm_float_plan: tiles of tn columns, a K split of `split` ranges of
+// kr rows over a cluster, K blocks of kblk rows of w and x (a multiple of
+// 16 where x is int8, else of 8) through an nb-slot ring, copies of wvec
+// (w) and xvec (x) bytes; smem: the bytes of its layout, which
+// mm_float_layout() must reproduce.  out: [M, N] of the promoted type
+// (Promoted).  Returns cudaGetLastError() after the launch.
 int stream_matmul_float_launch(const void* x, const void* w, void* out,
-                               int x_bytes, int w_bytes, int M, int K, int N,
+                               int x_type, int w_type, int M, int K, int N,
                                int tn, int split, int kr, int kblk, int nb,
                                int wvec, int xvec, int smem,
                                cudaStream_t stream) {
   auto vec_ok = [](int vec, int es, long row_bytes) {
-    return (vec == 16 || vec == 8 || vec == 4 || (vec == 2 && es == 2)) &&
+    return (vec == 16 || vec == 8 || vec == 4 || (vec == es && es <= 2)) &&
            row_bytes % vec == 0;
   };
-  if ((x_bytes != 2 && x_bytes != 4) || (w_bytes != 2 && w_bytes != 4) ||
-      M < 1 || K < 1 || N < 1 || (tn != 32 && tn != 64) || split < 1 ||
+  if (x_type < 0 || x_type > 3 || w_type < 0 || w_type > 3 ||
+      (x_type == T_I8 && w_type == T_I8))
+    return (int)cudaErrorInvalidValue;
+  const int x_bytes = TYPE_BYTES[x_type], w_bytes = TYPE_BYTES[w_type];
+  const int kstep = x_bytes == 1 ? 16 : 8;
+  if (M < 1 || K < 1 || N < 1 || (tn != 32 && tn != 64) || split < 1 ||
       split > MAX_SPLIT || kr < 16 || kr % 16 != 0 ||
-      (long)split * kr < K || (long)(split - 1) * kr >= K || kblk < 8 ||
-      kblk % 8 != 0 || kblk > kr || nb < 1 ||
+      (long)split * kr < K || (long)(split - 1) * kr >= K || kblk < kstep ||
+      kblk % kstep != 0 || kblk > kr || nb < 1 ||
       !vec_ok(wvec, w_bytes, (long)N * w_bytes) ||
       !vec_ok(xvec, x_bytes, (long)K * x_bytes))
     return (int)cudaErrorInvalidValue;
   MmFloatLayout L = mm_float_layout(tn, kblk, nb, x_bytes, w_bytes);
   if (L.smem != smem) return (int)cudaErrorInvalidValue;
-  void (*table[2][2][2])(MmFloatArgs) = {
-      {{mm_float<bf16, bf16, 32>, mm_float<bf16, bf16, 64>},
-       {mm_float<bf16, float, 32>, mm_float<bf16, float, 64>}},
-      {{mm_float<float, bf16, 32>, mm_float<float, bf16, 64>},
-       {mm_float<float, float, 32>, mm_float<float, float, 64>}}};
-  void (*fn)(MmFloatArgs) =
-      table[x_bytes == 4][w_bytes == 4][tn == 64];
+  FloatKernel fn = tn == 64 ? float_kernel<64>(x_type, w_type)
+                            : float_kernel<32>(x_type, w_type);
   MmFloatArgs a{static_cast<const unsigned char*>(x),
                 static_cast<const unsigned char*>(w), out, M, K, N, kr,
                 kblk, nb, wvec, xvec, L.srow, L.xrow, L.slot};

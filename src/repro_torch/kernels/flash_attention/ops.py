@@ -14,14 +14,17 @@
 A CPU tensor runs the plain version in ``ref.py`` at the JAX call's
 blocks, ``min(128, S)`` (``flash_attention_plain`` takes other blocks
 itself).  A CUDA tensor launches ``csrc/flash_attention.cu``
-or raises: bf16 or f32 operands, ``hd`` in {32, 64, 128, 192, 256} and
-``hd_v`` in {32, 64, 128, 256}.  :func:`flash_route` picks the forward
-kernel from (dtype, hd, hd_v) alone: bf16 with ``hd == hd_v`` in
-``WGMMA_HEAD_DIMS`` runs on ``wgmma`` fed by TMA (128 query rows by 64
-keys), the other bf16 pairs on ``mma.sync`` (64 by 64), f32 on the CUDA
-cores (64 by 32).  Each reads the operands through their strides, so the
-model layout goes in and out without a transposed copy; the bases and
-strides must be 16-byte aligned (TMA and ``cp.async`` need it).
+or raises: bf16 or f32 operands, ``hd`` and ``hd_v`` each a multiple of
+8 from 8 to 256.  :func:`flash_route` picks the forward kernel from
+(dtype, hd, hd_v) alone: bf16 with ``hd == hd_v`` in ``WGMMA_HEAD_DIMS``
+runs on ``wgmma`` fed by TMA (128 query rows by 64 keys), the other bf16
+pairs on ``mma.sync`` (64 by 64), f32 on the CUDA cores (64 by 32).  The
+``mma.sync`` forward and the bf16 backward are built at the widths
+``KERNEL_HD`` x ``KERNEL_HD_V`` and run a head dim at the narrowest that
+holds it (:func:`kernel_widths`), the columns past it zero in shared
+memory.  Each reads the operands through their strides, so the model
+layout goes in and out without a transposed copy; the bases and strides
+must be 16-byte aligned (TMA and ``cp.async`` need it).
 
 Every launch charges its cost to the active cost counter
 (``charge_fwd``, ``charge_bwd_dq``, ``charge_bwd_dkv``).  ``meta``
@@ -42,16 +45,22 @@ from repro_torch.kernels.flash_attention.ref import (
 
 __all__ = ["flash_attention", "flash_attention_kernel",
            "flash_attention_bwd", "flash_attention_vjp", "KERNEL",
-           "KERNEL_DQ", "KERNEL_DKV", "HEAD_DIMS", "HEAD_DIMS_V",
-           "WGMMA_HEAD_DIMS", "flash_route", "launch_shape"]
+           "KERNEL_DQ", "KERNEL_DKV", "HEAD_DIM_STEP", "HEAD_DIM_MAX",
+           "KERNEL_HD", "KERNEL_HD_V", "WGMMA_HEAD_DIMS", "head_dim_ok",
+           "kernel_widths", "flash_route", "launch_shape"]
 
 #: launch-counter names (replace ``_flash_kernel``, ``_flash_bwd_dq_kernel``
 #: and ``_flash_bwd_dkv_kernel``)
 KERNEL = "flash_attention_fwd"
 KERNEL_DQ = "flash_attention_bwd_dq"
 KERNEL_DKV = "flash_attention_bwd_dkv"
-HEAD_DIMS = (32, 64, 128, 192, 256)
-HEAD_DIMS_V = (32, 64, 128, 256)
+#: the head dims the kernels take: hd and hd_v each a multiple of
+#: ``HEAD_DIM_STEP`` from ``HEAD_DIM_STEP`` to ``HEAD_DIM_MAX``
+HEAD_DIM_STEP, HEAD_DIM_MAX = 8, 256
+#: the widths (hd, hd_v) the bf16 ``mma.sync`` forward and the bf16
+#: backward are built at (``width()`` in ``csrc/mma_bf16.cuh``)
+KERNEL_HD = (32, 64, 128, 192, 256)
+KERNEL_HD_V = (32, 64, 128, 256)
 #: head dims (hd = hd_v) of the bf16 forward on wgmma and TMA
 WGMMA_HEAD_DIMS = (64, 128)
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
@@ -82,18 +91,42 @@ def _bwd_lib() -> ctypes.CDLL:
     return lib
 
 
+def head_dim_ok(d: int) -> bool:
+    """Whether the kernels take a head dim of ``d``: a multiple of
+    ``HEAD_DIM_STEP`` from ``HEAD_DIM_STEP`` to ``HEAD_DIM_MAX``."""
+    return d % HEAD_DIM_STEP == 0 and HEAD_DIM_STEP <= d <= HEAD_DIM_MAX
+
+
+def kernel_widths(hd: int, hd_v: int) -> tuple:
+    """The widths ``(HD, HDV)`` of the bf16 kernels a launch at head dims
+    ``(hd, hd_v)`` runs at (``flash_fwd_bf16<HD, HDV>`` on the
+    ``mma.sync`` route, ``flash_bwd_*_tc<HD, HDV>``): the narrowest of
+    ``KERNEL_HD`` and ``KERNEL_HD_V`` that hold them."""
+    if not (head_dim_ok(hd) and head_dim_ok(hd_v)):
+        raise ValueError(_refusal(hd, hd_v))
+    return (next(w for w in KERNEL_HD if hd <= w),
+            next(w for w in KERNEL_HD_V if hd_v <= w))
+
+
+def _refusal(hd: int, hd_v: int) -> str:
+    return (f"head dims (hd={hd}, hd_v={hd_v}) not supported by the CUDA "
+            f"kernels: each must be a multiple of {HEAD_DIM_STEP} from "
+            f"{HEAD_DIM_STEP} to {HEAD_DIM_MAX}")
+
+
 def flash_route(dtype, hd: int, hd_v: int) -> str:
     """The forward kernel a launch with operands of ``dtype`` and head dims
     ``(hd, hd_v)`` takes, from those alone (``flash_attention_fwd_launch``
     in ``csrc/flash_attention.cu`` refuses any other): ``"wgmma"`` for bf16
     with ``hd == hd_v`` in ``WGMMA_HEAD_DIMS``, ``"mma_sync"`` for the
-    other bf16 pairs, ``"f32"`` for f32.  Raises on what no kernel takes."""
+    other bf16 pairs, ``"f32"`` for f32.  Raises ``TypeError`` for another
+    dtype (f16 among them) and ``ValueError`` for a head dim that is not a
+    multiple of 8 from 8 to 256 (hd 12 or 264, say): nothing takes another
+    path."""
     if dtype not in _DTYPES:
         raise TypeError(f"flash attention takes bf16 or f32, not {dtype}")
-    if hd not in HEAD_DIMS or hd_v not in HEAD_DIMS_V:
-        raise ValueError(f"head dims (hd={hd}, hd_v={hd_v}) not supported "
-                         f"by the CUDA kernel: hd in {HEAD_DIMS}, hd_v in "
-                         f"{HEAD_DIMS_V}")
+    if not (head_dim_ok(hd) and head_dim_ok(hd_v)):
+        raise ValueError(_refusal(hd, hd_v))
     if dtype == torch.float32:
         return "f32"
     return "wgmma" if hd == hd_v and hd in WGMMA_HEAD_DIMS else "mma_sync"

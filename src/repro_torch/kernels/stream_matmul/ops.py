@@ -8,9 +8,10 @@
 
 A CPU tensor runs the plain version in ``ref.py``; a CUDA tensor launches
 ``csrc/stream_matmul.cu`` or raises: int8 operands ``mm_kernel`` with the
-launch plan of :func:`mm_plan`, f32 or bf16 operands (in any pair)
-``mm_float`` with the plan of :func:`mm_float_plan`; any other operand
-type raises ``NotImplementedError``.  ``bm``/``bn`` are the JAX kernel's
+launch plan of :func:`mm_plan`, every other pair over f32, bf16, f16 and
+int8 ``mm_float`` with the plan of :func:`mm_float_plan` (the result in
+the promoted type, ``ref.result_dtype``); any other operand type (f64,
+say) raises ``NotImplementedError``.  ``bm``/``bn`` are the JAX kernel's
 block sizes and only feed :func:`vmem_bytes` accounting; the CUDA kernels
 pick their own tiles, take ``bk`` as the largest K block of their ring,
 and mask ragged edges.
@@ -33,7 +34,7 @@ from repro_torch.kernels.stream_matmul.ref import (result_dtype,
 __all__ = ["stream_matmul", "stream_matmul_requant", "vmem_bytes",
            "mm_plan", "mm_layout", "mm_bytes_read", "MmPlan", "KERNELS",
            "mm_float_plan", "mm_float_layout", "MmFloatPlan",
-           "FLOAT_KERNELS", "FLOAT_DTYPES"]
+           "FLOAT_KERNELS", "FLOAT_DTYPES", "FLOAT_TYPE_CODES"]
 
 #: launch-counter name per mode ("pinned"/"stream" replace _mm_kernel,
 #: "fifo" replaces _mm_manual_kernel): int8 operands, and the float modes
@@ -41,8 +42,11 @@ KERNELS = {m: f"stream_matmul_{m}" for m in ("pinned", "stream", "fifo")}
 FLOAT_KERNELS = {"pinned": "stream_matmul_float_pinned",
                  "stream": "stream_matmul_float_pinned",
                  "fifo": "stream_matmul_float_fifo"}
-#: operand types of the float modes, in any pair
-FLOAT_DTYPES = (torch.float32, torch.bfloat16)
+#: operand types of the float modes, in any pair but int8 x int8
+#: (``mm_kernel``'s), and their codes in ``stream_matmul_float_launch``
+FLOAT_TYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
+                    torch.int8: 3}
+FLOAT_DTYPES = tuple(FLOAT_TYPE_CODES)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
@@ -177,7 +181,8 @@ def mm_plan(M: int, K: int, N: int, mode: str, bk: int, n_buffers: int,
 # The float modes' plan; ``csrc/stream_matmul.cu`` mirrors the layout
 # (``mm_float_layout`` there).
 MM_FLOAT_CONSUMERS = 128      # consumer threads of a CTA (4 warps)
-MM_FLOAT_KBLK = 8             # K rows of a block: a multiple of this
+MM_FLOAT_KBLK = 8             # K rows of a block: a multiple of this, or
+MM_FLOAT_KBLK_I8 = 16         # of this where x is int8 (16-byte x copies)
 
 
 @dataclass(frozen=True)
@@ -219,7 +224,8 @@ def mm_float_layout(tn: int, kblk: int, nb: int, x_bytes: int,
 
 def _copy_bytes(row_bytes: int, elem_bytes: int) -> int:
     """The widest cp.async (16, 8, 4 bytes) that tiles a row of
-    ``row_bytes``, else one element (a bf16 row of odd length)."""
+    ``row_bytes``, else one element (a bf16, f16 or int8 row whose bytes
+    are not a multiple of 4)."""
     return next((v for v in (16, 8, 4) if row_bytes % v == 0), elem_bytes)
 
 
@@ -228,16 +234,17 @@ def mm_float_plan(M: int, K: int, N: int, mode: str, bk: int,
                   n_buffers: int, x_bytes: int, w_bytes: int,
                   sm_count: int = 132) -> MmFloatPlan:
     """Tiles, K split and ring of one float launch, x and w of
-    ``x_bytes`` and ``w_bytes`` an element (4: f32, 2: bf16).  Tiles and
-    split as :func:`_mm_split`; pinned, one block of the whole range, the
-    split doubled (up to ``MM_MAX_SPLIT``) while that block does not fit;
-    else blocks of at most ``max(bk, 8)`` rows (a multiple of 8) and
-    ``MM_SLOT_MAX`` bytes a slot, depth 2 (``stream``) or ``n_buffers``
-    (``fifo``), never more slots than the range has blocks.  Cached: it
-    runs on every launch."""
-    if x_bytes not in (2, 4) or w_bytes not in (2, 4):
-        raise ValueError(f"element bytes {x_bytes}, {w_bytes}: f32 (4) or "
-                         f"bf16 (2)")
+    ``x_bytes`` and ``w_bytes`` an element (4: f32, 2: bf16 or f16, 1:
+    int8).  Tiles and split as :func:`_mm_split`; pinned, one block of
+    the whole range, the split doubled (up to ``MM_MAX_SPLIT``) while that
+    block does not fit; else blocks of at most ``max(bk, step)`` rows (a
+    multiple of ``step``: ``MM_FLOAT_KBLK``, or ``MM_FLOAT_KBLK_I8`` where
+    x is int8) and ``MM_SLOT_MAX`` bytes a slot, depth 2 (``stream``) or
+    ``n_buffers`` (``fifo``), never more slots than the range has blocks.
+    Cached: it runs on every launch."""
+    if x_bytes not in (1, 2, 4) or w_bytes not in (1, 2, 4):
+        raise ValueError(f"element bytes {x_bytes}, {w_bytes}: f32 (4), "
+                         f"bf16 or f16 (2) or int8 (1)")
     blk, depth = ring(mode, K, bk, n_buffers)
     if depth < 1:
         raise ValueError("n_buffers must be >= 1")
@@ -253,10 +260,10 @@ def mm_float_plan(M: int, K: int, N: int, mode: str, bk: int,
     if mode == "pinned":
         kblk, nb = kr, 1
     else:
+        step = MM_FLOAT_KBLK_I8 if x_bytes == 1 else MM_FLOAT_KBLK
         per_row = tn * w_bytes + 16 + MM_TM * x_bytes
         cap = (MM_SLOT_MAX - 16 * MM_TM) // per_row
-        kblk = max(MM_FLOAT_KBLK, min(blk, kr, cap) // MM_FLOAT_KBLK
-                   * MM_FLOAT_KBLK)
+        kblk = max(step, min(blk, kr, cap) // step * step)
         nb = min(depth, -(-kr // kblk))
     smem = mm_float_layout(tn, kblk, nb, x_bytes, w_bytes)
     if smem > MAX_SMEM_BYTES:
@@ -308,7 +315,7 @@ def charge(M: int, K: int, N: int, x_bytes: int, w_bytes: int,
 
 def _launch_float(x, w, *, mode: str, bk: int, n_buffers: int):
     """The float modes on the card: ``mm_float`` -> [M, N] of the
-    promoted type."""
+    promoted type (an int8 operand widened to f32 as it is read)."""
     M, K, N = _shapes(x, w)
     dev = x.device
     xb, wb = x.element_size(), w.element_size()
@@ -319,7 +326,8 @@ def _launch_float(x, w, *, mode: str, bk: int, n_buffers: int):
     out = torch.empty((M, N), dtype=result_dtype(x.dtype, w.dtype),
                       device=dev)
     err = _lib().stream_matmul_float_launch(
-        x.data_ptr(), w.data_ptr(), out.data_ptr(), xb, wb, M, K, N,
+        x.data_ptr(), w.data_ptr(), out.data_ptr(),
+        FLOAT_TYPE_CODES[x.dtype], FLOAT_TYPE_CODES[w.dtype], M, K, N,
         plan.tn, plan.split, plan.kr, plan.kblk, plan.nb, plan.wvec,
         plan.xvec, plan.smem_bytes,
         torch.cuda.current_stream(dev).cuda_stream)
@@ -369,8 +377,9 @@ def _launch(x, w, w_scale, bias, act_scale: float, *, mode: str, bk: int,
 def stream_matmul(x: torch.Tensor, w: torch.Tensor, *, mode: str = "stream",
                   bk: int = 512, n_buffers: int = 2) -> torch.Tensor:
     """x: [M, K] @ w: [K, N] -> [M, N]: int32 for int8 operands, else the
-    promoted type (bf16 for bf16 x bf16, f32 for f32 or mixed f32/bf16
-    operands), summed in f32 on the card."""
+    promoted type of ``jnp.promote_types`` (``ref.result_dtype``: f16 x f16
+    -> f16, f16 x bf16 -> f32, int8 x bf16 -> bf16, int8 x f16 -> f16, any
+    pair with f32 -> f32), summed in f32 on the card."""
     ring(mode, w.shape[0], bk, n_buffers)            # validates the mode
     if _build.runs_plain(x):
         return stream_matmul_ref(x, w)
@@ -381,7 +390,7 @@ def stream_matmul(x: torch.Tensor, w: torch.Tensor, *, mode: str = "stream",
     if x.dtype in FLOAT_DTYPES and w.dtype in FLOAT_DTYPES:
         return _launch_float(x, w, mode=mode, bk=bk, n_buffers=n_buffers)
     raise NotImplementedError(
-        f"the CUDA matmul takes int8 x int8 or f32/bf16 operands, not "
+        f"the CUDA matmul takes operands of f32, bf16, f16 or int8, not "
         f"{x.dtype} x {w.dtype}")
 
 

@@ -295,16 +295,68 @@ def test_matmul_float_fc_heads_match_plain(dev, k, n, dtype):
 
 
 def test_matmul_float_refuses_other_types(dev):
+    """Types outside f32, bf16, f16 and int8 (which take every pair) are
+    refused, never sent to another kernel."""
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.kernels.stream_matmul.ops import stream_matmul
     reset_launches()
     x = torch.ones(8, 64, device=dev)
     w = torch.ones(64, 32, device=dev)
-    for a, b in ((x.half(), w.half()), (x, w.half()), (x.double(), w),
-                 (x.to(torch.int8), w), (x, w.to(torch.int8))):
+    for a, b in ((x.double(), w), (x, w.double()), (x.to(torch.int32), w),
+                 (x.half(), w.to(torch.int16)),
+                 (x.to(torch.int8), w.to(torch.int32))):
         with pytest.raises(NotImplementedError, match="not torch"):
             stream_matmul(a, b)
     assert LAUNCHES == {}
+
+
+# the pairs with an f16 or int8 operand: every pair over f32, bf16, f16
+# and int8 but int8 x int8 and those of f32 and bf16 alone, the result of
+# the promoted type (f16 within the bf16 limit)
+NEW_FLOAT_PAIRS = [(a, b) for a in (torch.float32, torch.bfloat16,
+                                    torch.float16, torch.int8)
+                   for b in (torch.float32, torch.bfloat16, torch.float16,
+                             torch.int8)
+                   if torch.float16 in (a, b) or
+                   (torch.int8 in (a, b) and a != b)]
+
+
+def _typed_operands(g, dev, m, k, n, xd, wd):
+    """x, w normal from ``g`` (int8: integers in [-127, 127])."""
+    def draw(shape, dt):
+        if dt == torch.int8:
+            return torch.randint(-127, 128, shape, generator=g, device=dev,
+                                 dtype=torch.int8)
+        return torch.randn(*shape, generator=g, device=dev).to(dt)
+    return draw((m, k), xd), draw((k, n), wd)
+
+
+@pytest.mark.parametrize("xd,wd", NEW_FLOAT_PAIRS)
+@pytest.mark.parametrize("shape", [(17, 100, 36), (128, 256, 128),
+                                   (5, 33, 7), (8, 2048, 1000)])
+def test_matmul_float_new_pairs_match_plain(dev, xd, wd, shape):
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.stream_matmul.ops import stream_matmul
+    from repro_torch.kernels.stream_matmul.ref import (result_dtype,
+                                                       stream_matmul_ref)
+    assert len(NEW_FLOAT_PAIRS) == 11
+    g = torch.Generator(device=dev).manual_seed(sum(shape))
+    x, w = _typed_operands(g, dev, *shape, xd, wd)
+    want = stream_matmul_ref(x, w)
+    assert want.dtype == result_dtype(xd, wd)
+    reset_launches()
+    for mode, nb, bk in (("pinned", 2, 128), ("stream", 2, 16),
+                         ("fifo", 1, 16), ("fifo", 3, 128)):
+        got = stream_matmul(x, w, mode=mode, bk=bk, n_buffers=nb)
+        tol = 2e-5 if want.dtype == torch.float32 else 2e-2
+        wd_ = want.double()
+        bound = tol * wd_.abs() + tol * float(wd_.abs().max())
+        assert got.dtype == want.dtype and got.shape == want.shape
+        assert bool(((got.double() - wd_).abs() <= bound).all()), \
+            (mode, float((got.double() - wd_).abs().max()))
+    torch.cuda.synchronize()
+    assert LAUNCHES == {"stream_matmul_float_pinned": 2,
+                        "stream_matmul_float_fifo": 2}
 
 
 @pytest.mark.parametrize("m,k,n", [(8, 2048, 1000), (3, 100, 10),
@@ -571,9 +623,10 @@ def test_flash_kernel_refuses_what_it_cannot_take(dev):
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.kernels.flash_attention.ops import flash_attention
     reset_launches()
-    x = torch.zeros((1, 128, 2, 96), dtype=torch.bfloat16, device=dev)
-    with pytest.raises(ValueError, match="hd=96"):
-        flash_attention(x, x, x)
+    for hd in (12, 264):
+        x = torch.zeros((1, 128, 2, hd), dtype=torch.bfloat16, device=dev)
+        with pytest.raises(ValueError, match=f"hd={hd}"):
+            flash_attention(x, x, x)
     h = torch.zeros((1, 128, 2, 64), dtype=torch.float16, device=dev)
     with pytest.raises(TypeError):
         flash_attention(h, h, h)
@@ -839,6 +892,86 @@ def test_flash_vjp_takes_a_unit_batch_gradient_of_any_stride(dev):
         grads.append(torch.autograd.grad(o, (q, k, v), grad_out))
     for a, b in zip(*grads):
         assert torch.equal(a, b)
+
+
+# K9-K11 at head dims the kernels run padded to a width they are built at
+# (ops.kernel_widths; the columns past hd and hd_v zero in shared memory):
+# the reduced configs' (16, 16) at 8 tokens, SeamlessM4T's non-causal
+# encoder over 16 frames, DeepSeek-V2's MLA (24, 16), the training
+# launcher's 64 tokens, and others between the widths and at the ends
+PADDED_CASES = [
+    dict(B=2, H=4, KV=2, S=8, hd=16, causal=True, window=0, softcap=0.0),
+    dict(B=2, H=4, KV=4, S=16, hd=16, causal=False, window=0, softcap=0.0),
+    dict(B=2, H=4, KV=4, S=8, hd=24, hd_v=16, causal=True, window=0,
+         softcap=0.0),
+    dict(B=8, H=4, KV=2, S=64, hd=16, causal=True, window=0, softcap=0.0),
+    dict(B=8, H=4, KV=4, S=64, hd=24, hd_v=16, causal=True, window=0,
+         softcap=0.0),
+    dict(B=1, H=4, KV=2, S=200, hd=48, causal=True, window=64,
+         softcap=30.0),
+    dict(B=1, H=2, KV=1, S=130, hd=8, causal=True, window=0, softcap=0.0),
+    dict(B=1, H=4, KV=2, S=100, hd=96, causal=False, window=0, softcap=0.0),
+    dict(B=1, H=2, KV=2, S=77, hd=136, hd_v=200, causal=True, window=0,
+         softcap=50.0),
+    dict(B=1, H=2, KV=1, S=128, hd=256, hd_v=8, causal=True, window=0,
+         softcap=0.0),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ci", range(len(PADDED_CASES)))
+def test_flash_kernels_at_padded_head_dims_match_plain(dev, ci, dtype):
+    """K9 (o, lse) and K10/K11 (dq, dk, dv) against their plain versions
+    within FLASH_TOL and BWD_TOL, on operands that are views of rows
+    with NaN past hd (hd_v) and into outputs whose rows hold a sentinel
+    past it: no kernel reads past a row's head dim or writes past it."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_plain, flash_attention_plain)
+    c = PADDED_CASES[ci]
+    B, H, KV, S, hd = (c[x] for x in ("B", "H", "KV", "S", "hd"))
+    hd_v = c.get("hd_v", hd)
+    assert ops.flash_route(dtype, hd, hd_v) == (
+        "f32" if dtype == torch.float32 else "mma_sync")
+    g = torch.Generator(device=dev).manual_seed(100 + ci)
+
+    def wide(heads, d, fill=float("nan")):
+        """[B, heads, S, d]: a view of rows of d + 8, the 8 past d
+        ``fill``."""
+        t = torch.full((B, heads, S, d + 8), fill, device=dev, dtype=dtype)
+        t[..., :d] = torch.randn(B, heads, S, d, generator=g, device=dev)
+        return t[..., :d]
+    q, k, v, do = wide(H, hd), wide(KV, hd), wide(KV, hd_v), wide(H, hd_v)
+    kw = dict(causal=c["causal"], window=c["window"], softcap=c["softcap"])
+    blk = S if S % min(128, S) else min(128, S)
+    want_o, want_lse = flash_attention_plain(q, k, v, bq=blk, bk=blk, **kw)
+    outs = [torch.full((B, H, S, d + 8), 7.0, device=dev, dtype=dtype)
+            for d in (hd_v, hd, hd, hd_v)]
+    o = outs[0][..., :hd_v]
+    lse = torch.empty((B, H, S), device=dev)
+    reset_launches()
+    ops._launch(q, k, v, o, lse, **kw)
+    dq, dk, dv = (t[..., :d] for t, d in zip(outs[1:], (hd, hd, hd_v)))
+    ops._launch_bwd(q, k, v, do, lse, ops._delta(o, do), dq, dk, dv, **kw)
+    torch.cuda.synchronize()
+    assert LAUNCHES == {"flash_attention_fwd": 1,
+                        "flash_attention_bwd_dq": 1,
+                        "flash_attention_bwd_dkv": 1}
+    for t, d in zip(outs, (hd_v, hd, hd, hd_v)):
+        assert bool((t[..., d:] == 7.0).all())
+    rtol, atol = FLASH_TOL[dtype, "o"]
+    torch.testing.assert_close(o.float(), want_o.float(), rtol=rtol,
+                               atol=atol)
+    rtol, atol = FLASH_TOL[dtype, "lse"]
+    torch.testing.assert_close(lse, want_lse, rtol=rtol, atol=atol)
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, bq=blk, bk=blk,
+                                     **kw)
+    rtol, share = BWD_TOL[dtype]
+    for gt, wt in zip((dq, dk, dv), want):
+        assert gt.dtype == dtype and gt.shape == wt.shape
+        torch.testing.assert_close(gt.float(), wt.float(), rtol=rtol,
+                                   atol=share * float(wt.abs().max()))
 
 
 def test_reduced_lm_train_step_on_card_matches_cpu(dev, tmp_path):

@@ -55,3 +55,43 @@ def test_example_raises_without_cuda(name):
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA"):
         load(name).main(SMALL[name])
+
+
+class _Stop(Exception):
+    """Raised by the spy once it has seen the arch an example builds."""
+
+
+# (example, arguments, the arch whose .reduced() it runs): the defaults,
+# and an arch whose attention runs the flash kernels
+LM_EXAMPLES = [("quickstart", [], "qwen2-moe-a2.7b"),
+               ("serve_batched", [], "gemma2-9b"),
+               ("serve_batched", ["--arch", "deepseek-v2-236b"],
+                "deepseek-v2-236b"),
+               ("train_lm", [], "xlstm-125m"),
+               ("train_lm", ["--arch", "phi4-mini-3.8b"], "phi4-mini-3.8b")]
+
+
+@pytest.mark.parametrize("name,args,arch", LM_EXAMPLES)
+def test_lm_example_runs_the_reduced_config(name, args, arch):
+    """Each LM example hands its trainer or engine ``get_arch(arch)
+    .reduced()`` field by field, as the JAX package's examples do (head
+    dim 16, DeepSeek-V2's MLA at qk 24 / v 16)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    mod = load(name)
+    seen = []
+
+    def spy(*a, **kw):
+        seen.append(next(x for x in a if dataclasses.is_dataclass(x)
+                         and hasattr(x, "head_dim")))
+        raise _Stop
+    for cls in ("Trainer", "ServingEngine"):
+        if hasattr(mod, cls):
+            setattr(mod, cls, spy)
+    with pytest.raises(_Stop):
+        mod.main(args + ["--device", "cpu"])
+    want = get_arch(arch).reduced()
+    for f in dataclasses.fields(want):
+        assert getattr(seen[0], f.name) == getattr(want, f.name), f.name
+    assert seen[0] == want and seen[0].head_dim == 16

@@ -23,7 +23,7 @@ from repro.kernels.flash_attention.kernel import flash_attention_kernel \
     as jax_flash_kernel
 from repro.kernels.flash_attention.ops import flash_attention as jax_flash
 from repro_torch.kernels import LAUNCHES, reset_launches
-from repro_torch.kernels.flash_attention.ops import (HEAD_DIMS, HEAD_DIMS_V,
+from repro_torch.kernels.flash_attention.ops import (KERNEL_HD, KERNEL_HD_V,
                                                      flash_attention,
                                                      flash_attention_bwd,
                                                      flash_attention_kernel,
@@ -226,11 +226,12 @@ def test_bwd_f32_grads_only_from_bf16():
         flash_attention_bwd(q, q, q, q, lse, q, out_dtype=torch.bfloat16)
 
 
-# the forward's route from (dtype, hd, hd_v) alone: every pair the CUDA
-# kernel takes, in both dtypes
+# the forward's route from (dtype, hd, hd_v) alone: every pair of the
+# widths the bf16 kernels are built at, in both dtypes (every other
+# multiple of 8: tests/test_torch_reduced_heads.py)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("hd", HEAD_DIMS)
-@pytest.mark.parametrize("hd_v", HEAD_DIMS_V)
+@pytest.mark.parametrize("hd", KERNEL_HD)
+@pytest.mark.parametrize("hd_v", KERNEL_HD_V)
 def test_flash_route_of_each_head_dim_pair(dtype, hd, hd_v):
     route = flash_route(dtype, hd, hd_v)
     if dtype == torch.float32:
@@ -242,8 +243,8 @@ def test_flash_route_of_each_head_dim_pair(dtype, hd, hd_v):
 
 
 @pytest.mark.parametrize("dtype,hd,hd_v,err", [
-    (torch.float16, 128, 128, TypeError), (torch.bfloat16, 96, 96, ValueError),
-    (torch.bfloat16, 128, 192, ValueError), (torch.float32, 48, 64,
+    (torch.float16, 128, 128, TypeError), (torch.bfloat16, 12, 12, ValueError),
+    (torch.bfloat16, 128, 264, ValueError), (torch.float32, 12, 64,
                                              ValueError)])
 def test_flash_route_refuses_what_no_kernel_takes(dtype, hd, hd_v, err):
     with pytest.raises(err):
