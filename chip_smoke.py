@@ -34,10 +34,9 @@ it is run outside a checkout of the repository.  Phases, one line each:
      the main path's shapes and at edge shapes (odd maps, k = 3 at
      stride 1, the generic window, C of 4, 6 and 20) (int8, f32 and int32
      outputs bit-identical); the float matmul (``mm_float``) at
-     ``FLOAT_CHECK_SHAPES`` in f32 and bf16 in every mode, the fifo ring
-     1 to 4 deep, mixed f32 x bf16 operands, every fc shape at M = 8, and
-     each of ``NEW_FLOAT_PAIRS`` (every pair over f32, bf16, f16 and int8
-     that takes f16 or int8, but int8 x int8) at two of those shapes and
+     ``FLOAT_CHECK_SHAPES`` at each of ``FLOAT_PAIRS`` (every pair over
+     f32, bf16, f16 and int8 but int8 x int8) in every mode, the fifo ring
+     1 to 4 deep, every fc shape at M = 8 in f32 and bf16, and every pair
      at every entry of the float path, each output of the promoted type
      and within ``FLOAT_TOL`` (an f16 output within bf16's);
      the depthwise kernels at every dw shape of MobileNetV1, V2 and V3 in
@@ -220,7 +219,10 @@ it is run outside a checkout of the repository.  Phases, one line each:
      and VGG-16's fc0 as a 25088 x 4096 matmul streamed, at each operand
      pair of ``FLOAT_PAIRS``: launches of ``stream_matmul_float_pinned``
      and ``_fifo`` counted, outputs of the promoted type within
-     ``FLOAT_TOL`` of the plain path.
+     ``FLOAT_TOL`` of the plain path, and the launches by instance, as
+     the wrapper counts them, those the plans name (HMMA in the SASS of
+     every ``mm_float_tc`` instance checked first:
+     ``check_float_instances``, ``[build]`` line).
      Launch counters are zeroed just before and read just after each run;
   4. time each kernel at the slice's shapes, its plain version, one
      PyTorch call computing the same function where there is one
@@ -295,8 +297,9 @@ sys.path.insert(0, str(ROOT / "src"))
 # the card's peaks, one copy in the port (roofline/hw.py: H100 SXM data
 # sheet); outside a checkout this import fails and the script with it
 from repro_torch.roofline.hw import (  # noqa: E402
-    HBM_BW as HBM_BYTES_PER_S, PEAK_FLOPS_BF16 as BF16_FLOPS_PER_S,
-    PEAK_FLOPS_FP32 as FP32_FLOPS_PER_S, PEAK_FLOPS_INT8 as INT8_OPS_PER_S)
+    HBM_BW as HBM_BYTES_PER_S, L2_BYTES, PEAK_FLOPS_BF16 as BF16_FLOPS_PER_S,
+    PEAK_FLOPS_FP32 as FP32_FLOPS_PER_S, PEAK_FLOPS_INT8 as INT8_OPS_PER_S,
+    PEAK_FLOPS_TF32 as TF32_FLOPS_PER_S)
 
 BATCH = 8
 # phase 2 takes seconds; a kernel that never finishes (a ring whose
@@ -903,7 +906,10 @@ PTXAS_SOURCES = (
         "mm_kernel": (r"mm_kernelILi(\d+)ELi(\d+)E", "mm_kernel<{},{}>"),
         "mm_float": (r"mm_floatI(f|a|6__half|13__nv_bfloat16)"
                      r"(f|a|6__half|13__nv_bfloat16|S\d*_)Li(\d+)E",
-                     "mm_float<{},{},{}>")}),
+                     "mm_float<{},{},{}>"),
+        "mm_float_tc": (r"mm_float_tcI(a|6__half|13__nv_bfloat16)"
+                        r"(a|6__half|13__nv_bfloat16|S\d*_)Li(\d+)E",
+                        "mm_float_tc<{},{},{}>")}),
     ("pool_int8", "ptxas_pool.log", {
         "maxpool_band": (r"maxpool_bandILi(\d)ELi(\d)ELi(\d+)ELi(\d)E",
                          "maxpool_band<{},{},{},{}>"),
@@ -915,7 +921,8 @@ MANGLED_ARGS = {"f": "f32", "13__nv_bfloat16": "bf16", "6__half": "f16",
                 "a": "int8"}
 # the tensor-core instruction each redesigned kernel must issue (SASS)
 SASS_REQUIRED = {"conv_mma": "IMMA", "conv_stream": "IMMA",
-                 "flash_fwd_wgmma": "HGMMA", "flash_fwd_bf16": "HMMA"}
+                 "flash_fwd_wgmma": "HGMMA", "flash_fwd_bf16": "HMMA",
+                 "mm_float_tc": "HMMA"}
 
 
 def instance_name(text, templates):
@@ -1382,15 +1389,50 @@ def check_flash_bwd(torch, g, dev, ks, record):
     return n
 
 
-# the float matmul's operand pairs (x, w) on the path: f32 and bf16, then
-# every pair over {f32, bf16, f16, int8} with an f16 or int8 operand but
-# int8 x int8 (mm_kernel's)
+# the float matmul's operand pairs (x, w) on the path: every pair over
+# {f32, bf16, f16, int8} but int8 x int8 (mm_kernel's); the eight without
+# f32 run on the tensor cores (mm_float_tc), the seven with it on FFMA
 FLOAT_TYPES = ("float32", "bfloat16", "float16", "int8")
-NEW_FLOAT_PAIRS = tuple((a, b) for a in FLOAT_TYPES for b in FLOAT_TYPES
-                        if {a, b} & {"float16", "int8"}
-                        and (a, b) != ("int8", "int8"))
-FLOAT_PAIRS = (("float32", "float32"), ("bfloat16", "bfloat16")) \
-    + NEW_FLOAT_PAIRS
+FLOAT_PAIRS = tuple((a, b) for a in FLOAT_TYPES for b in FLOAT_TYPES
+                    if (a, b) != ("int8", "int8"))
+FLOAT_BYTES = {"float32": 4, "bfloat16": 2, "float16": 2, "int8": 1}
+# The FFMA design's device us a launch (mm_float on FFMA at every pair, as
+# PERF.md section 6 keeps them; chip_smoke.py on one H100 80GB HBM3 at
+# 700.00 W) at the float path's entries, for the pairs (x, w) that were on
+# the path then, in the order of FFMA_DESIGN_PAIRS; the [time] lines and
+# the record show it beside this run's time
+FFMA_DESIGN_PAIRS = (
+    ("float32", "float32"), ("float32", "float16"), ("float32", "int8"),
+    ("bfloat16", "bfloat16"), ("bfloat16", "float16"), ("bfloat16", "int8"),
+    ("float16", "float32"), ("float16", "bfloat16"), ("float16", "float16"),
+    ("float16", "int8"), ("int8", "float32"), ("int8", "bfloat16"),
+    ("int8", "float16"))
+FFMA_DESIGN_US = {
+    "pinned:512,1000": (6.32, 6.02, 6.04, 5.97, 6.05, 6.06, 6.30, 6.09,
+                        6.14, 6.22, 6.41, 6.19, 5.99),
+    "pinned:960,1280": (8.95, 7.97, 7.68, 7.84, 7.84, 7.38, 8.93, 7.83,
+                        8.10, 7.44, 9.17, 8.16, 8.18),
+    "pinned:1024,1000": (7.54, 7.00, 7.01, 6.83, 6.84, 6.70, 7.23, 6.81,
+                         6.90, 6.70, 7.46, 6.88, 6.91),
+    "pinned:1280,1000": (8.02, 7.43, 7.55, 7.24, 7.60, 7.40, 8.13, 7.26,
+                         7.51, 7.31, 8.07, 7.57, 7.44),
+    "fifo:2048,1000": (11.20, 8.62, 8.53, 8.42, 8.57, 8.17, 11.15, 8.40,
+                       8.60, 8.15, 10.57, 8.52, 8.48),
+    "fifo:4096,1000": (15.11, 12.40, 13.55, 12.54, 12.55, 13.55, 15.30,
+                       12.43, 12.80, 13.42, 14.51, 12.34, 12.54),
+    "fifo:4096,4096": (41.65, 31.07, 25.26, 32.07, 32.16, 25.76, 41.75,
+                       31.23, 31.72, 26.08, 39.82, 30.16, 30.25),
+    "fifo:25088,4096": (227.52, 159.94, 121.44, 160.54, 161.02, 121.41,
+                        219.25, 155.44, 157.78, 124.61, 208.00, 156.02,
+                        156.12)}
+
+
+def ffma_design_ms(entry, xd, wd):
+    """The FFMA design's device ms a launch at path entry ``entry``
+    (``mode:K,N``) for the pair (xd, wd), None where it was not on the
+    path."""
+    row = dict(zip(FFMA_DESIGN_PAIRS, FFMA_DESIGN_US.get(entry, ())))
+    return None if (xd, wd) not in row else row[xd, wd] * 1e-3
 
 
 def pair_name(xd, wd):
@@ -1423,13 +1465,12 @@ def float_err(torch, kern, got, want):
 
 
 def check_float_matmul(torch, g, dev, ks, fc_shapes, block_for, fpath):
-    """Phase 2 for the float modes of K7/K8 (mm_float): FLOAT_CHECK_SHAPES
-    in f32 and bf16, pinned, stream and fifo (n_buffers 1-4), each with
-    K blocks of 128 (the JAX test's) and of 16 (rings of many blocks);
-    mixed f32 x bf16 and bf16 x f32 operands, and each of NEW_FLOAT_PAIRS,
-    at the first and the ragged shape; every fc shape of the six configs
-    at M = 8 in both types and every mode, K blocks as the engines cut
-    them; and each of NEW_FLOAT_PAIRS at every entry of the float
+    """Phase 2 for the float modes of K7/K8 (mm_float on FFMA, mm_float_tc
+    on the tensor cores): every pair of FLOAT_PAIRS at FLOAT_CHECK_SHAPES,
+    pinned, stream and fifo (n_buffers 1-4), each with K blocks of 128
+    (the JAX test's) and of 16 (rings of many blocks); every fc shape of
+    the six configs at M = 8 in f32 and bf16 and every mode, K blocks as
+    the engines cut them; and every pair at every entry of the float
     matmul's path (``float_path``: every fc head and fc0) at M = 8, in
     every mode whose plan fits (fc0 streamed)."""
     from repro_torch.kernels.stream_matmul.ops import stream_matmul
@@ -1437,22 +1478,18 @@ def check_float_matmul(torch, g, dev, ks, fc_shapes, block_for, fpath):
     rings = [("pinned", 2, 128), ("stream", 2, 128), ("stream", 2, 16)] + [
         ("fifo", nb, bk) for nb in (1, 2, 3, 4) for bk in (128, 16)]
     f32, bf16 = torch.float32, torch.bfloat16
-    cases = [(shape, (d, d), rings) for shape in FLOAT_CHECK_SHAPES
-             for d in (f32, bf16)]
-    cases += [(shape, pair, rings) for shape in (FLOAT_CHECK_SHAPES[0],
-                                                 FLOAT_CHECK_SHAPES[-1])
-              for pair in ((f32, bf16), (bf16, f32)) + tuple(
-                  (getattr(torch, a), getattr(torch, b))
-                  for a, b in NEW_FLOAT_PAIRS)]
+    pairs = [(getattr(torch, a), getattr(torch, b)) for a, b in FLOAT_PAIRS]
+    cases = [(shape, pair, rings) for shape in FLOAT_CHECK_SHAPES
+             for pair in pairs]
     cases += [((BATCH, k, n), (d, d),
                [(mode, 2, block_for(k, 512))
                 for mode in ("pinned", "stream", "fifo")])
               for k, n in sorted(fc_shapes) for d in (f32, bf16)]
-    cases += [((BATCH, k, n), (getattr(torch, a), getattr(torch, b)),
+    cases += [((BATCH, k, n), pair,
                [(m, 2, block_for(k, 512)) for m in (
                    ("pinned", "stream", "fifo") if mode == "pinned"
                    or (k, n) != FC0_MATMUL[1:] else (mode,))])
-              for k, n, mode in fpath for a, b in NEW_FLOAT_PAIRS]
+              for k, n, mode in fpath for pair in pairs]
     n = 0
     for shape, (xd, wd), runs in cases:
         x, w = float_operands(torch, g, dev, shape, xd, wd)
@@ -1464,6 +1501,53 @@ def check_float_matmul(torch, g, dev, ks, fc_shapes, block_for, fpath):
                                                       n_buffers=nb), want)
             n += 1
     return n
+
+
+def check_float_instances(torch, record, fpath, block_for, mm_float_plan,
+                          sm_count):
+    """The instance each launch of the float path should take (from its
+    plan's column tile), and that every ``mm_float_tc`` instance of the
+    build (8 pairs x 3 tiles) issues HMMA in its SASS; fails where one
+    does not.  Returns {(kernel counter, instance): planned launches on
+    the path}, which phase 3 holds its counted launches against."""
+    from repro_torch.kernels.stream_matmul.ops import (FLOAT_KERNELS,
+                                                       float_instance)
+    rep = record["ptxas"]["stream_matmul"]
+    tc = {k: v for k, v in rep.items() if v["template"] == "mm_float_tc"}
+    if len(tc) != 24:
+        raise AssertionError(f"{len(tc)} mm_float_tc instances in the "
+                             f"build, not 24: {sorted(tc)}")
+    used = {}
+    for k, n, mode in fpath:
+        for xd, wd in FLOAT_PAIRS:
+            plan = mm_float_plan(BATCH, k, n, mode, block_for(k, 512), 2,
+                                 FLOAT_BYTES[xd], FLOAT_BYTES[wd], sm_count)
+            inst = float_instance(getattr(torch, xd), getattr(torch, wd),
+                                  plan.tn)
+            if plan.tensor_cores != inst.startswith("mm_float_tc"):
+                raise AssertionError(f"{inst}: plan on the tensor cores "
+                                     f"{plan.tensor_cores}")
+            key = (FLOAT_KERNELS[mode], inst)
+            used[key] = used.get(key, 0) + 1
+    for inst, v in sorted(rep.items()):
+        op = SASS_REQUIRED.get(v["template"])
+        if op and inst.startswith("mm_float") and not v.get(op):
+            raise AssertionError(f"{inst} (stream_matmul.cu) issues no {op} "
+                                 f"in its SASS: {v}")
+    record["float_instances"] = {
+        inst: {"planned_launches": sum(n for (_, i), n in used.items()
+                                       if i == inst),
+               "HMMA": rep.get(inst, {}).get("HMMA", 0),
+               "registers": rep.get(inst, {}).get("registers"),
+               "spill_bytes": rep.get(inst, {}).get("spill_stores", 0)
+               + rep.get(inst, {}).get("spill_loads", 0)}
+        for inst in sorted({i for _, i in used})}
+    log("build", "float-path instances (planned launches on the path; "
+        "HMMA, registers, spill bytes): " + "; ".join(
+            f"{inst}: {r['planned_launches']}; {r['HMMA']}, "
+            f"{r['registers']}, {r['spill_bytes']}"
+            for inst, r in record["float_instances"].items()))
+    return used
 
 
 def float_path(comps, select_engine):
@@ -1479,12 +1563,15 @@ def float_path(comps, select_engine):
     return sorted(heads) + [(FC0_MATMUL[1], FC0_MATMUL[2], "fifo")]
 
 
-def drive_float_matmul(torch, g, dev, path, block_for, record):
+def drive_float_matmul(torch, g, dev, path, block_for, record, planned):
     """Phase 3 for the float matmul: ``stream_matmul`` at every entry of
     ``path`` at M = BATCH for each operand pair of FLOAT_PAIRS, launches
-    counted over these calls alone; each output of the promoted type,
-    finite and within FLOAT_TOL of the plain path.  Returns the launches
-    and the inputs, keyed (K, N, mode, ``pair_name``), for phase 4."""
+    counted over these calls alone, by counter and by the instance each
+    launched (the wrapper's count), the instances as ``planned``; each
+    output of the promoted type, finite and within FLOAT_TOL of the plain
+    path.  Returns the launches, the inputs, keyed (K, N, mode,
+    ``pair_name``), for phase 4, and the launches by (counter,
+    instance)."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.stream_matmul.ops import (FLOAT_KERNELS,
                                                        stream_matmul)
@@ -1501,28 +1588,33 @@ def drive_float_matmul(torch, g, dev, path, block_for, record):
                                                 n_buffers=2)
     torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
+    by_instance = {key: n for key, n in _build.SHAPE_LAUNCHES.items()
+                   if key[0] in launches}
     want = {}
     for _, _, mode, _ in inputs:
         want[FLOAT_KERNELS[mode]] = want.get(FLOAT_KERNELS[mode], 0) + 1
-    if launches != want:
+    if launches != want or by_instance != planned:
         raise AssertionError(f"float matmul path: launches {launches} != "
-                             f"{want}")
+                             f"{want}, or by instance {by_instance} != "
+                             f"{planned}")
     path = Kernel("float matmul path")
     for key, (x, w) in inputs.items():
         if outs[key].shape != (BATCH, key[1]):
             raise AssertionError(f"float matmul path {key}: shape "
                                  f"{tuple(outs[key].shape)}")
         float_err(torch, path, outs[key], stream_matmul_ref(x, w))
-    record["float_matmul_path"] = {"launches": launches,
-                                   "readings": path.readings}
+    record["float_matmul_path"] = {
+        "launches": launches, "readings": path.readings,
+        "by_instance": {f"{k}:{i}": n for (k, i), n in by_instance.items()}}
     log("slice", f"float matmul: {len(inputs)} calls of stream_matmul (fc "
         f"heads at M = {BATCH} in their engines' modes and fc0 as a "
         f"{FC0_MATMUL[1]} x {FC0_MATMUL[2]} matmul, at {len(FLOAT_PAIRS)} "
-        f"operand pairs: f32, bf16 and every pair with f16 or int8), "
+        f"operand pairs: every pair over f32, bf16, f16 and int8 but int8 "
+        f"x int8), "
         f"launches {json.dumps(launches, sort_keys=True)}; outputs of the "
         f"promoted type within FLOAT_TOL, readings "
         f"{json.dumps(path.readings)}")
-    return launches, inputs
+    return launches, inputs, by_instance
 
 
 def serve_lm(torch, np, dev, record):
@@ -4618,6 +4710,7 @@ def main():
                                                    maxpool_int8_ref)
     from repro_torch.kernels.quant import requant_epilogue
     from repro_torch.kernels.stream_matmul.ops import (FLOAT_KERNELS,
+                                                       float_instance,
                                                        mm_bytes_read,
                                                        mm_float_plan,
                                                        mm_plan,
@@ -4813,6 +4906,8 @@ def main():
                 ks[kname].err(torch, gq, want_q)
                 n_checks += 4
     fpath = float_path(comps, select_engine)
+    float_planned = check_float_instances(torch, record, fpath, block_for,
+                                          mm_float_plan, sm_count)
     n_float = check_float_matmul(torch, g, dev, ks, fc_shapes, block_for,
                                  fpath)
     n_flash = check_flash(torch, g, dev, ks[LM_KERNEL], record)
@@ -4833,7 +4928,7 @@ def main():
         f"MobileNetV1-V3; stream n_buffers in {{1, 2, k*k}}; matmul "
         f"pinned/stream/fifo; pools at {len(MAXPOOL_EDGES)} + "
         f"{len(GAP_EDGES)} edge shapes); {n_float} float-matmul comparisons "
-        f"(f32, bf16 and mixed, n_buffers 1-4, every fc shape) within "
+        f"(every pair, n_buffers 1-4, every fc shape and path entry) within "
         f"FLOAT_TOL, readings "
         f"{json.dumps(record['float_matmul_readings'])}; {n_flash} "
         f"flash-attention comparisons (o and "
@@ -4929,8 +5024,8 @@ def main():
         if absent:
             raise AssertionError(f"sharded {name}: kernels of the path "
                                  f"never launched: {absent}")
-    launches["float matmul"], float_inputs = drive_float_matmul(
-        torch, g, dev, fpath, block_for, record)
+    launches["float matmul"], float_inputs, float_used = drive_float_matmul(
+        torch, g, dev, fpath, block_for, record, float_planned)
     total_launches.update(launches["float matmul"])
     lm = serve_lm(torch, np, dev, record)
     launches[LM_ARCH] = lm["launches"]
@@ -5158,11 +5253,15 @@ def main():
     record["matmul_per_shape"] = mm_shape_rows
     # the float matmul per path entry and operand pair (one launch each):
     # device ms, bytes (operands read once, the output written once),
-    # bound (products with an f32 operand at 67 TFLOP/s FFMA, the others
-    # at the 989 of bf16 and f16), plain ms, and torch.matmul (TF32 off)
-    # in the operands' type, or, for a mixed pair, on both converted to
-    # the result type inside the timed call (an int8 operand's
-    # conversion timed with it)
+    # bound (products with an f32 operand at 67 TFLOP/s FFMA, bf16 x f16
+    # at the 495 of tf32, the others at the 989 of bf16 and f16), plain
+    # ms, torch.matmul (TF32 off) in the operands' type, or, for a mixed
+    # pair, on both converted to the result type inside the timed call (an
+    # int8 operand's conversion timed with it), and the FFMA design's time
+    # (FFMA_DESIGN_US, in the record and the [time] line); where the
+    # weights fit in the L2 (4096 x 4096 and the heads), a second reading of
+    # the kernel and of torch.matmul with the weights rotated over copies
+    # that exceed it twice, so each launch reads them from device memory
     float_rows = {}
     t_bytes = {k: 0.0 for k in FLOAT_MM_KERNELS}
     t_ops = dict(t_bytes)
@@ -5175,10 +5274,10 @@ def main():
         reps = 5 if (k_, n_) == FC0_MATMUL[1:] else 20
         out_t = result_dtype(x.dtype, w.dtype)
 
-        def fn():
+        def fn(w=w):
             return stream_matmul(x, w, mode=mode, bk=bk, n_buffers=2)
 
-        def lib():
+        def lib(w=w):
             if x.dtype == w.dtype:
                 return torch.matmul(x, w)
             return torch.matmul(x.to(out_t), w.to(out_t))
@@ -5186,14 +5285,26 @@ def main():
         pms = device_ms(torch, lambda: stream_matmul_ref(x, w), reps=3,
                         replays=2)
         lms = device_ms(torch, lib, reps=reps)
+        cold = {}
+        w_bytes = w.numel() * w.element_size()
+        if w_bytes < L2_BYTES:
+            copies = [w.clone() for _ in range(-(-2 * L2_BYTES // w_bytes))]
+            turn = iter(range(1 << 30))
+            for name, f in (("ms", fn), ("library_ms", lib)):
+                cold[name] = device_ms(
+                    torch, lambda f=f: f(copies[next(turn) % len(copies)]),
+                    reps=len(copies), replays=2)
+            del copies
         ref = stream_matmul_ref(x, w).double()
         lib_diff = float((lib().double() - ref).abs().max())
         xb, wb = x.element_size(), w.element_size()
         ob = torch.empty((), dtype=out_t).element_size()
         nbytes = BATCH * k_ * xb + k_ * n_ * wb + BATCH * n_ * ob
         ops = 2 * BATCH * k_ * n_
-        rate = FP32_FLOPS_PER_S if torch.float32 in (x.dtype, w.dtype) \
-            else BF16_FLOPS_PER_S
+        plan = mm_float_plan(BATCH, k_, n_, mode, bk, 2, xb, wb, sm_count)
+        rate = (FP32_FLOPS_PER_S if not plan.tensor_cores else
+                TF32_FLOPS_PER_S if {x.dtype, w.dtype} == {
+                    torch.bfloat16, torch.float16} else BF16_FLOPS_PER_S)
         b, by = bound_ms(nbytes, ops, rate)
         kern.ms += ms
         kern.plain_ms += pms
@@ -5201,30 +5312,45 @@ def main():
         kern.bound_ms += b
         t_bytes[kern.name] += nbytes / HBM_BYTES_PER_S
         t_ops[kern.name] += ops / rate
-        plan = mm_float_plan(BATCH, k_, n_, mode, bk, 2, xb, wb, sm_count)
         key = f"{mode}:{k_},{n_}:{pname}"
+        xd_, wd_ = (str(t.dtype).split(".")[1] for t in (x, w))
         float_rows[key] = {
             "ms": ms, "call_ms": cms, "plain_ms": pms, "library_ms": lms,
+            "cold_ms": cold.get("ms"),
+            "cold_library_ms": cold.get("library_ms"),
+            "ffma_design_ms": ffma_design_ms(f"{mode}:{k_},{n_}", xd_, wd_),
             "library_max_abs_diff": lib_diff, "bytes": nbytes,
             "flops": ops, "bound_ms": b, "bound_by": by,
+            "share_of_bound": b / (cold.get("ms") or ms),
             "factor_on_library": ms / lms, "weight_gb_per_s":
-                k_ * n_ * wb / (ms * 1e6),
+                k_ * n_ * wb / ((cold.get("ms") or ms) * 1e6),
+            "instance": float_instance(x.dtype, w.dtype, plan.tn),
             "plan": {f: getattr(plan, f) for f in (
-                "tn", "split", "kr", "kblk", "nb", "wvec", "smem_bytes")},
+                "tn", "split", "kr", "kblk", "nb", "wvec", "smem_bytes",
+                "tma")},
             "ctas": plan.n_tiles * plan.split * plan.m_tiles}
         kern.per_shape.append({"case": key, "launches": 1, "ms": ms,
                                "plain_ms": pms, "bound_ms": b,
-                               "bound_by": by, "library_ms": lms})
+                               "bound_by": by, "library_ms": lms,
+                               "cold_ms": cold.get("ms"),
+                               "cold_library_ms": cold.get("library_ms")})
     for kname in FLOAT_MM_KERNELS:
         ks[kname].bound_by = ("bytes" if t_bytes[kname] >= t_ops[kname]
                               else "operations")
+        ks[kname].instances = {inst: n for (k, inst), n in
+                               sorted(float_used.items()) if k == kname}
     del float_inputs
     record["float_matmul_per_shape"] = float_rows
-    log("time", "float matmul per path entry (mode:K,N:type: us, bound "
-        "us, torch.matmul us, factor; weight GB/s; CTAs): " + "; ".join(
-            f"{key}: {r['ms'] * 1e3:.2f}, {r['bound_ms'] * 1e3:.2f}, "
-            f"{r['library_ms'] * 1e3:.2f}, {r['factor_on_library']:.2f}; "
-            f"{r['weight_gb_per_s']:.0f}; {r['ctas']}"
+
+    def us(v):
+        return "-" if v is None else f"{v * 1e3:.2f}"
+    log("time", "float matmul per path entry (mode:K,N:type: us; L2 cold "
+        "us; bound us; torch.matmul us, cold; FFMA design us; share of bound; "
+        "weight GB/s; instance): " + "; ".join(
+            f"{key}: {us(r['ms'])}; {us(r['cold_ms'])}; {us(r['bound_ms'])};"
+            f" {us(r['library_ms'])}, {us(r['cold_library_ms'])}; "
+            f"{us(r['ffma_design_ms'])}; {r['share_of_bound']:.3f}; "
+            f"{r['weight_gb_per_s']:.0f}; {r['instance']}"
             for key, r in float_rows.items()) + f"  [{card}]")
     log("time", "matmul per fc head (mode:K,N: launches x us, bound us, "
         "padded torch._int_mm us; CTAs, weight GB/s): " + "; ".join(
@@ -5515,6 +5641,8 @@ def main():
             rows[-1]["floor_ms"] = kern.floor_ms * total_launches[name]
         if getattr(kern, "per_shape", None):  # K9-K11: each shape
             rows[-1]["per_shape"] = kern.per_shape
+        if getattr(kern, "instances", None):  # the float matmul's
+            rows[-1]["instances"] = kern.instances
         log("time", f"{name}: {kern.ms:.4f} ms per slice run (device), "
             f"plain {kern.plain_ms:.4f} ms, bound {kern.bound_ms:.4f} ms "
             f"({kern.bound_by}), library {kern.library_ms}  [{card}]")

@@ -1,19 +1,28 @@
 #!/usr/bin/env python3
 """Time the streamed dense conv (K2), the fc-head matmul (K7/K8, int8
-and its f32 and bf16 modes), the pools (K5, K6) and the attention
+and its float modes at every operand pair), the pools (K5, K6) and the attention
 kernels' bf16 ``mma.sync`` routes (K9 at DeepSeek-V2's qk 192 / v 128,
 K10/K11 at Phi-4-mini's shape) of a checkout of this repository, and the
 device time of each net's forward, on one CUDA card: the probe that
 holds two trees against each other in one call (PERF.md).
 
-    python3 probe_stream.py [ROOT]
+    python3 probe_stream.py [ROOT] [--float-only | --float-variants]
 
 ROOT is the checkout whose ``src/repro_torch`` is timed (default: the one
 holding this script); its kernels build into ROOT/build on first use.
+``--float-only`` times the float matmul alone.  ``--float-variants``
+times it at fc0 (25088 x 4096) and 4096 x 4096, fifo, at a few operand
+pairs, under variants of its launch plan (VARIANTS: the plan's constants
+in ``stream_matmul/ops.py`` set in this process) and two ablations of
+the tensor-core body (ABLATIONS: copies of the package under
+ROOT/build/probe_stream built with ``MM_FLOAT_PROBE`` defined, which
+``csrc/stream_matmul.cu`` documents): the probe behind the design of
+``mm_float_tc``.
 Shapes: every streamed dense conv of ResNet-50 and VGG-16 compiled for
 ``NX2100`` at batch 8 (n_buffers 2, as the executor launches them), every
 fc head of the six CNN configs in the mode the engine runs it (the float
-modes also at VGG-16's fc0 streamed, f32 and bf16 at M = 8), every
+modes, at every pair over f32, bf16, f16 and int8 but int8 x int8, also
+at VGG-16's fc0 streamed, M = 8), every
 maxpool and global-average-pool shape of ResNet-50, ResNet-18,
 MobileNetV2 and VGG-16, and the forwards of those four nets.  Device times:
 20 calls (a forward: 1) captured into a CUDA graph and replayed, L2 warm.
@@ -24,12 +33,32 @@ row (what the streamed conv's C_out tiles read), or each reading a
 contiguous block of rows.  Prints one JSON line with the card's name and
 power limit.
 """
+import importlib
 import json
+import shutil
 import subprocess
 import sys
 from pathlib import Path
 
 BATCH = 8
+
+# --float-variants: the shapes (K, N), the pairs (x, w), the plan variants
+# (name, {plan constant: value}, n_buffers, SM-count factor) and the
+# ablations (name, MM_FLOAT_PROBE)
+VARIANT_SHAPES = ((25088, 4096), (4096, 4096))
+VARIANT_PAIRS = (("bfloat16", "bfloat16"), ("float16", "float16"),
+                 ("bfloat16", "float16"), ("bfloat16", "int8"),
+                 ("int8", "bfloat16"), ("float32", "float32"))
+VARIANTS = (
+    ("default", {}, 2, 1),
+    ("cp.async", {"MM_TMA_ROWS": 0}, 2, 1),
+    ("tma slot 16K", {"MM_TMA_SLOT_MAX": 16384}, 2, 1),
+    ("tma slot 48K", {"MM_TMA_SLOT_MAX": 49152}, 2, 1),
+    ("tiles 64, 32", {"MM_TILES_TC": (64, 32)}, 2, 1),
+    ("n_buffers 3", {}, 3, 1),
+    ("split x2", {}, 2, 2),
+)
+ABLATIONS = (("consumers alone", 1), ("ring alone", 2))
 
 # 128 CTAs of 512 threads read a [rows, 4096] int8 matrix with 16-byte
 # loads, 8 in flight a thread: a column tile of `run` bytes of every row
@@ -113,13 +142,120 @@ def device_ms(torch, fn, reps, replays=5):
     return start.elapsed_time(end) / (reps * replays)
 
 
+# the float matmul's operand types (x, w): every pair but int8 x int8
+FLOAT_TYPES = ("float32", "bfloat16", "float16", "int8")
+
+
+def draw(torch, g, dev, shape, dt):
+    """A float matmul operand: normal from ``g``, int8 as integers in
+    [-127, 127]."""
+    if dt == torch.int8:
+        return torch.randint(-127, 128, shape, generator=g, device=dev,
+                             dtype=torch.int8)
+    return torch.randn(*shape, generator=g, device=dev).to(dt)
+
+
+def float_times(torch, g, dev, block, heads):
+    """Device ms of the float matmul at every fc head (its engine's mode)
+    and fc0 (fifo), M = BATCH, n_buffers 2, for every operand pair: keyed
+    ``mode:K,N:x-type:w-type``."""
+    from repro_torch.kernels.stream_matmul.ops import stream_matmul
+    out = {}
+    for mode, k_, n_ in [h[:3] for h in heads] + [("fifo", 25088, 4096)]:
+        for xd in FLOAT_TYPES:
+            for wd in FLOAT_TYPES:
+                if xd == wd == "int8":
+                    continue
+                x = draw(torch, g, dev, (BATCH, k_), getattr(torch, xd))
+                w = draw(torch, g, dev, (k_, n_), getattr(torch, wd))
+                out[f"{mode}:{k_},{n_}:{xd}:{wd}"] = device_ms(
+                    torch, lambda: stream_matmul(x, w, mode=mode,
+                                                 bk=block(k_, 512),
+                                                 n_buffers=2),
+                    5 if k_ == 25088 else 20)
+    return out
+
+
+def probe_tree(root, name, probe):
+    """A copy of ROOT's package under ROOT/build/probe_stream/<name> whose
+    stream_matmul.cu defines MM_FLOAT_PROBE as ``probe``."""
+    dst = root / "build" / "probe_stream" / name.replace(" ", "_")
+    if dst.exists():
+        shutil.rmtree(dst)
+    shutil.copytree(root / "src" / "repro_torch", dst / "src" / "repro_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    cu = dst / "src" / "repro_torch" / "kernels" / "csrc" / "stream_matmul.cu"
+    cu.write_text(f"#define MM_FLOAT_PROBE {probe}\n" + cu.read_text())
+    return dst
+
+
+def variant_times(torch, tree, variants):
+    """{shape:pair:variant: {ms, error, plan}} for ``tree``'s package at
+    VARIANT_SHAPES and VARIANT_PAIRS, fifo, K blocks of 512, under
+    ``variants``."""
+    for mod in [m for m in sys.modules if m.startswith("repro_torch")]:
+        del sys.modules[mod]
+    sys.path.insert(0, str(tree / "src"))
+    try:
+        ops = importlib.import_module("repro_torch.kernels.stream_matmul.ops")
+        ref = importlib.import_module("repro_torch.kernels.stream_matmul.ref")
+        dev = torch.device("cuda")
+        sms = ops._device_sms(dev)
+        defaults = {k: getattr(ops, k) for v in variants for k in v[1]}
+        g = torch.Generator(device=dev).manual_seed(0)
+        out = {}
+        for k, n in VARIANT_SHAPES:
+            for xd, wd in VARIANT_PAIRS:
+                x = draw(torch, g, dev, (BATCH, k), getattr(torch, xd))
+                w = draw(torch, g, dev, (k, n), getattr(torch, wd))
+                want = ref.stream_matmul_ref(x, w).double()
+                scale = float(want.abs().max())
+                for name, consts, nb, factor in variants:
+                    for key, value in {**defaults, **consts}.items():
+                        setattr(ops, key, value)
+                    ops.mm_float_plan.cache_clear()
+                    ops._device_sms = lambda d, s=sms * factor: s
+
+                    def fn():
+                        return ops.stream_matmul(x, w, mode="fifo", bk=512,
+                                                 n_buffers=nb)
+                    plan = ops.mm_float_plan(BATCH, k, n, "fifo", 512, nb,
+                                             x.element_size(),
+                                             w.element_size(), sms * factor)
+                    err = float((fn().double() - want).abs().max()) / scale
+                    out[f"{k}x{n}:{xd}x{wd}:{name}"] = {
+                        "ms": device_ms(torch, fn, 5 if k > 5000 else 20),
+                        "max_err_share_of_max": err,
+                        "plan": {f: getattr(plan, f) for f in (
+                            "tn", "split", "kblk", "nb", "smem_bytes",
+                            "tensor_cores", "tma")}}
+                for key, value in defaults.items():
+                    setattr(ops, key, value)
+        return out
+    finally:
+        sys.path.remove(str(tree / "src"))
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
         print("probe_stream: CUDA is not available", file=sys.stderr)
         return 2
-    root = Path(sys.argv[1] if len(sys.argv) > 1 else
+    args = [a for a in sys.argv[1:] if not a.startswith("--")]
+    float_only = "--float-only" in sys.argv[1:]
+    root = Path(args[0] if args else
                 Path(__file__).resolve().parent).resolve()
+    if "--float-variants" in sys.argv[1:]:
+        card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                               "--format=csv,noheader"], capture_output=True,
+                              text=True, timeout=60).stdout.strip()
+        result = {"root": str(root), "card": card,
+                  "variants": variant_times(torch, root, VARIANTS)}
+        for name, probe in ABLATIONS:
+            result[name] = variant_times(torch, probe_tree(root, name, probe),
+                                         VARIANTS[:1])
+        print(json.dumps(result))
+        return 0
     sys.path.insert(0, str(root / "src"))
     from repro_torch.compiler import NX2100, compile, select_engine
     from repro_torch.compiler.engines import _block
@@ -143,7 +279,21 @@ def main():
                              device=dev)
 
     comps = {n: compile(get_cnn(n), NX2100) for n in CNN_CONFIGS}
-    conv, mm = {}, {}
+    conv, mm, heads = {}, {}, []
+    for comp in comps.values():
+        for sc in comp.plan.schedules:
+            sp = sc.spec
+            if select_engine(sp).name != "stream_matmul":
+                continue
+            head = ("fifo" if sc.streamed else "pinned", sp.c_in, sp.c_out,
+                    sc.n_buffers)
+            if head not in heads:
+                heads.append(head)
+    float_mm = float_times(torch, g, dev, _block, heads)
+    if float_only:
+        print(json.dumps({"root": str(root), "card": card,
+                          "float_matmul_ms": float_mm}))
+        return 0
     for name in ("resnet50", "vgg16"):
         for sc in comps[name].plan.schedules:
             sp = sc.spec
@@ -160,34 +310,14 @@ def main():
             conv[key] = device_ms(torch, lambda: conv2d_int8_requant(
                 x, w, ws, b, 0.05, stride=sp.stride, stream=True,
                 n_buffers=sc.n_buffers, want_float=sp.kind == "fc"), 20)
-    for comp in comps.values():
-        for sc in comp.plan.schedules:
-            sp = sc.spec
-            if select_engine(sp).name != "stream_matmul":
-                continue
-            mode = "fifo" if sc.streamed else "pinned"
-            key = f"{mode}:{sp.c_in},{sp.c_out}"
-            if key in mm:
-                continue
-            x, w = i8(BATCH, sp.c_in), i8(sp.c_in, sp.c_out)
-            ws = torch.rand(sp.c_out, generator=g, device=dev) * 0.09 + 0.01
-            b = torch.zeros(sp.c_out, device=dev)
-            mm[key] = device_ms(torch, lambda: stream_matmul_requant(
-                x, w, ws, b, 0.05, mode=mode, bk=_block(sp.c_in, 512),
-                n_buffers=max(2, sc.n_buffers)), 20)
-    from repro_torch.kernels.stream_matmul.ops import stream_matmul
-    float_mm = {}
-    for key in list(mm) + ["fifo:25088,4096"]:
-        mode, kn = key.split(":")
-        k_, n_ = map(int, kn.split(","))
-        for dt in (torch.float32, torch.bfloat16):
-            x = torch.randn(BATCH, k_, generator=g, device=dev).to(dt)
-            w = torch.randn(k_, n_, generator=g, device=dev).to(dt)
-            float_mm[f"{key}:{str(dt)[6:]}"] = device_ms(
-                torch, lambda: stream_matmul(x, w, mode=mode,
-                                             bk=_block(k_, 512),
-                                             n_buffers=2),
-                5 if k_ == 25088 else 20)
+    for mode, c_in, c_out, n_buffers in heads:
+        x, w = i8(BATCH, c_in), i8(c_in, c_out)
+        ws = torch.rand(c_out, generator=g, device=dev) * 0.09 + 0.01
+        b = torch.zeros(c_out, device=dev)
+        mm[f"{mode}:{c_in},{c_out}"] = device_ms(
+            torch, lambda: stream_matmul_requant(
+                x, w, ws, b, 0.05, mode=mode, bk=_block(c_in, 512),
+                n_buffers=max(2, n_buffers)), 20)
     from repro_torch.kernels.flash_attention.ops import (
         flash_attention, flash_attention_bwd, flash_attention_kernel)
     flash = {}

@@ -30,7 +30,7 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import Dict, NamedTuple, Optional, Sequence, Tuple
+from typing import Dict, Hashable, NamedTuple, Optional, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -47,8 +47,9 @@ _libs: Dict[str, ctypes.CDLL] = {}
 #: replay adds the launches its capture recorded (:func:`count_replay`).
 LAUNCHES: Dict[str, int] = {}
 #: The same launches by ``(kernel, shape)``, for the wrappers that name
-#: the shape they launch (``count_launch(kernel, shape)``).
-SHAPE_LAUNCHES: Dict[Tuple[str, tuple], int] = {}
+#: the shape (or the instance) they launch
+#: (``count_launch(kernel, shape)``).
+SHAPE_LAUNCHES: Dict[Tuple[str, Hashable], int] = {}
 # the active cost counters (``roofline/op_cost.py``): each launch's charge
 # goes to every one of them
 _charge_sinks: list = []
@@ -157,11 +158,12 @@ class Charge(NamedTuple):
     matmul_flops: int          # the dots of the body, times the grid
 
 
-def count_launch(kernel: str, shape: Optional[tuple] = None,
+def count_launch(kernel: str, shape: Optional[Hashable] = None,
                  cost: Optional[tuple] = None) -> None:
-    """One launch of ``kernel``; with ``shape``, also one of ``(kernel,
-    shape)`` in :data:`SHAPE_LAUNCHES`; with ``cost`` (``(flops, bytes,
-    matmul_flops)``), its charge to the active cost counters."""
+    """One launch of ``kernel``; with ``shape`` (or the instance it
+    launched), also one of ``(kernel, shape)`` in :data:`SHAPE_LAUNCHES`;
+    with ``cost`` (``(flops, bytes, matmul_flops)``), its charge to the
+    active cost counters."""
     counts = dict.fromkeys((kernel,) if shape is None
                            else (kernel, (kernel, shape)), 1)
     sink = getattr(_capture, "sink", None)

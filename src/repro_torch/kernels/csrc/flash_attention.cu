@@ -76,13 +76,12 @@
 // instructions and keeps two warpgroups per SM at work on 128 rows of one
 // K/V tile.  PERF.md has its times against the bound and the library's
 // attention.
-#include <cuda.h>  // CUtensorMap and its enums; the driver call goes
-                   // through cudaGetDriverEntryPoint, so no -lcuda
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "mma_bf16.cuh"
+#include "tma.cuh"  // CUtensorMap, and its encoder without -lcuda
 
 namespace {
 
@@ -865,33 +864,6 @@ cudaError_t launch_bf16(const FlashArgs& a, dim3 grid, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// cuTensorMapEncodeTiled from the driver through the runtime, so that the
-// library needs no -lcuda.
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // The tensor map of a [B, heads, S, d] bf16 operand given by its element
 // strides over (batch, head, seq), d contiguous: boxes of 64 columns x
 // `rows` rows of one head, 128-byte swizzle, rows past S read as zeros.
@@ -899,7 +871,7 @@ EncodeTiled encode_tiled() {
 cudaError_t tensor_map(CUtensorMap* map, const void* base, int B, int heads,
                        int S, int d, long long sb, long long sh, long long ss,
                        int rows) {
-  EncodeTiled fn = encode_tiled();
+  h2pipe_tma::EncodeTiled fn = h2pipe_tma::encode_tiled();
   if (!fn) return cudaErrorNotSupported;
   if (heads == 1) sh = ss * S;
   if (B == 1) sb = sh * heads;

@@ -1,8 +1,10 @@
 // Tensor-core helpers shared by the flash-attention kernels (K9 in
-// flash_attention.cu, K10/K11 in flash_attention_bwd.cu): cp.async tile
-// copies into padded shared-memory rows, ldmatrix fragment loads,
-// mma.sync m16n8k16 with bf16 operands and f32 sums, and the head-dim
-// widths the kernels are built at.
+// flash_attention.cu, K10/K11 in flash_attention_bwd.cu) and the float
+// matmul's tensor-core instances (mm_float_tc in stream_matmul.cu):
+// cp.async tile copies into padded shared-memory rows, ldmatrix fragment
+// loads of any 16-bit (or, as pairs, 8-bit) data, mma.sync m16n8k16 with
+// bf16 or f16 operands and m16n8k8 with tf32 operands, f32 sums, and the
+// head-dim widths the attention kernels are built at.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -44,18 +46,28 @@ __device__ __forceinline__ void cp_async_wait1() {
 // addresses of matrix i.  Register i holds, in each lane, row lane/4 and
 // columns 2(lane%4), +1 of matrix i (with .trans: rows 2(lane%4), +1 of
 // column lane/4) — the mma.sync fragment layouts.
-__device__ __forceinline__ void ldsm_x4(uint32_t* r, const bf16* p) {
+// The _at forms take the row's shared-memory address.
+__device__ __forceinline__ void ldsm_x4_at(uint32_t* r, unsigned addr) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
+      : "r"(addr));
 }
 
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const bf16* p) {
+__device__ __forceinline__ void ldsm_x4_trans_at(uint32_t* r,
+                                                 unsigned addr) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
+  ldsm_x4_at(r, smem_addr(p));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const void* p) {
+  ldsm_x4_trans_at(r, smem_addr(p));
 }
 
 // c[16x8] += a[16x16] (row-major) . b[16x8] (column-major), f32 sums.
@@ -63,6 +75,29 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
                                          uint32_t b0, uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The same with f16 operands.
+__device__ __forceinline__ void mma_f16(float* c, const uint32_t* a,
+                                        uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c[16x8] += a[16x8] . b[8x8], tf32 operands (f32 bit patterns; an operand
+// whose low 13 bits are zero is taken exactly), f32 sums.  Register a0
+// holds row lane/4, column lane%4; a1 row +8; a2 column +4; a3 both; b0
+// row lane%4, column lane/4; b1 row +4.
+__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));

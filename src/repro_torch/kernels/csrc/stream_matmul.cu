@@ -41,28 +41,65 @@
 // The TPU block sizes of the engine table are accounting only; the kernel
 // masks the ragged M, N and K edges itself.
 //
-// The float modes are mm_float<TX, TW, TN>: every operand pair over f32,
-// bf16, f16 and int8 but int8 x int8 (mm_kernel's), f32 sums as the
-// reference's _acc_dtype takes them, the result in the type
-// jnp.promote_types gives (Promoted below: f16 x f16 -> f16, f16 x bf16
-// -> f32, int8 x bf16 -> bf16, int8 x f16 -> f16, any with f32 -> f32),
-// with the same work split, ring and credit rule as mm_kernel and a plan
-// of their own (ops.mm_float_plan, layout mm_float_layout below):
-//  * A slot holds a K block of the weights [kblk][tn] and of x [TM][kblk];
-//    both stream through the ring (cp.async of 16, 8 or 4 bytes, or plain
-//    copies of one element where a row of bf16, f16 or int8 values is not
-//    a multiple of 4 bytes), zeros past M, N and the rank's K range.
-//  * The products are FFMA on the CUDA cores, never TF32: each of 128
-//    consumer threads owns 4 columns x TM rows and a share of the block's
-//    K rows, 4 at a time (a bf16, f16 or int8 value widens to f32 exactly
-//    as it is read from its slot, so every product is exact in f32 before
-//    its one rounding, as in the reference).  Shares are summed by
-//    shuffles, then across warps in shared memory; the leader of the
-//    cluster reads every rank's sums through distributed shared memory in
-//    rank order (deterministic) and writes the result in its type.
-//  * What bounds it: the weights' bytes at the fc-head shapes.  At M = 8
-//    a weight element takes 16 FLOP: 8 a byte in bf16 and 4 in f32,
-//    below the 20 a byte that 67 TFLOP/s FP32 over 3.35 TB/s would need.
+// The float modes: every operand pair over f32, bf16, f16 and int8 but
+// int8 x int8 (mm_kernel's), f32 sums as the reference's _acc_dtype takes
+// them, the result in the type jnp.promote_types gives (Promoted below:
+// f16 x f16 -> f16, f16 x bf16 -> f32, int8 x bf16 -> bf16, int8 x f16 ->
+// f16, any with f32 -> f32), with the same work split, ring and credit rule
+// as mm_kernel and a plan of their own (ops.mm_float_plan, layout
+// mm_float_layout below).  A slot holds a K block of the weights
+// [kblk][tn] and of x [TM][kblk], zeros past M, N and the rank's K range.
+// The leader of the cluster reads every rank's sums through distributed
+// shared memory in rank order (deterministic) and writes the result in its
+// type.  Two bodies:
+//  * mm_float_tc<TX, TW, TN>, the eight pairs whose values are all exact
+//    in 16 bits (bf16, f16, int8), on the tensor cores (mma.sync, f32
+//    sums).  The operands are swapped, out^T[N, M] = w^T[N, K] . x^T[K,
+//    M]: the weights fill mma's 16-row side and the TM = 8 rows of x its
+//    n = 8, so no row is padded at M = 8.  Each of 8 consumer warps owns
+//    16 columns (tn = 128; at 64 and 32 two and four warps share a group,
+//    unit by unit) and takes the block's K rows 32 at a time (a unit: two
+//    k16 halves, one accumulator each).  A fragments come from the weight
+//    slot by ldmatrix.trans (an int8 slot by the same ldmatrix, as byte
+//    pairs: a lane's register holds two K rows of two columns, mma rows i
+//    and i + 8 taking columns 2i and 2i + 1), B fragments from x's slot
+//    rows by ldmatrix (int8 x: one 4-byte load a k16 half).  A lane's A
+//    and B fragments hold the same K rows (unit_row), which is all a sum
+//    needs.  bf16 x bf16 and f16 x f16 run m16n8k16 in their type; int8
+//    against bf16 or f16 widens exactly to the other's type in registers
+//    (widen_i8x2), so an int8 weight still crosses HBM as one byte; bf16 x
+//    f16 and f16 x bf16 widen both to f32 bit patterns, exact in tf32 (8
+//    and 11 significand bits, f16's exponents inside), and run m16n8k8
+//    tf32.  Every product is exact before its sum, as in the reference.
+//    The slots come by TMA (mm_float_produce_tma: one thread, one 2-d box
+//    of 128-byte rows a tensor map and 128 bytes of columns, the 128-byte
+//    swizzle, one arrival with the boxes' bytes on the full barrier) where
+//    w's and x's rows are a multiple of 16 bytes and a column tile is one
+//    or two boxes; else (ragged N such as 1000 int8 or 10, tiles of 32
+//    columns) by 128 producer threads' cp.async (16, 8 or 4 bytes, or one
+//    element), into rows padded by 16 bytes.
+//  * mm_float<TX, TW, TN>, the seven pairs with an f32 operand, FFMA on the
+//    CUDA cores, never TF32, which would round the f32 operand: each of 128
+//    consumer threads owns 4 columns x TM rows and a share of the block's K
+//    rows, 4 at a time, a narrower value widened to f32 exactly as it is
+//    read; shares summed by shuffles, then across warps in shared memory;
+//    slots by cp.async.
+// What bounds them.  At M = 8 a weight element takes 16 FLOP: 8 a byte in
+// bf16, 4 in f32, 16 in int8.  On the tensor cores (989 TFLOP/s bf16 and
+// f16, 495 tf32) the products take 30 to 120 times less than the bytes, so
+// the weight stream at 3.35 TB/s is the bound, and the ring has to keep
+// it in flight: about 3.35 TB/s x 1 us of latency over 132 SMs, 25 KB of
+// weights an SM.  fc0 (25088 x 4096, bf16) runs 32 column tiles of 128 x
+// a K split of 8, 256 CTAs of 3136 K rows, each two slots of 64 rows x
+// 256 bytes (16 KB) in flight, 1.9 CTAs an SM: up to 62 KB an SM.  Small
+// slots and many CTAs an SM won on an H100 (probe_stream.py): a CTA's ring
+// is bound by its slots' round trips, so the card is filled by more rings,
+// not deeper ones; TMA's one request a box beat 128 threads' 16-byte
+// cp.async.  The int8 weights' widening is consumer work that the weight
+// stream does not hide at fc0.  FFMA's 67 TFLOP/s would need 20 FLOP a byte to pass the
+// bytes; a bf16 weight (8) on FFMA did not reach the bytes, the FFMA loop
+// running at about a fifth of that peak, and the f32 pairs (4) reach about
+// half of them.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -70,6 +107,8 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "mma_bf16.cuh"
+#include "tma.cuh"
 
 namespace {
 
@@ -312,17 +351,36 @@ __global__ void __launch_bounds__(NCONS + NPROD) mm_kernel(MmArgs a) {
 
 
 // ---------------------------------------------------------------------------
-// The float modes: mm_float<TX, TW, TN>
+// The float modes: mm_float<TX, TW, TN> (FFMA) and mm_float_tc<TX, TW, TN>
+// (tensor cores)
 // ---------------------------------------------------------------------------
 
 using bf16 = __nv_bfloat16;
-constexpr int FCONS = 128;       // consumer threads (warps 0..3)
+constexpr int FCONS = 128;       // consumer threads on FFMA (warps 0..3)
+constexpr int TC_CONS = 256;     // on the tensor cores (warps 0..7)
+constexpr int TC_UNIT = 32;      // K rows a tensor-core warp takes at once
+
+// The consumer threads of a body
+__host__ __device__ constexpr int float_consumers(bool tc) {
+  return tc ? TC_CONS : FCONS;
+}
+
+// The consumers' shares of a column: every warp's on FFMA; on the tensor
+// cores the warps of a column group of 16 (one at tn = 128)
+__host__ __device__ constexpr int float_shares(int tn, bool tc) {
+  return tc ? TC_CONS / 32 / (tn / 16) : FCONS / 32;
+}
+
+template <typename T>
+constexpr bool is_i8 = std::is_same<T, int8_t>::value;
+template <typename T>
+constexpr bool is_f32 = std::is_same<T, float>::value;
 
 // Four consecutive values of type T at p (16 bytes of f32, 8 of bf16 or
 // f16, 4 of int8), widened to f32 exactly.
 template <typename T>
 __device__ __forceinline__ void load4(const unsigned char* p, float v[4]) {
-  if constexpr (std::is_same<T, float>::value) {
+  if constexpr (is_f32<T>) {
     const float4 f = *reinterpret_cast<const float4*>(p);
     v[0] = f.x, v[1] = f.y, v[2] = f.z, v[3] = f.w;
   } else if constexpr (std::is_same<T, bf16>::value) {
@@ -336,7 +394,7 @@ __device__ __forceinline__ void load4(const unsigned char* p, float v[4]) {
     const float2 lo = __half22float2(h[0]), hi = __half22float2(h[1]);
     v[0] = lo.x, v[1] = lo.y, v[2] = hi.x, v[3] = hi.y;
   } else {
-    static_assert(std::is_same<T, int8_t>::value, "f32, bf16, f16 or int8");
+    static_assert(is_i8<T>, "f32, bf16, f16 or int8");
     const char4 c = *reinterpret_cast<const char4*>(p);
     v[0] = (float)c.x, v[1] = (float)c.y, v[2] = (float)c.z;
     v[3] = (float)c.w;
@@ -371,6 +429,35 @@ struct Promoted<int8_t, __half> {
   using type = __half;
 };
 
+// The mma operand type of a pair without f32: the pair's type where both
+// share it or one is int8 (int8 widens exactly to bf16 and to f16), else
+// (bf16 with f16) tf32, which holds both exactly.
+struct Tf32 {};
+template <typename TX, typename TW>
+struct MmaType {
+  using type = Tf32;
+};
+template <typename T>
+struct MmaType<T, T> {
+  using type = T;
+};
+template <>
+struct MmaType<int8_t, bf16> {
+  using type = bf16;
+};
+template <>
+struct MmaType<bf16, int8_t> {
+  using type = bf16;
+};
+template <>
+struct MmaType<int8_t, __half> {
+  using type = __half;
+};
+template <>
+struct MmaType<__half, int8_t> {
+  using type = __half;
+};
+
 // An f32 sum rounded once to the result type.
 __device__ __forceinline__ void store_out(float* p, float s) { *p = s; }
 __device__ __forceinline__ void store_out(bf16* p, float s) {
@@ -385,29 +472,43 @@ struct MmFloatArgs {
   const unsigned char* w;
   void* out;
   int M, K, N;
-  int kr, kblk, nb, wvec, xvec;   // the plan (ops.mm_float_plan)
-  int srow, xrow, slot;           // the layout (mm_float_layout() below)
+  int kr, kblk, nb, wvec, xvec, tma;   // the plan (ops.mm_float_plan)
+  int srow, xrow, slot;                // the layout (mm_float_layout())
+};
+
+// The TMA route's tensor maps (unset on the cp.async route).
+struct FloatMaps {
+  CUtensorMap w, x;
 };
 
 struct MmFloatLayout {
-  int srow;   // bytes of a weight row of a slot: tn * w_bytes + 16
-  int xrow;   // bytes of an x row of a slot: kblk * x_bytes + 16
+  int srow;   // bytes of a weight row of a slot: tn * w_bytes (+ 16)
+  int xrow;   // bytes of an x row of a slot: kblk * x_bytes + 16 (TMA: 128)
   int slot;   // bytes of a slot: kblk weight rows, then TM x rows
   long smem;
 };
 
 // ops.mm_float_layout mirrors this.  Shared memory of one CTA: the full
-// and empty mbarriers of the nb slots, the slots [nb][slot], the consumer
-// warps' sums [FCONS / 32][TM][tn] f32 and the CTA's sums [TM][tn] f32,
-// which the cluster's leader reads.
+// and empty mbarriers of the nb slots, the slots [nb][slot], the consumers'
+// shares [float_shares][TM][tn] f32 and the CTA's sums [TM][tn] f32,
+// which the cluster's leader reads.  On the cp.async route a row's 16
+// extra bytes make eight rows that ldmatrix reads together fall on
+// distinct banks wherever a row is an odd number of 16-byte chunks: weight
+// rows of 32, 64 or 128 columns of 1 or 2 bytes, x rows of a K block of a
+// multiple of 32 (the tensor-core plans' blocks).  On the TMA route a
+// slot is boxes of 128-byte rows as the 128-byte swizzle lays them out
+// (tile_at): the weights tn * w_bytes / 128 boxes of kblk rows, then x
+// kblk * x_bytes / 128 boxes of TM rows; the ring starts at the first
+// 1024-byte boundary after the mbarriers (1024 bytes kept for it).
 MmFloatLayout mm_float_layout(int tn, int kblk, int nb, int x_bytes,
-                              int w_bytes) {
+                              int w_bytes, bool tma) {
   MmFloatLayout L;
-  L.srow = tn * w_bytes + 16;
-  L.xrow = kblk * x_bytes + 16;
-  L.slot = kblk * L.srow + TM * L.xrow;
-  L.smem = 16L * nb + (long)nb * L.slot +
-           (long)(FCONS / 32 + 1) * TM * tn * 4;
+  L.srow = tn * w_bytes + (tma ? 0 : 16);
+  L.xrow = tma ? 128 : kblk * x_bytes + 16;
+  L.slot = kblk * L.srow + TM * (tma ? kblk * x_bytes : L.xrow);
+  L.smem = 16L * nb + (tma ? 1024 : 0) + (long)nb * L.slot +
+           (long)(float_shares(tn, x_bytes <= 2 && w_bytes <= 2) + 1) * TM *
+               tn * 4;
   return L;
 }
 
@@ -437,11 +538,11 @@ __device__ __forceinline__ void copy_chunk(int vec, unsigned char* dst,
 // [k0, k1) (columns n0 .. n0 + tn) and x's rows m0 .. m0 + TM of the same
 // K rows into the ring; a slot is refilled only after its empty barrier
 // completes (the credit rule).
-template <int TN, int xb, int wb>
+template <int TN, int xb, int wb, int NCONS>
 __device__ __forceinline__ void mm_float_produce(
     const MmFloatArgs& a, int m0, int n0, int k0, int k1, int nkb,
     uint64_t* full, uint64_t* empty, unsigned char* ring) {
-  const int pt = threadIdx.x - FCONS;
+  const int pt = threadIdx.x - NCONS;
   const bool plain = a.wvec <= 2 || a.xvec <= 2;
   const int per_wrow = TN * wb / a.wvec, per_xrow = a.kblk * xb / a.xvec;
   h2pipe::RingPos pos;
@@ -475,36 +576,93 @@ __device__ __forceinline__ void mm_float_produce(
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// A CTA: (tile of TN columns, rank in the K split, tile of TM rows).
-template <typename TX, typename TW, int TN>
-__global__ void __launch_bounds__(FCONS + NPROD) mm_float(MmFloatArgs a) {
-  constexpr int NWARPS = FCONS / 32;
-  constexpr int XB = sizeof(TX), WB = sizeof(TW);
-  using TO = typename Promoted<TX, TW>::type;
-  extern __shared__ __align__(16) unsigned char smem[];
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = (int)cluster.block_rank();
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
-  uint64_t* empty = full + a.nb;
-  unsigned char* ring = smem + 16 * a.nb;
-  float* red = reinterpret_cast<float*>(ring + (size_t)a.nb * a.slot);
-  float* part = red + NWARPS * TM * TN;              // [TM][TN]
+// What both float bodies share: a CTA is (tile of TN columns, rank in the
+// K split, tile of TM rows); its mbarriers, set up here, and its arrays.
+struct FloatCta {
+  uint64_t* full;
+  uint64_t* empty;
+  unsigned char* ring;
+  float* red;    // the consumers' shares [shares][TM][TN]
+  float* part;   // the CTA's sums [TM][TN], which the leader reads
+  int n0, m0, k0, k1, nkb;
+};
 
-  const int n0 = blockIdx.x * TN, m0 = blockIdx.z * TM;
-  const int k0 = min(a.K, rank * a.kr), k1 = min(a.K, k0 + a.kr);
-  const int nkb = (k1 - k0 + a.kblk - 1) / a.kblk;
-  const int tid = threadIdx.x;
-  if (tid == 0) {
+template <int TN, int SHARES, int NCONS>
+__device__ __forceinline__ FloatCta float_cta(const MmFloatArgs& a,
+                                              unsigned char* smem,
+                                              int rank) {
+  FloatCta c;
+  c.full = reinterpret_cast<uint64_t*>(smem);
+  c.empty = c.full + a.nb;
+  c.ring = smem + 16 * a.nb;
+  if (a.tma)   // the 128-byte swizzle repeats every 1024 bytes
+    c.ring += (1024 - h2pipe::smem_addr(c.ring) % 1024) % 1024;
+  c.red = reinterpret_cast<float*>(c.ring + (size_t)a.nb * a.slot);
+  c.part = c.red + SHARES * TM * TN;
+  c.n0 = blockIdx.x * TN;
+  c.m0 = blockIdx.z * TM;
+  c.k0 = min(a.K, rank * a.kr);
+  c.k1 = min(a.K, c.k0 + a.kr);
+  c.nkb = (c.k1 - c.k0 + a.kblk - 1) / a.kblk;
+  if (threadIdx.x == 0) {
     for (int s = 0; s < a.nb; ++s) {
-      h2pipe::mbar_init(full + s, NPROD);            // every producer thread
-      h2pipe::mbar_init(empty + s, NWARPS);          // every consumer warp
+      // every producer thread, or the one that issues the TMA loads
+      h2pipe::mbar_init(c.full + s, a.tma ? 1 : NPROD);
+      h2pipe::mbar_init(c.empty + s, NCONS / 32);    // every consumer warp
     }
     h2pipe::mbar_init_fence();
   }
   __syncthreads();
+  return c;
+}
 
+// After the ring: the consumers add the SHARES shares of red in order into
+// the CTA's sums; the leader of the cluster adds every rank's sums in rank
+// order and writes them, rounded once to TO.
+template <typename TO, int TN, int SHARES, int NCONS>
+__device__ __forceinline__ void float_finish(const MmFloatArgs& a,
+                                             const FloatCta& c,
+                                             cg::cluster_group& cluster,
+                                             int rank) {
+  const int tid = threadIdx.x;
+  if (tid < NCONS) {
+    asm volatile("bar.sync 1, %0;\n" ::"r"(NCONS) : "memory");
+    for (int o = tid; o < TM * TN; o += NCONS) {
+      float s = 0.0f;
+#pragma unroll
+      for (int w = 0; w < SHARES; ++w) s += c.red[w * TM * TN + o];
+      c.part[o] = s;
+    }
+  }
+  cluster.sync();  // every rank's sums are in its shared memory
+  if (rank == 0 && tid < NCONS) {
+    const int split = (int)cluster.num_blocks();
+    TO* out = reinterpret_cast<TO*>(a.out);
+    for (int o = tid; o < TM * TN; o += NCONS) {
+      const int m = o / TN, col = o - m * TN;
+      const int row = c.m0 + m, n = c.n0 + col;
+      if (row >= a.M || n >= a.N) continue;
+      float s = 0.0f;
+      for (int r = 0; r < split; ++r)
+        s += cluster.map_shared_rank(c.part, r)[o];
+      store_out(out + (size_t)row * a.N + n, s);
+    }
+  }
+  cluster.sync();  // the leader has read every rank's sums
+}
+
+// The FFMA body: the pairs with an f32 operand.
+template <typename TX, typename TW, int TN>
+__global__ void __launch_bounds__(FCONS + NPROD) mm_float(MmFloatArgs a) {
+  constexpr int XB = sizeof(TX), WB = sizeof(TW);
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const FloatCta c = float_cta<TN, FCONS / 32, FCONS>(a, smem, rank);
+  const int tid = threadIdx.x;
   if (tid >= FCONS) {
-    mm_float_produce<TN, XB, WB>(a, m0, n0, k0, k1, nkb, full, empty, ring);
+    mm_float_produce<TN, XB, WB, FCONS>(a, c.m0, c.n0, c.k0, c.k1, c.nkb,
+                                        c.full, c.empty, c.ring);
   } else {
     constexpr int quads = TN / 4, ways = FCONS / quads;
     const int quad = tid % quads, way = tid / quads;
@@ -514,11 +672,11 @@ __global__ void __launch_bounds__(FCONS + NPROD) mm_float(MmFloatArgs a) {
 #pragma unroll
       for (int n = 0; n < 4; ++n) acc[m][n] = 0.0f;
     h2pipe::RingPos pos;
-    for (int kb = 0; kb < nkb; ++kb) {
-      h2pipe::mbar_wait(full + pos.slot, pos.phase);
-      const unsigned char* slot = ring + (size_t)pos.slot * a.slot;
+    for (int kb = 0; kb < c.nkb; ++kb) {
+      h2pipe::mbar_wait(c.full + pos.slot, pos.phase);
+      const unsigned char* slot = c.ring + (size_t)pos.slot * a.slot;
       const unsigned char* xs = slot + (size_t)a.kblk * a.srow;
-      const int rows = min(a.kblk, k1 - k0 - kb * a.kblk);
+      const int rows = min(a.kblk, c.k1 - c.k0 - kb * a.kblk);
       // 4 K rows at a time; the rows past the range are zeros
       for (int k4 = way; 4 * k4 < rows; k4 += ways) {
         float wv[4][4];
@@ -537,10 +695,11 @@ __global__ void __launch_bounds__(FCONS + NPROD) mm_float(MmFloatArgs a) {
         }
       }
       __syncwarp();
-      if ((tid & 31) == 0) h2pipe::mbar_arrive(empty + pos.slot);
+      if ((tid & 31) == 0) h2pipe::mbar_arrive(c.empty + pos.slot);
       pos.next(a.nb);
     }
-    // the shares: over the ways of a warp by shuffles, then over the warps
+    // the shares: over the ways of a warp by shuffles, then a row of red
+    // a warp
 #pragma unroll
     for (int m = 0; m < TM; ++m)
 #pragma unroll
@@ -552,30 +711,262 @@ __global__ void __launch_bounds__(FCONS + NPROD) mm_float(MmFloatArgs a) {
     if (lane < quads)
 #pragma unroll
       for (int m = 0; m < TM; ++m)
-        *reinterpret_cast<float4*>(red + (warp * TM + m) * TN + 4 * lane) =
+        *reinterpret_cast<float4*>(c.red + (warp * TM + m) * TN + 4 * lane) =
             make_float4(acc[m][0], acc[m][1], acc[m][2], acc[m][3]);
-    asm volatile("bar.sync 1, %0;\n" ::"r"(FCONS) : "memory");
-    for (int o = tid; o < TM * TN; o += FCONS) {
-      float s = 0.0f;
+  }
+  float_finish<typename Promoted<TX, TW>::type, TN, FCONS / 32, FCONS>(
+      a, c, cluster, rank);
+}
+
+// A 4-byte shared-memory load at a shared-memory address.
+__device__ __forceinline__ uint32_t lds32(unsigned addr) {
+  uint32_t v;
+  asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(v) : "r"(addr));
+  return v;
+}
+
+// The int8 values in the low bytes of the two 16-bit halves of v, widened
+// exactly to a pair of T (bf16 or f16): the magic m (128 in bf16, 1024 in
+// f16, where the last mantissa bit is worth 1) with the value's low 7 bits
+// as its mantissa, less m with the sign bit there, worth 128.
+template <typename T>
+__device__ __forceinline__ uint32_t widen_i8x2(uint32_t v) {
+  constexpr bool BF = std::is_same<T, bf16>::value;
+  constexpr uint32_t m = BF ? 0x43004300u : 0x64006400u;
+  const uint32_t low = (v & 0x007f007fu) | m, sign = (v & 0x00800080u) | m;
+  uint32_t r;
+  if constexpr (BF) {
+    const __nv_bfloat162 d =
+        __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&low),
+                *reinterpret_cast<const __nv_bfloat162*>(&sign));
+    r = *reinterpret_cast<const uint32_t*>(&d);
+  } else {
+    const __half2 d = __hsub2(*reinterpret_cast<const __half2*>(&low),
+                              *reinterpret_cast<const __half2*>(&sign));
+    r = *reinterpret_cast<const uint32_t*>(&d);
+  }
+  return r;
+}
+
+// The two 16-bit values of v (T: bf16 or f16) as f32 bit patterns, exact
+// (and so exact tf32): the low half into lo, the high half into hi.
+template <typename T>
+__device__ __forceinline__ void widen_16x2(uint32_t v, uint32_t& lo,
+                                           uint32_t& hi) {
+  if constexpr (std::is_same<T, bf16>::value) {
+    lo = v << 16;
+    hi = v & 0xffff0000u;
+  } else {
+    const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&v));
+    lo = __float_as_uint(f.x);
+    hi = __float_as_uint(f.y);
+  }
+}
+
+// The unit's K row that row r of its ldmatrix matrix (j, h) reads: half j,
+// the first (h = 0) or second fragment register of the half.  A lane takes
+// rows 2t and 2t + 1 of each matrix (t = lane % 4), so its A fragments
+// hold the K rows its B fragments hold: x in 16 bits, by ldmatrix, rows
+// 16j + 8h + 2t, +1; x in int8, by one 4-byte load of rows 16j + 4t ..
+// 4t + 3, whose even bytes (widen_i8x2 of the word) are h = 0 and odd
+// bytes (of the word >> 8) h = 1.
+template <bool XI8>
+__device__ __forceinline__ int unit_row(int j, int h, int r) {
+  return XI8 ? 16 * j + 4 * (r >> 1) + 2 * (r & 1) + h : 16 * j + 8 * h + r;
+}
+
+// Byte b of row r of an operand's tile in a slot, from the tile's start:
+// rows of `pitch` bytes (the cp.async route), or (TMA) boxes of
+// `box_rows` rows of 128 bytes side by side, the 16-byte chunks of row r
+// at chunk ^ (r % 8) (the 128-byte swizzle, ldmatrix's rows on distinct
+// banks).  A shift of 8 rows leaves the swizzle as it was.
+__device__ __forceinline__ unsigned tile_at(bool tma, int r, int b,
+                                            int pitch, int box_rows) {
+  if (!tma) return r * pitch + b;
+  return (b >> 7) * (box_rows << 7) + (r << 7) +
+         ((((b >> 4) & 7) ^ (r & 7)) << 4) + (b & 15);
+}
+
+// One box of a 2-d tensor map (coordinates innermost first) into shared
+// memory at dst, completing its bytes on the mbarrier bar.
+__device__ __forceinline__ void tma_load_2d(unsigned dst,
+                                            const CUtensorMap* map,
+                                            unsigned bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+// MM_FLOAT_PROBE takes a part of the tensor-core body out, for
+// probe_stream.py --float-variants alone (the build leaves it 0): 1, the
+// TMA producer arrives on each slot without loading it (the consumers
+// alone); 2, the consumers take no unit of a slot (the ring alone).
+#ifndef MM_FLOAT_PROBE
+#define MM_FLOAT_PROBE 0
+#endif
+
+// The TMA route's producer: one thread, a slot a K block: the weights'
+// boxes (128 bytes of columns x kblk rows) and x's (128 bytes of K x TM
+// rows), each box's bytes on the slot's full barrier; the tensor maps
+// read zeros past N, K and M.  Rows of the next rank that a range's last
+// block holds lie in units the consumers do not take (ranges and blocks
+// are a multiple of TC_UNIT rows).  The credit rule as on the cp.async
+// route: a slot is refilled only after its empty barrier completes.
+template <int TN, int XB, int WB>
+__device__ __forceinline__ void mm_float_produce_tma(const MmFloatArgs& a,
+                                                     const FloatMaps& maps,
+                                                     const FloatCta& c) {
+  if (threadIdx.x != TC_CONS) return;
+  const unsigned ring = h2pipe::smem_addr(c.ring);
+  h2pipe::RingPos pos;
+  for (int kb = 0; kb < c.nkb; ++kb) {
+    h2pipe::mbar_wait(c.empty + pos.slot, pos.phase ^ 1);
+    if constexpr (MM_FLOAT_PROBE == 1) {
+      h2pipe::mbar_arrive(c.full + pos.slot);
+      pos.next(a.nb);
+      continue;
+    }
+    h2pipe::mbar_arrive_expect_tx(c.full + pos.slot, a.slot);
+    const unsigned bar = h2pipe::smem_addr(c.full + pos.slot);
+    const unsigned ws = ring + pos.slot * a.slot, xs = ws + a.kblk * a.srow;
+    const int kbase = c.k0 + kb * a.kblk;
 #pragma unroll
-      for (int wp = 0; wp < NWARPS; ++wp) s += red[wp * TM * TN + o];
-      part[o] = s;
-    }
+    for (int b = 0; b < TN * WB / 128; ++b)
+      tma_load_2d(ws + b * a.kblk * 128, &maps.w, bar, c.n0 + b * 128 / WB,
+                  kbase);
+    for (int b = 0; b < a.kblk * XB / 128; ++b)
+      tma_load_2d(xs + b * TM * 128, &maps.x, bar, kbase + b * 128 / XB,
+                  c.m0);
+    pos.next(a.nb);
   }
-  cluster.sync();  // every rank's sums are in its shared memory
-  if (rank == 0 && tid < FCONS) {
-    const int split = (int)cluster.num_blocks();
-    TO* out = reinterpret_cast<TO*>(a.out);
-    for (int o = tid; o < TM * TN; o += FCONS) {
-      const int m = o / TN, c = o - m * TN;
-      const int row = m0 + m, n = n0 + c;
-      if (row >= a.M || n >= a.N) continue;
-      float s = 0.0f;
-      for (int r = 0; r < split; ++r) s += cluster.map_shared_rank(part, r)[o];
-      store_out(out + (size_t)row * a.N + n, s);
+}
+
+// The tensor-core body: the pairs whose values are all exact in 16 bits.
+// Each of its 8 consumer warps owns a column group of 16, alone (tn = 128)
+// or with SHARES - 1 other warps (tn = 64: 2, tn = 32: 4).
+template <typename TX, typename TW, int TN>
+__global__ void __launch_bounds__(TC_CONS + NPROD)
+    mm_float_tc(MmFloatArgs a, const __grid_constant__ FloatMaps maps) {
+  constexpr int GROUPS = TN / 16, SHARES = float_shares(TN, true);
+  constexpr int XB = sizeof(TX), WB = sizeof(TW);
+  constexpr bool XI8 = is_i8<TX>, WI8 = is_i8<TW>;
+  using MT = typename MmaType<TX, TW>::type;
+  static_assert(!is_f32<TX> && !is_f32<TW> && !(XI8 && WI8),
+                "pairs of bf16, f16 and int8 but int8 x int8");
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const FloatCta c = float_cta<TN, SHARES, TC_CONS>(a, smem, rank);
+  const int tid = threadIdx.x;
+  const bool tma = a.tma != 0;
+  if (tid >= TC_CONS) {
+    if (tma)
+      mm_float_produce_tma<TN, XB, WB>(a, maps, c);
+    else
+      mm_float_produce<TN, XB, WB, TC_CONS>(a, c.m0, c.n0, c.k0, c.k1, c.nkb,
+                                            c.full, c.empty, c.ring);
+  } else {
+    const int lane = tid & 31, warp = tid >> 5;
+    const int grp = warp % GROUPS, share = warp / GROUPS;
+    const int g = lane >> 2, t = lane & 3, mi = lane >> 3, r = lane & 7;
+    // this lane's ldmatrix row in a unit's weights, per half j: int8 w,
+    // matrix mi = (j, h) = (mi >> 1, mi & 1), the group's 16 columns (both
+    // halves in one load); 16-bit w, a half at a time, matrix mi = (h, 8
+    // columns) = (mi >> 1, mi & 1)
+    unsigned w_at[2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      w_at[j] = WI8 ? tile_at(tma, unit_row<XI8>(mi >> 1, mi & 1, r),
+                              grp * 16, a.srow, a.kblk)
+                    : tile_at(tma, unit_row<XI8>(j, mi >> 1, r),
+                              (grp * 16 + (mi & 1) * 8) * 2, a.srow, a.kblk);
+    const unsigned ring = h2pipe_mma::smem_addr(c.ring);
+    const unsigned w_unit = TC_UNIT * (tma ? 128 : a.srow);
+    float acc[2][4] = {};   // the k16 halves
+    h2pipe::RingPos pos;
+    for (int kb = 0; kb < c.nkb; ++kb) {
+      h2pipe::mbar_wait(c.full + pos.slot, pos.phase);
+      const unsigned ws = ring + pos.slot * a.slot;
+      const unsigned xs = ws + a.kblk * a.srow;
+      // the units that hold rows of the range; their rows past it are zeros
+      const int units =
+          MM_FLOAT_PROBE == 2
+              ? 0
+              : (min(a.kblk, c.k1 - c.k0 - kb * a.kblk) + TC_UNIT - 1) /
+                    TC_UNIT;
+#pragma unroll 2
+      for (int u = share; u < units; u += SHARES) {
+        const unsigned wu = ws + u * w_unit;
+        uint32_t b[4];       // B fragment registers (j, h) at 2j + h
+        if constexpr (XI8) {
+          // x row g, K rows 4t .. 4t + 3 of each half
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const uint32_t v = lds32(
+                xs + tile_at(tma, g, u * TC_UNIT + 16 * j + 4 * t, a.xrow, TM));
+            b[2 * j] = widen_i8x2<MT>(v);
+            b[2 * j + 1] = widen_i8x2<MT>(v >> 8);
+          }
+        } else {
+          // ldmatrix row r of x, the unit's K rows 8 mi .. 8 mi + 7
+          // (fragment (j, h) = mi)
+          h2pipe_mma::ldsm_x4_at(
+              b, xs + tile_at(tma, r, (u * TC_UNIT + 8 * mi) * 2, a.xrow, TM));
+        }
+        uint32_t af[2][4];   // A fragments of the two halves
+        if constexpr (WI8) {
+          uint32_t v[4];
+          h2pipe_mma::ldsm_x4_trans_at(v, wu + w_at[0]);
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            af[j][0] = widen_i8x2<MT>(v[2 * j]);          // rows i: 2i
+            af[j][1] = widen_i8x2<MT>(v[2 * j] >> 8);     // i + 8: 2i + 1
+            af[j][2] = widen_i8x2<MT>(v[2 * j + 1]);
+            af[j][3] = widen_i8x2<MT>(v[2 * j + 1] >> 8);
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+            h2pipe_mma::ldsm_x4_trans_at(af[j], wu + w_at[j]);
+        }
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          if constexpr (std::is_same<MT, Tf32>::value) {
+            // k8 steps h = 0, 1: a lane's K rows of fragment register h
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              uint32_t at[4], b0, b1;
+              widen_16x2<TW>(af[j][2 * h], at[0], at[2]);
+              widen_16x2<TW>(af[j][2 * h + 1], at[1], at[3]);
+              widen_16x2<TX>(b[2 * j + h], b0, b1);
+              h2pipe_mma::mma_tf32(acc[j], at, b0, b1);
+            }
+          } else if constexpr (std::is_same<MT, bf16>::value) {
+            h2pipe_mma::mma_bf16(acc[j], af[j], b[2 * j], b[2 * j + 1]);
+          } else {
+            h2pipe_mma::mma_f16(acc[j], af[j], b[2 * j], b[2 * j + 1]);
+          }
+        }
+      }
+      __syncwarp();
+      if (lane == 0) h2pipe::mbar_arrive(c.empty + pos.slot);
+      pos.next(a.nb);
     }
+    // the warp's sums into red's row of its share: mma row i is column
+    // 16 * grp + i (int8 w: 2i, and 2(i - 8) + 1 for i >= 8), its column
+    // j the row j of x
+    float* dst = c.red + share * TM * TN;
+    const int lo = grp * 16 + (WI8 ? 2 * g : g);
+    const int hi = grp * 16 + (WI8 ? 2 * g + 1 : g + 8);
+    dst[2 * t * TN + lo] = acc[0][0] + acc[1][0];
+    dst[(2 * t + 1) * TN + lo] = acc[0][1] + acc[1][1];
+    dst[2 * t * TN + hi] = acc[0][2] + acc[1][2];
+    dst[(2 * t + 1) * TN + hi] = acc[0][3] + acc[1][3];
   }
-  cluster.sync();  // the leader has read every rank's sums
+  float_finish<typename Promoted<TX, TW>::type, TN, SHARES, TC_CONS>(
+      a, c, cluster, rank);
 }
 
 // The element types of the float modes, by their codes in
@@ -583,24 +974,42 @@ __global__ void __launch_bounds__(FCONS + NPROD) mm_float(MmFloatArgs a) {
 enum { T_F32 = 0, T_BF16 = 1, T_F16 = 2, T_I8 = 3 };
 constexpr int TYPE_BYTES[4] = {4, 2, 2, 1};
 
-using FloatKernel = void (*)(MmFloatArgs);
+// An instance of a pair: the tensor-core body, which takes the TMA
+// route's tensor maps, or the FFMA body, which takes none; at most one set.
+struct FloatKernel {
+  void (*tc)(MmFloatArgs, FloatMaps);
+  void (*ffma)(MmFloatArgs);
+};
 
-// mm_float<TX, TW, TN> for the type code of TW
+// The instance of a pair: FFMA where an operand is f32 (tiles of 32 and
+// 64 columns), else the tensor cores (32, 64 and 128;
+// ops.mm_float_tensor_cores)
+template <typename TX, typename TW, int TN>
+FloatKernel float_instance() {
+  if constexpr (!is_f32<TX> && !is_f32<TW>)
+    return {mm_float_tc<TX, TW, TN>, nullptr};
+  else if constexpr (TN == 128)
+    return {};
+  else
+    return {nullptr, mm_float<TX, TW, TN>};
+}
+
+// the instance for the type code of TW
 template <typename TX, int TN>
 FloatKernel float_kernel_w(int w_type) {
   switch (w_type) {
-    case T_F32: return mm_float<TX, float, TN>;
-    case T_BF16: return mm_float<TX, bf16, TN>;
-    case T_F16: return mm_float<TX, __half, TN>;
+    case T_F32: return float_instance<TX, float, TN>();
+    case T_BF16: return float_instance<TX, bf16, TN>();
+    case T_F16: return float_instance<TX, __half, TN>();
     default:
-      if constexpr (std::is_same<TX, int8_t>::value)
-        return nullptr;  // int8 x int8 is mm_kernel's
+      if constexpr (is_i8<TX>)
+        return {};  // int8 x int8 is mm_kernel's
       else
-        return mm_float<TX, int8_t, TN>;
+        return float_instance<TX, int8_t, TN>();
   }
 }
 
-// mm_float<TX, TW, TN> for the type codes of TX and TW
+// the instance for the type codes of TX and TW
 template <int TN>
 FloatKernel float_kernel(int x_type, int w_type) {
   switch (x_type) {
@@ -609,6 +1018,29 @@ FloatKernel float_kernel(int x_type, int w_type) {
     case T_F16: return float_kernel_w<__half, TN>(w_type);
     default: return float_kernel_w<int8_t, TN>(w_type);
   }
+}
+
+// The tensor map of a [rows, cols] operand of the type code `type`, rows
+// contiguous: boxes of box_cols x box_rows, the 128-byte swizzle, zeros
+// past the tensor.
+cudaError_t float_map(CUtensorMap* map, const void* base, int type, int rows,
+                      int cols, int box_cols, int box_rows) {
+  h2pipe_tma::EncodeTiled fn = h2pipe_tma::encode_tiled();
+  if (!fn) return cudaErrorNotSupported;
+  const CUtensorMapDataType dt =
+      type == T_BF16  ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+      : type == T_F16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                      : CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  cuuint64_t strides[1] = {(cuuint64_t)cols * TYPE_BYTES[type]};
+  cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  cuuint32_t unit[2] = {1, 1};
+  CUresult r = fn(map, dt, 2, const_cast<void*>(base), dims, strides, box,
+                  unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                  CU_TENSOR_MAP_SWIZZLE_128B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -667,15 +1099,19 @@ int stream_matmul_int8_launch(const int8_t* x, const int8_t* w,
 // x: [M, K] @ w: [K, N] of the element types x_type and w_type (T_F32,
 // T_BF16, T_F16, T_I8; not both int8), with the plan of
 // ops.mm_float_plan: tiles of tn columns, a K split of `split` ranges of
-// kr rows over a cluster, K blocks of kblk rows of w and x (a multiple of
-// 16 where x is int8, else of 8) through an nb-slot ring, copies of wvec
-// (w) and xvec (x) bytes; smem: the bytes of its layout, which
-// mm_float_layout() must reproduce.  out: [M, N] of the promoted type
-// (Promoted).  Returns cudaGetLastError() after the launch.
+// kr rows over a cluster, K blocks of kblk rows of w and x through an
+// nb-slot ring, copies of wvec (w) and xvec (x) bytes, or (tma) TMA boxes
+// of 128 bytes; smem: the bytes of its layout, which mm_float_layout()
+// must reproduce.  A pair without f32 runs mm_float_tc, its kr and kblk a
+// multiple of TC_UNIT (tma: kblk a multiple of 128 bytes of x, at most
+// 256 rows; w's and x's rows a multiple of 16 bytes, tn * w_bytes 128 or
+// 256); a pair with f32 mm_float, kr a multiple of 16 and kblk of 16 where
+// x is int8, else of 8.  out: [M, N] of the promoted type (Promoted).
+// Returns cudaGetLastError() after the launch.
 int stream_matmul_float_launch(const void* x, const void* w, void* out,
                                int x_type, int w_type, int M, int K, int N,
                                int tn, int split, int kr, int kblk, int nb,
-                               int wvec, int xvec, int smem,
+                               int wvec, int xvec, int tma, int smem,
                                cudaStream_t stream) {
   auto vec_ok = [](int vec, int es, long row_bytes) {
     return (vec == 16 || vec == 8 || vec == 4 || (vec == es && es <= 2)) &&
@@ -685,27 +1121,46 @@ int stream_matmul_float_launch(const void* x, const void* w, void* out,
       (x_type == T_I8 && w_type == T_I8))
     return (int)cudaErrorInvalidValue;
   const int x_bytes = TYPE_BYTES[x_type], w_bytes = TYPE_BYTES[w_type];
-  const int kstep = x_bytes == 1 ? 16 : 8;
-  if (M < 1 || K < 1 || N < 1 || (tn != 32 && tn != 64) || split < 1 ||
-      split > MAX_SPLIT || kr < 16 || kr % 16 != 0 ||
+  const bool tc = x_type != T_F32 && w_type != T_F32;
+  const int kstep = tc ? TC_UNIT : x_bytes == 1 ? 16 : 8;
+  const int rstep = tc ? TC_UNIT : 16;
+  if (M < 1 || K < 1 || N < 1 || (tn != 32 && tn != 64 && tn != 128) ||
+      split < 1 ||
+      split > MAX_SPLIT || kr < rstep || kr % rstep != 0 ||
       (long)split * kr < K || (long)(split - 1) * kr >= K || kblk < kstep ||
       kblk % kstep != 0 || kblk > kr || nb < 1 ||
       !vec_ok(wvec, w_bytes, (long)N * w_bytes) ||
       !vec_ok(xvec, x_bytes, (long)K * x_bytes))
     return (int)cudaErrorInvalidValue;
-  MmFloatLayout L = mm_float_layout(tn, kblk, nb, x_bytes, w_bytes);
+  if (tma && (!tc || (long)N * w_bytes % 16 != 0 ||
+              (long)K * x_bytes % 16 != 0 ||
+              (tn * w_bytes != 128 && tn * w_bytes != 256) ||
+              kblk * x_bytes % 128 != 0 || kblk > 256))
+    return (int)cudaErrorInvalidValue;
+  MmFloatLayout L = mm_float_layout(tn, kblk, nb, x_bytes, w_bytes, tma);
   if (L.smem != smem) return (int)cudaErrorInvalidValue;
-  FloatKernel fn = tn == 64 ? float_kernel<64>(x_type, w_type)
-                            : float_kernel<32>(x_type, w_type);
+  FloatMaps maps = {};
+  if (tma) {
+    cudaError_t err =
+        float_map(&maps.w, w, w_type, K, N, 128 / w_bytes, kblk);
+    if (err == cudaSuccess)
+      err = float_map(&maps.x, x, x_type, M, K, 128 / x_bytes, TM);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const FloatKernel fn = tn == 128  ? float_kernel<128>(x_type, w_type)
+                         : tn == 64 ? float_kernel<64>(x_type, w_type)
+                                    : float_kernel<32>(x_type, w_type);
+  void* entry = tc ? (void*)fn.tc : (void*)fn.ffma;
+  if (entry == nullptr) return (int)cudaErrorInvalidValue;
   MmFloatArgs a{static_cast<const unsigned char*>(x),
                 static_cast<const unsigned char*>(w), out, M, K, N, kr,
-                kblk, nb, wvec, xvec, L.srow, L.xrow, L.slot};
+                kblk, nb, wvec, xvec, tma, L.srow, L.xrow, L.slot};
   cudaError_t err = cudaFuncSetAttribute(
-      (void*)fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      entry, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((N + tn - 1) / tn, split, (M + TM - 1) / TM);
-  cfg.blockDim = dim3(FCONS + NPROD);
+  cfg.blockDim = dim3(float_consumers(tc) + NPROD);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
@@ -715,7 +1170,8 @@ int stream_matmul_float_launch(const void* x, const void* w, void* out,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, fn, a);
+  err = tc ? cudaLaunchKernelEx(&cfg, fn.tc, a, maps)
+           : cudaLaunchKernelEx(&cfg, fn.ffma, a);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

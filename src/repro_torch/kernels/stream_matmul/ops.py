@@ -8,10 +8,12 @@
 
 A CPU tensor runs the plain version in ``ref.py``; a CUDA tensor launches
 ``csrc/stream_matmul.cu`` or raises: int8 operands ``mm_kernel`` with the
-launch plan of :func:`mm_plan`, every other pair over f32, bf16, f16 and
-int8 ``mm_float`` with the plan of :func:`mm_float_plan` (the result in
-the promoted type, ``ref.result_dtype``); any other operand type (f64,
-say) raises ``NotImplementedError``.  ``bm``/``bn`` are the JAX kernel's
+launch plan of :func:`mm_plan`; every other pair over f32, bf16, f16 and
+int8 the float modes with the plan of :func:`mm_float_plan` (the result
+in the promoted type, ``ref.result_dtype``): ``mm_float_tc`` on the
+tensor cores where neither operand is f32
+(:func:`mm_float_tensor_cores`), ``mm_float`` (FFMA) where one is; any
+other operand type (f64, say) raises ``NotImplementedError``.  ``bm``/``bn`` are the JAX kernel's
 block sizes and only feed :func:`vmem_bytes` accounting; the CUDA kernels
 pick their own tiles, take ``bk`` as the largest K block of their ring,
 and mask ragged edges.
@@ -34,7 +36,9 @@ from repro_torch.kernels.stream_matmul.ref import (result_dtype,
 __all__ = ["stream_matmul", "stream_matmul_requant", "vmem_bytes",
            "mm_plan", "mm_layout", "mm_bytes_read", "MmPlan", "KERNELS",
            "mm_float_plan", "mm_float_layout", "MmFloatPlan",
-           "FLOAT_KERNELS", "FLOAT_DTYPES", "FLOAT_TYPE_CODES"]
+           "mm_float_tensor_cores", "mm_float_kstep", "mm_float_shares",
+           "float_instance", "FLOAT_KERNELS", "FLOAT_DTYPES",
+           "FLOAT_TYPE_CODES"]
 
 #: launch-counter name per mode ("pinned"/"stream" replace _mm_kernel,
 #: "fifo" replaces _mm_manual_kernel): int8 operands, and the float modes
@@ -47,6 +51,9 @@ FLOAT_KERNELS = {"pinned": "stream_matmul_float_pinned",
 FLOAT_TYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
                     torch.int8: 3}
 FLOAT_DTYPES = tuple(FLOAT_TYPE_CODES)
+# their names in the kernels' instances
+_FLOAT_TYPE_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16",
+                     torch.float16: "f16", torch.int8: "int8"}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
@@ -56,7 +63,7 @@ def _lib() -> ctypes.CDLL:
         lib.stream_matmul_int8_launch.argtypes = \
             [_P, _P, _P, _P, _F, _F, _P, _P, _P] + [_I] * 12 + [_P]
         lib.stream_matmul_int8_launch.restype = _I
-        lib.stream_matmul_float_launch.argtypes = [_P, _P, _P] + [_I] * 13 \
+        lib.stream_matmul_float_launch.argtypes = [_P, _P, _P] + [_I] * 14 \
             + [_P]
         lib.stream_matmul_float_launch.restype = _I
         lib._typed = True
@@ -124,28 +131,30 @@ def mm_layout(tn: int, kr: int, kblk: int, nb: int) -> int:
         + (mm_consumers(kr) // 32 + 1) * MM_TM * tn * 4
 
 
-def _mm_split(M: int, K: int, N: int, sm_count: int
+def _mm_split(M: int, K: int, N: int, sm_count: int, unit: int = 16,
+              tiles: Tuple[int, ...] = MM_TILES
               ) -> Tuple[int, int, int, int]:
     """(m_tiles, tn, n_tiles, split) of both kernels: the widest column
-    tile whose CTAs reach a wave of ``sm_count`` with a split of at most
-    ``MM_MAX_SPLIT``, else the narrowest; the split is the smallest power
-    of two that reaches the wave, with every rank's range non-empty."""
+    tile of ``tiles`` whose CTAs reach a wave of ``sm_count`` with a split
+    of at most ``MM_MAX_SPLIT``, else the narrowest; the split is the
+    smallest power of two that reaches the wave, with every rank's range
+    (of a multiple of ``unit`` rows) non-empty."""
     m_tiles = -(-M // MM_TM)
-    tn = next((t for t in MM_TILES
+    tn = next((t for t in tiles
                if -(-N // t) * m_tiles * MM_MAX_SPLIT >= sm_count),
-              MM_TILES[-1])
+              tiles[-1])
     n_tiles = -(-N // tn)
     split = 1
     while split < MM_MAX_SPLIT and n_tiles * m_tiles * split < sm_count:
         split *= 2
-    while split > 1 and (split - 1) * _range_rows(K, split) >= K:
+    while split > 1 and (split - 1) * _range_rows(K, split, unit) >= K:
         split //= 2
     return m_tiles, tn, n_tiles, split
 
 
-def _range_rows(K: int, split: int) -> int:
-    """A rank's K range: ceil(K / split) rounded up to 16 rows."""
-    return -(-(-(-K // split)) // 16) * 16
+def _range_rows(K: int, split: int, unit: int = 16) -> int:
+    """A rank's K range: ceil(K / split) rounded up to ``unit`` rows."""
+    return -(-(-(-K // split)) // unit) * unit
 
 
 @functools.lru_cache(maxsize=None)
@@ -180,9 +189,51 @@ def mm_plan(M: int, K: int, N: int, mode: str, bk: int, n_buffers: int,
 
 # The float modes' plan; ``csrc/stream_matmul.cu`` mirrors the layout
 # (``mm_float_layout`` there).
-MM_FLOAT_CONSUMERS = 128      # consumer threads of a CTA (4 warps)
-MM_FLOAT_KBLK = 8             # K rows of a block: a multiple of this, or
-MM_FLOAT_KBLK_I8 = 16         # of this where x is int8 (16-byte x copies)
+MM_FLOAT_CONSUMERS = 128      # consumer threads of a CTA on FFMA (4 warps)
+MM_FLOAT_TC_CONSUMERS = 256   # on the tensor cores (8 warps)
+MM_FLOAT_KBLK = 8             # K rows of a block on FFMA: a multiple of
+MM_FLOAT_KBLK_I8 = 16         # this, or of this where x is int8
+MM_FLOAT_TC_UNIT = 32         # on the tensor cores: K rows a warp takes at
+                              # once; ranges and blocks a multiple of it
+MM_TILES_TC = (128,) + MM_TILES   # their column tiles, widest first
+MM_TMA_BOX = 128              # bytes of a TMA box's row (the swizzle's span)
+MM_TMA_ROWS = 256             # rows of a box, at most
+MM_TMA_SLOT_MAX = 32768       # bytes of a slot on the TMA route, at most
+
+
+def mm_float_tensor_cores(x_bytes: int, w_bytes: int) -> bool:
+    """Whether a pair runs on the tensor cores (``mm_float_tc``): neither
+    operand f32, so each is exact in 16 bits (bf16, f16, int8 widened);
+    a tf32 product would round an f32 operand, so those pairs stay on
+    FFMA (``mm_float``)."""
+    return x_bytes <= 2 and w_bytes <= 2
+
+
+def float_instance(x_dtype, w_dtype, tn: int) -> str:
+    """The kernel instance a float pair launches at column tile ``tn``, as
+    the build names it: ``mm_float_tc<bf16,int8,128>`` without an f32
+    operand, else ``mm_float<f32,bf16,64>``; each launch is counted under
+    it in ``_build.SHAPE_LAUNCHES``."""
+    tc = mm_float_tensor_cores(torch.empty((), dtype=x_dtype).element_size(),
+                               torch.empty((), dtype=w_dtype).element_size())
+    return (f"{'mm_float_tc' if tc else 'mm_float'}<"
+            f"{_FLOAT_TYPE_NAMES[x_dtype]},{_FLOAT_TYPE_NAMES[w_dtype]},{tn}>")
+
+
+def mm_float_shares(tn: int, tensor_cores: bool) -> int:
+    """The consumers' shares of a column (the .cu's ``float_shares``):
+    every warp's on FFMA; on the tensor cores the warps of a column group
+    of 16 (one at 128 columns)."""
+    if not tensor_cores:
+        return MM_FLOAT_CONSUMERS // 32
+    return MM_FLOAT_TC_CONSUMERS // 32 // (tn // 16)
+
+
+def mm_float_kstep(x_bytes: int, w_bytes: int) -> int:
+    """K rows a block of the pair's plan is a multiple of."""
+    if mm_float_tensor_cores(x_bytes, w_bytes):
+        return MM_FLOAT_TC_UNIT
+    return MM_FLOAT_KBLK_I8 if x_bytes == 1 else MM_FLOAT_KBLK
 
 
 @dataclass(frozen=True)
@@ -190,7 +241,9 @@ class MmFloatPlan:
     """One launch of ``mm_float``: CTAs and cluster as :class:`MmPlan`;
     each CTA streams its K range in blocks of ``kblk`` rows of the
     weights and of x through ``nb`` slots; ``wvec`` and ``xvec`` are the
-    bytes a copy of w and of x (2: plain copies of bf16 values)."""
+    bytes a copy of w and of x (2: plain copies of bf16 values);
+    ``tensor_cores``: ``mm_float_tc`` runs it, else ``mm_float``;
+    ``tma``: its slots come by TMA boxes, else by cp.async."""
     tn: int
     split: int
     kr: int
@@ -201,25 +254,33 @@ class MmFloatPlan:
     n_tiles: int
     m_tiles: int
     smem_bytes: int
+    tensor_cores: bool
+    tma: bool = False
 
     @property
     def grid(self) -> Tuple[int, int, int]:
         return self.n_tiles, self.split, self.m_tiles
 
 
-def mm_float_slot(tn: int, kblk: int, x_bytes: int, w_bytes: int) -> int:
+def mm_float_slot(tn: int, kblk: int, x_bytes: int, w_bytes: int,
+                  tma: bool = False) -> int:
     """Bytes of one slot: ``kblk`` weight rows of ``tn * w_bytes + 16``
-    bytes, then ``MM_TM`` x rows of ``kblk * x_bytes + 16``."""
-    return kblk * (tn * w_bytes + 16) + MM_TM * (kblk * x_bytes + 16)
+    bytes, then ``MM_TM`` x rows of ``kblk * x_bytes + 16``; on the TMA
+    route the same rows without the 16 bytes, as boxes of 128-byte rows."""
+    pad = 0 if tma else 16
+    return kblk * (tn * w_bytes + pad) + MM_TM * (kblk * x_bytes + pad)
 
 
 def mm_float_layout(tn: int, kblk: int, nb: int, x_bytes: int,
-                    w_bytes: int) -> int:
+                    w_bytes: int, tma: bool = False) -> int:
     """Shared-memory bytes of one CTA: the full and empty mbarriers of the
-    ``nb`` slots, the slots, the consumer warps' sums ``[warps][MM_TM]
-    [tn]`` and the CTA's sums ``[MM_TM][tn]`` (f32)."""
-    return 16 * nb + nb * mm_float_slot(tn, kblk, x_bytes, w_bytes) \
-        + (MM_FLOAT_CONSUMERS // 32 + 1) * MM_TM * tn * 4
+    ``nb`` slots, (TMA) 1024 bytes to align the ring to the swizzle, the
+    slots, the consumers' shares ``[shares][MM_TM][tn]``
+    (:func:`mm_float_shares`) and the CTA's sums ``[MM_TM][tn]`` (f32)."""
+    shares = mm_float_shares(tn, mm_float_tensor_cores(x_bytes, w_bytes))
+    return 16 * nb + (1024 if tma else 0) \
+        + nb * mm_float_slot(tn, kblk, x_bytes, w_bytes, tma) \
+        + (shares + 1) * MM_TM * tn * 4
 
 
 def _copy_bytes(row_bytes: int, elem_bytes: int) -> int:
@@ -235,44 +296,88 @@ def mm_float_plan(M: int, K: int, N: int, mode: str, bk: int,
                   sm_count: int = 132) -> MmFloatPlan:
     """Tiles, K split and ring of one float launch, x and w of
     ``x_bytes`` and ``w_bytes`` an element (4: f32, 2: bf16 or f16, 1:
-    int8).  Tiles and split as :func:`_mm_split`; pinned, one block of
+    int8).  Tiles and split as :func:`_mm_split` (on the tensor cores of
+    ``MM_TILES_TC``, the widest of those that reach the wave that takes
+    the TMA route below, else the widest; else of ``MM_TILES``); pinned,
+    one block of
     the whole range, the split doubled (up to ``MM_MAX_SPLIT``) while that
     block does not fit; else blocks of at most ``max(bk, step)`` rows (a
-    multiple of ``step``: ``MM_FLOAT_KBLK``, or ``MM_FLOAT_KBLK_I8`` where
-    x is int8) and ``MM_SLOT_MAX`` bytes a slot, depth 2 (``stream``) or
-    ``n_buffers`` (``fifo``), never more slots than the range has blocks.
-    Cached: it runs on every launch."""
+    multiple of ``step``, :func:`mm_float_kstep`: ``MM_FLOAT_TC_UNIT`` on
+    the tensor cores, where ranges are a multiple of it too; on FFMA
+    ``MM_FLOAT_KBLK``, or ``MM_FLOAT_KBLK_I8`` where x is int8) and
+    ``MM_SLOT_MAX`` bytes a slot, depth 2 (``stream``) or ``n_buffers``
+    (``fifo``), never more slots than the range has blocks.  On the
+    tensor cores the slots come by TMA where w's and x's rows are a
+    multiple of 16 bytes and a column tile is 128 or 256 bytes: K blocks
+    of whole 128-byte boxes of x, at most ``MM_TMA_ROWS`` rows and
+    ``MM_TMA_SLOT_MAX`` bytes a slot (pinned: where the range is such a
+    block); else by cp.async.  Cached: it runs on every launch."""
     if x_bytes not in (1, 2, 4) or w_bytes not in (1, 2, 4):
         raise ValueError(f"element bytes {x_bytes}, {w_bytes}: f32 (4), "
                          f"bf16 or f16 (2) or int8 (1)")
     blk, depth = ring(mode, K, bk, n_buffers)
     if depth < 1:
         raise ValueError("n_buffers must be >= 1")
-    m_tiles, tn, n_tiles, split = _mm_split(M, K, N, sm_count)
+    tc = mm_float_tensor_cores(x_bytes, w_bytes)
+    if not tc:
+        return _float_plan(M, K, N, mode, blk, depth, x_bytes, w_bytes,
+                           sm_count, MM_TILES)
+    # the tensor cores: the widest tile that reaches the wave and takes the
+    # TMA route, else the widest that reaches the wave
+    m_tiles = -(-M // MM_TM)
+    tiles = [t for t in MM_TILES_TC
+             if -(-N // t) * m_tiles * MM_MAX_SPLIT >= sm_count] \
+        or [MM_TILES_TC[-1]]
+    plans = [_float_plan(M, K, N, mode, blk, depth, x_bytes, w_bytes,
+                         sm_count, (t,)) for t in tiles]
+    return next((p for p in plans if p.tma), plans[0])
+
+
+def _float_plan(M: int, K: int, N: int, mode: str, blk: int, depth: int,
+                x_bytes: int, w_bytes: int, sm_count: int,
+                tiles: Tuple[int, ...]) -> MmFloatPlan:
+    """:func:`mm_float_plan` with column tiles from ``tiles``, K blocks of
+    at most ``blk`` rows and a ring of ``depth`` slots."""
+    tc = mm_float_tensor_cores(x_bytes, w_bytes)
+    unit = MM_FLOAT_TC_UNIT if tc else 16
+    m_tiles, tn, n_tiles, split = _mm_split(M, K, N, sm_count, unit, tiles)
     if mode == "pinned":
         def fits(sp):
-            return mm_float_layout(tn, _range_rows(K, sp), 1, x_bytes,
+            return mm_float_layout(tn, _range_rows(K, sp, unit), 1, x_bytes,
                                    w_bytes) <= MAX_SMEM_BYTES
         while (not fits(split) and split < MM_MAX_SPLIT
-               and (2 * split - 1) * _range_rows(K, 2 * split) < K):
+               and (2 * split - 1) * _range_rows(K, 2 * split, unit) < K):
             split *= 2
-    kr = _range_rows(K, split)
+    kr = _range_rows(K, split, unit)
+    # the TMA route: rows of w and x a multiple of 16 bytes, a column tile
+    # of one or two 128-byte boxes, K blocks of whole 128-byte boxes of x
+    # and at most MM_TMA_ROWS rows
+    xstep = MM_TMA_BOX // x_bytes
+    tma = (tc and N * w_bytes % 16 == 0 and K * x_bytes % 16 == 0
+           and tn * w_bytes in (MM_TMA_BOX, 2 * MM_TMA_BOX))
     if mode == "pinned":
         kblk, nb = kr, 1
+        tma = tma and kr % xstep == 0 and kr <= MM_TMA_ROWS
     else:
-        step = MM_FLOAT_KBLK_I8 if x_bytes == 1 else MM_FLOAT_KBLK
-        per_row = tn * w_bytes + 16 + MM_TM * x_bytes
-        cap = (MM_SLOT_MAX - 16 * MM_TM) // per_row
-        kblk = max(step, min(blk, kr, cap) // step * step)
+        if tma:
+            cap = MM_TMA_SLOT_MAX // mm_float_slot(tn, 1, x_bytes, w_bytes,
+                                                   True)
+            kblk = min(blk, kr, cap, MM_TMA_ROWS) // xstep * xstep
+            tma = kblk > 0
+        if not tma:
+            step = mm_float_kstep(x_bytes, w_bytes)
+            per_row = tn * w_bytes + 16 + MM_TM * x_bytes
+            cap = (MM_SLOT_MAX - 16 * MM_TM) // per_row
+            kblk = max(step, min(blk, kr, cap) // step * step)
         nb = min(depth, -(-kr // kblk))
-    smem = mm_float_layout(tn, kblk, nb, x_bytes, w_bytes)
+    smem = mm_float_layout(tn, kblk, nb, x_bytes, w_bytes, tma)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"float matmul needs {smem} B of shared memory "
                          f"per block, more than {MAX_SMEM_BYTES}")
     return MmFloatPlan(tn, split, kr, kblk, nb,
                        _copy_bytes(N * w_bytes, w_bytes),
                        _copy_bytes(K * x_bytes, x_bytes), n_tiles, m_tiles,
-                       smem)
+                       smem, tc, tma)
 
 
 def mm_bytes_read(plan: MmPlan, M: int, K: int, N: int) -> Tuple[int, int]:
@@ -314,8 +419,9 @@ def charge(M: int, K: int, N: int, x_bytes: int, w_bytes: int,
 
 
 def _launch_float(x, w, *, mode: str, bk: int, n_buffers: int):
-    """The float modes on the card: ``mm_float`` -> [M, N] of the
-    promoted type (an int8 operand widened to f32 as it is read)."""
+    """The float modes on the card: ``mm_float_tc`` (no f32 operand; an
+    int8 operand widened to the other's type in registers) or
+    ``mm_float`` (FFMA) -> [M, N] of the promoted type."""
     M, K, N = _shapes(x, w)
     dev = x.device
     xb, wb = x.element_size(), w.element_size()
@@ -329,12 +435,13 @@ def _launch_float(x, w, *, mode: str, bk: int, n_buffers: int):
         x.data_ptr(), w.data_ptr(), out.data_ptr(),
         FLOAT_TYPE_CODES[x.dtype], FLOAT_TYPE_CODES[w.dtype], M, K, N,
         plan.tn, plan.split, plan.kr, plan.kblk, plan.nb, plan.wvec,
-        plan.xvec, plan.smem_bytes,
+        plan.xvec, int(plan.tma), plan.smem_bytes,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "stream_matmul (float)")
-    _build.count_launch(FLOAT_KERNELS[mode], cost=charge(
-        M, K, N, xb, wb, out.element_size(), mode=mode, bk=bk,
-        n_buffers=n_buffers))
+    _build.count_launch(FLOAT_KERNELS[mode],
+                        float_instance(x.dtype, w.dtype, plan.tn),
+                        cost=charge(M, K, N, xb, wb, out.element_size(),
+                                    mode=mode, bk=bk, n_buffers=n_buffers))
     return out
 
 

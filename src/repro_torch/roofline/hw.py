@@ -14,6 +14,8 @@ from __future__ import annotations
 # 1,978.9 TOP/s int8)
 PEAK_FLOPS_BF16 = 9.89e14
 PEAK_FLOPS_INT8 = 1.979e15
+# tf32 on the tensor cores, dense (data sheet: 494.7 TFLOP/s)
+PEAK_FLOPS_TF32 = 4.95e14
 # FFMA on the CUDA cores, no TF32 (data sheet: 66.9 TFLOP/s FP32)
 PEAK_FLOPS_FP32 = 6.7e13
 

@@ -359,6 +359,97 @@ def test_matmul_float_new_pairs_match_plain(dev, xd, wd, shape):
                         "stream_matmul_float_fifo": 2}
 
 
+# every pair over f32, bf16, f16 and int8 but int8 x int8 (the eight
+# without f32 on the tensor cores, mm_float_tc; the seven with it on FFMA,
+# mm_float) at ragged shapes: M of 1, 8, 9 and 17 rows, N of 10, 36 and
+# 1000 columns (and 4096, where the tensor cores take 128-column tiles),
+# K = 100 over a K split of more than one rank, in the three modes,
+# within the output type's limit (f16 within bf16's)
+FLOAT_NAMES = ("float32", "bfloat16", "float16", "int8")
+ALL_FLOAT_PAIRS = [(a, b) for a in FLOAT_NAMES for b in FLOAT_NAMES
+                   if (a, b) != ("int8", "int8")]
+
+
+@pytest.mark.parametrize("n", [10, 36, 1000, 4096])
+@pytest.mark.parametrize("m", [1, 8, 9, 17])
+@pytest.mark.parametrize("xd,wd", ALL_FLOAT_PAIRS)
+def test_matmul_float_every_pair_at_ragged_shapes(dev, xd, wd, m, n):
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels._build import SHAPE_LAUNCHES
+    from repro_torch.kernels.conv2d_int8.ops import _device_sms
+    from repro_torch.kernels.stream_matmul.ops import (FLOAT_KERNELS,
+                                                       float_instance,
+                                                       mm_float_plan,
+                                                       stream_matmul)
+    from repro_torch.kernels.stream_matmul.ref import stream_matmul_ref
+    xt, wt = getattr(torch, xd), getattr(torch, wd)
+    g = torch.Generator(device=dev).manual_seed(m * 1000 + n)
+    x, w = _typed_operands(g, dev, m, 100, n, xt, wt)
+    want = stream_matmul_ref(x, w)
+    runs = (("pinned", 2, 128), ("stream", 2, 32), ("fifo", 1, 32),
+            ("fifo", 3, 64))
+    instances = {}
+    for mode, nb, bk in runs:
+        plan = mm_float_plan(m, 100, n, mode, bk, nb, x.element_size(),
+                             w.element_size(), _device_sms(dev))
+        key = (FLOAT_KERNELS[mode], float_instance(xt, wt, plan.tn))
+        instances[key] = instances.get(key, 0) + 1
+        assert plan.tensor_cores == (torch.float32 not in (xt, wt))
+        if n < 4096:
+            assert plan.split > 1
+        elif plan.tensor_cores:
+            assert plan.tn == 128
+    reset_launches()
+    for mode, nb, bk in runs:
+        got = stream_matmul(x, w, mode=mode, bk=bk, n_buffers=nb)
+        tol = 2e-5 if want.dtype == torch.float32 else 2e-2
+        wd_ = want.double()
+        bound = tol * wd_.abs() + tol * float(wd_.abs().max())
+        assert got.dtype == want.dtype and got.shape == want.shape
+        assert bool(((got.double() - wd_).abs() <= bound).all()), \
+            (mode, float((got.double() - wd_).abs().max()))
+    torch.cuda.synchronize()
+    assert LAUNCHES == {"stream_matmul_float_pinned": 2,
+                        "stream_matmul_float_fifo": 2}
+    assert {k: v for k, v in SHAPE_LAUNCHES.items()
+            if k[0] in LAUNCHES} == instances
+
+
+# the tensor-core pairs on the TMA route (rows of 16-byte multiples; one or
+# two 128-byte boxes of a column tile): ragged M (1, 9, 17 rows), N past
+# the last 128-column tile (4160), K past the last 32-row unit of a range
+# (1040, 2080), in the stream and fifo modes (the route) and pinned
+TMA_SHAPES = [(1, 1040, 4096), (9, 1040, 4160), (17, 2080, 4160)]
+
+
+@pytest.mark.parametrize("shape", TMA_SHAPES, ids=[
+    "m{}-k{}-n{}".format(*s) for s in TMA_SHAPES])
+@pytest.mark.parametrize("xd,wd", [p for p in ALL_FLOAT_PAIRS
+                                   if "float32" not in p])
+def test_matmul_float_tma_route_matches_plain(dev, xd, wd, shape):
+    from repro_torch.kernels.conv2d_int8.ops import _device_sms
+    from repro_torch.kernels.stream_matmul.ops import (mm_float_plan,
+                                                       stream_matmul)
+    from repro_torch.kernels.stream_matmul.ref import stream_matmul_ref
+    m, k, n = shape
+    g = torch.Generator(device=dev).manual_seed(m + k + n)
+    x, w = _typed_operands(g, dev, m, k, n, getattr(torch, xd),
+                           getattr(torch, wd))
+    want = stream_matmul_ref(x, w)
+    for mode, nb, bk in (("stream", 2, 512), ("fifo", 1, 256),
+                         ("fifo", 3, 512), ("pinned", 2, 512)):
+        plan = mm_float_plan(m, k, n, mode, bk, nb, x.element_size(),
+                             w.element_size(), _device_sms(dev))
+        assert plan.tma or mode == "pinned"
+        got = stream_matmul(x, w, mode=mode, bk=bk, n_buffers=nb)
+        tol = 2e-5 if want.dtype == torch.float32 else 2e-2
+        wd_ = want.double()
+        bound = tol * wd_.abs() + tol * float(wd_.abs().max())
+        assert got.dtype == want.dtype and got.shape == want.shape
+        assert bool(((got.double() - wd_).abs() <= bound).all()), \
+            (mode, float((got.double() - wd_).abs().max()))
+
+
 @pytest.mark.parametrize("m,k,n", [(8, 2048, 1000), (3, 100, 10),
                                    (17, 512, 36)])
 @pytest.mark.parametrize("mode,nb", [("pinned", 2), ("stream", 2),

@@ -5,13 +5,17 @@ The port's ``stream_matmul`` against the JAX package's Pallas kernels in
 interpret mode, for every operand pair of f32 and bf16 in all three
 modes: the same result type (bf16 for bf16 x bf16, f32 otherwise) and
 values within ``tests/test_kernels.py``'s limits.  Then the launch plan
-of the CUDA kernel (``stream_matmul/ops.py::mm_float_plan``, mirrored by
-``csrc/stream_matmul.cu::mm_float_layout``) at the JAX tests' shapes, a
-ragged one and every fc head of the six CNN configs: the CTAs' K ranges
-tile K exactly, the ring's depth is ``ring()``'s, shared memory fits a
-block; the ring's waits and arrivals replayed in Python obey the credit
-rule; and an f32 emulation of what the kernel computes with its plan
-against the plain version and the JAX kernel.
+of the CUDA kernels (``stream_matmul/ops.py::mm_float_plan``, mirrored by
+``csrc/stream_matmul.cu::mm_float_layout``; ``mm_float`` on FFMA for the
+pairs with f32, ``mm_float_tc`` on the tensor cores for the others) at
+the JAX tests' shapes, a ragged one and every fc head of the six CNN
+configs: the CTAs' K ranges tile K exactly, the ring's depth is
+``ring()``'s, shared memory fits a block; the ring's waits and arrivals
+replayed in Python obey the credit rule; an f32 emulation of what each
+body computes with its plan, in its order of sums, against the plain
+version and the JAX kernel; and the tensor-core body's fragment layout,
+modelled lane by lane after PTX's ``ldmatrix`` and ``mma.sync``, against
+the exact product of a tile.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -24,14 +28,23 @@ from repro_torch.compiler.engines import _block
 from repro_torch.configs.cnn import CNN_CONFIGS
 from repro_torch.kernels.conv2d_int8.ops import MAX_SMEM_BYTES
 from repro_torch.kernels.stream_matmul.ops import (FLOAT_KERNELS,
+                                                   float_instance,
                                                    MM_FLOAT_CONSUMERS,
                                                    MM_FLOAT_KBLK,
+                                                   MM_FLOAT_TC_CONSUMERS,
+                                                   MM_FLOAT_TC_UNIT,
                                                    MM_MAX_SPLIT,
                                                    MM_SLOT_MAX, MM_TILES,
-                                                   MM_TM, mm_float_layout,
+                                                   MM_TILES_TC, MM_TM,
+                                                   MM_TMA_ROWS,
+                                                   MM_TMA_SLOT_MAX,
+                                                   mm_float_kstep,
+                                                   mm_float_layout,
                                                    mm_float_plan,
-                                                   mm_float_slot, ring,
-                                                   stream_matmul)
+                                                   mm_float_shares,
+                                                   mm_float_slot,
+                                                   mm_float_tensor_cores,
+                                                   ring, stream_matmul)
 from repro_torch.kernels.stream_matmul.ref import (result_dtype,
                                                    stream_matmul_ref)
 
@@ -135,11 +148,15 @@ def test_mm_float_plan_covers_and_fits(shape, mode, xd, wd):
     for nb in (1, 2, 3, 4):
         plan = mm_float_plan(M, K, N, mode, bk, nb, xb, wb)
         # every column and row of x once; the ranks' K ranges tile K
-        assert plan.tn in MM_TILES and len(_ranges(N, plan.tn)) == \
+        tiles = MM_TILES_TC if plan.tensor_cores else MM_TILES
+        assert plan.tn in tiles and len(_ranges(N, plan.tn)) == \
             plan.n_tiles
         assert plan.m_tiles == -(-M // MM_TM)
         assert plan.split in (1, 2, 4, 8) and plan.split <= MM_MAX_SPLIT
         assert plan.kr % 16 == 0
+        assert plan.tensor_cores == (xd == wd == "bf16")
+        if plan.tensor_cores:
+            assert plan.kr % MM_FLOAT_TC_UNIT == 0
         ranges = _ranges(K, plan.kr)
         assert len(ranges) == plan.split and ranges[-1][1] == K
         assert all(lo < hi for lo, hi in ranges)
@@ -151,9 +168,11 @@ def test_mm_float_plan_covers_and_fits(shape, mode, xd, wd):
         if mode == "pinned":
             assert (plan.kblk, plan.nb) == (plan.kr, 1)
         else:
-            assert plan.kblk % MM_FLOAT_KBLK == 0
-            assert plan.kblk <= max(MM_FLOAT_KBLK, blk)
-            assert mm_float_slot(plan.tn, plan.kblk, xb, wb) <= MM_SLOT_MAX
+            step = mm_float_kstep(xb, wb)
+            assert plan.kblk % MM_FLOAT_KBLK == 0 and plan.kblk % step == 0
+            assert plan.kblk <= max(step, blk)
+            assert mm_float_slot(plan.tn, plan.kblk, xb, wb, plan.tma) <= (
+                MM_TMA_SLOT_MAX if plan.tma else MM_SLOT_MAX)
             for lo, hi in ranges:
                 blocks = _ranges(hi - lo, plan.kblk)
                 assert blocks[-1][1] == hi - lo
@@ -163,8 +182,14 @@ def test_mm_float_plan_covers_and_fits(shape, mode, xd, wd):
                              (plan.xvec, K * xb, xb)):
             assert row % vec == 0
             assert vec == next(v for v in (16, 8, 4, es) if row % v == 0)
+        # TMA: rows of 16-byte multiples, 128-byte boxes of the column tile
+        # and of x's K block, at most MM_TMA_ROWS rows a box
+        if plan.tma:
+            assert plan.tensor_cores and N * wb % 16 == 0 == K * xb % 16
+            assert plan.tn * wb in (128, 256) and plan.kblk * xb % 128 == 0
+            assert plan.kblk <= MM_TMA_ROWS
         assert plan.smem_bytes == mm_float_layout(
-            plan.tn, plan.kblk, plan.nb, xb, wb) <= MAX_SMEM_BYTES
+            plan.tn, plan.kblk, plan.nb, xb, wb, plan.tma) <= MAX_SMEM_BYTES
 
 
 def test_mm_float_plan_refuses_what_the_kernel_does_not_take():
@@ -265,16 +290,60 @@ def test_float_ring_replay_catches_a_refill_without_credit():
         _run_ring(4, 1, 4, producer_first=True, credit=False)
 
 
-def _emulate(x, w, plan):
-    """What ``mm_float`` computes with ``plan``, in f32: per CTA (column
-    tile, rank, row tile) the rank's K range in blocks of kblk rows (zeros
-    past K, N and M), each consumer thread (quad q of 4 columns, way) summing
-    the block's K rows 4 * k4 .. 4 * k4 + 3 for k4 = way, way + ways, ...;
-    the ways' and warps' shares added, then the ranks' sums in order."""
+@pytest.mark.parametrize("shape", PLAN_SHAPES[:5], ids=[
+    "m{}-k{}-n{}".format(*s) for s in PLAN_SHAPES[:5]])
+def test_tensor_core_ring_obeys_the_credit_rule(shape):
+    """The tensor-core plans (bf16 x bf16, int8 x bf16, bf16 x int8) keep
+    the ring's contract: the same waits and arrivals, eight consumer warps
+    a slot."""
+    M, K, N = shape
+    for xb, wb in ((2, 2), (1, 2), (2, 1)):
+        for mode in ("stream", "fifo"):
+            for nb in (1, 2, 3, 4):
+                for bk in (16, 128):
+                    plan = mm_float_plan(M, K, N, mode, bk, nb, xb, wb)
+                    assert plan.tensor_cores
+                    nkb = -(-plan.kr // plan.kblk)
+                    for first in (True, False):
+                        fills = _run_ring(nkb, plan.nb,
+                                          MM_FLOAT_TC_CONSUMERS // 32, first)
+                        assert fills == [(b % plan.nb, b)
+                                         for b in range(nkb)]
+
+
+def _tile_operands(plan, x, w, nt, mt, k0, kbase):
+    """A slot's K block as the producer fills it: the weights [kblk][tn]
+    and x [MM_TM][kblk], zeros past the range, N and M."""
     M, K = x.shape
     N = w.shape[1]
-    ways = MM_FLOAT_CONSUMERS // (plan.tn // 4)
+    n0, m0 = nt * plan.tn, mt * MM_TM
+    n_ok, rows = min(plan.tn, N - n0), min(MM_TM, M - m0)
+    hi = min(k0, kbase + plan.kblk)
+    ws = np.zeros((plan.kblk, plan.tn), np.float32)
+    ws[:hi - kbase, :n_ok] = w[kbase:hi, n0:n0 + n_ok]
+    xs = np.zeros((MM_TM, plan.kblk), np.float32)
+    xs[:rows, :hi - kbase] = x[m0:m0 + rows, kbase:hi]
+    return ws, xs, hi - kbase
+
+
+def _emulate(x, w, plan, tf32=False):
+    """What the float body of ``plan`` computes, in f32.  Per CTA (column
+    tile, rank, row tile) the rank's K range in blocks of kblk rows (zeros
+    past K, N and M).  FFMA (``mm_float``): each consumer thread (quad q of
+    4 columns, way) sums the block's K rows 4 * k4 .. 4 * k4 + 3 for k4 =
+    way, way + ways, ...; the ways' and warps' shares added.  Tensor cores
+    (``mm_float_tc``): each of 8 warps (a column group of 16, share s of
+    the group's SHARES warps) takes the block's units of 32 rows u = s, s
+    + SHARES, ... up to the last that holds a row of the range, adding each
+    k16 half's products into its own sum (``tf32``: two k8 steps, a lane's
+    even K rows then its odd ones), the two sums added, then the shares in
+    order.  The ranks' sums are added in order."""
+    M, K = x.shape
+    N = w.shape[1]
     out = np.zeros((M, N), np.float32)
+    unit = MM_FLOAT_TC_UNIT
+    shares = mm_float_shares(plan.tn, True)
+    ways = MM_FLOAT_CONSUMERS // (plan.tn // 4)
     for nt in range(plan.n_tiles):
         n0 = nt * plan.tn
         n_ok = min(plan.tn, N - n0)
@@ -285,32 +354,62 @@ def _emulate(x, w, plan):
             for rank in range(plan.split):
                 k0 = min(K, rank * plan.kr)
                 k1 = min(K, k0 + plan.kr)
-                share = np.zeros((ways, MM_TM, plan.tn), np.float32)
+                if plan.tensor_cores:
+                    acc = np.zeros((shares, 2, MM_TM, plan.tn), np.float32)
+                else:
+                    share = np.zeros((ways, MM_TM, plan.tn), np.float32)
                 for kbase in range(k0, k1, plan.kblk):
-                    hi = min(k1, kbase + plan.kblk)
-                    ws = np.zeros((plan.kblk, plan.tn), np.float32)
-                    ws[:hi - kbase, :n_ok] = w[kbase:hi, n0:n0 + n_ok]
-                    xs = np.zeros((MM_TM, plan.kblk), np.float32)
-                    xs[:rows, :hi - kbase] = x[m0:m0 + rows, kbase:hi]
-                    for k4 in range(-(-(hi - kbase) // 4)):
-                        way = k4 % ways
-                        for e in range(4 * k4, 4 * k4 + 4):
-                            share[way] += np.outer(xs[:, e], ws[e])
-                total += share.sum(axis=0, dtype=np.float32)
+                    ws, xs, n_rows = _tile_operands(plan, x, w, nt, mt, k1,
+                                                    kbase)
+                    if not plan.tensor_cores:
+                        for k4 in range(-(-n_rows // 4)):
+                            way = k4 % ways
+                            for e in range(4 * k4, 4 * k4 + 4):
+                                share[way] += np.outer(xs[:, e], ws[e])
+                        continue
+                    for u in range(-(-n_rows // unit)):
+                        for j in range(2):
+                            r0 = u * unit + 16 * j
+                            steps = ([range(r0, r0 + 16, 2),
+                                      range(r0 + 1, r0 + 16, 2)] if tf32
+                                     else [range(r0, r0 + 16)])
+                            for ks in steps:
+                                ks = list(ks)
+                                acc[u % shares, j] += (
+                                    xs[:, ks].astype(np.float64)
+                                    @ ws[ks].astype(np.float64)
+                                ).astype(np.float32)
+                if plan.tensor_cores:
+                    red = acc[:, 0] + acc[:, 1]
+                    cta = red[0].copy()
+                    for s_ in range(1, shares):
+                        cta += red[s_]
+                else:
+                    cta = share.sum(axis=0, dtype=np.float32)
+                total += cta
             out[m0:m0 + rows, n0:n0 + n_ok] = total[:rows, :n_ok]
     return out
 
 
 # (M, K, N, mode, bk, n_buffers, sm_count): a ragged shape (three row
 # tiles, a ragged K split and N tile), a stream ring of several blocks, a
-# fifo ring of one slot on one SM's plan, and a pinned split
+# fifo ring of one slot on one SM's plan, and a pinned split; then the
+# same paths for the tensor-core plans (K blocks of 32 rows and more):
+# ragged, four warps a column group sharing a block's units (32 columns),
+# a stream ring of 64-column tiles (two warps a group), a one-slot ring of
+# three blocks of a 128-column tile (a warp a group), and a pinned split
+# of two units a rank
 EMU = [(17, 100, 36, "fifo", 16, 3, 132), (8, 256, 64, "stream", 16, 2, 132),
+       (8, 96, 48, "fifo", 16, 1, 1), (16, 512, 32, "pinned", 512, 2, 132),
+       (17, 300, 36, "fifo", 64, 3, 132), (8, 1024, 128, "stream", 32, 2, 16),
        (8, 96, 48, "fifo", 16, 1, 1), (16, 512, 32, "pinned", 512, 2, 132)]
+EMU_IDS = ["m{}-k{}-n{}-{}-bk{}-nb{}-sm{}".format(*c) for c in EMU]
+# the FFMA cases' ids as they were; the tensor-core cases after them
+EMU_IDS = EMU_IDS[:4] + [i + "-tc" for i in EMU_IDS[4:]]
 
 
 @pytest.mark.parametrize("xd,wd", PAIRS)
-@pytest.mark.parametrize("case", EMU, ids=[
-    "m{}-k{}-n{}-{}-bk{}-nb{}-sm{}".format(*c) for c in EMU])
+@pytest.mark.parametrize("case", EMU, ids=EMU_IDS)
 def test_emulated_float_matmul_matches_reference_and_pallas(case, xd, wd):
     M, K, N, mode, bk, nb, sms = case
     rng = np.random.default_rng(M * K + N)
@@ -332,10 +431,279 @@ def test_emulated_float_matmul_matches_reference_and_pallas(case, xd, wd):
 
 
 def test_emulated_cases_take_the_plan_paths_they_name():
-    plans = [mm_float_plan(*c[:6], 4, 4, c[6]) for c in EMU]
+    plans = [mm_float_plan(*c[:6], 4, 4, c[6]) for c in EMU[:4]]
+    assert not any(p.tensor_cores for p in plans)
     assert plans[0].m_tiles == 3 and plans[0].split > 1
     assert plans[0].split * plans[0].kr > 100
     assert plans[1].kr > plans[1].kblk and plans[1].nb == 2
     assert (plans[2].nb, plans[2].split) == (1, 1)
     assert plans[2].kr > plans[2].kblk
     assert plans[3].split > 1 and plans[3].kblk == plans[3].kr
+    tc = [mm_float_plan(*c[:6], 2, 2, c[6]) for c in EMU[4:]]
+    assert all(p.tensor_cores and p.kr % MM_FLOAT_TC_UNIT == 0 for p in tc)
+    # ragged M, N and K split; 32 columns: four warps a group, the first
+    # block of two units
+    assert tc[0].m_tiles == 3 and tc[0].split > 1 and tc[0].tn == 32
+    assert tc[0].split * tc[0].kr > 300 and tc[0].kblk == 2 * 32
+    assert tc[0].kr > tc[0].kblk and tc[0].nb == 2
+    assert tc[1].tn == 64 and tc[1].kr > tc[1].kblk and tc[1].nb == 2
+    assert (tc[2].nb, tc[2].split) == (1, 1) and tc[2].kr == 3 * tc[2].kblk
+    assert tc[2].tn == 128
+    assert tc[3].split > 1 and tc[3].kblk == tc[3].kr == 2 * 32
+    assert tc[3].tn == 32
+
+
+ALL_TYPES = {"f32": torch.float32, "bf16": torch.bfloat16,
+             "f16": torch.float16, "int8": torch.int8}
+ALL_PAIRS = [(a, b) for a in ALL_TYPES for b in ALL_TYPES
+             if (a, b) != ("int8", "int8")]
+ALL_BYTES = {"f32": 4, "bf16": 2, "f16": 2, "int8": 1}
+
+
+def _typed(rng, shape, name):
+    """Normal values rounded to the type, or int8 integers in [-127, 127],
+    as a torch tensor of the type."""
+    if name == "int8":
+        return torch.from_numpy(rng.integers(-127, 128, size=shape)
+                                .astype(np.int8))
+    return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(
+        ALL_TYPES[name])
+
+
+@pytest.mark.parametrize("xd,wd", ALL_PAIRS)
+@pytest.mark.parametrize("case", EMU[4:], ids=EMU_IDS[4:])
+def test_emulated_every_pair_matches_reference(case, xd, wd):
+    """Every pair's body (the tensor cores for the eight without f32,
+    FFMA for the seven with it), emulated with its own plan, within the
+    output type's limit of the plain version."""
+    M, K, N, mode, bk, nb, sms = case
+    rng = np.random.default_rng(M * K + N + len(xd) * 7 + len(wd))
+    tx, tw = _typed(rng, (M, K), xd), _typed(rng, (K, N), wd)
+    plan = mm_float_plan(M, K, N, mode, bk, nb, ALL_BYTES[xd],
+                         ALL_BYTES[wd], sms)
+    assert plan.tensor_cores == ("f32" not in (xd, wd))
+    got = _emulate(tx.float().numpy(), tw.float().numpy(), plan,
+                   tf32={xd, wd} == {"bf16", "f16"})
+    out_dtype = result_dtype(tx.dtype, tw.dtype)
+    got = torch.from_numpy(got).to(out_dtype).float().numpy()
+    want = stream_matmul_ref(tx, tw).float().numpy()
+    tol = _tol(out_dtype) if out_dtype != torch.float16 else 2e-2
+    np.testing.assert_allclose(got, want, rtol=tol,
+                               atol=tol * float(np.abs(want).max()))
+
+
+def test_tensor_cores_take_the_pairs_without_f32():
+    got = {(a, b) for a, b in ALL_PAIRS
+           if mm_float_tensor_cores(ALL_BYTES[a], ALL_BYTES[b])}
+    assert len(got) == 8 and all("f32" not in p for p in got)
+
+
+def test_float_instance_names_the_body_each_pair_launches():
+    for a, b in ALL_PAIRS:
+        body = ("mm_float_tc" if mm_float_tensor_cores(ALL_BYTES[a],
+                                                       ALL_BYTES[b])
+                else "mm_float")
+        for tn in (32, 64, 128):
+            assert float_instance(ALL_TYPES[a], ALL_TYPES[b], tn) == \
+                f"{body}<{a},{b},{tn}>"
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core body's fragments, lane by lane
+# ---------------------------------------------------------------------------
+
+def _u16(buf, at):
+    return int(buf[at]) | int(buf[at + 1]) << 8
+
+
+def _ldsm(buf, addrs, trans):
+    """ldmatrix .x4 of b16 elements: lane 8i + r gives the address of row
+    r of matrix i.  Per lane (g = lane / 4, t = lane % 4) four 32-bit
+    registers: of matrix i, row g's elements 2t, 2t + 1 (``trans``: row
+    2t's and row 2t + 1's element g), the first in the low half."""
+    regs = []
+    for lane in range(32):
+        g, t = lane >> 2, lane & 3
+        row = []
+        for i in range(4):
+            if trans:
+                lo = _u16(buf, addrs[8 * i + 2 * t] + 2 * g)
+                hi = _u16(buf, addrs[8 * i + 2 * t + 1] + 2 * g)
+            else:
+                lo = _u16(buf, addrs[8 * i + g] + 4 * t)
+                hi = _u16(buf, addrs[8 * i + g] + 4 * t + 2)
+            row.append(lo | hi << 16)
+        regs.append(row)
+    return regs
+
+
+def _value(bits, name):
+    """A 16-bit pattern of bf16 or f16 as a float."""
+    if name == "bf16":
+        return float(np.array([bits << 16], np.uint32).view(np.float32)[0])
+    return float(np.array([bits], np.uint16).view(np.float16)[0])
+
+
+def _halves(reg, name):
+    """A register's two 16-bit values (low, high) as floats."""
+    return _value(reg & 0xffff, name), _value(reg >> 16, name)
+
+
+def _widen_i8x2(v, name):
+    """stream_matmul.cu::widen_i8x2: the int8 values in the low bytes of
+    the halves of v, as the magic with the low 7 bits as mantissa less the
+    magic with the sign bit; the two values (low, high) as floats."""
+    magic = 0x43004300 if name == "bf16" else 0x64006400
+    low, sign = (v & 0x007f007f) | magic, (v & 0x00800080) | magic
+    a, b = _halves(low, name), _halves(sign, name)
+    return a[0] - b[0], a[1] - b[1]
+
+
+def _unit_row(xi8, j, h, r):
+    """stream_matmul.cu::unit_row."""
+    return (16 * j + 4 * (r >> 1) + 2 * (r & 1) + h if xi8
+            else 16 * j + 8 * h + r)
+
+
+def _tile_at(tma, r, b, pitch, box_rows):
+    """stream_matmul.cu::tile_at: byte b of row r of a slot's tile, padded
+    rows of ``pitch`` bytes, or TMA boxes of ``box_rows`` rows of 128
+    bytes whose 16-byte chunks the 128-byte swizzle puts at chunk ^ (r %
+    8) (CUTLASS's Swizzle<3, 4, 3> of a 1024-byte aligned box)."""
+    if not tma:
+        return r * pitch + b
+    return ((b >> 7) * (box_rows << 7) + (r << 7)
+            + ((((b >> 4) & 7) ^ (r & 7)) << 4) + (b & 15))
+
+
+def _mma(a, b, tf32):
+    """mma.sync m16n8k16 (``tf32``: m16n8k8) on per-lane fragments of
+    values (a: 4 registers, b: 2, each a (low, high) pair, or one tf32
+    value) -> D[16][8].  A[row][k] is in lane (row % 8, k-in-lane) as PTX
+    lays the fragments out."""
+    d = np.zeros((16, 8))
+    for row in range(16):
+        for col in range(8):
+            for k in range(8 if tf32 else 16):
+                if tf32:
+                    av = a[(row % 8) * 4 + k % 4][(row >= 8) + 2 * (k >= 4)]
+                    bv = b[col * 4 + k % 4][int(k >= 4)]
+                else:
+                    t = (k % 8) // 2
+                    av = a[(row % 8) * 4 + t][(row >= 8) + 2 * (k >= 8)][
+                        k % 2]
+                    bv = b[col * 4 + t][int(k >= 8)][k % 2]
+                d[row, col] += av * bv
+    return d
+
+
+def _bits(values, name):
+    """Little-endian bytes of values in the type: bf16, f16 or int8."""
+    if name == "int8":
+        return values.astype(np.int8).view(np.uint8).reshape(-1)
+    if name == "f16":
+        return values.astype(np.float16).view(np.uint8).reshape(-1)
+    return (values.astype(np.float32).view(np.uint32) >> 16).astype(
+        np.uint16).view(np.uint8).reshape(-1)
+
+
+TC_PAIRS = [p for p in ALL_PAIRS if "f32" not in p]
+# (x, w, tn, route): every pair at every tile on the cp.async route's
+# padded rows, and on the TMA route's swizzled boxes where the tile is
+# one or two 128-byte boxes
+FRAGMENT_CASES = [(xd, wd, tn, tma) for xd, wd in TC_PAIRS
+                  for tn in (32, 64, 128) for tma in (False, True)
+                  if not tma or tn * ALL_BYTES[wd] in (128, 256)]
+
+
+@pytest.mark.parametrize("xd,wd,tn,tma", FRAGMENT_CASES, ids=[
+    "{}-{}-{}-{}".format(xd, wd, tn, "tma" if tma else "cp")
+    for xd, wd, tn, tma in FRAGMENT_CASES])
+def test_tensor_core_fragments_compute_the_tile_product(xd, wd, tn, tma):
+    """One unit (32 K rows) of a slot through ``mm_float_tc``'s consumer
+    arithmetic, modelled lane by lane: the ldmatrix addresses (``w_at``,
+    the x rows, ``unit_row``, ``tile_at`` on either route), the int8
+    widening, the tf32 steps and the epilogue's columns, in every column
+    group of a ``tn`` tile, equal the exact product of the unit's rows
+    (small integers, so every sum is exact)."""
+    rng = np.random.default_rng(len(xd) * 10 + len(wd) + tn)
+    xi8, wi8 = xd == "int8", wd == "int8"
+    tf32 = {xd, wd} == {"bf16", "f16"}
+    mt = wd if xi8 else xd if (wi8 or xd == wd) else None
+    lim = 127 if (xi8 or wi8) else 16
+    x = rng.integers(-lim, lim + 1, size=(MM_TM, 32)).astype(np.float64)
+    w = rng.integers(-lim, lim + 1, size=(32, tn)).astype(np.float64)
+    xb, wb = ALL_BYTES[xd], ALL_BYTES[wd]
+    # mm_float_layout of a one-unit block (kblk = 32)
+    srow = tn * wb + (0 if tma else 16)
+    xrow = 128 if tma else 32 * xb + 16
+    wbuf = rng.integers(0, 256, size=32 * max(srow, 128)).astype(np.uint8)
+    xbuf = rng.integers(0, 256, size=MM_TM * xrow).astype(np.uint8)
+    for k in range(32):
+        for b, v in enumerate(_bits(w[k], wd)):
+            wbuf[_tile_at(tma, k, b, srow, 32)] = v
+    for m in range(MM_TM):
+        for b, v in enumerate(_bits(x[m], xd)):
+            xbuf[_tile_at(tma, m, b, xrow, MM_TM)] = v
+    out = np.full((MM_TM, tn), np.nan)
+    for grp in range(tn // 16):
+        # B fragments (j, h) at 2j + h
+        if xi8:
+            b = []
+            for lane in range(32):
+                g, t = lane >> 2, lane & 3
+                regs = []
+                for j in range(2):
+                    at = _tile_at(tma, g, 16 * j + 4 * t, xrow, MM_TM)
+                    v = int(xbuf[at:at + 4].view(np.uint32)[0])
+                    regs += [_widen_i8x2(v, mt), _widen_i8x2(v >> 8, mt)]
+                b.append(regs)
+        else:
+            raw = _ldsm(xbuf, [_tile_at(tma, L & 7, 16 * (L >> 3), xrow, MM_TM)
+                               for L in range(32)], trans=False)
+            b = [[_halves(r, xd) for r in lane] for lane in raw]
+        # A fragments of the halves j
+        af = [[None] * 32 for _ in range(2)]
+        if wi8:
+            raw = _ldsm(wbuf, [_tile_at(tma, _unit_row(
+                xi8, (L >> 3) >> 1, (L >> 3) & 1, L & 7), grp * 16, srow, 32)
+                for L in range(32)], trans=True)
+            for lane in range(32):
+                v = raw[lane]
+                for j in range(2):
+                    af[j][lane] = [_widen_i8x2(v[2 * j], mt),
+                                   _widen_i8x2(v[2 * j] >> 8, mt),
+                                   _widen_i8x2(v[2 * j + 1], mt),
+                                   _widen_i8x2(v[2 * j + 1] >> 8, mt)]
+        else:
+            for j in range(2):
+                raw = _ldsm(wbuf, [_tile_at(
+                    tma, _unit_row(xi8, j, (L >> 3) >> 1, L & 7),
+                    (grp * 16 + ((L >> 3) & 1) * 8) * 2, srow, 32)
+                    for L in range(32)], trans=True)
+                for lane in range(32):
+                    af[j][lane] = [_halves(r, wd) for r in raw[lane]]
+        acc = np.zeros((2, 16, 8))
+        for j in range(2):
+            if tf32:
+                for h in range(2):
+                    at = [[af[j][L][2 * h][0], af[j][L][2 * h + 1][0],
+                           af[j][L][2 * h][1], af[j][L][2 * h + 1][1]]
+                          for L in range(32)]
+                    bt = [list(b[L][2 * j + h]) for L in range(32)]
+                    acc[j] += _mma(at, bt, tf32=True)
+            else:
+                acc[j] += _mma(af[j], [[b[L][2 * j], b[L][2 * j + 1]]
+                                       for L in range(32)], tf32=False)
+        d = acc[0] + acc[1]
+        # the epilogue: lane (g, t) holds D[g][2t], [g][2t + 1], [g + 8][2t],
+        # [g + 8][2t + 1]; mma row i is column grp * 16 + i (int8 w: 2i,
+        # and 2(i - 8) + 1)
+        for lane in range(32):
+            g, t = lane >> 2, lane & 3
+            lo = grp * 16 + (2 * g if wi8 else g)
+            hi = grp * 16 + (2 * g + 1 if wi8 else g + 8)
+            for m in (2 * t, 2 * t + 1):
+                assert np.isnan(out[m, lo]) and np.isnan(out[m, hi])
+                out[m, lo], out[m, hi] = d[g, m], d[g + 8, m]
+    np.testing.assert_array_equal(out, x @ w)

@@ -39,6 +39,8 @@ from repro_torch.kernels.stream_matmul.ops import (FLOAT_DTYPES,
                                                    FLOAT_TYPE_CODES,
                                                    MM_FLOAT_KBLK,
                                                    MM_FLOAT_KBLK_I8,
+                                                   MM_FLOAT_TC_UNIT,
+                                                   mm_float_kstep,
                                                    mm_float_layout,
                                                    mm_float_plan, ring,
                                                    stream_matmul)
@@ -262,7 +264,10 @@ def test_plan_takes_1_2_and_4_byte_elements(xd, wd, mode):
             continue
         for nb, bk in ((1, 16), (2, 128), (3, 512)):
             plan = mm_float_plan(M, K, N, mode, bk, nb, xb, wb)
-            step = MM_FLOAT_KBLK_I8 if xb == 1 else MM_FLOAT_KBLK
+            step = mm_float_kstep(xb, wb)
+            assert plan.tensor_cores == (xb <= 2 and wb <= 2)
+            assert step == (MM_FLOAT_TC_UNIT if plan.tensor_cores else
+                            MM_FLOAT_KBLK_I8 if xb == 1 else MM_FLOAT_KBLK)
             if mode == "pinned":
                 assert (plan.kblk, plan.nb) == (plan.kr, 1)
             else:
@@ -277,18 +282,27 @@ def test_plan_takes_1_2_and_4_byte_elements(xd, wd, mode):
             if plan.xvec == 16:     # 16-byte x copies: 16-byte slot rows
                 assert (plan.kblk * xb) % 16 == 0
             assert plan.smem_bytes == mm_float_layout(
-                plan.tn, plan.kblk, plan.nb, xb, wb) <= MAX_SMEM_BYTES
+                plan.tn, plan.kblk, plan.nb, xb, wb, plan.tma) \
+                <= MAX_SMEM_BYTES
 
 
 def test_f32_and_bf16_plans_are_unchanged():
-    """The pairs that ran before keep their plans (K blocks a multiple of
-    8 rows); the K block of 16 rows is for int8 x only."""
-    for xb, wb in ((4, 4), (4, 2), (2, 4), (2, 2)):
+    """The pairs with an f32 operand keep their FFMA plans (K blocks a
+    multiple of 8 rows, of 16 where x is int8); bf16 x bf16 and every
+    other pair without f32 take the tensor-core plan, K blocks and ranges
+    a multiple of 32 rows."""
+    for xb, wb in ((4, 4), (4, 2), (2, 4)):
         assert mm_float_plan(17, 100, 36, "stream", 8, 2, xb, wb).kblk == 8
         assert mm_float_plan(8, 4096, 1000, "fifo", 24, 3, xb, wb).kblk == 24
-    assert mm_float_plan(17, 100, 36, "stream", 8, 2, 1, 2).kblk == 16
     assert mm_float_plan(8, 4096, 1000, "fifo", 24, 3, 1, 4).kblk == 16
-    assert mm_float_plan(17, 100, 36, "stream", 8, 2, 2, 1).kblk == 8
+    assert mm_float_plan(17, 100, 36, "stream", 8, 2, 4, 1).kblk == 8
+    for xb, wb in ((2, 2), (1, 2), (2, 1)):
+        for shape, bk, kblk in (((17, 100, 36), 8, 32),
+                                ((8, 4096, 1000), 24, 32),
+                                ((8, 4096, 1000), 100, 96)):
+            plan = mm_float_plan(*shape, "fifo", bk, 3, xb, wb)
+            assert plan.tensor_cores and plan.kblk == kblk
+            assert plan.kr % MM_FLOAT_TC_UNIT == 0
 
 
 def test_cpu_plain_version_widens_int8_exactly():
