@@ -10,7 +10,8 @@ it is run outside a checkout of the repository.  Phases, one line each:
      ``nvcc`` a source, all at once), and from the build's own
      ``-Xptxas -v`` report of ``dwconv_int8.cu``, ``conv2d_int8.cu``,
      ``flash_attention.cu``, ``stream_matmul.cu`` (the int8 ``mm_kernel``
-     and the float ``mm_float`` instances) and ``pool_int8.cu``:
+     and the float ``mm_float_tc`` and ``mm_float`` instances) and
+     ``pool_int8.cu``:
      registers, stack and spills of every kernel
      instance (full logs ``ptxas_dwconv.log``, ``ptxas_conv.log``,
      ``ptxas_flash.log``, ``ptxas_matmul.log`` and ``ptxas_pool.log`` in
@@ -38,7 +39,9 @@ it is run outside a checkout of the repository.  Phases, one line each:
      f32, bf16, f16 and int8 but int8 x int8) in every mode, the fifo ring
      1 to 4 deep, every fc shape at M = 8 in f32 and bf16, and every pair
      at every entry of the float path, each output of the promoted type
-     and within ``FLOAT_TOL`` (an f16 output within bf16's);
+     and within ``FLOAT_TOL`` (an f16 output within bf16's), and the f32-x
+     tensor-core pairs on edge values at fc0 (``EDGE_PAIRS``: inf and NaN
+     where the plain version has them);
      the depthwise kernels at every dw shape of MobileNetV1, V2 and V3 in
      both tiers (streamed with ``n_buffers`` in {1, 2, k*k}); the
      flash-attention forward (o and lse) at the LM slice's prefill shape,
@@ -220,9 +223,10 @@ it is run outside a checkout of the repository.  Phases, one line each:
      pair of ``FLOAT_PAIRS``: launches of ``stream_matmul_float_pinned``
      and ``_fifo`` counted, outputs of the promoted type within
      ``FLOAT_TOL`` of the plain path, and the launches by instance, as
-     the wrapper counts them, those the plans name (HMMA in the SASS of
-     every ``mm_float_tc`` instance checked first:
-     ``check_float_instances``, ``[build]`` line).
+     the wrapper counts them, those the plans name (33 ``mm_float_tc``
+     instances, each with HMMA in its SASS and no spill, and 8
+     ``mm_float``, checked first: ``check_float_instances``, ``[build]``
+     line).
      Launch counters are zeroed just before and read just after each run;
   4. time each kernel at the slice's shapes, its plain version, one
      PyTorch call computing the same function where there is one
@@ -907,7 +911,7 @@ PTXAS_SOURCES = (
         "mm_float": (r"mm_floatI(f|a|6__half|13__nv_bfloat16)"
                      r"(f|a|6__half|13__nv_bfloat16|S\d*_)Li(\d+)E",
                      "mm_float<{},{},{}>"),
-        "mm_float_tc": (r"mm_float_tcI(a|6__half|13__nv_bfloat16)"
+        "mm_float_tc": (r"mm_float_tcI(f|a|6__half|13__nv_bfloat16)"
                         r"(a|6__half|13__nv_bfloat16|S\d*_)Li(\d+)E",
                         "mm_float_tc<{},{},{}>")}),
     ("pool_int8", "ptxas_pool.log", {
@@ -1390,8 +1394,10 @@ def check_flash_bwd(torch, g, dev, ks, record):
 
 
 # the float matmul's operand pairs (x, w) on the path: every pair over
-# {f32, bf16, f16, int8} but int8 x int8 (mm_kernel's); the eight without
-# f32 run on the tensor cores (mm_float_tc), the seven with it on FFMA
+# {f32, bf16, f16, int8} but int8 x int8 (mm_kernel's); the eleven with
+# bf16, f16 or int8 weights run on the tensor cores (mm_float_tc; an f32 x
+# split exactly into three bf16 parts, a product each), the four with f32
+# weights on FFMA (mm_float)
 FLOAT_TYPES = ("float32", "bfloat16", "float16", "int8")
 FLOAT_PAIRS = tuple((a, b) for a in FLOAT_TYPES for b in FLOAT_TYPES
                     if (a, b) != ("int8", "int8"))
@@ -1399,32 +1405,43 @@ FLOAT_BYTES = {"float32": 4, "bfloat16": 2, "float16": 2, "int8": 1}
 # The FFMA design's device us a launch (mm_float on FFMA at every pair, as
 # PERF.md section 6 keeps them; chip_smoke.py on one H100 80GB HBM3 at
 # 700.00 W) at the float path's entries, for the pairs (x, w) that were on
-# the path then, in the order of FFMA_DESIGN_PAIRS; the [time] lines and
-# the record show it beside this run's time
+# the path then, in the order of FFMA_DESIGN_PAIRS (the last, f32 x bf16,
+# from the run of the FFMA body that followed, as it was not on the path
+# before); the [time] lines and the record show it beside this run's time
 FFMA_DESIGN_PAIRS = (
     ("float32", "float32"), ("float32", "float16"), ("float32", "int8"),
     ("bfloat16", "bfloat16"), ("bfloat16", "float16"), ("bfloat16", "int8"),
     ("float16", "float32"), ("float16", "bfloat16"), ("float16", "float16"),
     ("float16", "int8"), ("int8", "float32"), ("int8", "bfloat16"),
-    ("int8", "float16"))
+    ("int8", "float16"), ("float32", "bfloat16"))
 FFMA_DESIGN_US = {
     "pinned:512,1000": (6.32, 6.02, 6.04, 5.97, 6.05, 6.06, 6.30, 6.09,
-                        6.14, 6.22, 6.41, 6.19, 5.99),
+                        6.14, 6.22, 6.41, 6.19, 5.99, 5.82),
     "pinned:960,1280": (8.95, 7.97, 7.68, 7.84, 7.84, 7.38, 8.93, 7.83,
-                        8.10, 7.44, 9.17, 8.16, 8.18),
+                        8.10, 7.44, 9.17, 8.16, 8.18, 7.84),
     "pinned:1024,1000": (7.54, 7.00, 7.01, 6.83, 6.84, 6.70, 7.23, 6.81,
-                         6.90, 6.70, 7.46, 6.88, 6.91),
+                         6.90, 6.70, 7.46, 6.88, 6.91, 6.72),
     "pinned:1280,1000": (8.02, 7.43, 7.55, 7.24, 7.60, 7.40, 8.13, 7.26,
-                         7.51, 7.31, 8.07, 7.57, 7.44),
+                         7.51, 7.31, 8.07, 7.57, 7.44, 7.25),
     "fifo:2048,1000": (11.20, 8.62, 8.53, 8.42, 8.57, 8.17, 11.15, 8.40,
-                       8.60, 8.15, 10.57, 8.52, 8.48),
+                       8.60, 8.15, 10.57, 8.52, 8.48, 8.21),
     "fifo:4096,1000": (15.11, 12.40, 13.55, 12.54, 12.55, 13.55, 15.30,
-                       12.43, 12.80, 13.42, 14.51, 12.34, 12.54),
+                       12.43, 12.80, 13.42, 14.51, 12.34, 12.54, 12.12),
     "fifo:4096,4096": (41.65, 31.07, 25.26, 32.07, 32.16, 25.76, 41.75,
-                       31.23, 31.72, 26.08, 39.82, 30.16, 30.25),
+                       31.23, 31.72, 26.08, 39.82, 30.16, 30.25, 30.68),
     "fifo:25088,4096": (227.52, 159.94, 121.44, 160.54, 161.02, 121.41,
                         219.25, 155.44, 157.78, 124.61, 208.00, 156.02,
-                        156.12)}
+                        156.12, 157.30)}
+# The f32-x pairs on the tensor cores on edge values (phase 2, at fc0's
+# shape): a row of x holds ordinary values but, by its index mod 8, one
+# column of EDGE_BITS (+inf, -inf, a NaN whose payload has only low bits,
+# the largest finite f32, a value above bf16's largest that round to
+# nearest makes -inf), zeros and -0 (5), values near 2^-105, inside the
+# split's exact range from 2^-110 (6), or values near 2^-128 below it with
+# the smallest normal and subnormal (7)
+EDGE_PAIRS = (("float32", "bfloat16"), ("float32", "float16"),
+              ("float32", "int8"))
+EDGE_BITS = (0x7f800000, 0xff800000, 0x7f800001, 0x7f7fffff, 0xff7f8001)
 
 
 def ffma_design_ms(entry, xd, wd):
@@ -1464,6 +1481,62 @@ def float_err(torch, kern, got, want):
              dname)
 
 
+def edge_operands(torch, g, dev, shape, wd):
+    """x [M, K] f32 of edge values as EDGE_BITS says and w [K, N] of type
+    ``wd``: normal x 0.25 (int8: integers in [-127, 127])."""
+    M, K, N = shape
+    x = torch.randn(M, K, generator=g, device=dev)
+    bits = x.view(torch.int32)
+    cols = torch.randint(0, K, (M,), generator=g, device=dev).tolist()
+    for m in range(M):
+        kind = m % 8
+        if kind < 5:
+            bits[m, cols[m]] = EDGE_BITS[kind] - (
+                1 << 32 if EDGE_BITS[kind] >> 31 else 0)
+        elif kind == 5:
+            x[m, ::2] = 0.0
+            x[m, 1::4] = -0.0
+        elif kind == 6:
+            x[m] *= 2.0 ** -105
+        else:
+            x[m] *= 2.0 ** -128
+            bits[m, :2] = torch.tensor([0x00800000, 1], dtype=torch.int32)
+    if wd == torch.int8:
+        w = torch.randint(-127, 128, (K, N), generator=g, device=dev,
+                          dtype=torch.int8)
+    else:
+        w = (torch.randn(K, N, generator=g, device=dev) * 0.25).to(wd)
+    return x, w
+
+
+def edge_err(torch, kern, got, want, x, w):
+    """The edge-value case against the plain version: inf and NaN in the
+    same places, the infs of the same sign; finite outputs within
+    FLOAT_TOL's f32 limit of their row (rtol, and as atol the share of the
+    row's largest finite |want|), plus the split's bound for x's values
+    below 2^-110 (2^-133 |w| each); the largest share of that limit kept
+    under "float32 edges"."""
+    tol = FLOAT_TOL["float32"]
+    gd, wd_ = got.double(), want.double()
+    nan, inf, fin = wd_.isnan(), wd_.isinf(), wd_.isfinite()
+    same = (got.dtype == want.dtype and got.shape == want.shape
+            and torch.equal(gd.isnan(), nan) and torch.equal(gd.isinf(), inf)
+            and torch.equal(gd[inf], wd_[inf]))
+    row = torch.where(fin, wd_.abs(), torch.zeros_like(wd_)).amax(
+        1, keepdim=True)
+    below = ((x.abs() < 2.0 ** -110) & (x != 0)).double()
+    limit = tol * wd_.abs() + tol * row \
+        + 2.0 ** -133 * (below @ w.double().abs())
+    diff = (gd - wd_).abs()[fin]
+    share = float((diff / limit[fin]).nan_to_num(0.0, float("inf")).max())
+    r = kern.readings.setdefault("float32 edges", {"max_share_of_limit": 0.0})
+    r["max_share_of_limit"] = max(r["max_share_of_limit"], share)
+    if not same or not share <= 1.0:
+        raise AssertionError(
+            f"{kern.name}: edge values: inf and NaN where the plain version "
+            f"has them {same}, finite outputs at {share:.4g} of the limit")
+
+
 def check_float_matmul(torch, g, dev, ks, fc_shapes, block_for, fpath):
     """Phase 2 for the float modes of K7/K8 (mm_float on FFMA, mm_float_tc
     on the tensor cores): every pair of FLOAT_PAIRS at FLOAT_CHECK_SHAPES,
@@ -1472,7 +1545,8 @@ def check_float_matmul(torch, g, dev, ks, fc_shapes, block_for, fpath):
     the six configs at M = 8 in f32 and bf16 and every mode, K blocks as
     the engines cut them; and every pair at every entry of the float
     matmul's path (``float_path``: every fc head and fc0) at M = 8, in
-    every mode whose plan fits (fc0 streamed)."""
+    every mode whose plan fits (fc0 streamed); the f32-x tensor-core pairs
+    on edge values at fc0 (EDGE_PAIRS, ``edge_err``)."""
     from repro_torch.kernels.stream_matmul.ops import stream_matmul
     from repro_torch.kernels.stream_matmul.ref import stream_matmul_ref
     rings = [("pinned", 2, 128), ("stream", 2, 128), ("stream", 2, 16)] + [
@@ -1500,23 +1574,32 @@ def check_float_matmul(torch, g, dev, ks, fc_shapes, block_for, fpath):
             float_err(torch, ks[kname], stream_matmul(x, w, mode=mode, bk=bk,
                                                       n_buffers=nb), want)
             n += 1
+    for _, wd in EDGE_PAIRS:
+        x, w = edge_operands(torch, g, dev, FC0_MATMUL, getattr(torch, wd))
+        edge_err(torch, ks["stream_matmul_float_fifo"], stream_matmul(
+            x, w, mode="fifo", bk=block_for(FC0_MATMUL[1], 512), n_buffers=2),
+            stream_matmul_ref(x, w), x, w)
+        n += 1
     return n
 
 
 def check_float_instances(torch, record, fpath, block_for, mm_float_plan,
                           sm_count):
     """The instance each launch of the float path should take (from its
-    plan's column tile), and that every ``mm_float_tc`` instance of the
-    build (8 pairs x 3 tiles) issues HMMA in its SASS; fails where one
-    does not.  Returns {(kernel counter, instance): planned launches on
-    the path}, which phase 3 holds its counted launches against."""
+    plan's column tile), and that the build holds 33 ``mm_float_tc``
+    instances (11 pairs x 3 tiles), each issuing HMMA in its SASS and
+    spilling nothing, and 8 ``mm_float`` (4 pairs x 2 tiles); fails
+    where it does not.  Returns {(kernel counter, instance): planned
+    launches on the path}, which phase 3 holds its counted launches
+    against."""
     from repro_torch.kernels.stream_matmul.ops import (FLOAT_KERNELS,
                                                        float_instance)
     rep = record["ptxas"]["stream_matmul"]
-    tc = {k: v for k, v in rep.items() if v["template"] == "mm_float_tc"}
-    if len(tc) != 24:
-        raise AssertionError(f"{len(tc)} mm_float_tc instances in the "
-                             f"build, not 24: {sorted(tc)}")
+    for tmpl, count in (("mm_float_tc", 33), ("mm_float", 8)):
+        have = sorted(k for k, v in rep.items() if v["template"] == tmpl)
+        if len(have) != count:
+            raise AssertionError(f"{len(have)} {tmpl} instances in the "
+                                 f"build, not {count}: {have}")
     used = {}
     for k, n, mode in fpath:
         for xd, wd in FLOAT_PAIRS:
@@ -1534,6 +1617,9 @@ def check_float_instances(torch, record, fpath, block_for, mm_float_plan,
         if op and inst.startswith("mm_float") and not v.get(op):
             raise AssertionError(f"{inst} (stream_matmul.cu) issues no {op} "
                                  f"in its SASS: {v}")
+        if v["template"] == "mm_float_tc" and (v.get("spill_stores", 0)
+                                               or v.get("spill_loads", 0)):
+            raise AssertionError(f"{inst} (stream_matmul.cu) spills: {v}")
     record["float_instances"] = {
         inst: {"planned_launches": sum(n for (_, i), n in used.items()
                                        if i == inst),
@@ -5253,8 +5339,10 @@ def main():
     record["matmul_per_shape"] = mm_shape_rows
     # the float matmul per path entry and operand pair (one launch each):
     # device ms, bytes (operands read once, the output written once),
-    # bound (products with an f32 operand at 67 TFLOP/s FFMA, bf16 x f16
-    # at the 495 of tf32, the others at the 989 of bf16 and f16), plain
+    # bound (useful products 2 M K N, an f32 x's three parts not counted
+    # as work, at the rate of the products the route issues: f32 weights
+    # at 67 TFLOP/s FFMA, bf16 x f16 and an f32 x's parts against f16 at
+    # the 495 of tf32, the others at the 989 of bf16 and f16), plain
     # ms, torch.matmul (TF32 off) in the operands' type, or, for a mixed
     # pair, on both converted to the result type inside the timed call (an
     # int8 operand's conversion timed with it), and the FFMA design's time
@@ -5302,9 +5390,10 @@ def main():
         nbytes = BATCH * k_ * xb + k_ * n_ * wb + BATCH * n_ * ob
         ops = 2 * BATCH * k_ * n_
         plan = mm_float_plan(BATCH, k_, n_, mode, bk, 2, xb, wb, sm_count)
+        tf32 = ({x.dtype, w.dtype} == {torch.bfloat16, torch.float16}
+                or (x.dtype, w.dtype) == (torch.float32, torch.float16))
         rate = (FP32_FLOPS_PER_S if not plan.tensor_cores else
-                TF32_FLOPS_PER_S if {x.dtype, w.dtype} == {
-                    torch.bfloat16, torch.float16} else BF16_FLOPS_PER_S)
+                TF32_FLOPS_PER_S if tf32 else BF16_FLOPS_PER_S)
         b, by = bound_ms(nbytes, ops, rate)
         kern.ms += ms
         kern.plain_ms += pms

@@ -48,7 +48,9 @@ BATCH = 8
 VARIANT_SHAPES = ((25088, 4096), (4096, 4096))
 VARIANT_PAIRS = (("bfloat16", "bfloat16"), ("float16", "float16"),
                  ("bfloat16", "float16"), ("bfloat16", "int8"),
-                 ("int8", "bfloat16"), ("float32", "float32"))
+                 ("int8", "bfloat16"), ("float32", "float32"),
+                 ("float32", "bfloat16"), ("float32", "float16"),
+                 ("float32", "int8"))
 VARIANTS = (
     ("default", {}, 2, 1),
     ("cp.async", {"MM_TMA_ROWS": 0}, 2, 1),

@@ -51,26 +51,39 @@
 // [kblk][tn] and of x [TM][kblk], zeros past M, N and the rank's K range.
 // The leader of the cluster reads every rank's sums through distributed
 // shared memory in rank order (deterministic) and writes the result in its
-// type.  Two bodies:
-//  * mm_float_tc<TX, TW, TN>, the eight pairs whose values are all exact
-//    in 16 bits (bf16, f16, int8), on the tensor cores (mma.sync, f32
-//    sums).  The operands are swapped, out^T[N, M] = w^T[N, K] . x^T[K,
-//    M]: the weights fill mma's 16-row side and the TM = 8 rows of x its
-//    n = 8, so no row is padded at M = 8.  Each of 8 consumer warps owns
-//    16 columns (tn = 128; at 64 and 32 two and four warps share a group,
-//    unit by unit) and takes the block's K rows 32 at a time (a unit: two
-//    k16 halves, one accumulator each).  A fragments come from the weight
-//    slot by ldmatrix.trans (an int8 slot by the same ldmatrix, as byte
-//    pairs: a lane's register holds two K rows of two columns, mma rows i
-//    and i + 8 taking columns 2i and 2i + 1), B fragments from x's slot
-//    rows by ldmatrix (int8 x: one 4-byte load a k16 half).  A lane's A
-//    and B fragments hold the same K rows (unit_row), which is all a sum
-//    needs.  bf16 x bf16 and f16 x f16 run m16n8k16 in their type; int8
-//    against bf16 or f16 widens exactly to the other's type in registers
-//    (widen_i8x2), so an int8 weight still crosses HBM as one byte; bf16 x
-//    f16 and f16 x bf16 widen both to f32 bit patterns, exact in tf32 (8
-//    and 11 significand bits, f16's exponents inside), and run m16n8k8
-//    tf32.  Every product is exact before its sum, as in the reference.
+// type.  Two bodies, by one rule (float_tensor_cores below, mirrored by
+// ops.mm_float_tensor_cores): the tensor cores take every pair whose
+// weights are not f32, FFMA the four whose weights are.
+//  * mm_float_tc<TX, TW, TN>, the eleven pairs with bf16, f16 or int8
+//    weights, on the tensor cores (mma.sync, f32 sums).  The operands are
+//    swapped, out^T[N, M] = w^T[N, K] . x^T[K, M]: the weights fill mma's
+//    16-row side and the TM = 8 rows of x its n = 8, so no row is padded
+//    at M = 8.  Each of 8 consumer warps owns 16 columns (tn = 128; at 64
+//    and 32 two and four warps share a group, unit by unit) and takes the
+//    block's K rows 32 at a time (a unit: two k16 halves, one accumulator
+//    each).  A fragments come from the weight slot by ldmatrix.trans (an
+//    int8 slot by the same ldmatrix, as byte pairs: a lane's register
+//    holds two K rows of two columns, mma rows i and i + 8 taking columns
+//    2i and 2i + 1), B fragments from x's slot rows by ldmatrix (int8 x:
+//    one 4-byte load a k16 half).  A lane's A and B fragments hold the
+//    same K rows (unit_row), which is all a sum needs.  bf16 x bf16 and
+//    f16 x f16 run m16n8k16 in their type; int8 against bf16 or f16
+//    widens exactly to the other's type in registers (widen_i8x2), so an
+//    int8 weight still crosses HBM as one byte; bf16 x f16 and f16 x bf16
+//    widen both to f32 bit patterns, exact in tf32 (8 and 11 significand
+//    bits, f16's exponents inside), and run m16n8k8 tf32.  An f32 x splits
+//    exactly into three bf16 parts (split3: 8 + 8 + 8 significand bits,
+//    truncated, never rounded), each taking the same A fragments: f32 x
+//    bf16 and f32 x int8 (widened to bf16 once) three m16n8k16 bf16
+//    products, f32 x f16 three m16n8k8 tf32 ones (a part widened as a bf16
+//    x is); x0's products sum apart from x1's and x2's.  At tiles of 64 and
+//    128 columns the 256 consumer threads split a slot's x once into rows
+//    of shared memory that the units read as a bf16 x's (x_split_shared:
+//    split in every warp's registers, each value eight times at tn = 128,
+//    the consumers alone took 95 us at fc0 against 61 so); at 32, where
+//    only two warps split a value, each warp splits in registers and the
+//    latency-bound heads skip the slot's barrier.  Every product is exact
+//    before its sum, as in the reference.
 //    The slots come by TMA (mm_float_produce_tma: one thread, one 2-d box
 //    of 128-byte rows a tensor map and 128 bytes of columns, the 128-byte
 //    swizzle, one arrival with the boxes' bytes on the full barrier) where
@@ -78,7 +91,7 @@
 //    or two boxes; else (ragged N such as 1000 int8 or 10, tiles of 32
 //    columns) by 128 producer threads' cp.async (16, 8 or 4 bytes, or one
 //    element), into rows padded by 16 bytes.
-//  * mm_float<TX, TW, TN>, the seven pairs with an f32 operand, FFMA on the
+//  * mm_float<TX, TW, TN>, the four pairs with f32 weights, FFMA on the
 //    CUDA cores, never TF32, which would round the f32 operand: each of 128
 //    consumer threads owns 4 columns x TM rows and a share of the block's K
 //    rows, 4 at a time, a narrower value widened to f32 exactly as it is
@@ -86,20 +99,25 @@
 //    slots by cp.async.
 // What bounds them.  At M = 8 a weight element takes 16 FLOP: 8 a byte in
 // bf16, 4 in f32, 16 in int8.  On the tensor cores (989 TFLOP/s bf16 and
-// f16, 495 tf32) the products take 30 to 120 times less than the bytes, so
-// the weight stream at 3.35 TB/s is the bound, and the ring has to keep
-// it in flight: about 3.35 TB/s x 1 us of latency over 132 SMs, 25 KB of
-// weights an SM.  fc0 (25088 x 4096, bf16) runs 32 column tiles of 128 x
-// a K split of 8, 256 CTAs of 3136 K rows, each two slots of 64 rows x
-// 256 bytes (16 KB) in flight, 1.9 CTAs an SM: up to 62 KB an SM.  Small
-// slots and many CTAs an SM won on an H100 (probe_stream.py): a CTA's ring
-// is bound by its slots' round trips, so the card is filled by more rings,
-// not deeper ones; TMA's one request a box beat 128 threads' 16-byte
-// cp.async.  The int8 weights' widening is consumer work that the weight
-// stream does not hide at fc0.  FFMA's 67 TFLOP/s would need 20 FLOP a byte to pass the
-// bytes; a bf16 weight (8) on FFMA did not reach the bytes, the FFMA loop
-// running at about a fifth of that peak, and the f32 pairs (4) reach about
-// half of them.
+// f16, 495 tf32) the products take 30 to 120 times less than the bytes
+// (10 to 40 times with an f32 x's three parts), so the weight stream at
+// 3.35 TB/s is the bound, and the ring has to keep it in flight: about
+// 3.35 TB/s x 1 us of latency over 132 SMs, 25 KB of weights an SM.  fc0
+// (25088 x 4096, bf16) runs 32 column tiles of 128 x a K split of 8, 256
+// CTAs of 3136 K rows, each two slots of 64 rows x 256 bytes (16 KB) in
+// flight, 1.9 CTAs an SM: up to 62 KB an SM.  Small slots and many CTAs
+// an SM won on an H100 (probe_stream.py): a CTA's ring is bound by its
+// slots' round trips, so the card is filled by more rings, not deeper
+// ones; TMA's one request a box beat 128 threads' 16-byte cp.async.  The
+// int8 weights' widening and an f32 x's split are consumer work that the
+// weight stream does not hide at fc0 (f32 x f16's twelve tf32 products a
+// unit the most).  The body is built for three CTAs an SM (TC_CTAS): fc0's
+// and 4096 x 4096's 256 CTAs in clusters of 8 take one wave only so.
+// FFMA's 67 TFLOP/s would need 20 FLOP a byte to pass the bytes: on FFMA a
+// 2-byte weight (8) did not reach them, the loop running at about a fifth
+// of that peak, which is why only the f32 weights (4 FLOP a byte) stay
+// there, at about half of their bound.  Times: probe_stream.py, one H100
+// 80GB HBM3 at 700 W.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -359,6 +377,21 @@ using bf16 = __nv_bfloat16;
 constexpr int FCONS = 128;       // consumer threads on FFMA (warps 0..3)
 constexpr int TC_CONS = 256;     // on the tensor cores (warps 0..7)
 constexpr int TC_UNIT = 32;      // K rows a tensor-core warp takes at once
+// CTAs an SM the tensor-core body is built for (its registers, at most 56
+// a thread): the path's grids of 256 CTAs, clusters of 8, take one wave
+// only at three an SM (built for two, the f32-x pairs ran 1.1-1.6x slower
+// at fc0 and 1.46x at the 32-column heads: probe_stream.py --float-only,
+// H100 80GB HBM3 at 700 W)
+constexpr int TC_CTAS = 3;
+
+// Whether a pair of x_bytes and w_bytes elements runs on the tensor cores
+// (mm_float_tc): its weights are not f32, and it is not int8 x int8
+// (mm_kernel's); ops.mm_float_tensor_cores mirrors it.  The rest, the
+// f32 weights, run mm_float on FFMA.
+__host__ __device__ constexpr bool float_tensor_cores(int x_bytes,
+                                                      int w_bytes) {
+  return w_bytes <= 2 && !(x_bytes == 1 && w_bytes == 1);
+}
 
 // The consumer threads of a body
 __host__ __device__ constexpr int float_consumers(bool tc) {
@@ -369,6 +402,22 @@ __host__ __device__ constexpr int float_consumers(bool tc) {
 // cores the warps of a column group of 16 (one at tn = 128)
 __host__ __device__ constexpr int float_shares(int tn, bool tc) {
   return tc ? TC_CONS / 32 / (tn / 16) : FCONS / 32;
+}
+
+// An f32 x on the tensor cores (mm_float_tc) is split once a slot into
+// shared memory where more than two column groups of 16 read it (tiles of
+// 64 and 128 columns); at 32 each warp splits its own units' values in
+// registers, each value twice (once a group), which spares the 32-column
+// heads, bound by their few slots' latency, the slot's barrier.
+__host__ __device__ constexpr bool x_split_shared(int tn) { return tn > 32; }
+
+// Its parts there: two buffers, each the three bf16 parts of a slot's x,
+// [3][TM] rows of kblk bf16 padded by 16 bytes (ldmatrix's eight rows on
+// distinct banks, as x's rows on the cp.async route); ops.mm_float_parts
+// mirrors it.
+__host__ __device__ constexpr int x_part_row(int kblk) { return kblk * 2 + 16; }
+__host__ __device__ constexpr long x_parts_bytes(int kblk) {
+  return 2L * 3 * TM * x_part_row(kblk);
 }
 
 template <typename T>
@@ -429,9 +478,10 @@ struct Promoted<int8_t, __half> {
   using type = __half;
 };
 
-// The mma operand type of a pair without f32: the pair's type where both
-// share it or one is int8 (int8 widens exactly to bf16 and to f16), else
-// (bf16 with f16) tf32, which holds both exactly.
+// The mma operand type of a tensor-core pair: the pair's type where both
+// share it or one is int8 (int8 widens exactly to bf16 and to f16), bf16
+// for an f32 x's parts against bf16 or int8 weights, else (bf16 with f16,
+// an f32 x's parts with f16) tf32, which holds both exactly.
 struct Tf32 {};
 template <typename TX, typename TW>
 struct MmaType {
@@ -457,6 +507,14 @@ template <>
 struct MmaType<__half, int8_t> {
   using type = __half;
 };
+template <>
+struct MmaType<float, bf16> {
+  using type = bf16;
+};
+template <>
+struct MmaType<float, int8_t> {
+  using type = bf16;
+};
 
 // An f32 sum rounded once to the result type.
 __device__ __forceinline__ void store_out(float* p, float s) { *p = s; }
@@ -473,7 +531,7 @@ struct MmFloatArgs {
   void* out;
   int M, K, N;
   int kr, kblk, nb, wvec, xvec, tma;   // the plan (ops.mm_float_plan)
-  int srow, xrow, slot;                // the layout (mm_float_layout())
+  int srow, xrow, slot, prow;          // the layout (mm_float_layout())
 };
 
 // The TMA route's tensor maps (unset on the cp.async route).
@@ -485,14 +543,17 @@ struct MmFloatLayout {
   int srow;   // bytes of a weight row of a slot: tn * w_bytes (+ 16)
   int xrow;   // bytes of an x row of a slot: kblk * x_bytes + 16 (TMA: 128)
   int slot;   // bytes of a slot: kblk weight rows, then TM x rows
+  int prow;   // bytes of a row of an f32 x's parts (x_part_row)
   long smem;
 };
 
 // ops.mm_float_layout mirrors this.  Shared memory of one CTA: the full
 // and empty mbarriers of the nb slots, the slots [nb][slot], the consumers'
 // shares [float_shares][TM][tn] f32 and the CTA's sums [TM][tn] f32,
-// which the cluster's leader reads.  On the cp.async route a row's 16
-// extra bytes make eight rows that ldmatrix reads together fall on
+// which the cluster's leader reads; on the tensor cores with an f32 x,
+// at tiles of 64 and 128 columns, then x's parts (x_parts_bytes).  On the
+// cp.async route a row's 16 extra bytes make eight rows that ldmatrix
+// reads together fall on
 // distinct banks wherever a row is an odd number of 16-byte chunks: weight
 // rows of 32, 64 or 128 columns of 1 or 2 bytes, x rows of a K block of a
 // multiple of 32 (the tensor-core plans' blocks).  On the TMA route a
@@ -506,9 +567,12 @@ MmFloatLayout mm_float_layout(int tn, int kblk, int nb, int x_bytes,
   L.srow = tn * w_bytes + (tma ? 0 : 16);
   L.xrow = tma ? 128 : kblk * x_bytes + 16;
   L.slot = kblk * L.srow + TM * (tma ? kblk * x_bytes : L.xrow);
+  L.prow = x_part_row(kblk);
+  const bool tc = float_tensor_cores(x_bytes, w_bytes);
   L.smem = 16L * nb + (tma ? 1024 : 0) + (long)nb * L.slot +
-           (long)(float_shares(tn, x_bytes <= 2 && w_bytes <= 2) + 1) * TM *
-               tn * 4;
+           (long)(float_shares(tn, tc) + 1) * TM * tn * 4 +
+           (tc && x_bytes == 4 && x_split_shared(tn) ? x_parts_bytes(kblk)
+                                                     : 0);
   return L;
 }
 
@@ -651,7 +715,7 @@ __device__ __forceinline__ void float_finish(const MmFloatArgs& a,
   cluster.sync();  // the leader has read every rank's sums
 }
 
-// The FFMA body: the pairs with an f32 operand.
+// The FFMA body: the pairs with f32 weights.
 template <typename TX, typename TW, int TN>
 __global__ void __launch_bounds__(FCONS + NPROD) mm_float(MmFloatArgs a) {
   constexpr int XB = sizeof(TX), WB = sizeof(TW);
@@ -763,16 +827,72 @@ __device__ __forceinline__ void widen_16x2(uint32_t v, uint32_t& lo,
   }
 }
 
+// x's layouts in a unit's B fragments: 16-bit values (an f32 x's parts in
+// shared memory), int8 words, f32 values split in registers.
+enum { X16 = 0, X8 = 1, X32 = 2 };
+
 // The unit's K row that row r of its ldmatrix matrix (j, h) reads: half j,
 // the first (h = 0) or second fragment register of the half.  A lane takes
 // rows 2t and 2t + 1 of each matrix (t = lane % 4), so its A fragments
-// hold the K rows its B fragments hold: x in 16 bits, by ldmatrix, rows
-// 16j + 8h + 2t, +1; x in int8, by one 4-byte load of rows 16j + 4t ..
-// 4t + 3, whose even bytes (widen_i8x2 of the word) are h = 0 and odd
-// bytes (of the word >> 8) h = 1.
-template <bool XI8>
+// hold the K rows its B fragments hold, by x's layout XL: 16 bits, by
+// ldmatrix, rows 16j + 8h + 2t, +1; int8, by one 4-byte load of rows 16j +
+// 4t .. 4t + 3, whose even bytes (widen_i8x2 of the word) are h = 0 and
+// odd bytes (of the word >> 8) h = 1; f32, by ldmatrix of four 16-byte
+// matrices i as b16 pairs, one f32 a lane, rows 16j + 4i + t: (i = 0, 1)
+// are h = 0 and (2, 3) h = 1.
+template <int XL>
 __device__ __forceinline__ int unit_row(int j, int h, int r) {
-  return XI8 ? 16 * j + 4 * (r >> 1) + 2 * (r & 1) + h : 16 * j + 8 * h + r;
+  if constexpr (XL == X8) return 16 * j + 4 * (r >> 1) + 2 * (r & 1) + h;
+  if constexpr (XL == X16) return 16 * j + 8 * h + r;
+  return 16 * j + 8 * h + (r >> 1) + 4 * (r & 1);
+}
+
+// An f32 value v (bits) split into three parts, v = p[0] + p[1] + p[2],
+// each an f32 bit pattern whose low 16 bits are zero: a bf16 value (its
+// high half) and a tf32 one.  p[0] is v truncated to its high 16 bits,
+// never rounded (round to nearest makes every finite v above bf16's
+// largest, about 3.3895e38, an inf, and inf - inf NaN); r = v - p[0] is
+// exact; p[1] is r truncated the same way, p[2] = r - p[1] (exact)
+// truncated.  The sum is v exactly for |v| >= 2^-110 (v's last bit is then
+// a multiple of bf16's least subnormal, 2^-133), for every finite v within
+// 2^-133.  A non-finite v: p[0] = v (a NaN as the quiet NaN, whatever its
+// payload's bits), p[1] = p[2] = 0.  A zero part against a weight of +-inf
+// gives NaN (0 x inf) where FFMA would give +-inf.
+__device__ __forceinline__ void split3(uint32_t v, uint32_t p[3]) {
+  const uint32_t hi = v & 0xffff0000u;
+  const float r = __fsub_rn(__uint_as_float(v), __uint_as_float(hi));
+  const uint32_t mid = __float_as_uint(r) & 0xffff0000u;
+  const uint32_t lo =
+      __float_as_uint(__fsub_rn(r, __uint_as_float(mid))) & 0xffff0000u;
+  const bool finite = (v & 0x7f800000u) != 0x7f800000u;
+  p[0] = finite || (v & 0x007fffffu) == 0 ? hi : 0x7fc00000u;
+  p[1] = finite ? mid : 0u;
+  p[2] = finite ? lo : 0u;
+}
+
+// Two f32 bit patterns' high halves as a pair of bf16: lo's low, hi's high.
+__device__ __forceinline__ uint32_t pack_hi16(uint32_t lo, uint32_t hi) {
+  return __byte_perm(lo, hi, 0x7632);
+}
+
+// threadIdx.x, read afresh where it is used (no value kept across a loop)
+__device__ __forceinline__ int tid_x() {
+  int t;
+  asm volatile("mov.u32 %0, %%tid.x;\n" : "=r"(t));
+  return t;
+}
+
+// An 8-byte and a 4-byte shared-memory access at a shared-memory address.
+__device__ __forceinline__ uint2 lds64(unsigned addr) {
+  uint2 v;
+  asm volatile("ld.shared.v2.u32 {%0, %1}, [%2];\n"
+               : "=r"(v.x), "=r"(v.y)
+               : "r"(addr));
+  return v;
+}
+
+__device__ __forceinline__ void sts32(unsigned addr, uint32_t v) {
+  asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
 }
 
 // Byte b of row r of an operand's tile in a slot, from the tile's start:
@@ -843,18 +963,26 @@ __device__ __forceinline__ void mm_float_produce_tma(const MmFloatArgs& a,
   }
 }
 
-// The tensor-core body: the pairs whose values are all exact in 16 bits.
-// Each of its 8 consumer warps owns a column group of 16, alone (tn = 128)
-// or with SHARES - 1 other warps (tn = 64: 2, tn = 32: 4).
+// The tensor-core body: the pairs with bf16, f16 or int8 weights.  Each
+// of its 8 consumer warps owns a column group of 16, alone (tn = 128) or
+// with SHARES - 1 other warps (tn = 64: 2, tn = 32: 4).  An f32 x gives
+// three bf16 parts, a product each: split once a slot by all the
+// consumers into rows (x_split_shared) that the units read as a bf16 x's,
+// or by each warp in registers as its units read x.
 template <typename TX, typename TW, int TN>
-__global__ void __launch_bounds__(TC_CONS + NPROD)
+__global__ void __launch_bounds__(TC_CONS + NPROD, TC_CTAS)
     mm_float_tc(MmFloatArgs a, const __grid_constant__ FloatMaps maps) {
   constexpr int GROUPS = TN / 16, SHARES = float_shares(TN, true);
   constexpr int XB = sizeof(TX), WB = sizeof(TW);
-  constexpr bool XI8 = is_i8<TX>, WI8 = is_i8<TW>;
+  constexpr bool XI8 = is_i8<TX>, XF32 = is_f32<TX>, WI8 = is_i8<TW>;
+  constexpr int PARTS = XF32 ? 3 : 1;
+  constexpr bool XSMEM = XF32 && x_split_shared(TN);
+  constexpr int XL = XI8 ? X8 : XF32 && !XSMEM ? X32 : X16;
   using MT = typename MmaType<TX, TW>::type;
-  static_assert(!is_f32<TX> && !is_f32<TW> && !(XI8 && WI8),
-                "pairs of bf16, f16 and int8 but int8 x int8");
+  using XT = std::conditional_t<XF32, bf16, TX>;   // x's B fragments' type
+  constexpr bool TF32 = std::is_same<MT, Tf32>::value;
+  static_assert(float_tensor_cores(XB, WB),
+                "bf16, f16 or int8 weights, not int8 x int8");
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
@@ -871,54 +999,95 @@ __global__ void __launch_bounds__(TC_CONS + NPROD)
     const int lane = tid & 31, warp = tid >> 5;
     const int grp = warp % GROUPS, share = warp / GROUPS;
     const int g = lane >> 2, t = lane & 3, mi = lane >> 3, r = lane & 7;
-    // this lane's ldmatrix row in a unit's weights, per half j: int8 w,
-    // matrix mi = (j, h) = (mi >> 1, mi & 1), the group's 16 columns (both
-    // halves in one load); 16-bit w, a half at a time, matrix mi = (h, 8
-    // columns) = (mi >> 1, mi & 1)
-    unsigned w_at[2];
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      w_at[j] = WI8 ? tile_at(tma, unit_row<XI8>(mi >> 1, mi & 1, r),
-                              grp * 16, a.srow, a.kblk)
-                    : tile_at(tma, unit_row<XI8>(j, mi >> 1, r),
-                              (grp * 16 + (mi & 1) * 8) * 2, a.srow, a.kblk);
+    // this lane's ldmatrix row in a unit's weights: int8 w, matrix mi =
+    // (j, h) = (mi >> 1, mi & 1), the group's 16 columns (both halves in
+    // one load); 16-bit w, a half j at a time, matrix mi = (h, 8 columns)
+    // = (mi >> 1, mi & 1), half 1 16 rows (half a unit) after half 0
+    const unsigned w_at =
+        WI8 ? tile_at(tma, unit_row<XL>(mi >> 1, mi & 1, r), grp * 16, a.srow,
+                      a.kblk)
+            : tile_at(tma, unit_row<XL>(0, mi >> 1, r),
+                      (grp * 16 + (mi & 1) * 8) * 2, a.srow, a.kblk);
     const unsigned ring = h2pipe_mma::smem_addr(c.ring);
     const unsigned w_unit = TC_UNIT * (tma ? 128 : a.srow);
-    float acc[2][4] = {};   // the k16 halves
+    // an f32 x's parts in shared memory: buffer kb & 1, part q's rows at
+    // q * prow * TM
+    const unsigned x_parts = h2pipe_mma::smem_addr(c.part + TM * TN);
+    // the k16 halves; an f32 x: x0's products in acc, x1's and x2's (at
+    // most 2^-8 of x0's) in acc_lo
+    float acc[2][4] = {}, acc_lo[2][4] = {};
     h2pipe::RingPos pos;
     for (int kb = 0; kb < c.nkb; ++kb) {
       h2pipe::mbar_wait(c.full + pos.slot, pos.phase);
       const unsigned ws = ring + pos.slot * a.slot;
       const unsigned xs = ws + a.kblk * a.srow;
+      const unsigned pb = x_parts + (kb & 1) * 3 * TM * a.prow;
+      if constexpr (XSMEM && MM_FLOAT_PROBE != 2) {
+        // the slot's x split once, two values a thread a step, into buffer
+        // kb & 1; a slower warp may still read the other buffer, which no
+        // warp writes before every warp has passed this slot's barrier
+        const int pairs = a.kblk / 2;
+        for (int i = tid; i < TM * pairs; i += TC_CONS) {
+          const int m = i / pairs, k = 2 * (i - m * pairs);
+          const uint2 v = lds64(xs + tile_at(tma, m, k * 4, a.xrow, TM));
+          uint32_t p0[3], p1[3];
+          split3(v.x, p0);
+          split3(v.y, p1);
+#pragma unroll
+          for (int q = 0; q < 3; ++q)
+            sts32(pb + (q * TM + m) * a.prow + k * 2,
+                  pack_hi16(p0[q], p1[q]));
+        }
+        asm volatile("bar.sync 2, %0;\n" ::"r"(TC_CONS) : "memory");
+      }
       // the units that hold rows of the range; their rows past it are zeros
       const int units =
           MM_FLOAT_PROBE == 2
               ? 0
               : (min(a.kblk, c.k1 - c.k0 - kb * a.kblk) + TC_UNIT - 1) /
                     TC_UNIT;
-#pragma unroll 2
+      // two units in flight; an f32 x's one (its three B fragment sets)
+#pragma unroll(XF32 ? 1 : 2)
       for (int u = share; u < units; u += SHARES) {
         const unsigned wu = ws + u * w_unit;
-        uint32_t b[4];       // B fragment registers (j, h) at 2j + h
+        uint32_t b[PARTS][4];   // B fragment registers (j, h) at 2j + h
         if constexpr (XI8) {
           // x row g, K rows 4t .. 4t + 3 of each half
 #pragma unroll
           for (int j = 0; j < 2; ++j) {
             const uint32_t v = lds32(
                 xs + tile_at(tma, g, u * TC_UNIT + 16 * j + 4 * t, a.xrow, TM));
-            b[2 * j] = widen_i8x2<MT>(v);
-            b[2 * j + 1] = widen_i8x2<MT>(v >> 8);
+            b[0][2 * j] = widen_i8x2<MT>(v);
+            b[0][2 * j + 1] = widen_i8x2<MT>(v >> 8);
           }
-        } else {
+        } else if constexpr (XF32 && !XSMEM) {
+          // ldmatrix row r of x, half j's matrix mi the unit's K rows 16j
+          // + 4 mi .. + 3 (a lane's f32: 16j + 4 mi + t), split in three
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            uint32_t v[4], p[4][3];
+            h2pipe_mma::ldsm_x4_at(
+                v, xs + tile_at(tma, r, (u * TC_UNIT + 16 * j + 4 * mi) * 4,
+                                a.xrow, TM));
+#pragma unroll
+            for (int i = 0; i < 4; ++i) split3(v[i], p[i]);
+#pragma unroll
+            for (int q = 0; q < 3; ++q) {
+              b[q][2 * j] = pack_hi16(p[0][q], p[1][q]);
+              b[q][2 * j + 1] = pack_hi16(p[2][q], p[3][q]);
+            }
+          }
+        } else if constexpr (!XSMEM) {
           // ldmatrix row r of x, the unit's K rows 8 mi .. 8 mi + 7
           // (fragment (j, h) = mi)
           h2pipe_mma::ldsm_x4_at(
-              b, xs + tile_at(tma, r, (u * TC_UNIT + 8 * mi) * 2, a.xrow, TM));
+              b[0], xs + tile_at(tma, r, (u * TC_UNIT + 8 * mi) * 2, a.xrow,
+                                 TM));
         }
         uint32_t af[2][4];   // A fragments of the two halves
         if constexpr (WI8) {
           uint32_t v[4];
-          h2pipe_mma::ldsm_x4_trans_at(v, wu + w_at[0]);
+          h2pipe_mma::ldsm_x4_trans_at(v, wu + w_at);
 #pragma unroll
           for (int j = 0; j < 2; ++j) {
             af[j][0] = widen_i8x2<MT>(v[2 * j]);          // rows i: 2i
@@ -929,25 +1098,46 @@ __global__ void __launch_bounds__(TC_CONS + NPROD)
         } else {
 #pragma unroll
           for (int j = 0; j < 2; ++j)
-            h2pipe_mma::ldsm_x4_trans_at(af[j], wu + w_at[j]);
+            h2pipe_mma::ldsm_x4_trans_at(af[j], wu + w_at + j * w_unit / 2);
         }
+        // part q's products on both halves (x0's, or x's, into acc, x1's
+        // and x2's into acc_lo)
+        auto products = [&](int q, const uint32_t* bq) {
 #pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          if constexpr (std::is_same<MT, Tf32>::value) {
-            // k8 steps h = 0, 1: a lane's K rows of fragment register h
+          for (int j = 0; j < 2; ++j) {
+            float* d = q ? acc_lo[j] : acc[j];
+            if constexpr (TF32) {
+              // k8 steps h = 0, 1: a lane's K rows of fragment register h
+              // (the f16 weights widened for each part: held for all three,
+              // they spilled at 56 registers)
 #pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              uint32_t at[4], b0, b1;
-              widen_16x2<TW>(af[j][2 * h], at[0], at[2]);
-              widen_16x2<TW>(af[j][2 * h + 1], at[1], at[3]);
-              widen_16x2<TX>(b[2 * j + h], b0, b1);
-              h2pipe_mma::mma_tf32(acc[j], at, b0, b1);
+              for (int h = 0; h < 2; ++h) {
+                uint32_t at[4], b0, b1;
+                widen_16x2<TW>(af[j][2 * h], at[0], at[2]);
+                widen_16x2<TW>(af[j][2 * h + 1], at[1], at[3]);
+                widen_16x2<XT>(bq[2 * j + h], b0, b1);
+                h2pipe_mma::mma_tf32(d, at, b0, b1);
+              }
+            } else if constexpr (std::is_same<MT, bf16>::value) {
+              h2pipe_mma::mma_bf16(d, af[j], bq[2 * j], bq[2 * j + 1]);
+            } else {
+              h2pipe_mma::mma_f16(d, af[j], bq[2 * j], bq[2 * j + 1]);
             }
-          } else if constexpr (std::is_same<MT, bf16>::value) {
-            h2pipe_mma::mma_bf16(acc[j], af[j], b[2 * j], b[2 * j + 1]);
-          } else {
-            h2pipe_mma::mma_f16(acc[j], af[j], b[2 * j], b[2 * j + 1]);
           }
+        };
+        if constexpr (XSMEM) {
+          // ldmatrix row r of part q, the unit's K rows 8 mi .. 8 mi + 7,
+          // a part at a time
+#pragma unroll
+          for (int q = 0; q < 3; ++q) {
+            uint32_t bq[4];
+            h2pipe_mma::ldsm_x4_at(bq, pb + (q * TM + r) * a.prow +
+                                           (u * TC_UNIT + 8 * mi) * 2);
+            products(q, bq);
+          }
+        } else {
+#pragma unroll
+          for (int q = 0; q < PARTS; ++q) products(q, b[q]);
         }
       }
       __syncwarp();
@@ -956,14 +1146,24 @@ __global__ void __launch_bounds__(TC_CONS + NPROD)
     }
     // the warp's sums into red's row of its share: mma row i is column
     // 16 * grp + i (int8 w: 2i, and 2(i - 8) + 1 for i >= 8), its column
-    // j the row j of x
-    float* dst = c.red + share * TM * TN;
-    const int lo = grp * 16 + (WI8 ? 2 * g : g);
-    const int hi = grp * 16 + (WI8 ? 2 * g + 1 : g + 8);
-    dst[2 * t * TN + lo] = acc[0][0] + acc[1][0];
-    dst[(2 * t + 1) * TN + lo] = acc[0][1] + acc[1][1];
-    dst[2 * t * TN + hi] = acc[0][2] + acc[1][2];
-    dst[(2 * t + 1) * TN + hi] = acc[0][3] + acc[1][3];
+    // j the row j of x; the halves added, then (f32 x) the low parts'.  The
+    // lane's indices read again: kept across the ring, one spilled in the
+    // f32 x f16 instances at 56 registers
+    float sum[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      sum[e] = acc[0][e] + acc[1][e];
+      if constexpr (XF32) sum[e] += acc_lo[0][e] + acc_lo[1][e];
+    }
+    const int et = tid_x(), ew = et >> 5, eg = (et & 31) >> 2;
+    const int e2t = 2 * (et & 3);
+    float* dst = c.red + ew / GROUPS * TM * TN;
+    const int lo = ew % GROUPS * 16 + (WI8 ? 2 * eg : eg);
+    const int hi = ew % GROUPS * 16 + (WI8 ? 2 * eg + 1 : eg + 8);
+    dst[e2t * TN + lo] = sum[0];
+    dst[(e2t + 1) * TN + lo] = sum[1];
+    dst[e2t * TN + hi] = sum[2];
+    dst[(e2t + 1) * TN + hi] = sum[3];
   }
   float_finish<typename Promoted<TX, TW>::type, TN, SHARES, TC_CONS>(
       a, c, cluster, rank);
@@ -981,12 +1181,11 @@ struct FloatKernel {
   void (*ffma)(MmFloatArgs);
 };
 
-// The instance of a pair: FFMA where an operand is f32 (tiles of 32 and
-// 64 columns), else the tensor cores (32, 64 and 128;
-// ops.mm_float_tensor_cores)
+// The instance of a pair: the tensor cores where float_tensor_cores
+// (tiles of 32, 64 and 128 columns), else FFMA (32 and 64)
 template <typename TX, typename TW, int TN>
 FloatKernel float_instance() {
-  if constexpr (!is_f32<TX> && !is_f32<TW>)
+  if constexpr (float_tensor_cores(sizeof(TX), sizeof(TW)))
     return {mm_float_tc<TX, TW, TN>, nullptr};
   else if constexpr (TN == 128)
     return {};
@@ -1021,16 +1220,17 @@ FloatKernel float_kernel(int x_type, int w_type) {
 }
 
 // The tensor map of a [rows, cols] operand of the type code `type`, rows
-// contiguous: boxes of box_cols x box_rows, the 128-byte swizzle, zeros
-// past the tensor.
+// contiguous, dims and box in elements: boxes of box_cols x box_rows, the
+// 128-byte swizzle, zeros past the tensor.
 cudaError_t float_map(CUtensorMap* map, const void* base, int type, int rows,
                       int cols, int box_cols, int box_rows) {
   h2pipe_tma::EncodeTiled fn = h2pipe_tma::encode_tiled();
   if (!fn) return cudaErrorNotSupported;
   const CUtensorMapDataType dt =
-      type == T_BF16  ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
-      : type == T_F16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
-                      : CU_TENSOR_MAP_DATA_TYPE_UINT8;
+      type == T_F32    ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+      : type == T_BF16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+      : type == T_F16  ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                       : CU_TENSOR_MAP_DATA_TYPE_UINT8;
   cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
   cuuint64_t strides[1] = {(cuuint64_t)cols * TYPE_BYTES[type]};
   cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
@@ -1102,11 +1302,14 @@ int stream_matmul_int8_launch(const int8_t* x, const int8_t* w,
 // kr rows over a cluster, K blocks of kblk rows of w and x through an
 // nb-slot ring, copies of wvec (w) and xvec (x) bytes, or (tma) TMA boxes
 // of 128 bytes; smem: the bytes of its layout, which mm_float_layout()
-// must reproduce.  A pair without f32 runs mm_float_tc, its kr and kblk a
-// multiple of TC_UNIT (tma: kblk a multiple of 128 bytes of x, at most
-// 256 rows; w's and x's rows a multiple of 16 bytes, tn * w_bytes 128 or
-// 256); a pair with f32 mm_float, kr a multiple of 16 and kblk of 16 where
-// x is int8, else of 8.  out: [M, N] of the promoted type (Promoted).
+// must reproduce.  A pair with bf16, f16 or int8 weights
+// (float_tensor_cores) runs mm_float_tc, its kr and kblk a multiple of
+// TC_UNIT (tma: kblk a multiple of 128 bytes of x, at most 256 rows; w's
+// and x's rows a multiple of 16 bytes, tn * w_bytes 128 or 256); a pair
+// with f32 weights mm_float, kr a multiple of 16 and kblk of 16 where x is
+// int8, else of 8.  A pair the tensor cores take launches mm_float_tc or
+// returns an error, never mm_float.  out: [M, N] of the promoted type
+// (Promoted).
 // Returns cudaGetLastError() after the launch.
 int stream_matmul_float_launch(const void* x, const void* w, void* out,
                                int x_type, int w_type, int M, int K, int N,
@@ -1121,7 +1324,7 @@ int stream_matmul_float_launch(const void* x, const void* w, void* out,
       (x_type == T_I8 && w_type == T_I8))
     return (int)cudaErrorInvalidValue;
   const int x_bytes = TYPE_BYTES[x_type], w_bytes = TYPE_BYTES[w_type];
-  const bool tc = x_type != T_F32 && w_type != T_F32;
+  const bool tc = float_tensor_cores(x_bytes, w_bytes);
   const int kstep = tc ? TC_UNIT : x_bytes == 1 ? 16 : 8;
   const int rstep = tc ? TC_UNIT : 16;
   if (M < 1 || K < 1 || N < 1 || (tn != 32 && tn != 64 && tn != 128) ||
@@ -1154,7 +1357,7 @@ int stream_matmul_float_launch(const void* x, const void* w, void* out,
   if (entry == nullptr) return (int)cudaErrorInvalidValue;
   MmFloatArgs a{static_cast<const unsigned char*>(x),
                 static_cast<const unsigned char*>(w), out, M, K, N, kr,
-                kblk, nb, wvec, xvec, tma, L.srow, L.xrow, L.slot};
+                kblk, nb, wvec, xvec, tma, L.srow, L.xrow, L.slot, L.prow};
   cudaError_t err = cudaFuncSetAttribute(
       entry, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;

@@ -11,9 +11,10 @@ A CPU tensor runs the plain version in ``ref.py``; a CUDA tensor launches
 launch plan of :func:`mm_plan`; every other pair over f32, bf16, f16 and
 int8 the float modes with the plan of :func:`mm_float_plan` (the result
 in the promoted type, ``ref.result_dtype``): ``mm_float_tc`` on the
-tensor cores where neither operand is f32
-(:func:`mm_float_tensor_cores`), ``mm_float`` (FFMA) where one is; any
-other operand type (f64, say) raises ``NotImplementedError``.  ``bm``/``bn`` are the JAX kernel's
+tensor cores where the weights are bf16, f16 or int8
+(:func:`mm_float_tensor_cores`; an f32 x split exactly into three bf16
+parts), ``mm_float`` (FFMA) where they are f32; any other operand type
+(f64, say) raises ``NotImplementedError``.  ``bm``/``bn`` are the JAX kernel's
 block sizes and only feed :func:`vmem_bytes` accounting; the CUDA kernels
 pick their own tiles, take ``bk`` as the largest K block of their ring,
 and mask ragged edges.
@@ -35,7 +36,8 @@ from repro_torch.kernels.stream_matmul.ref import (result_dtype,
 
 __all__ = ["stream_matmul", "stream_matmul_requant", "vmem_bytes",
            "mm_plan", "mm_layout", "mm_bytes_read", "MmPlan", "KERNELS",
-           "mm_float_plan", "mm_float_layout", "MmFloatPlan",
+           "mm_float_plan", "mm_float_layout", "mm_float_parts",
+           "MmFloatPlan",
            "mm_float_tensor_cores", "mm_float_kstep", "mm_float_shares",
            "float_instance", "FLOAT_KERNELS", "FLOAT_DTYPES",
            "FLOAT_TYPE_CODES"]
@@ -202,18 +204,21 @@ MM_TMA_SLOT_MAX = 32768       # bytes of a slot on the TMA route, at most
 
 
 def mm_float_tensor_cores(x_bytes: int, w_bytes: int) -> bool:
-    """Whether a pair runs on the tensor cores (``mm_float_tc``): neither
-    operand f32, so each is exact in 16 bits (bf16, f16, int8 widened);
-    a tf32 product would round an f32 operand, so those pairs stay on
-    FFMA (``mm_float``)."""
-    return x_bytes <= 2 and w_bytes <= 2
+    """Whether a pair runs on the tensor cores (``mm_float_tc``; the .cu's
+    ``float_tensor_cores``): its weights are not f32 and it is not int8 x
+    int8 (``mm_kernel``'s).  A bf16, f16 or int8 operand is exact in 16
+    bits (int8 widened); an f32 x splits exactly into three bf16 parts, a
+    product each on the same weights.  The f32 weights stay on FFMA
+    (``mm_float``): a tf32 product would round them, and three parts would
+    triple the products of the pairs that are already near their bound."""
+    return w_bytes <= 2 and not x_bytes == w_bytes == 1
 
 
 def float_instance(x_dtype, w_dtype, tn: int) -> str:
     """The kernel instance a float pair launches at column tile ``tn``, as
-    the build names it: ``mm_float_tc<bf16,int8,128>`` without an f32
-    operand, else ``mm_float<f32,bf16,64>``; each launch is counted under
-    it in ``_build.SHAPE_LAUNCHES``."""
+    the build names it: ``mm_float_tc<f32,int8,128>`` on the tensor cores
+    (:func:`mm_float_tensor_cores`), else ``mm_float<bf16,f32,64>``; each
+    launch is counted under it in ``_build.SHAPE_LAUNCHES``."""
     tc = mm_float_tensor_cores(torch.empty((), dtype=x_dtype).element_size(),
                                torch.empty((), dtype=w_dtype).element_size())
     return (f"{'mm_float_tc' if tc else 'mm_float'}<"
@@ -271,16 +276,30 @@ def mm_float_slot(tn: int, kblk: int, x_bytes: int, w_bytes: int,
     return kblk * (tn * w_bytes + pad) + MM_TM * (kblk * x_bytes + pad)
 
 
+def mm_float_parts(tn: int, kblk: int, x_bytes: int, w_bytes: int) -> int:
+    """Bytes of an f32 x's parts (the .cu's ``x_parts_bytes``): on the
+    tensor cores at a tile of more than 32 columns (``x_split_shared``;
+    at 32 each warp splits x in registers), two buffers, each the three
+    bf16 parts of a slot's x, ``[3][MM_TM]`` rows of ``kblk`` bf16 padded
+    by 16 bytes; else none."""
+    if not (x_bytes == 4 and tn > 32
+            and mm_float_tensor_cores(x_bytes, w_bytes)):
+        return 0
+    return 2 * 3 * MM_TM * (2 * kblk + 16)
+
+
 def mm_float_layout(tn: int, kblk: int, nb: int, x_bytes: int,
                     w_bytes: int, tma: bool = False) -> int:
     """Shared-memory bytes of one CTA: the full and empty mbarriers of the
     ``nb`` slots, (TMA) 1024 bytes to align the ring to the swizzle, the
     slots, the consumers' shares ``[shares][MM_TM][tn]``
-    (:func:`mm_float_shares`) and the CTA's sums ``[MM_TM][tn]`` (f32)."""
-    shares = mm_float_shares(tn, mm_float_tensor_cores(x_bytes, w_bytes))
+    (:func:`mm_float_shares`) and the CTA's sums ``[MM_TM][tn]`` (f32);
+    then an f32 x's parts (:func:`mm_float_parts`)."""
+    tc = mm_float_tensor_cores(x_bytes, w_bytes)
     return 16 * nb + (1024 if tma else 0) \
         + nb * mm_float_slot(tn, kblk, x_bytes, w_bytes, tma) \
-        + (shares + 1) * MM_TM * tn * 4
+        + (mm_float_shares(tn, tc) + 1) * MM_TM * tn * 4 \
+        + mm_float_parts(tn, kblk, x_bytes, w_bytes)
 
 
 def _copy_bytes(row_bytes: int, elem_bytes: int) -> int:
@@ -306,7 +325,8 @@ def mm_float_plan(M: int, K: int, N: int, mode: str, bk: int,
     the tensor cores, where ranges are a multiple of it too; on FFMA
     ``MM_FLOAT_KBLK``, or ``MM_FLOAT_KBLK_I8`` where x is int8) and
     ``MM_SLOT_MAX`` bytes a slot, depth 2 (``stream``) or ``n_buffers``
-    (``fifo``), never more slots than the range has blocks.  On the
+    (``fifo``), never more slots than the range has blocks, an f32 x's
+    parts (:func:`mm_float_parts`) counted in a slot's bytes.  On the
     tensor cores the slots come by TMA where w's and x's rows are a
     multiple of 16 bytes and a column tile is 128 or 256 bytes: K blocks
     of whole 128-byte boxes of x, at most ``MM_TMA_ROWS`` rows and
@@ -349,6 +369,9 @@ def _float_plan(M: int, K: int, N: int, mode: str, blk: int, depth: int,
                and (2 * split - 1) * _range_rows(K, 2 * split, unit) < K):
             split *= 2
     kr = _range_rows(K, split, unit)
+    # an f32 x's parts count in a slot's bytes (a K row's share of them)
+    parts = mm_float_parts(tn, 1, x_bytes, w_bytes) \
+        - mm_float_parts(tn, 0, x_bytes, w_bytes)
     # the TMA route: rows of w and x a multiple of 16 bytes, a column tile
     # of one or two 128-byte boxes, K blocks of whole 128-byte boxes of x
     # and at most MM_TMA_ROWS rows
@@ -360,13 +383,13 @@ def _float_plan(M: int, K: int, N: int, mode: str, blk: int, depth: int,
         tma = tma and kr % xstep == 0 and kr <= MM_TMA_ROWS
     else:
         if tma:
-            cap = MM_TMA_SLOT_MAX // mm_float_slot(tn, 1, x_bytes, w_bytes,
-                                                   True)
+            cap = MM_TMA_SLOT_MAX // (mm_float_slot(tn, 1, x_bytes, w_bytes,
+                                                    True) + parts)
             kblk = min(blk, kr, cap, MM_TMA_ROWS) // xstep * xstep
             tma = kblk > 0
         if not tma:
             step = mm_float_kstep(x_bytes, w_bytes)
-            per_row = tn * w_bytes + 16 + MM_TM * x_bytes
+            per_row = tn * w_bytes + 16 + MM_TM * x_bytes + parts
             cap = (MM_SLOT_MAX - 16 * MM_TM) // per_row
             kblk = max(step, min(blk, kr, cap) // step * step)
         nb = min(depth, -(-kr // kblk))
@@ -419,9 +442,10 @@ def charge(M: int, K: int, N: int, x_bytes: int, w_bytes: int,
 
 
 def _launch_float(x, w, *, mode: str, bk: int, n_buffers: int):
-    """The float modes on the card: ``mm_float_tc`` (no f32 operand; an
-    int8 operand widened to the other's type in registers) or
-    ``mm_float`` (FFMA) -> [M, N] of the promoted type."""
+    """The float modes on the card: ``mm_float_tc`` (bf16, f16 or int8
+    weights; an int8 operand widened to the other's type in registers, an
+    f32 x split into three bf16 parts) or ``mm_float`` (FFMA, f32
+    weights) -> [M, N] of the promoted type; a launch that fails raises."""
     M, K, N = _shapes(x, w)
     dev = x.device
     xb, wb = x.element_size(), w.element_size()

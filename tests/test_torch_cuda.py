@@ -359,10 +359,11 @@ def test_matmul_float_new_pairs_match_plain(dev, xd, wd, shape):
                         "stream_matmul_float_fifo": 2}
 
 
-# every pair over f32, bf16, f16 and int8 but int8 x int8 (the eight
-# without f32 on the tensor cores, mm_float_tc; the seven with it on FFMA,
-# mm_float) at ragged shapes: M of 1, 8, 9 and 17 rows, N of 10, 36 and
-# 1000 columns (and 4096, where the tensor cores take 128-column tiles),
+# every pair over f32, bf16, f16 and int8 but int8 x int8 (the eleven
+# with bf16, f16 or int8 weights on the tensor cores, mm_float_tc; the four
+# with f32 weights on FFMA, mm_float) at ragged shapes: M of 1, 8, 9 and
+# 17 rows, N of 10, 36 and 1000 columns (and 4096, where the tensor cores
+# take 128-column tiles),
 # K = 100 over a K split of more than one rank, in the three modes,
 # within the output type's limit (f16 within bf16's)
 FLOAT_NAMES = ("float32", "bfloat16", "float16", "int8")
@@ -394,7 +395,7 @@ def test_matmul_float_every_pair_at_ragged_shapes(dev, xd, wd, m, n):
                              w.element_size(), _device_sms(dev))
         key = (FLOAT_KERNELS[mode], float_instance(xt, wt, plan.tn))
         instances[key] = instances.get(key, 0) + 1
-        assert plan.tensor_cores == (torch.float32 not in (xt, wt))
+        assert plan.tensor_cores == (wt != torch.float32)
         if n < 4096:
             assert plan.split > 1
         elif plan.tensor_cores:
@@ -425,7 +426,7 @@ TMA_SHAPES = [(1, 1040, 4096), (9, 1040, 4160), (17, 2080, 4160)]
 @pytest.mark.parametrize("shape", TMA_SHAPES, ids=[
     "m{}-k{}-n{}".format(*s) for s in TMA_SHAPES])
 @pytest.mark.parametrize("xd,wd", [p for p in ALL_FLOAT_PAIRS
-                                   if "float32" not in p])
+                                   if p[1] != "float32"])
 def test_matmul_float_tma_route_matches_plain(dev, xd, wd, shape):
     from repro_torch.kernels.conv2d_int8.ops import _device_sms
     from repro_torch.kernels.stream_matmul.ops import (mm_float_plan,
@@ -448,6 +449,79 @@ def test_matmul_float_tma_route_matches_plain(dev, xd, wd, shape):
         assert got.dtype == want.dtype and got.shape == want.shape
         assert bool(((got.double() - wd_).abs() <= bound).all()), \
             (mode, float((got.double() - wd_).abs().max()))
+
+
+# The f32-x pairs on the tensor cores (x split exactly into three bf16
+# parts) on edge values, at a ragged shape (the cp.async route) and a TMA
+# one: a row of x holds normal values but, by its index mod 8, one column
+# of EDGE_BITS (+inf, -inf, a NaN whose payload has only low bits, the
+# largest finite f32, a value above bf16's largest that round to nearest
+# makes -inf), zeros and -0 (5), values near 2^-105, inside the split's
+# exact range from 2^-110 (6), or values near 2^-128 below it with the
+# smallest normal and subnormal (7); w normal x 0.25 (int8: [-127, 127]).
+# inf and NaN where the plain version has them, finite outputs within the
+# f32 limit of their row plus the split's bound (2^-133 |w|) for x's
+# values below 2^-110 (chip_smoke.py's edge_err)
+EDGE_BITS = (0x7f800000, 0xff800000, 0x7f800001, 0x7f7fffff, 0xff7f8001)
+
+
+def _edge_operands(g, dev, m, k, n, wd):
+    x = torch.randn(m, k, generator=g, device=dev)
+    bits = x.view(torch.int32)
+    cols = torch.randint(0, k, (m,), generator=g, device=dev).tolist()
+    for r in range(m):
+        kind = r % 8
+        if kind < 5:
+            bits[r, cols[r]] = EDGE_BITS[kind] - (
+                1 << 32 if EDGE_BITS[kind] >> 31 else 0)
+        elif kind == 5:
+            x[r, ::2] = 0.0
+            x[r, 1::4] = -0.0
+        elif kind == 6:
+            x[r] *= 2.0 ** -105
+        else:
+            x[r] *= 2.0 ** -128
+            bits[r, :2] = torch.tensor([0x00800000, 1], dtype=torch.int32)
+    if wd == torch.int8:
+        return x, _i8(g, dev, k, n)
+    return x, (torch.randn(k, n, generator=g, device=dev) * 0.25).to(wd)
+
+
+@pytest.mark.parametrize("shape", [(17, 100, 36), (17, 2080, 4160)])
+@pytest.mark.parametrize("wd", [torch.bfloat16, torch.float16, torch.int8])
+def test_matmul_float_f32_x_edge_values(dev, wd, shape):
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels._build import SHAPE_LAUNCHES
+    from repro_torch.kernels.conv2d_int8.ops import _device_sms
+    from repro_torch.kernels.stream_matmul.ops import (mm_float_plan,
+                                                       stream_matmul)
+    from repro_torch.kernels.stream_matmul.ref import stream_matmul_ref
+    m, k, n = shape
+    g = torch.Generator(device=dev).manual_seed(k + n)
+    x, w = _edge_operands(g, dev, m, k, n, wd)
+    want = stream_matmul_ref(x, w).double()
+    nan, inf, fin = want.isnan(), want.isinf(), want.isfinite()
+    assert nan.any() and inf.any() and fin.any()
+    row = torch.where(fin, want.abs(), torch.zeros_like(want)).amax(
+        1, keepdim=True)
+    below = ((x.abs() < 2.0 ** -110) & (x != 0)).double()
+    limit = 2e-5 * want.abs() + 2e-5 * row \
+        + 2.0 ** -133 * (below @ w.double().abs())
+    reset_launches()
+    for mode, nb, bk in (("fifo", 2, 512), ("stream", 2, 32),
+                         ("pinned", 2, 512)):
+        plan = mm_float_plan(m, k, n, mode, bk, nb, 4, w.element_size(),
+                             _device_sms(dev))
+        assert plan.tensor_cores and plan.tma == (n == 4160 and
+                                                  mode != "pinned")
+        got = stream_matmul(x, w, mode=mode, bk=bk, n_buffers=nb).double()
+        assert torch.equal(got.isnan(), nan) and torch.equal(got.isinf(), inf)
+        assert torch.equal(got[inf], want[inf])
+        assert bool(((got - want).abs()[fin] <= limit[fin]).all()), \
+            (mode, float(((got - want).abs() / limit)[fin].max()))
+    torch.cuda.synchronize()
+    assert sum(LAUNCHES.values()) == 3
+    assert all(i.startswith("mm_float_tc<f32,") for _, i in SHAPE_LAUNCHES)
 
 
 @pytest.mark.parametrize("m,k,n", [(8, 2048, 1000), (3, 100, 10),

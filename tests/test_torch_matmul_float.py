@@ -13,9 +13,11 @@ configs: the CTAs' K ranges tile K exactly, the ring's depth is
 ``ring()``'s, shared memory fits a block; the ring's waits and arrivals
 replayed in Python obey the credit rule; an f32 emulation of what each
 body computes with its plan, in its order of sums, against the plain
-version and the JAX kernel; and the tensor-core body's fragment layout,
+version and the JAX kernel; the tensor-core body's fragment layout,
 modelled lane by lane after PTX's ``ldmatrix`` and ``mma.sync``, against
-the exact product of a tile.
+the exact product of a tile; and a numpy model of the exact split of an
+f32 x into three bf16 parts (``stream_matmul.cu::split3``) over every
+binade and the edge values.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -154,7 +156,7 @@ def test_mm_float_plan_covers_and_fits(shape, mode, xd, wd):
         assert plan.m_tiles == -(-M // MM_TM)
         assert plan.split in (1, 2, 4, 8) and plan.split <= MM_MAX_SPLIT
         assert plan.kr % 16 == 0
-        assert plan.tensor_cores == (xd == wd == "bf16")
+        assert plan.tensor_cores == (wd == "bf16")
         if plan.tensor_cores:
             assert plan.kr % MM_FLOAT_TC_UNIT == 0
         ranges = _ranges(K, plan.kr)
@@ -293,11 +295,11 @@ def test_float_ring_replay_catches_a_refill_without_credit():
 @pytest.mark.parametrize("shape", PLAN_SHAPES[:5], ids=[
     "m{}-k{}-n{}".format(*s) for s in PLAN_SHAPES[:5]])
 def test_tensor_core_ring_obeys_the_credit_rule(shape):
-    """The tensor-core plans (bf16 x bf16, int8 x bf16, bf16 x int8) keep
-    the ring's contract: the same waits and arrivals, eight consumer warps
-    a slot."""
+    """The tensor-core plans (bf16 x bf16, int8 x bf16, bf16 x int8, f32 x
+    bf16, f32 x int8) keep the ring's contract: the same waits and
+    arrivals, eight consumer warps a slot."""
     M, K, N = shape
-    for xb, wb in ((2, 2), (1, 2), (2, 1)):
+    for xb, wb in ((2, 2), (1, 2), (2, 1), (4, 2), (4, 1)):
         for mode in ("stream", "fifo"):
             for nb in (1, 2, 3, 4):
                 for bk in (16, 128):
@@ -326,7 +328,7 @@ def _tile_operands(plan, x, w, nt, mt, k0, kbase):
     return ws, xs, hi - kbase
 
 
-def _emulate(x, w, plan, tf32=False):
+def _emulate(x, w, plan, tf32=False, split=False):
     """What the float body of ``plan`` computes, in f32.  Per CTA (column
     tile, rank, row tile) the rank's K range in blocks of kblk rows (zeros
     past K, N and M).  FFMA (``mm_float``): each consumer thread (quad q of
@@ -337,7 +339,11 @@ def _emulate(x, w, plan, tf32=False):
     + SHARES, ... up to the last that holds a row of the range, adding each
     k16 half's products into its own sum (``tf32``: two k8 steps, a lane's
     even K rows then its odd ones), the two sums added, then the shares in
-    order.  The ranks' sums are added in order."""
+    order; ``split`` (an f32 x): x's three parts (:func:`_split3`) in
+    turn, each over the half's steps, x0's products into the half's sum
+    and x1's then x2's into a low sum of its own, the halves' low sums
+    added after the halves' sums.
+    The ranks' sums are added in order."""
     M, K = x.shape
     N = w.shape[1]
     out = np.zeros((M, N), np.float32)
@@ -355,12 +361,15 @@ def _emulate(x, w, plan, tf32=False):
                 k0 = min(K, rank * plan.kr)
                 k1 = min(K, k0 + plan.kr)
                 if plan.tensor_cores:
-                    acc = np.zeros((shares, 2, MM_TM, plan.tn), np.float32)
+                    acc = np.zeros((shares, 2, 2, MM_TM, plan.tn),
+                                   np.float32)
                 else:
                     share = np.zeros((ways, MM_TM, plan.tn), np.float32)
                 for kbase in range(k0, k1, plan.kblk):
                     ws, xs, n_rows = _tile_operands(plan, x, w, nt, mt, k1,
                                                     kbase)
+                    parts = ([_value32(p) for p in _split3(xs)] if split
+                             else [xs])
                     if not plan.tensor_cores:
                         for k4 in range(-(-n_rows // 4)):
                             way = k4 % ways
@@ -373,14 +382,17 @@ def _emulate(x, w, plan, tf32=False):
                             steps = ([range(r0, r0 + 16, 2),
                                       range(r0 + 1, r0 + 16, 2)] if tf32
                                      else [range(r0, r0 + 16)])
-                            for ks in steps:
-                                ks = list(ks)
-                                acc[u % shares, j] += (
-                                    xs[:, ks].astype(np.float64)
-                                    @ ws[ks].astype(np.float64)
-                                ).astype(np.float32)
+                            for q, xq in enumerate(parts):
+                                for ks in steps:
+                                    ks = list(ks)
+                                    acc[u % shares, min(q, 1), j] += (
+                                        xq[:, ks].astype(np.float64)
+                                        @ ws[ks].astype(np.float64)
+                                    ).astype(np.float32)
                 if plan.tensor_cores:
-                    red = acc[:, 0] + acc[:, 1]
+                    red = acc[:, 0, 0] + acc[:, 0, 1]
+                    if split:
+                        red += acc[:, 1, 0] + acc[:, 1, 1]
                     cta = red[0].copy()
                     for s_ in range(1, shares):
                         cta += red[s_]
@@ -415,7 +427,8 @@ def test_emulated_float_matmul_matches_reference_and_pallas(case, xd, wd):
     rng = np.random.default_rng(M * K + N)
     x, w, tx, tw = _operands(rng, (M, K, N), xd, wd)
     plan = mm_float_plan(M, K, N, mode, bk, nb, BYTES[xd], BYTES[wd], sms)
-    got = _emulate(tx.float().numpy(), tw.float().numpy(), plan)
+    got = _emulate(tx.float().numpy(), tw.float().numpy(), plan,
+                   split=plan.tensor_cores and xd == "f32")
     out_dtype = result_dtype(tx.dtype, tw.dtype)
     got = torch.from_numpy(got).to(out_dtype).float().numpy()
     want = stream_matmul_ref(tx, tw).float().numpy()
@@ -460,6 +473,12 @@ ALL_PAIRS = [(a, b) for a in ALL_TYPES for b in ALL_TYPES
 ALL_BYTES = {"f32": 4, "bf16": 2, "f16": 2, "int8": 1}
 
 
+def _tf32(xd, wd):
+    """Whether the pair's tensor-core products run m16n8k8 tf32 (the .cu's
+    ``MmaType``): bf16 with f16, and an f32 x's parts against f16."""
+    return {xd, wd} == {"bf16", "f16"} or (xd, wd) == ("f32", "f16")
+
+
 def _typed(rng, shape, name):
     """Normal values rounded to the type, or int8 integers in [-127, 127],
     as a torch tensor of the type."""
@@ -473,17 +492,18 @@ def _typed(rng, shape, name):
 @pytest.mark.parametrize("xd,wd", ALL_PAIRS)
 @pytest.mark.parametrize("case", EMU[4:], ids=EMU_IDS[4:])
 def test_emulated_every_pair_matches_reference(case, xd, wd):
-    """Every pair's body (the tensor cores for the eight without f32,
-    FFMA for the seven with it), emulated with its own plan, within the
-    output type's limit of the plain version."""
+    """Every pair's body (the tensor cores for the eleven with bf16, f16
+    or int8 weights, FFMA for the four with f32 weights), emulated with
+    its own plan in its order of sums, within the output type's limit of
+    the plain version."""
     M, K, N, mode, bk, nb, sms = case
     rng = np.random.default_rng(M * K + N + len(xd) * 7 + len(wd))
     tx, tw = _typed(rng, (M, K), xd), _typed(rng, (K, N), wd)
     plan = mm_float_plan(M, K, N, mode, bk, nb, ALL_BYTES[xd],
                          ALL_BYTES[wd], sms)
-    assert plan.tensor_cores == ("f32" not in (xd, wd))
+    assert plan.tensor_cores == (wd != "f32")
     got = _emulate(tx.float().numpy(), tw.float().numpy(), plan,
-                   tf32={xd, wd} == {"bf16", "f16"})
+                   tf32=_tf32(xd, wd), split=xd == "f32" and wd != "f32")
     out_dtype = result_dtype(tx.dtype, tw.dtype)
     got = torch.from_numpy(got).to(out_dtype).float().numpy()
     want = stream_matmul_ref(tx, tw).float().numpy()
@@ -493,9 +513,14 @@ def test_emulated_every_pair_matches_reference(case, xd, wd):
 
 
 def test_tensor_cores_take_the_pairs_without_f32():
+    """The pairs without f32 weights: the eight without f32 and f32 x
+    against bf16, f16 and int8 weights; FFMA keeps the four f32-weight
+    pairs."""
     got = {(a, b) for a, b in ALL_PAIRS
            if mm_float_tensor_cores(ALL_BYTES[a], ALL_BYTES[b])}
-    assert len(got) == 8 and all("f32" not in p for p in got)
+    assert len(got) == 11 and all(b != "f32" for _, b in got)
+    assert set(ALL_PAIRS) - got == {(a, "f32") for a in ALL_TYPES}
+    assert not mm_float_tensor_cores(1, 1)
 
 
 def test_float_instance_names_the_body_each_pair_launches():
@@ -506,6 +531,118 @@ def test_float_instance_names_the_body_each_pair_launches():
         for tn in (32, 64, 128):
             assert float_instance(ALL_TYPES[a], ALL_TYPES[b], tn) == \
                 f"{body}<{a},{b},{tn}>"
+
+
+# ---------------------------------------------------------------------------
+# the split of an f32 x into three bf16 parts
+# ---------------------------------------------------------------------------
+
+def _split3(x):
+    """stream_matmul.cu::split3 on f32 values: three uint32 arrays of f32
+    bit patterns whose low 16 bits are zero (bf16 values), x0 the bits of
+    x truncated to their high half, x1 the remainder x - x0 (exact in
+    f32) truncated the same way, x2 = (x - x0) - x1 truncated; a
+    non-finite x gives x0 = x (a NaN the quiet NaN) and x1 = x2 = 0."""
+    x = np.ascontiguousarray(x, np.float32)
+    v = x.view(np.uint32)
+    hi = v & np.uint32(0xffff0000)
+    with np.errstate(invalid="ignore", over="ignore"):
+        r = x - hi.view(np.float32)
+        mid = r.view(np.uint32) & np.uint32(0xffff0000)
+        lo = (r - mid.view(np.float32)).view(np.uint32) \
+            & np.uint32(0xffff0000)
+    finite = (v & np.uint32(0x7f800000)) != np.uint32(0x7f800000)
+    nan = ~finite & ((v & np.uint32(0x007fffff)) != 0)
+    zero = np.uint32(0)
+    return (np.where(nan, np.uint32(0x7fc00000), hi),
+            np.where(finite, mid, zero), np.where(finite, lo, zero))
+
+
+def _value32(bits):
+    """uint32 f32 bit patterns as f32 values."""
+    return np.ascontiguousarray(bits, np.uint32).view(np.float32)
+
+
+def _full_significands(rng, exps):
+    """f32 values of random sign and 24-bit significands (the last bit and
+    bit 15 set, so every part of the split is non-zero) in binades
+    ``exps``."""
+    m = rng.integers(1 << 23, 1 << 24, size=len(exps)) | 0x8001
+    sign = rng.choice([-1.0, 1.0], size=len(exps))
+    return (sign * np.ldexp(m.astype(np.float64), np.asarray(exps) - 23)
+            ).astype(np.float32)
+
+
+F32_MAX = float(np.finfo(np.float32).max)
+BF16_MAX = float(np.array([0x7f7f0000], np.uint32).view(np.float32)[0])
+# finite edge values: +-0, the largest finite f32, values above bf16's
+# largest (round to nearest makes those from 0x7f7f8000 on inf), the
+# smallest normal and 2^-110, where the exact range begins
+SPLIT_EDGES = np.concatenate([
+    np.array([0.0, -0.0, F32_MAX, -F32_MAX, BF16_MAX, 2.0 ** -126,
+              -(2.0 ** -126), 2.0 ** -110, 2.0 ** -110 * (1 + 2.0 ** -23),
+              1.0, -1.5], np.float32),
+    np.array([0x7f7f0001, 0x7f7f8000, 0xff7fffff], np.uint32).view(
+        np.float32)])
+
+
+def test_split3_is_exact_from_2_to_the_minus_110():
+    """Every binade from 2^-110 to the largest, 24-bit significands, and
+    the finite edges: x0 + x1 + x2 == x exactly, each part a bf16 value
+    (its low 16 bits zero), x0 never rounded up (finite above bf16's
+    largest), every part non-zero for the full significands."""
+    rng = np.random.default_rng(31)
+    exps = np.repeat(np.arange(-110, 128), 8)
+    x = np.concatenate([_full_significands(rng, exps), SPLIT_EDGES])
+    x = x[(np.abs(x) >= 2.0 ** -110) | (x == 0)]
+    parts = _split3(x)
+    for p in parts:
+        assert not (p & np.uint32(0xffff)).any()
+        assert np.isfinite(_value32(p)).all()
+    total = sum(_value32(p).astype(np.float64) for p in parts)
+    np.testing.assert_array_equal(total, x.astype(np.float64))
+    full = len(exps)
+    assert all((p[:full] != 0).all() for p in parts)
+    # bf16's round to nearest makes these inf (from bf16's largest plus
+    # half its last place, 0x7f7f8000)
+    rn_inf = (x.view(np.uint32) & np.uint32(0x7fffffff)) >= 0x7f7f8000
+    assert rn_inf.sum() == 4
+    assert np.isinf(torch.from_numpy(x[rn_inf]).to(torch.bfloat16)
+                    .float().numpy()).all()
+
+
+def test_split3_below_2_to_the_minus_110_is_within_2_to_the_minus_133():
+    """Below 2^-110 (the smallest normal, subnormals) the last part's bits
+    under bf16's least subnormal, 2^-133, are dropped: the sum is within
+    2^-133 of x, and inexact where x has such bits."""
+    rng = np.random.default_rng(32)
+    exps = np.repeat(np.arange(-149, -110), 8)
+    x = np.concatenate([_full_significands(rng, exps).astype(np.float64),
+                        np.ldexp(1.0, np.arange(-149, -110)),
+                        [2.0 ** -149 * 3, -(2.0 ** -126)]]).astype(np.float32)
+    assert (np.abs(x) < 2.0 ** -110).all() and (x != 0).all()
+    parts = _split3(x)
+    err = np.abs(sum(_value32(p).astype(np.float64) for p in parts)
+                 - x.astype(np.float64))
+    assert (err < 2.0 ** -133).all()
+    assert (err > 0).sum() >= len(exps) // 2
+    # the edge of the range: 2^-111 (1 + 2^-23) has a last bit of 2^-134
+    edge = np.float32(2.0 ** -111 * (1 + 2.0 ** -23))
+    assert sum(float(_value32(p)[0]) for p in _split3(np.array([edge]))) \
+        != float(edge)
+
+
+def test_split3_carries_inf_and_nan_in_the_first_part():
+    """A non-finite x: x0 is x (+-inf) or a NaN, whatever bits the NaN's
+    payload has (only low ones: truncating would make it inf), x1 = x2 =
+    0; so inf and NaN reach the sums as the plain version's do."""
+    bits = np.array([0x7f800000, 0xff800000, 0x7f800001, 0xff80ffff,
+                     0x7fc00000, 0xffffffff, 0x7f810000], np.uint32)
+    x0, x1, x2 = _split3(bits.view(np.float32))
+    v0 = _value32(x0)
+    assert (v0[:2] == [np.inf, -np.inf]).all()
+    assert np.isnan(v0[2:]).all()
+    assert not x1.any() and not x2.any()
 
 
 # ---------------------------------------------------------------------------
@@ -559,10 +696,15 @@ def _widen_i8x2(v, name):
     return a[0] - b[0], a[1] - b[1]
 
 
-def _unit_row(xi8, j, h, r):
-    """stream_matmul.cu::unit_row."""
-    return (16 * j + 4 * (r >> 1) + 2 * (r & 1) + h if xi8
-            else 16 * j + 8 * h + r)
+def _unit_row(xl, j, h, r):
+    """stream_matmul.cu::unit_row for x's layout ``xl``: 16-bit values
+    (``x16``), int8 words (``x8``) or f32 values split in registers
+    (``x32``)."""
+    if xl == "x8":
+        return 16 * j + 4 * (r >> 1) + 2 * (r & 1) + h
+    if xl == "x16":
+        return 16 * j + 8 * h + r
+    return 16 * j + 8 * h + (r >> 1) + 4 * (r & 1)
 
 
 def _tile_at(tma, r, b, pitch, box_rows):
@@ -598,7 +740,10 @@ def _mma(a, b, tf32):
 
 
 def _bits(values, name):
-    """Little-endian bytes of values in the type: bf16, f16 or int8."""
+    """Little-endian bytes of values in the type: f32, bf16, f16 or
+    int8."""
+    if name == "f32":
+        return values.astype(np.float32).view(np.uint8).reshape(-1)
     if name == "int8":
         return values.astype(np.int8).view(np.uint8).reshape(-1)
     if name == "f16":
@@ -607,10 +752,30 @@ def _bits(values, name):
         np.uint16).view(np.uint8).reshape(-1)
 
 
-TC_PAIRS = [p for p in ALL_PAIRS if "f32" not in p]
-# (x, w, tn, route): every pair at every tile on the cp.async route's
-# padded rows, and on the TMA route's swizzled boxes where the tile is
-# one or two 128-byte boxes
+def _split_slot(xbuf, tma, xrow, kblk):
+    """mm_float_tc's split of a slot's f32 x: for i over MM_TM * kblk / 2,
+    row m = i / (kblk / 2), K rows k, k + 1 (k = 2 (i % (kblk / 2))) read
+    as 8 bytes at ``tile_at`` and split (:func:`_split3`), the two values'
+    part q written as a bf16 pair at row m, byte 2k of part q's rows of
+    2 kblk + 16 bytes.  Returns the three parts' bytes."""
+    prow = 2 * kblk + 16
+    parts = [np.zeros(MM_TM * prow, np.uint8) for _ in range(3)]
+    pairs = kblk // 2
+    for i in range(MM_TM * pairs):
+        m, k = i // pairs, 2 * (i % pairs)
+        at = _tile_at(tma, m, 4 * k, xrow, MM_TM)
+        v = xbuf[at:at + 8].copy().view(np.float32)
+        for q, p in enumerate(_split3(v)):
+            word = (int(p[0]) >> 16) | (int(p[1]) & 0xffff0000)
+            parts[q][m * prow + 2 * k:m * prow + 2 * k + 4] = np.array(
+                [word], np.uint32).view(np.uint8)
+    return parts
+
+
+TC_PAIRS = [(a, b) for a, b in ALL_PAIRS if b != "f32"]
+# (x, w, tn, route): every tensor-core pair at every tile on the cp.async
+# route's padded rows, and on the TMA route's swizzled boxes where the
+# tile is one or two 128-byte boxes
 FRAGMENT_CASES = [(xd, wd, tn, tma) for xd, wd in TC_PAIRS
                   for tn in (32, 64, 128) for tma in (False, True)
                   if not tma or tn * ALL_BYTES[wd] in (128, 256)]
@@ -623,15 +788,25 @@ def test_tensor_core_fragments_compute_the_tile_product(xd, wd, tn, tma):
     """One unit (32 K rows) of a slot through ``mm_float_tc``'s consumer
     arithmetic, modelled lane by lane: the ldmatrix addresses (``w_at``,
     the x rows, ``unit_row``, ``tile_at`` on either route), the int8
-    widening, the tf32 steps and the epilogue's columns, in every column
-    group of a ``tn`` tile, equal the exact product of the unit's rows
-    (small integers, so every sum is exact)."""
+    widening, an f32 x's split (at 64 and 128 columns a slot's x read two
+    values at a time into the three bf16 parts' padded rows, which the
+    fragments read as a bf16 x's; at 32 x's f32 rows read by ldmatrix and
+    split in each lane; each part's products on the same A fragments, x0's
+    summed apart),
+    the tf32 steps and the epilogue's columns, in every column group of a
+    ``tn`` tile, equal the exact product of the unit's rows (small
+    integers, or f32 x of 24 significant bits in a few binades, so every
+    sum is exact)."""
     rng = np.random.default_rng(len(xd) * 10 + len(wd) + tn)
-    xi8, wi8 = xd == "int8", wd == "int8"
-    tf32 = {xd, wd} == {"bf16", "f16"}
-    mt = wd if xi8 else xd if (wi8 or xd == wd) else None
+    xi8, xf32, wi8 = xd == "int8", xd == "f32", wd == "int8"
+    xl = "x8" if xi8 else "x32" if xf32 and tn == 32 else "x16"
+    tf32 = _tf32(xd, wd)
+    mt = wd if xi8 else "bf16" if xf32 else xd
     lim = 127 if (xi8 or wi8) else 16
     x = rng.integers(-lim, lim + 1, size=(MM_TM, 32)).astype(np.float64)
+    if xf32:
+        x = _full_significands(rng, rng.integers(0, 5, size=MM_TM * 32)
+                               ).reshape(MM_TM, 32).astype(np.float64)
     w = rng.integers(-lim, lim + 1, size=(32, tn)).astype(np.float64)
     xb, wb = ALL_BYTES[xd], ALL_BYTES[wd]
     # mm_float_layout of a one-unit block (kblk = 32)
@@ -647,8 +822,30 @@ def test_tensor_core_fragments_compute_the_tile_product(xd, wd, tn, tma):
             xbuf[_tile_at(tma, m, b, xrow, MM_TM)] = v
     out = np.full((MM_TM, tn), np.nan)
     for grp in range(tn // 16):
-        # B fragments (j, h) at 2j + h
-        if xi8:
+        # B fragments (j, h) at 2j + h, one set a part of x
+        if xl == "x32":
+            # ldmatrix of x's 16-byte rows as b16 pairs, half j's matrix i
+            # the K rows 16j + 4i .. + 3 (lane t: 16j + 4i + t), each f32
+            # split in three and packed as bf16 pairs
+            raw = np.array([_ldsm(xbuf, [_tile_at(
+                tma, L & 7, (16 * j + 4 * (L >> 3)) * 4, xrow, MM_TM)
+                for L in range(32)], trans=False) for j in range(2)],
+                np.uint32)
+            parts = [_value32(p).astype(np.float64)
+                     for p in _split3(raw.view(np.float32))]
+            bs = [[[(p[j, L, 2 * h], p[j, L, 2 * h + 1])
+                    for j in range(2) for h in range(2)]
+                   for L in range(32)] for p in parts]
+        elif xf32:
+            # the slot's x split into the parts' rows (mm_float_parts, a
+            # one-unit block), each part's fragments by ldmatrix as bf16 x's
+            bs = []
+            for q, pbuf in enumerate(_split_slot(xbuf, tma, xrow, 32)):
+                raw = _ldsm(pbuf, [(L & 7) * (2 * 32 + 16) + 16 * (L >> 3)
+                                   for L in range(32)], trans=False)
+                bs.append([[_halves(r, "bf16") for r in lane]
+                           for lane in raw])
+        elif xi8:
             b = []
             for lane in range(32):
                 g, t = lane >> 2, lane & 3
@@ -662,11 +859,13 @@ def test_tensor_core_fragments_compute_the_tile_product(xd, wd, tn, tma):
             raw = _ldsm(xbuf, [_tile_at(tma, L & 7, 16 * (L >> 3), xrow, MM_TM)
                                for L in range(32)], trans=False)
             b = [[_halves(r, xd) for r in lane] for lane in raw]
+        if not xf32:
+            bs = [b]
         # A fragments of the halves j
         af = [[None] * 32 for _ in range(2)]
         if wi8:
             raw = _ldsm(wbuf, [_tile_at(tma, _unit_row(
-                xi8, (L >> 3) >> 1, (L >> 3) & 1, L & 7), grp * 16, srow, 32)
+                xl, (L >> 3) >> 1, (L >> 3) & 1, L & 7), grp * 16, srow, 32)
                 for L in range(32)], trans=True)
             for lane in range(32):
                 v = raw[lane]
@@ -677,25 +876,29 @@ def test_tensor_core_fragments_compute_the_tile_product(xd, wd, tn, tma):
                                    _widen_i8x2(v[2 * j + 1] >> 8, mt)]
         else:
             for j in range(2):
+                # half 1's rows 16 rows (half a unit) after half 0's
                 raw = _ldsm(wbuf, [_tile_at(
-                    tma, _unit_row(xi8, j, (L >> 3) >> 1, L & 7),
+                    tma, _unit_row(xl, 0, (L >> 3) >> 1, L & 7),
                     (grp * 16 + ((L >> 3) & 1) * 8) * 2, srow, 32)
+                    + j * 16 * (128 if tma else srow)
                     for L in range(32)], trans=True)
                 for lane in range(32):
                     af[j][lane] = [_halves(r, wd) for r in raw[lane]]
-        acc = np.zeros((2, 16, 8))
+        acc = np.zeros((2, 2, 16, 8))   # (x0's or the low parts', half)
         for j in range(2):
-            if tf32:
-                for h in range(2):
-                    at = [[af[j][L][2 * h][0], af[j][L][2 * h + 1][0],
-                           af[j][L][2 * h][1], af[j][L][2 * h + 1][1]]
-                          for L in range(32)]
-                    bt = [list(b[L][2 * j + h]) for L in range(32)]
-                    acc[j] += _mma(at, bt, tf32=True)
-            else:
-                acc[j] += _mma(af[j], [[b[L][2 * j], b[L][2 * j + 1]]
-                                       for L in range(32)], tf32=False)
-        d = acc[0] + acc[1]
+            for q, b in enumerate(bs):
+                if tf32:
+                    for h in range(2):
+                        at = [[af[j][L][2 * h][0], af[j][L][2 * h + 1][0],
+                               af[j][L][2 * h][1], af[j][L][2 * h + 1][1]]
+                              for L in range(32)]
+                        bt = [list(b[L][2 * j + h]) for L in range(32)]
+                        acc[min(q, 1), j] += _mma(at, bt, tf32=True)
+                else:
+                    acc[min(q, 1), j] += _mma(
+                        af[j], [[b[L][2 * j], b[L][2 * j + 1]]
+                                for L in range(32)], tf32=False)
+        d = (acc[0, 0] + acc[0, 1]) + (acc[1, 0] + acc[1, 1])
         # the epilogue: lane (g, t) holds D[g][2t], [g][2t + 1], [g + 8][2t],
         # [g + 8][2t + 1]; mma row i is column grp * 16 + i (int8 w: 2i,
         # and 2(i - 8) + 1)

@@ -265,7 +265,7 @@ def test_plan_takes_1_2_and_4_byte_elements(xd, wd, mode):
         for nb, bk in ((1, 16), (2, 128), (3, 512)):
             plan = mm_float_plan(M, K, N, mode, bk, nb, xb, wb)
             step = mm_float_kstep(xb, wb)
-            assert plan.tensor_cores == (xb <= 2 and wb <= 2)
+            assert plan.tensor_cores == (wb <= 2)
             assert step == (MM_FLOAT_TC_UNIT if plan.tensor_cores else
                             MM_FLOAT_KBLK_I8 if xb == 1 else MM_FLOAT_KBLK)
             if mode == "pinned":
@@ -287,16 +287,16 @@ def test_plan_takes_1_2_and_4_byte_elements(xd, wd, mode):
 
 
 def test_f32_and_bf16_plans_are_unchanged():
-    """The pairs with an f32 operand keep their FFMA plans (K blocks a
+    """The pairs with f32 weights keep their FFMA plans (K blocks a
     multiple of 8 rows, of 16 where x is int8); bf16 x bf16 and every
-    other pair without f32 take the tensor-core plan, K blocks and ranges
-    a multiple of 32 rows."""
-    for xb, wb in ((4, 4), (4, 2), (2, 4)):
+    other pair with bf16, f16 or int8 weights, an f32 x's among them,
+    take the tensor-core plan, K blocks and ranges a multiple of 32
+    rows."""
+    for xb, wb in ((4, 4), (2, 4)):
         assert mm_float_plan(17, 100, 36, "stream", 8, 2, xb, wb).kblk == 8
         assert mm_float_plan(8, 4096, 1000, "fifo", 24, 3, xb, wb).kblk == 24
     assert mm_float_plan(8, 4096, 1000, "fifo", 24, 3, 1, 4).kblk == 16
-    assert mm_float_plan(17, 100, 36, "stream", 8, 2, 4, 1).kblk == 8
-    for xb, wb in ((2, 2), (1, 2), (2, 1)):
+    for xb, wb in ((2, 2), (1, 2), (2, 1), (4, 2), (4, 1)):
         for shape, bk, kblk in (((17, 100, 36), 8, 32),
                                 ((8, 4096, 1000), 24, 32),
                                 ((8, 4096, 1000), 100, 96)):
