@@ -9,7 +9,8 @@ it is run outside a checkout of the repository.  Phases, one line each:
   1. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
      ``nvcc`` a source, all at once), and from the build's own
      ``-Xptxas -v`` report of ``dwconv_int8.cu``, ``conv2d_int8.cu``,
-     ``flash_attention.cu``, ``stream_matmul.cu`` (the int8 ``mm_kernel``
+     ``flash_attention.cu`` (and its f16 library), ``flash_attention_bwd.cu``
+     (both libraries), ``stream_matmul.cu`` (the int8 ``mm_kernel``
      and the float ``mm_float_tc`` and ``mm_float`` instances) and
      ``pool_int8.cu``:
      registers, stack and spills of every kernel
@@ -19,12 +20,14 @@ it is run outside a checkout of the repository.  Phases, one line each:
      count of HGMMA, HMMA, IMMA and IDP instructions of each instance and
      the instructions a MAC of each 3x3 ``dw_kernel``'s MAC block; it
      fails unless the instance each main-path launch of K1 (``conv_mma``),
-     K2 (``conv_stream``, from the conv plans of its shape) and K9
-     (``flash_fwd_wgmma<128>`` for Phi-4-mini, Qwen2-MoE, InternVL2,
-     Qwen2-72B and Command R+, ``flash_fwd_wgmma<64>`` for SeamlessM4T,
-     ``flash_fwd_bf16<192,128>`` for DeepSeek-V2's MLA and
-     ``flash_fwd_bf16<32,32>`` for the reduced configs' head dims 16 and
-     24, from the flash route and ``kernel_widths`` of their head dims)
+     K2 (``conv_stream``, from the conv plans of its shape), K9
+     (``flash_fwd_wgmma<bf16,128>`` for Phi-4-mini, Qwen2-MoE,
+     InternVL2, Qwen2-72B and Command R+, ``<bf16,64>`` for SeamlessM4T,
+     ``flash_fwd_16<bf16,192,128>`` for DeepSeek-V2's MLA and
+     ``flash_fwd_16<bf16,32,32>`` for the reduced configs' head dims 16
+     and 24, ``flash_fwd_wgmma<f16,128>`` for Phi-4-mini in f16, from the
+     flash route and ``kernel_widths`` of their head dims) and K10/K11
+     (``flash_bwd_*_tc`` at each training shape's widths, bf16 and f16)
      takes issues IMMA, HGMMA or HMMA, and where a K2 instance spills;
   2. hold every kernel against its plain PyTorch version on the card: the
      streamed dense conv (K2) at every dense conv shape of the six CNN
@@ -64,7 +67,13 @@ it is run outside a checkout of the repository.  Phases, one line each:
      also given a gradient of batch stride 1); at the reduced head dims,
      which the kernels run padded to a width of 32, K9-K11 on rows with
      NaN past the head dim into rows with a sentinel past it, which must
-     stay finite and in place (``check_padded_rows``);
+     stay finite and in place (``check_padded_rows``).  Every flash check
+     runs in f16 too (``FLASH_DTYPES``; the dry run's shapes in bf16 and
+     f16), on the f16 instances of K9-K11 (libraries of their own), which
+     report to rows of their own (``F16_ROWS``; ``[f16]`` line); and at
+     head dims that are not a multiple of 8 (``ODD_HD_CASES``, every
+     dtype, ``[odd hd]`` line), which the wrapper pads with zero columns
+     (``check_odd_head_dims``);
   3. the slices: ``compile(cfg, NX2100)`` -> ``PipelineExecutor(...,
      backend="eager")`` on the card at batch 8 on 224x224 inputs, with
      seeded random weights, for ResNet-50, ResNet-18, MobileNetV2 as
@@ -146,6 +155,9 @@ it is run outside a checkout of the repository.  Phases, one line each:
      within ``GRAD_REL_TOL``, L2), then ``Trainer.run`` for 3 steps of
      4x512 tokens (AdamW, remat, no checkpoint): exactly 64 K9, 32 K10 and
      32 K11 launches a step and a finite loss and grad norm at every step.
+     Then Phi-4-mini in f16 (``[f16]`` lines), the same serving and
+     training checks (``serve_lm`` and ``train_lm`` with ``dtype``), on the
+     f16 instances of K9-K11, whose launches count under their own rows.
      Then GPipe training (``[gpipe]`` lines, ``gpipe_lm``), the training
      weights freed: Phi-4-mini's 32 decoder layers at full width cut into
      4 stages on ``compat_make_mesh((4,), ("model",), devices=["cuda:0"]
@@ -167,8 +179,8 @@ it is run outside a checkout of the repository.  Phases, one line each:
      next, each through ``ServingEngine(batch_slots=4)`` at full width in
      bf16 (zero frames or patches, as the JAX engine feeds them):
      Qwen2-MoE-A2.7B whole and DeepSeek-V2 cut to 6 of its 60 layers (8
-     requests of 512 tokens; K9 on ``flash_fwd_wgmma<128>`` and
-     ``flash_fwd_bf16<192,128>``), Hymba-1.5B and xLSTM-125M whole (8
+     requests of 512 tokens; K9 on ``flash_fwd_wgmma<bf16,128>`` and
+     ``flash_fwd_16<bf16,192,128>``), Hymba-1.5B and xLSTM-125M whole (8
      requests of 2048 tokens, max_seq 4096: Hymba's 1024-slot ring wraps
      in decode), SeamlessM4T-medium, InternVL2-26B and Gemma2-9B whole,
      Qwen2-72B and Command R+ cut to 4 layers (8 requests of 512 tokens):
@@ -202,7 +214,9 @@ it is run outside a checkout of the repository.  Phases, one line each:
      Then the LM dry run (``[dryrun]`` lines, ``repro_torch.launch.
      dryrun``): the meta sweep, every arch x shape on the 16x16 and
      2x16x16 meshes counted on ``meta`` by ``DRYRUN_JOBS`` processes, 0
-     failures and the SKIPs of ``shape_applicable`` (``dryrun_sweep``);
+     failures and the SKIPs of ``shape_applicable``, and every cell's
+     collective term on both meshes, counted and printed
+     (``dryrun_sweep``);
      then Phi-4-mini at full width and depth on the (1, 1) local mesh at
      ``DRYRUN_CELLS`` (each shape's seq_len, the batch one card holds)
      (``dryrun_cells``): the plan's dp = 1 note, the kernel-off count
@@ -346,10 +360,31 @@ FLASH_CASES = [FLASH_SLICE, FLASH_LONG,
 # |o| in [0.5, 1)), and rtol 1e-2 covers one ulp at any magnitude; f32 o
 # keeps tests/test_kernels.py's limits; lse is f32 in both dtypes and
 # differs by about one f32 ulp (1e-6 at lse ~ 8).
+# f16 (PR 32) keeps 11 significant bits where bf16 keeps 8: its o within
+# two f16 ulps (4.9e-4 relative each) of the plain version's.
 FLASH_TOL = {("bfloat16", "o"): (1e-2, 1e-2), ("float32", "o"): (2e-5, 6e-5),
+             ("float16", "o"): (2e-3, 2e-3),
              ("bfloat16", "lse"): (1e-5, 1e-4),
-             ("float32", "lse"): (1e-5, 1e-4)}
-FLASH_DTYPES = ("bfloat16", "float32")
+             ("float32", "lse"): (1e-5, 1e-4),
+             ("float16", "lse"): (1e-5, 1e-4)}
+FLASH_DTYPES = ("bfloat16", "float32", "float16")
+# the f16 instances of K9-K11 (their own libraries, ``_build.VARIANTS``)
+# report under rows of their own in the kernels line: a launch whose
+# operands are f16 counts there (``k9_by_case``'s dtype)
+F16 = "float16"
+# Phi-4-mini's f16 gradient check (``train_lm``) runs under a loss scale:
+# unscaled, f16's range (normal down to 6.1e-5) loses both paths'
+# gradients at 32 layers, 0.81-0.84 (kernels) and 0.97-2.41 (blockwise)
+# of |g_f32| from the f32 gradient, where bf16 reads 0.011-0.017; at 2^8
+# 0.002-0.009, at 2^12 and 2^16 0.0013-0.0022 on both paths, kernels on
+# against off 0.0021 at worst (H100 readings, probe_f16.py --grads:
+# PERF.md, PR 32).  The scale is the check's: the Trainer's steps run
+# unscaled, as the JAX package's
+F16_LOSS_SCALE = 2 ** 12
+DNAME = {"bfloat16": "bf16", "float16": "f16", "float32": "f32"}
+F16_ROWS = {"flash_attention_fwd_f16": "flash_attention_fwd",
+            "flash_attention_bwd_dq_f16": "flash_attention_bwd_dq",
+            "flash_attention_bwd_dkv_f16": "flash_attention_bwd_dkv"}
 # K10/K11 against flash_attention_bwd_plain, at FLASH_CASES (the training
 # shape is FLASH_SLICE) in both dtypes: (rtol, atol as a share of the
 # output's max |value|) per operand dtype and output.  Both sides sum in
@@ -359,7 +394,8 @@ FLASH_DTYPES = ("bfloat16", "float32")
 # 0.044 of a limit five times this one)
 BWD_TOL = {(d, out): tol for out in ("dq", "dk", "dv")
            for d, tol in (("bfloat16", (1e-2, 1e-3)),
-                          ("float32", (2e-5, 2e-6)))}
+                          ("float32", (2e-5, 2e-6)),
+                          ("float16", (2e-3, 2e-4)))}
 # K10/K11's f32 sums (bf16 operands, f32 outputs: the accumulators before
 # their rounding) against flash_attention_bwd_plain on the f32 casts of the
 # same operands, at the training shape and a softcap + GQA case: (rtol,
@@ -371,11 +407,24 @@ BWD_TOL = {(d, out): tol for out in ("dq", "dk", "dv")
 # limit, a copy of them that drops the lo part 1.37 of it
 BWD_SUM_CASES = (FLASH_SLICE, (1, 4, 1, 128, 128, 128, True, 32, 30.0))
 BWD_SUM_TOL = (1e-5, 1e-6)
+# K9-K11 at head dims that are not a multiple of 8 (``check_odd_head_dims``,
+# ``[odd hd]`` lines): the wrapper pads q, k, v and do with zero columns
+# to the next multiple (wgmma for 60 and 121, padded to 64 and 128), each
+# case in every dtype through the public wrappers, within FLASH_TOL and
+# BWD_TOL, the launches keyed by the real head dims
+ODD_HD_CASES = ((1, 4, 2, 128, 12, 12, True, 0, 0.0),
+                (2, 2, 2, 64, 20, 20, True, 16, 30.0),
+                (1, 4, 1, 100, 12, 20, False, 0, 0.0),
+                (1, 2, 2, 128, 20, 12, True, 0, 0.0),
+                (2, 4, 2, 200, 60, 60, True, 0, 0.0),
+                (1, 2, 1, 256, 121, 121, True, 0, 0.0),
+                (1, 2, 2, 64, 1, 255, True, 0, 0.0),
+                (LM_SLOTS, 24, 8, LM_PROMPT, 100, 100, True, 0, 0.0))
 # flash_attention_vjp (K9 + K10/K11 + the GQA fold) against autograd
 # through flash_attention_plain, share of max |grad|: the plain forward
 # rounds p to bf16 before PV and autograd differentiates that rounding
 # (worst 0.35 of the bf16 limit; f32 0.012 of a limit five times this one)
-VJP_REL_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
+VJP_REL_TOL = {"bfloat16": 2e-2, "float32": 2e-5, "float16": 4e-3}
 VJP_CASES = (FLASH_SLICE, (1, 8, 2, 128, 32, 32, True, 0, 50.0),
              FLASH_DRY_TRAIN, FLASH_GPIPE, (1, 4, 4, 64, 24, 16, True, 0, 0.0))
 # GPipe training (``gpipe_lm``): Phi-4-mini's 32 decoder layers at full
@@ -678,10 +727,11 @@ KERNELS = {
         "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         "src/repro/kernels/flash_attention/kernel.py:179"),
 }
+KERNELS.update({f16: KERNELS[name] for f16, name in F16_ROWS.items()})
 LM_KERNEL = "flash_attention_fwd"
 BWD_KERNELS = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
 FLOAT_MM_KERNELS = ("stream_matmul_float_pinned", "stream_matmul_float_fifo")
-CNN_KERNELS = [k for k in KERNELS if k != LM_KERNEL
+CNN_KERNELS = [k for k in KERNELS if k != LM_KERNEL and k not in F16_ROWS
                and k not in BWD_KERNELS + FLOAT_MM_KERNELS]
 # MobileNetV2 with every dw layer forced onto the HBM tier
 MV2_DW_HBM = "mobilenetv2_dw_hbm"
@@ -888,9 +938,21 @@ class Kernel:
                                  f"version by up to {e}{what}")
 
 
-# (source, log name, {template: (mangled-name pattern, display format)}):
-# the sources whose kernels the build report lists, and the instances the
-# report names (the pattern's groups are the template arguments)
+# K9's and K10/K11's instances, in the bf16 libraries and their f16
+# variants: the 16-bit type first (bf16 or f16), then the widths
+FLASH_TEMPLATES = {
+    "flash_fwd_wgmma": (r"flash_fwd_wgmmaI(13__nv_bfloat16|6__half)Li(\d+)E",
+                        "flash_fwd_wgmma<{},{}>"),
+    "flash_fwd_16": (r"flash_fwd_16I(13__nv_bfloat16|6__half)Li(\d+)ELi(\d+)E",
+                     "flash_fwd_16<{},{},{}>"),
+    "flash_fwd_f32": (r"flash_fwd_f32()", "flash_fwd_f32{}")}
+FLASH_BWD_TEMPLATES = {
+    kern: (kern + r"I(13__nv_bfloat16|6__half)Li(\d+)ELi(\d+)ELi\d+E",
+           kern + "<{},{},{}>")
+    for kern in ("flash_bwd_dq_tc", "flash_bwd_dkv_tc")}
+# (library, log name, {template: (mangled-name pattern, display format)}):
+# the libraries whose kernels the build report lists, and the instances
+# the report names (the pattern's groups are the template arguments)
 PTXAS_SOURCES = (
     ("dwconv_int8", "ptxas_dwconv.log", {
         "dw_kernel": (r"dw_kernelILb(\d)ELi(\d)ELi(\d)ELi(\d)E",
@@ -900,12 +962,11 @@ PTXAS_SOURCES = (
                      "conv_mma<{},{},{}>"),
         "conv_stream": (r"conv_streamILi(\d)ELi(\d)ELi(\d+)E",
                         "conv_stream<{},{},{}>")}),
-    ("flash_attention", "ptxas_flash.log", {
-        "flash_fwd_wgmma": (r"flash_fwd_wgmmaILi(\d+)E",
-                            "flash_fwd_wgmma<{}>"),
-        "flash_fwd_bf16": (r"flash_fwd_bf16ILi(\d+)ELi(\d+)E",
-                           "flash_fwd_bf16<{},{}>"),
-        "flash_fwd_f32": (r"flash_fwd_f32()", "flash_fwd_f32{}")}),
+    ("flash_attention", "ptxas_flash.log", FLASH_TEMPLATES),
+    ("flash_attention_f16", "ptxas_flash_f16.log", FLASH_TEMPLATES),
+    ("flash_attention_bwd", "ptxas_flash_bwd.log", FLASH_BWD_TEMPLATES),
+    ("flash_attention_bwd_f16", "ptxas_flash_bwd_f16.log",
+     FLASH_BWD_TEMPLATES),
     ("stream_matmul", "ptxas_matmul.log", {
         "mm_kernel": (r"mm_kernelILi(\d+)ELi(\d+)E", "mm_kernel<{},{}>"),
         "mm_float": (r"mm_floatI(f|a|6__half|13__nv_bfloat16)"
@@ -925,7 +986,8 @@ MANGLED_ARGS = {"f": "f32", "13__nv_bfloat16": "bf16", "6__half": "f16",
                 "a": "int8"}
 # the tensor-core instruction each redesigned kernel must issue (SASS)
 SASS_REQUIRED = {"conv_mma": "IMMA", "conv_stream": "IMMA",
-                 "flash_fwd_wgmma": "HGMMA", "flash_fwd_bf16": "HMMA",
+                 "flash_fwd_wgmma": "HGMMA", "flash_fwd_16": "HMMA",
+                 "flash_bwd_dq_tc": "HMMA", "flash_bwd_dkv_tc": "HMMA",
                  "mm_float_tc": "HMMA"}
 
 
@@ -1017,12 +1079,14 @@ def ptxas_report(_build):
 
 def check_main_path_instances(record, shapes, conv_plan, stream_plan,
                               sm_count, flash_route, torch):
-    """The kernel instance each main-path launch of K1, K2 and K9 takes
-    (from the conv plans of its shape and the flash route of each LM's
-    head dims: ``flash_fwd_wgmma<128>`` for Phi-4-mini and Qwen2-MoE,
-    ``flash_fwd_bf16<192,128>`` for DeepSeek-V2's MLA, at the widths of
-    ``kernel_widths``: ``flash_fwd_bf16<32,32>`` for the reduced
-    configs' head dims 16 and 24), and that each
+    """The kernel instance each main-path launch of K1, K2 and K9-K11
+    takes (from the conv plans of its shape and the flash route of each
+    LM's head dims: ``flash_fwd_wgmma<bf16,128>`` for Phi-4-mini and
+    Qwen2-MoE, ``flash_fwd_16<bf16,192,128>`` for DeepSeek-V2's MLA, at the
+    widths of ``kernel_widths``: ``flash_fwd_16<bf16,32,32>`` for the
+    reduced configs' head dims 16 and 24; ``flash_fwd_wgmma<f16,128>``
+    for Phi-4-mini in f16; K10/K11's ``flash_bwd_*_tc`` at each training
+    shape's widths, bf16 and, for Phi-4-mini in f16, f16), and that each
     issues its tensor-core instruction (IMMA, HGMMA, HMMA) in the SASS of
     the build report, and a K2 instance spills nothing; fails where one
     does not."""
@@ -1038,15 +1102,23 @@ def check_main_path_instances(record, shapes, conv_plan, stream_plan,
         plan = stream_plan(BATCH, h, w, c, co, k, k, s, nb, sm_count)
         inst = f"conv_stream<{plan.wn},{plan.nf},{plan.vec}>"
         used.setdefault(("conv2d_int8", inst), []).append(list(key[:6]))
-    from repro_torch.kernels.flash_attention.ops import kernel_widths
-    for case in FLASH_MAIN:
-        hd, hd_v = case[4:6]
+    from repro_torch.kernels.flash_attention.ops import (kernel_widths,
+                                                         padded_dim)
+    for case, lib, t in ([(c, "flash_attention", "bf16") for c in FLASH_MAIN]
+                         + [(FLASH_SLICE, "flash_attention_f16", "f16")]):
+        hd, hd_v = (padded_dim(d) for d in case[4:6])
         route = flash_route(torch.bfloat16, hd, hd_v)
-        used.setdefault(("flash_attention",
-                         f"flash_fwd_wgmma<{hd}>" if route == "wgmma"
-                         else "flash_fwd_bf16<{},{}>".format(
-                             *kernel_widths(hd, hd_v))), []).append(
+        used.setdefault((lib, f"flash_fwd_wgmma<{t},{hd}>" if route == "wgmma"
+                         else "flash_fwd_16<{},{},{}>".format(
+                             t, *kernel_widths(hd, hd_v))), []).append(
             list(case[:6]))
+    for case, lib, t in ([(c, "flash_attention_bwd", "bf16") for c in BWD_MAIN]
+                         + [(FLASH_SLICE, "flash_attention_bwd_f16",
+                             "f16")]):
+        widths = kernel_widths(*(padded_dim(d) for d in case[4:6]))
+        for kern in ("flash_bwd_dq_tc", "flash_bwd_dkv_tc"):
+            used.setdefault((lib, "{}<{},{},{}>".format(kern, t, *widths)),
+                            []).append(list(case[:6]))
     rows = {}
     for (src, inst), keys in used.items():
         rep = record["ptxas"][src].get(inst, {})
@@ -1258,22 +1330,31 @@ def flash_kw(case):
     return dict(causal=case[6], window=case[7], softcap=case[8])
 
 
-def check_flash(torch, g, dev, kern, record):
+def kernel_row(ks, name, dname):
+    """The Kernel a check in ``dname`` reports to: the f16 instances' row
+    for f16 operands (F16_ROWS), else the kernel's own."""
+    if dname == F16:
+        return ks[next(f for f, n in F16_ROWS.items() if n == name)]
+    return ks[name]
+
+
+def check_flash(torch, g, dev, ks, record):
     """Phase 2 for K9: the kernel against its plain version (at the JAX
     call's blocks, min(128, S)) at every case of FLASH_CASES and at the LM
-    families' prefill shapes in bf16 and f32, at the dry run's shapes
-    (FLASH_DRYRUN) in bf16, the dtype they run in, o and lse; and the
-    model-layout entry the main path calls, which reads q/k/v and writes o
-    through their strides.  The plain version's bf16 call past
-    PLAIN_GRAPH_MAX_S is timed by CUDA events here (``plain_once_ms``),
-    for phase 4."""
+    families' prefill shapes in bf16, f32 and f16, at the dry run's shapes
+    (FLASH_DRYRUN) in bf16, the dtype they run in, and f16, o and lse; and
+    the model-layout entry the main path calls, which reads q/k/v and
+    writes o through their strides, in bf16 and f16.  The plain version's
+    bf16 call past PLAIN_GRAPH_MAX_S is timed by CUDA events here
+    (``plain_once_ms``), for phase 4."""
     from repro_torch.kernels.flash_attention.ops import (
         flash_attention, flash_attention_kernel)
     from repro_torch.kernels.flash_attention.ref import flash_attention_plain
     n, once = 0, record.setdefault("plain_once_ms", {})
     for case in FLASH_CASES + list(FLASH_MAIN[1:]):
-        for dname in (("bfloat16",) if case in FLASH_DRYRUN
+        for dname in (("bfloat16", F16) if case in FLASH_DRYRUN
                       else FLASH_DTYPES):
+            kern = kernel_row(ks, LM_KERNEL, dname)
             q, k, v = flash_inputs(torch, g, dev, case, getattr(torch, dname))
             out = []
             ms = event_ms(torch, lambda: out.append(flash_attention_plain(
@@ -1287,12 +1368,15 @@ def check_flash(torch, g, dev, kern, record):
                 kern.err(torch, got, want, FLASH_TOL[dname, what],
                          f"{dname} {what}")
             n += 2
-    q, k, v = (t.transpose(1, 2).contiguous() for t in flash_inputs(
-        torch, g, dev, FLASH_SLICE, torch.bfloat16))
-    want_o, _ = flash_attention_plain(*(t.transpose(1, 2) for t in (q, k, v)))
-    kern.err(torch, flash_attention(q, k, v).transpose(1, 2), want_o,
-             FLASH_TOL["bfloat16", "o"], "bfloat16 o")
-    return n + 1
+    for dname in ("bfloat16", F16):
+        q, k, v = (t.transpose(1, 2).contiguous() for t in flash_inputs(
+            torch, g, dev, FLASH_SLICE, getattr(torch, dname)))
+        want_o, _ = flash_attention_plain(*(t.transpose(1, 2)
+                                            for t in (q, k, v)))
+        kernel_row(ks, LM_KERNEL, dname).err(
+            torch, flash_attention(q, k, v).transpose(1, 2), want_o,
+            FLASH_TOL[dname, "o"], f"{dname} o")
+    return n + 2
 
 
 def check_flash_bwd(torch, g, dev, ks, record):
@@ -1305,7 +1389,8 @@ def check_flash_bwd(torch, g, dev, ks, record):
     flash_attention_vjp in model layout against autograd through
     flash_attention_plain at VJP_CASES; at batch 1 also with the
     gradient's batch stride 1 (as autograd may hand it over), which must
-    give the same grads bit for bit."""
+    give the same grads bit for bit.  f16 (FLASH_DTYPES) everywhere bf16
+    is held, its sums too."""
     from repro_torch.kernels.flash_attention.ops import (
         flash_attention_bwd, flash_attention_kernel, flash_attention_vjp)
     from repro_torch.kernels.flash_attention.ref import (
@@ -1328,27 +1413,32 @@ def check_flash_bwd(torch, g, dev, ks, record):
                     (BWD_KERNELS[0], BWD_KERNELS[1], BWD_KERNELS[1]),
                     got, want):
                 rtol, share = BWD_TOL[dname, out]
-                ks[kname].err(torch, gt, wt,
-                              (rtol, share * float(wt.abs().max())),
-                              f"{dname} {out}")
+                kernel_row(ks, kname, dname).err(
+                    torch, gt, wt, (rtol, share * float(wt.abs().max())),
+                    f"{dname} {out}")
                 n += 1
     for case in BWD_SUM_CASES:
-        q, k, v = flash_inputs(torch, g, dev, case, torch.bfloat16)
-        do = torch.randn(q.shape[:3] + (case[5],), generator=g,
-                         device=dev).to(torch.bfloat16)
-        o, lse = flash_attention_kernel(q, k, v, return_lse=True,
-                                        **flash_kw(case))
-        want = flash_attention_bwd_plain(*(t.float() for t in (q, k, v, o)),
-                                         lse, do.float(), **flash_kw(case))
-        got = flash_attention_bwd(q, k, v, o, lse, do, **flash_kw(case),
-                                  out_dtype=torch.float32)
-        rtol, share = BWD_SUM_TOL
-        for out, kname, gt, wt in zip(
-                ("dq", "dk", "dv"),
-                (BWD_KERNELS[0], BWD_KERNELS[1], BWD_KERNELS[1]), got, want):
-            ks[kname].err(torch, gt, wt, (rtol, share * float(wt.abs().max())),
-                          f"bfloat16 {out} f32 sums")
-            n += 1
+        for dname in ("bfloat16", F16):
+            dt = getattr(torch, dname)
+            q, k, v = flash_inputs(torch, g, dev, case, dt)
+            do = torch.randn(q.shape[:3] + (case[5],), generator=g,
+                             device=dev).to(dt)
+            o, lse = flash_attention_kernel(q, k, v, return_lse=True,
+                                            **flash_kw(case))
+            want = flash_attention_bwd_plain(
+                *(t.float() for t in (q, k, v, o)), lse, do.float(),
+                **flash_kw(case))
+            got = flash_attention_bwd(q, k, v, o, lse, do, **flash_kw(case),
+                                      out_dtype=torch.float32)
+            rtol, share = BWD_SUM_TOL
+            for out, kname, gt, wt in zip(
+                    ("dq", "dk", "dv"),
+                    (BWD_KERNELS[0], BWD_KERNELS[1], BWD_KERNELS[1]), got,
+                    want):
+                kernel_row(ks, kname, dname).err(
+                    torch, gt, wt, (rtol, share * float(wt.abs().max())),
+                    f"{dname} {out} f32 sums")
+                n += 1
     worst = {}
     for case in VJP_CASES:
         for dname in FLASH_DTYPES:
@@ -1703,18 +1793,26 @@ def drive_float_matmul(torch, g, dev, path, block_for, record, planned):
     return launches, inputs, by_instance
 
 
-def serve_lm(torch, np, dev, record):
-    """Phase 3 for the LM: Phi-4-mini at full width and depth through
-    ServingEngine on the card; launches counted over engine.run; prefill
-    logits of the kernel path against the plain path (kernel mode off:
-    the blockwise route) on the same weights and tokens."""
+def lm_arch(dtype):
+    """Phi-4-mini in ``dtype`` (its own config's bf16, or f16)."""
+    import dataclasses
+
     from repro_torch.configs import get_arch
+    return dataclasses.replace(get_arch(LM_ARCH), dtype=dtype)
+
+
+def serve_lm(torch, np, dev, record, dtype="bfloat16"):
+    """Phase 3 for the LM: Phi-4-mini at full width and depth, in
+    ``dtype`` (bf16; f16 for the ``[f16]`` lines), through ServingEngine
+    on the card; launches counted over engine.run; prefill logits of the
+    kernel path against the plain path (kernel mode off: the blockwise
+    route) on the same weights and tokens."""
     from repro_torch.kernels import _build
     from repro_torch.models import layers as lm_layers
     from repro_torch.models import transformer as tmod
     from repro_torch.models.accounting import weight_bytes
     from repro_torch.runtime.serving import Request, ServingEngine
-    arch = get_arch(LM_ARCH)
+    arch = lm_arch(dtype)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = tmod.init_params(torch.Generator(device=dev).manual_seed(SEED),
@@ -1734,7 +1832,7 @@ def serve_lm(torch, np, dev, record):
                        for i, p in enumerate(prompts)])
     torch.cuda.synchronize()
     rec["first_run_s"] = time.perf_counter() - t0
-    launches, by_case = dict(_build.LAUNCHES), k9_by_case()
+    launches, by_case = dict(_build.LAUNCHES), k9_by_case(dtype=dtype)
     n_prefill = -(-LM_REQUESTS // LM_SLOTS)
     n = n_prefill * arch.n_layers
     if launches != {LM_KERNEL: n} or by_case != {FLASH_SLICE: n}:
@@ -1782,9 +1880,10 @@ def serve_lm(torch, np, dev, record):
     rec["first_token_checked"] = sure
     rec["launches"] = launches
     rec["peak_bytes"] = torch.cuda.max_memory_allocated()
-    record["lm"] = rec
-    log("slice", f"{LM_ARCH} (full width and depth, {rec['params']:,} "
-        f"params, bf16): {LM_REQUESTS} requests x {LM_NEW} tokens served "
+    record["lm" if dtype == "bfloat16" else "lm_" + DNAME[dtype]] = rec
+    log("slice" if dtype == "bfloat16" else DNAME[dtype],
+        f"{LM_ARCH} (full width and depth, {rec['params']:,} "
+        f"params, {DNAME[dtype]}): {LM_REQUESTS} requests x {LM_NEW} tokens served "
         f"with {LM_SLOTS} slots, launches {json.dumps(launches)}; prefill "
         f"logits within {max(rec['prefill_logit_diff']):.4g} of the plain "
         f"path (bound {min(rec['prefill_logit_bound']):.4g}); first token "
@@ -1860,9 +1959,30 @@ def profile_device_ms(torch, fn):
             "trace_s": t_trace, "parse_s": t_parse}
 
 
-def train_lm(torch, np, dev, record, card):
-    """Phase 3 for LM training: Phi-4-mini at full width and depth, bf16,
-    random weights from SEED.  First one loss_fn gradient on the first
+def scaled_value_and_grad(torch, params, arch, batch, scale):
+    """``runtime.trainer.value_and_grad`` of the loss times ``scale`` (a
+    power of two, exact in every float type), the grads divided by it in
+    f32: mixed-precision training's loss scaling, which keeps an f16
+    gradient inside f16's range (it ends at 6.1e-5, its subnormals at
+    6e-8), for the gradient check alone; the Trainer scales nothing, as
+    the JAX package's does not."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.models import transformer as tmod
+    leaves, spec = pytree.tree_flatten(params)
+    with torch.enable_grad():
+        req = [p.detach().requires_grad_(True) for p in leaves]
+        loss = tmod.loss_fn(pytree.tree_unflatten(req, spec), arch, batch,
+                            remat=True)
+        grads = torch.autograd.grad(loss * scale, req)
+    return loss.detach(), pytree.tree_unflatten(
+        [g.float() / scale for g in grads], spec)
+
+
+def train_lm(torch, np, dev, record, card, dtype="bfloat16"):
+    """Phase 3 for LM training: Phi-4-mini at full width and depth, in
+    ``dtype`` (bf16; f16 for the ``[f16]`` lines), random weights from
+    SEED.  First one loss_fn gradient on the first
     batch, kernel mode on and then off (blockwise attention): the losses
     within LOSS_REL_TOL and each leaf's grads within GRAD_REL_TOL (L2).
     Then Trainer.run for TRAIN_STEPS steps with the kernels: exactly
@@ -1872,7 +1992,6 @@ def train_lm(torch, np, dev, record, card):
     by shape."""
     import gc
 
-    from repro_torch.configs import get_arch
     from repro_torch.data.pipeline import DataConfig, TokenDataset
     from repro_torch.kernels import _build
     from repro_torch.models import layers as lm_layers
@@ -1881,7 +2000,8 @@ def train_lm(torch, np, dev, record, card):
                                              value_and_grad)
     gc.collect()                  # the serving phase's weights go first
     torch.cuda.empty_cache()
-    arch = get_arch(LM_ARCH)
+    arch = lm_arch(dtype)
+    phase = "slice" if dtype == "bfloat16" else DNAME[dtype]
     data = TokenDataset(DataConfig(arch.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
                                    seed=SEED))
     rec = {"seq_len": TRAIN_SEQ, "batch": TRAIN_BATCH, "steps": TRAIN_STEPS}
@@ -1889,10 +2009,18 @@ def train_lm(torch, np, dev, record, card):
                               arch, dev)
     batch = {k: torch.from_numpy(v).to(dev, torch.int64)
              for k, v in data.global_batch(0).items()}
-    loss_on, g_on = value_and_grad(params, arch, batch)
+    # f16's gradient check under a loss scale (F16_LOSS_SCALE): unscaled,
+    # f16 loses both paths' gradients to underflow at 32 layers
+    scale = F16_LOSS_SCALE if dtype == F16 else 1
+
+    def grads():
+        if scale == 1:
+            return value_and_grad(params, arch, batch)
+        return scaled_value_and_grad(torch, params, arch, batch, scale)
+    loss_on, g_on = grads()
     lm_layers.set_kernel_mode(False)
     try:
-        loss_off, g_off = value_and_grad(params, arch, batch)
+        loss_off, g_off = grads()
     finally:
         lm_layers.set_kernel_mode(True)
     loss_on, loss_off = float(loss_on), float(loss_off)
@@ -1900,7 +2028,7 @@ def train_lm(torch, np, dev, record, card):
            zip(named_leaves(g_on), named_leaves(g_off))}
     worst = max(rel, key=rel.get)
     rec.update(loss_kernel_on=loss_on, loss_kernel_off=loss_off,
-               grad_rel_l2=rel)
+               grad_rel_l2=rel, loss_scale=scale)
     if not (np.isfinite(loss_on) and all(np.isfinite(list(rel.values())))):
         raise AssertionError(f"{LM_ARCH}: loss {loss_on} or grads not "
                              f"finite: {rel}")
@@ -1911,7 +2039,8 @@ def train_lm(torch, np, dev, record, card):
         raise AssertionError(f"{LM_ARCH}: grads of {worst} differ by "
                              f"{rel[worst]} > {GRAD_REL_TOL} (L2) between "
                              f"kernel mode on and off")
-    log("slice", f"{LM_ARCH} loss_fn grad, kernels on vs off: loss "
+    log(phase, f"{LM_ARCH} ({DNAME[dtype]}) loss_fn grad (loss scale "
+        f"{scale}), kernels on vs off: loss "
         f"{loss_on:.6f} vs {loss_off:.6f}; worst leaf {worst} "
         f"{rel[worst]:.4g} (bound {GRAD_REL_TOL})")
     del params, g_on, g_off, batch
@@ -1937,7 +2066,7 @@ def train_lm(torch, np, dev, record, card):
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t) * 1e3)
     launches = dict(_build.LAUNCHES)
-    by_case = {k: k9_by_case(k) for k in TRAIN_LAUNCHES}
+    by_case = {k: k9_by_case(k, dtype) for k in TRAIN_LAUNCHES}
     want = {k: TRAIN_STEPS * n for k, n in TRAIN_LAUNCHES.items()}
     if launches != want or by_case != {k: {FLASH_SLICE: n}
                                        for k, n in want.items()}:
@@ -1959,17 +2088,18 @@ def train_lm(torch, np, dev, record, card):
                profiled_step=prof, launches=launches,
                device_ms_per_step=prof and prof["busy_ms"],
                idle_share=prof and 1 - prof["busy_ms"] / ms)
-    record["train"] = rec
+    record["train" if dtype == "bfloat16" else "train_" + DNAME[dtype]] = rec
     idle = ("not measured (no device activity in the trace)" if prof is None
             else f"{prof['busy_ms']:.3f} ms device, idle "
                  f"{100 * rec['idle_share']:.0f}%")
-    log("slice", f"{LM_ARCH} (full width and depth, bf16) trained "
+    log(phase, f"{LM_ARCH} (full width and depth, {DNAME[dtype]}) trained "
         f"{TRAIN_STEPS} steps of {TRAIN_BATCH}x{TRAIN_SEQ} tokens: losses "
         f"{[round(h['loss'], 4) for h in hist]}, grad norms "
         f"{[round(h['grad_norm'], 4) for h in hist]}; launches "
         f"{json.dumps(launches)}; peak device memory "
         f"{rec['peak_bytes'] / 1e9:.2f} GB")
-    log("time", f"{LM_ARCH} train step {TRAIN_BATCH}x{TRAIN_SEQ}: {ms:.3f} "
+    log("time", f"{LM_ARCH} {DNAME[dtype]} train step "
+        f"{TRAIN_BATCH}x{TRAIN_SEQ}: {ms:.3f} "
         f"ms eager (median of steps 2-{TRAIN_STEPS}), "
         f"{rec['tokens_per_s']:.1f} tokens/s; {idle}  [{card}]")
     del tr
@@ -2528,30 +2658,32 @@ def abstract_traces(torch, compile, get_cnn, target, record, card):
         + f"; device memory unchanged across each call  [{card}]")
 
 
-def time_flash_bwd(torch, F, g, dev, ks, launches_by_case, card, record):
+def time_flash_bwd(torch, F, g, dev, ks, launches_by_case, card, record,
+                   dtype="bfloat16", main=BWD_MAIN):
     """Phase 4 for K10/K11: device ms per launch of each at their
     main-path shapes (``launches_by_case``: kernel -> the training
     phase's and the dry run's launches, counted by shape at the launch;
-    each must be one of BWD_MAIN) and at S = 2048 (model layout, as the
-    training path calls them), the plain version's ms for the pair, and
-    the backward of F.scaled_dot_product_attention (GQA, causal where the
-    shape is) for the pair; each row sums them over the launches of each
-    shape."""
+    each must be one of ``main``) and, in bf16, at S = 2048 (model layout,
+    as the training path calls them), the plain version's ms for the
+    pair, and the backward of F.scaled_dot_product_attention (GQA, causal
+    where the shape is) for the pair; each row sums them over the
+    launches of each shape.  ``dtype``: the operands' (f16 for the f16
+    instances' rows, at the f16 main path's shapes)."""
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention.ref import \
         flash_attention_bwd_plain
-    stray = {k: [c for c in by if c not in BWD_MAIN]
+    stray = {k: [c for c in by if c not in main]
              for k, by in launches_by_case.items()}
     if any(stray.values()):
         raise AssertionError(f"K10/K11 launched on the main path at shapes "
-                             f"BWD_MAIN lacks: {stray}")
+                             f"{main} lacks: {stray}")
+    dt = getattr(torch, dtype)
     per = {}
-    for case in BWD_MAIN + (FLASH_LONG,):
+    for case in main + ((FLASH_LONG,) if dtype == "bfloat16" else ()):
         B, H, KV, S, hd, hd_v, causal = case[:7]
         q, k, v = (t.transpose(1, 2).contiguous() for t in flash_inputs(
-            torch, g, dev, case, torch.bfloat16))
-        do = torch.randn((B, S, H, hd_v), generator=g,
-                         device=dev).to(torch.bfloat16)
+            torch, g, dev, case, dt))
+        do = torch.randn((B, S, H, hd_v), generator=g, device=dev).to(dt)
         qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))
         o, lse = ops.flash_attention_kernel(qt, kt, vt, return_lse=True,
                                             causal=causal)
@@ -2595,7 +2727,8 @@ def time_flash_bwd(torch, F, g, dev, ks, launches_by_case, card, record):
                 "bound_ms": b, "bound_by": by, "bytes": nbytes,
                 "flops": ops_}
         log("time", f"flash backward B={B} H={H} KV={KV} S={S} hd={hd} "
-            f"hd_v={hd_v} bf16 {'causal' if causal else 'non-causal'}: "
+            f"hd_v={hd_v} {DNAME[dtype]} "
+            f"{'causal' if causal else 'non-causal'}: "
             f"dq {t[BWD_KERNELS[0]]['ms']:.4f} ms, dk/dv "
             f"{t[BWD_KERNELS[1]]['ms']:.4f} ms per launch (device); "
             f"bounds {t[BWD_KERNELS[0]]['bound_ms']:.4f} / "
@@ -2608,19 +2741,19 @@ def time_flash_bwd(torch, F, g, dev, ks, launches_by_case, card, record):
             f"{[launches_by_case[k].get(case, 0) for k in BWD_KERNELS]}"
             f"  [{card}]")
     for kname in BWD_KERNELS:
-        kern, by = ks[kname], launches_by_case[kname]
-        main = [(n, per[c]) for c, n in by.items() if n]
-        kern.ms = sum(n * t[kname]["ms"] for n, t in main)
-        kern.bound_ms = sum(n * t[kname]["bound_ms"] for n, t in main)
+        kern, by = kernel_row(ks, kname, dtype), launches_by_case[kname]
+        rows = [(n, per[c]) for c, n in by.items() if n]
+        kern.ms = sum(n * t[kname]["ms"] for n, t in rows)
+        kern.bound_ms = sum(n * t[kname]["bound_ms"] for n, t in rows)
         by_time = {}
-        for n, t in main:
+        for n, t in rows:
             by_time[t[kname]["bound_by"]] = by_time.get(
                 t[kname]["bound_by"], 0.0) + n * t[kname]["bound_ms"]
         kern.bound_by = max(by_time, key=by_time.get)
         # the plain version and the library compute dq, dk and dv in one
         # call: each row carries the pair's time
-        kern.plain_ms = sum(n * t["plain_ms"] for n, t in main)
-        kern.library_ms = sum(n * t["library_ms"] for n, t in main)
+        kern.plain_ms = sum(n * t["plain_ms"] for n, t in rows)
+        kern.library_ms = sum(n * t["library_ms"] for n, t in rows)
         kern.per_shape = [{
             "case": list(c), "launches": n, "ms": per[c][kname]["ms"],
             "plain_ms": per[c]["plain_ms"],
@@ -2628,7 +2761,9 @@ def time_flash_bwd(torch, F, g, dev, ks, launches_by_case, card, record):
             "bound_by": per[c][kname]["bound_by"],
             "library_ms": per[c]["library_ms"]}
             for c, n in by.items() if n]
-    record["flash_bwd_per_launch"] = {case_key(c): d for c, d in per.items()}
+    record["flash_bwd_per_launch" + ("" if dtype == "bfloat16" else
+                                     "_" + DNAME[dtype])] = {
+        case_key(c): d for c, d in per.items()}
 
 
 def backward_ms(torch, forward, inputs, do, reps, replays=5):
@@ -2723,27 +2858,30 @@ def plain_ms(torch, fn, S, record, key, reps=3, replays=2):
     return once[key] if key in once else event_ms(torch, fn, 1)
 
 
-def time_flash(torch, F, g, dev, kern, launches_by_case, card, record):
+def time_flash(torch, F, g, dev, kern, launches_by_case, card, record,
+               dtype="bfloat16", main=FLASH_MAIN):
     """Phase 4 for K9: device ms per launch at each main-path shape
     (``launches_by_case``: the LM phases' launches, counted by shape at
-    the launch; each must be one of FLASH_MAIN) and at S = 2048 (model
-    layout, as the main path calls it), its plain version, and
+    the launch; each must be one of ``main``) and, in bf16, at S = 2048
+    (model layout, as the main path calls it), its plain version, and
     F.scaled_dot_product_attention on the same tensors (every backend
     tried, the fastest that takes the operands kept); the kernel's row
-    sums them over the launches of each shape."""
+    sums them over the launches of each shape.  ``dtype``: the operands'
+    (f16 for the f16 instances' row, at the f16 main path's shapes)."""
     from repro_torch.kernels.flash_attention.ops import (flash_attention,
                                                          flash_route)
     from repro_torch.kernels.flash_attention.ref import flash_attention_plain
-    stray = [c for c in launches_by_case if c not in FLASH_MAIN]
+    stray = [c for c in launches_by_case if c not in main]
     if stray:
         raise AssertionError(f"K9 launched on the main path at shapes "
-                             f"FLASH_MAIN lacks: {stray}")
+                             f"{main} lacks: {stray}")
+    dt = getattr(torch, dtype)
     per = {}
-    for case in FLASH_MAIN + (FLASH_LONG,):
+    for case in main + ((FLASH_LONG,) if dtype == "bfloat16" else ()):
         B, H, KV, S, hd, hd_v, causal = case[:7]
         key = case_key(case)
         q, k, v = (t.transpose(1, 2).contiguous() for t in flash_inputs(
-            torch, g, dev, case, torch.bfloat16))
+            torch, g, dev, case, dt))
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         libs, (lib_name, lib) = sdpa_readings(torch, F, qt, kt, vt, causal)
         kw = flash_kw(case)
@@ -2766,10 +2904,11 @@ def time_flash(torch, F, g, dev, kern, launches_by_case, card, record):
             "library_backends": libs, "bound_ms": b, "bound_by": by,
             "bytes": nbytes, "flops": flops,
             "library_max_abs_diff": lib_diff,
-            "route": flash_route(torch.bfloat16, hd, hd_v)}
+            "route": flash_route(dt, hd, hd_v)}
         t["factor"] = t["ms"] / t["library_ms"]
         log("time", f"{LM_KERNEL} B={B} H={H} KV={KV} S={S} hd={hd} "
-            f"hd_v={hd_v} bf16 {'causal' if causal else 'non-causal'} "
+            f"hd_v={hd_v} {DNAME[dtype]} "
+            f"{'causal' if causal else 'non-causal'} "
             f"({t['route']} route, "
             f"{t['launches']} main-path launches): {t['ms']:.4f} ms per "
             f"launch (device), plain {t['plain_ms']:.4f} ms, SDPA "
@@ -2778,18 +2917,19 @@ def time_flash(torch, F, g, dev, kern, launches_by_case, card, record):
             f"SDPA backends: " + ", ".join(
                 f"{n} {v:.4f} ms" if isinstance(v, float) else f"{n} {v}"
                 for n, v in libs.items()) + f"  [{card}]")
-    main = [t for t in per.values() if t["launches"]]
+    rows = [t for t in per.values() if t["launches"]]
     for what in ("ms", "plain_ms", "library_ms", "bound_ms"):
-        setattr(kern, what, sum(t["launches"] * t[what] for t in main))
+        setattr(kern, what, sum(t["launches"] * t[what] for t in rows))
     by_time = {}
-    for t in main:
+    for t in rows:
         by_time[t["bound_by"]] = by_time.get(t["bound_by"], 0.0) + \
             t["launches"] * t["bound_ms"]
     kern.bound_by = max(by_time, key=by_time.get)
     kern.per_shape = [{k: t[k] for k in (
         "case", "route", "launches", "ms", "plain_ms", "bound_ms",
-        "bound_by", "library_ms", "library_backend")} for t in main]
-    record["flash_per_launch"] = per
+        "bound_by", "library_ms", "library_backend")} for t in rows]
+    record["flash_per_launch" + ("" if dtype == "bfloat16" else
+                                 "_" + DNAME[dtype])] = per
 
 
 def time_lm(torch, st, card, lm_rec, name=LM_ARCH):
@@ -3010,19 +3150,19 @@ def dense_walk(torch, tmod, lm_layers, params, arch, feed, *, kernel,
     return tmod.logits_from_hidden(params, arch, h[:, -1])
 
 
-def k9_by_case(name=LM_KERNEL):
+def k9_by_case(name=LM_KERNEL, dtype="bfloat16"):
     """K9's (or K10's or K11's, by ``name``) launches since the last
     reset, by the shape the wrapper counted them under, keyed as the
     FLASH cases are (B, H, KV, S, hd, hd_v, causal, window, softcap) where
-    the launch was bf16 with as many keys as queries, as the main path's
-    are; any other launch keeps the wrapper's own key, so that it shows
-    in a comparison."""
+    the launch was in ``dtype`` with as many keys as queries, as the main
+    path's are; any other launch keeps the wrapper's own key, so that it
+    shows in a comparison."""
     from repro_torch.kernels import _build
     out = {}
     for (kernel, key), n in _build.SHAPE_LAUNCHES.items():
         if kernel == name:
-            dtype, B, H, KV, Sq, Sk, *rest = key
-            out[(B, H, KV, Sq, *rest) if dtype == "bfloat16" and Sq == Sk
+            dt, B, H, KV, Sq, Sk, *rest = key
+            out[(B, H, KV, Sq, *rest) if dt == dtype and Sq == Sk
                 else key] = n
     return out
 
@@ -3587,6 +3727,38 @@ def dryrun_sweep(shape_applicable, arch_ids, get_arch, shapes, record):
             f"(want {DRYRUN_SWEEP}), skips {sorted(skipped ^ want_skips)} "
             f"differ; the tail of its output:\n{proc.stdout[-2000:]}"
             f"{proc.stderr[-2000:]}")
+    # the collective term of every cell on both meshes
+    # (roofline/collectives.py), under the reference's coll_detail keys
+    rows = [r for r in json.loads((out_dir / "dryrun_report.json")
+                                  .read_text()) if not r["skipped"]]
+    keys = {"all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+            "collective-permute", "count", "naive_module_sum"}
+    bad = [(r["arch"], r["shape"], r["mesh"]) for r in rows
+           if set(r["coll_detail"]) != keys
+           or not isinstance(r["t_collective_s"], float)
+           or r["t_collective_s"] <= 0.0]
+    if bad:
+        raise AssertionError(f"the dry run's cells without a counted "
+                             f"collective term: {bad}")
+    coll = record["dryrun_sweep"]["collectives"] = {}
+    for mesh in ("16x16", "2x16x16"):
+        cells = []
+        for r in rows:
+            if r["mesh"] != mesh:
+                continue
+            n = sum(r["coll_detail"][k] for k in keys
+                    if k not in ("count", "naive_module_sum"))
+            coll[f"{r['arch']} x {r['shape']} on {mesh}"] = {
+                "coll_bytes_per_device": n,
+                "t_collective_ms": r["t_collective_s"] * 1e3,
+                "dominant": r["dominant"], "t_bound_ms": r["t_bound_s"] * 1e3,
+                "coll_detail": r["coll_detail"]}
+            cells.append(f"{r['arch']} {r['shape']}: {n:.4g} B, "
+                         f"{r['t_collective_s'] * 1e3:.4g} ms, "
+                         f"{r['dominant']}")
+        log("dryrun", f"collective term on {mesh} (cell: bytes a device, "
+            f"collective ms, the bound's dominant term): "
+            + "; ".join(cells))
 
 
 def dryrun_cells(torch, dev, record, card):
@@ -4736,6 +4908,70 @@ def check_padded_rows(torch, g, dev, ks):
     return n
 
 
+def check_odd_head_dims(torch, g, dev, ks, card):
+    """``[odd hd]``: K9-K11 at ODD_HD_CASES, head dims that are not a
+    multiple of 8, in every dtype of FLASH_DTYPES, through the public
+    wrappers (kernel layout and model layout forward, the backward pair):
+    o and lse within FLASH_TOL, dq, dk and dv within BWD_TOL of the plain
+    versions at the real head dims, the launches counted under the real
+    head dims' shape key.  The wrapper pads q, k, v and do with zero
+    columns to the next multiple of 8 and runs the kernels of that width
+    (``ops.padded_dim``)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_plain, flash_attention_plain)
+    n, routes = 0, {}
+    for case in ODD_HD_CASES:
+        B, H, KV, S, hd, hd_v = case[:6]
+        kw = flash_kw(case)
+        for dname in FLASH_DTYPES:
+            dt = getattr(torch, dname)
+            q, k, v = flash_inputs(torch, g, dev, case, dt)
+            do = torch.randn(q.shape[:3] + (hd_v,), generator=g,
+                             device=dev).to(dt)
+            blk = S if S % min(128, S) else min(128, S)   # a ragged S
+            want_o, want_lse = flash_attention_plain(q, k, v, bq=blk, bk=blk,
+                                                     **kw)
+            _build.reset_launches()
+            o, lse = ops.flash_attention_kernel(q, k, v, return_lse=True,
+                                                **kw)
+            om = ops.flash_attention(*(t.transpose(1, 2) for t in (q, k, v)),
+                                     **kw)
+            grads = ops.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+            torch.cuda.synchronize()
+            key = ops.launch_shape(dt, B, H, KV, S, S, hd, hd_v, *case[6:9])
+            counted = {k_: n_ for k_, n_ in _build.SHAPE_LAUNCHES.items()}
+            want_counts = {(LM_KERNEL, key): 2, (BWD_KERNELS[0], key): 1,
+                           (BWD_KERNELS[1], key): 1}
+            if counted != want_counts or not torch.equal(
+                    om.transpose(1, 2), o):
+                raise AssertionError(f"odd head dims {case} {dname}: "
+                                     f"launches {counted} != {want_counts}, "
+                                     f"or the model layout's o differs")
+            kern = kernel_row(ks, LM_KERNEL, dname)
+            for what, got, want in (("o", o, want_o), ("lse", lse, want_lse)):
+                kern.err(torch, got, want, FLASH_TOL[dname, what],
+                         f"{dname} {what} odd hd")
+            want_g = flash_attention_bwd_plain(q, k, v, o, lse, do, bq=blk,
+                                               bk=blk, **kw)
+            for out, kname, gt, wt in zip(
+                    ("dq", "dk", "dv"),
+                    (BWD_KERNELS[0], BWD_KERNELS[1], BWD_KERNELS[1]),
+                    grads, want_g):
+                rtol, share = BWD_TOL[dname, out]
+                kernel_row(ks, kname, dname).err(
+                    torch, gt, wt, (rtol, share * float(wt.abs().max())),
+                    f"{dname} {out} odd hd")
+            n += 5
+        routes[case_key(case)] = ops.flash_route(torch.bfloat16, hd, hd_v)
+    log("odd hd", f"{n} outputs of K9-K11 at {len(ODD_HD_CASES)} odd head "
+        f"dim pairs in {'/'.join(FLASH_DTYPES)} within FLASH_TOL and "
+        f"BWD_TOL, launches keyed by the real head dims (16-bit routes at "
+        f"the padded dims: {json.dumps(routes)})  [{card}]")
+    return n
+
+
 def run_examples(record, card):
     """Each example of ``examples_torch/`` (``EXAMPLES``): its ``main()``
     in this process on the card, its output kept in the output directory
@@ -4820,7 +5056,8 @@ def main():
     _build.build_all()
     k11_plant = k11_plant()
     record["build_s"] = time.perf_counter() - t0
-    log("build", f"{len(_build.SOURCES)} sources and the K11 plant built "
+    log("build", f"{len(_build.SOURCES)} libraries (flash attention's "
+        f"two sources built a second time for f16) and the K11 plant built "
         f"with nvcc in {record['build_s']:.1f} s")
     record["ptxas"] = ptxas_report(_build)
     for src, found in record["ptxas"].items():
@@ -4856,7 +5093,7 @@ def main():
     check_main_path_instances(record, shapes, conv_plan, stream_plan,
                               sm_count, flash_route, torch)
     ks = {k: Kernel(k) for k in CNN_KERNELS}
-    for k in (LM_KERNEL,) + BWD_KERNELS + FLOAT_MM_KERNELS:
+    for k in (LM_KERNEL,) + BWD_KERNELS + FLOAT_MM_KERNELS + tuple(F16_ROWS):
         ks[k] = Kernel(k, BF16_FLOPS_PER_S)
     # every plain version and product in f32 (no TF32): the references
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4996,9 +5233,10 @@ def main():
                                           mm_float_plan, sm_count)
     n_float = check_float_matmul(torch, g, dev, ks, fc_shapes, block_for,
                                  fpath)
-    n_flash = check_flash(torch, g, dev, ks[LM_KERNEL], record)
+    n_flash = check_flash(torch, g, dev, ks, record)
     n_bwd = check_flash_bwd(torch, g, dev, ks, record)
     n_pad = check_padded_rows(torch, g, dev, ks)
+    n_odd = check_odd_head_dims(torch, g, dev, ks, card)
     torch.cuda.synchronize()
     watchdog.cancel()
     record["check_s"] = time.perf_counter() - t0
@@ -5006,6 +5244,13 @@ def main():
                                        for k in FLOAT_MM_KERNELS}
     record["flash_readings"] = ks[LM_KERNEL].readings
     record["flash_bwd_readings"] = {k: ks[k].readings for k in BWD_KERNELS}
+    record["flash_f16_readings"] = {k: ks[k].readings for k in F16_ROWS}
+    log("f16", f"K9-K11's f16 instances against their plain versions at "
+        f"every shape bf16 is held at, their f32 sums, the vjp and the odd "
+        f"head dims: worst share of each limit " + json.dumps(
+            {k: {key: round(r["max_share_of_limit"], 4)
+                 for key, r in ks[k].readings.items()}
+             for k in F16_ROWS}) + f"  [{card}]")
     log("check", f"{n_checks} kernel-vs-plain comparisons bit-identical "
         f"({len(conv_shapes)} dense conv shapes of the six CNN configs "
         f"streamed, {len(pinned_shapes)} of them pinned; {len(fc_shapes)} "
@@ -5018,16 +5263,17 @@ def main():
         f"FLOAT_TOL, readings "
         f"{json.dumps(record['float_matmul_readings'])}; {n_flash} "
         f"flash-attention comparisons (o and "
-        f"lse at {len(FLASH_CASES)} shapes in bf16 and f32, and the model "
-        f"layout) within tolerance, readings "
+        f"lse at {len(FLASH_CASES)} shapes in bf16, f32 and f16, and the "
+        f"model layout) within tolerance, readings "
         f"{json.dumps(ks[LM_KERNEL].readings)}; {n_bwd} flash-backward "
-        f"comparisons (dq, dk, dv at {len(FLASH_CASES)} shapes in bf16 and "
-        f"f32, their f32 sums at {len(BWD_SUM_CASES)} shapes, and "
+        f"comparisons (dq, dk, dv at {len(FLASH_CASES)} shapes in bf16, "
+        f"f32 and f16, their f32 sums at {len(BWD_SUM_CASES)} shapes, and "
         f"flash_attention_vjp against autograd) within tolerance, "
         f"readings {json.dumps(record['flash_bwd_readings'])}, vjp share of "
         f"limit {json.dumps(record['vjp_share_of_limit'])}; {n_pad} outputs "
         f"of K9-K11 at the reduced head dims (padded to 32) read and wrote "
-        f"nothing past a row's head dim; in {record['check_s']:.1f} s")
+        f"nothing past a row's head dim; {n_odd} at odd head dims (padded "
+        f"by the wrapper); in {record['check_s']:.1f} s")
 
     # -- 3. the slice through the kernels ------------------------------------
     params, images, logits = {}, {}, {}
@@ -5638,6 +5884,21 @@ def main():
         total_launches[k] = total_launches.get(k, 0) + train[k]
     add_k9(train_cases[LM_KERNEL])
     bwd_launches = {k: dict(train_cases[k]) for k in BWD_KERNELS}
+    # Phi-4-mini in f16 (``[f16]`` lines): served and trained as in bf16,
+    # on the f16 instances, whose launches go to their own rows
+    f16_lm = serve_lm(torch, np, dev, record, dtype=F16)
+    f16_cases = {LM_KERNEL: dict(f16_lm["k9_by_case"])}
+    launches[LM_ARCH + " f16"] = f16_lm["launches"]
+    del f16_lm
+    f16_train, f16_train_cases = train_lm(torch, np, dev, record, card,
+                                          dtype=F16)
+    launches[LM_ARCH + " f16 training"] = f16_train
+    for k, by in f16_train_cases.items():
+        for case, n in by.items():
+            f16_cases.setdefault(k, {})
+            f16_cases[k][case] = f16_cases[k].get(case, 0) + n
+    for row, k in F16_ROWS.items():
+        total_launches[row] = sum(f16_cases[k].values())
     gpipe, gpipe_cases = gpipe_lm(torch, np, dev, record, card)
     launches[LM_ARCH + " GPipe"] = gpipe
     for k, n in gpipe.items():
@@ -5706,6 +5967,18 @@ def main():
     t0 = time.perf_counter()
     time_flash(torch, F, g, dev, ks[LM_KERNEL], flash_launches, card, record)
     time_flash_bwd(torch, F, g, dev, ks, bwd_launches, card, record)
+    f16_main = (FLASH_SLICE,)           # Phi-4-mini's, served and trained
+    time_flash(torch, F, g, dev, ks["flash_attention_fwd_f16"],
+               f16_cases[LM_KERNEL], card, record, dtype=F16, main=f16_main)
+    time_flash_bwd(torch, F, g, dev, ks, {k: f16_cases[k]
+                                          for k in BWD_KERNELS}, card,
+                   record, dtype=F16, main=f16_main)
+    log("f16", "K9-K11's f16 instances on Phi-4-mini's f16 path (launches; "
+        "device ms over them; bound ms; plain ms; SDPA in f16 ms): " +
+        "; ".join(f"{row}: {total_launches[row]}; {ks[row].ms:.4f}; "
+                  f"{ks[row].bound_ms:.4f} ({ks[row].bound_by}); "
+                  f"{ks[row].plain_ms:.4f}; {ks[row].library_ms:.4f}"
+                  for row in F16_ROWS) + f"  [{card}]")
     record["time_s"] += time.perf_counter() - t0
     run_examples(record, card)
 

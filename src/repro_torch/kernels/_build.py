@@ -8,7 +8,10 @@ with a plain C interface:
          csrc/<name>.cu
 
 ``<sha>`` is the hash of the source, so an edited source rebuilds and a
-stale library is never loaded.  The compiler's report (``-Xptxas -v``:
+stale library is never loaded.  A variant (``VARIANTS``) is a source
+built a second time with defines of its own into a library of its own
+name: the flash-attention kernels' f16 instances, built beside the bf16
+ones by a second nvcc at once.  The compiler's report (``-Xptxas -v``:
 each kernel's registers, stack and spills) is kept beside the library
 (:func:`build_log`).  Only the sources in this package are
 built.  ``--use_fast_math`` is deliberately absent: the fused requant
@@ -34,8 +37,15 @@ from typing import Dict, Hashable, NamedTuple, Optional, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+#: library name -> (source under ``csrc/``, extra nvcc flags) for the
+#: libraries built from another library's source
+VARIANTS = {
+    "flash_attention_f16": ("flash_attention", ("-DH2PIPE_HALF",)),
+    "flash_attention_bwd_f16": ("flash_attention_bwd", ("-DH2PIPE_HALF",)),
+}
 SOURCES = ("conv2d_int8", "dwconv_int8", "flash_attention",
-           "flash_attention_bwd", "pool_int8", "stream_matmul")
+           "flash_attention_bwd", "pool_int8", "stream_matmul") + \
+    tuple(VARIANTS)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -70,18 +80,26 @@ def _nvcc() -> str:
                        "(install the CUDA toolkit or put nvcc on PATH)")
 
 
+def _source(name: str) -> Tuple[Path, Tuple[str, ...]]:
+    """The source a library is built from and its extra nvcc flags."""
+    src, flags = VARIANTS.get(name, (name, ()))
+    return CSRC / f"{src}.cu", flags
+
+
 def library_path(name: str) -> Path:
-    """Where the library of ``csrc/<name>.cu`` lives: named by the hash of
-    the source and of the shared headers it includes."""
-    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    """Where the library ``name`` lives: named by the hash of its source,
+    of the shared headers it includes and of its extra flags."""
+    src, flags = _source(name)
+    h = hashlib.sha256(src.read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.read_bytes())
+    h.update(" ".join(flags).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_log(name: str) -> str:
-    """What nvcc reported (``-Xptxas -v``) when it built the library of
-    ``csrc/<name>.cu``."""
+    """What nvcc reported (``-Xptxas -v``) when it built the library
+    ``name``."""
     return library_path(name).with_suffix(".log").read_text()
 
 
@@ -94,8 +112,9 @@ def _start(name: str):
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp,
-           str(CSRC / f"{name}.cu")]
+    src, flags = _source(name)
+    cmd = [_nvcc(), *NVCC_FLAGS, *flags, "-Xptxas", "-v", "-o", tmp,
+           str(src)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out
@@ -108,7 +127,7 @@ def _finish(name: str, started) -> None:
     log, _ = proc.communicate()
     if proc.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed for csrc/{name}.cu "
+        raise RuntimeError(f"nvcc failed for {name} "
                            f"(exit {proc.returncode}):\n{log}")
     out.with_suffix(".log").write_text(log)
     os.replace(tmp, out)        # atomic: concurrent builders never see half
@@ -130,7 +149,8 @@ def build_all(names: Sequence[str] = SOURCES) -> None:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+    """The loaded library ``name`` (``csrc/<name>.cu``, or a variant's
+    source), built on first use."""
     lib = _libs.get(name)
     if lib is not None:
         return lib

@@ -25,8 +25,15 @@
 //
 // Three kernels, one route each, picked from (dtype, hd, hd_v) alone
 // (ops.flash_route; flash_attention_fwd_launch takes the route and checks
-// it):
-//   flash_fwd_wgmma<HD>  bf16 with hd = hd_v in {64, 128} (Phi-4-mini's
+// it).  The two tensor-core kernels are templates over the 16-bit operand
+// type T, bf16 or f16: this file builds as two libraries, one a type
+// (kernels/_build.py VARIANTS: bf16 by default, f16 where H2PIPE_HALF is
+// defined, each its own nvcc, started together), so each type's instances
+// build beside the other's.  The f16 instances round p to f16 where the
+// bf16 ones round it to bf16, as the reference rounds p to v's dtype; f16
+// keeps 11 significant bits where bf16 keeps 8, over a narrower range
+// (p and o stay inside it: p <= 1, o is a convex combination of v).
+//   flash_fwd_wgmma<T, HD>  hd = hd_v in {64, 128} (Phi-4-mini's
 //     128; 64 in the ATTN_CASES).  One CTA owns a 128-row q block: a
 //     producer warp loads Q once and the K/V tiles of 64 keys through a
 //     ring of two stages by TMA (cp.async.bulk.tensor, 128-byte swizzle,
@@ -34,7 +41,7 @@
 //     the transaction bytes and an empty one that both consumer
 //     warpgroups release; each of the two warpgroups owns 64 rows and
 //     runs S = QK^T as wgmma m64n64k16 with Q and K from shared memory
-//     (K-major), the softmax steps above in registers, and O += bf16(P) V
+//     (K-major), the softmax steps above in registers, and O += T(P) V
 //     as wgmma with P from registers (the S accumulator is laid out as the
 //     A fragment) and V read MN-major through the transpose bit.  Its
 //     exponentials are exp2f with the scores' factor (scale * log2(e), or
@@ -44,15 +51,15 @@
 //     (PERF.md).  The tensor maps carry the operands' strides, so the
 //     model layout goes in without a copy; the wrapper refuses a base or
 //     stride TMA cannot take (not 16-byte aligned).
-//   flash_fwd_bf16<HD, HDV>  the other bf16 pairs (the first port's).  Four
+//   flash_fwd_16<T, HD, HDV>  the other 16-bit pairs (the first port's).  Four
 //     warps, 16 query rows each.  The Q tile (64 rows) stays in shared
 //     memory; K/V tiles of 64 keys pass through a ring of two shared-memory
 //     buffers filled with cp.async, so tile kt+1 is in flight while tile
 //     kt is consumed.  Rows are padded by 8 elements so that ldmatrix hits
 //     distinct banks.  QK^T and PV run on the tensor cores as mma.sync
-//     m16n8k16 (bf16 in, f32 accumulate), their operands loaded with
+//     m16n8k16 (T in, f32 accumulate), their operands loaded with
 //     ldmatrix (.trans for V).  p goes from registers to the tensor cores
-//     rounded to bf16, without shared memory.  Head dims: any multiple of
+//     rounded to T, without shared memory.  Head dims: any multiple of
 //     8 from 8 to 256 (hd and hd_v each), run at the narrowest width the
 //     kernel is built at that holds it (width(): hd 32, 64, 128, 192, 256;
 //     hd_v 32, 64, 128, 256).  The copies zero-fill the columns past hd in
@@ -61,8 +68,8 @@
 //     scale is the true 1/sqrt(hd), which the wrapper passes.
 //   flash_fwd_f32  f32 operands, for tight tests: the same tiles and
 //     steps on the CUDA cores with fmaf, scores and acc in shared memory,
-//     at the true head dims.
-// In both bf16 kernels the softcap and the mask run as separate loops
+//     at the true head dims (built into the bf16 library only).
+// In both 16-bit kernels the softcap and the mask run as separate loops
 // behind branches that are uniform over the warpgroup or CTA, and only
 // the tiles on the causal diagonal or the window's edge evaluate the mask.
 //
@@ -77,6 +84,7 @@
 // K/V tile.  PERF.md has its times against the bound and the library's
 // attention.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -87,12 +95,27 @@ namespace {
 
 using namespace h2pipe_mma;
 
+// The 16-bit operand type of this library, its element code in
+// flash_attention_fwd_launch (ops._DTYPES), its TMA data type and the
+// operand types of its wgmma instructions.
+#ifdef H2PIPE_HALF
+using T16 = f16;
+constexpr int ELEM16 = 2;
+constexpr CUtensorMapDataType TMA_T16 = CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+#define WG_AB ".f32.f16.f16"
+#else
+using T16 = bf16;
+constexpr int ELEM16 = 0;
+constexpr CUtensorMapDataType TMA_T16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+#define WG_AB ".f32.bf16.bf16"
+#endif
+
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 constexpr int BQ = 64;     // query rows per CTA
-constexpr int BK = 64;     // keys per K/V tile, bf16 kernel
-constexpr int NT = 128;    // threads, bf16 kernel: 4 warps x 16 rows
+constexpr int BK = 64;     // keys per K/V tile, 16-bit kernel
+constexpr int NT = 128;    // threads, 16-bit kernel: 4 warps x 16 rows
 constexpr int BK32 = 32;   // keys per K/V tile, f32 kernel
 constexpr int NT32 = 256;  // threads, f32 kernel
 
@@ -132,33 +155,33 @@ __device__ __forceinline__ void k_tiles(const FlashArgs& a, int q0, int bq,
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores through mma.sync
+// 16-bit operands: tensor cores through mma.sync
 // ---------------------------------------------------------------------------
 
-// pack_bf16, cp.async, ldmatrix, mma_bf16 and load_tile: mma_bf16.cuh
+// pack2, cp.async, ldmatrix, mma16 and load_tile: mma_bf16.cuh
 
 template <int HD, int HDV>
-size_t smem_bf16() {
+size_t smem_16() {
   return ((size_t)BQ * (HD + 8) +
           2 * ((size_t)BK * (HD + 8) + (size_t)BK * (HDV + 8))) *
-         sizeof(bf16);
+         sizeof(T16);
 }
 
-template <int HD, int HDV>
-__global__ void __launch_bounds__(NT) flash_fwd_bf16(FlashArgs a) {
+template <typename T, int HD, int HDV>
+__global__ void __launch_bounds__(NT) flash_fwd_16(FlashArgs a) {
   constexpr int LQ = HD + 8, LV = HDV + 8;  // padded row strides
-  extern __shared__ __align__(16) unsigned char smem_bf16_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_bf16_raw);  // [BQ][LQ]
-  bf16* Ks = Qs + BQ * LQ;                            // 2 x [BK][LQ]
-  bf16* Vs = Ks + 2 * BK * LQ;                        // 2 x [BK][LV]
+  extern __shared__ __align__(16) unsigned char smem_16_raw[];
+  T* Qs = reinterpret_cast<T*>(smem_16_raw);  // [BQ][LQ]
+  T* Ks = Qs + BQ * LQ;                            // 2 x [BK][LQ]
+  T* Vs = Ks + 2 * BK * LQ;                        // 2 x [BK][LV]
 
   const int nqb = (a.Sq + BQ - 1) / BQ;
   const int q0 = (nqb - 1 - (int)blockIdx.x) * BQ;  // heaviest first
   const int h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (a.H / a.KV);
-  const bf16* q = static_cast<const bf16*>(a.q) + b * a.qs_b + h * a.qs_h;
-  const bf16* k = static_cast<const bf16*>(a.k) + b * a.ks_b + kvh * a.ks_h;
-  const bf16* v = static_cast<const bf16*>(a.v) + b * a.vs_b + kvh * a.vs_h;
+  const T* q = static_cast<const T*>(a.q) + b * a.qs_b + h * a.qs_h;
+  const T* k = static_cast<const T*>(a.k) + b * a.ks_b + kvh * a.ks_h;
+  const T* v = static_cast<const T*>(a.v) + b * a.vs_b + kvh * a.vs_h;
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;  // fragment row / column pair
@@ -196,8 +219,8 @@ __global__ void __launch_bounds__(NT) flash_fwd_bf16(FlashArgs a) {
     cp_async_commit();
     cp_async_wait1();  // Q and tile kt have landed
     __syncthreads();
-    const bf16* Kb = Ks + buf * BK * LQ;
-    const bf16* Vb = Vs + buf * BK * LV;
+    const T* Kb = Ks + buf * BK * LQ;
+    const T* Vb = Vs + buf * BK * LV;
 
     // s = q . k^T for this warp's 16 rows x 64 keys (8 n-tiles of 8)
     float s[BK / 8][4];
@@ -212,8 +235,8 @@ __global__ void __launch_bounds__(NT) flash_fwd_bf16(FlashArgs a) {
       for (int j = 0; j < BK / 8; j += 2) {
         uint32_t bf[4];
         ldsm_x4(bf, Kb + (j * 8 + kr) * LQ + kk * 16 + kc);
-        mma_bf16(s[j], af, bf[0], bf[1]);
-        mma_bf16(s[j + 1], af, bf[2], bf[3]);
+        mma16<T>(s[j], af, bf[0], bf[1]);
+        mma16<T>(s[j + 1], af, bf[2], bf[3]);
       }
     }
 
@@ -290,20 +313,20 @@ __global__ void __launch_bounds__(NT) flash_fwd_bf16(FlashArgs a) {
       o[n][2] *= al1; o[n][3] *= al1;
     }
 
-    // acc += bf16(p) . v: n-tiles 2kk and 2kk+1 of s are the A fragment
+    // acc += T(p) . v: n-tiles 2kk and 2kk+1 of s are the A fragment
     // of keys 16kk .. 16kk+15
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint32_t pf[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+      const uint32_t pf[4] = {pack2<T>(s[2 * kk][0], s[2 * kk][1]),
+                              pack2<T>(s[2 * kk][2], s[2 * kk][3]),
+                              pack2<T>(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              pack2<T>(s[2 * kk + 1][2], s[2 * kk + 1][3])};
 #pragma unroll
       for (int n = 0; n < HDV / 8; n += 2) {
         uint32_t vf[4];
         ldsm_x4_trans(vf, Vb + (kk * 16 + lr) * LV + n * 8 + lc);
-        mma_bf16(o[n], pf, vf[0], vf[1]);
-        mma_bf16(o[n + 1], pf, vf[2], vf[3]);
+        mma16<T>(o[n], pf, vf[0], vf[1]);
+        mma16<T>(o[n + 1], pf, vf[2], vf[3]);
       }
     }
     m0 = mn0;
@@ -312,17 +335,17 @@ __global__ void __launch_bounds__(NT) flash_fwd_bf16(FlashArgs a) {
   }
 
   const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
-  bf16* out = static_cast<bf16*>(a.o) + b * a.os_b + h * a.os_h;
+  T* out = static_cast<T*>(a.o) + b * a.os_b + h * a.os_h;
 #pragma unroll
   for (int n = 0; n < HDV / 8; ++n) {
     const int col = n * 8 + 2 * t;
     if (n * 8 >= a.hdv) break;  // the padding columns are not written
     if (row0 < a.Sq)
       *reinterpret_cast<uint32_t*>(out + row0 * a.os_s + col) =
-          pack_bf16(o[n][0] / d0, o[n][1] / d0);
+          pack2<T>(o[n][0] / d0, o[n][1] / d0);
     if (row1 < a.Sq)
       *reinterpret_cast<uint32_t*>(out + row1 * a.os_s + col) =
-          pack_bf16(o[n][2] / d1, o[n][3] / d1);
+          pack2<T>(o[n][2] / d1, o[n][3] / d1);
   }
   if (t == 0) {
     float* L = a.lse + ((long long)b * a.H + h) * a.Sq;
@@ -332,7 +355,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_bf16(FlashArgs a) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16, hd = hd_v in {64, 128}: wgmma fed by TMA
+// 16-bit, hd = hd_v in {64, 128}: wgmma fed by TMA
 // ---------------------------------------------------------------------------
 
 constexpr int WQ = 128;         // query rows per CTA: two warpgroups of 64
@@ -340,7 +363,7 @@ constexpr int WK = 64;          // keys per K/V tile
 constexpr int WSTAGES = 2;      // K/V tiles in flight
 constexpr int WCONSUMERS = 256; // the two consumer warpgroups
 constexpr int WTHREADS = WCONSUMERS + 32;  // and one producer warp
-constexpr int SWZ_ROW = 128;    // bytes of one swizzled row: 64 bf16
+constexpr int SWZ_ROW = 128;    // bytes of one swizzled row: 64 T
 
 // Shared memory of one CTA: Q as HD/64 panels of [WQ rows][128 B], then
 // WSTAGES stages of K and V, each HD/64 panels of [WK rows][128 B].  Every
@@ -440,7 +463,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[8][4], uint64_t da,
                                          uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "wgmma.mma_async.sync.aligned.m64n64k16" WG_AB " {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
       "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
       "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
@@ -466,7 +489,7 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[8][4],
                                          uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "wgmma.mma_async.sync.aligned.m64n64k16" WG_AB " {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
       "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
       "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
@@ -493,7 +516,7 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[16][4],
                                          uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "wgmma.mma_async.sync.aligned.m64n128k16" WG_AB " {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
       "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
       "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
@@ -532,11 +555,11 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[16][4],
 // owns rows q0 + 64w .. +63 and computes, per tile, S = Q K^T with wgmma
 // from shared memory (both K-major), the softmax steps of the header in
 // registers (the S accumulator's layout is the mma.sync layout per warp,
-// so the row maxima and sums are quad shuffles as in flash_fwd_bf16), and
-// O += bf16(P) V with P from registers and V read MN-major through the
+// so the row maxima and sums are quad shuffles as in flash_fwd_16), and
+// O += T(P) V with P from registers and V read MN-major through the
 // transpose bit.  A tile no row of the warpgroup sees is released
 // unread (exact, see the header).
-template <int HD>
+template <typename T, int HD>
 __global__ void __launch_bounds__(WTHREADS, 1)
     flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
                     const __grid_constant__ CUtensorMap kmap,
@@ -628,7 +651,7 @@ __global__ void __launch_bounds__(WTHREADS, 1)
     wgmma_commit_wait();
     fence_acc(sc);
 
-    // softcap and mask as flash_fwd_bf16 does; the exponentials in base 2,
+    // softcap and mask as flash_fwd_16 does; the exponentials in base 2,
     // with the scores' factor (scale * log2(e), or log2(e) after the
     // softcap) folded into one FFMA a score: p = 2^(t * c2 - m), m in
     // base-2 units
@@ -701,17 +724,17 @@ __global__ void __launch_bounds__(WTHREADS, 1)
       o[n][2] *= al1; o[n][3] *= al1;
     }
 
-    // acc += bf16(p) . v: n-tiles 2kk and 2kk+1 of s are the A fragment of
+    // acc += T(p) . v: n-tiles 2kk and 2kk+1 of s are the A fragment of
     // keys 16kk .. 16kk+15; V's rows 16kk.. start 16 * 128 B apart, its
     // 64-column panels L::KV_PANEL apart
     fence_acc(o);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < WK / 16; ++kk) {
-      const uint32_t pf[4] = {pack_bf16(sc[2 * kk][0], sc[2 * kk][1]),
-                              pack_bf16(sc[2 * kk][2], sc[2 * kk][3]),
-                              pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]),
-                              pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3])};
+      const uint32_t pf[4] = {pack2<T>(sc[2 * kk][0], sc[2 * kk][1]),
+                              pack2<T>(sc[2 * kk][2], sc[2 * kk][3]),
+                              pack2<T>(sc[2 * kk + 1][0], sc[2 * kk + 1][1]),
+                              pack2<T>(sc[2 * kk + 1][2], sc[2 * kk + 1][3])};
       wgmma_rs(o, pf,
                sw128_desc(st + L::K_BYTES + kk * 16 * SWZ_ROW, L::KV_PANEL,
                           1024));
@@ -724,16 +747,16 @@ __global__ void __launch_bounds__(WTHREADS, 1)
   }
 
   const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
-  bf16* out = static_cast<bf16*>(a.o) + b * a.os_b + h * a.os_h;
+  T* out = static_cast<T*>(a.o) + b * a.os_b + h * a.os_h;
 #pragma unroll
   for (int n = 0; n < HD / 8; ++n) {
     const int col = n * 8 + 2 * t;
     if (row0 < a.Sq)
       *reinterpret_cast<uint32_t*>(out + row0 * a.os_s + col) =
-          pack_bf16(o[n][0] / d0, o[n][1] / d0);
+          pack2<T>(o[n][0] / d0, o[n][1] / d0);
     if (row1 < a.Sq)
       *reinterpret_cast<uint32_t*>(out + row1 * a.os_s + col) =
-          pack_bf16(o[n][2] / d1, o[n][3] / d1);
+          pack2<T>(o[n][2] / d1, o[n][3] / d1);
   }
   if (t == 0) {  // lse = m + log(l), m back in natural units
     float* L_ = a.lse + ((long long)b * a.H + h) * a.Sq;
@@ -744,6 +767,7 @@ __global__ void __launch_bounds__(WTHREADS, 1)
   }
 }
 
+#ifndef H2PIPE_HALF  // f32 operands: in the bf16 library only
 // ---------------------------------------------------------------------------
 // f32: the same steps on the CUDA cores
 // ---------------------------------------------------------------------------
@@ -849,22 +873,24 @@ __global__ void __launch_bounds__(NT32) flash_fwd_f32(FlashArgs a) {
         m[tid] + logf(fmaxf(l[tid], 1e-30f));
 }
 
+#endif
+
 // ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
 
 template <int HD, int HDV>
-cudaError_t launch_bf16(const FlashArgs& a, dim3 grid, cudaStream_t stream) {
-  const size_t smem = smem_bf16<HD, HDV>();
+cudaError_t launch_16(const FlashArgs& a, dim3 grid, cudaStream_t stream) {
+  const size_t smem = smem_16<HD, HDV>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_bf16<HD, HDV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_16<T16, HD, HDV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  flash_fwd_bf16<HD, HDV><<<grid, NT, smem, stream>>>(a);
+  flash_fwd_16<T16, HD, HDV><<<grid, NT, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-// The tensor map of a [B, heads, S, d] bf16 operand given by its element
+// The tensor map of a [B, heads, S, d] 16-bit operand given by its element
 // strides over (batch, head, seq), d contiguous: boxes of 64 columns x
 // `rows` rows of one head, 128-byte swizzle, rows past S read as zeros.
 // The strides of a size-1 dim are not read; TMA still wants them aligned.
@@ -881,7 +907,7 @@ cudaError_t tensor_map(CUtensorMap* map, const void* base, int B, int heads,
                            (cuuint64_t)sb * 2};
   cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
   cuuint32_t unit[4] = {1, 1, 1, 1};
-  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+  CUresult r = fn(map, TMA_T16, 4,
                   const_cast<void*>(base), dims, strides, box, unit,
                   CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
@@ -902,24 +928,24 @@ cudaError_t launch_wgmma(const FlashArgs& a, cudaStream_t stream) {
                      WK);
   if (err != cudaSuccess) return err;
   const int smem = WgLayout<HD>::SMEM;
-  err = cudaFuncSetAttribute(flash_fwd_wgmma<HD>,
+  err = cudaFuncSetAttribute(flash_fwd_wgmma<T16, HD>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem);
   if (err != cudaSuccess) return err;
   dim3 grid((a.Sq + WQ - 1) / WQ, a.H, a.B);
-  flash_fwd_wgmma<HD><<<grid, WTHREADS, smem, stream>>>(qm, km, vm, a);
+  flash_fwd_wgmma<T16, HD><<<grid, WTHREADS, smem, stream>>>(qm, km, vm, a);
   return cudaGetLastError();
 }
 
-// flash_fwd_bf16<HD, HDV> at the widths of width() (mma_bf16.cuh)
+// flash_fwd_16<T16, HD, HDV> at the widths of width() (mma_bf16.cuh)
 template <int HD>
-cudaError_t launch_bf16_hdv(const FlashArgs& a, dim3 grid,
+cudaError_t launch_16_hdv(const FlashArgs& a, dim3 grid,
                             cudaStream_t stream) {
   switch (width(a.hdv, WIDTHS_HDV)) {
-    case 32: return launch_bf16<HD, 32>(a, grid, stream);
-    case 64: return launch_bf16<HD, 64>(a, grid, stream);
-    case 128: return launch_bf16<HD, 128>(a, grid, stream);
-    case 256: return launch_bf16<HD, 256>(a, grid, stream);
+    case 32: return launch_16<HD, 32>(a, grid, stream);
+    case 64: return launch_16<HD, 64>(a, grid, stream);
+    case 128: return launch_16<HD, 128>(a, grid, stream);
+    case 256: return launch_16<HD, 256>(a, grid, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -931,18 +957,22 @@ extern "C" {
 // q [B,H,Sq,hd], k [B,KV,Sk,hd], v [B,KV,Sk,hd_v], o [B,H,Sq,hd_v] given
 // by their element strides over (batch, head, seq) in `strides` (q, k, v,
 // o in turn; the last dim contiguous); lse [B,H,Sq] f32, contiguous.
-// hd and hd_v: multiples of 8 from 8 to 256.  route 0: bf16 on mma.sync,
-// at the widths of width(); 1: f32; 2: bf16 on wgmma and TMA, for hd =
-// hd_v in {64, 128} only, which route 0 refuses (ops.flash_route picks it
-// from (dtype, hd, hd_v)).  Returns a cudaError_t.
+// hd and hd_v: multiples of 8 from 8 to 256.  elem: the operands' type,
+// 0 bf16, 1 f32, 2 f16 (ops._DTYPES), which must be this library's
+// (ELEM16; f32 in the bf16 library).  route 0: the 16-bit operands on
+// mma.sync, at the widths of width(); 1: f32; 2: the 16-bit operands on
+// wgmma and TMA, for hd = hd_v in {64, 128} only, which route 0 refuses
+// (ops.flash_route picks it from (dtype, hd, hd_v)).  Returns a
+// cudaError_t.
 int flash_attention_fwd_launch(const void* q, const void* k, const void* v,
-                               void* o, float* lse, int route, int B, int H,
-                               int KV, int Sq, int Sk, int hd, int hd_v,
-                               const long long* strides, int causal,
-                               int window, float softcap, float scale,
-                               cudaStream_t stream) {
+                               void* o, float* lse, int route, int elem,
+                               int B, int H, int KV, int Sq, int Sk, int hd,
+                               int hd_v, const long long* strides,
+                               int causal, int window, float softcap,
+                               float scale, cudaStream_t stream) {
   if (KV < 1 || H % KV != 0 || window < 0 || !head_dim_ok(hd) ||
-      !head_dim_ok(hd_v))
+      !head_dim_ok(hd_v) || (route == 1) != (elem == 1) ||
+      (elem != 1 && elem != ELEM16))
     return (int)cudaErrorInvalidValue;
   if (B == 0 || H == 0 || Sq == 0) return (int)cudaSuccess;
   FlashArgs a{q, k, v, o, lse,
@@ -958,6 +988,9 @@ int flash_attention_fwd_launch(const void* q, const void* k, const void* v,
   }
   dim3 grid((Sq + BQ - 1) / BQ, H, B);
   if (route == 1) {
+#ifdef H2PIPE_HALF
+    return (int)cudaErrorInvalidValue;  // f32: the bf16 library's
+#else
     const size_t smem = smem_f32(hd, hd_v);
     cudaError_t err = cudaFuncSetAttribute(
         flash_fwd_f32, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -965,15 +998,16 @@ int flash_attention_fwd_launch(const void* q, const void* k, const void* v,
     if (err != cudaSuccess) return (int)err;
     flash_fwd_f32<<<grid, NT32, smem, stream>>>(a);
     return (int)cudaGetLastError();
+#endif
   }
   if (route != 0 || (hd == hd_v && (hd == 64 || hd == 128)))
     return (int)cudaErrorInvalidValue;
   switch (width(hd, WIDTHS_HD)) {
-    case 32: return (int)launch_bf16_hdv<32>(a, grid, stream);
-    case 64: return (int)launch_bf16_hdv<64>(a, grid, stream);
-    case 128: return (int)launch_bf16_hdv<128>(a, grid, stream);
-    case 192: return (int)launch_bf16_hdv<192>(a, grid, stream);
-    case 256: return (int)launch_bf16_hdv<256>(a, grid, stream);
+    case 32: return (int)launch_16_hdv<32>(a, grid, stream);
+    case 64: return (int)launch_16_hdv<64>(a, grid, stream);
+    case 128: return (int)launch_16_hdv<128>(a, grid, stream);
+    case 192: return (int)launch_16_hdv<192>(a, grid, stream);
+    case 256: return (int)launch_16_hdv<256>(a, grid, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -21,9 +21,13 @@
 //
 // Two routes, picked by the operands' dtype:
 //
-//   bf16 (the training path): flash_bwd_dq_tc<HD, HDV> and
-//   flash_bwd_dkv_tc<HD, HDV>, every product on the tensor cores as
-//   mma.sync m16n8k16 (bf16 in, f32 sums).  One CTA owns 64 rows (query
+//   16-bit (bf16, the training path, or f16): flash_bwd_dq_tc<T, HD, HDV>
+//   and flash_bwd_dkv_tc<T, HD, HDV>, every product on the tensor cores
+//   as mma.sync (f32 sums).  This file builds as two libraries, one a
+//   type T (kernels/_build.py VARIANTS: bf16 by default, f16 where
+//   H2PIPE_HALF is defined, each its own nvcc, started together).  What
+//   follows is the bf16 instances'; the f16 ones differ in the three
+//   accumulating products only (see below).  One CTA owns 64 rows (query
 //   rows for dq, keys for dk/dv), four warps of 16, and walks the other
 //   axis in tiles of 64.  The owned tile (Q and dO, or K and V) is loaded
 //   once; the streamed tile (K and V, or Q, dO, lse and delta) passes
@@ -59,6 +63,20 @@
 //   the padded columns of dq, dk and dv come out 0 and are not written.
 //   The scale is the true 1/sqrt(hd), which the wrapper passes.
 //
+//   The f16 instances take the two score products as mma.sync m16n8k16
+//   on f16 operands (exact in f32, as bf16's).  For the three
+//   accumulating products p and ds cannot be split into f16 parts: f16's
+//   range ends at 6.1e-5 (subnormals from there down to 6e-8), and a p
+//   or ds below it, or a part of one, would be lost where the reference
+//   keeps it in f32.  So they run on tf32 (mma.sync m16n8k8): each f32 p
+//   or ds splits exactly into three tf32 values by truncation (split3_tf32:
+//   11 significant bits each, with f32's exponent range), the f16 operand
+//   converts to tf32 exactly (its 11 bits), and each m16n8k16 of the bf16
+//   route becomes two m16n8k8 over the even and the odd keys of its 16
+//   (a lane's A and B fragments hold the same keys: split_product).  Every
+//   product is exact in f32 again; the f16 route issues twice the bf16
+//   route's tensor-core work for these products.
+//
 //   f32 (dtype 1, the check path of the f32 card tests, as flash_fwd_f32
 //   is for K9): flash_bwd_dq_f32 and flash_bwd_dkv_f32, every
 //   operand in f32 in shared memory and every product an f32 FMA on the
@@ -80,14 +98,27 @@
 // PERF.md has the times against the bound and the library's attention
 // backward.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "mma_bf16.cuh"
 
 namespace {
 
 using namespace h2pipe_mma;
+
+// The 16-bit operand type of this library and its dtype codes in
+// flash_attention_bwd_launch: the grads in T, and the f32 sums.
+#ifdef H2PIPE_HALF
+using T16 = f16;
+constexpr int DTYPE16 = 3, DTYPE16_F32 = 4;
+#else
+using T16 = bf16;
+constexpr int DTYPE16 = 0, DTYPE16_F32 = 2;
+#endif
 
 // f32 route (SIMT)
 constexpr int NT = 256;     // threads: 8 warps
@@ -207,6 +238,7 @@ __device__ __forceinline__ const T* head_ptr(const void* base,
   return static_cast<const T*>(base) + b * s[0] + h * s[1];
 }
 
+#ifndef H2PIPE_HALF  // f32 operands: in the bf16 library only
 // ---------------------------------------------------------------------------
 // K10: dq
 // ---------------------------------------------------------------------------
@@ -390,8 +422,10 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_f32(BwdArgs a) {
   }
 }
 
+#endif
+
 // ---------------------------------------------------------------------------
-// bf16 route: tensor cores through mma.sync
+// 16-bit route: tensor cores through mma.sync
 // ---------------------------------------------------------------------------
 
 constexpr int TC_BM = 64;   // owned rows per CTA: 4 row groups of 16
@@ -451,8 +485,58 @@ __device__ __forceinline__ void mma_split(float (*acc)[4], uint32_t (*f)[4],
   }
 }
 
+// x == hi + mid + lo exactly, each part a tf32 value (11 significant
+// bits; the low 13 bits of its f32 pattern zero): truncations, so x - hi
+// keeps at most 13 significant bits and x - hi - mid at most 2.
+__device__ __forceinline__ void split3_tf32(float x, float& hi, float& mid,
+                                            float& lo) {
+  hi = __uint_as_float(__float_as_uint(x) & 0xffffe000u);
+  const float r = x - hi;
+  mid = __uint_as_float(__float_as_uint(r) & 0xffffe000u);
+  lo = r - mid;
+}
+
+// The f16 route's A fragments of one k-slice of 16 keys for the keys of
+// parity e: c[0], c[1] are the two m16n8 accumulator fragments that cover
+// it (a lane's registers e = 0, 1 hold keys 2t and 2t+1 of each 8), and
+// the m16n8k8 takes the keys 2t+e and 8+2t+e as its k-indices t and t+4
+// (a0, a1: rows g and g+8 at key 2t+e; a2, a3: at key 8+2t+e).  Each
+// value splits into its three tf32 parts, lo (part[0]), mid, hi.
+__device__ __forceinline__ void split_frag_tf32(const float (*c)[4], int e,
+                                                uint32_t (*part)[4]) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    float hi, mid, lo;
+    split3_tf32(c[r >> 1][(r & 1) * 2 + e], hi, mid, lo);
+    part[0][r] = __float_as_uint(lo);
+    part[1][r] = __float_as_uint(mid);
+    part[2][r] = __float_as_uint(hi);
+  }
+}
+
+// acc[0], acc[1] += the three parts, smallest first, times the B
+// fragments of the keys of parity e of n-tiles n and n + 1: the
+// ldmatrix.trans fragments xf (xf[0] keys 2t, 2t+1 of tile n, xf[1] keys
+// 8+2t, 9+2t; xf[2], xf[3] tile n + 1) converted from f16 to tf32 exactly.
+__device__ __forceinline__ void mma_split_tf32(float (*acc)[4],
+                                               uint32_t (*part)[4],
+                                               const uint32_t* xf, int e) {
+#pragma unroll
+  for (int tile = 0; tile < 2; ++tile) {
+    const __half2 k0 = *reinterpret_cast<const __half2*>(&xf[2 * tile]);
+    const __half2 k8 = *reinterpret_cast<const __half2*>(&xf[2 * tile + 1]);
+    const uint32_t b0 =
+        __float_as_uint(e ? __high2float(k0) : __low2float(k0));
+    const uint32_t b1 =
+        __float_as_uint(e ? __high2float(k8) : __low2float(k8));
+#pragma unroll
+    for (int p = 0; p < 3; ++p) mma_tf32(acc[tile], part[p], b0, b1);
+  }
+}
+
 // Outputs (row, col) and (row, col + 1) of a gradient given by its base
-// and strides s (batch, head, seq): bf16 rounded, or the f32 sums.
+// and strides s (batch, head, seq): rounded to T, or the f32 sums.
+template <typename T>
 __device__ __forceinline__ void store_pair(void* base, const long long* s,
                                            int b, int h, int row, int col,
                                            float x0, float x1, bool f32) {
@@ -461,16 +545,16 @@ __device__ __forceinline__ void store_pair(void* base, const long long* s,
     *reinterpret_cast<float2*>(static_cast<float*>(base) + off) =
         make_float2(x0, x1);
   else
-    *reinterpret_cast<uint32_t*>(static_cast<bf16*>(base) + off) =
-        pack_bf16(x0, x1);
+    *reinterpret_cast<uint32_t*>(static_cast<T*>(base) + off) =
+        pack2<T>(x0, x1);
 }
 
 // acc[j] += A . B^T for one warp: A is the warp's 16 rows of an [., D]
 // tile (row stride la), B the first 8 NJ rows of another (row stride lb);
-// both bf16 in shared memory, sums in f32.
-template <int D, int NJ>
-__device__ __forceinline__ void score_product(float (*acc)[4], const bf16* A,
-                                              int la, const bf16* B, int lb,
+// both of type T in shared memory, sums in f32.
+template <int D, int NJ, typename T>
+__device__ __forceinline__ void score_product(float (*acc)[4], const T* A,
+                                              int la, const T* B, int lb,
                                               int lane) {
   const int lr = (lane & 7) + ((lane >> 3) & 1) * 8, lc = (lane >> 4) * 8;
   const int kr = (lane & 7) + (lane >> 4) * 8, kc = ((lane >> 3) & 1) * 8;
@@ -482,59 +566,75 @@ __device__ __forceinline__ void score_product(float (*acc)[4], const bf16* A,
     for (int j = 0; j < NJ; j += 2) {
       uint32_t bf[4];
       ldsm_x4(bf, B + (j * 8 + kr) * lb + kk * 16 + kc);
-      mma_bf16(acc[j], af, bf[0], bf[1]);
-      mma_bf16(acc[j + 1], af, bf[2], bf[3]);
+      mma16<T>(acc[j], af, bf[0], bf[1]);
+      mma16<T>(acc[j + 1], af, bf[2], bf[3]);
     }
   }
 }
 
 // acc[n] += split(c) . X for the NC / 8 n-tiles of columns [c0, c0 + NC)
-// of the rows [0, 16 NK) of X (bf16, row stride lx), where c holds 2 NK
-// m16n8 accumulator fragments: the three-part product of one warp.
-template <int NK, int NC>
+// of the rows [0, 16 NK) of X (type T, row stride lx), where c holds 2 NK
+// m16n8 accumulator fragments: the three-part product of one warp, on
+// bf16 parts (bf16 X) or tf32 parts (f16 X).
+template <int NK, int NC, typename T>
 __device__ __forceinline__ void split_product(float (*acc)[4],
                                               const float (*c)[4],
-                                              const bf16* X, int lx, int c0,
+                                              const T* X, int lx, int c0,
                                               int lane) {
   const int lr = (lane & 7) + ((lane >> 3) & 1) * 8, lc = (lane >> 4) * 8;
 #pragma unroll
   for (int kk = 0; kk < NK; ++kk) {
-    uint32_t f[3][4];
-    split_frag(c + 2 * kk, f);
+    if constexpr (std::is_same<T, f16>::value) {
+      // the even keys, then the odd ones: 12 parts live, not 24
 #pragma unroll
-    for (int n = 0; n < NC / 8; n += 2) {
-      uint32_t xf[4];
-      ldsm_x4_trans(xf, X + (kk * 16 + lr) * lx + c0 + n * 8 + lc);
-      mma_split(acc + n, f, xf);
+      for (int e = 0; e < 2; ++e) {
+        uint32_t part[3][4];
+        split_frag_tf32(c + 2 * kk, e, part);
+#pragma unroll
+        for (int n = 0; n < NC / 8; n += 2) {
+          uint32_t xf[4];
+          ldsm_x4_trans(xf, X + (kk * 16 + lr) * lx + c0 + n * 8 + lc);
+          mma_split_tf32(acc + n, part, xf, e);
+        }
+      }
+    } else {
+      uint32_t f[3][4];
+      split_frag(c + 2 * kk, f);
+#pragma unroll
+      for (int n = 0; n < NC / 8; n += 2) {
+        uint32_t xf[4];
+        ldsm_x4_trans(xf, X + (kk * 16 + lr) * lx + c0 + n * 8 + lc);
+        mma_split(acc + n, f, xf);
+      }
     }
   }
 }
 
 template <int HD, int HDV>
 size_t smem_tc(bool stats) {
-  return (size_t)(TC_BM + 2 * TC_BN) * (HD + 8 + HDV + 8) * sizeof(bf16) +
+  return (size_t)(TC_BM + 2 * TC_BN) * (HD + 8 + HDV + 8) * sizeof(T16) +
          (stats ? 2 * 2 * TC_BN * sizeof(float) : 0);
 }
 
 // K10: dq for 64 query rows of one (batch, head).
-template <int HD, int HDV, int NTC = 128 * col_split<HD, HDV>()>
+template <typename T, int HD, int HDV, int NTC = 128 * col_split<HD, HDV>()>
 __global__ void __launch_bounds__(NTC) flash_bwd_dq_tc(BwdArgs a) {
   constexpr int CS = NTC / 128;
   constexpr int LQ = HD + 8, LV = HDV + 8, DC = HD / CS;
   extern __shared__ __align__(16) unsigned char smem_dq_tc_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_dq_tc_raw);  // [BM][LQ]
-  bf16* Os = Qs + TC_BM * LQ;                          // dO, [BM][LV]
-  bf16* Ks = Os + TC_BM * LV;                          // 2 x [BN][LQ]
-  bf16* Vs = Ks + 2 * TC_BN * LQ;                      // 2 x [BN][LV]
+  T* Qs = reinterpret_cast<T*>(smem_dq_tc_raw);  // [BM][LQ]
+  T* Os = Qs + TC_BM * LQ;                          // dO, [BM][LV]
+  T* Ks = Os + TC_BM * LV;                          // 2 x [BN][LQ]
+  T* Vs = Ks + 2 * TC_BN * LQ;                      // 2 x [BN][LV]
 
   const int nqb = (a.Sq + TC_BM - 1) / TC_BM;
   const int q0 = (nqb - 1 - (int)blockIdx.x) * TC_BM;  // heaviest first
   const int h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (a.H / a.KV);
-  const bf16* q = head_ptr<bf16>(a.q, a.s + Q_, b, h);
-  const bf16* k = head_ptr<bf16>(a.k, a.s + K_, b, kvh);
-  const bf16* v = head_ptr<bf16>(a.v, a.s + V_, b, kvh);
-  const bf16* dout = head_ptr<bf16>(a.dout, a.s + DO_, b, h);
+  const T* q = head_ptr<T>(a.q, a.s + Q_, b, h);
+  const T* k = head_ptr<T>(a.k, a.s + K_, b, kvh);
+  const T* v = head_ptr<T>(a.v, a.s + V_, b, kvh);
+  const T* dout = head_ptr<T>(a.dout, a.s + DO_, b, h);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int wr = warp % 4, wc = warp / 4;  // row group, column half
   const int g = lane >> 2, t = lane & 3;   // fragment row / column pair
@@ -575,8 +675,8 @@ __global__ void __launch_bounds__(NTC) flash_bwd_dq_tc(BwdArgs a) {
     cp_async_commit();
     cp_async_wait1();  // Q, dO and tile kt have landed
     __syncthreads();
-    const bf16* Kb = Ks + buf * TC_BN * LQ;
-    const bf16* Vb = Vs + buf * TC_BN * LV;
+    const T* Kb = Ks + buf * TC_BN * LQ;
+    const T* Vb = Vs + buf * TC_BN * LV;
 
     // s = q . k^T and dp = do . v^T: the warp's 16 rows x 64 keys
     float s[TC_BN / 8][4], dp[TC_BN / 8][4];
@@ -608,7 +708,7 @@ __global__ void __launch_bounds__(NTC) flash_bwd_dq_tc(BwdArgs a) {
             s[j][e] = 0.0f;
     }
 
-    // dq += ds . k, ds in three bf16 parts
+    // dq += ds . k, ds in three parts
     split_product<TC_BN / 16, DC>(acc, s, Kb, LQ, wc * DC, lane);
     __syncthreads();  // every warp is done with buffer `buf`
   }
@@ -618,34 +718,34 @@ __global__ void __launch_bounds__(NTC) flash_bwd_dq_tc(BwdArgs a) {
     const int col = wc * DC + n * 8 + 2 * t;
     if (wc * DC + n * 8 >= a.hd) break;  // the padding columns
     if (row0 < a.Sq)
-      store_pair(a.dq, a.s + DQ_, b, h, row0, col, acc[n][0], acc[n][1],
+      store_pair<T>(a.dq, a.s + DQ_, b, h, row0, col, acc[n][0], acc[n][1],
                  a.f32_out);
     if (row1 < a.Sq)
-      store_pair(a.dq, a.s + DQ_, b, h, row1, col, acc[n][2], acc[n][3],
+      store_pair<T>(a.dq, a.s + DQ_, b, h, row1, col, acc[n][2], acc[n][3],
                  a.f32_out);
   }
 }
 
 // K11: dk and dv for 64 keys of one (batch, query head).
-template <int HD, int HDV, int NTC = 128 * col_split<HD, HDV>()>
+template <typename T, int HD, int HDV, int NTC = 128 * col_split<HD, HDV>()>
 __global__ void __launch_bounds__(NTC) flash_bwd_dkv_tc(BwdArgs a) {
   constexpr int CS = NTC / 128;
   constexpr int LQ = HD + 8, LV = HDV + 8, DKC = HD / CS, DVC = HDV / CS;
   extern __shared__ __align__(16) unsigned char smem_dkv_tc_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_dkv_tc_raw);  // [BM][LQ]
-  bf16* Vs = Ks + TC_BM * LQ;                           // [BM][LV]
-  bf16* Qs = Vs + TC_BM * LV;                           // 2 x [BN][LQ]
-  bf16* Os = Qs + 2 * TC_BN * LQ;                       // dO, 2 x [BN][LV]
+  T* Ks = reinterpret_cast<T*>(smem_dkv_tc_raw);  // [BM][LQ]
+  T* Vs = Ks + TC_BM * LQ;                           // [BM][LV]
+  T* Qs = Vs + TC_BM * LV;                           // 2 x [BN][LQ]
+  T* Os = Qs + 2 * TC_BN * LQ;                       // dO, 2 x [BN][LV]
   float* Ls = reinterpret_cast<float*>(Os + 2 * TC_BN * LV);  // 2 x [BN]
   float* Dl = Ls + 2 * TC_BN;                                 // 2 x [BN]
 
   const int k0 = blockIdx.x * TC_BM;  // causal: the first keys see most rows
   const int h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (a.H / a.KV);
-  const bf16* q = head_ptr<bf16>(a.q, a.s + Q_, b, h);
-  const bf16* k = head_ptr<bf16>(a.k, a.s + K_, b, kvh);
-  const bf16* v = head_ptr<bf16>(a.v, a.s + V_, b, kvh);
-  const bf16* dout = head_ptr<bf16>(a.dout, a.s + DO_, b, h);
+  const T* q = head_ptr<T>(a.q, a.s + Q_, b, h);
+  const T* k = head_ptr<T>(a.k, a.s + K_, b, kvh);
+  const T* v = head_ptr<T>(a.v, a.s + V_, b, kvh);
+  const T* dout = head_ptr<T>(a.dout, a.s + DO_, b, h);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int wr = warp % 4, wc = warp / 4;  // row group, column half
   const int g = lane >> 2, t = lane & 3;
@@ -693,8 +793,8 @@ __global__ void __launch_bounds__(NTC) flash_bwd_dkv_tc(BwdArgs a) {
     cp_async_commit();
     cp_async_wait1();  // K, V and tile qt have landed
     __syncthreads();
-    const bf16* Qb = Qs + buf * TC_BN * LQ;
-    const bf16* Ob = Os + buf * TC_BN * LV;
+    const T* Qb = Qs + buf * TC_BN * LQ;
+    const T* Ob = Os + buf * TC_BN * LV;
     const float* Lb = Ls + buf * TC_BN;
     const float* Db = Dl + buf * TC_BN;
     const bool whole = q0 + TC_BN <= a.Sq && k0 + TC_BM <= a.Sk &&
@@ -735,7 +835,7 @@ __global__ void __launch_bounds__(NTC) flash_bwd_dkv_tc(BwdArgs a) {
               st[j][e] = dpt[j][e] = 0.0f;
       }
 
-      // dv += p^T . do and dk += ds^T . q, p and ds in three bf16 parts
+      // dv += p^T . do and dk += ds^T . q, p and ds in three parts
       split_product<TC_SUB / 16, DVC>(dv, st, Ob + r0 * LV, LV, wc * DVC,
                                       lane);
       split_product<TC_SUB / 16, DKC>(dk, dpt, Qb + r0 * LQ, LQ, wc * DKC,
@@ -749,10 +849,10 @@ __global__ void __launch_bounds__(NTC) flash_bwd_dkv_tc(BwdArgs a) {
     const int col = wc * DKC + n * 8 + 2 * t;
     if (wc * DKC + n * 8 >= a.hd) break;  // the padding columns
     if (key0 < a.Sk)
-      store_pair(a.dk, a.s + DK_, b, h, key0, col, dk[n][0], dk[n][1],
+      store_pair<T>(a.dk, a.s + DK_, b, h, key0, col, dk[n][0], dk[n][1],
                  a.f32_out);
     if (key1 < a.Sk)
-      store_pair(a.dk, a.s + DK_, b, h, key1, col, dk[n][2], dk[n][3],
+      store_pair<T>(a.dk, a.s + DK_, b, h, key1, col, dk[n][2], dk[n][3],
                  a.f32_out);
   }
 #pragma unroll
@@ -760,10 +860,10 @@ __global__ void __launch_bounds__(NTC) flash_bwd_dkv_tc(BwdArgs a) {
     const int col = wc * DVC + n * 8 + 2 * t;
     if (wc * DVC + n * 8 >= a.hdv) break;  // the padding columns
     if (key0 < a.Sk)
-      store_pair(a.dv, a.s + DV_, b, h, key0, col, dv[n][0], dv[n][1],
+      store_pair<T>(a.dv, a.s + DV_, b, h, key0, col, dv[n][0], dv[n][1],
                  a.f32_out);
     if (key1 < a.Sk)
-      store_pair(a.dv, a.s + DV_, b, h, key1, col, dv[n][2], dv[n][3],
+      store_pair<T>(a.dv, a.s + DV_, b, h, key1, col, dv[n][2], dv[n][3],
                  a.f32_out);
   }
 }
@@ -782,6 +882,7 @@ cudaError_t launch(Kern kern, size_t smem, dim3 grid, int threads,
   return cudaGetLastError();
 }
 
+#ifndef H2PIPE_HALF
 // f32 route; which 0: dq; 1: dk and dv
 cudaError_t launch_f32(const BwdArgs& a, int which, cudaStream_t stream) {
   const bool wide = a.hd > 128 || a.hdv > 128;
@@ -796,18 +897,19 @@ cudaError_t launch_f32(const BwdArgs& a, int which, cudaStream_t stream) {
   return wide ? launch(flash_bwd_dkv_f32<8>, smem, grid, NT, a, stream)
               : launch(flash_bwd_dkv_f32<4>, smem, grid, NT, a, stream);
 }
+#endif
 
-// bf16 route
+// 16-bit route
 template <int HD, int HDV>
 cudaError_t launch_tc(const BwdArgs& a, int which, cudaStream_t stream) {
   constexpr int threads = 128 * col_split<HD, HDV>();
   if (which == 0) {
     dim3 grid((a.Sq + TC_BM - 1) / TC_BM, a.H, a.B);
-    return launch(flash_bwd_dq_tc<HD, HDV>, smem_tc<HD, HDV>(false), grid,
-                  threads, a, stream);
+    return launch(flash_bwd_dq_tc<T16, HD, HDV>, smem_tc<HD, HDV>(false),
+                  grid, threads, a, stream);
   }
   dim3 grid((a.Sk + TC_BM - 1) / TC_BM, a.H, a.B);
-  return launch(flash_bwd_dkv_tc<HD, HDV>, smem_tc<HD, HDV>(true), grid,
+  return launch(flash_bwd_dkv_tc<T16, HD, HDV>, smem_tc<HD, HDV>(true), grid,
                 threads, a, stream);
 }
 
@@ -824,7 +926,7 @@ cudaError_t launch_tc_hdv(const BwdArgs& a, int which, cudaStream_t stream) {
   }
 }
 
-cudaError_t launch_bf16(const BwdArgs& a, int which, cudaStream_t stream) {
+cudaError_t launch_16(const BwdArgs& a, int which, cudaStream_t stream) {
   switch (width(a.hd, WIDTHS_HD)) {
     case 32: return launch_tc_hdv<32>(a, which, stream);
     case 64: return launch_tc_hdv<64>(a, which, stream);
@@ -846,9 +948,11 @@ extern "C" {
 // [B,H,Sq] f32, contiguous.  which 0 launches K10 (writes dq), 1 launches
 // K11 (writes dk and dv).  dtype 0: bf16 operands and outputs (tensor
 // cores); 1: f32 operands and outputs (CUDA cores); 2: bf16 operands, f32
-// outputs (the tensor-core kernels' sums before their rounding).  hd and
-// hd_v: multiples of 8 from 8 to 256 (the bf16 route runs them at the
-// widths of width()).  Returns a cudaError_t.
+// outputs (the tensor-core kernels' sums before their rounding); 3 and 4:
+// f16 operands, f16 and f32 outputs.  Codes 0-2 run in the bf16 library,
+// 3 and 4 in the f16 one (DTYPE16).  hd and hd_v: multiples of 8 from 8
+// to 256 (the 16-bit route runs them at the widths of width()).  Returns
+// a cudaError_t.
 int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
                                const void* dout, const float* lse,
                                const float* delta, void* dq, void* dk,
@@ -868,9 +972,12 @@ int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
   a.B = B; a.H = H; a.KV = KV; a.Sq = Sq; a.Sk = Sk; a.hd = hd;
   a.hdv = hd_v; a.causal = causal; a.window = window;
   a.softcap = softcap; a.scale = scale;
-  a.f32_out = dtype == 2;
-  if (dtype == 0 || dtype == 2) return (int)launch_bf16(a, which, stream);
+  a.f32_out = dtype == DTYPE16_F32;
+  if (dtype == DTYPE16 || dtype == DTYPE16_F32)
+    return (int)launch_16(a, which, stream);
+#ifndef H2PIPE_HALF
   if (dtype == 1) return (int)launch_f32(a, which, stream);
+#endif
   return (int)cudaErrorInvalidValue;
 }
 

@@ -3,21 +3,41 @@
 // matmul's tensor-core instances (mm_float_tc in stream_matmul.cu):
 // cp.async tile copies into padded shared-memory rows, ldmatrix fragment
 // loads of any 16-bit (or, as pairs, 8-bit) data, mma.sync m16n8k16 with
-// bf16 or f16 operands and m16n8k8 with tf32 operands, f32 sums, and the
-// head-dim widths the attention kernels are built at.
+// bf16 or f16 operands (mma16<T> picks by the type) and m16n8k8 with tf32
+// operands, f32 sums, and the head-dim widths the attention kernels are
+// built at.
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace h2pipe_mma {
 
 using bf16 = __nv_bfloat16;
+using f16 = __half;
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo: low half
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t pack_f16(float lo, float hi) {
+  __half2 v = __floats2half2_rn(lo, hi);  // .x = lo: low half
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Two f32 values rounded to the 16-bit type T (bf16 or f16), packed.
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi);
+template <>
+__device__ __forceinline__ uint32_t pack2<bf16>(float lo, float hi) {
+  return pack_bf16(lo, hi);
+}
+template <>
+__device__ __forceinline__ uint32_t pack2<f16>(float lo, float hi) {
+  return pack_f16(lo, hi);
 }
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -90,6 +110,21 @@ __device__ __forceinline__ void mma_f16(float* c, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// mma_bf16 or mma_f16 by the operands' type T.
+template <typename T>
+__device__ __forceinline__ void mma16(float* c, const uint32_t* a,
+                                      uint32_t b0, uint32_t b1);
+template <>
+__device__ __forceinline__ void mma16<bf16>(float* c, const uint32_t* a,
+                                            uint32_t b0, uint32_t b1) {
+  mma_bf16(c, a, b0, b1);
+}
+template <>
+__device__ __forceinline__ void mma16<f16>(float* c, const uint32_t* a,
+                                           uint32_t b0, uint32_t b1) {
+  mma_f16(c, a, b0, b1);
+}
+
 // c[16x8] += a[16x8] . b[8x8], tf32 operands (f32 bit patterns; an operand
 // whose low 13 bits are zero is taken exactly), f32 sums.  Register a0
 // holds row lane/4, column lane%4; a1 row +8; a2 column +4; a3 both; b0
@@ -108,10 +143,11 @@ __device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a,
 // NT threads sharing the work; rows at or past S and columns at or past
 // `cols` (a multiple of 8, at most D: a head dim padded to the kernel's
 // width) arrive as zeros, and nothing past a row's `cols` is read.
-template <int D, int NT>
-__device__ __forceinline__ void load_tile(bf16* dst, int ld, const bf16* src,
+template <int D, int NT, typename T>
+__device__ __forceinline__ void load_tile(T* dst, int ld, const T* src,
                                           long long stride, int row0, int S,
                                           int rows, int cols) {
+  static_assert(sizeof(T) == 2, "16-bit elements: 8 a 16-byte chunk");
   constexpr int CH = D / 8;  // 16-byte chunks per row
   for (int idx = threadIdx.x; idx < rows * CH; idx += NT) {
     const int r = idx / CH, c = idx % CH;

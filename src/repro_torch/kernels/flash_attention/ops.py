@@ -14,17 +14,25 @@
 A CPU tensor runs the plain version in ``ref.py`` at the JAX call's
 blocks, ``min(128, S)`` (``flash_attention_plain`` takes other blocks
 itself).  A CUDA tensor launches ``csrc/flash_attention.cu``
-or raises: bf16 or f32 operands, ``hd`` and ``hd_v`` each a multiple of
-8 from 8 to 256.  :func:`flash_route` picks the forward kernel from
-(dtype, hd, hd_v) alone: bf16 with ``hd == hd_v`` in ``WGMMA_HEAD_DIMS``
-runs on ``wgmma`` fed by TMA (128 query rows by 64 keys), the other bf16
-pairs on ``mma.sync`` (64 by 64), f32 on the CUDA cores (64 by 32).  The
-``mma.sync`` forward and the bf16 backward are built at the widths
-``KERNEL_HD`` x ``KERNEL_HD_V`` and run a head dim at the narrowest that
-holds it (:func:`kernel_widths`), the columns past it zero in shared
-memory.  Each reads the operands through their strides, so the model
-layout goes in and out without a transposed copy; the bases and strides
-must be 16-byte aligned (TMA and ``cp.async`` need it).
+or raises: bf16, f16 or f32 operands, ``hd`` and ``hd_v`` each from 1 to
+256.  The kernels take head dims that are multiples of 8
+(:func:`head_dim_ok`: their 16-byte ``cp.async`` and TMA rows); a launch
+at another head dim pads q, k, v (and the backward's do) with zero
+columns to the next multiple of 8 (:func:`padded_dim`), keeps the scale
+1/sqrt of the real head dim, and slices the outputs back: the zero
+columns add nothing to a score, and the outputs' padded columns come
+out zero.  :func:`flash_route` picks the forward kernel from (dtype,
+hd, hd_v) alone, at the padded dims: a 16-bit pair with ``hd == hd_v``
+in ``WGMMA_HEAD_DIMS`` runs on ``wgmma`` fed by TMA (128 query rows by
+64 keys), the other 16-bit pairs on ``mma.sync`` (64 by 64), f32 on the
+CUDA cores (64 by 32).  bf16 and f16 each have their own instances of
+every 16-bit kernel.  The ``mma.sync`` forward and the 16-bit backward
+are built at the widths ``KERNEL_HD`` x ``KERNEL_HD_V`` and run a head
+dim at the narrowest that holds it (:func:`kernel_widths`), the columns
+past it zero in shared memory.  Each reads the operands through their
+strides, so the model layout goes in and out without a transposed copy
+(but where it pads); the bases and strides must be 16-byte aligned (TMA
+and ``cp.async`` need it).
 
 Every launch charges its cost to the active cost counter
 (``charge_fwd``, ``charge_bwd_dq``, ``charge_bwd_dkv``).  ``meta``
@@ -47,7 +55,7 @@ __all__ = ["flash_attention", "flash_attention_kernel",
            "flash_attention_bwd", "flash_attention_vjp", "KERNEL",
            "KERNEL_DQ", "KERNEL_DKV", "HEAD_DIM_STEP", "HEAD_DIM_MAX",
            "KERNEL_HD", "KERNEL_HD_V", "WGMMA_HEAD_DIMS", "head_dim_ok",
-           "kernel_widths", "flash_route", "launch_shape"]
+           "padded_dim", "kernel_widths", "flash_route", "launch_shape"]
 
 #: launch-counter names (replace ``_flash_kernel``, ``_flash_bwd_dq_kernel``
 #: and ``_flash_bwd_dkv_kernel``)
@@ -55,34 +63,46 @@ KERNEL = "flash_attention_fwd"
 KERNEL_DQ = "flash_attention_bwd_dq"
 KERNEL_DKV = "flash_attention_bwd_dkv"
 #: the head dims the kernels take: hd and hd_v each a multiple of
-#: ``HEAD_DIM_STEP`` from ``HEAD_DIM_STEP`` to ``HEAD_DIM_MAX``
+#: ``HEAD_DIM_STEP`` from ``HEAD_DIM_STEP`` to ``HEAD_DIM_MAX`` (a launch
+#: at another head dim up to ``HEAD_DIM_MAX`` runs padded to one)
 HEAD_DIM_STEP, HEAD_DIM_MAX = 8, 256
-#: the widths (hd, hd_v) the bf16 ``mma.sync`` forward and the bf16
+#: the widths (hd, hd_v) the 16-bit ``mma.sync`` forward and the 16-bit
 #: backward are built at (``width()`` in ``csrc/mma_bf16.cuh``)
 KERNEL_HD = (32, 64, 128, 192, 256)
 KERNEL_HD_V = (32, 64, 128, 256)
-#: head dims (hd = hd_v) of the bf16 forward on wgmma and TMA
+#: head dims (hd = hd_v) of the 16-bit forward on wgmma and TMA
 WGMMA_HEAD_DIMS = (64, 128)
-_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
+#: the operand types, by the element code of the launch functions
+_DTYPES = {torch.bfloat16: 0, torch.float32: 1, torch.float16: 2}
 #: route codes of ``flash_attention_fwd_launch``
 _ROUTES = {"mma_sync": 0, "f32": 1, "wgmma": 2}
+#: dtype codes of ``flash_attention_bwd_launch``, by (operands' dtype,
+#: f32 grads): the grads in the operands' dtype, or the f32 sums of the
+#: 16-bit kernels before their rounding
+_BWD_DTYPES = {(torch.bfloat16, False): 0, (torch.float32, False): 1,
+               (torch.bfloat16, True): 2, (torch.float16, False): 3,
+               (torch.float16, True): 4}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _Strides = ctypes.c_longlong * 12
 _BwdStrides = ctypes.c_longlong * 21
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("flash_attention")
+def _lib(dtype) -> ctypes.CDLL:
+    """The forward's library for operands of ``dtype``: f16's instances
+    are built apart (``_build.VARIANTS``)."""
+    lib = _build.load("flash_attention_f16" if dtype == torch.float16
+                      else "flash_attention")
     if not getattr(lib, "_typed", False):
         lib.flash_attention_fwd_launch.argtypes = \
-            [_P] * 5 + [_I] * 8 + [_Strides, _I, _I, _F, _F, _P]
+            [_P] * 5 + [_I] * 9 + [_Strides, _I, _I, _F, _F, _P]
         lib.flash_attention_fwd_launch.restype = _I
         lib._typed = True
     return lib
 
 
-def _bwd_lib() -> ctypes.CDLL:
-    lib = _build.load("flash_attention_bwd")
+def _bwd_lib(dtype) -> ctypes.CDLL:
+    lib = _build.load("flash_attention_bwd_f16" if dtype == torch.float16
+                      else "flash_attention_bwd")
     if not getattr(lib, "_typed", False):
         lib.flash_attention_bwd_launch.argtypes = \
             [_P] * 9 + [_I] * 9 + [_BwdStrides, _I, _I, _F, _F, _P]
@@ -92,16 +112,28 @@ def _bwd_lib() -> ctypes.CDLL:
 
 
 def head_dim_ok(d: int) -> bool:
-    """Whether the kernels take a head dim of ``d``: a multiple of
-    ``HEAD_DIM_STEP`` from ``HEAD_DIM_STEP`` to ``HEAD_DIM_MAX``."""
+    """Whether the kernels take a head dim of ``d`` as it is: a multiple
+    of ``HEAD_DIM_STEP`` from ``HEAD_DIM_STEP`` to ``HEAD_DIM_MAX``."""
     return d % HEAD_DIM_STEP == 0 and HEAD_DIM_STEP <= d <= HEAD_DIM_MAX
 
 
+def padded_dim(d: int) -> int:
+    """The head dim a launch at ``d`` runs at: ``d`` rounded up to a
+    multiple of ``HEAD_DIM_STEP``.  Raises ``ValueError`` outside 1 to
+    ``HEAD_DIM_MAX``."""
+    if not 1 <= d <= HEAD_DIM_MAX:
+        raise ValueError(f"head dim {d} not supported by the CUDA kernels: "
+                         f"each of hd and hd_v must be from 1 to "
+                         f"{HEAD_DIM_MAX}")
+    return -(-d // HEAD_DIM_STEP) * HEAD_DIM_STEP
+
+
 def kernel_widths(hd: int, hd_v: int) -> tuple:
-    """The widths ``(HD, HDV)`` of the bf16 kernels a launch at head dims
-    ``(hd, hd_v)`` runs at (``flash_fwd_bf16<HD, HDV>`` on the
-    ``mma.sync`` route, ``flash_bwd_*_tc<HD, HDV>``): the narrowest of
-    ``KERNEL_HD`` and ``KERNEL_HD_V`` that hold them."""
+    """The widths ``(HD, HDV)`` of the 16-bit kernels a launch at head
+    dims ``(hd, hd_v)`` (as the kernels take them: multiples of 8) runs
+    at (``flash_fwd_16<HD, HDV>`` on the ``mma.sync`` route,
+    ``flash_bwd_*_tc<HD, HDV>``): the narrowest of ``KERNEL_HD`` and
+    ``KERNEL_HD_V`` that hold them."""
     if not (head_dim_ok(hd) and head_dim_ok(hd_v)):
         raise ValueError(_refusal(hd, hd_v))
     return (next(w for w in KERNEL_HD if hd <= w),
@@ -109,26 +141,31 @@ def kernel_widths(hd: int, hd_v: int) -> tuple:
 
 
 def _refusal(hd: int, hd_v: int) -> str:
-    return (f"head dims (hd={hd}, hd_v={hd_v}) not supported by the CUDA "
-            f"kernels: each must be a multiple of {HEAD_DIM_STEP} from "
-            f"{HEAD_DIM_STEP} to {HEAD_DIM_MAX}")
+    return (f"head dims (hd={hd}, hd_v={hd_v}) not taken by the CUDA "
+            f"kernels as they are: each must be a multiple of "
+            f"{HEAD_DIM_STEP} from {HEAD_DIM_STEP} to {HEAD_DIM_MAX} "
+            f"(a launch pads other head dims up to {HEAD_DIM_MAX})")
 
 
 def flash_route(dtype, hd: int, hd_v: int) -> str:
     """The forward kernel a launch with operands of ``dtype`` and head dims
-    ``(hd, hd_v)`` takes, from those alone (``flash_attention_fwd_launch``
-    in ``csrc/flash_attention.cu`` refuses any other): ``"wgmma"`` for bf16
-    with ``hd == hd_v`` in ``WGMMA_HEAD_DIMS``, ``"mma_sync"`` for the
-    other bf16 pairs, ``"f32"`` for f32.  Raises ``TypeError`` for another
-    dtype (f16 among them) and ``ValueError`` for a head dim that is not a
-    multiple of 8 from 8 to 256 (hd 12 or 264, say): nothing takes another
-    path."""
+    ``(hd, hd_v)`` takes, from those alone, at the padded dims
+    (``flash_attention_fwd_launch`` in ``csrc/flash_attention.cu``
+    refuses any other): ``"wgmma"`` for bf16 or f16 with ``hd == hd_v``
+    in ``WGMMA_HEAD_DIMS``, ``"mma_sync"`` for the other 16-bit pairs,
+    ``"f32"`` for f32.  Raises ``TypeError`` for another dtype (f64, say)
+    and ``ValueError`` for a head dim outside 1 to 256 (264, say): nothing
+    takes another path."""
     if dtype not in _DTYPES:
-        raise TypeError(f"flash attention takes bf16 or f32, not {dtype}")
-    if not (head_dim_ok(hd) and head_dim_ok(hd_v)):
-        raise ValueError(_refusal(hd, hd_v))
+        raise TypeError(f"flash attention takes bf16, f16 or f32, not "
+                        f"{dtype}")
+    if not (1 <= hd <= HEAD_DIM_MAX and 1 <= hd_v <= HEAD_DIM_MAX):
+        raise ValueError(f"head dims (hd={hd}, hd_v={hd_v}) not supported "
+                         f"by the CUDA kernels: each must be from 1 to "
+                         f"{HEAD_DIM_MAX}")
     if dtype == torch.float32:
         return "f32"
+    hd, hd_v = padded_dim(hd), padded_dim(hd_v)
     return "wgmma" if hd == hd_v and hd in WGMMA_HEAD_DIMS else "mma_sync"
 
 
@@ -137,8 +174,8 @@ def launch_shape(dtype, B: int, H: int, KV: int, Sq: int, Sk: int, hd: int,
                  softcap: float) -> tuple:
     """A launch's key in ``_build.SHAPE_LAUNCHES`` (under ``KERNEL``,
     ``KERNEL_DQ`` or ``KERNEL_DKV``):
-    ``("bfloat16" or "float32", B, H, KV, Sq, Sk, hd, hd_v, causal,
-    window, softcap)``."""
+    ``("bfloat16", "float16" or "float32", B, H, KV, Sq, Sk, hd, hd_v,
+    causal, window, softcap)``, at the real head dims."""
     return (str(dtype).removeprefix("torch."), B, H, KV, Sq, Sk, hd, hd_v,
             bool(causal), int(window), float(softcap))
 
@@ -227,11 +264,18 @@ def charge_bwd_dkv(B: int, H: int, KV: int, Sq: int, Sk: int, hd: int,
     return _build.Charge(body * grid, nbytes, dots * grid)
 
 
-def _check(t: torch.Tensor, name: str, dtype, device) -> None:
+def _check_type(t: torch.Tensor, name: str, dtype, device) -> None:
     if t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
     if t.dtype != dtype:
         raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+
+
+def _check(t: torch.Tensor, name: str, dtype, device) -> None:
+    """What a kernel asks of an operand or output it is handed: its
+    device and dtype, the head dim contiguous, the base and strides
+    16-byte aligned."""
+    _check_type(t, name, dtype, device)
     align = 16 // t.element_size()
     strides = kernel_strides(t)
     if strides[3] != 1 or any(s % align for s in strides[:3]) \
@@ -254,32 +298,50 @@ def _check_shapes(q, k, v) -> str:
     return route
 
 
+def _pad(t: torch.Tensor, d: int) -> torch.Tensor:
+    """``t`` with zero columns past its last dim up to ``d`` (a copy in
+    ``t``'s dim order, its last dim contiguous), or ``t`` itself."""
+    if t.shape[-1] == d:
+        return t
+    return torch.nn.functional.pad(t, (0, d - t.shape[-1]))
+
+
 def _launch(q, k, v, o, lse, *, causal: bool, window: int,
             softcap: float) -> None:
     """q/k/v/o as ``[B, heads, S, dim]`` views (any strides the checks
-    accept); lse contiguous ``[B,H,Sq]``."""
+    accept); lse contiguous ``[B,H,Sq]``.  Head dims that are not a
+    multiple of 8 run padded (q, k and v copied with zero columns; o
+    written through a padded buffer)."""
     B, H, Sq, hd = q.shape
     KV, Sk, hd_v = k.shape[1], k.shape[2], v.shape[3]
     route = _check_shapes(q, k, v)
     dev = q.device
     for t, name in ((q, "q"), (k, "k"), (v, "v"), (o, "o")):
-        _check(t, name, q.dtype, dev)
+        _check_type(t, name, q.dtype, dev)
     cost = charge_fwd(B, H, KV, Sq, Sk, hd, hd_v, q.element_size(),
                       causal=causal, window=window, softcap=softcap)
     if dev.type == "meta":
         _build.charge(cost)
         return
-    strides = _Strides(*(s for t in (q, k, v, o)
+    pd, pdv = padded_dim(hd), padded_dim(hd_v)
+    qp, kp, vp = _pad(q, pd), _pad(k, pd), _pad(v, pdv)
+    op = o if pdv == hd_v else torch.empty((B, H, Sq, pdv), dtype=o.dtype,
+                                           device=dev)
+    for t, name in ((qp, "q"), (kp, "k"), (vp, "v"), (op, "o")):
+        _check(t, name, q.dtype, dev)
+    strides = _Strides(*(s for t in (qp, kp, vp, op)
                          for s in kernel_strides(t)[:3]))
-    err = _lib().flash_attention_fwd_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), _ROUTES[route], B, H, KV, Sq, Sk, hd, hd_v,
-        strides, int(causal), int(window), float(softcap),
+    err = _lib(q.dtype).flash_attention_fwd_launch(
+        qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), op.data_ptr(),
+        lse.data_ptr(), _ROUTES[route], _DTYPES[q.dtype], B, H, KV, Sq, Sk,
+        pd, pdv, strides, int(causal), int(window), float(softcap),
         1.0 / math.sqrt(hd), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "flash_attention")
     _build.count_launch(KERNEL, launch_shape(q.dtype, B, H, KV, Sq, Sk, hd,
                                              hd_v, causal, window, softcap),
                         cost)
+    if op is not o:
+        o.copy_(op[..., :hd_v])
 
 
 def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
@@ -327,8 +389,11 @@ def _launch_bwd(q, k, v, do, lse, delta, dq, dk, dv, *, causal: bool,
     """K10 (``which`` 0) then K11 (1).  q/k/v/do/dq/dk/dv as ``[B, heads,
     S, dim]`` views (any strides the checks accept; dk/dv per query head);
     lse and delta contiguous ``[B,H,Sq]`` f32.  The grads take q's dtype,
-    or f32 beside bf16 operands (the f32 sums).  ``which`` picks one of
-    the two for timing each alone."""
+    or f32 beside 16-bit operands (the f32 sums).  ``which`` picks one of
+    the two for timing each alone.  Head dims that are not a multiple of
+    8 run padded: q, k, v and do copied with zero columns, the grads
+    written through padded buffers (whose padded columns come out zero)
+    and copied back."""
     B, H, Sq, hd = q.shape
     KV, Sk, hd_v = k.shape[1], k.shape[2], v.shape[3]
     _check_shapes(q, k, v)
@@ -336,12 +401,13 @@ def _launch_bwd(q, k, v, do, lse, delta, dq, dk, dv, *, causal: bool,
         raise ValueError(f"do {tuple(do.shape)} != {(B, H, Sq, hd_v)}")
     dev = q.device
     for t, name in ((q, "q"), (k, "k"), (v, "v"), (do, "do")):
-        _check(t, name, q.dtype, dev)
-    # bf16 operands with f32 grads: code 2, the sums before their rounding
-    f32_sums = (q.dtype, dq.dtype) == (torch.bfloat16, torch.float32)
-    dtype = 2 if f32_sums else _DTYPES[q.dtype]
+        _check_type(t, name, q.dtype, dev)
+    # 16-bit operands with f32 grads: the sums before their rounding
+    f32_sums = q.dtype != torch.float32 and dq.dtype == torch.float32
+    dtype = _BWD_DTYPES[q.dtype, f32_sums]
+    grad_dtype = torch.float32 if f32_sums else q.dtype
     for t, name in ((dq, "dq"), (dk, "dk"), (dv, "dv")):
-        _check(t, name, torch.float32 if f32_sums else q.dtype, dev)
+        _check_type(t, name, grad_dtype, dev)
     for t, name in ((lse, "lse"), (delta, "delta")):
         _build.check_cuda_tensor(t, name, torch.float32, dev)
     charges = tuple(
@@ -352,22 +418,33 @@ def _launch_bwd(q, k, v, do, lse, delta, dq, dk, dv, *, causal: bool,
         for kernel in which:
             _build.charge(charges[kernel])
         return
-    strides = _BwdStrides(*(s for t in (q, k, v, do, dq, dk, dv)
+    pd, pdv = padded_dim(hd), padded_dim(hd_v)
+    ins = (_pad(q, pd), _pad(k, pd), _pad(v, pdv), _pad(do, pdv))
+    outs = tuple(g if g.shape[-1] == d else torch.empty(
+        g.shape[:-1] + (d,), dtype=g.dtype, device=dev)
+        for g, d in ((dq, pd), (dk, pd), (dv, pdv)))
+    for t, name in zip(ins, ("q", "k", "v", "do")):
+        _check(t, name, q.dtype, dev)
+    for t, name in zip(outs, ("dq", "dk", "dv")):
+        _check(t, name, grad_dtype, dev)
+    strides = _BwdStrides(*(s for t in ins + outs
                             for s in kernel_strides(t)[:3]))
-    lib = _bwd_lib()
+    lib = _bwd_lib(q.dtype)
     stream = torch.cuda.current_stream(dev).cuda_stream
     for kernel in which:
         name = (KERNEL_DQ, KERNEL_DKV)[kernel]
         err = lib.flash_attention_bwd_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), kernel, dtype, B, H, KV, Sq, Sk, hd,
-            hd_v, strides, int(causal), int(window), float(softcap),
+            *(t.data_ptr() for t in ins), lse.data_ptr(), delta.data_ptr(),
+            *(t.data_ptr() for t in outs), kernel, dtype, B, H, KV, Sq, Sk,
+            pd, pdv, strides, int(causal), int(window), float(softcap),
             1.0 / math.sqrt(hd), stream)
         _build.check(err, name)
         _build.count_launch(name, launch_shape(q.dtype, B, H, KV, Sq, Sk, hd,
                                                hd_v, causal, window, softcap),
                             charges[kernel])
+    for g, pg in zip((dq, dk, dv), outs):
+        if pg is not g:
+            g.copy_(pg[..., :g.shape[-1]])
 
 
 def _delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
@@ -394,15 +471,17 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     ``[B,KV,Sk,hd_v]``, o and do ``[B,H,Sq,hd_v]``, lse ``[B,H,Sq]`` f32
     -> ``(dq [B,H,Sq,hd], dk [B,H,Sk,hd], dv [B,H,Sk,hd_v])``, dk and dv
     per query head (the GQA fold is the caller's), each in its operand's
-    dtype.  ``out_dtype=torch.float32`` with bf16 operands gives the f32
-    sums before their rounding: a check that sees below bf16's precision.
+    dtype.  ``out_dtype=torch.float32`` with bf16 or f16 operands gives
+    the f32 sums before their rounding: a check that sees below the
+    16-bit type's precision (the JAX wrapper has no such option).
     CPU tensors run ``flash_attention_bwd_plain`` at the JAX call's
     blocks; CUDA tensors launch K10 and K11 or raise, writing the grads in
     q's layout (views of the model layout for model-layout q)."""
-    if out_dtype not in (None, q.dtype) and \
-            (q.dtype, out_dtype) != (torch.bfloat16, torch.float32):
+    if out_dtype not in (None, q.dtype) and (
+            q.dtype not in (torch.bfloat16, torch.float16)
+            or out_dtype != torch.float32):
         raise TypeError(f"grads in {out_dtype} from {q.dtype} operands: "
-                        f"only bf16 operands give f32 grads")
+                        f"only bf16 or f16 operands give f32 grads")
     if _build.runs_plain(q, meta_launches=True):
         return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
                                          window=window, softcap=softcap,

@@ -50,6 +50,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -75,7 +76,7 @@ from repro_torch.models.layers import (P, _current_physical_mesh,
                                        kernel_mode_enabled, set_kernel_mode,
                                        set_mesh_axis_sizes, spec_shard_count)
 from repro_torch.optim import adamw
-from repro_torch.roofline import analysis
+from repro_torch.roofline import analysis, collectives
 from repro_torch.roofline.op_cost import Cost, counting
 from repro_torch.runtime.trainer import TrainConfig, make_train_step
 
@@ -188,20 +189,66 @@ def make_step(arch: ArchConfig, shape: ShapeConfig, params, *,
         {"cache": cache, "batch": feed}
 
 
+def streamed_paths(arch: ArchConfig) -> Tuple[str, ...]:
+    """The leaves the placement plan streams over ``data`` on the active
+    mesh (their planned spec names ``data``): each is all-gathered at
+    its use.  Planned on the whole arch, so that a depth cut of it
+    streams the same leaves."""
+    abstract = tmod.abstract_params(arch)
+    pspecs = tmod.param_specs(arch)
+    plan = streaming.plan_placement(abstract, pspecs, arch)
+    planned = streaming.apply_plan_to_specs(pspecs, plan, abstract)
+    return tuple(path for path, spec in flatten_with_paths(planned)
+                 if any("data" in collectives.axis_names(p)
+                        for p in spec or ()))
+
+
+@contextlib.contextmanager
+def partitioned(arch: ArchConfig, shape: ShapeConfig, params, state,
+                streamed=(), microbatches: Optional[int] = None):
+    """Inside an entered mesh of more than one slot, the step run in this
+    context is charged its collectives (``roofline/collectives.py``):
+    the params placed by their specs (``streamed`` leaves gathered at
+    each use) and the cache by ``cache_specs`` (an activation's share of
+    the batch is taken by ``batch_shards`` when the mesh is known); a
+    train step also charges its gradients' reduction and the ZeRO gather
+    of the AdamW update."""
+    if _current_physical_mesh() is None:
+        yield
+        return
+    m = microbatches or (train_microbatches(shape) if shape.kind == "train"
+                         else 1)
+    pspecs = tmod.param_specs(arch)
+    with collectives.partitioning() as part:
+        part.place_tree(params, pspecs, streamed)
+        if "cache" in state:
+            part.place_tree(state["cache"],
+                            tmod.cache_specs(arch, shape.global_batch))
+        yield
+        if shape.kind == "train":
+            collectives.charge_train_sync(
+                params, pspecs, adamw.state_specs(
+                    params, pspecs, train_config(shape, m).adamw)["mu"],
+                m, streamed=streamed)
+
+
 def step_cost(arch: ArchConfig, shape: ShapeConfig, *, params=None,
-              device="meta", microbatches: Optional[int] = None) -> Cost:
+              device="meta", microbatches: Optional[int] = None,
+              streamed=()) -> Cost:
     """The count of one step of the cell, run in full on ``device``
     (``params`` default to ``meta`` ones there, else to weights drawn
-    from seed 0)."""
+    from seed 0); inside a mesh of more than one slot, with its
+    collectives (``streamed``: the leaves the plan streams)."""
     gen = None
     if torch.device(device).type != "meta":
         gen = torch.Generator(device).manual_seed(0)
     if params is None:
         params = (tmod.abstract_params(arch) if gen is None
                   else tmod.init_params(gen, arch, device))
-    step, _ = make_step(arch, shape, params, device=device,
-                        microbatches=microbatches, gen=gen)
-    with counting() as c:
+    step, state = make_step(arch, shape, params, device=device,
+                            microbatches=microbatches, gen=gen)
+    with counting() as c, partitioned(arch, shape, params, state, streamed,
+                                      microbatches):
         step()
     return c.cost
 
@@ -264,9 +311,13 @@ def corners(arch: ArchConfig, shape: ShapeConfig):
 
 
 def corner_cost(arch: ArchConfig, shape: ShapeConfig, depths: Dict[str, int],
-                microbatches: Optional[int], device="meta") -> Cost:
+                microbatches: Optional[int], device="meta",
+                stream_plan: bool = True) -> Cost:
+    streamed = streamed_paths(arch) if stream_plan and \
+        _current_physical_mesh() is not None else ()
     return step_cost(dataclasses.replace(arch, **depths), shape,
-                     microbatches=microbatches, device=device)
+                     microbatches=microbatches, device=device,
+                     streamed=streamed)
 
 
 def extrapolated_cost(arch: ArchConfig, shape: ShapeConfig, counts=None,
@@ -285,33 +336,68 @@ def extrapolated_cost(arch: ArchConfig, shape: ShapeConfig, counts=None,
     return _extrapolate(values, points, target)
 
 
-def count_key(arch_id: str, shape: ShapeConfig, kernels: bool) -> tuple:
+def naive_collective_count(arch: ArchConfig, shape: ShapeConfig,
+                           counts) -> Cost:
+    """The count whose collectives make the reference's
+    ``naive_module_sum``: each loop body counted once — here each layer
+    stack at one period of its layers and one microbatch, extrapolated
+    from the corners' counts as the count is; a cell counted whole keeps
+    its count."""
+    points, target, _ = corners(arch, shape)
+    if not points:
+        return counts[0]
+    once = [b - a for a, b in points]         # one period of each stack
+    if shape.kind == "train" and train_microbatches(shape) > 3:
+        once[-1] = 1                          # and one microbatch
+    values = dict(zip(itertools.product(*points), counts))
+    return _extrapolate(values, points, tuple(once))
+
+
+def batch_shards(shape: ShapeConfig) -> int:
+    """How many ways the active mesh's data axes split a step's batch (a
+    microbatch's, in training), as ``batch_specs`` shards it: each
+    device's share of an activation's collective bytes."""
+    per = shape.global_batch // (train_microbatches(shape)
+                                 if shape.kind == "train" else 1)
+    dp = dp_spec(per)
+    return axis_size(dp) if dp is not None else 1
+
+
+def count_key(arch_id: str, shape: ShapeConfig, kernels: bool,
+              stream_plan: bool = True) -> tuple:
     """The key of a cell's count, read inside the entered mesh: the arch,
     the shape, the kernel mode and what of the mesh the count reads —
     where the mesh has more than one slot, the model axis's size (the
-    expert-parallel MoE, the flash call's mesh rule) and whether the
-    data axes split the batch a step's attention sees (the rule)."""
+    expert-parallel MoE, the flash call's mesh rule, the collectives),
+    whether the data axes split the batch a step's attention sees (the
+    rule), the data axis's size (the ZeRO and streamed weights'
+    collectives) and the leaves the plan streams.  How many ways the data
+    axes split the batch the count leaves open (``batch_shards``)."""
     mesh = _current_physical_mesh()
     per = shape.global_batch // (train_microbatches(shape)
                                  if shape.kind == "train" else 1)
-    on_mesh = None if mesh is None else (axis_size("model"),
-                                         dp_spec(per) is not None)
+    on_mesh = None if mesh is None else (
+        axis_size("model"), dp_spec(per) is not None, axis_size("data"),
+        streamed_paths(get_arch(arch_id)) if stream_plan else ())
     return (arch_id, shape, kernels, on_mesh)
 
 
 def _corner_task(arch_id: str, shape: ShapeConfig, depths, mb,
-                 kernels: bool, multi_pod: bool) -> Dict[str, int]:
+                 kernels: bool, multi_pod: bool,
+                 stream_plan: bool) -> Dict[str, int]:
     set_kernel_mode(kernels)
     with make_production_mesh(multi_pod=multi_pod):
-        return corner_cost(get_arch(arch_id), shape, depths, mb).as_dict()
+        return corner_cost(get_arch(arch_id), shape, depths, mb,
+                           stream_plan=stream_plan).as_dict()
 
 
-def count_cells(cells, kernels: bool, jobs: int, *, multi_pod: bool = False
-                ) -> Dict[tuple, Cost]:
+def count_cells(cells, kernels: bool, jobs: int, *, multi_pod: bool = False,
+                stream_plan: bool = True) -> Dict[tuple, Tuple[Cost, Cost]]:
     """Count every (arch id, shape) of ``cells`` on ``meta`` inside the
     single-pod (or ``multi_pod``) production mesh with ``jobs`` worker
     processes, each corner of each cell a task, the longest first:
-    ``{count_key(...): count}``, as ``run_cell`` takes them."""
+    ``{count_key(...): (count, naive count)}``, as ``run_cell`` takes
+    them (``naive_collective_count``)."""
     import concurrent.futures
     import multiprocessing
 
@@ -327,15 +413,20 @@ def count_cells(cells, kernels: bool, jobs: int, *, multi_pod: bool = False
     done: Dict[Tuple[str, ShapeConfig], Dict[int, Cost]] = {}
     ctx = multiprocessing.get_context("spawn")
     with concurrent.futures.ProcessPoolExecutor(jobs, mp_context=ctx) as ex:
-        futs = {ex.submit(_corner_task, a, s, d, mb, kernels, multi_pod):
-                (a, s, i) for _, a, s, i, d, mb in tasks}
+        futs = {ex.submit(_corner_task, a, s, d, mb, kernels, multi_pod,
+                          stream_plan): (a, s, i)
+                for _, a, s, i, d, mb in tasks}
         for fut in concurrent.futures.as_completed(futs):
             a, s, i = futs[fut]
             done.setdefault((a, s), {})[i] = Cost.from_dict(fut.result())
+    out = {}
     with make_production_mesh(multi_pod=multi_pod):
-        return {count_key(a, s, kernels): extrapolated_cost(
-            get_arch(a), s, [by_i[i] for i in range(len(by_i))])
-            for (a, s), by_i in done.items()}
+        for (a, s), by_i in done.items():
+            corner_counts = [by_i[i] for i in range(len(by_i))]
+            out[count_key(a, s, kernels, stream_plan)] = (
+                extrapolated_cost(get_arch(a), s, corner_counts),
+                naive_collective_count(get_arch(a), s, corner_counts))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -391,14 +482,17 @@ def model_flops(arch: ArchConfig, shape: ShapeConfig) -> Tuple[int, int]:
 
 def lower_cell(arch: ArchConfig, shape: ShapeConfig, mesh: Mesh, *,
                stream_plan: bool = True, params=None,
-               count: Optional[Cost] = None) -> Dict[str, Any]:
-    """Plan, specs, per-device argument bytes and the count of one cell.
+               count: Optional[Cost] = None,
+               naive: Optional[Cost] = None) -> Dict[str, Any]:
+    """Plan, specs, per-device argument bytes, the count of one cell and
+    its collectives a device (``coll_detail``, under the reference's
+    keys, ``naive_module_sum`` from ``naive_collective_count``).
 
     On the production meshes (``meta`` devices) the params are abstract
     and the count is ``extrapolated_cost``.  On a local mesh ``params``
     are real tensors on its device, and the step is counted as it runs
-    there, in full; ``count`` reuses a count already taken.  The step is
-    counted inside ``with mesh:``."""
+    there, in full; ``count`` (and ``naive``) reuse a count already
+    taken.  The step is counted inside ``with mesh:``."""
     set_mesh_axis_sizes(mesh_axis_sizes(mesh))
     device = mesh.devices.flat[0]
     abstract = tmod.abstract_params(arch)
@@ -416,13 +510,22 @@ def lower_cell(arch: ArchConfig, shape: ShapeConfig, mesh: Mesh, *,
     args = argument_bytes(arch, shape, abstract, pspecs, state)
     if count is None:
         with mesh:
-            count = (extrapolated_cost(arch, shape) if device.type == "meta"
-                     else step_cost(arch, shape, params=params,
-                                    device=device))
+            if device.type == "meta":
+                corner_counts = [
+                    corner_cost(arch, shape, d, mb, stream_plan=stream_plan)
+                    for d, mb in corners(arch, shape)[2]]
+                count = extrapolated_cost(arch, shape, corner_counts)
+                naive = naive_collective_count(arch, shape, corner_counts)
+            else:
+                count = step_cost(arch, shape, params=params, device=device)
+    shards = batch_shards(shape)
+    detail = collectives.detail(count, shards)
+    detail["naive_module_sum"] = collectives.total(naive or count, shards)
     mf, tokens = model_flops(arch, shape)
     return {"plan": plan_notes, "model_flops": mf, "tokens": tokens,
             "global_flops": count.flops, "global_bytes": count.bytes,
-            "count": count, "arg_bytes": args}
+            "count": count, "naive_count": naive or count,
+            "coll_detail": detail, "arg_bytes": args}
 
 
 def run_cell(arch_id: str, shape_id: str, mesh_kind: str, *,
@@ -432,8 +535,8 @@ def run_cell(arch_id: str, shape_id: str, mesh_kind: str, *,
              ) -> Optional[Dict[str, Any]]:
     """One cell on ``mesh_kind`` ("single", "multi" or "local"; ``device``
     for "local"); ``shape`` overrides ``SHAPES[shape_id]`` (a cut batch).
-    ``counts`` (``{count_key(...): count}``, as ``count_cells`` gives
-    them) holds the meta counts already taken, and
+    ``counts`` (``{count_key(...): (count, naive count)}``, as
+    ``count_cells`` gives them) holds the meta counts already taken, and
     a meta count this call takes is added to it.  Returns the cell's
     row, or a SKIP row for an inapplicable shape."""
     set_kernel_mode(kernels)
@@ -455,21 +558,23 @@ def run_cell(arch_id: str, shape_id: str, mesh_kind: str, *,
         params = tmod.init_params(torch.Generator(dev).manual_seed(0), arch,
                                   dev)
     with mesh:
-        key = count_key(arch_id, shape, kernels)
+        key = count_key(arch_id, shape, kernels, stream_plan)
     cached = counts.get(key) if counts is not None and dev.type == "meta" \
         else None
     t0 = time.time()
     info = lower_cell(arch, shape, mesh, stream_plan=stream_plan,
-                      params=params, count=cached)
+                      params=params, count=cached and cached[0],
+                      naive=cached and cached[1])
     if counts is not None and dev.type == "meta":
-        counts[key] = info["count"]
+        counts[key] = (info["count"], info["naive_count"])
     dt = time.time() - t0
     args = info["arg_bytes"]
     roof = analysis.analyze(
         arch=arch_id, shape=shape_id,
         mesh_name="x".join(map(str, mesh.devices.shape)), chips=chips,
         model_flops=info["model_flops"], global_flops=info["global_flops"],
-        global_bytes=info["global_bytes"], bytes_per_device=args["total"])
+        global_bytes=info["global_bytes"], bytes_per_device=args["total"],
+        coll_detail=info["coll_detail"])
     row = roof.row()
     row.update({"compile_s": dt, "plan": info["plan"],
                 "coll_detail": roof.coll_detail, "skipped": None,
@@ -478,17 +583,18 @@ def run_cell(arch_id: str, shape_id: str, mesh_kind: str, *,
                 "global_batch": shape.global_batch,
                 "kernels": kernel_mode_enabled()})
     if verbose:
-        coll = ("not counted" if roof.t_collective is None
-                else f"{roof.t_collective * 1e3:.2f}ms")
         print(f"PASS {arch_id} x {shape_id} on {row['mesh']}  "
               f"count={'counted before' if cached else f'{dt:.1f}s'}")
         print(f"  arguments: {args['total'] / 2**30:.2f}GiB per device ("
               + ", ".join(f"{k} {v / 2**30:.2f}" for k, v in args.items()
                           if k != "total") + ")")
         print(f"  cost: flops={roof.hlo_flops:.3e} bytes={roof.hlo_bytes:.3e}"
-              f" (global) coll/dev={roof.coll_bytes if roof.coll_bytes is not None else 'not counted'}")
+              f" (global) coll/dev={roof.coll_bytes:.3e} ("
+              + ", ".join(f"{k} {v}" for k, v in roof.coll_detail.items()
+                          if v) + ")")
         print(f"  roofline: compute={roof.t_compute * 1e3:.2f}ms "
-              f"memory={roof.t_memory * 1e3:.2f}ms collective={coll} "
+              f"memory={roof.t_memory * 1e3:.2f}ms "
+              f"collective={roof.t_collective * 1e3:.2f}ms "
               f"-> {roof.dominant}-bound, useful={roof.useful_fraction:.2f} "
               f"mfu@bound={roof.mfu_at_bound:.3f}")
     return row
@@ -517,14 +623,15 @@ def main(argv=None) -> int:
     rows = []
     failures = []
     kernels0 = kernel_mode_enabled()
-    counts: Dict[tuple, Cost] = {}
+    counts: Dict[tuple, Tuple[Cost, Cost]] = {}
     try:
         if args.jobs > 1 and args.mesh != "local":
             t0 = time.time()
             counts = count_cells(
                 [(a, SHAPES[s]) for a in archs for s in shapes
                  if shape_applicable(get_arch(a), SHAPES[s])[0]],
-                kernels, args.jobs, multi_pod=meshes[0] == "multi")
+                kernels, args.jobs, multi_pod=meshes[0] == "multi",
+                stream_plan=args.stream_plan == "on")
             print(f"counted {len(counts)} cells on meta with {args.jobs} "
                   f"processes in {time.time() - t0:.1f} s")
         for mk in meshes:

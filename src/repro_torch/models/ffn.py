@@ -21,6 +21,7 @@ from typing import Any, Dict
 import torch
 import torch.nn.functional as F
 
+from repro_torch.roofline import collectives
 from repro_torch.models.layers import (MODEL_AXIS, P,
                                       _current_physical_mesh, axis_size,
                                       dense_leaf, maybe_axis)
@@ -277,7 +278,9 @@ def _moe_ep_shardmap(params: Params, cfg, xg: torch.Tensor,
         part = torch.einsum("gtkd,gtk->gtd", back.float(),
                             w.float()).to(xg.device)
         y = part if y is None else y + part
-    return y.to(xg.dtype)
+    y = y.to(xg.dtype)
+    collectives.charge_region_psum(y)      # the region's psum over model
+    return y
 
 
 def _aux_loss(probs: torch.Tensor, top_e: torch.Tensor,

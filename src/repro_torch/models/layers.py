@@ -21,8 +21,9 @@ trees of :class:`P` of the same structure, copied from the JAX package:
 ``DP_AXES = ("pod", "data")`` shards batch, ``MODEL_AXIS = "model"``
 heads, ffn hidden, experts and vocab, and a dim that the mesh axis does
 not divide is replicated (``maybe_axis``).  The port has no SPMD
-partitioner: the specs drive the dry run's per-device bytes and the
-placement plan (``core/streaming.py``), and ``constrain`` is a no-op.
+partitioner: the specs drive the dry run's per-device bytes, its
+collective term (``roofline/collectives.py``) and the placement plan
+(``core/streaming.py``), and ``constrain`` is a no-op.
 A mesh entered with ``with mesh:`` (``launch/mesh.py``) is the active
 one of its thread and sets the axis sizes while it is entered;
 ``_current_physical_mesh`` returns it where it has more than one slot,
@@ -159,7 +160,9 @@ def dp_spec(batch: int):
 
 def constrain(x, spec: P):
     """The JAX package's ``with_sharding_constraint``: a no-op here, since
-    the port has no SPMD partitioner to hand the constraint to."""
+    the port has no SPMD partitioner to hand the constraint to (the dry
+    run's collectives follow the weights' and the cache's specs:
+    ``roofline/collectives.py``)."""
     return x
 
 

@@ -51,6 +51,7 @@ from repro_torch.models.layers import (MODEL_AXIS, Leaf, P, Params,
                                        maybe_axis, rmsnorm, rmsnorm_spec,
                                        rmsnorm_specs, unembed)
 from repro_torch.models.mla import mla_forward, mla_spec, mla_specs
+from repro_torch.roofline import collectives
 
 
 def _check_supported(cfg: ArchConfig) -> None:
@@ -402,7 +403,8 @@ def _scan_layers(params_stack, cfg: ArchConfig, x, positions, windows, *,
         if remat:
             # no random numbers in a layer: nothing to replay
             x, aux, kv, mstate = torch.utils.checkpoint.checkpoint(
-                _dense_layer_body, cfg, x, lp, w, positions, causal=causal,
+                collectives.rerun_visible(_dense_layer_body), cfg, x, lp, w,
+                positions, causal=causal,
                 memory=memory, use_reentrant=False,
                 preserve_rng_state=False)
         else:

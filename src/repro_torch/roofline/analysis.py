@@ -6,28 +6,27 @@
     collective term = collective bytes / (links x link bandwidth)
 
 FLOPs and bytes are the step's global count (``op_cost``).  The
-reference reads its collective bytes from XLA's post-SPMD HLO text
-(``collective_bytes``, ``hlo_loops.scaled_collective_bytes``); the port
-emits no HLO and has no SPMD partitioner, so on a mesh of more than one
-device the collective term is None ("not counted"), on one device 0, and
-``dominant`` and ``t_bound`` take the terms that exist.
+collective bytes are per device: the reference reads them from XLA's
+post-SPMD HLO text (``collective_bytes``, ``hlo_loops.
+scaled_collective_bytes``), the port charges them while it counts the
+step on the mesh (``roofline/collectives.py``), every execution of a
+layer's collectives, as the reference's loop-scaled count does.  A
+one-device mesh has none.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 from typing import Dict, Optional
 
-from repro_torch.roofline import hw
-
-NOT_COUNTED = "not counted: no SPMD partitioner"
-
+from repro_torch.roofline import collectives, hw
 
 @dataclass
 class Roofline:
     """``hlo_flops`` / ``hlo_bytes`` keep the reference's names: the
     global count of the step (here from the aten ops and the kernels'
-    charges, not from a jaxpr); ``coll_bytes`` is per device, None where
-    it is not counted.  ``model_flops`` is the global 6·N·D (train) /
+    charges, not from a jaxpr); ``coll_bytes`` is per device, every
+    execution counted; ``coll_detail`` its split by kind under the
+    reference's keys.  ``model_flops`` is the global 6·N·D (train) /
     2·N·D (inference) figure."""
     arch: str
     shape: str
@@ -35,7 +34,7 @@ class Roofline:
     chips: int
     hlo_flops: float
     hlo_bytes: float
-    coll_bytes: Optional[float]
+    coll_bytes: float
     model_flops: float
     coll_detail: Dict[str, object] = field(default_factory=dict)
     bytes_per_device: Optional[float] = None
@@ -49,26 +48,20 @@ class Roofline:
         return self.hlo_bytes / (self.chips * hw.HBM_BW)
 
     @property
-    def t_collective(self) -> Optional[float]:
-        if self.coll_bytes is None:
-            return None
+    def t_collective(self) -> float:
         return self.coll_bytes / (hw.ICI_BW_PER_LINK * hw.ICI_LINKS)
-
-    def _terms(self) -> Dict[str, float]:
-        terms = {"compute": self.t_compute, "memory": self.t_memory,
-                 "collective": self.t_collective}
-        return {k: v for k, v in terms.items() if v is not None}
 
     @property
     def dominant(self) -> str:
-        terms = self._terms()
+        terms = {"compute": self.t_compute, "memory": self.t_memory,
+                 "collective": self.t_collective}
         return max(terms, key=terms.get)
 
     @property
     def t_bound(self) -> float:
         """Step time lower bound if the dominant term fully overlaps the
-        others (the roofline), over the terms that are counted."""
-        return max(self._terms().values())
+        others (the roofline)."""
+        return max(self.t_compute, self.t_memory, self.t_collective)
 
     @property
     def useful_fraction(self) -> float:
@@ -102,15 +95,19 @@ class Roofline:
 
 def analyze(*, arch: str, shape: str, mesh_name: str, chips: int,
             model_flops: float, global_flops: float, global_bytes: float,
-            bytes_per_device: Optional[float] = None) -> Roofline:
-    """A Roofline from a cell's count; the collective term as the module
-    docstring says."""
-    if chips > 1:
-        coll, detail = None, {"note": NOT_COUNTED}
-    else:
-        coll, detail = 0.0, {}
+            bytes_per_device: Optional[float] = None,
+            coll_detail: Optional[Dict[str, int]] = None) -> Roofline:
+    """A Roofline from a cell's count: ``coll_detail`` its collectives a
+    device by the reference's keys (``collectives.detail``, with
+    ``naive_module_sum``), whose bytes make the collective term; without
+    it the term is 0 (a one-device mesh)."""
+    detail = {kind: 0 for kind in collectives.KINDS}
+    detail.update(count=0, naive_module_sum=0)
+    detail.update(coll_detail or {})
     return Roofline(arch=arch, shape=shape, mesh=mesh_name, chips=chips,
                     hlo_flops=float(global_flops),
-                    hlo_bytes=float(global_bytes), coll_bytes=coll,
+                    hlo_bytes=float(global_bytes),
+                    coll_bytes=float(sum(detail[kind]
+                                         for kind in collectives.KINDS)),
                     model_flops=float(model_flops), coll_detail=detail,
                     bytes_per_device=bytes_per_device)

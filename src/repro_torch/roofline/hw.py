@@ -7,6 +7,16 @@ NVIDIA's H100 SXM5 data sheet (no sparsity); a card set below 700 W runs
 slower under load.  The reference's names stand where a reader of the
 JAX package looks for them (``PEAK_FLOPS_BF16``, ``HBM_BW``,
 ``HBM_BYTES``, ``VMEM_BYTES``, ``ICI_BW_PER_LINK``, ``ICI_LINKS``).
+
+The link: the dry run's collective term (``analysis.Roofline.
+t_collective``) is a device's collective bytes over ``ICI_BW_PER_LINK x
+ICI_LINKS``, the reference's formula, with NVLink 4's 18 links of 25 GB/s
+a direction standing for the TPU's ICI on every mesh axis.  That holds
+inside one NVLink domain (a host's cards, all to all).  The production
+meshes are larger than one: on 2 x 16 x 16 the pod axis, and in practice
+the data axis too, leave the domain for the network between hosts, which
+is slower; the term is then a lower bound.  No knob models it, as the
+reference has none.
 """
 from __future__ import annotations
 

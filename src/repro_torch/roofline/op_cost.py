@@ -50,30 +50,44 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 
 from repro_torch.kernels import _build
+from repro_torch.roofline import collectives
 
 
 class Cost:
     """``flops`` and ``bytes`` (the fused traffic model), ``bytes_unfused``
-    and ``matmul_flops`` (the matmuls' and convolutions' FLOPs alone)."""
-    __slots__ = ("flops", "bytes", "bytes_unfused", "matmul_flops")
+    and ``matmul_flops`` (the matmuls' and convolutions' FLOPs alone);
+    on a mesh, the collectives a device takes part in (``collectives.py``):
+    the result bytes of each kind, those of activations (``*_batched``)
+    over the whole batch, and their number, ``collectives``."""
+    __slots__ = ("flops", "bytes", "bytes_unfused", "matmul_flops",
+                 "all_gather", "all_reduce", "reduce_scatter", "all_to_all",
+                 "collective_permute", "all_gather_batched",
+                 "all_reduce_batched", "reduce_scatter_batched",
+                 "all_to_all_batched", "collective_permute_batched",
+                 "collectives")
 
-    def __init__(self, flops=0, nbytes=0, nbytes_unfused=0, matmul_flops=0):
+    def __init__(self, flops=0, nbytes=0, nbytes_unfused=0, matmul_flops=0,
+                 **coll):
         self.flops = flops
         self.bytes = nbytes
         self.bytes_unfused = nbytes_unfused
         self.matmul_flops = matmul_flops
+        for name in self.__slots__[4:]:
+            setattr(self, name, coll.pop(name, 0))
+        if coll:
+            raise TypeError(f"unknown fields {sorted(coll)}")
 
     def __iadd__(self, o: "Cost") -> "Cost":
-        self.flops += o.flops
-        self.bytes += o.bytes
-        self.bytes_unfused += o.bytes_unfused
-        self.matmul_flops += o.matmul_flops
+        for name in self.__slots__:
+            setattr(self, name, getattr(self, name) + getattr(o, name))
         return self
 
     @classmethod
     def from_dict(cls, d: Dict[str, int]) -> "Cost":
-        return cls(d["flops"], d["bytes"], d["bytes_unfused"],
-                   d["matmul_flops"])
+        c = cls()
+        for name in cls.__slots__:
+            setattr(c, name, d[name])
+        return c
 
     def as_dict(self) -> Dict[str, int]:
         return {name: getattr(self, name) for name in self.__slots__}
@@ -266,6 +280,8 @@ class CostCounter(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if collectives.quiet():          # the partitioner's markers
+            return func(*args, **kwargs)
         key = None
         fresh = _FRESH.get(func)
         if fresh is None:
@@ -298,12 +314,20 @@ class CostCounter(TorchDispatchMode):
     def charge(self, flops: int, nbytes: int, matmul_flops: int) -> None:
         self.cost += Cost(flops, nbytes, nbytes, matmul_flops)
 
+    def charge_collective(self, kind: str, nbytes: int,
+                          batched: bool) -> None:
+        name = kind.replace("-", "_") + ("_batched" if batched else "")
+        setattr(self.cost, name, getattr(self.cost, name) + nbytes)
+        self.cost.collectives += 1
+
     def __enter__(self):
         _build.add_charge_sink(self.charge)
+        collectives.add_sink(self.charge_collective)
         return super().__enter__()
 
     def __exit__(self, *exc):
         _build.remove_charge_sink(self.charge)
+        collectives.remove_sink(self.charge_collective)
         return super().__exit__(*exc)
 
 
@@ -326,4 +350,5 @@ def count(fn, *args, **kwargs) -> Cost:
 def cost_of(fn, *args, **kwargs) -> Dict[str, Any]:
     """Global FLOPs and traffic bytes of ``fn(*args)``, the reference's
     ``cost_of``; with ``bytes_unfused`` and ``matmul_flops`` beside."""
-    return count(fn, *args, **kwargs).as_dict()
+    c = count(fn, *args, **kwargs)
+    return {name: getattr(c, name) for name in Cost.__slots__[:4]}

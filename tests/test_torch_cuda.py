@@ -695,14 +695,18 @@ FLASH_CASES = [
 
 
 # (rtol, atol) per operand dtype and output, as chip_smoke.FLASH_TOL: bf16
-# o within one bf16 ulp, lse (f32 in both dtypes) within 1e-4
+# o within one bf16 ulp, f16 o within two f16 ulps, lse (f32 in every
+# dtype) within 1e-4
 FLASH_TOL = {(torch.bfloat16, "o"): (1e-2, 1e-2),
+             (torch.float16, "o"): (2e-3, 2e-3),
              (torch.float32, "o"): (2e-5, 6e-5),
              (torch.bfloat16, "lse"): (1e-5, 1e-4),
+             (torch.float16, "lse"): (1e-5, 1e-4),
              (torch.float32, "lse"): (1e-5, 1e-4)}
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("ci", range(len(FLASH_CASES)))
 def test_flash_kernel_matches_plain(dev, ci, dtype):
     from repro_torch.kernels import LAUNCHES, reset_launches
@@ -734,8 +738,8 @@ def test_flash_kernel_matches_plain(dev, ci, dtype):
     assert torch.equal(om.transpose(1, 2), o)
 
 
-# K9's wgmma route (bf16, hd = hd_v in {64, 128}) at ragged lengths, with
-# causal, window, softcap and GQA, in model layout, within FLASH_TOL
+# K9's wgmma route (16-bit, hd = hd_v in {64, 128}) at ragged lengths,
+# with causal, window, softcap and GQA, in model layout, within FLASH_TOL
 @pytest.mark.parametrize("hd", [64, 128])
 @pytest.mark.parametrize("S,causal,window,softcap,H,KV", [
     (200, True, 0, 0.0, 8, 2), (1000, True, 0, 0.0, 6, 2),
@@ -743,15 +747,20 @@ def test_flash_kernel_matches_plain(dev, ci, dtype):
     (1000, True, 0, 30.0, 4, 2), (333, True, 64, 50.0, 8, 1)])
 def test_flash_wgmma_route_matches_plain(dev, hd, S, causal, window,
                                          softcap, H, KV):
+    for dtype in (torch.bfloat16, torch.float16):
+        _wgmma_case(dev, dtype, hd, S, causal, window, softcap, H, KV)
+
+
+def _wgmma_case(dev, dtype, hd, S, causal, window, softcap, H, KV):
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.kernels.flash_attention.ops import (flash_attention,
                                                          flash_route)
     from repro_torch.kernels.flash_attention.ref import flash_attention_plain
-    assert flash_route(torch.bfloat16, hd, hd) == "wgmma"
+    assert flash_route(dtype, hd, hd) == "wgmma"
     g = torch.Generator(device=dev).manual_seed(S + hd)
-    q = torch.randn(2, S, H, hd, generator=g, device=dev).bfloat16()
-    k = torch.randn(2, S, KV, hd, generator=g, device=dev).bfloat16()
-    v = torch.randn(2, S, KV, hd, generator=g, device=dev).bfloat16()
+    q = torch.randn(2, S, H, hd, generator=g, device=dev).to(dtype)
+    k = torch.randn(2, S, KV, hd, generator=g, device=dev).to(dtype)
+    v = torch.randn(2, S, KV, hd, generator=g, device=dev).to(dtype)
     kw = dict(causal=causal, window=window, softcap=softcap)
     blk = S if S % min(128, S) else min(128, S)
     want_o, want_lse = flash_attention_plain(
@@ -760,10 +769,11 @@ def test_flash_wgmma_route_matches_plain(dev, hd, S, causal, window,
     o, lse = flash_attention(q, k, v, return_lse=True, **kw)
     torch.cuda.synchronize()
     assert LAUNCHES == {"flash_attention_fwd": 1}
-    rtol, atol = FLASH_TOL[torch.bfloat16, "o"]
+    assert o.dtype == dtype
+    rtol, atol = FLASH_TOL[dtype, "o"]
     torch.testing.assert_close(o.transpose(1, 2).float(), want_o.float(),
                                rtol=rtol, atol=atol)
-    rtol, atol = FLASH_TOL[torch.bfloat16, "lse"]
+    rtol, atol = FLASH_TOL[dtype, "lse"]
     torch.testing.assert_close(lse, want_lse, rtol=rtol, atol=atol)
 
 
@@ -785,17 +795,24 @@ def test_flash_wgmma_route_refuses_unaligned_strides(dev):
 
 
 def test_flash_kernel_refuses_what_it_cannot_take(dev):
+    """Head dims above 256 and f64 operands stay refused, before any
+    launch; f16 and a head dim of 12 launch (padded to 16 for 12)."""
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.kernels.flash_attention.ops import flash_attention
     reset_launches()
-    for hd in (12, 264):
-        x = torch.zeros((1, 128, 2, hd), dtype=torch.bfloat16, device=dev)
-        with pytest.raises(ValueError, match=f"hd={hd}"):
-            flash_attention(x, x, x)
-    h = torch.zeros((1, 128, 2, 64), dtype=torch.float16, device=dev)
+    x = torch.zeros((1, 128, 2, 264), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="hd=264"):
+        flash_attention(x, x, x)
+    d = torch.zeros((1, 128, 2, 64), dtype=torch.float64, device=dev)
     with pytest.raises(TypeError):
-        flash_attention(h, h, h)
+        flash_attention(d, d, d)
     assert LAUNCHES == {}
+    for t in (torch.zeros((1, 128, 2, 12), dtype=torch.bfloat16, device=dev),
+              torch.zeros((1, 128, 2, 64), dtype=torch.float16, device=dev)):
+        o = flash_attention(t, t, t)
+        assert o.shape == t.shape and o.dtype == t.dtype
+    torch.cuda.synchronize()
+    assert LAUNCHES == {"flash_attention_fwd": 2}
 
 
 def test_reduced_lm_on_card_matches_cpu(dev):
@@ -910,7 +927,8 @@ def test_reduced_moe_archs_kernel_route_matches_plain_route(dev, name,
 
 # (rtol, share of max|want| as atol) per operand dtype, for dq, dk and dv
 # of K10/K11 against their plain version, as chip_smoke.BWD_TOL
-BWD_TOL = {torch.bfloat16: (1e-2, 1e-3), torch.float32: (2e-5, 2e-6)}
+BWD_TOL = {torch.bfloat16: (1e-2, 1e-3), torch.float16: (2e-3, 2e-4),
+           torch.float32: (2e-5, 2e-6)}
 
 
 def _bwd_inputs(c, dtype, dev, seed):
@@ -939,7 +957,8 @@ BWD_CASES = FLASH_CASES + [
 ]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("ci", range(len(BWD_CASES)))
 def test_flash_bwd_kernels_match_plain(dev, ci, dtype):
     """K10 (dq) and K11 (dk, dv per query head) against
@@ -975,18 +994,23 @@ BWD_SUM_TOL = (1e-5, 1e-6)
 
 @pytest.mark.parametrize("ci", [7, 4])
 def test_flash_bwd_f32_sums_match_plain(dev, ci):
-    """The pair on bf16 operands with f32 outputs (the sums before their
-    rounding) against flash_attention_bwd_plain on the f32 casts of the
-    same operands: a limit that sees a dropped part of the bf16 split of
-    p and ds, which bf16 outputs hide (the training shape; softcap, GQA
-    and a window)."""
+    """The pair on bf16 and on f16 operands with f32 outputs (the sums
+    before their rounding) against flash_attention_bwd_plain on the f32
+    casts of the same operands: a limit that sees a dropped part of the
+    split of p and ds (bf16 parts, or f16's tf32 parts), which 16-bit
+    outputs hide (the training shape; softcap, GQA and a window)."""
+    for dtype in (torch.bfloat16, torch.float16):
+        _f32_sums_case(dev, ci, dtype)
+
+
+def _f32_sums_case(dev, ci, dtype):
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.kernels.flash_attention.ops import (
         flash_attention_bwd, flash_attention_kernel)
     from repro_torch.kernels.flash_attention.ref import \
         flash_attention_bwd_plain
     c = FLASH_CASES[ci]
-    q, k, v, do = _bwd_inputs(c, torch.bfloat16, dev, 200 + ci)
+    q, k, v, do = _bwd_inputs(c, dtype, dev, 200 + ci)
     kw = dict(causal=c["causal"], window=c["window"], softcap=c["softcap"])
     o, lse = flash_attention_kernel(q, k, v, return_lse=True, **kw)
     want = flash_attention_bwd_plain(*(t.float() for t in (q, k, v, o)),
@@ -1004,7 +1028,8 @@ def test_flash_bwd_f32_sums_match_plain(dev, ci):
                                    atol=share * float(wt.abs().max()))
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("ci", [1, 4, 7])
 def test_flash_vjp_matches_autograd_through_plain(dev, ci, dtype):
     """flash_attention_vjp (K9 forward, K10/K11 backward, GQA fold) in
@@ -1031,7 +1056,8 @@ def test_flash_vjp_matches_autograd_through_plain(dev, ci, dtype):
     assert LAUNCHES == {"flash_attention_fwd": 1,
                         "flash_attention_bwd_dq": 1,
                         "flash_attention_bwd_dkv": 1}
-    rel = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    rel = {torch.bfloat16: 2e-2, torch.float16: 4e-3,
+           torch.float32: 2e-5}[dtype]
     for gt, wt in zip(got, want):
         assert gt.dtype == dtype and gt.shape == wt.shape
         assert (gt.float() - wt.float()).abs().max() <= \
@@ -1083,7 +1109,8 @@ PADDED_CASES = [
 ]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("ci", range(len(PADDED_CASES)))
 def test_flash_kernels_at_padded_head_dims_match_plain(dev, ci, dtype):
     """K9 (o, lse) and K10/K11 (dq, dk, dv) against their plain versions
@@ -1134,6 +1161,70 @@ def test_flash_kernels_at_padded_head_dims_match_plain(dev, ci, dtype):
                                      **kw)
     rtol, share = BWD_TOL[dtype]
     for gt, wt in zip((dq, dk, dv), want):
+        assert gt.dtype == dtype and gt.shape == wt.shape
+        torch.testing.assert_close(gt.float(), wt.float(), rtol=rtol,
+                                   atol=share * float(wt.abs().max()))
+
+
+# K9-K11 at head dims that are not a multiple of 8: the wrapper pads q, k,
+# v and do with zero columns to the next multiple, launches the kernels of
+# that width (wgmma for 60 and 121, padded to 64 and 128) and slices the
+# outputs back; the scale stays 1/sqrt of the real head dim
+ODD_CASES = [
+    dict(B=1, H=4, KV=2, S=128, hd=12, causal=True, window=0, softcap=0.0),
+    dict(B=2, H=2, KV=2, S=64, hd=20, causal=True, window=16, softcap=30.0),
+    dict(B=1, H=4, KV=1, S=100, hd=12, hd_v=20, causal=False, window=0,
+         softcap=0.0),
+    dict(B=1, H=2, KV=2, S=128, hd=20, hd_v=12, causal=True, window=0,
+         softcap=0.0),
+    dict(B=2, H=4, KV=2, S=200, hd=60, causal=True, window=0, softcap=0.0),
+    dict(B=1, H=2, KV=1, S=256, hd=121, causal=True, window=0, softcap=0.0),
+    dict(B=1, H=2, KV=2, S=64, hd=1, hd_v=255, causal=True, window=0,
+         softcap=0.0),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("ci", range(len(ODD_CASES)))
+def test_flash_kernels_at_odd_head_dims_match_plain(dev, ci, dtype):
+    """The public wrappers (kernel and model layout, forward and backward)
+    at odd head dims against the plain versions at the real ones, within
+    FLASH_TOL and BWD_TOL; the launches keyed by the real head dims."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels._build import SHAPE_LAUNCHES
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_plain, flash_attention_plain)
+    c = ODD_CASES[ci]
+    q, k, v, do = _bwd_inputs(c, dtype, dev, 300 + ci)
+    kw = dict(causal=c["causal"], window=c["window"], softcap=c["softcap"])
+    S, hd = c["S"], c["hd"]
+    hd_v = c.get("hd_v", hd)
+    blk = S if S % min(128, S) else min(128, S)
+    want_o, want_lse = flash_attention_plain(q, k, v, bq=blk, bk=blk, **kw)
+    reset_launches()
+    o, lse = ops.flash_attention_kernel(q, k, v, return_lse=True, **kw)
+    om = ops.flash_attention(*(t.transpose(1, 2) for t in (q, k, v)), **kw)
+    grads = ops.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    key = ops.launch_shape(dtype, c["B"], c["H"], c["KV"], S, S, hd, hd_v,
+                           c["causal"], c["window"], c["softcap"])
+    assert LAUNCHES == {"flash_attention_fwd": 2,
+                        "flash_attention_bwd_dq": 1,
+                        "flash_attention_bwd_dkv": 1}
+    assert SHAPE_LAUNCHES[("flash_attention_fwd", key)] == 2
+    assert o.shape == (c["B"], c["H"], S, hd_v) and o.dtype == dtype
+    assert torch.equal(om.transpose(1, 2), o)
+    rtol, atol = FLASH_TOL[dtype, "o"]
+    torch.testing.assert_close(o.float(), want_o.float(), rtol=rtol,
+                               atol=atol)
+    rtol, atol = FLASH_TOL[dtype, "lse"]
+    torch.testing.assert_close(lse, want_lse, rtol=rtol, atol=atol)
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, bq=blk, bk=blk,
+                                     **kw)
+    rtol, share = BWD_TOL[dtype]
+    for gt, wt in zip(grads, want):
         assert gt.dtype == dtype and gt.shape == wt.shape
         torch.testing.assert_close(gt.float(), wt.float(), rtol=rtol,
                                    atol=share * float(wt.abs().max()))

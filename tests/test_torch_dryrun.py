@@ -25,6 +25,7 @@ from repro_torch.configs import ARCH_IDS, get_arch
 from repro_torch.configs.base import SHAPES, ShapeConfig, shape_applicable
 from repro_torch.launch import dryrun
 from repro_torch.models import layers
+from repro_torch.roofline import hw
 
 
 def small(name, n_layers, **kw):
@@ -89,8 +90,23 @@ def test_main_counts_a_cell(mesh, tmp_path, capsys, restore_modes):
     assert "roofline:" in text
     row, = json.loads(out.read_text())
     assert row["mesh"] == ("16x16" if mesh == "single" else "2x16x16")
-    assert row["skipped"] is None and row["t_collective_s"] is None
-    assert row["coll_detail"] == {"note": "not counted: no SPMD partitioner"}
+    # the collective term is counted on the mesh: xLSTM's decode step
+    # all-reduces its blocks' row-parallel products over the model axis
+    # (no data-sharded weight, no gradient), under the reference's keys
+    detail = row["coll_detail"]
+    assert set(detail) == {"all-gather", "all-reduce", "reduce-scatter",
+                           "all-to-all", "collective-permute", "count",
+                           "naive_module_sum"}
+    coll = sum(v for k, v in detail.items()
+               if k not in ("count", "naive_module_sum"))
+    assert detail["all-reduce"] > 0 and detail["count"] > 0
+    assert detail["reduce-scatter"] == detail["collective-permute"] == 0
+    assert row["t_collective_s"] == pytest.approx(
+        coll / (hw.ICI_BW_PER_LINK * hw.ICI_LINKS))
+    assert row["t_bound_s"] == max(row["t_compute_s"], row["t_memory_s"],
+                                   row["t_collective_s"])
+    assert "collective=" in text and "coll/dev=" in text
+    assert row["skipped"] is None
     assert row["plan"].startswith("replicated=")
 
 

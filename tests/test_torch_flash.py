@@ -220,10 +220,16 @@ def test_bwd_plain_through_split_matches_pallas(ci, dtype):
 
 
 def test_bwd_f32_grads_only_from_bf16():
+    """f32 grads come from 16-bit operands (bf16, and f16 since it runs
+    on the card: ``tests/test_torch_flash_f16.py``); f32 operands give
+    f32 grads and refuse any other."""
     q = torch.zeros((1, 2, 64, 32))
     lse = torch.zeros((1, 2, 64))
-    with pytest.raises(TypeError, match="bf16 operands"):
+    with pytest.raises(TypeError, match="bf16 or f16 operands"):
         flash_attention_bwd(q, q, q, q, lse, q, out_dtype=torch.bfloat16)
+    h = q.half()
+    assert all(g.dtype == torch.float32 for g in flash_attention_bwd(
+        h, h, h, h, lse, h, out_dtype=torch.float32))
 
 
 # the forward's route from (dtype, hd, hd_v) alone: every pair of the
@@ -243,12 +249,19 @@ def test_flash_route_of_each_head_dim_pair(dtype, hd, hd_v):
 
 
 @pytest.mark.parametrize("dtype,hd,hd_v,err", [
-    (torch.float16, 128, 128, TypeError), (torch.bfloat16, 12, 12, ValueError),
-    (torch.bfloat16, 128, 264, ValueError), (torch.float32, 12, 64,
+    (torch.float64, 128, 128, TypeError), (torch.bfloat16, 264, 264,
+                                           ValueError),
+    (torch.bfloat16, 128, 264, ValueError), (torch.float32, 0, 64,
                                              ValueError)])
 def test_flash_route_refuses_what_no_kernel_takes(dtype, hd, hd_v, err):
+    """What stays refused: f64, and head dims outside 1 to 256.  f16 and
+    head dims off the multiples of 8 (12, say) have routes now
+    (``tests/test_torch_flash_f16.py``)."""
     with pytest.raises(err):
         flash_route(dtype, hd, hd_v)
+    assert flash_route(torch.float16, 128, 128) == "wgmma"
+    assert flash_route(torch.bfloat16, 12, 12) == "mma_sync"
+    assert flash_route(torch.float32, 12, 64) == "f32"
 
 
 def test_phi4_mini_takes_the_wgmma_route():

@@ -34,7 +34,8 @@ from repro_torch.kernels.flash_attention.ops import (HEAD_DIM_MAX,
                                                      WGMMA_HEAD_DIMS,
                                                      flash_attention_vjp,
                                                      flash_route, head_dim_ok,
-                                                     kernel_widths)
+                                                     kernel_widths,
+                                                     padded_dim)
 from repro_torch.kernels.stream_matmul.ops import (FLOAT_DTYPES,
                                                    FLOAT_TYPE_CODES,
                                                    MM_FLOAT_KBLK,
@@ -168,16 +169,30 @@ def test_every_multiple_of_8_has_a_route_and_the_narrowest_widths():
                                      (16, 264), (0, 16), (4, 4), (260, 8)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_route_refuses_a_head_dim_off_the_rule(dtype, hd, hd_v):
-    with pytest.raises(ValueError, match=f"hd={hd}, hd_v={hd_v}"):
-        flash_route(dtype, hd, hd_v)
+    """The kernels take multiples of 8 only (``kernel_widths`` refuses the
+    rest); the route refuses a head dim outside 1 to 256 and takes the
+    others at their padded dims, the launch padding them with zeros."""
     with pytest.raises(ValueError, match="multiple of 8"):
         kernel_widths(hd, hd_v)
+    if 1 <= hd <= HEAD_DIM_MAX and 1 <= hd_v <= HEAD_DIM_MAX:
+        want = "f32" if dtype == torch.float32 else "mma_sync"
+        assert flash_route(dtype, hd, hd_v) == want
+        kernel_widths(padded_dim(hd), padded_dim(hd_v))
+    else:
+        with pytest.raises(ValueError, match=f"hd={hd}, hd_v={hd_v}"):
+            flash_route(dtype, hd, hd_v)
 
 
 @pytest.mark.parametrize("dtype", [torch.float16, torch.float64])
 def test_route_refuses_f16_and_f64(dtype):
-    with pytest.raises(TypeError, match="bf16 or f32"):
-        flash_route(dtype, 16, 16)
+    """f64 stays refused; f16 runs on instances of its own beside bf16's,
+    on the same routes."""
+    if dtype == torch.float64:
+        with pytest.raises(TypeError, match="bf16, f16 or f32"):
+            flash_route(dtype, 16, 16)
+    else:
+        assert flash_route(dtype, 16, 16) == "mma_sync"
+        assert flash_route(dtype, 64, 64) == "wgmma"
 
 
 # ---------------------------------------------------------------------------

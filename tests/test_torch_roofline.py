@@ -49,7 +49,9 @@ from repro_torch.models import layers
 from repro_torch.models import transformer as tmod
 from repro_torch.optim import adamw
 from repro_torch.roofline import hw
-from repro_torch.roofline.analysis import NOT_COUNTED, Roofline, analyze
+from repro_torch.roofline.analysis import Roofline, analyze
+from repro_torch.roofline import collectives
+from repro_torch.roofline.op_cost import Cost
 from repro_torch.roofline.op_cost import cost_of, count
 from repro_torch.runtime.trainer import TrainConfig, make_train_step
 
@@ -149,16 +151,31 @@ def test_roofline_terms_and_dominance():
 
 
 def test_the_collective_term_is_not_counted_on_a_mesh():
+    """A cell's collectives (charged while it is counted on its mesh) make
+    its collective term, by the reference's formula, under the
+    reference's ``coll_detail`` keys; a one-device mesh reads 0."""
+    link = hw.ICI_BW_PER_LINK * hw.ICI_LINKS
+    # an activation's all-reduce over a batch the mesh splits 16 ways
+    count = Cost(all_gather=int(link * 1.5),
+                 all_reduce_batched=16 * int(link), collectives=7)
+    detail = collectives.detail(count, 16)
+    detail["naive_module_sum"] = int(link)
     many = analyze(arch="x", shape="y", mesh_name="16x16", chips=256,
                    model_flops=1.0, global_flops=256 * hw.PEAK_FLOPS_BF16,
-                   global_bytes=256 * hw.HBM_BW * 2.0)
-    assert many.t_collective is None and many.coll_detail["note"] == \
-        NOT_COUNTED
-    assert many.dominant == "memory" and many.t_bound == pytest.approx(2.0)
+                   global_bytes=256 * hw.HBM_BW * 2.0, coll_detail=detail)
+    assert many.coll_bytes == int(link * 1.5) + int(link)
+    assert many.t_collective == pytest.approx(2.5)
+    assert many.dominant == "collective" and many.t_bound == \
+        pytest.approx(2.5)
+    assert many.coll_detail == {
+        "all-gather": int(link * 1.5), "all-reduce": int(link),
+        "reduce-scatter": 0, "all-to-all": 0, "collective-permute": 0,
+        "count": 7, "naive_module_sum": int(link)}
     one = analyze(arch="x", shape="y", mesh_name="1x1", chips=1,
                   model_flops=1.0, global_flops=hw.PEAK_FLOPS_BF16,
                   global_bytes=0.0)
     assert one.t_collective == 0.0 and one.dominant == "compute"
+    assert one.coll_detail["count"] == 0 and one.coll_bytes == 0.0
     assert set(one.row()) >= {"arch", "shape", "mesh", "t_compute_s",
                               "t_memory_s", "t_collective_s", "dominant",
                               "model_flops", "hlo_flops", "useful_frac",
