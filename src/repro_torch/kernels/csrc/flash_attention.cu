@@ -89,25 +89,24 @@
 #include <stdint.h>
 
 #include "mma_bf16.cuh"
-#include "tma.cuh"  // CUtensorMap, and its encoder without -lcuda
+#include "wgmma.cuh"  // mbarriers, TMA and wgmma
 
 namespace {
 
 using namespace h2pipe_mma;
+using namespace h2pipe_wgmma;
 
 // The 16-bit operand type of this library, its element code in
-// flash_attention_fwd_launch (ops._DTYPES), its TMA data type and the
-// operand types of its wgmma instructions.
+// flash_attention_fwd_launch (ops._DTYPES) and its TMA data type (the
+// operand types of its wgmma instructions: WG_AB, wgmma.cuh).
 #ifdef H2PIPE_HALF
 using T16 = f16;
 constexpr int ELEM16 = 2;
 constexpr CUtensorMapDataType TMA_T16 = CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
-#define WG_AB ".f32.f16.f16"
 #else
 using T16 = bf16;
 constexpr int ELEM16 = 0;
 constexpr CUtensorMapDataType TMA_T16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-#define WG_AB ".f32.bf16.bf16"
 #endif
 
 constexpr float NEG_INF = -1e30f;
@@ -379,172 +378,6 @@ struct WgLayout {
   static constexpr int SMEM = Q_BYTES + WSTAGES * STAGE + 1024;  // + align
 };
 
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count));
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile(
-      "{\n .reg .b64 st;\n mbarrier.arrive.shared::cta.b64 st, [%0];\n}\n" ::
-          "r"(bar)
-      : "memory");
-}
-
-// Arrive and add `bytes` to the transaction count the phase waits for.
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile(
-      "{\n .reg .b64 st;\n"
-      " mbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n}\n" ::"r"(
-          bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  unsigned done;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// One box of a 4-d tensor map (coordinates innermost first) into shared
-// memory at `dst`, completing `bytes` on the mbarrier `bar`.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::"
-      "complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(c3), "r"(bar)
-      : "memory");
-}
-
-// A wgmma shared-memory descriptor with the 128-byte swizzle: start
-// address, leading and stride byte offsets, each in 16-byte units.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) |
-         ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
-         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit_wait() {
-  asm volatile(
-      "wgmma.commit_group.sync.aligned;\n"
-      "wgmma.wait_group.sync.aligned 0;\n" ::
-          : "memory");
-}
-
-// Keep the compiler from moving reads of an accumulator above the wait
-// that makes it valid (the wgmma asm statements "wrote" it at issue).
-template <int N>
-__device__ __forceinline__ void fence_acc(float (&d)[N][4]) {
-#pragma unroll
-  for (int n = 0; n < N; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[n][e])::"memory");
-}
-
-// d[64 x 64] += a[64 x 16] . b[16 x 64]^T: a and b in shared memory,
-// K-major, 128-byte swizzle (descriptors da, db).
-__device__ __forceinline__ void wgmma_ss(float (&d)[8][4], uint64_t da,
-                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16" WG_AB " {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
-      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
-      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-      : "l"(da), "l"(db), "r"(1)
-      : "memory");
-}
-
-// d[64 x 64] += a[64 x 16] . b[16 x 64]: a in registers (the mma.sync
-// A-fragment layout per warp), b in shared memory, MN-major (transposed),
-// 128-byte swizzle.
-__device__ __forceinline__ void wgmma_rs(float (&d)[8][4],
-                                         const uint32_t (&a)[4],
-                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16" WG_AB " {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
-      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
-      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-        "r"(1)
-      : "memory");
-}
-
-// d[64 x 128] += a[64 x 16] . b[16 x 128]: a in registers (the mma.sync
-// A-fragment layout per warp), b in shared memory, MN-major (transposed),
-// 128-byte swizzle.
-__device__ __forceinline__ void wgmma_rs(float (&d)[16][4],
-                                         const uint32_t (&a)[4],
-                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16" WG_AB " {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
-      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
-      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
-      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
-        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
-        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
-        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
-        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
-        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
-        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
-        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
-        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-        "r"(1)
-      : "memory");
-}
 
 // One CTA owns one (batch, head, 128-row q block).  Warp 8's lane 0 is
 // the producer: it loads the Q block once and keeps the K/V tiles of the
@@ -890,42 +723,17 @@ cudaError_t launch_16(const FlashArgs& a, dim3 grid, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// The tensor map of a [B, heads, S, d] 16-bit operand given by its element
-// strides over (batch, head, seq), d contiguous: boxes of 64 columns x
-// `rows` rows of one head, 128-byte swizzle, rows past S read as zeros.
-// The strides of a size-1 dim are not read; TMA still wants them aligned.
-cudaError_t tensor_map(CUtensorMap* map, const void* base, int B, int heads,
-                       int S, int d, long long sb, long long sh, long long ss,
-                       int rows) {
-  h2pipe_tma::EncodeTiled fn = h2pipe_tma::encode_tiled();
-  if (!fn) return cudaErrorNotSupported;
-  if (heads == 1) sh = ss * S;
-  if (B == 1) sb = sh * heads;
-  cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)S, (cuuint64_t)heads,
-                        (cuuint64_t)B};
-  cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2,
-                           (cuuint64_t)sb * 2};
-  cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
-  cuuint32_t unit[4] = {1, 1, 1, 1};
-  CUresult r = fn(map, TMA_T16, 4,
-                  const_cast<void*>(base), dims, strides, box, unit,
-                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                  CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 template <int HD>
 cudaError_t launch_wgmma(const FlashArgs& a, cudaStream_t stream) {
   CUtensorMap qm, km, vm;
-  cudaError_t err =
-      tensor_map(&qm, a.q, a.B, a.H, a.Sq, HD, a.qs_b, a.qs_h, a.qs_s, WQ);
+  cudaError_t err = tensor_map(&qm, TMA_T16, a.q, a.B, a.H, a.Sq, HD, a.qs_b,
+                               a.qs_h, a.qs_s, WQ);
   if (err == cudaSuccess)
-    err = tensor_map(&km, a.k, a.B, a.KV, a.Sk, HD, a.ks_b, a.ks_h, a.ks_s,
-                     WK);
+    err = tensor_map(&km, TMA_T16, a.k, a.B, a.KV, a.Sk, HD, a.ks_b, a.ks_h,
+                     a.ks_s, WK);
   if (err == cudaSuccess)
-    err = tensor_map(&vm, a.v, a.B, a.KV, a.Sk, HD, a.vs_b, a.vs_h, a.vs_s,
-                     WK);
+    err = tensor_map(&vm, TMA_T16, a.v, a.B, a.KV, a.Sk, HD, a.vs_b, a.vs_h,
+                     a.vs_s, WK);
   if (err != cudaSuccess) return err;
   const int smem = WgLayout<HD>::SMEM;
   err = cudaFuncSetAttribute(flash_fwd_wgmma<T16, HD>,
