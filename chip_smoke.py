@@ -27,8 +27,11 @@ it is run outside a checkout of the repository.  Phases, one line each:
      ``flash_fwd_16<bf16,32,32>`` for the reduced configs' head dims 16
      and 24, ``flash_fwd_wgmma<f16,128>`` for Phi-4-mini in f16, from the
      flash route and ``kernel_widths`` of their head dims) and K10/K11
-     (``flash_bwd_*_tc`` at each training shape's widths, bf16 and f16)
-     takes issues IMMA, HGMMA or HMMA, and where a K2 instance spills;
+     (by ``flash_bwd_route``: ``flash_bwd_dq_wgmma<HD>`` and
+     ``flash_bwd_dkv_wgmma<HD,SUB>`` for bf16 at hd = hd_v in {64, 128},
+     else ``flash_bwd_*_tc`` at the training shape's widths, and f16's)
+     takes issues IMMA, HGMMA or HMMA, and where a K2 or a wgmma backward
+     instance spills;
   2. hold every kernel against its plain PyTorch version on the card: the
      streamed dense conv (K2) at every dense conv shape of the six CNN
      configs compiled for ``NX2100`` at batch 8, forced onto the streamed
@@ -59,7 +62,9 @@ it is run outside a checkout of the repository.  Phases, one line each:
      in bf16, within ``FLASH_TOL`` (per
      dtype and output; lse to 1e-4); the flash-attention backward (K10:
      dq; K11: dk, dv) at ``FLASH_CASES`` and the train_4k cell's shape in
-     both dtypes on K9's o and lse, within ``BWD_TOL``; their f32 sums (bf16 operands, f32 outputs)
+     both dtypes on K9's o and lse, within ``BWD_TOL``, on the wgmma
+     route and, where that is the launch's, on the mma.sync route too;
+     their f32 sums (bf16 operands, f32 outputs)
      against the plain backward on the f32 casts of the same operands at
      ``BWD_SUM_CASES``, within ``BWD_SUM_TOL``, which sees below bf16's
      precision; and the differentiable ``flash_attention_vjp`` against
@@ -258,7 +263,9 @@ it is run outside a checkout of the repository.  Phases, one line each:
      convs; cuDNN's fp32 conv for the depthwise conv;
      ``scaled_dot_product_attention`` for attention, every backend tried
      and the fastest that takes the operands kept, its backward for the
-     K10/K11 pair), each net end to end, each LM's prefill, decode step
+     K10/K11 pair; K10 and K11 on both 16-bit routes in turns where the
+     wgmma route is the shape's), each net end to end, each LM's prefill,
+     decode step
      and engine run, and the training step (eager ms of steps 2-3, and one
      more step traced by ``torch.profiler`` for its device ms);
   5. the port's six examples (``[examples]`` lines, ``run_examples``):
@@ -382,6 +389,7 @@ F16 = "float16"
 # unscaled, as the JAX package's
 F16_LOSS_SCALE = 2 ** 12
 DNAME = {"bfloat16": "bf16", "float16": "f16", "float32": "f32"}
+DTYPE_OF = {v: k for k, v in DNAME.items()}
 F16_ROWS = {"flash_attention_fwd_f16": "flash_attention_fwd",
             "flash_attention_bwd_dq_f16": "flash_attention_bwd_dq",
             "flash_attention_bwd_dkv_f16": "flash_attention_bwd_dkv"}
@@ -947,9 +955,14 @@ FLASH_TEMPLATES = {
                      "flash_fwd_16<{},{},{}>"),
     "flash_fwd_f32": (r"flash_fwd_f32()", "flash_fwd_f32{}")}
 FLASH_BWD_TEMPLATES = {
-    kern: (kern + r"I(13__nv_bfloat16|6__half)Li(\d+)ELi(\d+)ELi\d+E",
-           kern + "<{},{},{}>")
-    for kern in ("flash_bwd_dq_tc", "flash_bwd_dkv_tc")}
+    **{kern: (kern + r"I(13__nv_bfloat16|6__half)Li(\d+)ELi(\d+)ELi\d+E",
+              kern + "<{},{},{}>")
+       for kern in ("flash_bwd_dq_tc", "flash_bwd_dkv_tc")},
+    # the wgmma route (bf16 only): <HD>, and K11's query sub-tile
+    "flash_bwd_dq_wgmma": (r"flash_bwd_dq_wgmmaILi(\d+)E",
+                           "flash_bwd_dq_wgmma<{}>"),
+    "flash_bwd_dkv_wgmma": (r"flash_bwd_dkv_wgmmaILi(\d+)ELi(\d+)E",
+                            "flash_bwd_dkv_wgmma<{},{}>")}
 # (library, log name, {template: (mangled-name pattern, display format)}):
 # the libraries whose kernels the build report lists, and the instances
 # the report names (the pattern's groups are the template arguments)
@@ -988,7 +1001,11 @@ MANGLED_ARGS = {"f": "f32", "13__nv_bfloat16": "bf16", "6__half": "f16",
 SASS_REQUIRED = {"conv_mma": "IMMA", "conv_stream": "IMMA",
                  "flash_fwd_wgmma": "HGMMA", "flash_fwd_16": "HMMA",
                  "flash_bwd_dq_tc": "HMMA", "flash_bwd_dkv_tc": "HMMA",
-                 "mm_float_tc": "HMMA"}
+                 "flash_bwd_dq_wgmma": "HGMMA",
+                 "flash_bwd_dkv_wgmma": "HGMMA", "mm_float_tc": "HMMA"}
+# the instances that must spill nothing (a spill in the conv stream or the
+# wgmma backward's consumers is a design fault, not a cost)
+NO_SPILL = ("conv_stream", "flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma")
 
 
 def instance_name(text, templates):
@@ -1085,11 +1102,14 @@ def check_main_path_instances(record, shapes, conv_plan, stream_plan,
     Qwen2-MoE, ``flash_fwd_16<bf16,192,128>`` for DeepSeek-V2's MLA, at the
     widths of ``kernel_widths``: ``flash_fwd_16<bf16,32,32>`` for the
     reduced configs' head dims 16 and 24; ``flash_fwd_wgmma<f16,128>``
-    for Phi-4-mini in f16; K10/K11's ``flash_bwd_*_tc`` at each training
-    shape's widths, bf16 and, for Phi-4-mini in f16, f16), and that each
-    issues its tensor-core instruction (IMMA, HGMMA, HMMA) in the SASS of
-    the build report, and a K2 instance spills nothing; fails where one
-    does not."""
+    for Phi-4-mini in f16; K10/K11 by ``flash_bwd_route`` of each bf16
+    training shape: ``flash_bwd_dq_wgmma<HD>`` and
+    ``flash_bwd_dkv_wgmma<HD,SUB>`` at hd = hd_v in {64, 128}, else
+    ``flash_bwd_*_tc`` at the shape's widths, and the f16 ``*_tc`` for
+    Phi-4-mini in f16), and that each issues its tensor-core instruction
+    (IMMA, HGMMA, HMMA) in the SASS of the build report, and that a K2 or
+    a wgmma backward instance spills nothing; fails where one does
+    not."""
     used = {}
     for key in shapes["conv2d_int8_pinned"]:
         h, w, c, co, k, s = key[:6]
@@ -1112,13 +1132,21 @@ def check_main_path_instances(record, shapes, conv_plan, stream_plan,
                          else "flash_fwd_16<{},{},{}>".format(
                              t, *kernel_widths(hd, hd_v))), []).append(
             list(case[:6]))
+    from repro_torch.kernels.flash_attention.ops import flash_bwd_route
     for case, lib, t in ([(c, "flash_attention_bwd", "bf16") for c in BWD_MAIN]
                          + [(FLASH_SLICE, "flash_attention_bwd_f16",
                              "f16")]):
-        widths = kernel_widths(*(padded_dim(d) for d in case[4:6]))
-        for kern in ("flash_bwd_dq_tc", "flash_bwd_dkv_tc"):
-            used.setdefault((lib, "{}<{},{},{}>".format(kern, t, *widths)),
-                            []).append(list(case[:6]))
+        hd, hd_v = (padded_dim(d) for d in case[4:6])
+        if flash_bwd_route(getattr(torch, DTYPE_OF[t]), hd, hd_v) == "wgmma":
+            names = (f"flash_bwd_dq_wgmma<{hd}>", next(
+                inst for inst in record["ptxas"][lib]
+                if inst.startswith(f"flash_bwd_dkv_wgmma<{hd},")))
+        else:
+            widths = kernel_widths(hd, hd_v)
+            names = tuple("{}<{},{},{}>".format(kern, t, *widths) for kern in
+                          ("flash_bwd_dq_tc", "flash_bwd_dkv_tc"))
+        for inst in names:
+            used.setdefault((lib, inst), []).append(list(case[:6]))
     rows = {}
     for (src, inst), keys in used.items():
         rep = record["ptxas"][src].get(inst, {})
@@ -1126,7 +1154,7 @@ def check_main_path_instances(record, shapes, conv_plan, stream_plan,
         if not rep.get(op):
             raise AssertionError(f"{inst} ({src}.cu), launched at {keys}, "
                                  f"issues no {op} in its SASS: {rep}")
-        if inst.startswith("conv_stream") and (
+        if inst.startswith(NO_SPILL) and (
                 rep.get("spill_stores", 0) or rep.get("spill_loads", 0)):
             raise AssertionError(f"{inst}, launched at {keys}, spills: "
                                  f"{rep}")
@@ -1379,6 +1407,13 @@ def check_flash(torch, g, dev, ks, record):
     return n + 2
 
 
+def bwd_routes(flash_bwd_route, dt, case):
+    """The routes a check holds at ``case`` in dtype ``dt``: the launch's
+    own (None), and the mma.sync kernels beside the wgmma ones."""
+    wgmma = flash_bwd_route(dt, case[4], case[5]) == "wgmma"
+    return (None, "mma_sync") if wgmma else (None,)
+
+
 def check_flash_bwd(torch, g, dev, ks, record):
     """Phase 2 for K10/K11: the pair against flash_attention_bwd_plain (at
     the JAX call's blocks) at every case of FLASH_CASES and at the dry
@@ -1390,9 +1425,12 @@ def check_flash_bwd(torch, g, dev, ks, record):
     flash_attention_plain at VJP_CASES; at batch 1 also with the
     gradient's batch stride 1 (as autograd may hand it over), which must
     give the same grads bit for bit.  f16 (FLASH_DTYPES) everywhere bf16
-    is held, its sums too."""
+    is held, its sums too.  Where ``flash_bwd_route`` sends a bf16 launch
+    to the wgmma kernels, the mma.sync ones (``route="mma_sync"``) are
+    held to the same limits on the same operands (keys "... mma_sync")."""
     from repro_torch.kernels.flash_attention.ops import (
-        flash_attention_bwd, flash_attention_kernel, flash_attention_vjp)
+        flash_attention_bwd, flash_attention_kernel, flash_attention_vjp,
+        flash_bwd_route)
     from repro_torch.kernels.flash_attention.ref import (
         flash_attention_bwd_plain, flash_attention_plain)
     n = 0
@@ -1407,16 +1445,18 @@ def check_flash_bwd(torch, g, dev, ks, record):
                                             **flash_kw(case))
             want = flash_attention_bwd_plain(q, k, v, o, lse, do,
                                              **flash_kw(case))
-            got = flash_attention_bwd(q, k, v, o, lse, do, **flash_kw(case))
-            for out, kname, gt, wt in zip(
-                    ("dq", "dk", "dv"),
-                    (BWD_KERNELS[0], BWD_KERNELS[1], BWD_KERNELS[1]),
-                    got, want):
-                rtol, share = BWD_TOL[dname, out]
-                kernel_row(ks, kname, dname).err(
-                    torch, gt, wt, (rtol, share * float(wt.abs().max())),
-                    f"{dname} {out}")
-                n += 1
+            for route in bwd_routes(flash_bwd_route, dt, case):
+                got = flash_attention_bwd(q, k, v, o, lse, do, route=route,
+                                          **flash_kw(case))
+                for out, kname, gt, wt in zip(
+                        ("dq", "dk", "dv"),
+                        (BWD_KERNELS[0], BWD_KERNELS[1], BWD_KERNELS[1]),
+                        got, want):
+                    rtol, share = BWD_TOL[dname, out]
+                    kernel_row(ks, kname, dname).err(
+                        torch, gt, wt, (rtol, share * float(wt.abs().max())),
+                        f"{dname} {out}" + (f" {route}" if route else ""))
+                    n += 1
     for case in BWD_SUM_CASES:
         for dname in ("bfloat16", F16):
             dt = getattr(torch, dname)
@@ -1428,17 +1468,20 @@ def check_flash_bwd(torch, g, dev, ks, record):
             want = flash_attention_bwd_plain(
                 *(t.float() for t in (q, k, v, o)), lse, do.float(),
                 **flash_kw(case))
-            got = flash_attention_bwd(q, k, v, o, lse, do, **flash_kw(case),
-                                      out_dtype=torch.float32)
             rtol, share = BWD_SUM_TOL
-            for out, kname, gt, wt in zip(
-                    ("dq", "dk", "dv"),
-                    (BWD_KERNELS[0], BWD_KERNELS[1], BWD_KERNELS[1]), got,
-                    want):
-                kernel_row(ks, kname, dname).err(
-                    torch, gt, wt, (rtol, share * float(wt.abs().max())),
-                    f"{dname} {out} f32 sums")
-                n += 1
+            for route in bwd_routes(flash_bwd_route, dt, case):
+                got = flash_attention_bwd(q, k, v, o, lse, do, route=route,
+                                          out_dtype=torch.float32,
+                                          **flash_kw(case))
+                for out, kname, gt, wt in zip(
+                        ("dq", "dk", "dv"),
+                        (BWD_KERNELS[0], BWD_KERNELS[1], BWD_KERNELS[1]),
+                        got, want):
+                    kernel_row(ks, kname, dname).err(
+                        torch, gt, wt, (rtol, share * float(wt.abs().max())),
+                        f"{dname} {out} f32 sums"
+                        + (f" {route}" if route else ""))
+                    n += 1
     worst = {}
     for case in VJP_CASES:
         for dname in FLASH_DTYPES:
@@ -2284,29 +2327,42 @@ def family_batch(torch, data, extra, step, dev):
                for k, v in data.global_batch(step).items()}, **extra}
 
 
-# K11's key loop in flash_bwd_dkv_tc, and the same loop run no time in
-# the last key tile (k0 + TC_BM >= Sk) of every (batch, head)
-K11_FUNCTION = "flash_bwd_dkv_tc(BwdArgs a)"
-K11_LOOP = "  for (int qt = lo; qt <= hi; ++qt) {"
-K11_PLANT = ("  for (int qt = lo; qt <= (k0 + TC_BM >= a.Sk ? lo - 1 : hi); "
-             "++qt) {")
+# The K11 plant, in both kernels the families' training runs (by
+# flash_bwd_route): (function, line, planted line).  flash_bwd_dkv_tc
+# (DeepSeek-V2's MLA widths) runs its key loop no time in the last key
+# block of 64 (k0 + TC_BM >= Sk) of every (batch, head);
+# flash_bwd_dkv_wgmma (hd = hd_v in {64, 128}: Qwen2-MoE, SeamlessM4T,
+# InternVL2, Qwen2-72B) releases every query tile unread in its last
+# block of 128 keys (k0 + WG_OWN >= Sk), so the producer's ring still
+# turns; the dk and dv of those keys stay zero
+K11_PLANTS = (
+    ("flash_bwd_dkv_tc(BwdArgs a)",
+     "  for (int qt = lo; qt <= hi; ++qt) {",
+     "  for (int qt = lo; qt <= (k0 + TC_BM >= a.Sk ? lo - 1 : hi); "
+     "++qt) {"),
+    ("    flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap kmap,",
+     "    if (qt < lo_w || qt > hi_w) {  // hidden from every key of this "
+     "group",
+     "    if (qt < lo_w || qt > hi_w || k0 + WG_OWN >= a.Sk) {"))
 
 
 def start_k11_plant(_build):
     """Start nvcc on the "k11" plant of TRAIN_FAMILIES: a copy of
-    ``csrc/flash_attention_bwd.cu`` whose K11 (``flash_bwd_dkv_tc``)
-    leaves every block's last key tile out (K11_PLANT), built into the
+    ``csrc/flash_attention_bwd.cu`` whose K11 kernels (``flash_bwd_dkv_tc``
+    and ``flash_bwd_dkv_wgmma``) leave every (batch, head)'s last key
+    block out (K11_PLANTS), built into the
     build directory under the hash of the planted source and the headers,
     so a later run loads it without building.  The returned function
     waits for nvcc and returns the library's path (nvcc is killed at exit
     if the script ends first)."""
     import hashlib
     import tempfile
-    text = (_build.CSRC / "flash_attention_bwd.cu").read_text()
-    at = text.index(K11_FUNCTION)
-    if K11_LOOP not in text[at:]:
-        raise AssertionError("K11's key loop not found")
-    planted = text[:at] + text[at:].replace(K11_LOOP, K11_PLANT, 1)
+    planted = (_build.CSRC / "flash_attention_bwd.cu").read_text()
+    for function, line, plant in K11_PLANTS:
+        at = planted.index(function)
+        if line not in planted[at:]:
+            raise AssertionError(f"K11's line {line!r} not found")
+        planted = planted[:at] + planted[at:].replace(line, plant, 1)
     h = hashlib.sha256(planted.encode())
     for header in sorted(_build.CSRC.glob("*.cuh")):
         h.update(header.read_bytes())
@@ -2668,7 +2724,11 @@ def time_flash_bwd(torch, F, g, dev, ks, launches_by_case, card, record,
     pair, and the backward of F.scaled_dot_product_attention (GQA, causal
     where the shape is) for the pair; each row sums them over the
     launches of each shape.  ``dtype``: the operands' (f16 for the f16
-    instances' rows, at the f16 main path's shapes)."""
+    instances' rows, at the f16 main path's shapes).  Where the shape's
+    route (``flash_bwd_route``) is wgmma, each kernel is timed on it and
+    on the mma.sync kernels in turns (mma.sync, wgmma, wgmma, mma.sync;
+    the mean of each route's two readings), the mma.sync time kept as
+    ``mma_sync_ms`` beside the route's."""
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention.ref import \
         flash_attention_bwd_plain
@@ -2692,11 +2752,12 @@ def time_flash_bwd(torch, F, g, dev, ks, launches_by_case, card, record,
         dk = torch.empty((B, S, H, hd), dtype=q.dtype, device=dev)
         dv = torch.empty((B, S, H, hd_v), dtype=q.dtype, device=dev)
 
-        def launch(which):
+        def launch(which, route=None):
             return lambda: ops._launch_bwd(
                 qt, kt, vt, dot, lse, delta, dq.transpose(1, 2),
                 dk.transpose(1, 2), dv.transpose(1, 2), causal=causal,
-                window=0, softcap=0.0, which=which)
+                window=0, softcap=0.0, which=which, route=route)
+        route = ops.flash_bwd_route(dt, hd, hd_v)
         reps = 20 if S <= 512 else 5
         got = ops.flash_attention_bwd(qt, kt, vt, o, lse, dot, causal=causal)
         backends, best = sdpa_bwd_readings(torch, F, qt, kt, vt, dot, causal,
@@ -2721,16 +2782,28 @@ def time_flash_bwd(torch, F, g, dev, ks, launches_by_case, card, record,
                 (BWD_KERNELS[1], (1,), n_dkv,
                  2 * pairs * (2 * hd + 2 * hd_v))):
             b, by = bound_ms(nbytes, ops_, BF16_FLOPS_PER_S)
+            turns = {}
+            for r in (("mma_sync", route, route, "mma_sync")
+                      if route == "wgmma" else (route,)):
+                turns.setdefault(r, []).append(
+                    device_ms(torch, launch(which, r), reps=reps))
             t[kname] = {
-                "ms": device_ms(torch, launch(which), reps=reps),
+                "ms": sum(turns[route]) / len(turns[route]),
+                "route": route, "turns_ms": turns,
+                "mma_sync_ms": (sum(turns["mma_sync"]) / 2
+                                if route == "wgmma" else None),
                 "call_ms": call_ms(torch, launch(which), reps=reps),
                 "bound_ms": b, "bound_by": by, "bytes": nbytes,
                 "flops": ops_}
         log("time", f"flash backward B={B} H={H} KV={KV} S={S} hd={hd} "
             f"hd_v={hd_v} {DNAME[dtype]} "
-            f"{'causal' if causal else 'non-causal'}: "
+            f"{'causal' if causal else 'non-causal'} ({route} route): "
             f"dq {t[BWD_KERNELS[0]]['ms']:.4f} ms, dk/dv "
-            f"{t[BWD_KERNELS[1]]['ms']:.4f} ms per launch (device); "
+            f"{t[BWD_KERNELS[1]]['ms']:.4f} ms per launch (device)"
+            + ("" if route != "wgmma" else
+               f" (mma_sync route, in turns: "
+               f"{t[BWD_KERNELS[0]]['mma_sync_ms']:.4f} / "
+               f"{t[BWD_KERNELS[1]]['mma_sync_ms']:.4f})") + "; "
             f"bounds {t[BWD_KERNELS[0]]['bound_ms']:.4f} / "
             f"{t[BWD_KERNELS[1]]['bound_ms']:.4f} ms; the pair: plain "
             f"{t['plain_ms']:.4f} ms, SDPA backward "
@@ -2756,6 +2829,8 @@ def time_flash_bwd(torch, F, g, dev, ks, launches_by_case, card, record,
         kern.library_ms = sum(n * t["library_ms"] for n, t in rows)
         kern.per_shape = [{
             "case": list(c), "launches": n, "ms": per[c][kname]["ms"],
+            "route": per[c][kname]["route"],
+            "mma_sync_ms": per[c][kname]["mma_sync_ms"],
             "plain_ms": per[c]["plain_ms"],
             "bound_ms": per[c][kname]["bound_ms"],
             "bound_by": per[c][kname]["bound_by"],

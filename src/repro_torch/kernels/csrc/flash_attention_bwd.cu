@@ -18,12 +18,47 @@
 // products (ds . k, ds^T . q, p^T . do).  ds takes the scale once per
 // element here, not once per tile product as in the reference: an f32
 // rounding (a relative 2^-24 per term), far inside the tests' tolerances.
+// The wgmma route takes p as 2^(s * scale * log2(e) - lse * log2(e)), the
+// factor folded into one FFMA as K9's wgmma forward does: the same steps
+// up to f32 rounding, within every limit the checks hold it to.
 //
-// Two routes, picked by the operands' dtype:
+// Three routes, picked from the operands' dtype and the padded head dims
+// alone (ops.flash_bwd_route; flash_attention_bwd_launch takes the route
+// and refuses a pairing it does not run):
 //
-//   16-bit (bf16, the training path, or f16): flash_bwd_dq_tc<T, HD, HDV>
-//   and flash_bwd_dkv_tc<T, HD, HDV>, every product on the tensor cores
-//   as mma.sync (f32 sums).  This file builds as two libraries, one a
+//   wgmma (bf16, hd = hd_v in {64, 128}; the training path of Phi-4-mini,
+//   Qwen2-MoE, SeamlessM4T, InternVL2 and Qwen2-72B):
+//   flash_bwd_dq_wgmma<HD> and flash_bwd_dkv_wgmma<HD, SUB>.  One CTA owns
+//   128 rows (query rows for dq, keys for dk/dv) as two consumer
+//   warpgroups of 64, and a producer warpgroup that gives up its
+//   registers (setmaxnreg: 24 a thread, the consumers 240).  The
+//   producer's first thread loads the owned operands once (dq: Q and dO;
+//   dk/dv: K and V) and keeps the streamed tiles of 64 rows (K and V; or
+//   Q, dO, and the rows' lse and delta by a bulk copy) in flight through a
+//   ring of two stages by TMA (128-byte swizzle, rows past S zero-filled),
+//   each stage with a full mbarrier counting the bytes and an empty one
+//   every consumer thread releases.  Every product is a wgmma: the two
+//   score products (dq: S = Q K^T, dP = dO V^T; dk/dv: S^T = K Q^T,
+//   dP^T = V dO^T, keys the M dimension, in sub-tiles of SUB query rows)
+//   from shared memory, K-major on both sides; the accumulating ones (dQ
+//   += dS K; dV += P^T dO, dK += dS^T Q) with A from registers, the score
+//   accumulator's layout being the A fragment's, and B read MN-major
+//   through the descriptor (K, dO and Q as TMA laid them: the same tiles
+//   serve both forms).  p and ds are split exactly into three bf16 parts
+//   (split_pair, two values at a time), the three wgmma of a k-slice on
+//   one B descriptor, smallest first.  A tile's accumulating products stay
+//   in flight while the next tile's (or sub-tile's) score products are
+//   issued: one wait covers both, and the stage is released after it.
+//   The elementwise steps run as whole-tile loops behind branches uniform
+//   over the CTA (softcap or not, masked or whole), so the compiler can
+//   interleave the elements.  The sums are written as the 16-bit route's
+//   are.  No instance spills (chip_smoke.py's build report checks it).
+//
+//   mma_sync (the other 16-bit launches: f16 at every head dim, bf16 at
+//   the other widths; and bf16 at 64 and 128 on request, to hold the two
+//   routes against each other): flash_bwd_dq_tc<T, HD, HDV> and
+//   flash_bwd_dkv_tc<T, HD, HDV>, every product on the tensor cores as
+//   mma.sync (f32 sums).  This file builds as two libraries, one a
 //   type T (kernels/_build.py VARIANTS: bf16 by default, f16 where
 //   H2PIPE_HALF is defined, each its own nvcc, started together).  What
 //   follows is the bf16 instances'; the f16 ones differ in the three
@@ -92,11 +127,14 @@
 // B*H*S^2*hd FMAs, halved by the causal mask (9.7 and 12.9 GFLOP), against
 // 46.5 and 59.1 MB moved, so bytes bound both (14 and 18 us at 3.35 TB/s);
 // at S = 2048 operations do.  The split makes the tensor cores do 5 (dq)
-// and 8 (dk/dv) products' work, which mma.sync (not wgmma) issues at well
-// under the 989 TFLOP/s peak; between the products each element takes
-// expf, the mask, the softcap and two three-way splits on the same warps.
-// PERF.md has the times against the bound and the library's attention
-// backward.
+// and 8 (dk/dv) products' work (16 and 26 us at 989 TFLOP/s), and between
+// the products each element takes an exponential, the mask, the softcap
+// and a three-way split on the same warps.  The mma.sync route issues
+// both synchronously on four warps; the wgmma route issues the products
+// asynchronously as warpgroup instructions, fed by TMA without a thread's
+// registers or instructions, so that one warpgroup's elementwise work runs
+// beside the other's products.  PERF.md has the times of both routes
+// against the bound and the library's attention backward.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -105,10 +143,12 @@
 #include <type_traits>
 
 #include "mma_bf16.cuh"
+#include "wgmma.cuh"  // mbarriers, TMA and wgmma
 
 namespace {
 
 using namespace h2pipe_mma;
+using namespace h2pipe_wgmma;
 
 // The 16-bit operand type of this library and its dtype codes in
 // flash_attention_bwd_launch: the grads in T, and the f32 sums.
@@ -144,7 +184,9 @@ struct BwdArgs {
   long long s[21];
   int B, H, KV, Sq, Sk, hd, hdv, causal, window;
   float softcap, scale;
-  int f32_out;         // bf16 route: write the f32 sums, not bf16
+  int f32_out;         // 16-bit routes: write the f32 sums, not T
+  int ls;              // row stride of lse and delta (Sq; the wgmma
+                       // route's rows padded to a multiple of WG_TILE)
 };
 
 enum { Q_ = 0, K_ = 3, V_ = 6, DO_ = 9, DQ_ = 12, DK_ = 15, DV_ = 18 };
@@ -868,6 +910,533 @@ __global__ void __launch_bounds__(NTC) flash_bwd_dkv_tc(BwdArgs a) {
   }
 }
 
+#ifndef H2PIPE_HALF  // the wgmma route: bf16 operands, in the bf16 library
+// ---------------------------------------------------------------------------
+// bf16, hd = hd_v in {64, 128}: wgmma fed by TMA
+// ---------------------------------------------------------------------------
+
+constexpr int WG_OWN = 128;        // owned rows a CTA: two warpgroups of 64
+constexpr int WG_TILE = 64;        // rows of a streamed tile
+constexpr int WG_STAGES = 2;       // streamed tiles in flight
+constexpr int WG_CONSUMERS = 256;  // the two consumer warpgroups
+constexpr int WG_THREADS = WG_CONSUMERS + 128;  // and the producer's
+constexpr int WG_ROW = 128;        // bytes of one swizzled row: 64 bf16
+// registers a thread after setmaxnreg: 128 x 24 + 256 x 240 <= 65,536
+constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
+
+// Shared memory of one CTA (1024-byte aligned; every panel starts on a
+// 1024-byte boundary, where the 128-byte swizzle repeats): the two owned
+// operands (dq: Q and dO; dk/dv: K and V), each HD/64 panels of [WG_OWN
+// rows][128 B]; then WG_STAGES stages of the two streamed ones (dq: K and
+// V; dk/dv: Q and dO), each HD/64 panels of [WG_TILE rows][128 B], and
+// for dk/dv the tile's lse and delta (WG_TILE f32 each, in a 1024-byte
+// slot).  ops.bwd_wgmma_smem computes the same bytes.
+template <int HD>
+struct BwdLayout {
+  static constexpr int PANELS = HD / 64;
+  static constexpr int OWN_PANEL = WG_OWN * WG_ROW;
+  static constexpr int TILE_PANEL = WG_TILE * WG_ROW;
+  static constexpr int OWN_BYTES = PANELS * OWN_PANEL;    // one operand
+  static constexpr int TILE_BYTES = PANELS * TILE_PANEL;  // one operand
+  static constexpr int STATS_BYTES = 2 * WG_TILE * 4;     // lse, delta
+  static constexpr int STAGE_DQ = 2 * TILE_BYTES;
+  static constexpr int STAGE_DKV = 2 * TILE_BYTES + 1024;
+  static constexpr int SMEM_DQ = 2 * OWN_BYTES + WG_STAGES * STAGE_DQ + 1024;
+  static constexpr int SMEM_DKV =
+      2 * OWN_BYTES + WG_STAGES * STAGE_DKV + 1024;
+};
+
+// The key tiles of WG_TILE keys some row of [q0, q0 + rows) can see; none
+// (lo > hi) where q0 is past Sq.
+__device__ __forceinline__ void key_tiles(const BwdArgs& a, int q0, int rows,
+                                          int* lo, int* hi) {
+  const int nkt = (a.Sk + WG_TILE - 1) / WG_TILE;
+  const int q_last = min(q0 + rows, a.Sq) - 1;
+  *hi = a.causal ? min(nkt - 1, q_last / WG_TILE) : nkt - 1;
+  *lo = a.window > 0 ? max(0, q0 - a.window + 1) / WG_TILE : 0;
+  if (q0 >= a.Sq) *lo = *hi + 1;
+}
+
+// The query tiles of WG_TILE rows some key of [k0, k0 + keys) is visible
+// to; none where k0 is past Sk.
+__device__ __forceinline__ void query_tiles(const BwdArgs& a, int k0,
+                                            int keys, int* lo, int* hi) {
+  const int nqt = (a.Sq + WG_TILE - 1) / WG_TILE;
+  const int k_last = min(k0 + keys, a.Sk) - 1;
+  *lo = a.causal ? min(nqt, k0 / WG_TILE) : 0;
+  *hi = a.window > 0 ? min(nqt - 1, (k_last + a.window - 1) / WG_TILE)
+                     : nqt - 1;
+  if (k0 >= a.Sk) *lo = *hi + 1;
+}
+
+constexpr float LOG2E = 1.4426950408889634f;
+
+// split3 of two values at once, packed (x0 in the low half): the parts
+// lo, mid and hi of each, by two-wide conversions.
+__device__ __forceinline__ void split_pair(float x0, float x1, uint32_t& lo,
+                                           uint32_t& mid, uint32_t& hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  const float r0 = x0 - hf.x, r1 = x1 - hf.y;
+  const __nv_bfloat162 m = __floats2bfloat162_rn(r0, r1);
+  const float2 mf = __bfloat1622float2(m);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(r0 - mf.x, r1 - mf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  mid = *reinterpret_cast<const uint32_t*>(&m);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// The three bf16 parts (lo, mid, hi, as split_frag lays them out) of each
+// k-slice of 16 of a [64 x 16 NK] accumulator, as the A fragments of the
+// next wgmma.
+template <int NK>
+__device__ __forceinline__ void split_slices(const float (*c)[4],
+                                             uint32_t (*f)[3][4]) {
+#pragma unroll
+  for (int kk = 0; kk < NK; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float* x = c[2 * kk + (r >> 1)] + 2 * (r & 1);
+      split_pair(x[0], x[1], f[kk][0][r], f[kk][1][r], f[kk][2][r]);
+    }
+}
+
+// p and ds * scale of one element (grad_score's steps) from its score's
+// dot product s, dp, and its row's lse in base 2 (l2 = lse * log2(e)) and
+// delta: p = 2^(s * c2 - l2), the scores' factor c2 = scale * log2(e)
+// folded into one FFMA.  grad_soft: the same after the softcap.  Each
+// kernel runs one or the other over a whole tile, behind a branch that is
+// uniform over the CTA, so no element pays for a softcap it does not need.
+__device__ __forceinline__ float grad_plain(const BwdArgs& a, float c2,
+                                            float s, float dp, float l2,
+                                            float delta, float* p_out) {
+  const float p = exp2f(fmaf(s, c2, -l2));
+  *p_out = p;
+  return p * (dp - delta) * a.scale;
+}
+
+__device__ __forceinline__ float grad_soft(const BwdArgs& a, float s,
+                                           float dp, float l2, float delta,
+                                           float* p_out) {
+  s = tanhf(s * a.scale / a.softcap) * a.softcap;
+  const float u = s / a.softcap;
+  const float p = exp2f(fmaf(s, LOG2E, -l2));
+  *p_out = p;
+  return p * (dp - delta) * (1.0f - u * u) * a.scale;
+}
+
+// acc += split(c) . X for NK k-slices of 16 rows of X from row x0 of a
+// streamed tile (shared address `xs`): X read MN-major, its 64-column
+// panels `panel` bytes apart; each slice's three parts, smallest first,
+// on one B descriptor.  The parts stay live until the caller's wait.
+template <int NK, int N>
+__device__ __forceinline__ void split_wgmma(float (&acc)[N][4],
+                                            uint32_t (*f)[3][4], uint32_t xs,
+                                            int x0, int panel) {
+#pragma unroll
+  for (int kk = 0; kk < NK; ++kk) {
+    const uint64_t db = sw128_desc(xs + (x0 + 16 * kk) * WG_ROW, panel, 1024);
+#pragma unroll
+    for (int part = 0; part < 3; ++part) wgmma_rs(acc, f[kk][part], db);
+  }
+}
+
+template <int NK>
+__device__ __forceinline__ void keep_parts(uint32_t (*f)[3][4]) {
+#pragma unroll
+  for (int kk = 0; kk < NK; ++kk)
+#pragma unroll
+    for (int part = 0; part < 3; ++part)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) asm volatile("" : "+r"(f[kk][part][r]));
+}
+
+// K10 on wgmma: dq for one (batch, head, 128-row q block).  The producer
+// warpgroup gives up its registers (setmaxnreg) and its first thread
+// loads Q and dO of the block once and keeps the K/V tiles of the block's
+// visible range in flight through a WG_STAGES-deep ring (a full mbarrier
+// counting the TMA's bytes, an empty one that every consumer thread
+// releases).  Consumer warpgroup w owns rows q0 + 64w .. +63 and, per
+// tile, computes S = Q K^T and dP = dO V^T as wgmma from shared memory
+// (K-major on both sides), ds * scale in registers (grad_score), and
+// dQ += dS K with dS from registers (the accumulator's layout is the A
+// fragment) in three bf16 parts and K read MN-major.  A tile no row of
+// the warpgroup sees is released unread.
+template <int HD>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap qmap,
+                       const __grid_constant__ CUtensorMap omap,
+                       const __grid_constant__ CUtensorMap kmap,
+                       const __grid_constant__ CUtensorMap vmap, BwdArgs a) {
+  using L = BwdLayout<HD>;
+  extern __shared__ unsigned char dq_wg_smem[];
+  __shared__ __align__(8) uint64_t bars[1 + 2 * WG_STAGES];
+  const uint32_t qs = (smem_addr(dq_wg_smem) + 1023u) & ~1023u;
+  const uint32_t os = qs + L::OWN_BYTES;   // dO
+  const uint32_t ring = os + L::OWN_BYTES;
+  const uint32_t own = smem_addr(bars);
+  const uint32_t full = own + 8, empty = own + 8 * (1 + WG_STAGES);
+
+  const int nqb = (a.Sq + WG_OWN - 1) / WG_OWN;
+  const int q0 = (nqb - 1 - (int)blockIdx.x) * WG_OWN;  // heaviest first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (a.H / a.KV);
+  int lo, hi;
+  key_tiles(a, q0, WG_OWN, &lo, &hi);
+
+  if (threadIdx.x == 0) {
+    mbar_init(own, 1);
+    for (int s = 0; s < WG_STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, WG_CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp >= WG_CONSUMERS / 32) {  // the producer warpgroup
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (warp == WG_CONSUMERS / 32 && lane == 0) {
+      mbar_expect_tx(own, 2 * L::OWN_BYTES);
+      for (int p = 0; p < L::PANELS; ++p) {
+        tma_load(qs + p * L::OWN_PANEL, &qmap, own, 64 * p, q0, h, b);
+        tma_load(os + p * L::OWN_PANEL, &omap, own, 64 * p, q0, h, b);
+      }
+      for (int kt = lo, i = 0; kt <= hi; ++kt, ++i) {
+        const int s = i % WG_STAGES;
+        mbar_wait(empty + 8 * s, ((i / WG_STAGES) & 1) ^ 1);
+        mbar_expect_tx(full + 8 * s, L::STAGE_DQ);
+        const uint32_t st = ring + s * L::STAGE_DQ;
+        for (int p = 0; p < L::PANELS; ++p) {
+          tma_load(st + p * L::TILE_PANEL, &kmap, full + 8 * s, 64 * p,
+                   kt * WG_TILE, kvh, b);
+          tma_load(st + L::TILE_BYTES + p * L::TILE_PANEL, &vmap,
+                   full + 8 * s, 64 * p, kt * WG_TILE, kvh, b);
+        }
+      }
+    }
+    return;
+  }
+  setmaxnreg_inc<CONSUMER_REGS>();
+
+  const int wg = warp / 4, g = lane >> 2, t = lane & 3;
+  const int qw = q0 + 64 * wg;  // this warpgroup's first row
+  const int row0 = qw + (warp % 4) * 16 + g, row1 = row0 + 8;
+  int lo_w, hi_w;
+  key_tiles(a, qw, 64, &lo_w, &hi_w);
+  const long long bh = ((long long)b * a.H + h) * a.ls;
+  const float l2_0 = row0 < a.Sq ? a.lse[bh + row0] * LOG2E : 0.0f;
+  const float l2_1 = row1 < a.Sq ? a.lse[bh + row1] * LOG2E : 0.0f;
+  const float dl0 = row0 < a.Sq ? a.delta[bh + row0] : 0.0f;
+  const float dl1 = row1 < a.Sq ? a.delta[bh + row1] : 0.0f;
+  const float c2 = a.scale * LOG2E;
+
+  float acc[HD / 8][4];
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
+
+  // The dQ product of a tile stays in flight while the next tile's
+  // scores are issued; one wait then covers both, and the tile's stage
+  // (pend) is released after it.
+  uint32_t f[WG_TILE / 16][3][4];  // dS's parts, live until that wait
+  int pend = -1;
+  auto settle = [&]() {
+    wgmma_wait_all();
+    keep_parts<WG_TILE / 16>(f);
+    fence_acc(acc);
+    if (pend >= 0) mbar_arrive(empty + 8 * pend);
+    pend = -1;
+  };
+  mbar_wait(own, 0);
+  for (int kt = lo, i = 0; kt <= hi; ++kt, ++i) {
+    const int s = i % WG_STAGES;
+    mbar_wait(full + 8 * s, (i / WG_STAGES) & 1);
+    if (kt < lo_w || kt > hi_w) {  // hidden from every row of this group
+      if (pend >= 0) settle();
+      mbar_arrive(empty + 8 * s);
+      continue;
+    }
+    const int k0 = kt * WG_TILE;
+    const uint32_t ks = ring + s * L::STAGE_DQ, vs = ks + L::TILE_BYTES;
+
+    // s = q . k^T and dp = do . v^T: this warpgroup's 64 rows x 64 keys
+    float sc[WG_TILE / 8][4], dp[WG_TILE / 8][4];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const uint32_t off = (kk / 4) * L::OWN_PANEL + wg * 64 * WG_ROW +
+                           (kk % 4) * 32;
+      const uint32_t toff = (kk / 4) * L::TILE_PANEL + (kk % 4) * 32;
+      wgmma_ss(sc, sw128_desc(qs + off, 16, 1024),
+               sw128_desc(ks + toff, 16, 1024), kk);
+      wgmma_ss(dp, sw128_desc(os + off, 16, 1024),
+               sw128_desc(vs + toff, 16, 1024), kk);
+    }
+    wgmma_commit();
+    settle();
+    fence_acc(sc);
+    fence_acc(dp);
+
+    // ds * scale in place of s; zero where masked
+    float p;
+    if (a.softcap == 0.0f) {
+#pragma unroll
+      for (int j = 0; j < WG_TILE / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          sc[j][e] = grad_plain(a, c2, sc[j][e], dp[j][e],
+                                e < 2 ? l2_0 : l2_1, e < 2 ? dl0 : dl1, &p);
+    } else {
+#pragma unroll
+      for (int j = 0; j < WG_TILE / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          sc[j][e] = grad_soft(a, sc[j][e], dp[j][e], e < 2 ? l2_0 : l2_1,
+                               e < 2 ? dl0 : dl1, &p);
+    }
+    const bool whole = qw + 64 <= a.Sq && k0 + WG_TILE <= a.Sk &&
+                       (!a.causal || k0 + WG_TILE - 1 <= qw) &&
+                       (a.window == 0 || qw + 63 - k0 < a.window);
+    if (!whole) {
+#pragma unroll
+      for (int j = 0; j < WG_TILE / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (!visible(a, e < 2 ? row0 : row1, k0 + j * 8 + 2 * t + (e & 1)))
+            sc[j][e] = 0.0f;
+    }
+
+    // dq += ds . k, ds in three parts a k-slice, K read MN-major; left
+    // in flight
+    split_slices<WG_TILE / 16>(sc, f);
+    fence_acc(acc);
+    wgmma_fence();
+    split_wgmma<WG_TILE / 16>(acc, f, ks, 0, L::TILE_PANEL);
+    wgmma_commit();
+    pend = s;
+  }
+  settle();
+
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n) {
+    const int col = n * 8 + 2 * t;
+    if (row0 < a.Sq)
+      store_pair<bf16>(a.dq, a.s + DQ_, b, h, row0, col, acc[n][0],
+                       acc[n][1], a.f32_out);
+    if (row1 < a.Sq)
+      store_pair<bf16>(a.dq, a.s + DQ_, b, h, row1, col, acc[n][2],
+                       acc[n][3], a.f32_out);
+  }
+}
+
+// K11 on wgmma: dk and dv for 128 keys of one (batch, query head).  The
+// producer loads K and V of the block once and keeps the query tiles of
+// the block's visible range (Q, dO, and the rows' lse and delta by a bulk
+// copy) in flight through the ring.  Consumer warpgroup w owns keys k0 +
+// 64w .. +63 and, per tile, in sub-tiles of SUB query rows, computes
+// S^T = K Q^T and dP^T = V dO^T as wgmma from shared memory (keys are the
+// M dimension, K-major on both sides), p^T and ds^T * scale in registers,
+// then dV += P^T dO and dK += dS^T Q with P^T and dS^T from registers in
+// three bf16 parts and dO and Q read MN-major.
+template <int HD, int SUB>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap kmap,
+                        const __grid_constant__ CUtensorMap vmap,
+                        const __grid_constant__ CUtensorMap qmap,
+                        const __grid_constant__ CUtensorMap omap, BwdArgs a) {
+  using L = BwdLayout<HD>;
+  extern __shared__ unsigned char dkv_wg_smem[];
+  __shared__ __align__(8) uint64_t bars[1 + 2 * WG_STAGES];
+  const uint32_t base = smem_addr(dkv_wg_smem);
+  const uint32_t ks = (base + 1023u) & ~1023u;
+  const uint32_t vs = ks + L::OWN_BYTES;
+  const uint32_t ring = vs + L::OWN_BYTES;
+  const uint32_t own = smem_addr(bars);
+  const uint32_t full = own + 8, empty = own + 8 * (1 + WG_STAGES);
+
+  const int k0 = blockIdx.x * WG_OWN;  // causal: the first keys see most rows
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (a.H / a.KV);
+  const long long bh = ((long long)b * a.H + h) * a.ls;
+  int lo, hi;
+  query_tiles(a, k0, WG_OWN, &lo, &hi);
+
+  if (threadIdx.x == 0) {
+    mbar_init(own, 1);
+    for (int s = 0; s < WG_STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, WG_CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp >= WG_CONSUMERS / 32) {  // the producer warpgroup
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (warp == WG_CONSUMERS / 32 && lane == 0) {
+      mbar_expect_tx(own, 2 * L::OWN_BYTES);
+      for (int p = 0; p < L::PANELS; ++p) {
+        tma_load(ks + p * L::OWN_PANEL, &kmap, own, 64 * p, k0, kvh, b);
+        tma_load(vs + p * L::OWN_PANEL, &vmap, own, 64 * p, k0, kvh, b);
+      }
+      for (int qt = lo, i = 0; qt <= hi; ++qt, ++i) {
+        const int s = i % WG_STAGES;
+        mbar_wait(empty + 8 * s, ((i / WG_STAGES) & 1) ^ 1);
+        mbar_expect_tx(full + 8 * s, 2 * L::TILE_BYTES + L::STATS_BYTES);
+        const uint32_t st = ring + s * L::STAGE_DKV;
+        for (int p = 0; p < L::PANELS; ++p) {
+          tma_load(st + p * L::TILE_PANEL, &qmap, full + 8 * s, 64 * p,
+                   qt * WG_TILE, h, b);
+          tma_load(st + L::TILE_BYTES + p * L::TILE_PANEL, &omap,
+                   full + 8 * s, 64 * p, qt * WG_TILE, h, b);
+        }
+        // lse and delta rows are padded to a multiple of WG_TILE (a.ls)
+        const uint32_t stats = st + 2 * L::TILE_BYTES;
+        bulk_load(stats, a.lse + bh + qt * WG_TILE, WG_TILE * 4,
+                  full + 8 * s);
+        bulk_load(stats + WG_TILE * 4, a.delta + bh + qt * WG_TILE,
+                  WG_TILE * 4, full + 8 * s);
+      }
+    }
+    return;
+  }
+  setmaxnreg_inc<CONSUMER_REGS>();
+
+  const int wg = warp / 4, g = lane >> 2, t = lane & 3;
+  const int kw = k0 + 64 * wg;  // this warpgroup's first key
+  const int key0 = kw + (warp % 4) * 16 + g, key1 = key0 + 8;
+  const float c2 = a.scale * LOG2E;
+  int lo_w, hi_w;
+  query_tiles(a, kw, 64, &lo_w, &hi_w);
+
+  float dk[HD / 8][4], dv[HD / 8][4];
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.0f;
+
+  // A sub-tile's dV and dK products stay in flight while the next
+  // sub-tile's scores are issued; one wait then covers both, and the
+  // previous tile's stage (pend) is released after it.
+  uint32_t fp[SUB / 16][3][4], fd[SUB / 16][3][4];  // live until that wait
+  int pend = -1;
+  auto settle = [&]() {
+    wgmma_wait_all();
+    keep_parts<SUB / 16>(fp);
+    keep_parts<SUB / 16>(fd);
+    fence_acc(dv);
+    fence_acc(dk);
+    if (pend >= 0) mbar_arrive(empty + 8 * pend);
+    pend = -1;
+  };
+  mbar_wait(own, 0);
+  for (int qt = lo, i = 0; qt <= hi; ++qt, ++i) {
+    const int s = i % WG_STAGES;
+    mbar_wait(full + 8 * s, (i / WG_STAGES) & 1);
+    if (qt < lo_w || qt > hi_w) {  // hidden from every key of this group
+      if (pend >= 0) settle();
+      mbar_arrive(empty + 8 * s);
+      continue;
+    }
+    const int q0 = qt * WG_TILE;
+    const uint32_t qs = ring + s * L::STAGE_DKV, os = qs + L::TILE_BYTES;
+    const float* Lb = reinterpret_cast<const float*>(
+        dkv_wg_smem + (os + L::TILE_BYTES - base));
+    const float* Db = Lb + WG_TILE;
+
+#pragma unroll 1
+    for (int r0 = 0; r0 < WG_TILE; r0 += SUB) {
+      // s^T = k . q^T and dp^T = v . do^T: 64 keys x SUB query rows
+      float st[SUB / 8][4], dpt[SUB / 8][4];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const uint32_t off = (kk / 4) * L::OWN_PANEL + wg * 64 * WG_ROW +
+                             (kk % 4) * 32;
+        const uint32_t toff =
+            (kk / 4) * L::TILE_PANEL + r0 * WG_ROW + (kk % 4) * 32;
+        wgmma_ss(st, sw128_desc(ks + off, 16, 1024),
+                 sw128_desc(qs + toff, 16, 1024), kk);
+        wgmma_ss(dpt, sw128_desc(vs + off, 16, 1024),
+                 sw128_desc(os + toff, 16, 1024), kk);
+      }
+      wgmma_commit();
+      settle();
+      fence_acc(st);
+      fence_acc(dpt);
+
+      // p^T in place of s^T and ds^T * scale in place of dp^T
+      if (a.softcap == 0.0f) {
+#pragma unroll
+        for (int j = 0; j < SUB / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int c = r0 + j * 8 + 2 * t + (e & 1);
+            dpt[j][e] = grad_plain(a, c2, st[j][e], dpt[j][e],
+                                   Lb[c] * LOG2E, Db[c], &st[j][e]);
+          }
+      } else {
+#pragma unroll
+        for (int j = 0; j < SUB / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int c = r0 + j * 8 + 2 * t + (e & 1);
+            dpt[j][e] = grad_soft(a, st[j][e], dpt[j][e], Lb[c] * LOG2E,
+                                  Db[c], &st[j][e]);
+          }
+      }
+      const int qr = q0 + r0;
+      const bool whole = qr + SUB <= a.Sq && kw + 64 <= a.Sk &&
+                         (!a.causal || kw + 63 <= qr) &&
+                         (a.window == 0 || qr + SUB - 1 - kw < a.window);
+      if (!whole) {
+#pragma unroll
+        for (int j = 0; j < SUB / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (!visible(a, qr + j * 8 + 2 * t + (e & 1),
+                         e < 2 ? key0 : key1))
+              st[j][e] = dpt[j][e] = 0.0f;
+      }
+
+      // dv += p^T . do, then dk += ds^T . q: three parts a k-slice, do and
+      // q read MN-major; left in flight
+      split_slices<SUB / 16>(st, fp);
+      fence_acc(dv);
+      fence_acc(dk);
+      wgmma_fence();
+      split_wgmma<SUB / 16>(dv, fp, os, r0, L::TILE_PANEL);
+      split_slices<SUB / 16>(dpt, fd);
+      wgmma_fence();
+      split_wgmma<SUB / 16>(dk, fd, qs, r0, L::TILE_PANEL);
+      wgmma_commit();
+    }
+    pend = s;
+  }
+  settle();
+
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n) {
+    const int col = n * 8 + 2 * t;
+    if (key0 < a.Sk) {
+      store_pair<bf16>(a.dk, a.s + DK_, b, h, key0, col, dk[n][0], dk[n][1],
+                       a.f32_out);
+      store_pair<bf16>(a.dv, a.s + DV_, b, h, key0, col, dv[n][0], dv[n][1],
+                       a.f32_out);
+    }
+    if (key1 < a.Sk) {
+      store_pair<bf16>(a.dk, a.s + DK_, b, h, key1, col, dk[n][2], dk[n][3],
+                       a.f32_out);
+      store_pair<bf16>(a.dv, a.s + DV_, b, h, key1, col, dv[n][2], dv[n][3],
+                       a.f32_out);
+    }
+  }
+}
+#endif  // H2PIPE_HALF
+
 // ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
@@ -926,6 +1495,57 @@ cudaError_t launch_tc_hdv(const BwdArgs& a, int which, cudaStream_t stream) {
   }
 }
 
+#ifndef H2PIPE_HALF
+// dk/dv's query rows a sub-tile: 32 at hd = 128 keeps the dk and dv
+// accumulators (64 x 128 f32 each a warpgroup), the scores and the split
+// parts inside the consumers' registers
+template <int HD>
+constexpr int dkv_sub() {
+  return HD == 128 ? 32 : 64;
+}
+
+// The wgmma route; which 0: dq; 1: dk and dv.  The owned operands' boxes
+// hold WG_OWN rows, the streamed ones' WG_TILE.
+template <int HD>
+cudaError_t launch_wgmma(const BwdArgs& a, int which, cudaStream_t stream) {
+  using L = BwdLayout<HD>;
+  const CUtensorMapDataType ty = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const long long* s = a.s;
+  const int qrows = which == 0 ? WG_OWN : WG_TILE;
+  const int krows = which == 0 ? WG_TILE : WG_OWN;
+  CUtensorMap qm, om, km, vm;
+  cudaError_t err = tensor_map(&qm, ty, a.q, a.B, a.H, a.Sq, HD, s[Q_],
+                               s[Q_ + 1], s[Q_ + 2], qrows);
+  if (err == cudaSuccess)
+    err = tensor_map(&om, ty, a.dout, a.B, a.H, a.Sq, HD, s[DO_], s[DO_ + 1],
+                     s[DO_ + 2], qrows);
+  if (err == cudaSuccess)
+    err = tensor_map(&km, ty, a.k, a.B, a.KV, a.Sk, HD, s[K_], s[K_ + 1],
+                     s[K_ + 2], krows);
+  if (err == cudaSuccess)
+    err = tensor_map(&vm, ty, a.v, a.B, a.KV, a.Sk, HD, s[V_], s[V_ + 1],
+                     s[V_ + 2], krows);
+  if (err != cudaSuccess) return err;
+  if (which == 0) {
+    err = cudaFuncSetAttribute(flash_bwd_dq_wgmma<HD>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               L::SMEM_DQ);
+    if (err != cudaSuccess) return err;
+    dim3 grid((a.Sq + WG_OWN - 1) / WG_OWN, a.H, a.B);
+    flash_bwd_dq_wgmma<HD><<<grid, WG_THREADS, L::SMEM_DQ, stream>>>(
+        qm, om, km, vm, a);
+    return cudaGetLastError();
+  }
+  auto kern = flash_bwd_dkv_wgmma<HD, dkv_sub<HD>()>;
+  err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM_DKV);
+  if (err != cudaSuccess) return err;
+  dim3 grid((a.Sk + WG_OWN - 1) / WG_OWN, a.H, a.B);
+  kern<<<grid, WG_THREADS, L::SMEM_DKV, stream>>>(km, vm, qm, om, a);
+  return cudaGetLastError();
+}
+#endif
+
 cudaError_t launch_16(const BwdArgs& a, int which, cudaStream_t stream) {
   switch (width(a.hd, WIDTHS_HD)) {
     case 32: return launch_tc_hdv<32>(a, which, stream);
@@ -945,24 +1565,32 @@ extern "C" {
 // dq [B,H,Sq,hd], dk [B,H,Sk,hd] and dv [B,H,Sk,hd_v] (per query head),
 // given by their element strides over (batch, head, seq) in `strides` (q,
 // k, v, do, dq, dk, dv in turn; the last dim contiguous); lse and delta
-// [B,H,Sq] f32, contiguous.  which 0 launches K10 (writes dq), 1 launches
-// K11 (writes dk and dv).  dtype 0: bf16 operands and outputs (tensor
-// cores); 1: f32 operands and outputs (CUDA cores); 2: bf16 operands, f32
-// outputs (the tensor-core kernels' sums before their rounding); 3 and 4:
-// f16 operands, f16 and f32 outputs.  Codes 0-2 run in the bf16 library,
-// 3 and 4 in the f16 one (DTYPE16).  hd and hd_v: multiples of 8 from 8
-// to 256 (the 16-bit route runs them at the widths of width()).  Returns
-// a cudaError_t.
+// [B,H,Sq] f32, contiguous (route 2: [B,H,Sqp], Sqp = Sq rounded up to a
+// multiple of 64, past Sq never read as a row's own).  which 0 launches
+// K10 (writes dq), 1 launches K11 (writes dk and dv).  dtype 0: bf16
+// operands and outputs; 1: f32 operands and outputs; 2: bf16 operands,
+// f32 outputs (the tensor-core kernels' sums before their rounding); 3
+// and 4: f16 operands, f16 and f32 outputs.  Codes 0-2 run in the bf16
+// library, 3 and 4 in the f16 one (DTYPE16).  route (ops._BWD_ROUTES, as
+// ops.flash_bwd_route picks it): 0 the 16-bit operands on mma.sync, at
+// the widths of width() (hd and hd_v: multiples of 8 from 8 to 256); 1
+// f32 on the CUDA cores (dtype 1 only); 2 bf16 operands on wgmma and TMA
+// (dtype 0 or 2, hd = hd_v in {64, 128}; the bf16 library only).  Any
+// other pairing is refused.  Returns a cudaError_t.
 int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
                                const void* dout, const float* lse,
                                const float* delta, void* dq, void* dk,
-                               void* dv, int which, int dtype, int B, int H,
-                               int KV, int Sq, int Sk, int hd, int hd_v,
-                               const long long* strides, int causal,
-                               int window, float softcap, float scale,
-                               cudaStream_t stream) {
+                               void* dv, int which, int dtype, int route,
+                               int B, int H, int KV, int Sq, int Sk, int hd,
+                               int hd_v, const long long* strides,
+                               int causal, int window, float softcap,
+                               float scale, cudaStream_t stream) {
+  const bool t16 = dtype == DTYPE16 || dtype == DTYPE16_F32;
   if (KV < 1 || H % KV != 0 || window < 0 || !head_dim_ok(hd) ||
-      !head_dim_ok(hd_v) || (which != 0 && which != 1))
+      !head_dim_ok(hd_v) || (which != 0 && which != 1) ||
+      (route == 0 && !t16) || (route == 1 && dtype != 1) ||
+      (route == 2 && (!t16 || hd != hd_v || (hd != 64 && hd != 128))) ||
+      route < 0 || route > 2)
     return (int)cudaErrorInvalidValue;
   if (B == 0 || H == 0 || Sq == 0 || Sk == 0) return (int)cudaSuccess;
   BwdArgs a{};
@@ -973,12 +1601,29 @@ int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
   a.hdv = hd_v; a.causal = causal; a.window = window;
   a.softcap = softcap; a.scale = scale;
   a.f32_out = dtype == DTYPE16_F32;
-  if (dtype == DTYPE16 || dtype == DTYPE16_F32)
-    return (int)launch_16(a, which, stream);
+  a.ls = Sq;
+  if (route == 0) return (int)launch_16(a, which, stream);
 #ifndef H2PIPE_HALF
-  if (dtype == 1) return (int)launch_f32(a, which, stream);
+  if (route == 1) return (int)launch_f32(a, which, stream);
+  a.ls = (Sq + WG_TILE - 1) / WG_TILE * WG_TILE;
+  return (int)(hd == 64 ? launch_wgmma<64>(a, which, stream)
+                        : launch_wgmma<128>(a, which, stream));
+#else
+  return (int)cudaErrorInvalidValue;  // f32 and wgmma: the bf16 library's
 #endif
-  return (int)cudaErrorInvalidValue;
+}
+
+// The dynamic shared memory a wgmma-route launch asks for (which 0: dq,
+// 1: dk and dv) at hd = hd_v in {64, 128}, or -1: ops.bwd_wgmma_smem's
+// bytes, which the card tests hold to these.
+int flash_attention_bwd_wgmma_smem(int which, int hd) {
+#ifndef H2PIPE_HALF
+  if (hd == 64) return which == 0 ? BwdLayout<64>::SMEM_DQ
+                                  : BwdLayout<64>::SMEM_DKV;
+  if (hd == 128) return which == 0 ? BwdLayout<128>::SMEM_DQ
+                                   : BwdLayout<128>::SMEM_DKV;
+#endif
+  return -1;
 }
 
 }  // extern "C"

@@ -2,12 +2,16 @@
 // that run on it (K9's flash_fwd_wgmma in flash_attention.cu, K10/K11's
 // flash_bwd_*_wgmma in flash_attention_bwd.cu): mbarrier init, arrive and
 // wait; TMA tile loads into shared memory with the 128-byte swizzle, and
-// the host-side tensor map of a [B, heads, S, d] operand; the wgmma
-// shared-memory descriptor of a 128-byte-swizzled tile; and wgmma itself,
-// with f32 sums, A and B from shared memory (m64n64k16) or A from
-// registers and B from shared memory read MN-major (m64n64k16,
-// m64n128k16).  The operand type of every wgmma is the library's 16-bit
-// type: f16 where H2PIPE_HALF is defined, else bf16.
+// the host-side tensor map of a [B, heads, S, d] operand; 1-d bulk copies
+// into shared memory; the wgmma shared-memory descriptor of a
+// 128-byte-swizzled tile; and wgmma itself, with f32 sums, A and B from
+// shared memory (m64n64k16; m64n32k16 and m64n64k16 that may overwrite
+// d) or A from registers and B from shared memory read MN-major
+// (m64n64k16, m64n128k16), whole or as a group left in flight; and
+// setmaxnreg,
+// which moves registers between the warpgroups of a CTA.  The operand
+// type of every wgmma is the library's 16-bit type: f16 where H2PIPE_HALF
+// is defined, else bf16.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -71,6 +75,30 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       : "memory");
 }
 
+// `bytes` (a multiple of 16, from a 16-byte aligned address) of global
+// memory into shared memory at `dst`, completing on the mbarrier `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          int bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// The calling warpgroup's registers a thread: down to N (a producer that
+// needs few) or up to N (the consumers that take them); every warp of the
+// warpgroup executes it.
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
 // A wgmma shared-memory descriptor with the 128-byte swizzle: start
 // address, leading and stride byte offsets, each in 16-byte units.
 __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
@@ -91,6 +119,16 @@ __device__ __forceinline__ void wgmma_commit_wait() {
           : "memory");
 }
 
+// The two halves of wgmma_commit_wait, for a group left in flight while
+// the warpgroup goes on.
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
 // Keep the compiler from moving reads of an accumulator above the wait
 // that makes it valid (the wgmma asm statements "wrote" it at issue).
 template <int N>
@@ -99,6 +137,47 @@ __device__ __forceinline__ void fence_acc(float (&d)[N][4]) {
   for (int n = 0; n < N; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[n][e])::"memory");
+}
+
+// d[64 x 32] = a[64 x 16] . b[16 x 32]^T (+ d where acc): a and b in
+// shared memory, K-major, 128-byte swizzle (descriptors da, db).
+__device__ __forceinline__ void wgmma_ss(float (&d)[4][4], uint64_t da,
+                                         uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16" WG_AB " {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+      "%10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+      : "l"(da), "l"(db), "r"(acc)
+      : "memory");
+}
+
+// d[64 x 64] = a[64 x 16] . b[16 x 64]^T (+ d where acc), as above.
+__device__ __forceinline__ void wgmma_ss(float (&d)[8][4], uint64_t da,
+                                         uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16" WG_AB " {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "l"(da), "l"(db), "r"(acc)
+      : "memory");
 }
 
 // d[64 x 64] += a[64 x 16] . b[16 x 64]^T: a and b in shared memory,

@@ -25,8 +25,11 @@ out zero.  :func:`flash_route` picks the forward kernel from (dtype,
 hd, hd_v) alone, at the padded dims: a 16-bit pair with ``hd == hd_v``
 in ``WGMMA_HEAD_DIMS`` runs on ``wgmma`` fed by TMA (128 query rows by
 64 keys), the other 16-bit pairs on ``mma.sync`` (64 by 64), f32 on the
-CUDA cores (64 by 32).  bf16 and f16 each have their own instances of
-every 16-bit kernel.  The ``mma.sync`` forward and the 16-bit backward
+CUDA cores (64 by 32).  :func:`flash_bwd_route` picks the backward's the
+same way: bf16 with ``hd == hd_v`` in ``WGMMA_HEAD_DIMS`` on ``wgmma``
+fed by TMA (128 owned rows, tiles of 64), the other 16-bit pairs (f16
+among them) on ``mma.sync``, f32 on the CUDA cores.  bf16 and f16 each
+have their own instances of every 16-bit kernel.  The ``mma.sync`` forward and the 16-bit backward
 are built at the widths ``KERNEL_HD`` x ``KERNEL_HD_V`` and run a head
 dim at the narrowest that holds it (:func:`kernel_widths`), the columns
 past it zero in shared memory.  Each reads the operands through their
@@ -55,7 +58,8 @@ __all__ = ["flash_attention", "flash_attention_kernel",
            "flash_attention_bwd", "flash_attention_vjp", "KERNEL",
            "KERNEL_DQ", "KERNEL_DKV", "HEAD_DIM_STEP", "HEAD_DIM_MAX",
            "KERNEL_HD", "KERNEL_HD_V", "WGMMA_HEAD_DIMS", "head_dim_ok",
-           "padded_dim", "kernel_widths", "flash_route", "launch_shape"]
+           "padded_dim", "kernel_widths", "flash_route", "flash_bwd_route",
+           "bwd_wgmma_smem", "launch_shape"]
 
 #: launch-counter names (replace ``_flash_kernel``, ``_flash_bwd_dq_kernel``
 #: and ``_flash_bwd_dkv_kernel``)
@@ -76,6 +80,13 @@ WGMMA_HEAD_DIMS = (64, 128)
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1, torch.float16: 2}
 #: route codes of ``flash_attention_fwd_launch``
 _ROUTES = {"mma_sync": 0, "f32": 1, "wgmma": 2}
+#: route codes of ``flash_attention_bwd_launch``
+_BWD_ROUTES = {"mma_sync": 0, "f32": 1, "wgmma": 2}
+#: the backward's wgmma route: owned rows a CTA, rows of a streamed tile
+#: and tiles in flight (``WG_OWN``, ``WG_TILE``, ``WG_STAGES`` in
+#: ``csrc/flash_attention_bwd.cu``); lse and delta go in with their rows
+#: padded to a multiple of the tile
+BWD_WGMMA_OWN, BWD_WGMMA_TILE, BWD_WGMMA_STAGES = 128, 64, 2
 #: dtype codes of ``flash_attention_bwd_launch``, by (operands' dtype,
 #: f32 grads): the grads in the operands' dtype, or the f32 sums of the
 #: 16-bit kernels before their rounding
@@ -105,8 +116,10 @@ def _bwd_lib(dtype) -> ctypes.CDLL:
                       else "flash_attention_bwd")
     if not getattr(lib, "_typed", False):
         lib.flash_attention_bwd_launch.argtypes = \
-            [_P] * 9 + [_I] * 9 + [_BwdStrides, _I, _I, _F, _F, _P]
+            [_P] * 9 + [_I] * 10 + [_BwdStrides, _I, _I, _F, _F, _P]
         lib.flash_attention_bwd_launch.restype = _I
+        lib.flash_attention_bwd_wgmma_smem.argtypes = [_I, _I]
+        lib.flash_attention_bwd_wgmma_smem.restype = _I
         lib._typed = True
     return lib
 
@@ -167,6 +180,37 @@ def flash_route(dtype, hd: int, hd_v: int) -> str:
         return "f32"
     hd, hd_v = padded_dim(hd), padded_dim(hd_v)
     return "wgmma" if hd == hd_v and hd in WGMMA_HEAD_DIMS else "mma_sync"
+
+
+def flash_bwd_route(dtype, hd: int, hd_v: int) -> str:
+    """The backward kernels (K10 and K11) a launch with operands of
+    ``dtype`` and head dims ``(hd, hd_v)`` takes, from those alone, at the
+    padded dims (``flash_attention_bwd_launch`` refuses a route that does
+    not take the launch): ``"wgmma"`` for bf16 with ``hd == hd_v`` in
+    ``WGMMA_HEAD_DIMS``, ``"mma_sync"`` for the other 16-bit pairs (f16
+    at every head dim: its accumulating products run on tf32, whose
+    ``wgmma`` wants K-major B), ``"f32"`` for f32.  Raises as
+    :func:`flash_route` does."""
+    route = flash_route(dtype, hd, hd_v)
+    if route == "wgmma" and dtype != torch.bfloat16:
+        return "mma_sync"
+    return route
+
+
+def bwd_wgmma_smem(which: int, hd: int) -> int:
+    """The dynamic shared memory a launch of the backward's ``wgmma``
+    route asks for (``which`` 0: K10, dq; 1: K11, dk and dv) at ``hd =
+    hd_v`` in ``WGMMA_HEAD_DIMS``: the two owned operands of
+    ``BWD_WGMMA_OWN`` rows, ``BWD_WGMMA_STAGES`` stages of the two
+    streamed ones of ``BWD_WGMMA_TILE`` rows (and K11's lse and delta of
+    the tile in a 1024-byte slot), and 1024 bytes to align the base
+    (``BwdLayout`` in ``csrc/flash_attention_bwd.cu``, which
+    ``flash_attention_bwd_wgmma_smem`` reports)."""
+    if hd not in WGMMA_HEAD_DIMS or which not in (0, 1):
+        raise ValueError(f"no wgmma backward at hd={hd}, which={which}")
+    row = 2 * hd                                 # bytes of one bf16 row
+    stage = 2 * BWD_WGMMA_TILE * row + (1024 if which else 0)
+    return 2 * BWD_WGMMA_OWN * row + BWD_WGMMA_STAGES * stage + 1024
 
 
 def launch_shape(dtype, B: int, H: int, KV: int, Sq: int, Sk: int, hd: int,
@@ -385,20 +429,31 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def _launch_bwd(q, k, v, do, lse, delta, dq, dk, dv, *, causal: bool,
-                window: int, softcap: float, which=(0, 1)) -> None:
+                window: int, softcap: float, which=(0, 1),
+                route=None) -> None:
     """K10 (``which`` 0) then K11 (1).  q/k/v/do/dq/dk/dv as ``[B, heads,
     S, dim]`` views (any strides the checks accept; dk/dv per query head);
     lse and delta contiguous ``[B,H,Sq]`` f32.  The grads take q's dtype,
     or f32 beside 16-bit operands (the f32 sums).  ``which`` picks one of
-    the two for timing each alone.  Head dims that are not a multiple of
-    8 run padded: q, k, v and do copied with zero columns, the grads
-    written through padded buffers (whose padded columns come out zero)
-    and copied back."""
+    the two for timing each alone; ``route`` the kernels (by default
+    :func:`flash_bwd_route`'s; ``"mma_sync"`` runs a 16-bit launch that
+    route would send to ``wgmma`` on the earlier kernels, to hold the two
+    against each other).  Head dims that are not a multiple of 8 run
+    padded: q, k, v and do copied with zero columns, the grads written
+    through padded buffers (whose padded columns come out zero) and
+    copied back.  The ``wgmma`` route takes lse and delta with their rows
+    padded to a multiple of ``BWD_WGMMA_TILE`` (copied here)."""
     B, H, Sq, hd = q.shape
     KV, Sk, hd_v = k.shape[1], k.shape[2], v.shape[3]
     _check_shapes(q, k, v)
     if tuple(do.shape) != (B, H, Sq, hd_v):
         raise ValueError(f"do {tuple(do.shape)} != {(B, H, Sq, hd_v)}")
+    own = flash_bwd_route(q.dtype, hd, hd_v)
+    route = route or own
+    if route != own and not (route == "mma_sync" and own == "wgmma"):
+        raise ValueError(f"the {route} route does not take {q.dtype} "
+                         f"operands at head dims ({hd}, {hd_v}): "
+                         f"{own} does")
     dev = q.device
     for t, name in ((q, "q"), (k, "k"), (v, "v"), (do, "do")):
         _check_type(t, name, q.dtype, dev)
@@ -427,6 +482,8 @@ def _launch_bwd(q, k, v, do, lse, delta, dq, dk, dv, *, causal: bool,
         _check(t, name, q.dtype, dev)
     for t, name in zip(outs, ("dq", "dk", "dv")):
         _check(t, name, grad_dtype, dev)
+    if route == "wgmma":
+        lse, delta = (_pad_rows(t, BWD_WGMMA_TILE) for t in (lse, delta))
     strides = _BwdStrides(*(s for t in ins + outs
                             for s in kernel_strides(t)[:3]))
     lib = _bwd_lib(q.dtype)
@@ -435,9 +492,10 @@ def _launch_bwd(q, k, v, do, lse, delta, dq, dk, dv, *, causal: bool,
         name = (KERNEL_DQ, KERNEL_DKV)[kernel]
         err = lib.flash_attention_bwd_launch(
             *(t.data_ptr() for t in ins), lse.data_ptr(), delta.data_ptr(),
-            *(t.data_ptr() for t in outs), kernel, dtype, B, H, KV, Sq, Sk,
-            pd, pdv, strides, int(causal), int(window), float(softcap),
-            1.0 / math.sqrt(hd), stream)
+            *(t.data_ptr() for t in outs), kernel, dtype,
+            _BWD_ROUTES[route], B, H, KV, Sq, Sk, pd, pdv, strides,
+            int(causal), int(window), float(softcap), 1.0 / math.sqrt(hd),
+            stream)
         _build.check(err, name)
         _build.count_launch(name, launch_shape(q.dtype, B, H, KV, Sq, Sk, hd,
                                                hd_v, causal, window, softcap),
@@ -445,6 +503,14 @@ def _launch_bwd(q, k, v, do, lse, delta, dq, dk, dv, *, causal: bool,
     for g, pg in zip((dq, dk, dv), outs):
         if pg is not g:
             g.copy_(pg[..., :g.shape[-1]])
+
+
+def _pad_rows(t: torch.Tensor, n: int) -> torch.Tensor:
+    """A contiguous ``[B, H, S]`` f32 tensor as ``[B, H, Sp]`` with ``Sp``
+    the next multiple of ``n``, zeros past ``S`` (``t`` itself where ``S``
+    is one)."""
+    pad = -t.shape[-1] % n
+    return torch.nn.functional.pad(t, (0, pad)) if pad else t
 
 
 def _delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
@@ -466,7 +532,7 @@ def _empty_in_layout_of(ref: torch.Tensor, shape, dtype) -> torch.Tensor:
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
                         window: int = 0, softcap: float = 0.0,
-                        out_dtype=None):
+                        out_dtype=None, route=None):
     """Kernel layout: q ``[B,H,Sq,hd]``, k ``[B,KV,Sk,hd]``, v
     ``[B,KV,Sk,hd_v]``, o and do ``[B,H,Sq,hd_v]``, lse ``[B,H,Sq]`` f32
     -> ``(dq [B,H,Sq,hd], dk [B,H,Sk,hd], dv [B,H,Sk,hd_v])``, dk and dv
@@ -476,7 +542,10 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     16-bit type's precision (the JAX wrapper has no such option).
     CPU tensors run ``flash_attention_bwd_plain`` at the JAX call's
     blocks; CUDA tensors launch K10 and K11 or raise, writing the grads in
-    q's layout (views of the model layout for model-layout q)."""
+    q's layout (views of the model layout for model-layout q), on the
+    kernels of :func:`flash_bwd_route`, or of ``route="mma_sync"`` where
+    that is ``"wgmma"`` (the earlier kernels, for holding the two routes
+    against each other; the JAX wrapper has no such option either)."""
     if out_dtype not in (None, q.dtype) and (
             q.dtype not in (torch.bfloat16, torch.float16)
             or out_dtype != torch.float32):
@@ -492,7 +561,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     dk = _empty_in_layout_of(q, (B, H, Sk, hd), out_dtype or k.dtype)
     dv = _empty_in_layout_of(q, (B, H, Sk, hd_v), out_dtype or v.dtype)
     _launch_bwd(q, k, v, do, lse.contiguous(), _delta(o, do), dq, dk, dv,
-                causal=causal, window=window, softcap=softcap)
+                causal=causal, window=window, softcap=softcap, route=route)
     return dq, dk, dv
 
 

@@ -1085,6 +1085,125 @@ def test_flash_vjp_takes_a_unit_batch_gradient_of_any_stride(dev):
         assert torch.equal(a, b)
 
 
+# K10/K11's wgmma route (bf16, hd = hd_v in {64, 128}) at ragged lengths,
+# causal, non-causal, windowed, with softcap and GQA, against the plain
+# backward within BWD_TOL, and its f32 sums within BWD_SUM_TOL
+BWD_WGMMA_CASES = [(200, True, 0, 0.0, 8, 2), (1000, True, 0, 0.0, 6, 2),
+                   (1000, True, 96, 0.0, 4, 4), (200, False, 0, 0.0, 4, 1),
+                   (1000, True, 0, 30.0, 4, 2), (333, True, 64, 50.0, 8, 1),
+                   (64, False, 0, 0.0, 2, 2), (100, True, 0, 0.0, 2, 1)]
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("S,causal,window,softcap,H,KV", BWD_WGMMA_CASES)
+def test_flash_bwd_wgmma_route_matches_plain(dev, hd, S, causal, window,
+                                             softcap, H, KV):
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention_bwd, flash_attention_kernel, flash_bwd_route)
+    from repro_torch.kernels.flash_attention.ref import \
+        flash_attention_bwd_plain
+    assert flash_bwd_route(torch.bfloat16, hd, hd) == "wgmma"
+    c = dict(B=2, H=H, KV=KV, S=S, hd=hd)
+    q, k, v, do = _bwd_inputs(c, torch.bfloat16, dev, S + hd)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    o, lse = flash_attention_kernel(q, k, v, return_lse=True, **kw)
+    blk = S if S % min(128, S) else min(128, S)
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, bq=blk, bk=blk,
+                                     **kw)
+    reset_launches()
+    got = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    sums = flash_attention_bwd(q, k, v, o, lse, do, out_dtype=torch.float32,
+                               **kw)
+    torch.cuda.synchronize()
+    assert LAUNCHES == {"flash_attention_bwd_dq": 2,
+                        "flash_attention_bwd_dkv": 2}
+    rtol, share = BWD_TOL[torch.bfloat16]
+    for gt, wt in zip(got, want):
+        assert gt.dtype == torch.bfloat16 and gt.shape == wt.shape
+        torch.testing.assert_close(gt.float(), wt.float(), rtol=rtol,
+                                   atol=share * float(wt.abs().max()))
+    want = flash_attention_bwd_plain(*(t.float() for t in (q, k, v, o)),
+                                     lse, do.float(), bq=blk, bk=blk, **kw)
+    rtol, share = BWD_SUM_TOL
+    for gt, wt in zip(sums, want):
+        assert gt.dtype == torch.float32 and gt.shape == wt.shape
+        torch.testing.assert_close(gt, wt, rtol=rtol,
+                                   atol=share * float(wt.abs().max()))
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_bwd_wgmma_route_matches_mma_sync_route(dev, hd):
+    """The two 16-bit routes at one shape (GQA, causal, a ragged end) on
+    the same operands: their f32 sums take every product exactly and
+    differ by the order of the f32 additions alone, within BWD_SUM_TOL of
+    each other; their bf16 grads within BWD_TOL."""
+    from repro_torch.kernels._build import SHAPE_LAUNCHES, reset_launches
+    from repro_torch.kernels.flash_attention.ops import (
+        KERNEL_DKV, flash_attention_bwd, flash_attention_kernel)
+    c = dict(B=2, H=8, KV=4, S=456, hd=hd)
+    q, k, v, do = _bwd_inputs(c, torch.bfloat16, dev, 900 + hd)
+    o, lse = flash_attention_kernel(q, k, v, return_lse=True)
+    reset_launches()
+    for out_dtype, tol in ((torch.float32, BWD_SUM_TOL),
+                           (None, BWD_TOL[torch.bfloat16])):
+        new = flash_attention_bwd(q, k, v, o, lse, do, out_dtype=out_dtype)
+        old = flash_attention_bwd(q, k, v, o, lse, do, out_dtype=out_dtype,
+                                  route="mma_sync")
+        for a, b in zip(new, old):
+            torch.testing.assert_close(
+                a.float(), b.float(), rtol=tol[0],
+                atol=tol[1] * float(b.float().abs().max()))
+    torch.cuda.synchronize()
+    assert sum(n for key, n in SHAPE_LAUNCHES.items()
+               if key[0] == KERNEL_DKV) == 4
+
+
+def test_flash_bwd_wgmma_route_refuses_what_it_cannot_take(dev):
+    """A route that does not take the launch raises: wgmma for f16 or at
+    hd 192, mma_sync for f32; nothing falls back.  The smem plan the
+    library asks for equals ops.bwd_wgmma_smem's."""
+    from repro_torch.kernels.flash_attention import ops
+    for dtype, hd, route in ((torch.float16, 128, "wgmma"),
+                             (torch.bfloat16, 192, "wgmma"),
+                             (torch.float32, 64, "mma_sync")):
+        c = dict(B=1, H=2, KV=2, S=64, hd=hd)
+        q, k, v, do = _bwd_inputs(c, dtype, dev, 5)
+        o, lse = ops.flash_attention_kernel(q, k, v, return_lse=True)
+        with pytest.raises(ValueError, match="route does not take"):
+            ops.flash_attention_bwd(q, k, v, o, lse, do, route=route)
+    lib = ops._bwd_lib(torch.bfloat16)
+    for which in (0, 1):
+        for hd in ops.WGMMA_HEAD_DIMS:
+            assert lib.flash_attention_bwd_wgmma_smem(which, hd) == \
+                ops.bwd_wgmma_smem(which, hd)
+    assert lib.flash_attention_bwd_wgmma_smem(0, 192) == -1
+
+
+def test_flash_vjp_wgmma_route_takes_a_unit_batch_gradient_of_any_stride(
+        dev):
+    """As the test above at hd 64 (the wgmma route's other width), GQA:
+    a gradient whose batch stride is 1 gives the grads of one with the
+    usual strides, bit for bit."""
+    from repro_torch.kernels.flash_attention.ops import (flash_attention_vjp,
+                                                         flash_bwd_route)
+    assert flash_bwd_route(torch.bfloat16, 64, 64) == "wgmma"
+    g = torch.Generator(device=dev).manual_seed(11)
+    S, H, KV, hd = 320, 8, 2, 64
+    q, k, v = (torch.randn(1, S, n, hd, generator=g, device=dev,
+                           dtype=torch.bfloat16).requires_grad_(True)
+               for n in (H, KV, KV))
+    do = torch.randn(1, S, H, hd, generator=g, device=dev,
+                     dtype=torch.bfloat16)
+    odd = do.reshape(-1).as_strided(do.shape, (1,) + do.stride()[1:])
+    grads = []
+    for grad_out in (do, odd):
+        o = flash_attention_vjp.apply(q, k, v, True, 0, 0.0)
+        grads.append(torch.autograd.grad(o, (q, k, v), grad_out))
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+
+
 # K9-K11 at head dims the kernels run padded to a width they are built at
 # (ops.kernel_widths; the columns past hd and hd_v zero in shared memory):
 # the reduced configs' (16, 16) at 8 tokens, SeamlessM4T's non-causal
