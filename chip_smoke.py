@@ -28,7 +28,7 @@ it is run outside a checkout of the repository.  Phases, one line each:
      and 24, ``flash_fwd_wgmma<f16,128>`` for Phi-4-mini in f16, from the
      flash route and ``kernel_widths`` of their head dims) and K10/K11
      (by ``flash_bwd_route``: ``flash_bwd_dq_wgmma<HD>`` and
-     ``flash_bwd_dkv_wgmma<HD,SUB>`` for bf16 at hd = hd_v in {64, 128},
+     ``flash_bwd_dkv_wgmma<HD>`` for bf16 at hd = hd_v in {64, 128},
      else ``flash_bwd_*_tc`` at the training shape's widths, and f16's)
      takes issues IMMA, HGMMA or HMMA, and where a K2 or a wgmma backward
      instance spills;
@@ -958,11 +958,9 @@ FLASH_BWD_TEMPLATES = {
     **{kern: (kern + r"I(13__nv_bfloat16|6__half)Li(\d+)ELi(\d+)ELi\d+E",
               kern + "<{},{},{}>")
        for kern in ("flash_bwd_dq_tc", "flash_bwd_dkv_tc")},
-    # the wgmma route (bf16 only): <HD>, and K11's query sub-tile
-    "flash_bwd_dq_wgmma": (r"flash_bwd_dq_wgmmaILi(\d+)E",
-                           "flash_bwd_dq_wgmma<{}>"),
-    "flash_bwd_dkv_wgmma": (r"flash_bwd_dkv_wgmmaILi(\d+)ELi(\d+)E",
-                            "flash_bwd_dkv_wgmma<{},{}>")}
+    # the wgmma route (bf16 only): <HD>
+    **{kern: (kern + r"ILi(\d+)E", kern + "<{}>")
+       for kern in ("flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma")}}
 # (library, log name, {template: (mangled-name pattern, display format)}):
 # the libraries whose kernels the build report lists, and the instances
 # the report names (the pattern's groups are the template arguments)
@@ -1104,7 +1102,7 @@ def check_main_path_instances(record, shapes, conv_plan, stream_plan,
     reduced configs' head dims 16 and 24; ``flash_fwd_wgmma<f16,128>``
     for Phi-4-mini in f16; K10/K11 by ``flash_bwd_route`` of each bf16
     training shape: ``flash_bwd_dq_wgmma<HD>`` and
-    ``flash_bwd_dkv_wgmma<HD,SUB>`` at hd = hd_v in {64, 128}, else
+    ``flash_bwd_dkv_wgmma<HD>`` at hd = hd_v in {64, 128}, else
     ``flash_bwd_*_tc`` at the shape's widths, and the f16 ``*_tc`` for
     Phi-4-mini in f16), and that each issues its tensor-core instruction
     (IMMA, HGMMA, HMMA) in the SASS of the build report, and that a K2 or
@@ -1138,9 +1136,8 @@ def check_main_path_instances(record, shapes, conv_plan, stream_plan,
                              "f16")]):
         hd, hd_v = (padded_dim(d) for d in case[4:6])
         if flash_bwd_route(getattr(torch, DTYPE_OF[t]), hd, hd_v) == "wgmma":
-            names = (f"flash_bwd_dq_wgmma<{hd}>", next(
-                inst for inst in record["ptxas"][lib]
-                if inst.startswith(f"flash_bwd_dkv_wgmma<{hd},")))
+            names = (f"flash_bwd_dq_wgmma<{hd}>",
+                     f"flash_bwd_dkv_wgmma<{hd}>")
         else:
             widths = kernel_widths(hd, hd_v)
             names = tuple("{}<{},{},{}>".format(kern, t, *widths) for kern in

@@ -11,8 +11,7 @@ The default times each kernel at each shape of ``SHAPES`` on the
 wgmma, mma.sync), device ms a launch by graph replay (``chip_smoke``'s
 ``device_ms``).  ``--variants`` builds copies of
 ``csrc/flash_attention_bwd.cu`` with one edit each (``VARIANTS``: another
-query sub-tile or ring depth, or a step of the work left out, to see what
-holds a tile), prints each copy's ptxas report for the wgmma instances,
+ring depth, or a step of the work left out, to see what holds a tile), prints each copy's ptxas report for the wgmma instances,
 and times the library and each copy in turns on the wgmma route.  Writes
 ``chiprun_out/probe_flash_bwd.json``; exits non-zero without a card.
 """
@@ -30,8 +29,6 @@ SHAPES = (cs.FLASH_SLICE, cs.FLASH_DRY_TRAIN, cs.FLASH_GPIPE, cs.FLASH_QWEN,
           cs.FLASH_QWEN72)
 # name -> [(text of the library's source, its replacement)]
 VARIANTS = {
-    # K11's query sub-tile of 64 rows at hd = 128 too
-    "dkv_sub64": [("  return HD == 128 ? 32 : 64;", "  return 64;")],
     # a ring of three streamed tiles
     "stages3": [("constexpr int WG_STAGES = 2; ",
                  "constexpr int WG_STAGES = 3; ")],
@@ -43,7 +40,7 @@ VARIANTS = {
         "          sc[j][e] = sc[j][e] * dp[j][e];")],
     # K10 without its dQ product (the split still made)
     "dq_no_product": [(
-        "    split_wgmma<WG_TILE / 16>(acc, f, ks, 0, L::TILE_PANEL);", "")],
+        "    split_wgmma<WG_TILE / 16>(acc, f, ks, L::TILE_PANEL);", "")],
 }
 
 

@@ -28,7 +28,7 @@
 //
 //   wgmma (bf16, hd = hd_v in {64, 128}; the training path of Phi-4-mini,
 //   Qwen2-MoE, SeamlessM4T, InternVL2 and Qwen2-72B):
-//   flash_bwd_dq_wgmma<HD> and flash_bwd_dkv_wgmma<HD, SUB>.  One CTA owns
+//   flash_bwd_dq_wgmma<HD> and flash_bwd_dkv_wgmma<HD>.  One CTA owns
 //   128 rows (query rows for dq, keys for dk/dv) as two consumer
 //   warpgroups of 64, and a producer warpgroup that gives up its
 //   registers (setmaxnreg: 24 a thread, the consumers 240).  The
@@ -39,15 +39,15 @@
 //   each stage with a full mbarrier counting the bytes and an empty one
 //   every consumer thread releases.  Every product is a wgmma: the two
 //   score products (dq: S = Q K^T, dP = dO V^T; dk/dv: S^T = K Q^T,
-//   dP^T = V dO^T, keys the M dimension, in sub-tiles of SUB query rows)
-//   from shared memory, K-major on both sides; the accumulating ones (dQ
+//   dP^T = V dO^T, keys the M dimension) from shared memory, K-major on
+//   both sides; the accumulating ones (dQ
 //   += dS K; dV += P^T dO, dK += dS^T Q) with A from registers, the score
 //   accumulator's layout being the A fragment's, and B read MN-major
 //   through the descriptor (K, dO and Q as TMA laid them: the same tiles
 //   serve both forms).  p and ds are split exactly into three bf16 parts
 //   (split_pair, two values at a time), the three wgmma of a k-slice on
 //   one B descriptor, smallest first.  A tile's accumulating products stay
-//   in flight while the next tile's (or sub-tile's) score products are
+//   in flight while the next tile's score products are
 //   issued: one wait covers both, and the stage is released after it.
 //   The elementwise steps run as whole-tile loops behind branches uniform
 //   over the CTA (softcap or not, masked or whole), so the compiler can
@@ -1025,17 +1025,17 @@ __device__ __forceinline__ float grad_soft(const BwdArgs& a, float s,
   return p * (dp - delta) * (1.0f - u * u) * a.scale;
 }
 
-// acc += split(c) . X for NK k-slices of 16 rows of X from row x0 of a
-// streamed tile (shared address `xs`): X read MN-major, its 64-column
-// panels `panel` bytes apart; each slice's three parts, smallest first,
-// on one B descriptor.  The parts stay live until the caller's wait.
+// acc += split(c) . X for the NK k-slices of 16 rows of X, a streamed
+// tile at shared address `xs`: X read MN-major, its 64-column panels
+// `panel` bytes apart; each slice's three parts, smallest first, on one B
+// descriptor.  The parts stay live until the caller's wait.
 template <int NK, int N>
 __device__ __forceinline__ void split_wgmma(float (&acc)[N][4],
                                             uint32_t (*f)[3][4], uint32_t xs,
-                                            int x0, int panel) {
+                                            int panel) {
 #pragma unroll
   for (int kk = 0; kk < NK; ++kk) {
-    const uint64_t db = sw128_desc(xs + (x0 + 16 * kk) * WG_ROW, panel, 1024);
+    const uint64_t db = sw128_desc(xs + 16 * kk * WG_ROW, panel, 1024);
 #pragma unroll
     for (int part = 0; part < 3; ++part) wgmma_rs(acc, f[kk][part], db);
   }
@@ -1213,7 +1213,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
     split_slices<WG_TILE / 16>(sc, f);
     fence_acc(acc);
     wgmma_fence();
-    split_wgmma<WG_TILE / 16>(acc, f, ks, 0, L::TILE_PANEL);
+    split_wgmma<WG_TILE / 16>(acc, f, ks, L::TILE_PANEL);
     wgmma_commit();
     pend = s;
   }
@@ -1235,12 +1235,11 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
 // producer loads K and V of the block once and keeps the query tiles of
 // the block's visible range (Q, dO, and the rows' lse and delta by a bulk
 // copy) in flight through the ring.  Consumer warpgroup w owns keys k0 +
-// 64w .. +63 and, per tile, in sub-tiles of SUB query rows, computes
-// S^T = K Q^T and dP^T = V dO^T as wgmma from shared memory (keys are the
+// 64w .. +63 and, per tile of 64 query rows, computes S^T = K Q^T and dP^T = V dO^T as wgmma from shared memory (keys are the
 // M dimension, K-major on both sides), p^T and ds^T * scale in registers,
 // then dV += P^T dO and dK += dS^T Q with P^T and dS^T from registers in
 // three bf16 parts and dO and Q read MN-major.
-template <int HD, int SUB>
+template <int HD>
 __global__ void __launch_bounds__(WG_THREADS, 1)
     flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap kmap,
                         const __grid_constant__ CUtensorMap vmap,
@@ -1318,15 +1317,16 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.0f;
 
-  // A sub-tile's dV and dK products stay in flight while the next
-  // sub-tile's scores are issued; one wait then covers both, and the
-  // previous tile's stage (pend) is released after it.
-  uint32_t fp[SUB / 16][3][4], fd[SUB / 16][3][4];  // live until that wait
+  // A tile's dV and dK products stay in flight while the next tile's
+  // scores are issued; one wait then covers both, and the tile's stage
+  // (pend) is released after it.
+  constexpr int NK = WG_TILE / 16;  // k-slices of a tile's query rows
+  uint32_t fp[NK][3][4], fd[NK][3][4];  // live until that wait
   int pend = -1;
   auto settle = [&]() {
     wgmma_wait_all();
-    keep_parts<SUB / 16>(fp);
-    keep_parts<SUB / 16>(fd);
+    keep_parts<NK>(fp);
+    keep_parts<NK>(fd);
     fence_acc(dv);
     fence_acc(dk);
     if (pend >= 0) mbar_arrive(empty + 8 * pend);
@@ -1347,73 +1347,67 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
         dkv_wg_smem + (os + L::TILE_BYTES - base));
     const float* Db = Lb + WG_TILE;
 
-#pragma unroll 1
-    for (int r0 = 0; r0 < WG_TILE; r0 += SUB) {
-      // s^T = k . q^T and dp^T = v . do^T: 64 keys x SUB query rows
-      float st[SUB / 8][4], dpt[SUB / 8][4];
-      wgmma_fence();
+    // s^T = k . q^T and dp^T = v . do^T: 64 keys x 64 query rows
+    float st[WG_TILE / 8][4], dpt[WG_TILE / 8][4];
+    wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
-        const uint32_t off = (kk / 4) * L::OWN_PANEL + wg * 64 * WG_ROW +
-                             (kk % 4) * 32;
-        const uint32_t toff =
-            (kk / 4) * L::TILE_PANEL + r0 * WG_ROW + (kk % 4) * 32;
-        wgmma_ss(st, sw128_desc(ks + off, 16, 1024),
-                 sw128_desc(qs + toff, 16, 1024), kk);
-        wgmma_ss(dpt, sw128_desc(vs + off, 16, 1024),
-                 sw128_desc(os + toff, 16, 1024), kk);
-      }
-      wgmma_commit();
-      settle();
-      fence_acc(st);
-      fence_acc(dpt);
-
-      // p^T in place of s^T and ds^T * scale in place of dp^T
-      if (a.softcap == 0.0f) {
-#pragma unroll
-        for (int j = 0; j < SUB / 8; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int c = r0 + j * 8 + 2 * t + (e & 1);
-            dpt[j][e] = grad_plain(a, c2, st[j][e], dpt[j][e],
-                                   Lb[c] * LOG2E, Db[c], &st[j][e]);
-          }
-      } else {
-#pragma unroll
-        for (int j = 0; j < SUB / 8; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int c = r0 + j * 8 + 2 * t + (e & 1);
-            dpt[j][e] = grad_soft(a, st[j][e], dpt[j][e], Lb[c] * LOG2E,
-                                  Db[c], &st[j][e]);
-          }
-      }
-      const int qr = q0 + r0;
-      const bool whole = qr + SUB <= a.Sq && kw + 64 <= a.Sk &&
-                         (!a.causal || kw + 63 <= qr) &&
-                         (a.window == 0 || qr + SUB - 1 - kw < a.window);
-      if (!whole) {
-#pragma unroll
-        for (int j = 0; j < SUB / 8; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            if (!visible(a, qr + j * 8 + 2 * t + (e & 1),
-                         e < 2 ? key0 : key1))
-              st[j][e] = dpt[j][e] = 0.0f;
-      }
-
-      // dv += p^T . do, then dk += ds^T . q: three parts a k-slice, do and
-      // q read MN-major; left in flight
-      split_slices<SUB / 16>(st, fp);
-      fence_acc(dv);
-      fence_acc(dk);
-      wgmma_fence();
-      split_wgmma<SUB / 16>(dv, fp, os, r0, L::TILE_PANEL);
-      split_slices<SUB / 16>(dpt, fd);
-      wgmma_fence();
-      split_wgmma<SUB / 16>(dk, fd, qs, r0, L::TILE_PANEL);
-      wgmma_commit();
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const uint32_t off = (kk / 4) * L::OWN_PANEL + wg * 64 * WG_ROW +
+                           (kk % 4) * 32;
+      const uint32_t toff = (kk / 4) * L::TILE_PANEL + (kk % 4) * 32;
+      wgmma_ss(st, sw128_desc(ks + off, 16, 1024),
+               sw128_desc(qs + toff, 16, 1024), kk);
+      wgmma_ss(dpt, sw128_desc(vs + off, 16, 1024),
+               sw128_desc(os + toff, 16, 1024), kk);
     }
+    wgmma_commit();
+    settle();
+    fence_acc(st);
+    fence_acc(dpt);
+
+    // p^T in place of s^T and ds^T * scale in place of dp^T
+    if (a.softcap == 0.0f) {
+#pragma unroll
+      for (int j = 0; j < WG_TILE / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = j * 8 + 2 * t + (e & 1);
+          dpt[j][e] = grad_plain(a, c2, st[j][e], dpt[j][e], Lb[c] * LOG2E,
+                                 Db[c], &st[j][e]);
+        }
+    } else {
+#pragma unroll
+      for (int j = 0; j < WG_TILE / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = j * 8 + 2 * t + (e & 1);
+          dpt[j][e] = grad_soft(a, st[j][e], dpt[j][e], Lb[c] * LOG2E,
+                                Db[c], &st[j][e]);
+        }
+    }
+    const bool whole = q0 + WG_TILE <= a.Sq && kw + 64 <= a.Sk &&
+                       (!a.causal || kw + 63 <= q0) &&
+                       (a.window == 0 || q0 + WG_TILE - 1 - kw < a.window);
+    if (!whole) {
+#pragma unroll
+      for (int j = 0; j < WG_TILE / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (!visible(a, q0 + j * 8 + 2 * t + (e & 1), e < 2 ? key0 : key1))
+            st[j][e] = dpt[j][e] = 0.0f;
+    }
+
+    // dv += p^T . do, then dk += ds^T . q: three parts a k-slice, do and q
+    // read MN-major; left in flight
+    split_slices<NK>(st, fp);
+    fence_acc(dv);
+    fence_acc(dk);
+    wgmma_fence();
+    split_wgmma<NK>(dv, fp, os, L::TILE_PANEL);
+    split_slices<NK>(dpt, fd);
+    wgmma_fence();
+    split_wgmma<NK>(dk, fd, qs, L::TILE_PANEL);
+    wgmma_commit();
     pend = s;
   }
   settle();
@@ -1496,14 +1490,6 @@ cudaError_t launch_tc_hdv(const BwdArgs& a, int which, cudaStream_t stream) {
 }
 
 #ifndef H2PIPE_HALF
-// dk/dv's query rows a sub-tile: 32 at hd = 128 keeps the dk and dv
-// accumulators (64 x 128 f32 each a warpgroup), the scores and the split
-// parts inside the consumers' registers
-template <int HD>
-constexpr int dkv_sub() {
-  return HD == 128 ? 32 : 64;
-}
-
 // The wgmma route; which 0: dq; 1: dk and dv.  The owned operands' boxes
 // hold WG_OWN rows, the streamed ones' WG_TILE.
 template <int HD>
@@ -1536,7 +1522,7 @@ cudaError_t launch_wgmma(const BwdArgs& a, int which, cudaStream_t stream) {
         qm, om, km, vm, a);
     return cudaGetLastError();
   }
-  auto kern = flash_bwd_dkv_wgmma<HD, dkv_sub<HD>()>;
+  auto kern = flash_bwd_dkv_wgmma<HD>;
   err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM_DKV);
   if (err != cudaSuccess) return err;

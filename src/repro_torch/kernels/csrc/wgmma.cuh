@@ -5,13 +5,12 @@
 // the host-side tensor map of a [B, heads, S, d] operand; 1-d bulk copies
 // into shared memory; the wgmma shared-memory descriptor of a
 // 128-byte-swizzled tile; and wgmma itself, with f32 sums, A and B from
-// shared memory (m64n64k16; m64n32k16 and m64n64k16 that may overwrite
-// d) or A from registers and B from shared memory read MN-major
-// (m64n64k16, m64n128k16), whole or as a group left in flight; and
-// setmaxnreg,
-// which moves registers between the warpgroups of a CTA.  The operand
-// type of every wgmma is the library's 16-bit type: f16 where H2PIPE_HALF
-// is defined, else bf16.
+// shared memory (m64n64k16, adding to d or overwriting it) or A from
+// registers and B from shared memory read MN-major (m64n64k16,
+// m64n128k16), waited for at once or left in flight as a group; and
+// setmaxnreg, which moves registers between the warpgroups of a CTA.  The
+// operand type of every wgmma is the library's 16-bit type: f16 where
+// H2PIPE_HALF is defined, else bf16.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -139,25 +138,8 @@ __device__ __forceinline__ void fence_acc(float (&d)[N][4]) {
     for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[n][e])::"memory");
 }
 
-// d[64 x 32] = a[64 x 16] . b[16 x 32]^T (+ d where acc): a and b in
+// d[64 x 64] = a[64 x 16] . b[16 x 64]^T (+ d where acc): a and b in
 // shared memory, K-major, 128-byte swizzle (descriptors da, db).
-__device__ __forceinline__ void wgmma_ss(float (&d)[4][4], uint64_t da,
-                                         uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16" WG_AB " {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
-      "%10, %11, %12, %13, %14, %15"
-      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
-      : "l"(da), "l"(db), "r"(acc)
-      : "memory");
-}
-
-// d[64 x 64] = a[64 x 16] . b[16 x 64]^T (+ d where acc), as above.
 __device__ __forceinline__ void wgmma_ss(float (&d)[8][4], uint64_t da,
                                          uint64_t db, int acc) {
   asm volatile(
@@ -184,24 +166,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[8][4], uint64_t da,
 // K-major, 128-byte swizzle (descriptors da, db).
 __device__ __forceinline__ void wgmma_ss(float (&d)[8][4], uint64_t da,
                                          uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16" WG_AB " {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
-      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
-      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-      : "l"(da), "l"(db), "r"(1)
-      : "memory");
+  wgmma_ss(d, da, db, 1);
 }
 
 // d[64 x 64] += a[64 x 16] . b[16 x 64]: a in registers (the mma.sync

@@ -359,7 +359,6 @@ def test_bwd_wgmma_smem_plan_fits_the_card(which, hd):
 # forward reads its Q, K and V through the same two forms.
 SW_ROW, SW_BLOCK = 128, 1024
 WG_OWN, WG_TILE = 128, 64
-DKV_SUB = {64: 64, 128: 32}          # dkv_sub<HD>() in the source
 
 
 def _swizzle(addr):
@@ -497,14 +496,13 @@ def test_dq_wgmma_fragments_compute_the_tile(hd, wg):
 @pytest.mark.parametrize("wg", [0, 1])
 @pytest.mark.parametrize("hd", [64, 128])
 def test_dkv_wgmma_fragments_compute_the_tile(hd, wg):
-    """K11 on wgmma for one query tile of warpgroup ``wg``, sub-tile by
-    sub-tile (``DKV_SUB`` rows), lane by lane: K and V owned, Q and dO in
-    ring stage 1 (K11's stage holds lse and delta after them); S^T = K Q^T
-    and dP^T = V dO^T through K-major descriptors (Q's and dO's rows from
-    r0), then dV += P^T dO and dK += dS^T Q with P^T and dS^T split in the
-    lanes and dO and Q read MN-major from row r0 + 16 kk: equal to the
-    products in f64; the stage's lse and delta slot starts on a 1024-byte
-    boundary after the two operands."""
+    """K11 on wgmma for one query tile of warpgroup ``wg``, lane by lane:
+    K and V owned, Q and dO in ring stage 1 (K11's stage holds lse and
+    delta after them); S^T = K Q^T and dP^T = V dO^T through K-major
+    descriptors, then dV += P^T dO and dK += dS^T Q with P^T and dS^T
+    split in the lanes and dO and Q read MN-major from row 16 kk: equal to
+    the products in f64; the stage's lse and delta slot starts on a
+    1024-byte boundary after the two operands."""
     rng = np.random.default_rng(10 * hd + wg)
     panels = hd // 64
     own_bytes, tile_bytes = panels * WG_OWN * SW_ROW, panels * WG_TILE * SW_ROW
@@ -522,36 +520,26 @@ def test_dkv_wgmma_fragments_compute_the_tile(hd, wg):
     kf, vf, qf, dof = (_bf16_value(x).astype(np.float64)
                        for x in (k, v, q, do))
     keys = slice(64 * wg, 64 * wg + 64)
-    sub = DKV_SUB[hd]
-    dk, dv = np.zeros((64, hd)), np.zeros((64, hd))
-    for r0 in range(0, WG_TILE, sub):
-        st, dpt = np.zeros((64, sub)), np.zeros((64, sub))
-        for kk in range(hd // 16):
-            off = (kk // 4) * WG_OWN * SW_ROW + wg * 64 * SW_ROW + \
-                (kk % 4) * 32
-            toff = (kk // 4) * WG_TILE * SW_ROW + r0 * SW_ROW + (kk % 4) * 32
-            st += _k_major(smem, ks + off, 64) @ \
-                _k_major(smem, qs + toff, sub).T
-            dpt += _k_major(smem, vs + off, 64) @ \
-                _k_major(smem, os_ + toff, sub).T
-        np.testing.assert_allclose(st, kf[keys] @ qf[r0:r0 + sub].T,
-                                   rtol=1e-12, atol=1e-12)
-        np.testing.assert_allclose(dpt, vf[keys] @ dof[r0:r0 + sub].T,
-                                   rtol=1e-12, atol=1e-12)
-        pt = np.exp(np.tanh(st * 0.01)).astype(np.float32)   # any f32
-        dst = (dpt * pt * 0.0883).astype(np.float32)
+    st, dpt = np.zeros((64, WG_TILE)), np.zeros((64, WG_TILE))
+    for kk in range(hd // 16):
+        off = (kk // 4) * WG_OWN * SW_ROW + wg * 64 * SW_ROW + (kk % 4) * 32
+        toff = (kk // 4) * WG_TILE * SW_ROW + (kk % 4) * 32
+        st += _k_major(smem, ks + off, 64) @ \
+            _k_major(smem, qs + toff, WG_TILE).T
+        dpt += _k_major(smem, vs + off, 64) @ \
+            _k_major(smem, os_ + toff, WG_TILE).T
+    np.testing.assert_allclose(st, kf[keys] @ qf.T, rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(dpt, vf[keys] @ dof.T, rtol=1e-12,
+                               atol=1e-12)
+    pt = np.exp(np.tanh(st * 0.01)).astype(np.float32)       # any f32
+    dst = (dpt * pt * 0.0883).astype(np.float32)
 
-        def rhs(xs):
-            return lambda kk: _mn_major(smem, xs + (r0 + 16 * kk) * SW_ROW,
-                                        hd, WG_TILE * SW_ROW)
-        dv += _accumulate_split(pt, sub // 16, rhs(os_))
-        dk += _accumulate_split(dst, sub // 16, rhs(qs))
-    # the same sums from the whole tile at once, in f64
-    st_all = kf[keys] @ qf.T
-    dpt_all = vf[keys] @ dof.T
-    pt_all = np.exp(np.tanh(st_all * 0.01)).astype(np.float32)
-    dst_all = (dpt_all * pt_all * 0.0883).astype(np.float32)
-    np.testing.assert_allclose(dv, pt_all.astype(np.float64) @ dof,
-                               rtol=1e-10, atol=1e-9)
-    np.testing.assert_allclose(dk, dst_all.astype(np.float64) @ qf,
-                               rtol=1e-10, atol=1e-9)
+    def rhs(xs):
+        return lambda kk: _mn_major(smem, xs + 16 * kk * SW_ROW, hd,
+                                    WG_TILE * SW_ROW)
+    np.testing.assert_allclose(
+        _accumulate_split(pt, WG_TILE // 16, rhs(os_)),
+        pt.astype(np.float64) @ dof, rtol=1e-10, atol=1e-9)
+    np.testing.assert_allclose(
+        _accumulate_split(dst, WG_TILE // 16, rhs(qs)),
+        dst.astype(np.float64) @ qf, rtol=1e-10, atol=1e-9)
